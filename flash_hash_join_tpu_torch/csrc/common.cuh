@@ -1,0 +1,80 @@
+// Shared device helpers for the bitmap kernels (dense_bitmap.cu,
+// bitmap_probe.cu): the index stream walk, the membership bit test and the
+// block reduction.
+//
+// Domain indices are u32 with sentinel 0xFFFFFFFF (torch int32 bit
+// patterns on the Python side).  Bitmap word w holds slots [32w, 32w+32);
+// for the (d_rows, 128) layout of the TPU kernels this is row w >> 7,
+// lane w & 127.  An index is a member when it is below n_bits and its bit
+// is set, so the sentinel and any out-of-domain index count nothing.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace fhj {
+
+constexpr int kThreads = 256;
+
+// Calls visit(v) for every element of idx[0, n), spread over the whole
+// grid: 16-byte (uint4) loads over the aligned body, scalar loads for the
+// at most 3 + 3 elements of the unaligned head and the ragged tail.
+template <typename Visit>
+__device__ __forceinline__ void for_each_index(const uint32_t* __restrict__ idx,
+                                               int64_t n, Visit visit) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t head = (int64_t)((16 - (reinterpret_cast<uintptr_t>(idx) & 15)) & 15) >> 2;
+  if (head > n) head = n;
+  const int64_t n4 = (n - head) >> 2;
+  const uint4* body = reinterpret_cast<const uint4*>(idx + head);
+  for (int64_t i = tid; i < n4; i += stride) {
+    const uint4 q = __ldg(body + i);
+    visit(q.x);
+    visit(q.y);
+    visit(q.z);
+    visit(q.w);
+  }
+  const int64_t tail = head + (n4 << 2);
+  if (tid < head) visit(idx[tid]);
+  if (tid < n - tail) visit(idx[tail + tid]);
+}
+
+__device__ __forceinline__ unsigned int bit_of(uint32_t word, uint32_t v) {
+  return (word >> (v & 31u)) & 1u;
+}
+
+// Sum of v over the block, valid in thread 0.  blockDim.x == kThreads.
+__device__ __forceinline__ unsigned long long block_sum(unsigned long long v) {
+  __shared__ unsigned long long warp_sums[kThreads / 32];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  v = 0;
+  if (warp == 0) {
+    v = lane < kThreads / 32 ? warp_sums[lane] : 0ull;
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  }
+  return v;
+}
+
+// Blocks for a grid-stride kernel over n indices (4 per thread per step):
+// enough to cover n, at most what fits on the card at once.
+template <typename Kernel>
+inline cudaError_t grid_for(Kernel kernel, int64_t n, size_t smem, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  const int64_t need = ((n + 3) / 4 + kThreads - 1) / kThreads;
+  const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = (int)(need < 1 ? 1 : (need < cap ? need : cap));
+  return cudaSuccess;
+}
+
+}  // namespace fhj

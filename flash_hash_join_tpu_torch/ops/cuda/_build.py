@@ -1,0 +1,100 @@
+"""Build and load the package's CUDA kernels.
+
+`nvcc` compiles every ``csrc/*.cu`` into one shared library with a plain C
+interface, for ``sm_90a`` (Hopper), at first use, into ``csrc/build/``; a
+source newer than the library triggers a rebuild.  The library is loaded
+with ctypes: pointers and the stream are ``c_void_p``, sizes ``c_int`` /
+``c_int64``, and every entry point returns ``cudaGetLastError()`` after its
+launches, which `check` turns into an exception.
+
+Nothing here runs at import: the CPU tests import every module, and the
+machines that run them have no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = CSRC / "build"
+LIB_PATH = BUILD_DIR / "libfhj_cuda.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    # build_idx, nb, probe_idx, np, bitmap, d_rows, count, stream
+    "fhj_fused_bitmap_join": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
+    # bitmap, d_rows, idx, n, count, stream
+    "fhj_bitmap_probe_count": [_P, _I, _P, _I64, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    """nvcc on PATH, else the one under CUDA_HOME (default /usr/local/cuda)."""
+    nvcc = shutil.which("nvcc") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+    if not Path(nvcc).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                           f"{CSRC} at first use and need the CUDA toolkit")
+    return nvcc
+
+
+def build() -> str:
+    """Compile the kernels into LIB_PATH; returns nvcc's output (ptxas
+    register and shared-memory report)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"{LIB_PATH.name}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, LIB_PATH)   # atomic: a concurrent loader sees old or new
+    return proc.stdout + proc.stderr
+
+
+def _stale() -> bool:
+    if not LIB_PATH.exists():
+        return True
+    built = LIB_PATH.stat().st_mtime
+    return any(s.stat().st_mtime > built for s in _sources())
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if missing or stale."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if _stale():
+                build()
+            loaded = ctypes.CDLL(str(LIB_PATH))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(loaded, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            loaded.fhj_error_string.argtypes = [ctypes.c_int]
+            loaded.fhj_error_string.restype = ctypes.c_char_p
+            _lib = loaded
+        return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib().fhj_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,73 @@
+"""uint64 <-> (hi, lo) uint32-pair packing, and the key representation on
+the device.
+
+Host side (numpy) is bit-identical to flash_hash_join_tpu/utils/u64.py:
+every u64 column travels as two u32 planes, SoA.
+
+Device side (torch) — the one place this is decided:
+
+  * A u32 plane is a ``torch.int32`` tensor holding the u32 BIT PATTERN
+    (``torch.from_numpy(plane.view(np.int32))``).  The CUDA kernels read it
+    as ``uint32_t*``; the sentinel 0xFFFFFFFF is int32 -1.
+  * Plain torch code never compares, mins or subtracts int32 planes
+    directly (a signed compare is wrong for values >= 2^31, and
+    ``torch.uint32`` has only partial operator support).  It first calls
+    ``widen``: int64 in [0, 2^32), where every u32 operation is exact; a
+    u32 wrap-around (``kl - lo``) is ``(a - b) & MASK32``.  ``narrow``
+    turns such int64 values back into int32 bit patterns for a kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+
+def split_u64(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Split a numpy uint64 array into (hi, lo) uint32 arrays."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype != np.uint64:
+        arr = arr.astype(np.uint64)
+    pairs = arr.view(np.uint32).reshape(-1, 2)
+    # little-endian: word 0 is the low half.
+    return np.ascontiguousarray(pairs[:, 1]), np.ascontiguousarray(pairs[:, 0])
+
+
+def join_u64(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """Combine (hi, lo) uint32 arrays back into a numpy uint64 array."""
+    hi = np.asarray(hi, dtype=np.uint32)
+    lo = np.asarray(lo, dtype=np.uint32)
+    out = np.empty(hi.shape + (2,), dtype=np.uint32)
+    out[..., 0] = lo
+    out[..., 1] = hi
+    return out.view(np.uint64).reshape(hi.shape)
+
+
+def to_device(plane: np.ndarray, device) -> torch.Tensor:
+    """A numpy uint32 plane as an int32 bit-pattern tensor on `device`."""
+    plane = np.ascontiguousarray(plane, dtype=np.uint32)
+    return torch.from_numpy(plane.view(np.int32)).to(device)
+
+
+def device_planes(arr: np.ndarray, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """numpy u64 column -> (hi, lo) int32 bit-pattern planes on `device`
+    (the counterpart of flash_hash_join_tpu/api.py's split + device_put)."""
+    hi, lo = split_u64(arr)
+    return to_device(hi, device), to_device(lo, device)
+
+
+def widen(t: torch.Tensor) -> torch.Tensor:
+    """u32 bit patterns (int32) -> int64 values in [0, 2^32)."""
+    return t.to(torch.int64) & MASK32
+
+
+def narrow(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> int32 bit patterns."""
+    return torch.where(t >= 2**31, t - 2**32, t).to(torch.int32)
+
+
+def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
+    """Any u32-valued tensor (int32 pattern or widened int64) -> numpy u32."""
+    return widen(t).cpu().numpy().astype(np.uint32)

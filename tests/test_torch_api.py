@@ -1,0 +1,235 @@
+"""The port's count slice end to end: flash_hash_join_tpu_torch's public
+API against the JAX package's and the numpy oracle, on the CPU.
+
+Inputs come from the same numpy generators with a fixed seed; the port
+runs with device="cpu", which takes the kernels' plain PyTorch versions.
+Tolerance: exact equality (counts).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import flash_hash_join_tpu as fj
+import flash_hash_join_tpu_torch as ft
+from flash_hash_join_tpu import api as japi
+from flash_hash_join_tpu.models import cost as jcost
+from flash_hash_join_tpu.models import workload as jwl
+from flash_hash_join_tpu.utils import config as jcfg
+from flash_hash_join_tpu.utils import u64 as ju64
+from flash_hash_join_tpu_torch import api as tapi
+from flash_hash_join_tpu_torch import engine as teng
+from flash_hash_join_tpu_torch.models import cost as tcost
+from flash_hash_join_tpu_torch.models import workload as twl
+from flash_hash_join_tpu_torch.ops import direct_bitmap as tdb
+from flash_hash_join_tpu_torch.utils import config as tcfg
+from flash_hash_join_tpu_torch.utils import u64 as tu64
+from tests.oracle import oracle_count
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _port(bk, bv, pk, **kw):
+    return ft.adaptive_join_count(bk, bv, pk, device="cpu", return_info=True,
+                                  **kw)
+
+
+@pytest.mark.parametrize("q", ["Q1", "Q2", "Q5"])
+def test_j1_suite_matches_jax_and_oracle(q):
+    case = {c.name[-2:]: c for c in twl.j1_suite(100_000, seed=3)}[q]
+    want = oracle_count(case.build_keys, case.probe_keys)
+    count, secs, info = _port(case.build_keys, case.build_values,
+                              case.probe_keys)
+    jcount, _ = fj.adaptive_join_count(case.build_keys, case.build_values,
+                                       case.probe_keys)
+    assert count == jcount == want
+    assert secs > 0.0
+    assert info["strategy"] == "direct" and not info["retried"]
+    assert info["d_rows"] == tdb.d_rows_for(
+        int(case.build_keys.max() - case.build_keys.min()) + 1)
+
+
+def test_sparse_64bit_routes_merge_in_port_partitioned_in_jax():
+    case = twl.uniform_case(3_000, 9_000, 0.3, seed=5)
+    want = oracle_count(case.build_keys, case.probe_keys)
+    count, _, info = _port(case.build_keys, case.build_values,
+                           case.probe_keys)
+    jcount, _, jinfo = japi._run_join(
+        case.build_keys, case.build_values, case.probe_keys, mode="count",
+        strategy="adaptive", use_bloom=False, return_info=True)
+    assert count == jcount == want
+    assert info["strategy"] == "merge" and jinfo["strategy"] == "partitioned"
+
+
+def test_dense_span_above_2_20_runs_the_large_band():
+    rng = np.random.default_rng(8)
+    bk = rng.integers(1_000, 1_000 + 3_000_000, 40_000, dtype=np.uint64)
+    pk = rng.integers(0, 3_500_000, 60_000, dtype=np.uint64)
+    count, _, info = _port(bk, bk, pk)
+    assert count == oracle_count(bk, pk)
+    assert info["strategy"] == "direct" and info["d_rows"] > 256
+    assert not info["retried"]
+    # CPU tensors take the plain versions: no kernel launches here
+    assert info["launches"] == {"dense_bitmap": 0, "bitmap_probe": 0}
+
+
+def test_workload_generators_match_jax():
+    for tc, jc in zip(twl.j1_suite(20_000, seed=4), jwl.j1_suite(20_000,
+                                                                  seed=4)):
+        assert tc.name == jc.name
+        for f in ("build_keys", "build_values", "probe_keys"):
+            np.testing.assert_array_equal(getattr(tc, f), getattr(jc, f))
+    for tc, jc in ((twl.uniform_case(500, 900, 0.05, seed=2),
+                    jwl.uniform_case(500, 900, 0.05, seed=2)),
+                   (twl.zipf_probe_case(500, 900, seed=2),
+                    jwl.zipf_probe_case(500, 900, seed=2))):
+        for f in ("build_keys", "build_values", "probe_keys"):
+            np.testing.assert_array_equal(getattr(tc, f), getattr(jc, f))
+
+
+def test_split_u64_planes_match_jax():
+    rng = np.random.default_rng(1)
+    keys = np.concatenate([
+        np.array([0, 1, 2**32 - 1, 2**32, 2**63, 2**64 - 1], np.uint64),
+        rng.integers(0, 2**64, 5_000, dtype=np.uint64)])
+    for t, j in zip(tu64.split_u64(keys), ju64.split_u64(keys)):
+        assert t.dtype == j.dtype == np.uint32
+        np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(
+        tu64.join_u64(*tu64.split_u64(keys)), ju64.join_u64(
+            *ju64.split_u64(keys)))
+    hi, lo = tu64.device_planes(keys, "cpu")
+    assert hi.dtype == lo.dtype == torch.int32
+    np.testing.assert_array_equal(
+        tu64.join_u64(tu64.to_numpy_u32(hi), tu64.to_numpy_u32(lo)), keys)
+
+
+def test_config_and_cost_model_match_jax():
+    assert tcfg.JoinConfig() == tcfg.DEFAULT_CONFIG
+    for f in ("group_size", "growth", "overflow_groups", "probe_chunk",
+              "max_probe_iters", "bloom_k", "min_groups"):
+        assert getattr(tcfg.DEFAULT_CONFIG, f) == getattr(
+            jcfg.DEFAULT_CONFIG, f), f
+    budget = 12 * 1024**3
+    for nb, npr in ((1_000, 10_000), (40_000_000, 40_000_000),
+                    (10_000_000, 1_000_000_000)):
+        for mode in ("count", "materialize"):
+            assert tcost.plan_probe_chunks(nb, npr, mode, budget) == \
+                jcost.plan_probe_chunks(nb, npr, mode, budget)
+        assert tcfg.DEFAULT_CONFIG.group_bits(nb) == \
+            jcfg.DEFAULT_CONFIG.group_bits(nb)
+    with pytest.raises(MemoryError):
+        tcost.plan_probe_chunks(10**9, 10, "count", budget)
+    assert tcost.hbm_budget_bytes("cpu") > 0
+
+
+def test_chunked_plan_is_not_ported(monkeypatch):
+    monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 2_000_000)
+    bk = np.arange(1_000, dtype=np.uint64)
+    pk = np.arange(100_000, dtype=np.uint64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ft.adaptive_join_count(bk, bk, pk, device="cpu")
+
+
+def test_special_channel_reruns_on_merge(monkeypatch):
+    # a direct run that reports dropped build rows must rerun on merge
+    real = teng.count_graph
+
+    def lossy(strategy, d_rows=0):
+        fn = real(strategy, d_rows)
+        if strategy != "direct":
+            return fn
+
+        def run(*args):
+            count, special = fn(*args)
+            return count - 1, special + torch.tensor([0, 0, 0, 1])
+        return run
+
+    monkeypatch.setattr(teng, "count_graph", lossy)
+    rng = np.random.default_rng(2)
+    bk = rng.integers(0, 5_000, 3_000, dtype=np.uint64)
+    pk = rng.integers(0, 6_000, 8_000, dtype=np.uint64)
+    count, _, info = _port(bk, bk, pk)
+    assert count == oracle_count(bk, pk)
+    assert info["retried"] and info["strategy"] == "merge"
+
+
+@pytest.mark.parametrize("strategy", ["adaptive", "direct", "merge"])
+def test_join_count_strategies(strategy):
+    rng = np.random.default_rng(6)
+    bk = rng.integers(7, 30_000, 9_000, dtype=np.uint64)
+    bv = rng.integers(0, 2**63, 9_000, dtype=np.uint64)
+    pk = rng.integers(0, 33_000, 20_000, dtype=np.uint64)
+    count, _, info = ft.join_count(bk, bv, pk, strategy=strategy,
+                                   device="cpu", return_info=True)
+    assert count == oracle_count(bk, pk)
+    assert info["strategy"] == ("merge" if strategy == "merge" else "direct")
+
+
+def test_join_count_rejects_what_it_cannot_run():
+    rng = np.random.default_rng(1)
+    bv = np.ones(100, np.uint64)
+    pk = rng.integers(0, 100, 1_000).astype(np.uint64)
+    wide = rng.integers(2**32, 2**40, 100).astype(np.uint64)
+    with pytest.raises(ValueError):
+        ft.join_count(wide, bv, pk, strategy="direct", device="cpu")
+    sparse = rng.integers(0, 2**31, 100).astype(np.uint64)  # span > XL cap
+    with pytest.raises(ValueError):
+        ft.join_count(sparse, bv, pk, strategy="direct", device="cpu")
+    with pytest.raises(NotImplementedError):
+        ft.join_count(pk[:100], bv, pk, strategy="partitioned", device="cpu")
+    with pytest.raises(ValueError):
+        ft.join_count(pk[:100], bv, pk, strategy="nope", device="cpu")
+
+
+def test_verify_edge_cases():
+    rng = np.random.default_rng(0)
+    bk = rng.integers(0, 1_000_000, 20_000, dtype=np.uint64)
+    pk = rng.integers(0, 1_000_000, 50_000, dtype=np.uint64)
+    with pytest.raises(ValueError):                      # mismatched lengths
+        ft.adaptive_join_count(bk, bk[:-1], pk, device="cpu")
+    empty = np.zeros(0, np.uint64)
+    assert ft.adaptive_join_count(empty, empty, pk, device="cpu") == (0, 0.0)
+    assert ft.adaptive_join_count(bk, bk, empty, device="cpu") == (0, 0.0)
+    m = np.uint64(2**64 - 1)                             # EMPTY-sentinel key
+    bkm = np.array([m, 5, m], np.uint64)
+    pkm = np.array([m, 4, 5, m, 0], np.uint64)
+    assert ft.adaptive_join_count(bkm, bkm, pkm, device="cpu")[0] == 3
+    same = np.full(1_000, 42, np.uint64)                 # all-equal build keys
+    assert ft.adaptive_join_count(same, same, pk[:999].tolist() + [42],
+                                  device="cpu")[0] == oracle_count(
+                                      same, np.append(pk[:999], 42))
+    as_list = ft.adaptive_join_count(bk[:50].tolist(), list(range(50)),
+                                     pk.astype(np.int32), device="cpu")[0]
+    assert as_list == oracle_count(bk[:50], pk)
+    count, secs = ft.adaptive_join_count_bloom(bk, bk, pk, device="cpu")
+    assert count == oracle_count(bk, pk) and secs > 0.0
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device='cuda' runs the kernels")
+    bk = np.arange(10, dtype=np.uint64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ft.adaptive_join_count(bk, bk, bk)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ft.initialize()
+    assert ft.initialize(device="cpu") is True
+    assert ft.plan_strategy(1_000, 10_000, device="cpu") == "merge"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, flash_hash_join_tpu_torch as ft; "
+            "import flash_hash_join_tpu_torch.ops.cuda._build; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m == 'flash_hash_join_tpu' or "
+            "m.startswith('flash_hash_join_tpu.') for m in sys.modules); "
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
