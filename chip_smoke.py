@@ -8,18 +8,33 @@ Phases, one JSON line each on stdout:
   1. env      torch/CUDA versions, the card, nvcc, and the kernels' build
               from the checkout's csrc/ (seconds, ptxas register report).
   2. kernels  each CUDA kernel against its plain PyTorch version on the
-              card (exact counts) at every bitmap rung the path uses, then
-              both timed (CUDA events, median of 5 after a warm-up) on the
-              main path's own index streams.
+              card (exact): K1/K2 at every bitmap rung the dense path uses;
+              K3/K4/K5 at build sizes 0, 1, 5, 2e7 and probe sizes 0, 7,
+              3e7+5, misaligned views, np_valid < npr, the u64-max key on
+              both sides, K5 with 2, 3 and 4 planes.  Then each kernel and
+              its plain version timed (CUDA events, median of 5 after a
+              warm-up) on its path's own inputs.
   3. main     adaptive_join_count(device="cuda") on the db-benchmark J1
               cells: 4e7 Q1, Q2, Q5 (j1_suite seed 0), bench.py's 4e7 case
-              (default_rng(2026)) and 1e8 Q5.  Each count must equal
-              np.isin(pk, np.unique(bk)).sum(), route "direct" with no
-              merge retry, and launch its kernel.  Best of 3 after a
-              warm-up: core_seconds (device time) and probe rows/s.
-  4. fallback a sparse 64-bit case routed to the exact merge join.
-Then the kernels summary, the card's name and power limit as nvidia-smi
-prints them, and last {"ok": true, "device": {...}}.
+              (default_rng(2026)) and 1e8 Q5.  Each count must equal the
+              numpy oracle, route "direct" with no retry, and launch K1/K2.
+  4. radix    BASELINE.json config #4: J1 1e8 Q1, Q2, Q5 through
+              hash_join_radix, and Q5 through hash_join_count_radix.
+  5. adaptive BASELINE.json config #2: uniform 1e7 x 1e8, 50 % match,
+              64-bit keys, through adaptive_join_count and adaptive_join.
+              Phases 4 and 5: count == oracle; the materialized rows equal
+              the oracle's in probe order (hence also as sorted pairs), with
+              the minimum build row as the duplicate-key winner; route
+              "partitioned" with no retry; K3 (count), K4 and K5 launched.
+  6. direct_vs_partitioned  J1 4e7 Q1, Q2, Q5 count through
+              join_count(strategy="partitioned"), beside phase 3's direct.
+  7. fallback a sparse 64-bit case through the exact merge join, count and
+              materialize, beside the partitioned tier on the same input.
+Phases 3-5 time a warm-up and then the best of the following runs:
+core_seconds (device time), wall seconds, probe rows/s, peak device bytes.
+The kernel counts are set to 0 just before each of phases 3, 4 and 5 and
+read just after.  Then the kernels summary, the card's name and power
+limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and the last line is
 not printed.  Without a CUDA card, or outside a checkout, it exits 1
@@ -40,8 +55,19 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SENTINEL = 0xFFFFFFFF
-K1_REPLACES = "flash_hash_join_tpu/ops/pallas/dense_bitmap.py:159"
-K2_REPLACES = "flash_hash_join_tpu/ops/pallas/bitmap_probe.py:149"
+M64 = 2**64 - 1
+PALLAS = "flash_hash_join_tpu/ops/pallas/"
+REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
+            "bitmap_probe": PALLAS + "bitmap_probe.py:149",
+            "range_probe_count": PALLAS + "range_probe.py:330",
+            "range_probe_materialize": PALLAS + "range_probe.py:368",
+            "compact": PALLAS + "stream_compact.py:337"}
+KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
+    "dense_bitmap": ("fused_bitmap_join", "dense_bitmap.cu"),
+    "bitmap_probe": ("probe_count_bitmap", "bitmap_probe.cu"),
+    "range_probe_count": ("range_probe_count", "range_probe.cu"),
+    "range_probe_materialize": ("range_probe_materialize", "range_probe.cu"),
+    "compact": ("compact_by_mask", "stream_compact.cu")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -73,6 +99,41 @@ def cuda_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def zero_launches() -> None:
+    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
+    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+    from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+    from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
+    for fn in (dbm.fused_bitmap_join, bp.probe_count_bitmap,
+               rp.range_probe_count, rp.range_probe_materialize,
+               sc.compact_by_mask):
+        fn.launches = 0
+
+
+def require_launched(phase: str, kernels) -> dict:
+    import flash_hash_join_tpu_torch as ft
+    launches = ft.launch_counts()
+    require(all(launches[k] > 0 for k in kernels),
+            f"{phase}: a kernel of the path never launched: {launches}")
+    return launches
+
+
+_ORACLE: dict = {}
+
+
+def oracle(name: str, c):
+    """numpy first-match oracle of a cell, memoised: (hit mask over the
+    probe rows, matched values in probe order).  The minimum build row
+    wins among duplicate keys (np.unique's stable return_index)."""
+    if name not in _ORACLE:
+        uniq, first = np.unique(c.build_keys, return_index=True)
+        pos = np.searchsorted(uniq, c.probe_keys)
+        np.minimum(pos, uniq.size - 1, out=pos)
+        hit = uniq[pos] == c.probe_keys
+        _ORACLE[name] = (hit, c.build_values[first[pos[hit]]])
+    return _ORACLE[name]
 
 
 def domain_indices(bk: np.ndarray, pk: np.ndarray):
@@ -125,7 +186,7 @@ def ptxas_usage(report: str) -> dict:
 
 
 def phase_kernels(cells: dict) -> dict:
-    """Kernel == plain at every rung; then both timed on main-path inputs.
+    """K1/K2 == plain at every rung; then both timed on main-path inputs.
     Returns the per-kernel summary fields (max_abs_err, ms, plain_ms)."""
     import torch
     from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
@@ -161,8 +222,9 @@ def phase_kernels(cells: dict) -> dict:
     torch.cuda.synchronize()
     require(err == {"bitmap_probe": 0, "dense_bitmap": 0},
             f"kernel != plain: {checked}")
-    emit("kernels_vs_plain", tolerance="exact (integer counts)",
-         max_abs_err=err, cases=len(checked))
+    emit("kernels_vs_plain", kernels=["dense_bitmap", "bitmap_probe"],
+         tolerance="exact (integer counts)", max_abs_err=err,
+         cases=len(checked))
 
     timing = {}
     for name in ("4e7-Q1", "4e7-Q2", "4e7-Q5", "1e8-Q5"):
@@ -200,65 +262,289 @@ def phase_kernels(cells: dict) -> dict:
                                  at="J1 4e7 Q2, d_rows 16")}
 
 
-def phase_main(cells: dict) -> dict:
+def _max_abs(got, want) -> int:
+    """Largest |got - want| over two u32 planes or bool masks."""
+    import torch
+    from flash_hash_join_tpu_torch.utils.u64 import widen
+    if got.numel() == 0:
+        return 0
+    if got.dtype == torch.bool:
+        return int((got != want).any())
+    return int((widen(got) - widen(want)).abs().max())
+
+
+def phase_partitioned_kernels(cells: dict) -> dict:
+    """K3/K4/K5 == plain on edge and large shapes; then each timed against
+    its plain version on the radix path's J1 1e8 Q5 inputs."""
+    import torch
+    from flash_hash_join_tpu_torch.ops import range_table as rt
+    from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+    from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    err = {"range_probe_count": 0, "range_probe_materialize": 0,
+           "compact": 0}
+    cases = 0
+
+    def check_compact(mask, cols, n_out):
+        nonlocal cases
+        count, outs = sc.compact_by_mask(mask, cols, n_out)
+        wcount, wouts = sc.compact_by_mask_plain(mask, cols, n_out)
+        keep = min(int(wcount), n_out)
+        e = max([abs(int(count) - int(wcount))]
+                + [_max_abs(o[:keep], w[:keep]) for o, w in zip(outs, wouts)])
+        err["compact"] = max(err["compact"], e)
+        cases += 1
+
+    for nb in (0, 1, 5, 20_000_000):
+        bk = rng.integers(0, 2**64, nb, dtype=np.uint64)
+        bk[: min(nb, 2)] = M64                         # u64-max key
+        dups = min(nb // 2, 1000)                      # duplicate runs
+        bk[nb // 2: nb // 2 + dups] = bk[:dups]
+        bv = rng.integers(0, 2**64, nb, dtype=np.uint64)
+        kh, kl = device_planes(bk, dev)
+        vh, vl = device_planes(bv, dev)
+        table = rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
+        for npr in (0, 7, 30_000_005):
+            pk = rng.integers(0, 2**64, npr, dtype=np.uint64)
+            if nb:
+                pk[::2] = rng.choice(bk, pk[::2].size)
+            pk[: min(npr, 3)] = M64
+            ph, pl = device_planes(pk, dev)
+            for view in (slice(None), slice(1, None)):  # misaligned
+                p = (ph[view], pl[view])
+                n = p[0].numel()
+                for np_valid in {n, max(n - 5, 0)}:
+                    got = rp.range_probe_count(table.keys, *p, np_valid)
+                    want = rp.range_probe_count_plain(table.keys, *p,
+                                                      np_valid)
+                    err["range_probe_count"] = max(
+                        err["range_probe_count"], abs(int(got) - int(want)))
+                    got = rp.range_probe_materialize(
+                        table.keys, table.vh, table.vl, *p, np_valid)
+                    want = rp.range_probe_materialize_plain(
+                        table.keys, table.vh, table.vl, *p, np_valid)
+                    err["range_probe_materialize"] = max(
+                        err["range_probe_materialize"],
+                        *(_max_abs(g, w) for g, w in zip(got, want)))
+                    cases += 2
+                    if view == slice(None) and np_valid == n:
+                        hit, mvh, mvl = got
+                        for n_planes in (2, 3, 4):
+                            check_compact(hit, (p[0], p[1], mvh, mvl)[
+                                :n_planes], n)
+            del ph, pl
+        del table, kh, kl, vh, vl
+    for n in (0, 7, 30_000_005):                       # K5 alone, misaligned
+        mask = torch.from_numpy(rng.random(n + 1) < 0.37).to(dev)[1:]
+        cols = [to_device(rng.integers(0, 2**32, n + 1, dtype=np.uint32),
+                          dev)[1:] for _ in range(4)]
+        for n_planes in (2, 3, 4):
+            check_compact(mask, cols[:n_planes], n)
+            check_compact(mask, cols[:n_planes], n // 3)
+    torch.cuda.synchronize()
+    require(all(e == 0 for e in err.values()), f"kernel != plain: {err}")
+    emit("kernels_vs_plain", kernels=list(err), max_abs_err=err, cases=cases,
+         tolerance="exact (counts, hit masks and u32 planes)")
+
+    c = cells["1e8-Q5"]
+    kh, kl = device_planes(c.build_keys, dev)
+    vh, vl = device_planes(c.build_values, dev)
+    ph, pl = device_planes(c.probe_keys, dev)
+    nb, npr = kh.numel(), ph.numel()
+    table = rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
+    del kh, kl, vh, vl
+    hit, mvh, mvl = rp.range_probe_materialize(table.keys, table.vh,
+                                               table.vl, ph, pl, npr)
+    cols = (ph, pl, mvh, mvl)
+    runs = {
+        "range_probe_count": (
+            lambda: rp.range_probe_count(table.keys, ph, pl, npr),
+            lambda: rp.range_probe_count_plain(table.keys, ph, pl, npr)),
+        "range_probe_materialize": (
+            lambda: rp.range_probe_materialize(table.keys, table.vh,
+                                               table.vl, ph, pl, npr),
+            lambda: rp.range_probe_materialize_plain(table.keys, table.vh,
+                                                     table.vl, ph, pl, npr)),
+        "compact": (lambda: sc.compact_by_mask(hit, cols, npr),
+                    lambda: sc.compact_by_mask_plain(hit, cols, npr)),
+    }
+    summary = {}
+    for name, (kernel, plain) in runs.items():
+        # plain, kernel, kernel, plain: the first and last of each pair
+        # bracket any drift of the card's clock within the call
+        plain_ms = cuda_ms(plain)
+        ms = [cuda_ms(kernel), cuda_ms(kernel)]
+        plain_ms = [plain_ms, cuda_ms(plain)]
+        summary[name] = dict(max_abs_err=err[name], ms=min(ms),
+                             plain_ms=min(plain_ms),
+                             at="J1 1e8 Q5 (1e8 build x 1e8 probe rows)")
+        emit("kernel_time", cell="1e8-Q5", kernel=name, nb=nb, npr=npr,
+             ms=ms, plain_ms=plain_ms)
+    del table, ph, pl, hit, mvh, mvl, cols
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _timed_runs(fn, c, reps: int):
+    """A warm-up call, then `reps` timed calls; returns (best core,
+    best wall, all core seconds, last result)."""
+    runs = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        res = fn(c.build_keys, c.build_values, c.probe_keys, device="cuda",
+                 return_info=True)
+        runs.append((res[1], time.perf_counter() - t0))
+    return (min(r[0] for r in runs[1:]), min(r[1] for r in runs[1:]),
+            [r[0] for r in runs], res)
+
+
+def phase_main(cells: dict) -> tuple[dict, dict]:
     import torch
     import flash_hash_join_tpu_torch as ft
-    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
-    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
     expect = {"4e7-Q1": "bitmap_probe", "4e7-Q2": "bitmap_probe",
               "4e7-Q5": "dense_bitmap", "bench-4e7": "dense_bitmap",
               "1e8-Q5": "dense_bitmap"}
-    oracle = {name: int(np.isin(c.probe_keys, np.unique(c.build_keys)).sum())
-              for name, c in cells.items()}
-    dbm.fused_bitmap_join.launches = 0
-    bp.probe_count_bitmap.launches = 0
-    for name, c in cells.items():
+    want = {name: int(oracle(name, cells[name])[0].sum()) for name in expect}
+    core = {}
+    zero_launches()
+    for name in expect:
+        c = cells[name]
         torch.cuda.reset_peak_memory_stats()
-        runs = []
-        for _ in range(4):                             # warm-up + 3
-            t0 = time.perf_counter()
-            count, secs, info = ft.adaptive_join_count(
-                c.build_keys, c.build_values, c.probe_keys, device="cuda",
-                return_info=True)
-            runs.append((secs, time.perf_counter() - t0))
-            require(count == oracle[name],
-                    f"{name}: count {count} != oracle {oracle[name]}")
-            require(info["strategy"] == "direct" and not info["retried"],
-                    f"{name}: routed {info}")
-            require(info["launches"][expect[name]] > 0,
-                    f"{name}: {expect[name]} not launched: {info}")
-        core = min(r[0] for r in runs[1:])
+        best, wall, runs, (count, _, info) = _timed_runs(
+            ft.adaptive_join_count, c, reps=3)
+        require(count == want[name],
+                f"{name}: count {count} != oracle {want[name]}")
+        require(info["strategy"] == "direct" and not info["retried"],
+                f"{name}: routed {info}")
+        require(info["launches"][expect[name]] > 0,
+                f"{name}: {expect[name]} not launched: {info}")
+        core[name] = best
         emit("main", cell=name, nb=len(c.build_keys), npr=len(c.probe_keys),
-             count=count, oracle=oracle[name], strategy=info["strategy"],
+             count=count, oracle=want[name], strategy=info["strategy"],
              d_rows=info["d_rows"], launches=info["launches"],
-             core_seconds=core, probe_rows_per_s=len(c.probe_keys) / core,
-             wall_seconds=min(r[1] for r in runs[1:]),
-             core_seconds_runs=[r[0] for r in runs],
+             core_seconds=best, probe_rows_per_s=len(c.probe_keys) / best,
+             wall_seconds=wall, core_seconds_runs=runs,
              peak_device_bytes=torch.cuda.max_memory_allocated())
-    launches = {"dense_bitmap": dbm.fused_bitmap_join.launches,
-                "bitmap_probe": bp.probe_count_bitmap.launches}
-    require(all(n > 0 for n in launches.values()),
-            f"a kernel of the path never launched: {launches}")
-    return launches
+    return require_launched("main", ("dense_bitmap", "bitmap_probe")), core
 
 
-def phase_fallback():
+def check_rows(name: str, c, keys, vals, probe_order: bool) -> None:
+    hit, want_vals = oracle(name, c)
+    want_keys = c.probe_keys[hit]
+    if not probe_order:                                # compare sorted pairs
+        order, want_order = (np.lexsort((vals, keys)),
+                             np.lexsort((want_vals, want_keys)))
+        keys, vals = keys[order], vals[order]
+        want_keys, want_vals = want_keys[want_order], want_vals[want_order]
+    require(np.array_equal(keys, want_keys) and np.array_equal(
+        vals, want_vals), f"{name}: materialized rows differ from the oracle")
+
+
+def partitioned_cell(phase: str, name: str, c, fn_name: str,
+                     materialize: bool, **kw) -> dict:
+    """Drive one partitioned cell through the API function fn_name (with
+    keywords kw): timed runs, then, for a materialize, the rows through
+    join_materialize with the same strategy; every check against the
+    oracle."""
+    import functools
+    import torch
     import flash_hash_join_tpu_torch as ft
-    from flash_hash_join_tpu_torch.models.workload import uniform_case
-    c = uniform_case(1_000_000, 10_000_000, 0.05)
-    want = int(np.isin(c.probe_keys, np.unique(c.build_keys)).sum())
-    count, secs, info = ft.adaptive_join_count(
-        c.build_keys, c.build_values, c.probe_keys, device="cuda",
-        return_info=True)
-    require(count == want, f"merge fallback: count {count} != oracle {want}")
-    require(info["strategy"] == "merge", f"fallback routed {info}")
-    emit("fallback", cell="uniform 1e6 x 1e7, 5% match, 64-bit keys",
-         count=count, oracle=want, strategy=info["strategy"],
-         core_seconds=secs, probe_rows_per_s=len(c.probe_keys) / secs)
+    want = int(oracle(name, c)[0].sum())
+    torch.cuda.reset_peak_memory_stats()
+    best, wall, runs, (count, _, info) = _timed_runs(
+        functools.partial(getattr(ft, fn_name), **kw), c, reps=2)
+    peak = torch.cuda.max_memory_allocated()
+    require(count == want, f"{phase} {name} {fn_name}: count {count} != "
+            f"oracle {want}")
+    require(info["strategy"] == "partitioned" and not info["retried"],
+            f"{phase} {name} {fn_name}: routed {info}")
+    kernels = (("range_probe_materialize", "compact") if materialize
+               else ("range_probe_count",))
+    require(all(info["launches"][k] > 0 for k in kernels),
+            f"{phase} {name} {fn_name}: kernels not launched: {info}")
+    if materialize:
+        strategy = "adaptive" if fn_name == "adaptive_join" \
+            else "partitioned"
+        count, _, keys, vals = ft.join_materialize(
+            c.build_keys, c.build_values, c.probe_keys, strategy=strategy,
+            device="cuda", return_arrays=True)
+        require(count == want, f"{phase} {name}: rows {count} != {want}")
+        check_rows(name, c, keys, vals, probe_order=True)
+    npr = len(c.probe_keys)
+    fields = dict(cell=name, fn=fn_name, fn_kwargs=kw, nb=len(c.build_keys),
+                  npr=npr,
+                  count=count, oracle=want, strategy=info["strategy"],
+                  launches=info["launches"], core_seconds=best,
+                  probe_rows_per_s=npr / best, wall_seconds=wall,
+                  core_seconds_runs=runs, peak_device_bytes=peak,
+                  peak_bytes_per_probe_row=peak / npr)
+    emit(phase, **fields)
+    return fields
+
+
+def phase_radix(cells: dict) -> dict:
+    zero_launches()
+    for q in ("Q1", "Q2", "Q5"):
+        partitioned_cell("radix", f"1e8-{q}", cells[f"1e8-{q}"],
+                         "hash_join_radix", materialize=True)
+    partitioned_cell("radix", "1e8-Q5", cells["1e8-Q5"],
+                     "hash_join_count_radix", materialize=False)
+    return require_launched("radix", ("range_probe_count",
+                                      "range_probe_materialize", "compact"))
+
+
+def phase_adaptive(cells: dict) -> dict:
+    zero_launches()
+    c = cells["uniform-1e7x1e8"]
+    partitioned_cell("adaptive", "uniform-1e7x1e8", c, "adaptive_join_count",
+                     materialize=False)
+    partitioned_cell("adaptive", "uniform-1e7x1e8", c, "adaptive_join",
+                     materialize=True)
+    return require_launched("adaptive", ("range_probe_count",
+                                         "range_probe_materialize",
+                                         "compact"))
+
+
+def phase_direct_vs_partitioned(cells: dict, direct_core: dict) -> None:
+    for q in ("Q1", "Q2", "Q5"):
+        name = f"4e7-{q}"
+        f = partitioned_cell("direct_vs_partitioned", name, cells[name],
+                             "join_count", materialize=False,
+                             strategy="partitioned")
+        emit("direct_vs_partitioned_summary", cell=name,
+             direct_core_seconds=direct_core[name],
+             partitioned_core_seconds=f["core_seconds"],
+             partitioned_over_direct=f["core_seconds"] / direct_core[name])
+
+
+def phase_fallback(c) -> None:
+    import flash_hash_join_tpu_torch as ft
+    name = "uniform-1e6x1e7"
+    want = int(oracle(name, c)[0].sum())
+    args = (c.build_keys, c.build_values, c.probe_keys)
+    for strategy in ("merge", "partitioned"):
+        count, secs, info = ft.join_count(*args, strategy=strategy,
+                                          device="cuda", return_info=True)
+        require(count == want and info["strategy"] == strategy,
+                f"{strategy} count: {count} != oracle {want}, {info}")
+        mcount, msecs, keys, vals, minfo = ft.join_materialize(
+            *args, strategy=strategy, device="cuda", return_arrays=True,
+            return_info=True)
+        require(mcount == want and minfo["strategy"] == strategy,
+                f"{strategy} materialize: {mcount} != oracle {want}")
+        check_rows(name, c, keys, vals, probe_order=strategy != "merge")
+        emit("fallback", cell="uniform 1e6 x 1e7, 5% match, 64-bit keys",
+             strategy=strategy, count=count, oracle=want,
+             core_seconds=secs, probe_rows_per_s=len(c.probe_keys) / secs,
+             materialize_core_seconds=msecs,
+             materialize_launches=minfo["launches"])
 
 
 def make_cells() -> dict:
-    from flash_hash_join_tpu_torch.models.workload import JoinCase, j1_suite
+    from flash_hash_join_tpu_torch.models.workload import (
+        JoinCase, j1_suite, uniform_case)
     q1, q2, q5 = j1_suite(40_000_000, seed=0)
     n = 40_000_000                                     # bench.py:50-54
     rng = np.random.default_rng(2026)
@@ -266,9 +552,11 @@ def make_cells() -> dict:
                      rng.integers(0, int(n * 1.1), n, dtype=np.uint64),
                      rng.integers(0, 2**63, n, dtype=np.uint64),
                      rng.integers(0, int(n * 1.1), n, dtype=np.uint64))
-    xl = j1_suite(100_000_000, seed=0)[2]
+    x1, x2, x5 = j1_suite(100_000_000, seed=0)
     return {"4e7-Q1": q1, "4e7-Q2": q2, "4e7-Q5": q5, "bench-4e7": bench,
-            "1e8-Q5": xl}
+            "1e8-Q1": x1, "1e8-Q2": x2, "1e8-Q5": x5,
+            "uniform-1e7x1e8": uniform_case(10_000_000, 100_000_000, 0.5),
+            "uniform-1e6x1e7": uniform_case(1_000_000, 10_000_000, 0.05)}
 
 
 def main() -> int:
@@ -288,17 +576,20 @@ def main() -> int:
     cells = make_cells()
     emit("data", seconds=time.perf_counter() - t0)
     summary = phase_kernels(cells)
-    launches = phase_main(cells)
-    phase_fallback()
+    summary.update(phase_partitioned_kernels(cells))
+    launches, direct_core = phase_main(cells)
+    radix = phase_radix(cells)
+    for k in ("range_probe_count", "range_probe_materialize", "compact"):
+        launches[k] = radix[k]
+    phase_adaptive(cells)
+    phase_direct_vs_partitioned(cells, direct_core)
+    phase_fallback(cells["uniform-1e6x1e7"])
     src = "flash_hash_join_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
-        {"name": "fused_bitmap_join", "route": "cuda",
-         "source": src + "dense_bitmap.cu", "replaces": K1_REPLACES,
-         "launches": launches["dense_bitmap"], **summary["dense_bitmap"]},
-        {"name": "probe_count_bitmap", "route": "cuda",
-         "source": src + "bitmap_probe.cu", "replaces": K2_REPLACES,
-         "launches": launches["bitmap_probe"], **summary["bitmap_probe"]},
-    ]}), flush=True)
+        {"name": wrapper, "route": "cuda", "source": src + source,
+         "replaces": REPLACES[key], "launches": launches[key],
+         **summary[key]}
+        for key, (wrapper, source) in KERNELS.items()]}), flush=True)
     print(run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0], flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,22 +1,32 @@
 """flash_hash_join_tpu_torch — the PyTorch/CUDA port of flash_hash_join_tpu.
 
-This slice runs the dense-domain count path on an NVIDIA H100 (sm_90a):
-`adaptive_join_count` and `join_count` with strategy "adaptive", "direct"
-or "merge", through two hand-written CUDA kernels (csrc/).  It imports
-neither jax nor the JAX package, which stays in the repository as the
-reference the tests hold this package against.
+This package runs on an NVIDIA H100 (sm_90a) through hand-written CUDA
+kernels (csrc/):
+  * count: `adaptive_join_count`, `hash_join_count_radix` and `join_count`
+    with strategy "adaptive", "direct", "partitioned" or "merge";
+  * materialize: `adaptive_join`, `hash_join_radix` and `join_materialize`
+    with strategy "adaptive", "partitioned" or "merge".
+It imports neither jax nor the JAX package, which stays in the repository
+as the reference the tests hold this package against.
 
 All functions take numpy uint64 (build_keys, build_values, probe_keys)
 and return (count, core_seconds); `device` defaults to "cuda".
 """
 
 from flash_hash_join_tpu_torch.api import (  # noqa: F401
+    adaptive_join,
+    adaptive_join_bloom,
     adaptive_join_count,
     adaptive_join_count_bloom,
+    hash_join_count_radix,
+    hash_join_count_radix_bloom,
+    hash_join_radix,
+    hash_join_radix_bloom,
     initialize,
     join_count,
+    join_materialize,
     launch_counts,
     plan_strategy,
 )
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

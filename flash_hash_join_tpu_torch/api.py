@@ -1,21 +1,26 @@
-"""Public API, count slice (port of the count branch of
-flash_hash_join_tpu/api.py).
+"""Public API (port of flash_hash_join_tpu/api.py): count and materialize.
 
 Every function takes numpy uint64 arrays (build_keys, build_values,
 probe_keys) — lists and other integer dtypes are coerced — and returns
 `(count, core_seconds)`.  core_seconds is device time: the host->device
-copy is made and synchronised first, then the index mapping, the kernels
-and the read-back of the count are timed with CUDA events on the card
-(perf_counter on the CPU).
+copy is made and synchronised first, then the join's device work and the
+read-back of the count are timed with CUDA events on the card
+(perf_counter on the CPU).  Materialize with return_arrays also returns
+the matched (probe_key, value) rows as uint64 numpy arrays, read back
+outside core_seconds; return_info appends a dict (strategy, d_rows,
+retried, kernel launches).
 
-Routing of the adaptive count: `direct` (dense-domain bitmap, two CUDA
-kernels) whenever the build keys are below 2^32 and their span is at most
-MAX_XL_DOMAIN_BITS; `merge` (always exact) otherwise.  The JAX package's
-extra gates (probe-count floor, the 2^19 scan cap, large_span_ok /
-large_span_wins) choose between direct and its partitioned tier, were
-measured on a TPU v5e, and return — measured on the H100 — when the
-partitioned tier is ported.  A nonzero special[3] (build rows outside the
-domain) reruns the join on merge, so the count is always exact.
+Routing of the adaptive plan: count of a dense domain -> `direct` (build
+keys below 2^32 spanning at most MAX_XL_DOMAIN_BITS slots; bitmap
+kernels); everything else -> `partitioned` (sorted range table, K3/K4,
+and K5 for materialize).  Dense-domain materialize (K7/K8) is not ported
+yet, so adaptive materialize of dense keys runs `partitioned`.  The JAX
+package's extra gates between direct and partitioned (probe-count floor,
+the 2^19 scan cap, large_span_ok / large_span_wins) were measured on a
+TPU v5e and return once measured on the H100.  A nonzero special[3]
+(build rows the strategy could not place) reruns the join on `merge`, so
+every result is exact.  Output order: partitioned emits probe order,
+merge (hash, key) order; the row multiset is the same.
 
 `device` defaults to "cuda"; asking for CUDA where it is unavailable
 raises.  device="cpu" runs the kernels' plain PyTorch versions.
@@ -34,10 +39,12 @@ from flash_hash_join_tpu_torch.ops import direct_bitmap as db
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
 from flash_hash_join_tpu_torch.utils import u64
 from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG
 
-STRATEGIES = ("adaptive", "direct", "merge")
+STRATEGIES = ("adaptive", "direct", "partitioned", "merge")
 
 
 def _device(device) -> torch.device:
@@ -62,30 +69,44 @@ def _as_u64(arr) -> np.ndarray:
 def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel."""
     return {"dense_bitmap": dbm.fused_bitmap_join.launches,
-            "bitmap_probe": bp.probe_count_bitmap.launches}
+            "bitmap_probe": bp.probe_count_bitmap.launches,
+            "range_probe_count": rp.range_probe_count.launches,
+            "range_probe_materialize": rp.range_probe_materialize.launches,
+            "compact": sc.compact_by_mask.launches}
 
 
 def _timed(fn, args, dev: torch.device):
-    """Run a count function; returns (count, special[3], seconds)."""
+    """Run a join function; returns (outputs, count, special[3], seconds)."""
+    def run():
+        out = fn(*args)
+        count, bad = torch.stack([out[0], out[-1][3]]).tolist()
+        return out, count, bad
+
     if dev.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        count, special = fn(*args)
-        count, bad = torch.stack([count, special[3]]).tolist()
+        out, count, bad = run()
         end.record()
         end.synchronize()
-        return count, bad, start.elapsed_time(end) / 1e3
+        return out, count, bad, start.elapsed_time(end) / 1e3
     t0 = time.perf_counter()
-    count, special = fn(*args)
-    count, bad = torch.stack([count, special[3]]).tolist()
-    return count, bad, time.perf_counter() - t0
+    out, count, bad = run()
+    return out, count, bad, time.perf_counter() - t0
 
 
-def _run_join(build_keys, build_values, probe_keys, *, strategy: str,
-              device, return_info: bool = False):
-    if strategy not in STRATEGIES:
-        engine.count_graph(strategy)   # raises: unported or unknown
+def _graph(mode: str, strategy: str, d_rows: int = 0):
+    if mode == "count":
+        return engine.count_graph(strategy, d_rows)
+    return engine.materialize_graph(strategy)
+
+
+def _run_join(build_keys, build_values, probe_keys, *, mode: str,
+              strategy: str, device, return_arrays: bool = False,
+              return_info: bool = False):
+    if strategy not in STRATEGIES or (mode, strategy) == ("materialize",
+                                                          "direct"):
+        _graph(mode, strategy)             # raises: unported or unknown
     dev = _device(device)
     build_keys = _as_u64(build_keys)
     build_values = _as_u64(build_values)
@@ -93,23 +114,27 @@ def _run_join(build_keys, build_values, probe_keys, *, strategy: str,
     if build_keys.shape != build_values.shape:
         raise ValueError("build_keys and build_values must have equal length")
     nb, npr = build_keys.shape[0], probe_keys.shape[0]
+    arrays = return_arrays and mode == "materialize"
     if nb == 0 or npr == 0:
-        return (0, 0.0, None) if return_info else (0, 0.0)
+        empty = np.zeros(0, np.uint64)
+        result = (0, 0.0) + ((empty, empty) if arrays else ())
+        return result + (None,) if return_info else result
 
     requested = strategy
-    if strategy == "adaptive":
-        plan = choose_plan(nb, npr, DEFAULT_CONFIG, "count",
+    if strategy in ("adaptive", "partitioned"):
+        plan = choose_plan(nb, npr, DEFAULT_CONFIG, mode,
                            hbm_budget_bytes(dev))
         if plan.probe_chunks > 1:
             raise NotImplementedError(
                 f"{npr} probe rows need {plan.probe_chunks} host-streamed "
                 "chunks on this device; chunk streaming is not ported yet "
                 "(ROADMAP.md Queue 1 item 6)")
-        strategy = plan.strategy
+        if strategy == "adaptive":
+            strategy = plan.strategy
 
-    # Dense-domain upgrade, decided host-side from the numpy keys.
+    # Dense-domain upgrade of a count, decided host-side from the numpy keys.
     d_rows = 0
-    if requested in ("adaptive", "direct"):
+    if mode == "count" and requested in ("adaptive", "direct"):
         bk_max = int(build_keys.max())
         span = bk_max - int(build_keys.min()) + 1
         if bk_max < 2**32 and span <= db.MAX_XL_DOMAIN_BITS:
@@ -126,43 +151,85 @@ def _run_join(build_keys, build_values, probe_keys, *, strategy: str,
         torch.cuda.synchronize(dev)
 
     before = launch_counts()
-    count, bad, core_seconds = _timed(engine.count_graph(strategy, d_rows),
-                                      args, dev)
+    out, count, bad, core_seconds = _timed(_graph(mode, strategy, d_rows),
+                                           args, dev)
     retried = bad != 0 and strategy != "merge"
     if retried:
         strategy = "merge"
-        count, _, core_seconds = _timed(engine.count_graph("merge"), args, dev)
+        out, count, _, core_seconds = _timed(_graph(mode, "merge"), args, dev)
+    result = (count, core_seconds)
+    if arrays:
+        result += (u64.to_numpy_u64(out[1], out[2], count),
+                   u64.to_numpy_u64(out[3], out[4], count))
     if not return_info:
-        return count, core_seconds
+        return result
     after = launch_counts()
-    return count, core_seconds, dict(
+    return result + (dict(
         strategy=strategy, d_rows=d_rows if strategy == "direct" else 0,
         retried=retried, nb=nb, npr=npr,
-        launches={k: after[k] - before[k] for k in after})
+        launches={k: after[k] - before[k] for k in after}),)
+
+
+# --- reference-parity API (flash_hash_join_tpu/api.py:441-498) -------------
+# The `_bloom` variants equal their plain twins: bloom changes only the
+# global-table strategy, which is not ported and which no plan here picks.
+
+def adaptive_join(build_keys, build_values, probe_keys, *, device="cuda",
+                  return_info: bool = False):
+    """Exact first-match materialize with the adaptive plan; returns
+    (count, core_seconds)."""
+    return _run_join(build_keys, build_values, probe_keys,
+                     mode="materialize", strategy="adaptive", device=device,
+                     return_info=return_info)
+
+
+def adaptive_join_bloom(build_keys, build_values, probe_keys, *,
+                        device="cuda", return_info: bool = False):
+    return adaptive_join(build_keys, build_values, probe_keys,
+                         device=device, return_info=return_info)
 
 
 def adaptive_join_count(build_keys, build_values, probe_keys, *,
                         device="cuda", return_info: bool = False):
-    """Exact first-match count; returns (count, core_seconds), plus an info
-    dict (strategy, d_rows, retried, kernel launches) with return_info."""
-    return _run_join(build_keys, build_values, probe_keys,
+    """Exact first-match count with the adaptive plan; returns
+    (count, core_seconds)."""
+    return _run_join(build_keys, build_values, probe_keys, mode="count",
                      strategy="adaptive", device=device,
                      return_info=return_info)
 
 
 def adaptive_join_count_bloom(build_keys, build_values, probe_keys, *,
                               device="cuda", return_info: bool = False):
-    """Same as adaptive_join_count: bloom changes only the global-table
-    strategy, which the adaptive plan does not pick."""
     return adaptive_join_count(build_keys, build_values, probe_keys,
                                device=device, return_info=return_info)
 
 
-def join_count(build_keys, build_values, probe_keys, *, strategy="adaptive",
-               device="cuda", return_info: bool = False):
-    """Count with an explicit strategy: "adaptive", "direct" or "merge"."""
-    return _run_join(build_keys, build_values, probe_keys, strategy=strategy,
+def hash_join_radix(build_keys, build_values, probe_keys, *, device="cuda",
+                    return_info: bool = False):
+    """Materialize on the partitioned tier; returns (count, core_seconds)."""
+    return _run_join(build_keys, build_values, probe_keys,
+                     mode="materialize", strategy="partitioned",
                      device=device, return_info=return_info)
+
+
+def hash_join_radix_bloom(build_keys, build_values, probe_keys, *,
+                          device="cuda", return_info: bool = False):
+    return hash_join_radix(build_keys, build_values, probe_keys,
+                           device=device, return_info=return_info)
+
+
+def hash_join_count_radix(build_keys, build_values, probe_keys, *,
+                          device="cuda", return_info: bool = False):
+    """Count on the partitioned tier; returns (count, core_seconds)."""
+    return _run_join(build_keys, build_values, probe_keys, mode="count",
+                     strategy="partitioned", device=device,
+                     return_info=return_info)
+
+
+def hash_join_count_radix_bloom(build_keys, build_values, probe_keys, *,
+                                device="cuda", return_info: bool = False):
+    return hash_join_count_radix(build_keys, build_values, probe_keys,
+                                 device=device, return_info=return_info)
 
 
 def initialize(device="cuda") -> bool:
@@ -176,12 +243,34 @@ def initialize(device="cuda") -> bool:
     return True
 
 
+# --- extended API -----------------------------------------------------------
+
 def plan_strategy(n_build: int, n_probe: int, mode: str = "count",
                   device="cuda") -> str:
     """The strategy the adaptive plan picks from the shape alone (the
-    dense-domain upgrade to "direct" is decided from the keys)."""
+    dense-domain upgrade of a count to "direct" is decided from the keys)."""
     try:
         return choose_plan(n_build, n_probe, DEFAULT_CONFIG, mode,
                            hbm_budget_bytes(_device(device))).strategy
     except MemoryError:
-        return "merge"
+        return "partitioned"
+
+
+def join_count(build_keys, build_values, probe_keys, *, strategy="adaptive",
+               device="cuda", return_info: bool = False):
+    """Count with an explicit strategy: "adaptive", "direct",
+    "partitioned" or "merge"."""
+    return _run_join(build_keys, build_values, probe_keys, mode="count",
+                     strategy=strategy, device=device,
+                     return_info=return_info)
+
+
+def join_materialize(build_keys, build_values, probe_keys, *,
+                     strategy="adaptive", device="cuda",
+                     return_arrays: bool = False, return_info: bool = False):
+    """Materialize with an explicit strategy: "adaptive", "partitioned" or
+    "merge" ("direct" raises until K7/K8 are ported).  return_arrays adds
+    the matched (probe_key, value) rows as uint64 numpy arrays."""
+    return _run_join(build_keys, build_values, probe_keys,
+                     mode="materialize", strategy=strategy, device=device,
+                     return_arrays=return_arrays, return_info=return_info)

@@ -1,6 +1,6 @@
-// Shared device helpers for the bitmap kernels (dense_bitmap.cu,
-// bitmap_probe.cu): the index stream walk, the membership bit test and the
-// block reduction.
+// Shared device helpers: the index stream walk and the membership bit test
+// of the bitmap kernels (dense_bitmap.cu, bitmap_probe.cu), the block
+// reduction and the grid size of every kernel.
 //
 // Domain indices are u32 with sentinel 0xFFFFFFFF (torch int32 bit
 // patterns on the Python side).  Bitmap word w holds slots [32w, 32w+32);
@@ -60,10 +60,11 @@ __device__ __forceinline__ unsigned long long block_sum(unsigned long long v) {
   return v;
 }
 
-// Blocks for a grid-stride kernel over n indices (4 per thread per step):
-// enough to cover n, at most what fits on the card at once.
+// Blocks for a grid-stride kernel over n elements (`per_thread` per thread
+// per step): enough to cover n, at most what fits on the card at once.
 template <typename Kernel>
-inline cudaError_t grid_for(Kernel kernel, int64_t n, size_t smem, int* grid) {
+inline cudaError_t grid_for(Kernel kernel, int64_t n, size_t smem, int* grid,
+                            int per_thread = 4) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -71,7 +72,7 @@ inline cudaError_t grid_for(Kernel kernel, int64_t n, size_t smem, int* grid) {
   if (e != cudaSuccess) return e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return e;
-  const int64_t need = ((n + 3) / 4 + kThreads - 1) / kThreads;
+  const int64_t need = ((n + per_thread - 1) / per_thread + kThreads - 1) / kThreads;
   const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   *grid = (int)(need < 1 ? 1 : (need < cap ? need : cap));
   return cudaSuccess;

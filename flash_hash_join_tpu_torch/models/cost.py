@@ -1,10 +1,9 @@
 """Feasibility model for adaptive strategy selection (port of
 flash_hash_join_tpu/models/cost.py).
 
-STRATEGY: the JAX package's adaptive plan is the constant "partitioned"
-(its range-table tier).  That tier is not ported yet (ROADMAP Queue 1 item
-4), so the port's shape-only plan is "merge", the always-exact sort-merge
-join; api.py upgrades dense-domain inputs to "direct" from the keys.
+STRATEGY: the adaptive plan is the constant "partitioned" (the range-table
+tier, ops/range_table.py), as in the JAX package; api.py upgrades a count
+over a dense key domain to "direct" from the keys.
 
 FEASIBILITY: the device must hold the build side plus one probe chunk and
 its transients.  The budget is the card's own memory times the JAX
@@ -35,7 +34,7 @@ TRANSIENT_BYTES_MATERIALIZE = 56
 
 @dataclasses.dataclass(frozen=True)
 class JoinPlan:
-    strategy: str       # "merge" until the partitioned tier is ported
+    strategy: str       # always "partitioned"
     gbits: int          # home-group bits for the global-table graph
     probe_chunks: int   # probe chunks that fit device memory
 
@@ -78,7 +77,7 @@ def choose_plan(n_build: int, n_probe: int, cfg: JoinConfig,
                 mode: str, budget_bytes: int) -> JoinPlan:
     """Pick strategy + chunking for a build/probe size pair."""
     return JoinPlan(
-        "merge",
+        "partitioned",
         cfg.group_bits(n_build),
         plan_probe_chunks(n_build, n_probe, mode, budget_bytes),
     )

@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-`nvcc` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for ``sm_90a`` (Hopper), at first use, into ``csrc/build/``; a
-source newer than the library triggers a rebuild.  The library is loaded
-with ctypes: pointers and the stream are ``c_void_p``, sizes ``c_int`` /
+`nvcc` compiles every ``csrc/*.cu`` for ``sm_90a`` (Hopper) at first use,
+into ``csrc/build/``: one nvcc process per source, all started together,
+then one link into a shared library with a plain C interface.  A source
+newer than the library triggers a rebuild.  The library is loaded with
+ctypes: pointers and the stream are ``c_void_p``, sizes ``c_int`` /
 ``c_int64``, and every entry point returns ``cudaGetLastError()`` after its
 launches, which `check` turns into an exception.
 
@@ -23,8 +24,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
 LIB_PATH = BUILD_DIR / "libfhj_cuda.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
@@ -32,6 +34,16 @@ _SIGNATURES = {
     "fhj_fused_bitmap_join": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
     # bitmap, d_rows, idx, n, count, stream
     "fhj_bitmap_probe_count": [_P, _I, _P, _I64, _P, _P],
+    # keys, nb, ph, pl, np, count, stream
+    "fhj_range_probe_count": [_P, _I64, _P, _P, _I64, _P, _P],
+    # keys, nb, tvh, tvl, ph, pl, n, np_valid, hit, vh, vl, stream
+    "fhj_range_probe_materialize": [_P, _I64, _P, _P, _P, _P, _I64, _I64,
+                                    _P, _P, _P, _P],
+    "fhj_compact_tile_rows": [],
+    # mask, n, tile counts, stream
+    "fhj_compact_count": [_P, _I64, _P, _P],
+    # mask, n, offsets, n_planes, in0..in3, out0..out3, n_out, stream
+    "fhj_compact_scatter": [_P, _I64, _P, _I, *[_P] * 8, _I64, _P],
 }
 
 _lock = threading.Lock()
@@ -52,20 +64,38 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; returns their joined output, raises
+    with the output of every one that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}"
+              for cmd, p, out in zip(cmds, procs, outs) if p.returncode]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def build() -> str:
     """Compile the kernels into LIB_PATH; returns nvcc's output (ptxas
     register and shared-memory report)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_PATH.name}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIB_PATH)   # atomic: a concurrent loader sees old or new
-    return proc.stdout + proc.stderr
+    nvcc, tag = _nvcc(), os.getpid()
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in srcs]
+    tmp = BUILD_DIR / f"{LIB_PATH.name}.{tag}.tmp"
+    try:
+        report = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(s)]
+                           for s, o in zip(srcs, objs)])
+        report += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                             *map(str, objs)]])
+        os.replace(tmp, LIB_PATH)  # atomic: a concurrent loader sees old or new
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return report
 
 
 def _stale() -> bool:

@@ -1,22 +1,26 @@
 """Sort-merge join on hash order — the always-exact fallback (port of
-flash_hash_join_tpu/ops/merge_join.py, count half).
+flash_hash_join_tpu/ops/merge_join.py).
 
   1. concat build and probe rows, tagged with a side flag,
   2. sort by (hash, key_hi, key_lo, flag) — build rows sort before probe
      rows within each equal-key run,
   3. a segmented doubling scan propagates "run contains a build row" and
      the FIRST build value through each run (ops/segmented.py),
-  4. count = number of probe rows whose run has a build row.
+  4. count = number of probe rows whose run has a build row;
+     materialize = compact those rows (ops/compact.py).
 
 torch has no multi-key sort: the lexicographic order is built from stable
 argsort passes, least significant key first.  `cl` and `flag` share one
-pass as the packed key (cl << 2) | flag, exact in int64.
+pass as the packed key (cl << 2) | flag, exact in int64.  The passes are
+stable, so the first build row of a run is its minimum build row: that is
+the duplicate-key winner (the JAX package's unstable sort leaves it open).
 """
 
 from __future__ import annotations
 
 import torch
 
+from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
 from flash_hash_join_tpu_torch.ops.hashing import hash_u64
 from flash_hash_join_tpu_torch.ops.segmented import segmented_scan
 from flash_hash_join_tpu_torch.utils.u64 import MASK32, widen
@@ -89,3 +93,16 @@ def merge_join_count(kh, kl, vh, vl, ph, pl, nb_valid: int,
     probe_match, *_ = _sorted_runs(kh, kl, vh, vl, ph, pl, nb_valid,
                                    np_valid)
     return probe_match.sum()
+
+
+def merge_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
+                           np_valid: int):
+    """Returns (count, out_kh, out_kl, out_vh, out_vl): the matched rows
+    compacted to the front (K5 on the card), in (hash, key) order, each
+    with the value of its key's minimum build row; int32 bit-pattern planes
+    of the probe side's length."""
+    probe_match, chs, cls, bvh, bvl, _ = _sorted_runs(
+        kh, kl, vh, vl, ph, pl, nb_valid, np_valid)
+    count, outs = compact_by_mask(probe_match, (chs, cls, bvh, bvl),
+                                  n_out=ph.shape[0])
+    return (count, *outs)

@@ -1,0 +1,89 @@
+"""Range table: the partitioned ("radix") tier, count and materialize (port
+of flash_hash_join_tpu/ops/range_table.py:build_range_table,
+range_join_count and range_join_materialize).
+
+The JAX package bounds each probe's random-access working set to fast
+memory: one lax.sort per side, the sorted build reshaped into a
+rank-balanced (S, C, 128) table of lane-columns, and a Pallas kernel that
+finds each sorted probe tile's columns through a W-super-row window.  That
+layout exists because Mosaic has no per-element addressing.  On the H100
+every probe addresses the sorted keys directly (K3/K4,
+ops/cuda/range_probe.py), so the table is just
+
+  build: the valid build rows' keys as sortable int64 (utils/u64.py),
+         sorted STABLY by torch.sort (a plain sort outside any kernel, as
+         lax.sort is in the JAX package), and the value planes permuted
+         the same way;
+  probe: unsorted, in input order, one lower bound per row.
+
+Not ported, because nothing here needs them: the probe sort and tile
+padding, the window and its `wstart`, SMALL and BLOCKWISE modes, the
+hash / key / narrow sort orders and the w_mult retry ladder, the bloom-tag
+plane (FHJ_RANGE_BLOOM) and the max-key special channel: with no window
+there is nothing to overflow (special[3] is always 0), and with no
+all-ones sentinel the u64-max (or u32-max) key joins like any other key.
+
+Semantics (SURVEY.md §3): inner first-match join.  The winner among
+duplicate build keys is the minimum build row — the stable sort puts it
+first in its run — like the port's direct and merge strategies; the JAX
+partitioned tier's winner is the minimal value within the probed column
+instead.  Materialize emits probe order (the JAX large tier emits (hash,
+key) order); the row multiset is the same.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
+from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+from flash_hash_join_tpu_torch.utils.u64 import sortable
+
+
+class RangeTable(NamedTuple):
+    """The valid build rows sorted by key (device tensors).
+
+    keys: (nb_valid,) int64 sortable keys, ascending, equal keys in build
+    row order; vh, vl: their int32 value planes in the same order, or None
+    for a count.
+    """
+
+    keys: torch.Tensor
+    vh: torch.Tensor | None
+    vl: torch.Tensor | None
+
+
+def _no_special(dev) -> torch.Tensor:
+    return torch.zeros(4, dtype=torch.int64, device=dev)
+
+
+def build_range_table(kh, kl, vh, vl, nb_valid: int, *,
+                      with_values: bool) -> RangeTable:
+    """Sort the first nb_valid build rows by their u64 key (stable)."""
+    keys, order = torch.sort(sortable(kh[:nb_valid], kl[:nb_valid]),
+                             stable=True)
+    if not with_values:
+        return RangeTable(keys, None, None)
+    return RangeTable(keys, vh[:nb_valid][order], vl[:nb_valid][order])
+
+
+def range_join_count(kh, kl, vh, vl, ph, pl, nb_valid: int, np_valid: int):
+    """Fused build + probe count.  Returns (count, special4), 0-d and (4,)
+    int64 tensors; special is all zeros (never unresolved)."""
+    table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=False)
+    count = rp.range_probe_count(table.keys, ph, pl, np_valid)
+    return count, _no_special(count.device)
+
+
+def range_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
+                           np_valid: int):
+    """Fused build + probe materialize: (count, out_kh, out_kl, out_vh,
+    out_vl, special4).  The matched rows come first in probe order; the
+    planes are int32 bit patterns of the probe side's length."""
+    table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=True)
+    hit, mvh, mvl = rp.range_probe_materialize(table.keys, table.vh,
+                                               table.vl, ph, pl, np_valid)
+    count, outs = compact_by_mask(hit, (ph, pl, mvh, mvl))
+    return (count, *outs, _no_special(count.device))

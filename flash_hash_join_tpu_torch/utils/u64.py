@@ -15,6 +15,9 @@ Device side (torch) — the one place this is decided:
     ``widen``: int64 in [0, 2^32), where every u32 operation is exact; a
     u32 wrap-around (``kl - lo``) is ``(a - b) & MASK32``.  ``narrow``
     turns such int64 values back into int32 bit patterns for a kernel.
+  * A whole u64 key that has to be ordered is ONE int64, ``sortable``:
+    the key with its top bit flipped, so that signed int64 order is u64
+    order (the CUDA kernels build the same value from the two words).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
+INT32_MIN = torch.iinfo(torch.int32).min
 
 
 def split_u64(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -71,3 +75,18 @@ def narrow(t: torch.Tensor) -> torch.Tensor:
 def to_numpy_u32(t: torch.Tensor) -> np.ndarray:
     """Any u32-valued tensor (int32 pattern or widened int64) -> numpy u32."""
     return widen(t).cpu().numpy().astype(np.uint32)
+
+
+def to_numpy_u64(hi: torch.Tensor, lo: torch.Tensor, count: int) -> np.ndarray:
+    """The first `count` rows of two int32 bit-pattern planes as a numpy
+    uint64 array (the read-back of flash_hash_join_tpu/api.py:287-291)."""
+    return join_u64(hi[:count].cpu().numpy().view(np.uint32),
+                    lo[:count].cpu().numpy().view(np.uint32))
+
+
+def sortable(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int32 bit-pattern planes -> int64 keys whose signed order is the
+    u64 order: key - 2^63, i.e. the u64 key with its top bit flipped.
+    Exact: (hi ^ 2^31) as a signed word times 2^32, plus lo, never
+    overflows."""
+    return (hi ^ INT32_MIN).to(torch.int64) * 2**32 + widen(lo)

@@ -1,9 +1,13 @@
-"""The port's count slice end to end: flash_hash_join_tpu_torch's public
-API against the JAX package's and the numpy oracle, on the CPU.
+"""The port end to end: flash_hash_join_tpu_torch's public API, count and
+materialize, against the JAX package's and the numpy oracle, on the CPU.
 
 Inputs come from the same numpy generators with a fixed seed; the port
 runs with device="cpu", which takes the kernels' plain PyTorch versions.
-Tolerance: exact equality (counts).
+Tolerance: exact equality.  Counts and the sorted (key, value) rows are
+compared with the JAX package where build keys are unique; with duplicate
+build keys the port's rows are compared with the numpy oracle's
+minimum-build-row winner, and the JAX package's values only for
+membership in the key's run (its partitioned winner differs by design).
 """
 
 import subprocess
@@ -54,6 +58,7 @@ def test_j1_suite_matches_jax_and_oracle(q):
 
 
 def test_sparse_64bit_routes_merge_in_port_partitioned_in_jax():
+    # both packages now route sparse 64-bit keys to the partitioned tier
     case = twl.uniform_case(3_000, 9_000, 0.3, seed=5)
     want = oracle_count(case.build_keys, case.probe_keys)
     count, _, info = _port(case.build_keys, case.build_values,
@@ -62,7 +67,8 @@ def test_sparse_64bit_routes_merge_in_port_partitioned_in_jax():
         case.build_keys, case.build_values, case.probe_keys, mode="count",
         strategy="adaptive", use_bloom=False, return_info=True)
     assert count == jcount == want
-    assert info["strategy"] == "merge" and jinfo["strategy"] == "partitioned"
+    assert info["strategy"] == jinfo["strategy"] == "partitioned"
+    assert not info["retried"]
 
 
 def test_dense_span_above_2_20_runs_the_large_band():
@@ -74,7 +80,10 @@ def test_dense_span_above_2_20_runs_the_large_band():
     assert info["strategy"] == "direct" and info["d_rows"] > 256
     assert not info["retried"]
     # CPU tensors take the plain versions: no kernel launches here
-    assert info["launches"] == {"dense_bitmap": 0, "bitmap_probe": 0}
+    assert set(info["launches"]) == {
+        "dense_bitmap", "bitmap_probe", "range_probe_count",
+        "range_probe_materialize", "compact"}
+    assert set(info["launches"].values()) == {0}
 
 
 def test_workload_generators_match_jax():
@@ -158,7 +167,8 @@ def test_special_channel_reruns_on_merge(monkeypatch):
     assert info["retried"] and info["strategy"] == "merge"
 
 
-@pytest.mark.parametrize("strategy", ["adaptive", "direct", "merge"])
+@pytest.mark.parametrize("strategy", ["adaptive", "direct", "partitioned",
+                                      "merge"])
 def test_join_count_strategies(strategy):
     rng = np.random.default_rng(6)
     bk = rng.integers(7, 30_000, 9_000, dtype=np.uint64)
@@ -167,7 +177,9 @@ def test_join_count_strategies(strategy):
     count, _, info = ft.join_count(bk, bv, pk, strategy=strategy,
                                    device="cpu", return_info=True)
     assert count == oracle_count(bk, pk)
-    assert info["strategy"] == ("merge" if strategy == "merge" else "direct")
+    assert info["strategy"] == (strategy if strategy in ("partitioned",
+                                                         "merge")
+                                else "direct")
 
 
 def test_join_count_rejects_what_it_cannot_run():
@@ -180,8 +192,15 @@ def test_join_count_rejects_what_it_cannot_run():
     sparse = rng.integers(0, 2**31, 100).astype(np.uint64)  # span > XL cap
     with pytest.raises(ValueError):
         ft.join_count(sparse, bv, pk, strategy="direct", device="cpu")
-    with pytest.raises(NotImplementedError):
-        ft.join_count(pk[:100], bv, pk, strategy="partitioned", device="cpu")
+    for unported in ("global", "vmem"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ft.join_count(pk[:100], bv, pk, strategy=unported, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ft.join_materialize(pk[:100], bv, pk, strategy=unported,
+                                device="cpu")
+    with pytest.raises(NotImplementedError, match="K7/K8"):
+        ft.join_materialize(pk[:100], bv, pk, strategy="direct",
+                            device="cpu")
     with pytest.raises(ValueError):
         ft.join_count(pk[:100], bv, pk, strategy="nope", device="cpu")
 
@@ -218,8 +237,10 @@ def test_cuda_device_raises_without_a_card():
         ft.adaptive_join_count(bk, bk, bk)
     with pytest.raises(RuntimeError, match="cuda"):
         ft.initialize()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ft.adaptive_join(bk, bk, bk)
     assert ft.initialize(device="cpu") is True
-    assert ft.plan_strategy(1_000, 10_000, device="cpu") == "merge"
+    assert ft.plan_strategy(1_000, 10_000, device="cpu") == "partitioned"
 
 
 def test_import_leaves_jax_out():
@@ -233,3 +254,159 @@ def test_import_leaves_jax_out():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# ---- partitioned tier and materialize ---------------------------------------
+
+def _unique_case():
+    """64-bit keys, unique build keys (values then compare exactly), the
+    u64-max key on both sides."""
+    case = twl.uniform_case(3_000, 9_000, 0.4, seed=11)
+    bk = np.unique(case.build_keys)
+    bk[-1] = np.uint64(2**64 - 1)
+    pk = case.probe_keys.copy()
+    pk[:3] = np.uint64(2**64 - 1)
+    return bk, case.build_values[:bk.size], pk
+
+
+def _min_row_rows(bk, bv, pk):
+    """numpy oracle rows in probe order, minimum-build-row winner."""
+    uniq, first = np.unique(bk, return_index=True)
+    pos = np.searchsorted(uniq, pk).clip(max=uniq.size - 1)
+    hit = uniq[pos] == pk
+    return pk[hit], bv[first[pos[hit]]]
+
+
+def _sorted(keys, vals):
+    order = np.lexsort((vals, keys))
+    return keys[order], vals[order]
+
+
+@pytest.mark.parametrize("name", [
+    "hash_join_count_radix", "hash_join_count_radix_bloom",
+    "hash_join_radix", "hash_join_radix_bloom", "adaptive_join",
+    "adaptive_join_bloom", "adaptive_join_count", "adaptive_join_count_bloom",
+])
+def test_reference_functions_match_jax(name):
+    bk, bv, pk = _unique_case()
+    count, secs, info = getattr(ft, name)(bk, bv, pk, device="cpu",
+                                          return_info=True)
+    jcount, _ = getattr(fj, name)(bk, bv, pk)
+    assert count == jcount == oracle_count(bk, pk)
+    assert info["strategy"] == "partitioned" and not info["retried"]
+    assert secs > 0.0
+
+
+@pytest.mark.parametrize("strategy", ["adaptive", "partitioned", "merge"])
+def test_join_materialize_arrays_match_jax(strategy):
+    bk, bv, pk = _unique_case()
+    count, _, keys, vals, info = ft.join_materialize(
+        bk, bv, pk, strategy=strategy, device="cpu", return_arrays=True,
+        return_info=True)
+    jcount, _, jkeys, jvals = fj.join_materialize(
+        bk, bv, pk, strategy="partitioned", return_arrays=True)
+    assert keys.dtype == vals.dtype == np.uint64
+    assert count == jcount == keys.size == vals.size
+    assert info["strategy"] == ("merge" if strategy == "merge"
+                                else "partitioned")
+    for g, j in zip(_sorted(keys, vals), _sorted(jkeys, jvals)):
+        np.testing.assert_array_equal(g, j)
+    if strategy != "merge":                      # partitioned: probe order
+        for g, w in zip((keys, vals), _min_row_rows(bk, bv, pk)):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_join_materialize_duplicate_keys():
+    rng = np.random.default_rng(13)
+    bk = rng.integers(0, 2**64, 400, dtype=np.uint64)
+    bk = bk[rng.integers(0, 400, 3_000)]             # every key ~7 times
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 5_000),
+                         rng.integers(0, 2**64, 4_000, dtype=np.uint64)])
+    want = _min_row_rows(bk, bv, pk)
+    for strategy in ("partitioned", "merge"):
+        count, _, keys, vals = ft.join_materialize(
+            bk, bv, pk, strategy=strategy, device="cpu", return_arrays=True)
+        assert count == want[0].size
+        for g, w in zip(_sorted(keys, vals), _sorted(*want)):
+            np.testing.assert_array_equal(g, w)
+    jcount, _, jkeys, jvals = fj.join_materialize(
+        bk, bv, pk, strategy="partitioned", return_arrays=True)
+    assert jcount == count
+    np.testing.assert_array_equal(np.sort(jkeys), np.sort(want[0]))
+    runs = {}
+    for k, v in zip(bk.tolist(), bv.tolist()):
+        runs.setdefault(k, set()).add(v)
+    assert all(v in runs[k] for k, v in zip(jkeys.tolist(), jvals.tolist()))
+
+
+def test_adaptive_materialize_of_dense_keys_routes_partitioned():
+    # dense-domain materialize (K7/K8) is not ported: the count goes
+    # direct, the materialize partitioned, with the same rows
+    case = twl.j1_suite(100_000, seed=3)[1]
+    bk, bv, pk = case.build_keys, case.build_values, case.probe_keys
+    count, _, cinfo = ft.adaptive_join_count(bk, bv, pk, device="cpu",
+                                             return_info=True)
+    mcount, _, keys, vals, minfo = ft.join_materialize(
+        bk, bv, pk, device="cpu", return_arrays=True, return_info=True)
+    assert count == mcount == oracle_count(bk, pk)
+    assert cinfo["strategy"] == "direct"
+    assert minfo["strategy"] == "partitioned"
+    for g, w in zip((keys, vals), _min_row_rows(bk, bv, pk)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_materialize_special_channel_reruns_on_merge(monkeypatch):
+    real = teng.materialize_graph
+
+    def lossy(strategy):
+        fn = real(strategy)
+        if strategy != "partitioned":
+            return fn
+
+        def run(*args):
+            *out, special = fn(*args)
+            return (*out, special + torch.tensor([0, 0, 0, 1]))
+        return run
+
+    monkeypatch.setattr(teng, "materialize_graph", lossy)
+    bk, bv, pk = _unique_case()
+    count, _, keys, vals, info = ft.join_materialize(
+        bk, bv, pk, strategy="partitioned", device="cpu", return_arrays=True,
+        return_info=True)
+    assert info["retried"] and info["strategy"] == "merge"
+    assert count == oracle_count(bk, pk)
+    for g, w in zip(_sorted(keys, vals), _sorted(*_min_row_rows(bk, bv, pk))):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_materialize_edge_cases():
+    empty = np.zeros(0, np.uint64)
+    pk = np.arange(10, dtype=np.uint64)
+    out = ft.join_materialize(empty, empty, pk, device="cpu",
+                              return_arrays=True)
+    assert out[:2] == (0, 0.0) and out[2].size == out[3].size == 0
+    assert ft.adaptive_join(pk, pk, empty, device="cpu",
+                            return_info=True) == (0, 0.0, None)
+    m = np.uint64(2**64 - 1)                             # EMPTY-sentinel key
+    bkm = np.array([m, 5, m], np.uint64)
+    bvm = np.array([1, 2, 3], np.uint64)
+    pkm = np.array([m, 4, 5, m, 0], np.uint64)
+    count, _, keys, vals = ft.join_materialize(bkm, bvm, pkm, device="cpu",
+                                               return_arrays=True)
+    assert count == 3
+    assert list(zip(keys.tolist(), vals.tolist())) == [
+        (2**64 - 1, 1), (5, 2), (2**64 - 1, 1)]
+    with pytest.raises(ValueError):
+        ft.hash_join_radix(bkm, bvm[:2], pkm, device="cpu")
+
+
+def test_partitioned_plan_chunks_are_not_ported(monkeypatch):
+    monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 2_000_000)
+    bk = np.arange(1_000, dtype=np.uint64) << np.uint64(40)
+    pk = np.arange(100_000, dtype=np.uint64)
+    for fn in (ft.hash_join_count_radix, ft.adaptive_join):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(bk, bk, pk, device="cpu")
+    # an explicit merge does not plan chunks
+    assert ft.join_count(bk, bk, pk, strategy="merge", device="cpu")[0] == 1

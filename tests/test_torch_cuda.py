@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the count slice end to end against the numpy oracle.
+version, and the count and materialize paths end to end against the numpy
+oracle.
 
 Every test here needs an NVIDIA card and skips without one.  This file
 imports neither jax nor the JAX package, so it also runs on a machine that
@@ -7,7 +8,8 @@ has only PyTorch; there, skip tests/conftest.py (which imports jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Tolerance: exact equality — every output is an integer count.
+Tolerance: exact equality — every output is an integer count or a u32 bit
+pattern.
 """
 
 import numpy as np
@@ -15,11 +17,15 @@ import pytest
 import torch
 
 import flash_hash_join_tpu_torch as ft
+from flash_hash_join_tpu_torch.ops import range_table as rt
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
-from flash_hash_join_tpu_torch.utils.u64 import to_device
+from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
+from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
 
 SENTINEL = 0xFFFFFFFF
+M64 = 2**64 - 1
 pytestmark = pytest.mark.cuda
 
 
@@ -95,6 +101,99 @@ def test_merge_fallback_on_card(dev):
                          rng.integers(0, 2**64, 300_000, dtype=np.uint64)])
     bk[:3] = 2**64 - 1
     pk[:5] = 2**64 - 1
-    count, _, info = ft.adaptive_join_count(bk, bk, pk, return_info=True)
-    assert info["strategy"] == "merge"
-    assert count == int(np.isin(pk, np.unique(bk)).sum())
+    want = int(np.isin(pk, np.unique(bk)).sum())
+    count, _, info = ft.join_count(bk, bk, pk, strategy="merge",
+                                   return_info=True)
+    assert info["strategy"] == "merge" and count == want
+    count, _, keys, vals = ft.join_materialize(bk, bk, pk, strategy="merge",
+                                               return_arrays=True)
+    assert count == want
+    np.testing.assert_array_equal(np.sort(keys), np.sort(pk[np.isin(pk, bk)]))
+    np.testing.assert_array_equal(keys, vals)          # value == key here
+
+
+# ---- partitioned tier: K3, K4, K5 -------------------------------------------
+
+def _keys(rng, n, universe):
+    keys = rng.integers(0, universe, n, dtype=np.uint64)
+    keys[: min(n, 2)] = M64                            # u64-max key
+    return keys
+
+
+def _table(rng, nb, dev):
+    bk = _keys(rng, nb, 3 * max(nb, 1))
+    bv = rng.integers(0, 2**64, nb, dtype=np.uint64)
+    kh, kl = device_planes(bk, dev)
+    vh, vl = device_planes(bv, dev)
+    return bk, rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
+
+
+@pytest.mark.parametrize("nb", [0, 1, 5, 200_003])
+def test_range_probe_kernels_match_plain(dev, nb):
+    rng = np.random.default_rng(nb)
+    bk, table = _table(rng, nb, dev)
+    for npr in (0, 7, 1_000_003):
+        pk = _keys(rng, npr, 3 * max(nb, 1))
+        if nb and npr:
+            pk[2::3] = rng.choice(bk, len(pk[2::3]))
+        ph, pl = device_planes(pk, dev)
+        for view, np_valid in (((ph, pl), npr), ((ph[1:], pl[1:]),
+                                                 max(npr - 5, 0))):
+            args = (*view, min(np_valid, view[0].numel()))
+            before = rp.range_probe_count.launches
+            got = int(rp.range_probe_count(table.keys, *args))
+            assert got == int(rp.range_probe_count_plain(table.keys, *args))
+            assert rp.range_probe_count.launches == before + (
+                nb > 0 and args[-1] > 0)
+            got = rp.range_probe_materialize(table.keys, table.vh, table.vl,
+                                             *args)
+            want = rp.range_probe_materialize_plain(table.keys, table.vh,
+                                                    table.vl, *args)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g, w), (nb, npr, args[-1])
+
+
+@pytest.mark.parametrize("n", [0, 1, 4_095, 4_096, 1_000_003])
+@pytest.mark.parametrize("density", [0.0, 0.37, 1.0])
+def test_compact_kernel_matches_plain(dev, n, density):
+    rng = np.random.default_rng(n)
+    mask = torch.from_numpy(rng.random(n + 1) < density).to(dev)[1:]
+    for n_planes in (2, 3, 4):
+        cols = [to_device(rng.integers(0, 2**32, n + 1, dtype=np.uint32),
+                          dev)[1:] for _ in range(n_planes)]
+        for n_out in (n, n // 3):
+            count, outs = sc.compact_by_mask(mask.contiguous(), cols, n_out)
+            wcount, wouts = sc.compact_by_mask_plain(mask.contiguous(), cols,
+                                                     n_out)
+            torch.cuda.synchronize()
+            assert int(count) == int(wcount) == int(mask.sum())
+            keep = min(int(count), n_out)
+            for o, w in zip(outs, wouts):
+                assert torch.equal(o[:keep], w[:keep])
+
+
+@pytest.mark.parametrize("fn", ["hash_join_radix", "adaptive_join"])
+def test_materialize_on_card_matches_oracle(dev, fn):
+    rng = np.random.default_rng(3)
+    bk = rng.integers(0, 2**64, 300_000, dtype=np.uint64)
+    bk[1_000:1_100] = bk[7]                            # duplicate run
+    bk[:2] = M64
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 400_000),
+                         rng.integers(0, 2**64, 600_000, dtype=np.uint64)])
+    uniq, first = np.unique(bk, return_index=True)     # min build row wins
+    pos = np.searchsorted(uniq, pk).clip(max=uniq.size - 1)
+    hit = uniq[pos] == pk
+    count, secs, keys, vals, info = ft.join_materialize(
+        bk, bv, pk, strategy="adaptive" if fn == "adaptive_join"
+        else "partitioned", return_arrays=True, return_info=True)
+    assert count == getattr(ft, fn)(bk, bv, pk)[0] == int(hit.sum())
+    assert info["strategy"] == "partitioned" and not info["retried"]
+    assert info["launches"]["range_probe_materialize"] == 1
+    assert info["launches"]["compact"] == 1 and secs > 0.0
+    np.testing.assert_array_equal(keys, pk[hit])       # probe order
+    np.testing.assert_array_equal(vals, bv[first[pos[hit]]])
+    count, _, info = ft.hash_join_count_radix(bk, bv, pk, return_info=True)
+    assert count == int(hit.sum())
+    assert info["launches"]["range_probe_count"] == 1

@@ -161,3 +161,72 @@ def test_sorted_runs_build_rows_lead_each_run():
     # a matched probe row carries the FIRST build value of its run
     vals = dict(zip(orig[match].tolist(), bvl[match].tolist()))
     assert vals == {0: 90, 1: 50, 3: 50}
+
+
+def _materialize_both(bk, bv, pk, nb_valid=None, np_valid=None):
+    """(port rows, JAX rows): (count, keys, values) of the [:count]
+    prefixes, in each package's (hash, key) output order."""
+    nbv = len(bk) if nb_valid is None else nb_valid
+    npv = len(pk) if np_valid is None else np_valid
+    planes = _merge_args(bk, bv, pk)
+    got = tmj.merge_join_materialize(*(_t(p) for p in planes), nbv, npv)
+    want = jmj.merge_join_materialize(*(jnp.asarray(p) for p in planes),
+                                      nbv, npv)
+    c, jc = int(got[0]), int(want[0])
+    assert got[0].dtype == torch.int64
+    assert all(o.dtype == torch.int32 and o.numel() == len(pk)
+               for o in got[1:])
+    return ((c, tu64.to_numpy_u64(got[1], got[2], c),
+             tu64.to_numpy_u64(got[3], got[4], c)),
+            (jc, ju64.join_u64(np.asarray(want[1]), np.asarray(want[2]))[:jc],
+             ju64.join_u64(np.asarray(want[3]), np.asarray(want[4]))[:jc]))
+
+
+def _min_row_pairs(bk, bv, pk):
+    """numpy oracle: matched (key, value) pairs, minimum-build-row winner,
+    sorted."""
+    uniq, first = np.unique(bk, return_index=True)
+    pos = np.searchsorted(uniq, pk).clip(max=uniq.size - 1)
+    hit = uniq[pos] == pk
+    keys, vals = pk[hit], bv[first[pos[hit]]]
+    order = np.lexsort((vals, keys))
+    return keys[order], vals[order]
+
+
+@pytest.mark.parametrize("nb,npr", [(2_000, 6_000), (50, 5_000)])
+def test_merge_join_materialize_unique_keys_matches_jax(nb, npr):
+    rng = np.random.default_rng(nb + npr)
+    bk = np.unique(rng.integers(0, 2**64, nb, dtype=np.uint64))
+    bk[-1] = np.uint64(2**64 - 1)
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, npr // 2),
+                         rng.integers(0, 2**64, npr - npr // 2,
+                                      dtype=np.uint64)])
+    (c, keys, vals), (jc, jkeys, jvals) = _materialize_both(bk, bv, pk)
+    assert c == jc == oracle_count(bk, pk)
+    # same (hash, key) order in both packages: equal row for row
+    np.testing.assert_array_equal(keys, jkeys)
+    np.testing.assert_array_equal(vals, jvals)
+    order = np.lexsort((vals, keys))
+    for g, w in zip((keys[order], vals[order]), _min_row_pairs(bk, bv, pk)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_merge_join_materialize_duplicates_and_padding():
+    rng = np.random.default_rng(12)
+    bk = rng.integers(0, 500, 3_000, dtype=np.uint64)
+    bk[9] = np.uint64(2**64 - 1)
+    bv = rng.integers(0, 2**63, 3_000, dtype=np.uint64)
+    pk = rng.integers(0, 700, 8_000, dtype=np.uint64)
+    pk[5] = np.uint64(2**64 - 1)
+    bk[2_500:] = pk[0]                                  # pad rows that
+    pk[7_000:] = bk[0]                                  # would match
+    (c, keys, vals), (jc, jkeys, _) = _materialize_both(
+        bk, bv, pk, nb_valid=2_500, np_valid=7_000)
+    assert c == jc == oracle_count(bk[:2_500], pk[:7_000])
+    np.testing.assert_array_equal(np.sort(keys), np.sort(jkeys))
+    # the port's winner is the minimum build row of each key
+    order = np.lexsort((vals, keys))
+    for g, w in zip((keys[order], vals[order]),
+                    _min_row_pairs(bk[:2_500], bv[:2_500], pk[:7_000])):
+        np.testing.assert_array_equal(g, w)
