@@ -9,11 +9,14 @@ Phases, one JSON line each on stdout:
               from the checkout's csrc/ (seconds, ptxas register report).
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               card (exact): K1/K2 at every bitmap rung the dense path uses;
-              K3/K4/K5 at build sizes 0, 1, 5, 2e7 and probe sizes 0, 7,
+              K3/K4/K5 at build sizes 0, 1, 5, 2e6 and probe sizes 0, 7,
               3e7+5, misaligned views, np_valid < npr, the u64-max key on
-              both sides, K5 with 2, 3 and 4 planes.  Then each kernel and
-              its plain version timed (CUDA events, median of 5 after a
-              warm-up) on its path's own inputs.
+              both sides, K5 with 2, 3 and 4 planes; K7 at v_rows 8, 16,
+              64, 128 and K8 at 256, 1024, 8192, each with 1 and 2 value
+              planes, and K9, at sizes 0, 7 and 3e7+5 with misaligned,
+              odd-length views and a sentinel tail (np_valid < npr).  Then
+              each kernel and its plain version timed (CUDA events, median
+              of 5 after a warm-up) on its path's own inputs.
   3. main     adaptive_join_count(device="cuda") on the db-benchmark J1
               cells: 4e7 Q1, Q2, Q5 (j1_suite seed 0), bench.py's 4e7 case
               (default_rng(2026)) and 1e8 Q5.  Each count must equal the
@@ -30,11 +33,21 @@ Phases, one JSON line each on stdout:
               join_count(strategy="partitioned"), beside phase 3's direct.
   7. fallback a sparse 64-bit case through the exact merge join, count and
               materialize, beside the partitioned tier on the same input.
-Phases 3-5 time a warm-up and then the best of the following runs:
+  8. dense_mat  dense-domain materialize: J1 1e7 Q2 (K7 at v_rows 128),
+              4e7 Q1 and Q2, 1e8 Q1 and Q2 (1e8 Q2: K9 + K8 at v_rows
+              1024) through adaptive_join and join_materialize(
+              return_arrays=True): count and probe-order rows equal the
+              oracle, route "direct" with no retry, K7 or K9 + K8, and K5
+              launched; the same cell through strategy="partitioned"
+              beside it.  Then a wide-value cell (u64 values, 2 value
+              planes) at the 4e7 Q2 shape, where direct, partitioned and
+              merge must agree with the oracle.
+Phases 3-5 and 8 time a warm-up and then the best of the following runs:
 core_seconds (device time), wall seconds, probe rows/s, peak device bytes.
-The kernel counts are set to 0 just before each of phases 3, 4 and 5 and
-read just after.  Then the kernels summary, the card's name and power
-limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
+The kernel counts are set to 0 just before each of phases 3, 4, 5 and 8
+and read just after.  Then the seconds of each phase, the kernels
+summary, the card's name and power limit as nvidia-smi prints them, and
+last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and the last line is
 not printed.  Without a CUDA card, or outside a checkout, it exits 1
@@ -61,13 +74,19 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             "bitmap_probe": PALLAS + "bitmap_probe.py:149",
             "range_probe_count": PALLAS + "range_probe.py:330",
             "range_probe_materialize": PALLAS + "range_probe.py:368",
-            "compact": PALLAS + "stream_compact.py:337"}
+            "compact": PALLAS + "stream_compact.py:337",
+            "probe_gather_bitmap": PALLAS + "bitmap_probe.py:96",
+            "probe_gather_staged": PALLAS + "dense_values.py:135",
+            "materialize_copy": PALLAS + "dense_values.py:48"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "dense_bitmap": ("fused_bitmap_join", "dense_bitmap.cu"),
     "bitmap_probe": ("probe_count_bitmap", "bitmap_probe.cu"),
     "range_probe_count": ("range_probe_count", "range_probe.cu"),
     "range_probe_materialize": ("range_probe_materialize", "range_probe.cu"),
-    "compact": ("compact_by_mask", "stream_compact.cu")}
+    "compact": ("compact_by_mask", "stream_compact.cu"),
+    "probe_gather_bitmap": ("probe_gather_bitmap", "bitmap_probe.cu"),
+    "probe_gather_staged": ("probe_gather_staged", "dense_values.cu"),
+    "materialize_copy": ("materialize_copy", "dense_values.cu")}
 
 
 def emit(phase: str, **fields) -> None:
@@ -101,14 +120,25 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def paired_ms(kernel, plain) -> tuple[list, list]:
+    """([kernel ms] * 2, [plain ms] * 2) timed plain, kernel, kernel,
+    plain: the first and last bracket any drift of the card's clock within
+    the call."""
+    first = cuda_ms(plain)
+    ms = [cuda_ms(kernel), cuda_ms(kernel)]
+    return ms, [first, cuda_ms(plain)]
+
+
 def zero_launches() -> None:
     from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
     from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+    from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
     for fn in (dbm.fused_bitmap_join, bp.probe_count_bitmap,
                rp.range_probe_count, rp.range_probe_materialize,
-               sc.compact_by_mask):
+               sc.compact_by_mask, bp.probe_gather_bitmap,
+               dv.probe_gather_staged, dv.materialize_copy):
         fn.launches = 0
 
 
@@ -129,8 +159,13 @@ def oracle(name: str, c):
     wins among duplicate keys (np.unique's stable return_index)."""
     if name not in _ORACLE:
         uniq, first = np.unique(c.build_keys, return_index=True)
-        pos = np.searchsorted(uniq, c.probe_keys)
-        np.minimum(pos, uniq.size - 1, out=pos)
+        # search the probes in sorted order, then put the positions back in
+        # probe order: 5x faster than random searches at 1e7 build keys
+        order = np.argsort(c.probe_keys)
+        found = np.searchsorted(uniq, c.probe_keys[order])
+        np.minimum(found, uniq.size - 1, out=found)
+        pos = np.empty_like(found)
+        pos[order] = found
         hit = uniq[pos] == c.probe_keys
         _ORACLE[name] = (hit, c.build_values[first[pos[hit]]])
     return _ORACLE[name]
@@ -297,7 +332,7 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         err["compact"] = max(err["compact"], e)
         cases += 1
 
-    for nb in (0, 1, 5, 20_000_000):
+    for nb in (0, 1, 5, 2_000_000):
         bk = rng.integers(0, 2**64, nb, dtype=np.uint64)
         bk[: min(nb, 2)] = M64                         # u64-max key
         dups = min(nb // 2, 1000)                      # duplicate runs
@@ -372,11 +407,7 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     }
     summary = {}
     for name, (kernel, plain) in runs.items():
-        # plain, kernel, kernel, plain: the first and last of each pair
-        # bracket any drift of the card's clock within the call
-        plain_ms = cuda_ms(plain)
-        ms = [cuda_ms(kernel), cuda_ms(kernel)]
-        plain_ms = [plain_ms, cuda_ms(plain)]
+        ms, plain_ms = paired_ms(kernel, plain)
         summary[name] = dict(max_abs_err=err[name], ms=min(ms),
                              plain_ms=min(plain_ms),
                              at="J1 1e8 Q5 (1e8 build x 1e8 probe rows)")
@@ -385,6 +416,123 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     del table, ph, pl, hit, mvh, mvl, cols
     torch.cuda.empty_cache()
     return summary
+
+
+def dense_inputs(c, dev):
+    """The dense materialize path's kernel inputs for a cell, computed on
+    the card as ops/direct_bitmap.direct_join_materialize computes them:
+    (v_rows, build domain indices, occupied-slot mask, value planes, probe
+    domain indices)."""
+    from flash_hash_join_tpu_torch.ops import direct_bitmap as db
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes
+    bk, bv, pk = c.build_keys, c.build_values, c.probe_keys
+    v_rows = db.v_rows_for(int(bk.max() - bk.min()) + 1)
+    kh, kl = device_planes(bk, dev)
+    vh, vl = device_planes(bv, dev)
+    ph, pl = device_planes(pk, dev)
+    lo, _, bidx, occ, planes = db._dense_value_planes(
+        kh, kl, vh, vl, len(bk), v_rows=v_rows,
+        narrow_values=int(bv.max()) < 2**32)
+    pidx = db._probe_idx(ph, pl, len(pk), lo, v_rows * db.LANES)
+    return v_rows, bidx, occ, planes, pidx
+
+
+def phase_dense_kernels(cells: dict) -> dict:
+    """K7/K8/K9 == plain at every rung, edge sizes and views; then each
+    timed against its plain version on the dense_mat cells' inputs."""
+    import torch
+    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
+    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+    from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+    from flash_hash_join_tpu_torch.utils.u64 import to_device
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    err = {"probe_gather_bitmap": 0, "probe_gather_staged": 0,
+           "materialize_copy": 0}
+    cases = 0
+
+    def check(name, got, want):
+        nonlocal cases
+        err[name] = max(err[name], *(_max_abs(g, w)
+                                     for g, w in zip(got, want)))
+        cases += 1
+
+    def planes(rows, n):
+        return tuple(to_device(rng.integers(0, 2**32, (rows, 128),
+                                            dtype=np.uint32), dev)
+                     for _ in range(n))
+
+    sizes = (0, 7, 30_000_005)
+    for v_rows in (8, 16, 64, 128, 256, 1024, 8192):
+        v_slots = v_rows * 128
+        d_rows = max(8, v_rows // 32)
+        bitmap, = planes(d_rows, 1)
+        presence = to_device(rng.integers(0, 2, (v_rows, 128),
+                                          dtype=np.uint32), dev)
+        vplanes = planes(v_rows, 2)
+        for n in sizes:
+            idx = random_indices(rng, n + 1, v_slots + v_slots // 8, dev)
+            idx[-6:] = -1                  # the tail past np_valid
+            for view in (idx[:n], idx[1:]):                # misaligned
+                for k in (1, 2):
+                    if v_rows <= 128:
+                        args = (bitmap, vplanes[:k], view, d_rows, v_rows)
+                        check("probe_gather_bitmap",
+                              bp.probe_gather_bitmap(*args),
+                              bp.probe_gather_bitmap_plain(*args))
+                    else:
+                        args = ((presence, *vplanes[:k]), view, v_rows)
+                        check("probe_gather_staged",
+                              dv.probe_gather_staged(*args),
+                              dv.probe_gather_staged_plain(*args))
+            del idx
+    for n in sizes:
+        x = to_device(rng.integers(0, 2**32, n + 3, dtype=np.uint32), dev)
+        # aligned, misaligned by 4 and 12 bytes, odd length
+        for view in (x[:n], x[1:n + 1], x[3:], x[2:n + 1]):
+            check("materialize_copy", (dv.materialize_copy(view),),
+                  (dv.materialize_copy_plain(view),))
+    torch.cuda.synchronize()
+    require(all(e == 0 for e in err.values()), f"kernel != plain: {err}")
+    emit("kernels_vs_plain", kernels=list(err), max_abs_err=err, cases=cases,
+         tolerance="exact (hit masks and u32 planes)")
+
+    timing = {}
+    for name in ("1e7-Q2", "4e7-Q1", "4e7-Q2", "1e8-Q1", "1e8-Q2"):
+        v_rows, bidx, occ, vplanes, pidx = dense_inputs(cells[name], dev)
+        runs = {}
+        if v_rows <= 128:
+            d_rows = max(8, v_rows // 32)
+            args = (dbm.pack_bitmap(bidx, d_rows), vplanes, pidx, d_rows,
+                    v_rows)
+            runs["probe_gather_bitmap"] = (
+                lambda: bp.probe_gather_bitmap(*args),
+                lambda: bp.probe_gather_bitmap_plain(*args))
+        else:
+            copied = dv.materialize_copy(pidx)
+            staged = ((occ.to(torch.int32).view(v_rows, 128), *vplanes),
+                      copied, v_rows)
+            runs["materialize_copy"] = (
+                lambda: (dv.materialize_copy(pidx),),
+                lambda: (dv.materialize_copy_plain(pidx),))
+            runs["probe_gather_staged"] = (
+                lambda: dv.probe_gather_staged(*staged),
+                lambda: dv.probe_gather_staged_plain(*staged))
+        for kernel, (run, plain) in runs.items():
+            check(kernel, run(), plain())
+            require(err[kernel] == 0, f"{kernel} {name}: kernel != plain")
+            ms, plain_ms = paired_ms(run, plain)
+            timing[kernel, name] = dict(ms=min(ms), plain_ms=min(plain_ms))
+            emit("kernel_time", cell=name, kernel=kernel, v_rows=v_rows,
+                 n_planes=len(vplanes), npr=pidx.numel(), ms=ms,
+                 plain_ms=plain_ms)
+        del bidx, occ, vplanes, pidx, runs
+        torch.cuda.empty_cache()
+    at = {"probe_gather_bitmap": ("1e7-Q2", "J1 1e7 Q2, v_rows 128"),
+          "probe_gather_staged": ("1e8-Q2", "J1 1e8 Q2, v_rows 1024"),
+          "materialize_copy": ("1e8-Q2", "J1 1e8 Q2, 1e8 indices")}
+    return {k: dict(max_abs_err=err[k], **timing[k, cell], at=where)
+            for k, (cell, where) in at.items()}
 
 
 def _timed_runs(fn, c, reps: int):
@@ -413,7 +561,7 @@ def phase_main(cells: dict) -> tuple[dict, dict]:
         c = cells[name]
         torch.cuda.reset_peak_memory_stats()
         best, wall, runs, (count, _, info) = _timed_runs(
-            ft.adaptive_join_count, c, reps=3)
+            ft.adaptive_join_count, c, reps=2)
         require(count == want[name],
                 f"{name}: count {count} != oracle {want[name]}")
         require(info["strategy"] == "direct" and not info["retried"],
@@ -542,6 +690,79 @@ def phase_fallback(c) -> None:
              materialize_launches=minfo["launches"])
 
 
+def dense_mat_cell(name: str, c) -> None:
+    """Drive one dense cell through adaptive_join (timed) and
+    join_materialize(return_arrays=True), checked against the oracle, then
+    the same cell through strategy="partitioned" beside it."""
+    import torch
+    import flash_hash_join_tpu_torch as ft
+    from flash_hash_join_tpu_torch.ops import direct_bitmap as db
+    want = int(oracle(name, c)[0].sum())
+    torch.cuda.reset_peak_memory_stats()
+    best, wall, runs, (count, _, info) = _timed_runs(ft.adaptive_join, c,
+                                                     reps=2)
+    peak = torch.cuda.max_memory_allocated()
+    require(count == want, f"dense_mat {name}: count {count} != {want}")
+    require(info["strategy"] == "direct" and not info["retried"],
+            f"dense_mat {name}: routed {info}")
+    staged = info["d_rows"] > db.MAT_SCAN_MAX_V_ROWS
+    kernels = (("materialize_copy", "probe_gather_staged") if staged
+               else ("probe_gather_bitmap",)) + ("compact",)
+    require(all(info["launches"][k] > 0 for k in kernels),
+            f"dense_mat {name}: kernels not launched: {info}")
+    count, _, keys, vals, minfo = ft.join_materialize(
+        c.build_keys, c.build_values, c.probe_keys, device="cuda",
+        return_arrays=True, return_info=True)
+    require(count == want and minfo["strategy"] == "direct"
+            and not minfo["retried"], f"dense_mat {name}: rows {minfo}")
+    check_rows(name, c, keys, vals, probe_order=True)
+    npr = len(c.probe_keys)
+    emit("dense_mat", cell=name, fn="adaptive_join", nb=len(c.build_keys),
+         npr=npr, count=count, oracle=want, strategy=info["strategy"],
+         v_rows=info["d_rows"], launches=info["launches"], core_seconds=best,
+         probe_rows_per_s=npr / best, wall_seconds=wall,
+         core_seconds_runs=runs, peak_device_bytes=peak,
+         peak_bytes_per_probe_row=peak / npr)
+    part = partitioned_cell("dense_mat", name, c, "join_materialize",
+                            materialize=True, strategy="partitioned")
+    emit("dense_mat_summary", cell=name, v_rows=info["d_rows"],
+         direct_core_seconds=best,
+         partitioned_core_seconds=part["core_seconds"],
+         partitioned_over_direct=part["core_seconds"] / best,
+         direct_wall_seconds=wall, partitioned_wall_seconds=part[
+             "wall_seconds"], direct_peak_bytes=peak,
+         partitioned_peak_bytes=part["peak_device_bytes"])
+
+
+def phase_dense_mat(cells: dict) -> dict:
+    import flash_hash_join_tpu_torch as ft
+    zero_launches()
+    for name in ("1e7-Q2", "4e7-Q1", "4e7-Q2", "1e8-Q1", "1e8-Q2"):
+        dense_mat_cell(name, cells[name])
+    # u64 values (two value planes) at the 4e7 Q2 shape: every strategy
+    # equals the oracle (merge emits (hash, key) order: sorted pairs)
+    name = "4e7-Q2-wide"
+    c = cells[name]
+    want = int(oracle(name, c)[0].sum())
+    for strategy in ("direct", "partitioned", "merge"):
+        count, secs, keys, vals, info = ft.join_materialize(
+            c.build_keys, c.build_values, c.probe_keys, strategy=strategy,
+            device="cuda", return_arrays=True, return_info=True)
+        require(count == want and info["strategy"] == strategy
+                and not info["retried"], f"{name} {strategy}: {count} != "
+                f"{want}, {info}")
+        require(strategy != "direct"
+                or info["launches"]["probe_gather_staged"] > 0,
+                f"{name}: K8 not launched: {info}")
+        check_rows(name, c, keys, vals, probe_order=strategy != "merge")
+        emit("dense_mat_wide", cell=name, strategy=strategy, count=count,
+             oracle=want, v_rows=info["d_rows"], core_seconds=secs,
+             launches=info["launches"])
+    return require_launched("dense_mat", ("probe_gather_bitmap",
+                                          "probe_gather_staged",
+                                          "materialize_copy", "compact"))
+
+
 def make_cells() -> dict:
     from flash_hash_join_tpu_torch.models.workload import (
         JoinCase, j1_suite, uniform_case)
@@ -553,8 +774,14 @@ def make_cells() -> dict:
                      rng.integers(0, 2**63, n, dtype=np.uint64),
                      rng.integers(0, int(n * 1.1), n, dtype=np.uint64))
     x1, x2, x5 = j1_suite(100_000_000, seed=0)
+    y2 = j1_suite(10_000_000, seed=0)[1]
+    wide = JoinCase("4e7-Q2-wide", q2.build_keys,
+                    np.random.default_rng(7).integers(
+                        0, 2**64, len(q2.build_keys), dtype=np.uint64),
+                    q2.probe_keys)
     return {"4e7-Q1": q1, "4e7-Q2": q2, "4e7-Q5": q5, "bench-4e7": bench,
-            "1e8-Q1": x1, "1e8-Q2": x2, "1e8-Q5": x5,
+            "1e8-Q1": x1, "1e8-Q2": x2, "1e8-Q5": x5, "1e7-Q2": y2,
+            "4e7-Q2-wide": wide,
             "uniform-1e7x1e8": uniform_case(10_000_000, 100_000_000, 0.5),
             "uniform-1e6x1e7": uniform_case(1_000_000, 10_000_000, 0.05)}
 
@@ -572,18 +799,34 @@ def main() -> int:
               "smoke run needs an NVIDIA card", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    phase_env()
-    cells = make_cells()
-    emit("data", seconds=time.perf_counter() - t0)
-    summary = phase_kernels(cells)
-    summary.update(phase_partitioned_kernels(cells))
-    launches, direct_core = phase_main(cells)
-    radix = phase_radix(cells)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    phase("env", phase_env)
+    cells = phase("data", make_cells)
+    emit("data", seconds=seconds["data"])
+    summary = phase("kernels", phase_kernels, cells)
+    summary.update(phase("partitioned_kernels", phase_partitioned_kernels,
+                         cells))
+    summary.update(phase("dense_kernels", phase_dense_kernels, cells))
+    launches, direct_core = phase("main", phase_main, cells)
+    radix = phase("radix", phase_radix, cells)
     for k in ("range_probe_count", "range_probe_materialize", "compact"):
         launches[k] = radix[k]
-    phase_adaptive(cells)
-    phase_direct_vs_partitioned(cells, direct_core)
-    phase_fallback(cells["uniform-1e6x1e7"])
+    phase("adaptive", phase_adaptive, cells)
+    phase("direct_vs_partitioned", phase_direct_vs_partitioned, cells,
+          direct_core)
+    phase("fallback", phase_fallback, cells["uniform-1e6x1e7"])
+    dense = phase("dense_mat", phase_dense_mat, cells)
+    for k in ("probe_gather_bitmap", "probe_gather_staged",
+              "materialize_copy"):
+        launches[k] = dense[k]
+    emit("seconds", total=time.perf_counter() - t0, **seconds)
     src = "flash_hash_join_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
         {"name": wrapper, "route": "cuda", "source": src + source,

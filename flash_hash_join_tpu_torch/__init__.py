@@ -5,7 +5,7 @@ kernels (csrc/):
   * count: `adaptive_join_count`, `hash_join_count_radix` and `join_count`
     with strategy "adaptive", "direct", "partitioned" or "merge";
   * materialize: `adaptive_join`, `hash_join_radix` and `join_materialize`
-    with strategy "adaptive", "partitioned" or "merge".
+    with strategy "adaptive", "direct", "partitioned" or "merge".
 It imports neither jax nor the JAX package, which stays in the repository
 as the reference the tests hold this package against.
 
@@ -29,4 +29,4 @@ from flash_hash_join_tpu_torch.api import (  # noqa: F401
     plan_strategy,
 )
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

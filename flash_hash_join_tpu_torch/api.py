@@ -7,20 +7,26 @@ copy is made and synchronised first, then the join's device work and the
 read-back of the count are timed with CUDA events on the card
 (perf_counter on the CPU).  Materialize with return_arrays also returns
 the matched (probe_key, value) rows as uint64 numpy arrays, read back
-outside core_seconds; return_info appends a dict (strategy, d_rows,
-retried, kernel launches).
+outside core_seconds; return_info appends a dict (strategy, d_rows —
+the direct rung: bitmap rows of a count, value-plane rows of a
+materialize —, retried, kernel launches).
 
-Routing of the adaptive plan: count of a dense domain -> `direct` (build
-keys below 2^32 spanning at most MAX_XL_DOMAIN_BITS slots; bitmap
-kernels); everything else -> `partitioned` (sorted range table, K3/K4,
-and K5 for materialize).  Dense-domain materialize (K7/K8) is not ported
-yet, so adaptive materialize of dense keys runs `partitioned`.  The JAX
-package's extra gates between direct and partitioned (probe-count floor,
-the 2^19 scan cap, large_span_ok / large_span_wins) were measured on a
-TPU v5e and return once measured on the H100.  A nonzero special[3]
-(build rows the strategy could not place) reruns the join on `merge`, so
-every result is exact.  Output order: partitioned emits probe order,
-merge (hash, key) order; the row multiset is the same.
+Routing of the adaptive plan, decided on the host from the numpy keys:
+a dense domain -> `direct`.  Count: build keys below 2^32 spanning at
+most MAX_XL_DOMAIN_BITS slots (bitmap kernels K1/K2).  Materialize: build
+keys below 2^32, at most MAX_BUILD_ROWS (2^20) build rows and
+v_rows_for(span) <= MAT_MAX_V_ROWS (span <= 2^20 slots; value-plane
+kernels K7, or K9 + K8, then K5), with one value plane when every build
+value is below 2^32.  Everything else -> `partitioned` (sorted range
+table, K3/K4, and K5 for materialize).  An explicit strategy="direct"
+outside those bounds raises ValueError.  The JAX package's extra gates
+between direct and partitioned (probe-count floors, the 2^19 scan cap,
+large_span_ok / large_span_wins, mat_wins, mat_span_ok) were measured on
+a TPU v5e or size its kernels' windows; the perf gates return once
+measured on the H100.  A nonzero special[3] (build rows the strategy
+could not place) reruns the join on `merge`, so every result is exact.
+Output order: direct and partitioned emit probe order, merge (hash, key)
+order; the row multiset is the same.
 
 `device` defaults to "cuda"; asking for CUDA where it is unavailable
 raises.  device="cpu" runs the kernels' plain PyTorch versions.
@@ -39,6 +45,7 @@ from flash_hash_join_tpu_torch.ops import direct_bitmap as db
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
 from flash_hash_join_tpu_torch.utils import u64
@@ -72,7 +79,10 @@ def launch_counts() -> dict:
             "bitmap_probe": bp.probe_count_bitmap.launches,
             "range_probe_count": rp.range_probe_count.launches,
             "range_probe_materialize": rp.range_probe_materialize.launches,
-            "compact": sc.compact_by_mask.launches}
+            "compact": sc.compact_by_mask.launches,
+            "probe_gather_bitmap": bp.probe_gather_bitmap.launches,
+            "probe_gather_staged": dv.probe_gather_staged.launches,
+            "materialize_copy": dv.materialize_copy.launches}
 
 
 def _timed(fn, args, dev: torch.device):
@@ -95,17 +105,39 @@ def _timed(fn, args, dev: torch.device):
     return out, count, bad, time.perf_counter() - t0
 
 
-def _graph(mode: str, strategy: str, d_rows: int = 0):
+def _graph(mode: str, strategy: str, rung: int = 0,
+           narrow_values: bool = False):
+    """The join function; rung is the direct strategy's d_rows (count) or
+    v_rows (materialize)."""
     if mode == "count":
-        return engine.count_graph(strategy, d_rows)
+        return engine.count_graph(strategy, rung)
+    if strategy == "direct":
+        return engine.materialize_graph(strategy, rung, narrow_values)
     return engine.materialize_graph(strategy)
+
+
+def _dense_rung(mode: str, build_keys: np.ndarray,
+                build_values: np.ndarray) -> tuple[int, bool]:
+    """(rung, narrow_values) of the direct strategy for these build
+    columns, rung 0 when the keys are not a dense domain the direct
+    kernels take."""
+    bk_max = int(build_keys.max())
+    span = bk_max - int(build_keys.min()) + 1
+    if bk_max >= 2**32:
+        return 0, False
+    if mode == "count":
+        return (db.d_rows_for(span) if span <= db.MAX_XL_DOMAIN_BITS
+                else 0), False
+    v_rows = db.v_rows_for(span)
+    if build_keys.shape[0] > db.MAX_BUILD_ROWS or v_rows > db.MAT_MAX_V_ROWS:
+        return 0, False
+    return v_rows, int(build_values.max()) < 2**32
 
 
 def _run_join(build_keys, build_values, probe_keys, *, mode: str,
               strategy: str, device, return_arrays: bool = False,
               return_info: bool = False):
-    if strategy not in STRATEGIES or (mode, strategy) == ("materialize",
-                                                          "direct"):
+    if strategy not in STRATEGIES:
         _graph(mode, strategy)             # raises: unported or unknown
     dev = _device(device)
     build_keys = _as_u64(build_keys)
@@ -132,17 +164,19 @@ def _run_join(build_keys, build_values, probe_keys, *, mode: str,
         if strategy == "adaptive":
             strategy = plan.strategy
 
-    # Dense-domain upgrade of a count, decided host-side from the numpy keys.
-    d_rows = 0
-    if mode == "count" and requested in ("adaptive", "direct"):
-        bk_max = int(build_keys.max())
-        span = bk_max - int(build_keys.min()) + 1
-        if bk_max < 2**32 and span <= db.MAX_XL_DOMAIN_BITS:
-            strategy, d_rows = "direct", db.d_rows_for(span)
+    # Dense-domain upgrade, decided host-side from the numpy keys.
+    rung, narrow_values = 0, False
+    if requested in ("adaptive", "direct"):
+        rung, narrow_values = _dense_rung(mode, build_keys, build_values)
+        if rung:
+            strategy = "direct"
         elif requested == "direct":
             raise ValueError(
-                "direct strategy requires build keys < 2^32 spanning at most "
-                f"{db.MAX_XL_DOMAIN_BITS} slots (got max {bk_max}, span {span})")
+                "direct strategy requires build keys < 2^32 with a dense "
+                f"domain (count: span <= {db.MAX_XL_DOMAIN_BITS} slots; "
+                f"materialize: at most {db.MAX_BUILD_ROWS} build rows, span "
+                f"<= {db.MAT_MAX_V_ROWS * db.LANES} slots) (got nb={nb}, max "
+                f"{int(build_keys.max())}, min {int(build_keys.min())})")
 
     args = [*u64.device_planes(build_keys, dev),
             *u64.device_planes(build_values, dev),
@@ -151,8 +185,8 @@ def _run_join(build_keys, build_values, probe_keys, *, mode: str,
         torch.cuda.synchronize(dev)
 
     before = launch_counts()
-    out, count, bad, core_seconds = _timed(_graph(mode, strategy, d_rows),
-                                           args, dev)
+    out, count, bad, core_seconds = _timed(
+        _graph(mode, strategy, rung, narrow_values), args, dev)
     retried = bad != 0 and strategy != "merge"
     if retried:
         strategy = "merge"
@@ -165,7 +199,7 @@ def _run_join(build_keys, build_values, probe_keys, *, mode: str,
         return result
     after = launch_counts()
     return result + (dict(
-        strategy=strategy, d_rows=d_rows if strategy == "direct" else 0,
+        strategy=strategy, d_rows=rung if strategy == "direct" else 0,
         retried=retried, nb=nb, npr=npr,
         launches={k: after[k] - before[k] for k in after}),)
 
@@ -268,9 +302,10 @@ def join_count(build_keys, build_values, probe_keys, *, strategy="adaptive",
 def join_materialize(build_keys, build_values, probe_keys, *,
                      strategy="adaptive", device="cuda",
                      return_arrays: bool = False, return_info: bool = False):
-    """Materialize with an explicit strategy: "adaptive", "partitioned" or
-    "merge" ("direct" raises until K7/K8 are ported).  return_arrays adds
-    the matched (probe_key, value) rows as uint64 numpy arrays."""
+    """Materialize with an explicit strategy: "adaptive", "direct",
+    "partitioned" or "merge" ("direct" raises ValueError when the build
+    keys are not a dense domain it takes).  return_arrays adds the matched
+    (probe_key, value) rows as uint64 numpy arrays."""
     return _run_join(build_keys, build_values, probe_keys,
                      mode="materialize", strategy=strategy, device=device,
                      return_arrays=return_arrays, return_info=return_info)

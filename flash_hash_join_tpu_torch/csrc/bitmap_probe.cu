@@ -25,6 +25,22 @@
 //  * 16-byte index loads.  Each thread keeps its own hit count, so one
 //    warp-shuffle block reduction and one 64-bit atomicAdd per block finish
 //    the count.
+//
+// K7: membership plus value gather, the scan band of the dense-domain
+// materialize.  Replaces flash_hash_join_tpu/ops/pallas/bitmap_probe.py:
+// probe_gather_bitmap (kernel body _gather_kernel): per unsorted probe index,
+// the 0/1 hit of its bitmap bit and the 1-2 dense value planes at its slot
+// (row idx >> 7, lane idx & 127 of a (v_rows, 128) plane, i.e. word idx);
+// an index at or past v_rows * 128 reads 0, as the TPU kernel's row scan
+// matches no row for it.
+//
+// What bounds it: per probe 4 B read and 5-9 B written, so device-memory
+// bandwidth, once the bitmap (4 KB in the scan band) and the planes (at
+// most 2 x 64 KB at v_rows = 128) sit in dynamic shared memory.  The TPU
+// kernel scans all v_rows value rows per tile (a lane gather and a
+// row-match select each), so its cost grows with v_rows; here every probe
+// reads its own word, one thread per probe, and the grid is capped at the
+// blocks that fit on the card so each block stages the planes once.
 #include "common.cuh"
 
 namespace {
@@ -45,6 +61,41 @@ bitmap_probe_smem_kernel(const uint32_t* __restrict__ bitmap, int n_words,
   });
   const unsigned long long total = fhj::block_sum(hits);
   if (threadIdx.x == 0 && total) atomicAdd(count, total);
+}
+
+// Copies n32 words (a multiple of 4, 16-byte aligned) into shared memory.
+__device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* __restrict__ src,
+                                      int n32) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  for (int i = threadIdx.x; i < n32 / 4; i += blockDim.x) d[i] = __ldg(s + i);
+}
+
+// K7: hit flag and the value planes at each probe's slot.  Shared memory
+// holds the bitmap, then plane 0, then plane 1 (when p1 is given).
+__global__ void __launch_bounds__(fhj::kThreads)
+bitmap_gather_kernel(const uint32_t* __restrict__ bitmap, int n_words,
+                     const uint32_t* __restrict__ p0, const uint32_t* __restrict__ p1,
+                     int v_slots, const uint32_t* __restrict__ idx, int64_t n,
+                     uint8_t* __restrict__ hit, uint32_t* __restrict__ o0,
+                     uint32_t* __restrict__ o1) {
+  extern __shared__ uint4 smem[];
+  uint32_t* bm = reinterpret_cast<uint32_t*>(smem);
+  uint32_t* s0 = bm + n_words;
+  uint32_t* s1 = s0 + v_slots;
+  stage(bm, bitmap, n_words);
+  stage(s0, p0, v_slots);
+  if (p1) stage(s1, p1, v_slots);
+  __syncthreads();
+  const uint32_t n_bits = (uint32_t)n_words * 32u;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const uint32_t v = __ldg(idx + i);
+    const bool inside = v < (uint32_t)v_slots;
+    hit[i] = v < n_bits ? (uint8_t)fhj::bit_of(bm[v >> 5], v) : (uint8_t)0;
+    o0[i] = inside ? s0[v] : 0u;
+    if (p1) o1[i] = inside ? s1[v] : 0u;
+  }
 }
 
 }  // namespace
@@ -68,6 +119,29 @@ int fhj_bitmap_probe_count(const uint32_t* bitmap, int d_rows,
   if (e != cudaSuccess) return (int)e;
   bitmap_probe_smem_kernel<<<grid, fhj::kThreads, smem, stream>>>(bitmap, n_words, idx,
                                                                   n, count);
+  return (int)cudaGetLastError();
+}
+
+// bitmap: d_rows * 128 words; p0 and p1 (p1 may be null): v_rows * 128 words
+// each; all 16-byte aligned, and bitmap plus planes at most the block's
+// shared memory.  Writes hit[i], o0[i] and (with p1) o1[i] for every
+// i < n on `stream` (no launch when n == 0).  Returns cudaGetLastError().
+int fhj_bitmap_probe_gather(const uint32_t* bitmap, int d_rows, const uint32_t* p0,
+                            const uint32_t* p1, int v_rows, const uint32_t* idx,
+                            int64_t n, uint8_t* hit, uint32_t* o0, uint32_t* o1,
+                            cudaStream_t stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int n_words = d_rows * 128;
+  const int v_slots = v_rows * 128;
+  const size_t smem = (size_t)(n_words + v_slots * (p1 ? 2 : 1)) * sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(
+      bitmap_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int grid = 0;
+  e = fhj::grid_for(bitmap_gather_kernel, n, smem, &grid, 1);
+  if (e != cudaSuccess) return (int)e;
+  bitmap_gather_kernel<<<grid, fhj::kThreads, smem, stream>>>(bitmap, n_words, p0, p1,
+                                                              v_slots, idx, n, hit, o0, o1);
   return (int)cudaGetLastError();
 }
 

@@ -65,14 +65,15 @@ def count_graph(strategy: str, d_rows: int = 0):
     return _unported(strategy)
 
 
-def materialize_graph(strategy: str):
-    """The materialize function of a strategy."""
+def materialize_graph(strategy: str, v_rows: int = 0,
+                      narrow_values: bool = False):
+    """The materialize function of a strategy; v_rows is the direct rung,
+    narrow_values drops the direct value planes' hi word."""
+    if strategy == "direct":
+        return functools.partial(db.direct_join_materialize, v_rows=v_rows,
+                                 narrow_values=narrow_values)
     if strategy == "partitioned":
         return rt.range_join_materialize
     if strategy == "merge":
         return merge_materialize_graph
-    if strategy == "direct":
-        raise NotImplementedError(
-            "direct (dense-domain) materialize is not ported yet: it needs "
-            "kernels K7/K8 (ROADMAP.md Queue 1 item 5)")
     return _unported(strategy)

@@ -34,6 +34,12 @@ _SIGNATURES = {
     "fhj_fused_bitmap_join": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
     # bitmap, d_rows, idx, n, count, stream
     "fhj_bitmap_probe_count": [_P, _I, _P, _I64, _P, _P],
+    # bitmap, d_rows, p0, p1, v_rows, idx, n, hit, o0, o1, stream
+    "fhj_bitmap_probe_gather": [_P, _I, _P, _P, _I, _P, _I64, _P, _P, _P, _P],
+    # presence, p0, p1, v_rows, idx, n, hit, o0, o1, stream
+    "fhj_staged_gather": [_P, _P, _P, _I, _P, _I64, _P, _P, _P, _P],
+    # src, dst, n, stream
+    "fhj_materialize_copy": [_P, _P, _I64, _P],
     # keys, nb, ph, pl, np, count, stream
     "fhj_range_probe_count": [_P, _I64, _P, _P, _I64, _P, _P],
     # keys, nb, tvh, tvl, ph, pl, n, np_valid, hit, vh, vl, stream

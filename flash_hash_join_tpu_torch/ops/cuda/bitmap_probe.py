@@ -1,13 +1,18 @@
-"""K2: membership count in a small bitmap (csrc/bitmap_probe.cu).
+"""K2 and K7: probes of a small bitmap (csrc/bitmap_probe.cu).
 
-Replaces flash_hash_join_tpu/ops/pallas/bitmap_probe.py:probe_count_bitmap,
-the scan band of the dense-domain count (d_rows <= 256, spans <= 2^20).
-The TPU kernel scans every bitmap row per tile; the CUDA kernel stages the
-bitmap in shared memory and reads each probe's word directly.
+K2 replaces flash_hash_join_tpu/ops/pallas/bitmap_probe.py:
+probe_count_bitmap, the scan band of the dense-domain count (d_rows <= 256,
+spans <= 2^20).  K7 replaces probe_gather_bitmap, the scan band of the
+dense-domain materialize (v_rows <= 128): the hit flag plus the dense value
+planes at each probe's slot.  The TPU kernels scan every bitmap (and value)
+row per tile; the CUDA kernels stage the bitmap (and the planes) in shared
+memory and read each probe's word directly.
 
 Bitmap: (d_rows, 128) int32 words, word w = idx >> 5 holds bit idx & 31.
+Value planes: (v_rows, 128) int32 words, slot s at word s.
 Indices: 1-D int32 tensor of u32 bit patterns, sentinel 0xFFFFFFFF (= -1);
-any index >= d_rows * 4096 counts nothing.
+any index >= d_rows * 4096 counts nothing, any index >= v_rows * 128 reads
+value 0.
 """
 
 from __future__ import annotations
@@ -20,12 +25,35 @@ from flash_hash_join_tpu_torch.utils.u64 import widen
 LANES = 128
 BITS_PER_ROW = 32 * LANES          # 4096 domain slots per bitmap row
 MAX_D_ROWS = 256                   # 2^20-slot domain cap (128 KB of shared memory)
+MAX_SMEM_BYTES = 232_448           # dynamic shared memory of one block (H100)
 
 
 def check_idx(idx: torch.Tensor, name: str) -> None:
     if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 1-D int32 tensor, got "
                          f"{idx.dtype} of shape {tuple(idx.shape)}")
+
+
+def check_plane(plane: torch.Tensor, rows: int, name: str,
+                dev: torch.device) -> None:
+    """A (rows, 128) contiguous int32 tensor on dev, 16-byte aligned on a
+    card (the kernels read it with 16-byte loads)."""
+    if (plane.dtype != torch.int32 or tuple(plane.shape) != (rows, LANES)
+            or not plane.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous ({rows}, {LANES}) "
+                         f"int32 tensor, got {plane.dtype} "
+                         f"{tuple(plane.shape)}")
+    if plane.device != dev:
+        raise ValueError(f"{name} and idx must be on one device")
+    if dev.type == "cuda" and plane.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def gather_slots(planes, idx: torch.Tensor, take: torch.Tensor):
+    """Plain gather: each plane's word at every index where `take` holds, 0
+    elsewhere (the value half of K7's and K8's plain versions)."""
+    pos = torch.where(take, widen(idx), 0)
+    return tuple(torch.where(take, p.reshape(-1)[pos], 0) for p in planes)
 
 
 def member(bitmap: torch.Tensor, idx: torch.Tensor, d_rows: int) -> torch.Tensor:
@@ -51,21 +79,13 @@ def probe_count_bitmap(bitmap: torch.Tensor, idx: torch.Tensor,
     """
     if not 8 <= d_rows <= MAX_D_ROWS:
         raise ValueError(f"d_rows must be in [8, {MAX_D_ROWS}], got {d_rows}")
-    if (bitmap.dtype != torch.int32 or tuple(bitmap.shape) != (d_rows, LANES)
-            or not bitmap.is_contiguous()):
-        raise ValueError(f"bitmap must be a contiguous ({d_rows}, {LANES}) "
-                         f"int32 tensor, got {bitmap.dtype} "
-                         f"{tuple(bitmap.shape)}")
     check_idx(idx, "idx")
     dev = idx.device
-    if bitmap.device != dev:
-        raise ValueError("bitmap and idx must be on one device")
+    check_plane(bitmap, d_rows, "bitmap", dev)
     if dev.type == "cpu":
         return probe_count_bitmap_plain(bitmap, idx, d_rows)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if bitmap.data_ptr() % 16:
-        raise ValueError("bitmap must be 16-byte aligned")
     count = torch.zeros(1, dtype=torch.int64, device=dev)
     if idx.numel() == 0:
         return count[0]
@@ -79,3 +99,55 @@ def probe_count_bitmap(bitmap: torch.Tensor, idx: torch.Tensor,
 
 
 probe_count_bitmap.launches = 0
+
+
+def probe_gather_bitmap_plain(bitmap: torch.Tensor, vplanes, idx: torch.Tensor,
+                              d_rows: int, v_rows: int):
+    """Plain PyTorch version of K7: (hit bool, *values int32)."""
+    inside = widen(idx) < v_rows * LANES
+    return (member(bitmap, idx, d_rows), *gather_slots(vplanes, idx, inside))
+
+
+def probe_gather_bitmap(bitmap: torch.Tensor, vplanes, idx: torch.Tensor,
+                        d_rows: int, v_rows: int):
+    """Per index: (hit, *values) — a bool mask of the indices whose bit is
+    set, and each of the 1 or 2 value planes' word at the index (0 at or
+    past v_rows * 128), as int32 tensors shaped like idx.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    """
+    vplanes = tuple(vplanes)
+    check_idx(idx, "idx")
+    dev = idx.device
+    if not 1 <= len(vplanes) <= 2:
+        raise ValueError(f"1 or 2 value planes, got {len(vplanes)}")
+    check_plane(bitmap, d_rows, "bitmap", dev)
+    for i, p in enumerate(vplanes):
+        check_plane(p, v_rows, f"vplanes[{i}]", dev)
+    smem = 4 * LANES * (d_rows + len(vplanes) * v_rows)
+    if d_rows < 1 or v_rows < 1 or smem > MAX_SMEM_BYTES:
+        raise ValueError(f"bitmap and planes must fit {MAX_SMEM_BYTES} bytes "
+                         f"of shared memory (d_rows {d_rows}, v_rows {v_rows}, "
+                         f"{len(vplanes)} planes)")
+    if dev.type == "cpu":
+        return probe_gather_bitmap_plain(bitmap, vplanes, idx, d_rows, v_rows)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n = idx.numel()
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
+                 for _ in vplanes)
+    if n == 0:
+        return (hit, *outs)
+    ptrs = [p.data_ptr() for p in vplanes] + [None]
+    out_ptrs = [o.data_ptr() for o in outs] + [None]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.lib().fhj_bitmap_probe_gather(
+        bitmap.data_ptr(), d_rows, ptrs[0], ptrs[1], v_rows, idx.data_ptr(), n,
+        hit.data_ptr(), out_ptrs[0], out_ptrs[1], stream)
+    probe_gather_bitmap.launches += 1
+    _build.check(err, "probe_gather_bitmap")
+    return (hit, *outs)
+
+
+probe_gather_bitmap.launches = 0

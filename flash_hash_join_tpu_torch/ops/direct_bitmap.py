@@ -1,16 +1,19 @@
-"""Direct-address bitmap count join for dense narrow key domains (port of
-the count half of flash_hash_join_tpu/ops/direct_bitmap.py).
+"""Direct-address joins for dense narrow key domains, count and
+materialize (port of flash_hash_join_tpu/ops/direct_bitmap.py).
 
 When the build keys are dense integers (db-benchmark J1), a count join is
 membership counting: count = |{p : p in domain bitmap}| under first-match
 semantics (each probe row counts at most once, whatever the build-side
-duplicates).
+duplicates), and a materialize reads each hit's value from a dense plane
+indexed by the same domain slot.
 
 Split of work:
   host (api.py): detects the dense domain from the numpy inputs (max <
-    2^32, span <= MAX_XL_DOMAIN_BITS) and picks the d_rows rung.
-  this module (torch, on the device): lo = min valid build key, the
-    lo-relative u32 domain indices of both sides, and the kernels:
+    2^32; count: span <= MAX_XL_DOMAIN_BITS, materialize: at most
+    MAX_BUILD_ROWS build rows and v_rows_for(span) <= MAT_MAX_V_ROWS) and
+    picks the d_rows (count) or v_rows (materialize) rung.
+  this module (torch, on the device): lo, the lo-relative u32 domain
+    indices of both sides, and the kernels.  Count:
       scan band  (d_rows <= 256): bitmap packed in plain torch, as the JAX
                  package packs it outside any kernel; K2 probe
                  (ops/cuda/bitmap_probe.py).
@@ -19,23 +22,37 @@ Split of work:
                  windows and the density gates that size them
                  (sort_block_for, large_span_ok) exist only for the TPU
                  kernel's row window and are not ported.
+    Materialize (value planes at slot granularity, built in plain torch
+    as the JAX package builds them outside any kernel):
+      scan band   (v_rows <= 128): K7 (ops/cuda/bitmap_probe.py) on
+                  unsorted probes.
+      staged band (v_rows <= 8192): K9 copy of the probe indices, then K8
+                  (ops/cuda/dense_values.py) on them, unsorted.  The JAX
+                  band's one-column probe sort, `sels` window and `rs`
+                  starts, keys pass-through and density gate (mat_span_ok)
+                  exist only for the TPU kernel's window and are not ported.
+    Both bands end in K5 (ops/compact.py) and emit probe order; the JAX
+    staged band emits ascending domain order (same row multiset).
 
 Exactness: build rows that do not fit the declared domain (key hi-word
-!= 0, or lo-relative index >= d_rows*4096) are counted into special[3],
-and the caller reruns on the always-exact merge path.  K1 has no window,
-so special[3] counts nothing else.  Probe keys outside the domain are
-provably matchless and contribute zero.
+!= 0, or lo-relative index past the rung's slots) are counted into
+special[3], and the caller reruns on the always-exact merge path.  No
+kernel here has a window, so special[3] counts nothing else.  Probe keys
+outside the domain are provably matchless and contribute zero.
 """
 
 from __future__ import annotations
 
 import torch
 
+from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
 from flash_hash_join_tpu_torch.utils.u64 import MASK32, narrow, widen
 
 SENTINEL = 0xFFFFFFFF
+LANES = bp.LANES
 
 # Domain cap of the scan band: 2^20 slots = 256 bitmap rows.
 MAX_DOMAIN_BITS = bp.MAX_D_ROWS * bp.BITS_PER_ROW   # 2^20
@@ -51,6 +68,14 @@ MAX_XL_D_ROWS = 28672
 MAX_XL_DOMAIN_BITS = MAX_XL_D_ROWS * bp.BITS_PER_ROW  # 117,440,512
 XL_STEP_ROWS = 4096
 
+# Materialize: value planes of v_rows rows of 128 slots.  K7 stages its
+# planes in shared memory up to 128 rows (2 x 64 KB); K8 reads them through
+# L2 up to 8192 rows (2^20 slots, 4 MB per plane).  The build side is
+# capped at 2^20 rows, as in the JAX package.
+MAT_SCAN_MAX_V_ROWS = 128
+MAT_MAX_V_ROWS = dv.MAX_V_ROWS
+MAX_BUILD_ROWS = 1 << 20
+
 
 def d_rows_for(span: int) -> int:
     """Bitmap rows for a key span: pow2 through MAX_LARGE_D_ROWS, then
@@ -61,6 +86,16 @@ def d_rows_for(span: int) -> int:
         r *= 2
     if need > r:
         r = -(-need // XL_STEP_ROWS) * XL_STEP_ROWS
+    return r
+
+
+def v_rows_for(span: int) -> int:
+    """Value-plane rows for a key span: pow2 rows of 128 slots, at least 8
+    (same rungs as the JAX package)."""
+    need = -(-max(span, 1) // LANES)
+    r = 8
+    while r < need:
+        r *= 2
     return r
 
 
@@ -127,3 +162,70 @@ def direct_join_count_large(kh, kl, ph, pl, nb_valid: int, np_valid: int, *,
     pidx = _probe_idx(ph, pl, np_valid, lo, d_bits)
     count, _, _ = dbm.fused_bitmap_join(bidx, pidx, d_rows)  # never unresolved
     return count, _special(n_bad)
+
+
+def _dense_value_planes(kh, kl, vh, vl, nb_valid: int, *, v_rows: int,
+                        narrow_values: bool):
+    """Scatter the build values into dense planes.  Returns (lo, n_bad,
+    build domain indices as int32 bit patterns, occupied-slot mask,
+    value planes: (vl,) when narrow_values, else (vh, vl), each
+    (v_rows, 128) int32).
+
+    Winner on duplicate build keys: the MIN build-row index, as in the JAX
+    package's .at[].min and the port's partitioned and merge tiers."""
+    n = kh.shape[0]
+    v_slots = v_rows * LANES
+    bvalid = torch.arange(n, device=kh.device) < nb_valid
+    # lo is the min over valid rows with a zero hi-word (both bands)
+    lo = _masked_min(widen(kl), bvalid & (kh == 0))
+    n_bad, bidx = _build_idx(kh, kl, bvalid, lo, v_slots)
+    # rows outside the domain land on the extra slot v_slots, which is cut
+    # off (torch's scatter has no mode="drop")
+    slot = widen(bidx).clamp_(max=v_slots)
+    win = torch.full((v_slots + 1,), n, dtype=torch.int64, device=kh.device)
+    win.scatter_reduce_(0, slot, torch.arange(n, device=kh.device), "amin")
+    win = win[:v_slots]
+    # each value column gets a zero row n, which every unoccupied slot reads
+    cols = (vl,) if narrow_values else (vh, vl)
+    planes = tuple(torch.cat([c, c.new_zeros(1)])[win].view(v_rows, LANES)
+                   for c in cols)
+    return lo, n_bad, bidx, win < n, planes
+
+
+def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
+                            np_valid: int, *, v_rows: int,
+                            narrow_values: bool = False):
+    """Dense-domain materialize.  Returns the engine's materialize contract
+    (count, out_kh, out_kl, out_vh, out_vl, special4): the matched probe
+    rows first, in probe order, as int32 bit-pattern planes of the probe
+    side's length (out_vh is zeros when narrow_values).
+
+    v_rows: the value-plane rung (v_rows_for(span)); scan band (K7) up to
+    MAT_SCAN_MAX_V_ROWS, staged band (K9 + K8) up to MAT_MAX_V_ROWS.
+    narrow_values: every value is below 2^32, so the hi plane is dropped.
+    special[3] = build rows outside the domain (caller must fall back when
+    nonzero).
+    """
+    if not 8 <= v_rows <= MAT_MAX_V_ROWS:
+        raise ValueError(f"v_rows must be in [8, {MAT_MAX_V_ROWS}], got "
+                         f"{v_rows}")
+    v_slots = v_rows * LANES
+    lo, n_bad, bidx, occ, planes = _dense_value_planes(
+        kh, kl, vh, vl, nb_valid, v_rows=v_rows, narrow_values=narrow_values)
+    pidx = _probe_idx(ph, pl, np_valid, lo, v_slots)
+    if v_rows <= MAT_SCAN_MAX_V_ROWS:
+        d_rows = max(8, v_rows // 32)
+        bitmap = dbm.pack_bitmap(bidx, d_rows)
+        hit, *vals = bp.probe_gather_bitmap(bitmap, planes, pidx, d_rows,
+                                            v_rows)
+    else:
+        # the JAX package's fusion-barrier copy, kept on the path (K9)
+        pidx = dv.materialize_copy(pidx)
+        presence = occ.to(torch.int32).view(v_rows, LANES)
+        hit, *vals = dv.probe_gather_staged((presence, *planes), pidx, v_rows)
+    if narrow_values:
+        count, (okh, okl, ovl) = compact_by_mask(hit, (ph, pl, *vals))
+        ovh = torch.zeros_like(ovl)
+    else:
+        count, (okh, okl, ovh, ovl) = compact_by_mask(hit, (ph, pl, *vals))
+    return count, okh, okl, ovh, ovl, _special(n_bad)

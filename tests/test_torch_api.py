@@ -82,7 +82,8 @@ def test_dense_span_above_2_20_runs_the_large_band():
     # CPU tensors take the plain versions: no kernel launches here
     assert set(info["launches"]) == {
         "dense_bitmap", "bitmap_probe", "range_probe_count",
-        "range_probe_materialize", "compact"}
+        "range_probe_materialize", "compact", "probe_gather_bitmap",
+        "probe_gather_staged", "materialize_copy"}
     assert set(info["launches"].values()) == {0}
 
 
@@ -198,9 +199,8 @@ def test_join_count_rejects_what_it_cannot_run():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ft.join_materialize(pk[:100], bv, pk, strategy=unported,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="K7/K8"):
-        ft.join_materialize(pk[:100], bv, pk, strategy="direct",
-                            device="cpu")
+    with pytest.raises(ValueError):
+        ft.join_materialize(wide, bv, pk, strategy="direct", device="cpu")
     with pytest.raises(ValueError):
         ft.join_count(pk[:100], bv, pk, strategy="nope", device="cpu")
 
@@ -340,9 +340,9 @@ def test_join_materialize_duplicate_keys():
     assert all(v in runs[k] for k, v in zip(jkeys.tolist(), jvals.tolist()))
 
 
-def test_adaptive_materialize_of_dense_keys_routes_partitioned():
-    # dense-domain materialize (K7/K8) is not ported: the count goes
-    # direct, the materialize partitioned, with the same rows
+def test_adaptive_materialize_of_dense_keys_routes_direct():
+    # dense-domain materialize (K7/K8): the count and the materialize both
+    # go direct, and the rows equal the oracle's in probe order
     case = twl.j1_suite(100_000, seed=3)[1]
     bk, bv, pk = case.build_keys, case.build_values, case.probe_keys
     count, _, cinfo = ft.adaptive_join_count(bk, bv, pk, device="cpu",
@@ -351,7 +351,26 @@ def test_adaptive_materialize_of_dense_keys_routes_partitioned():
         bk, bv, pk, device="cpu", return_arrays=True, return_info=True)
     assert count == mcount == oracle_count(bk, pk)
     assert cinfo["strategy"] == "direct"
-    assert minfo["strategy"] == "partitioned"
+    assert minfo["strategy"] == "direct" and not minfo["retried"]
+    for g, w in zip((keys, vals), _min_row_rows(bk, bv, pk)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_adaptive_materialize_of_dense_keys_routes_partitioned():
+    # dense keys spanning more than the value planes' 2^20 slots: the count
+    # still goes direct (bitmap up to MAX_XL_DOMAIN_BITS), the materialize
+    # partitioned, with the oracle's rows in probe order
+    rng = np.random.default_rng(3)
+    bk = rng.integers(0, 3_000_000, 50_000, dtype=np.uint64)
+    bv = rng.integers(1, 101, bk.size, dtype=np.uint64)
+    pk = rng.integers(0, 3_300_000, 100_000, dtype=np.uint64)
+    count, _, cinfo = ft.adaptive_join_count(bk, bv, pk, device="cpu",
+                                             return_info=True)
+    mcount, _, keys, vals, minfo = ft.join_materialize(
+        bk, bv, pk, device="cpu", return_arrays=True, return_info=True)
+    assert count == mcount == oracle_count(bk, pk)
+    assert cinfo["strategy"] == "direct"
+    assert minfo["strategy"] == "partitioned" and not minfo["retried"]
     for g, w in zip((keys, vals), _min_row_rows(bk, bv, pk)):
         np.testing.assert_array_equal(g, w)
 

@@ -20,6 +20,7 @@ import flash_hash_join_tpu_torch as ft
 from flash_hash_join_tpu_torch.ops import range_table as rt
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
 from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
@@ -197,3 +198,87 @@ def test_materialize_on_card_matches_oracle(dev, fn):
     count, _, info = ft.hash_join_count_radix(bk, bv, pk, return_info=True)
     assert count == int(hit.sum())
     assert info["launches"]["range_probe_count"] == 1
+
+
+# ---- dense-domain materialize: K7, K8, K9 -----------------------------------
+
+def _planes(rng, v_rows, n_planes, dev):
+    return tuple(to_device(rng.integers(0, 2**32, (v_rows, 128),
+                                        dtype=np.uint32), dev)
+                 for _ in range(n_planes))
+
+
+def _assert_same(got, want):
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("v_rows", [8, 16, 64, 128])
+@pytest.mark.parametrize("n_planes", [1, 2])
+def test_probe_gather_bitmap_matches_plain(dev, v_rows, n_planes):
+    rng = np.random.default_rng(v_rows + n_planes)
+    d_rows = max(8, v_rows // 32)
+    bitmap = _planes(rng, d_rows, 1, dev)[0]
+    vplanes = _planes(rng, v_rows, n_planes, dev)
+    for n in (0, 7, 1_000_003):
+        idx = _idx(rng, n + 1, 2 * v_rows * 128, dev)
+        for view in (idx[:n], idx[1:]):                 # aligned, misaligned
+            before = bp.probe_gather_bitmap.launches
+            got = bp.probe_gather_bitmap(bitmap, vplanes, view, d_rows, v_rows)
+            want = bp.probe_gather_bitmap_plain(bitmap, vplanes, view, d_rows,
+                                                v_rows)
+            _assert_same(got, want)
+            assert bp.probe_gather_bitmap.launches == before + (
+                view.numel() > 0)
+
+
+@pytest.mark.parametrize("v_rows", [256, 1024, 8192])
+@pytest.mark.parametrize("n_planes", [1, 2])
+def test_probe_gather_staged_matches_plain(dev, v_rows, n_planes):
+    rng = np.random.default_rng(v_rows + n_planes)
+    presence = to_device(rng.integers(0, 2, (v_rows, 128), dtype=np.uint32),
+                         dev)
+    planes = (presence, *_planes(rng, v_rows, n_planes, dev))
+    for n in (0, 7, 1_000_003):
+        idx = _idx(rng, n + 1, v_rows * 128 + 1_000, dev)
+        for view in (idx[:n], idx[1:]):
+            got = dv.probe_gather_staged(planes, view, v_rows)
+            want = dv.probe_gather_staged_plain(planes, view, v_rows)
+            _assert_same(got, want)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 7, 1_000_003])
+def test_materialize_copy_matches_plain(dev, n):
+    rng = np.random.default_rng(n)
+    x = to_device(rng.integers(0, 2**32, n + 3, dtype=np.uint32), dev)
+    for view in (x[:n], x[1:n + 1], x[2:n + 2], x[3:]):
+        got = dv.materialize_copy(view)
+        assert got.data_ptr() != view.data_ptr() or n == 0
+        _assert_same((got,), (dv.materialize_copy_plain(view),))
+
+
+@pytest.mark.parametrize("span,wide,kernels", [
+    (44, False, ("probe_gather_bitmap",)),             # J1 Q1 shape, v_rows 8
+    (11_000, True, ("probe_gather_bitmap",)),          # v_rows 128, 2 planes
+    (110_000, False, ("materialize_copy", "probe_gather_staged")),
+    (1_000_000, True, ("materialize_copy", "probe_gather_staged"))])
+def test_direct_materialize_on_card_matches_oracle(dev, span, wide, kernels):
+    rng = np.random.default_rng(span)
+    nb = min(span, 100_000)
+    bk = rng.integers(7, 7 + span, nb, dtype=np.uint64)
+    bv = rng.integers(1, 2**64 if wide else 101, nb, dtype=np.uint64)
+    pk = rng.integers(0, span + 20, 2_000_000, dtype=np.uint64)
+    pk[:5] = 2**40 + 9                                 # hi-word probes
+    uniq, first = np.unique(bk, return_index=True)     # min build row wins
+    pos = np.searchsorted(uniq, pk).clip(max=uniq.size - 1)
+    hit = uniq[pos] == pk
+    count, secs, keys, vals, info = ft.join_materialize(
+        bk, bv, pk, return_arrays=True, return_info=True)
+    assert info["strategy"] == "direct" and not info["retried"]
+    for k in kernels + ("compact",):
+        assert info["launches"][k] == 1, info
+    assert count == int(hit.sum()) and secs > 0.0
+    np.testing.assert_array_equal(keys, pk[hit])       # probe order
+    np.testing.assert_array_equal(vals, bv[first[pos[hit]]])
