@@ -14,9 +14,15 @@ Phases, one JSON line each on stdout:
               both sides, K5 with 2, 3 and 4 planes; K7 at v_rows 8, 16,
               64, 128 and K8 at 256, 1024, 8192, each with 1 and 2 value
               planes, and K9, at sizes 0, 7 and 3e7+5 with misaligned,
-              odd-length views and a sentinel tail (np_valid < npr).  Then
-              each kernel and its plain version timed (CUDA events, median
-              of 5 after a warm-up) on its path's own inputs.
+              odd-length views and a sentinel tail (np_valid < npr); K10/K11
+              at every vmem rung (R 8, 16, 64, 128, 512) with a bucket full
+              to its last slot, probe sizes 0, 7, 3e7+5, misaligned views,
+              np_valid < npr and the u64-max key on both sides, and K6 with
+              2, 3 and 4 planes over 520 blocks, all empty, all full and
+              random.  Then each kernel and its plain version timed (CUDA
+              events, median of 5 after a warm-up) on its path's own
+              inputs, beside its bound and, where one PyTorch call computes
+              the same function, that call's time.
   3. main     adaptive_join_count(device="cuda") on the db-benchmark J1
               cells: 4e7 Q1, Q2, Q5 (j1_suite seed 0), bench.py's 4e7 case
               (default_rng(2026)) and 1e8 Q5.  Each count must equal the
@@ -42,12 +48,24 @@ Phases, one JSON line each on stdout:
               beside it.  Then a wide-value cell (u64 values, 2 value
               planes) at the 4e7 Q2 shape, where direct, partitioned and
               merge must agree with the oracle.
-Phases 3-5 and 8 time a warm-up and then the best of the following runs:
-core_seconds (device time), wall seconds, probe rows/s, peak device bytes.
-The kernel counts are set to 0 just before each of phases 3, 4, 5 and 8
-and read just after.  Then the seconds of each phase, the kernels
-summary, the card's name and power limit as nvidia-smi prints them, and
-last {"ok": true, "device": {...}}.
+  9. vmem     join_count / join_materialize(strategy="vmem") on J1 1e8 Q1
+              (R 16) and 4e7 Q2 (R 512): exact rows in probe order, no
+              retry, K10 or K11 + K5 launched; then uniform 1e6 x 1e7, past
+              the tier's 64K slots, which must rerun on merge, exact.
+ 10. global   hash_join_count[_bloom] and hash_join[_bloom] (the global
+              tier) on J1 1e8 Q5 and config #2: exact, no retry, bloom and
+              no bloom agreeing, with the walk iterations per probe chunk.
+ 11. stream_compact  with FHJ_COMPACT=stream: hash_join_radix on J1 1e8 Q2
+              and adaptive_join on J1 1e8 Q1 (direct), rows equal to the
+              oracle's in probe order (as in phases 4 and 8), K6 launched
+              and K5 not.
+Phases 3-5 and 8-11 time a warm-up and then the best of the following
+runs: core_seconds (device time), wall seconds, probe rows/s, peak device
+bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5,
+8, 9 and 11 and read just after.  Then the seconds of each phase, the
+kernels summary (each kernel's launches on its path, error against its
+plain version, times, bound and library time), the card's name and power
+limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and the last line is
 not printed.  Without a CUDA card, or outside a checkout, it exits 1
@@ -77,7 +95,10 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             "compact": PALLAS + "stream_compact.py:337",
             "probe_gather_bitmap": PALLAS + "bitmap_probe.py:96",
             "probe_gather_staged": PALLAS + "dense_values.py:135",
-            "materialize_copy": PALLAS + "dense_values.py:48"}
+            "materialize_copy": PALLAS + "dense_values.py:48",
+            "concat_ragged_blocks": PALLAS + "stream_compact.py:123",
+            "probe_count_vmem": PALLAS + "bucket_probe.py:116",
+            "probe_materialize_vmem": PALLAS + "bucket_probe.py:138"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "dense_bitmap": ("fused_bitmap_join", "dense_bitmap.cu"),
     "bitmap_probe": ("probe_count_bitmap", "bitmap_probe.cu"),
@@ -86,7 +107,24 @@ KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "compact": ("compact_by_mask", "stream_compact.cu"),
     "probe_gather_bitmap": ("probe_gather_bitmap", "bitmap_probe.cu"),
     "probe_gather_staged": ("probe_gather_staged", "dense_values.cu"),
-    "materialize_copy": ("materialize_copy", "dense_values.cu")}
+    "materialize_copy": ("materialize_copy", "dense_values.cu"),
+    "concat_ragged_blocks": ("concat_ragged_blocks", "stream_compact.cu"),
+    "probe_count_vmem": ("probe_count_vmem", "bucket_probe.cu"),
+    "probe_materialize_vmem": ("probe_materialize_vmem", "bucket_probe.cu")}
+# The card's peaks for a kernel's bound (H100 SXM at 700 W): device
+# memory, and the float32 rate outside the tensor cores, taken for
+# integer operations.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take for a kernel's work: the larger
+    of its bytes (each input read once, each output written once) over the
+    memory rate and its operations over the peak rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
 
 
 def emit(phase: str, **fields) -> None:
@@ -132,13 +170,16 @@ def paired_ms(kernel, plain) -> tuple[list, list]:
 def zero_launches() -> None:
     from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
     from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+    from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
     from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
     for fn in (dbm.fused_bitmap_join, bp.probe_count_bitmap,
                rp.range_probe_count, rp.range_probe_materialize,
                sc.compact_by_mask, bp.probe_gather_bitmap,
-               dv.probe_gather_staged, dv.materialize_copy):
+               dv.probe_gather_staged, dv.materialize_copy,
+               sc.concat_ragged_blocks, bkp.probe_count_vmem,
+               bkp.probe_materialize_vmem):
         fn.launches = 0
 
 
@@ -287,13 +328,20 @@ def phase_kernels(cells: dict) -> dict:
                             npr=pidx.numel(), ms=ms, plain_ms=plain_ms)
         emit("kernel_time", cell=name, **timing[name])
         del bidx, pidx
+    # K1 reads both index planes, K2 the probe indices and its bitmap;
+    # about 4 integer operations per index (shift, mask, test or atomic OR)
+    q5, q2 = timing["4e7-Q5"], timing["4e7-Q2"]
     return {"dense_bitmap": dict(max_abs_err=err["dense_bitmap"],
-                                 ms=timing["4e7-Q5"]["ms"],
-                                 plain_ms=timing["4e7-Q5"]["plain_ms"],
+                                 ms=q5["ms"], plain_ms=q5["plain_ms"],
+                                 **bound(4 * (q5["nb"] + q5["npr"]) + 8,
+                                         4 * (q5["nb"] + q5["npr"])),
+                                 library_ms=None,
                                  at="J1 4e7 Q5, d_rows 16384"),
             "bitmap_probe": dict(max_abs_err=err["bitmap_probe"],
-                                 ms=timing["4e7-Q2"]["ms"],
-                                 plain_ms=timing["4e7-Q2"]["plain_ms"],
+                                 ms=q2["ms"], plain_ms=q2["plain_ms"],
+                                 **bound(4 * q2["npr"] + q2["d_rows"] * 512
+                                         + 8, 4 * q2["npr"]),
+                                 library_ms=None,
                                  at="J1 4e7 Q2, d_rows 16")}
 
 
@@ -315,7 +363,8 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     from flash_hash_join_tpu_torch.ops import range_table as rt
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
-    from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
+    from flash_hash_join_tpu_torch.utils.u64 import (device_planes, sortable,
+                                                     to_device)
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     err = {"range_probe_count": 0, "range_probe_materialize": 0,
@@ -393,6 +442,22 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     hit, mvh, mvl = rp.range_probe_materialize(table.keys, table.vh,
                                                table.vl, ph, pl, npr)
     cols = (ph, pl, mvh, mvl)
+    hits = int(hit.sum())
+    # library yardsticks, timed here and used nowhere in the port: one
+    # searchsorted of the probes' sortable keys (computed beforehand), and
+    # one boolean-mask index of the four planes stacked beforehand
+    x, stacked = sortable(ph, pl), torch.stack(cols)
+    searched = cuda_ms(lambda: torch.searchsorted(table.keys, x))
+    library = {"range_probe_count": searched,
+               "range_probe_materialize": searched,
+               "compact": cuda_ms(lambda: stacked[:, hit])}
+    del x, stacked
+    steps = 3 * (nb.bit_length() + 1) + 4     # per probe: the lower bound
+    bounds = {"range_probe_count": bound(8 * nb + 8 * npr + 8, npr * steps),
+              "range_probe_materialize": bound(16 * nb + 17 * npr,
+                                               npr * steps),
+              # the mask, then the hit rows' 4 planes read and written
+              "compact": bound(npr + 32 * hits + 8, 6 * npr)}
     runs = {
         "range_probe_count": (
             lambda: rp.range_probe_count(table.keys, ph, pl, npr),
@@ -409,10 +474,12 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     for name, (kernel, plain) in runs.items():
         ms, plain_ms = paired_ms(kernel, plain)
         summary[name] = dict(max_abs_err=err[name], ms=min(ms),
-                             plain_ms=min(plain_ms),
+                             plain_ms=min(plain_ms), **bounds[name],
+                             library_ms=library[name],
                              at="J1 1e8 Q5 (1e8 build x 1e8 probe rows)")
         emit("kernel_time", cell="1e8-Q5", kernel=name, nb=nb, npr=npr,
-             ms=ms, plain_ms=plain_ms)
+             ms=ms, plain_ms=plain_ms, **bounds[name],
+             library_ms=library[name])
     del table, ph, pl, hit, mvh, mvl, cols
     torch.cuda.empty_cache()
     return summary
@@ -518,14 +585,26 @@ def phase_dense_kernels(cells: dict) -> dict:
             runs["probe_gather_staged"] = (
                 lambda: dv.probe_gather_staged(*staged),
                 lambda: dv.probe_gather_staged_plain(*staged))
+        n, k = pidx.numel(), len(vplanes)
+        bounds = {  # index reads, plane reads, hit and value writes
+            "probe_gather_bitmap": bound(
+                max(8, v_rows // 32) * 512 + k * v_rows * 512 + 5 * n
+                + 4 * k * n, 6 * n),
+            "probe_gather_staged": bound((1 + k) * v_rows * 512 + 5 * n
+                                         + 4 * k * n, 6 * n),
+            "materialize_copy": bound(8 * n, n)}
+        library = ({"materialize_copy": cuda_ms(lambda: pidx.clone())}
+                   if "materialize_copy" in runs else {})
         for kernel, (run, plain) in runs.items():
             check(kernel, run(), plain())
             require(err[kernel] == 0, f"{kernel} {name}: kernel != plain")
             ms, plain_ms = paired_ms(run, plain)
-            timing[kernel, name] = dict(ms=min(ms), plain_ms=min(plain_ms))
+            timing[kernel, name] = dict(ms=min(ms), plain_ms=min(plain_ms),
+                                        **bounds[kernel],
+                                        library_ms=library.get(kernel))
             emit("kernel_time", cell=name, kernel=kernel, v_rows=v_rows,
-                 n_planes=len(vplanes), npr=pidx.numel(), ms=ms,
-                 plain_ms=plain_ms)
+                 n_planes=k, npr=n, ms=ms, plain_ms=plain_ms,
+                 **bounds[kernel], library_ms=library.get(kernel))
         del bidx, occ, vplanes, pidx, runs
         torch.cuda.empty_cache()
     at = {"probe_gather_bitmap": ("1e7-Q2", "J1 1e7 Q2, v_rows 128"),
@@ -590,34 +669,31 @@ def check_rows(name: str, c, keys, vals, probe_order: bool) -> None:
         vals, want_vals), f"{name}: materialized rows differ from the oracle")
 
 
-def partitioned_cell(phase: str, name: str, c, fn_name: str,
-                     materialize: bool, **kw) -> dict:
-    """Drive one partitioned cell through the API function fn_name (with
-    keywords kw): timed runs, then, for a materialize, the rows through
-    join_materialize with the same strategy; every check against the
-    oracle."""
+def api_cell(phase: str, name: str, c, fn_name: str, *, expect: str,
+             kernels=(), rows_kw=None, reps: int = 2, **kw) -> dict:
+    """Drive one cell through the API function fn_name (with keywords kw):
+    timed runs, each count equal to the oracle's, the route `expect` with no
+    retry and every kernel of `kernels` launched; with rows_kw, then the
+    rows through join_materialize(return_arrays=True, **rows_kw), equal to
+    the oracle's in probe order."""
     import functools
     import torch
     import flash_hash_join_tpu_torch as ft
     want = int(oracle(name, c)[0].sum())
     torch.cuda.reset_peak_memory_stats()
     best, wall, runs, (count, _, info) = _timed_runs(
-        functools.partial(getattr(ft, fn_name), **kw), c, reps=2)
+        functools.partial(getattr(ft, fn_name), **kw), c, reps=reps)
     peak = torch.cuda.max_memory_allocated()
     require(count == want, f"{phase} {name} {fn_name}: count {count} != "
             f"oracle {want}")
-    require(info["strategy"] == "partitioned" and not info["retried"],
+    require(info["strategy"] == expect and not info["retried"],
             f"{phase} {name} {fn_name}: routed {info}")
-    kernels = (("range_probe_materialize", "compact") if materialize
-               else ("range_probe_count",))
     require(all(info["launches"][k] > 0 for k in kernels),
             f"{phase} {name} {fn_name}: kernels not launched: {info}")
-    if materialize:
-        strategy = "adaptive" if fn_name == "adaptive_join" \
-            else "partitioned"
+    if rows_kw is not None:
         count, _, keys, vals = ft.join_materialize(
-            c.build_keys, c.build_values, c.probe_keys, strategy=strategy,
-            device="cuda", return_arrays=True)
+            c.build_keys, c.build_values, c.probe_keys, device="cuda",
+            return_arrays=True, **rows_kw)
         require(count == want, f"{phase} {name}: rows {count} != {want}")
         check_rows(name, c, keys, vals, probe_order=True)
     npr = len(c.probe_keys)
@@ -630,6 +706,19 @@ def partitioned_cell(phase: str, name: str, c, fn_name: str,
                   peak_bytes_per_probe_row=peak / npr)
     emit(phase, **fields)
     return fields
+
+
+def partitioned_cell(phase: str, name: str, c, fn_name: str,
+                     materialize: bool, **kw) -> dict:
+    """api_cell on the partitioned tier: K3 for a count; K4 and K5, and the
+    rows with the same strategy, for a materialize."""
+    if not materialize:
+        return api_cell(phase, name, c, fn_name, expect="partitioned",
+                        kernels=("range_probe_count",), **kw)
+    strategy = "adaptive" if fn_name == "adaptive_join" else "partitioned"
+    return api_cell(phase, name, c, fn_name, expect="partitioned",
+                    kernels=("range_probe_materialize", "compact"),
+                    rows_kw=dict(strategy=strategy), **kw)
 
 
 def phase_radix(cells: dict) -> dict:
@@ -763,6 +852,289 @@ def phase_dense_mat(cells: dict) -> dict:
                                           "materialize_copy", "compact"))
 
 
+def bucket_of(keys: np.ndarray) -> np.ndarray:
+    """vmem bucket of numpy u64 keys, through the plain torch hash."""
+    from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes
+    return bkp.probe_buckets(*device_planes(keys, "cpu")).numpy()
+
+
+def bucket_table_for(bk: np.ndarray, bv: np.ndarray, dev, r_slots: int):
+    from flash_hash_join_tpu_torch.ops import bucket_table as bt
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes
+    kh, kl = device_planes(bk, dev)
+    vh, vl = device_planes(bv, dev)
+    return bt.build_bucket_table(kh, kl, vh, vl, len(bk), r_slots=r_slots,
+                                 with_values=True)
+
+
+def phase_bucket_kernels(cells: dict) -> dict:
+    """K10/K11 == plain at every rung, edge sizes and views, and K6 ==
+    plain over 520 blocks; then each timed against its plain version and
+    its library yardstick on the path's own inputs."""
+    import torch
+    from flash_hash_join_tpu_torch.ops import bucket_table as bt
+    from flash_hash_join_tpu_torch.ops import compact as cp
+    from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
+    from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes, sortable
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    err = {"probe_count_vmem": 0, "probe_materialize_vmem": 0,
+           "concat_ragged_blocks": 0}
+    cases = 0
+    for r_slots in (8, 16, 64, 128, 512):
+        # 40 % load from random keys, bucket 0 filled to its last slot
+        bk = rng.integers(0, 2**64, int(0.4 * 128 * r_slots), dtype=np.uint64)
+        cand = rng.integers(0, 2**64, 400 * r_slots, dtype=np.uint64)
+        bk = np.concatenate([bk[bucket_of(bk) != 0],
+                             cand[bucket_of(cand) == 0][:r_slots]])
+        bk[:2] = M64                                   # u64-max key
+        table = bucket_table_for(bk, rng.integers(0, 2**64, bk.size,
+                                                  dtype=np.uint64),
+                                 dev, r_slots)
+        require(int(table.special[3]) == 0
+                and bool((table.tk_hi[:, 0] != -1).all()),
+                f"r_slots {r_slots}: bucket 0 not full, or rows dropped")
+        tables = (table.tk_hi, table.tk_lo)
+        values = (table.tv_hi, table.tv_lo)
+        for npr in (0, 7, 30_000_005):
+            pk = rng.integers(0, 2**64, npr + 1, dtype=np.uint64)
+            pk[1::2] = rng.choice(bk, pk[1::2].size)
+            pk[:4] = M64
+            ph, pl = device_planes(pk, dev)
+            for view in (slice(0, npr), slice(1, None)):  # misaligned
+                p = (ph[view], pl[view])
+                for np_valid in {npr, max(npr - 5, 0)}:
+                    got = bkp.probe_count_vmem(*tables, *p, np_valid)
+                    want = bkp.probe_count_vmem_plain(*tables, *p, np_valid)
+                    err["probe_count_vmem"] = max(
+                        err["probe_count_vmem"], abs(int(got) - int(want)))
+                    args = (*tables, *values, *p, np_valid)
+                    err["probe_materialize_vmem"] = max(
+                        err["probe_materialize_vmem"],
+                        *(_max_abs(g, w) for g, w in zip(
+                            bkp.probe_materialize_vmem(*args),
+                            bkp.probe_materialize_vmem_plain(*args))))
+                    cases += 2
+            del ph, pl
+    gen = torch.Generator(device=dev).manual_seed(3)
+    nblocks, block = 520, cp.DEFAULT_BLOCK_ROWS * cp.LANES
+    for n_planes in (2, 3, 4):
+        planes = [torch.randint(-2**31, 2**31, (nblocks, block), device=dev,
+                                dtype=torch.int32, generator=gen)
+                  for _ in range(n_planes)]
+        for counts in (torch.zeros(nblocks, dtype=torch.int32, device=dev),
+                       torch.full((nblocks,), block, dtype=torch.int32,
+                                  device=dev),
+                       torch.randint(0, block + 1, (nblocks,), device=dev,
+                                     dtype=torch.int32, generator=gen)):
+            total = int(counts.sum())
+            err["concat_ragged_blocks"] = max(
+                err["concat_ragged_blocks"],
+                *(_max_abs(g[:total], w[:total]) for g, w in zip(
+                    sc.concat_ragged_blocks(planes, counts),
+                    sc.concat_ragged_blocks_plain(planes, counts))))
+            cases += 1
+        del planes
+    torch.cuda.synchronize()
+    require(all(e == 0 for e in err.values()), f"kernel != plain: {err}")
+    emit("kernels_vs_plain", kernels=list(err), max_abs_err=err, cases=cases,
+         tolerance="exact (counts, hit masks and u32 planes)")
+
+    timing = {}
+    for name in ("1e8-Q1", "4e7-Q2"):
+        c = cells[name]
+        r_slots = bt.r_slots_for(len(c.build_keys))
+        table = bucket_table_for(c.build_keys, c.build_values, dev, r_slots)
+        ph, pl = device_planes(c.probe_keys, dev)
+        npr = ph.numel()
+        tables = (table.tk_hi, table.tk_lo)
+        mat = (*tables, table.tv_hi, table.tv_lo, ph, pl, npr)
+        # library yardstick for K10: one torch.isin of the probes' sortable
+        # keys (computed beforehand) in the table's non-empty keys
+        x = sortable(ph, pl)
+        keys = sortable(*tables).view(-1)
+        keys = keys[keys != 2**63 - 1]
+        ops = npr * (14 + 4 * (r_slots.bit_length() + 1))  # hash + search
+        runs = {"probe_count_vmem": (
+                    lambda: bkp.probe_count_vmem(*tables, ph, pl, npr),
+                    lambda: bkp.probe_count_vmem_plain(*tables, ph, pl, npr),
+                    lambda: torch.isin(x, keys),
+                    bound(2 * r_slots * 512 + 8 * npr + 8, ops)),
+                "probe_materialize_vmem": (
+                    lambda: bkp.probe_materialize_vmem(*mat),
+                    lambda: bkp.probe_materialize_vmem_plain(*mat), None,
+                    bound(4 * r_slots * 512 + 17 * npr, ops))}
+        for kernel, (run, plain, lib, bnd) in runs.items():
+            got, want = run(), plain()
+            e = (abs(int(got) - int(want)) if kernel == "probe_count_vmem"
+                 else max(_max_abs(g, w) for g, w in zip(got, want)))
+            require(e == 0, f"{kernel} {name}: kernel != plain")
+            ms, plain_ms = paired_ms(run, plain)
+            timing[kernel, name] = dict(
+                ms=min(ms), plain_ms=min(plain_ms), **bnd,
+                library_ms=cuda_ms(lib) if lib else None)
+            emit("kernel_time", cell=name, kernel=kernel, r_slots=r_slots,
+                 npr=npr, ms=ms, plain_ms=plain_ms, **bnd,
+                 library_ms=timing[kernel, name]["library_ms"])
+        del table, ph, pl, x, keys, runs, mat, tables
+        torch.cuda.empty_cache()
+
+    # K6 on the stream route's inputs at 1e8 rows, 4 planes, 60 % hits
+    n = 100_000_000
+    mask = torch.rand(n, device=dev, generator=gen) < 0.6
+    cols = [torch.randint(-2**31, 2**31, (n,), device=dev, dtype=torch.int32,
+                          generator=gen) for _ in range(4)]
+    planes, counts = cp.stream_blocks(mask, cols, n)
+    del mask, cols
+    total = int(counts.sum())
+    got = sc.concat_ragged_blocks(planes, counts)
+    want = sc.concat_ragged_blocks_plain(planes, counts)
+    require(max(_max_abs(g[:total], w[:total]) for g, w in zip(got, want))
+            == 0, "concat_ragged_blocks at 1e8: kernel != plain")
+    del got, want
+    # library yardstick: one boolean-mask index of the stacked planes
+    # (stacked, with the mask of each block's prefix, beforehand)
+    prefix = (torch.arange(planes[0].shape[1], device=dev)
+              < counts[:, None]).view(-1)
+    stacked = torch.stack([p.view(-1) for p in planes])
+    ms, plain_ms = paired_ms(lambda: sc.concat_ragged_blocks(planes, counts),
+                             lambda: sc.concat_ragged_blocks_plain(planes,
+                                                                   counts))
+    bnd = bound(4 * counts.numel() + 32 * total, 8 * total)
+    library_ms = cuda_ms(lambda: stacked[:, prefix])
+    timing["concat_ragged_blocks", "1e8"] = dict(
+        ms=min(ms), plain_ms=min(plain_ms), **bnd, library_ms=library_ms)
+    emit("kernel_time", cell="1e8 rows, 4 planes, 60 % hits",
+         kernel="concat_ragged_blocks", nblocks=counts.numel(), total=total,
+         ms=ms, plain_ms=plain_ms, **bnd, library_ms=library_ms)
+    del planes, counts, prefix, stacked
+    torch.cuda.empty_cache()
+    at = {"probe_count_vmem": ("1e8-Q1", "J1 1e8 Q1, R 16"),
+          "probe_materialize_vmem": ("1e8-Q1", "J1 1e8 Q1, R 16"),
+          "concat_ragged_blocks": ("1e8", "1e8 rows, 4 planes, 60 % hits")}
+    return {k: dict(max_abs_err=err[k], **timing[k, cell], at=where)
+            for k, (cell, where) in at.items()}
+
+
+def phase_vmem(cells: dict) -> dict:
+    """The explicit vmem tier: J1 1e8 Q1 (R 16) and 4e7 Q2 (R 512) count
+    and materialize, exact, no retry, K10 or K11 + K5; then a build of 1e6
+    keys, past the tier's 64K slots, which must rerun on merge, exact."""
+    import flash_hash_join_tpu_torch as ft
+    from flash_hash_join_tpu_torch.ops import bucket_table as bt
+    zero_launches()
+    for name in ("1e8-Q1", "4e7-Q2"):
+        c = cells[name]
+        for fn, kernels, rows_kw in (
+                ("join_count", ("probe_count_vmem",), None),
+                ("join_materialize", ("probe_materialize_vmem", "compact"),
+                 dict(strategy="vmem"))):
+            f = api_cell("vmem", name, c, fn, expect="vmem", kernels=kernels,
+                         rows_kw=rows_kw, strategy="vmem")
+            emit("vmem_rung", cell=name, fn=fn,
+                 r_slots=bt.r_slots_for(f["nb"]))
+    name = "uniform-1e6x1e7"
+    c = cells[name]
+    want = int(oracle(name, c)[0].sum())
+    args = (c.build_keys, c.build_values, c.probe_keys)
+    count, secs, info = ft.join_count(*args, strategy="vmem", device="cuda",
+                                      return_info=True)
+    mcount, msecs, keys, vals, minfo = ft.join_materialize(
+        *args, strategy="vmem", device="cuda", return_arrays=True,
+        return_info=True)
+    for i in (info, minfo):
+        require(i["retried"] and i["strategy"] == "merge",
+                f"vmem overflow cell: routed {i}")
+    require(count == mcount == want, f"vmem overflow: {count}, {mcount} "
+            f"!= oracle {want}")
+    check_rows(name, c, keys, vals, probe_order=False)
+    emit("vmem_overflow", cell=name, count=count, oracle=want,
+         retried=info["retried"], strategy=info["strategy"],
+         core_seconds=secs, materialize_core_seconds=msecs,
+         launches=minfo["launches"])
+    return require_launched("vmem", ("probe_count_vmem",
+                                     "probe_materialize_vmem", "compact"))
+
+
+def global_split(name: str, c) -> None:
+    """Device time of the global count's two halves on a cell, with and
+    without bloom: the table build and the probe walk (CUDA events)."""
+    import torch
+    from flash_hash_join_tpu_torch import engine
+    from flash_hash_join_tpu_torch.ops import hash_table as ht
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes
+    dev = torch.device("cuda")
+    planes = [*device_planes(c.build_keys, dev),
+              *device_planes(c.build_values, dev)]
+    ph, pl = device_planes(c.probe_keys, dev)
+    nb, npr = len(c.build_keys), len(c.probe_keys)
+    cfg = engine.DEFAULT_CONFIG
+    for use_bloom in (False, True):
+        def build():
+            return engine._global_table(*planes, nb, cfg, cfg.group_bits(nb),
+                                        use_bloom)
+        build_ms = cuda_ms(build, reps=3)
+        table, static = build()
+        probe_ms = cuda_ms(lambda: ht.probe_count(table, ph, pl, npr,
+                                                  **static), reps=3)
+        emit("global_split", cell=name, use_bloom=use_bloom,
+             build_ms=build_ms, probe_ms=probe_ms,
+             table_bytes=table.keys.numel() * 8,
+             total_groups=static["total_groups"])
+        del table
+    torch.cuda.empty_cache()
+
+
+def phase_global(cells: dict) -> None:
+    """The global tier (hash_join_count[_bloom], hash_join[_bloom]) on J1
+    1e8 Q5 and config #2: exact, no retry, bloom and no bloom agreeing;
+    with each function's walk iterations over its probe chunks, and the
+    count's build and probe device times."""
+    from flash_hash_join_tpu_torch.ops import hash_table as ht
+    for name in ("1e8-Q5", "uniform-1e7x1e8"):
+        global_split(name, cells[name])
+        counts = {}
+        for fn in ("hash_join_count", "hash_join_count_bloom", "hash_join",
+                   "hash_join_bloom"):
+            ht.walk_stats.update(chunks=0, iterations=0)
+            rows_kw = (None if fn.startswith("hash_join_count") else
+                       dict(strategy="global", use_bloom=fn.endswith("bloom")))
+            f = api_cell("global", name, cells[name], fn, expect="global",
+                         kernels=("compact",) if rows_kw else (),
+                         rows_kw=rows_kw, reps=1)
+            counts[fn] = f["count"]
+            emit("global_walk", cell=name, fn=fn, **ht.walk_stats,
+                 iterations_per_chunk=ht.walk_stats["iterations"]
+                 / ht.walk_stats["chunks"])
+        require(len(set(counts.values())) == 1,
+                f"global {name}: bloom and no bloom disagree: {counts}")
+
+
+def phase_stream_compact(cells: dict) -> dict:
+    """FHJ_COMPACT=stream: hash_join_radix on J1 1e8 Q2 and adaptive_join
+    on J1 1e8 Q1 (routed direct) compact through the blockwise sort and K6;
+    their rows equal the oracle's in probe order, as phases radix and
+    dense_mat found for the K5 route."""
+    import os
+    zero_launches()
+    os.environ["FHJ_COMPACT"] = "stream"
+    api_cell("stream_compact", "1e8-Q2", cells["1e8-Q2"], "hash_join_radix",
+             expect="partitioned",
+             kernels=("range_probe_materialize", "concat_ragged_blocks"),
+             rows_kw=dict(strategy="partitioned"), reps=1)
+    api_cell("stream_compact", "1e8-Q1", cells["1e8-Q1"], "adaptive_join",
+             expect="direct",
+             kernels=("probe_gather_bitmap", "concat_ragged_blocks"),
+             rows_kw=dict(strategy="adaptive"), reps=1)
+    del os.environ["FHJ_COMPACT"]
+    launches = require_launched("stream_compact", ("concat_ragged_blocks",))
+    require(launches["compact"] == 0,
+            f"stream_compact: K5 launched under FHJ_COMPACT=stream: {launches}")
+    return launches
+
+
 def make_cells() -> dict:
     from flash_hash_join_tpu_torch.models.workload import (
         JoinCase, j1_suite, uniform_case)
@@ -814,6 +1186,7 @@ def main() -> int:
     summary.update(phase("partitioned_kernels", phase_partitioned_kernels,
                          cells))
     summary.update(phase("dense_kernels", phase_dense_kernels, cells))
+    summary.update(phase("bucket_kernels", phase_bucket_kernels, cells))
     launches, direct_core = phase("main", phase_main, cells)
     radix = phase("radix", phase_radix, cells)
     for k in ("range_probe_count", "range_probe_materialize", "compact"):
@@ -826,6 +1199,12 @@ def main() -> int:
     for k in ("probe_gather_bitmap", "probe_gather_staged",
               "materialize_copy"):
         launches[k] = dense[k]
+    vmem = phase("vmem", phase_vmem, cells)
+    for k in ("probe_count_vmem", "probe_materialize_vmem"):
+        launches[k] = vmem[k]
+    phase("global", phase_global, cells)
+    stream = phase("stream_compact", phase_stream_compact, cells)
+    launches["concat_ragged_blocks"] = stream["concat_ragged_blocks"]
     emit("seconds", total=time.perf_counter() - t0, **seconds)
     src = "flash_hash_join_tpu_torch/csrc/"
     print(json.dumps({"kernels": [

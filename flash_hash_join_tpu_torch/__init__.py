@@ -2,10 +2,12 @@
 
 This package runs on an NVIDIA H100 (sm_90a) through hand-written CUDA
 kernels (csrc/):
-  * count: `adaptive_join_count`, `hash_join_count_radix` and `join_count`
-    with strategy "adaptive", "direct", "partitioned" or "merge";
-  * materialize: `adaptive_join`, `hash_join_radix` and `join_materialize`
-    with strategy "adaptive", "direct", "partitioned" or "merge".
+  * the reference module's 13 functions: adaptive_join[_count][_bloom],
+    hash_join[_bloom], hash_join_count[_bloom], hash_join_radix[_bloom],
+    hash_join_count_radix[_bloom] and initialize;
+  * `join_count` and `join_materialize` with strategy "adaptive",
+    "direct", "partitioned", "merge", "global" or "vmem";
+  * `plan_strategy`, `bloom_is_distinct` and `launch_counts`.
 It imports neither jax nor the JAX package, which stays in the repository
 as the reference the tests hold this package against.
 
@@ -18,6 +20,11 @@ from flash_hash_join_tpu_torch.api import (  # noqa: F401
     adaptive_join_bloom,
     adaptive_join_count,
     adaptive_join_count_bloom,
+    bloom_is_distinct,
+    hash_join,
+    hash_join_bloom,
+    hash_join_count,
+    hash_join_count_bloom,
     hash_join_count_radix,
     hash_join_count_radix_bloom,
     hash_join_radix,
@@ -29,4 +36,4 @@ from flash_hash_join_tpu_torch.api import (  # noqa: F401
     plan_strategy,
 )
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

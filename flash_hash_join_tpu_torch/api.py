@@ -1,8 +1,9 @@
 """Public API (port of flash_hash_join_tpu/api.py): count and materialize.
 
-Every function takes numpy uint64 arrays (build_keys, build_values,
-probe_keys) — lists and other integer dtypes are coerced — and returns
-`(count, core_seconds)`.  core_seconds is device time: the host->device
+The reference module's 13 functions (12 joins and `initialize`) and the
+extended API.  Every function takes numpy uint64 arrays (build_keys,
+build_values, probe_keys) — lists and other integer dtypes are coerced —
+and returns `(count, core_seconds)`.  core_seconds is device time: the host->device
 copy is made and synchronised first, then the join's device work and the
 read-back of the count are timed with CUDA events on the card
 (perf_counter on the CPU).  Materialize with return_arrays also returns
@@ -23,10 +24,15 @@ outside those bounds raises ValueError.  The JAX package's extra gates
 between direct and partitioned (probe-count floors, the 2^19 scan cap,
 large_span_ok / large_span_wins, mat_wins, mat_span_ok) were measured on
 a TPU v5e or size its kernels' windows; the perf gates return once
-measured on the H100.  A nonzero special[3] (build rows the strategy
-could not place) reruns the join on `merge`, so every result is exact.
-Output order: direct and partitioned emit probe order, merge (hash, key)
-order; the row multiset is the same.
+measured on the H100.  The adaptive plan never picks the explicit tiers,
+as in the JAX package: `global` (hash_join, hash_join_count and their
+_bloom twins, which add the per-group bloom filter; plain torch) and
+`vmem` (bucket table, K10/K11); like `merge` they bypass the feasibility
+plan.  A nonzero special[3] (build rows the strategy could not place:
+bad rows of a direct domain, a full vmem bucket, a chain past the global
+walk's bound) reruns the join on `merge`, so every result is exact.
+Output order: direct, partitioned, global and vmem emit probe order,
+merge (hash, key) order; the row multiset is the same.
 
 `device` defaults to "cuda"; asking for CUDA where it is unavailable
 raises.  device="cpu" runs the kernels' plain PyTorch versions.
@@ -44,6 +50,7 @@ from flash_hash_join_tpu_torch.models.cost import choose_plan, hbm_budget_bytes
 from flash_hash_join_tpu_torch.ops import direct_bitmap as db
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
+from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
@@ -51,7 +58,8 @@ from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
 from flash_hash_join_tpu_torch.utils import u64
 from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG
 
-STRATEGIES = ("adaptive", "direct", "partitioned", "merge")
+STRATEGIES = ("adaptive", "direct", "partitioned", "merge", "global", "vmem")
+EXPLICIT_TIERS = ("global", "vmem")
 
 
 def _device(device) -> torch.device:
@@ -82,7 +90,10 @@ def launch_counts() -> dict:
             "compact": sc.compact_by_mask.launches,
             "probe_gather_bitmap": bp.probe_gather_bitmap.launches,
             "probe_gather_staged": dv.probe_gather_staged.launches,
-            "materialize_copy": dv.materialize_copy.launches}
+            "materialize_copy": dv.materialize_copy.launches,
+            "probe_count_vmem": bkp.probe_count_vmem.launches,
+            "probe_materialize_vmem": bkp.probe_materialize_vmem.launches,
+            "concat_ragged_blocks": sc.concat_ragged_blocks.launches}
 
 
 def _timed(fn, args, dev: torch.device):
@@ -106,14 +117,15 @@ def _timed(fn, args, dev: torch.device):
 
 
 def _graph(mode: str, strategy: str, rung: int = 0,
-           narrow_values: bool = False):
+           narrow_values: bool = False, **tier):
     """The join function; rung is the direct strategy's d_rows (count) or
-    v_rows (materialize)."""
+    v_rows (materialize); tier holds n_build and use_bloom of an explicit
+    tier."""
     if mode == "count":
-        return engine.count_graph(strategy, rung)
+        return engine.count_graph(strategy, rung, **tier)
     if strategy == "direct":
         return engine.materialize_graph(strategy, rung, narrow_values)
-    return engine.materialize_graph(strategy)
+    return engine.materialize_graph(strategy, **tier)
 
 
 def _dense_rung(mode: str, build_keys: np.ndarray,
@@ -135,10 +147,11 @@ def _dense_rung(mode: str, build_keys: np.ndarray,
 
 
 def _run_join(build_keys, build_values, probe_keys, *, mode: str,
-              strategy: str, device, return_arrays: bool = False,
-              return_info: bool = False):
+              strategy: str, device, use_bloom: bool = False,
+              return_arrays: bool = False, return_info: bool = False):
     if strategy not in STRATEGIES:
-        _graph(mode, strategy)             # raises: unported or unknown
+        raise ValueError(f"unknown strategy {strategy!r}; one of "
+                         f"{STRATEGIES}")
     dev = _device(device)
     build_keys = _as_u64(build_keys)
     build_values = _as_u64(build_values)
@@ -178,6 +191,8 @@ def _run_join(build_keys, build_values, probe_keys, *, mode: str,
                 f"<= {db.MAT_MAX_V_ROWS * db.LANES} slots) (got nb={nb}, max "
                 f"{int(build_keys.max())}, min {int(build_keys.min())})")
 
+    tier = (dict(n_build=nb, use_bloom=use_bloom)
+            if strategy in EXPLICIT_TIERS else {})
     args = [*u64.device_planes(build_keys, dev),
             *u64.device_planes(build_values, dev),
             *u64.device_planes(probe_keys, dev), nb, npr]
@@ -186,7 +201,7 @@ def _run_join(build_keys, build_values, probe_keys, *, mode: str,
 
     before = launch_counts()
     out, count, bad, core_seconds = _timed(
-        _graph(mode, strategy, rung, narrow_values), args, dev)
+        _graph(mode, strategy, rung, narrow_values, **tier), args, dev)
     retried = bad != 0 and strategy != "merge"
     if retried:
         strategy = "merge"
@@ -200,13 +215,14 @@ def _run_join(build_keys, build_values, probe_keys, *, mode: str,
     after = launch_counts()
     return result + (dict(
         strategy=strategy, d_rows=rung if strategy == "direct" else 0,
-        retried=retried, nb=nb, npr=npr,
+        retried=retried, use_bloom=use_bloom, nb=nb, npr=npr,
         launches={k: after[k] - before[k] for k in after}),)
 
 
 # --- reference-parity API (flash_hash_join_tpu/api.py:441-498) -------------
-# The `_bloom` variants equal their plain twins: bloom changes only the
-# global-table strategy, which is not ported and which no plan here picks.
+# Bloom changes only the `global` strategy (hash_join*_bloom), which the
+# adaptive plan never picks, so the adaptive and radix `_bloom` variants
+# equal their plain twins, as in the JAX package.
 
 def adaptive_join(build_keys, build_values, probe_keys, *, device="cuda",
                   return_info: bool = False):
@@ -236,6 +252,39 @@ def adaptive_join_count_bloom(build_keys, build_values, probe_keys, *,
                               device="cuda", return_info: bool = False):
     return adaptive_join_count(build_keys, build_values, probe_keys,
                                device=device, return_info=return_info)
+
+
+def hash_join(build_keys, build_values, probe_keys, *, device="cuda",
+              return_info: bool = False):
+    """Materialize on the global hash table; returns (count,
+    core_seconds)."""
+    return _run_join(build_keys, build_values, probe_keys,
+                     mode="materialize", strategy="global", device=device,
+                     return_info=return_info)
+
+
+def hash_join_bloom(build_keys, build_values, probe_keys, *, device="cuda",
+                    return_info: bool = False):
+    """hash_join with the per-group bloom filter."""
+    return _run_join(build_keys, build_values, probe_keys,
+                     mode="materialize", strategy="global", use_bloom=True,
+                     device=device, return_info=return_info)
+
+
+def hash_join_count(build_keys, build_values, probe_keys, *, device="cuda",
+                    return_info: bool = False):
+    """Count on the global hash table; returns (count, core_seconds)."""
+    return _run_join(build_keys, build_values, probe_keys, mode="count",
+                     strategy="global", device=device,
+                     return_info=return_info)
+
+
+def hash_join_count_bloom(build_keys, build_values, probe_keys, *,
+                          device="cuda", return_info: bool = False):
+    """hash_join_count with the per-group bloom filter."""
+    return _run_join(build_keys, build_values, probe_keys, mode="count",
+                     strategy="global", use_bloom=True, device=device,
+                     return_info=return_info)
 
 
 def hash_join_radix(build_keys, build_values, probe_keys, *, device="cuda",
@@ -290,22 +339,34 @@ def plan_strategy(n_build: int, n_probe: int, mode: str = "count",
         return "partitioned"
 
 
+def bloom_is_distinct(n_build: int, n_probe: int, mode: str = "count",
+                      strategy: str = "adaptive", device="cuda") -> bool:
+    """True when use_bloom=True runs a different join than use_bloom=False
+    for this shape and strategy: only on the global tier."""
+    if strategy == "adaptive":
+        strategy = plan_strategy(n_build, n_probe, mode, device)
+    return strategy == "global"
+
+
 def join_count(build_keys, build_values, probe_keys, *, strategy="adaptive",
-               device="cuda", return_info: bool = False):
-    """Count with an explicit strategy: "adaptive", "direct",
-    "partitioned" or "merge"."""
+               use_bloom: bool = False, device="cuda",
+               return_info: bool = False):
+    """Count with an explicit strategy: one of STRATEGIES; use_bloom
+    applies to "global"."""
     return _run_join(build_keys, build_values, probe_keys, mode="count",
-                     strategy=strategy, device=device,
+                     strategy=strategy, use_bloom=use_bloom, device=device,
                      return_info=return_info)
 
 
 def join_materialize(build_keys, build_values, probe_keys, *,
-                     strategy="adaptive", device="cuda",
-                     return_arrays: bool = False, return_info: bool = False):
-    """Materialize with an explicit strategy: "adaptive", "direct",
-    "partitioned" or "merge" ("direct" raises ValueError when the build
-    keys are not a dense domain it takes).  return_arrays adds the matched
+                     strategy="adaptive", use_bloom: bool = False,
+                     device="cuda", return_arrays: bool = False,
+                     return_info: bool = False):
+    """Materialize with an explicit strategy: one of STRATEGIES ("direct"
+    raises ValueError when the build keys are not a dense domain it takes;
+    use_bloom applies to "global").  return_arrays adds the matched
     (probe_key, value) rows as uint64 numpy arrays."""
     return _run_join(build_keys, build_values, probe_keys,
-                     mode="materialize", strategy=strategy, device=device,
+                     mode="materialize", strategy=strategy,
+                     use_bloom=use_bloom, device=device,
                      return_arrays=return_arrays, return_info=return_info)

@@ -28,6 +28,20 @@
 // over a lane-major count layout, because Mosaic cannot scatter; here each
 // hit is written to its own address, so none of that, nor the staging and
 // carry rows, is needed.
+//
+// K6: exact-offset concatenation of ragged blocks.  Replaces
+// flash_hash_join_tpu/ops/pallas/stream_compact.py:concat_ragged_blocks
+// (kernel body _concat_kernel), the second half of the FHJ_COMPACT=stream
+// compaction: each block of block_elems words arrives with its valid
+// elements already moved to its front (a blockwise torch.sort, in
+// ops/compact.py), and the block's prefix of counts[b] elements goes to the
+// running offset, the exclusive scan of the counts (torch.cumsum in the
+// caller).  What bounds it: device-memory traffic, V 4-byte reads and
+// writes per kept element.  The TPU kernel carries the running total across
+// its sequential grid, rotates lanes, merges a carried partial row and
+// orders overlapping DMA writes with semaphores, writing 8 rows of slack
+// past the end, because Mosaic has no per-element addressing; here one CTA
+// per block copies its prefix to its own offset, with no slack.
 #include "common.cuh"
 
 namespace {
@@ -90,6 +104,24 @@ compact_scatter_kernel(const uint8_t* __restrict__ mask, int64_t n,
   }
 }
 
+// K6: one CTA per input block copies the block's counts[b] leading elements
+// of each plane to out[offsets[b], offsets[b] + counts[b]).  Loads and
+// stores are consecutive words across the threads of a warp.
+__global__ void __launch_bounds__(fhj::kThreads)
+concat_ragged_kernel(const int* __restrict__ counts, const long long* __restrict__ offsets,
+                     int64_t block_elems, Planes planes, int n_planes) {
+  const int64_t b = blockIdx.x;
+  const int64_t count = counts[b];
+  const int64_t src = b * block_elems;
+  const int64_t dst = offsets[b];
+#pragma unroll
+  for (int v = 0; v < kMaxPlanes; ++v) {
+    if (v >= n_planes) break;
+    for (int64_t i = threadIdx.x; i < count; i += fhj::kThreads)
+      planes.out[v][dst + i] = __ldg(planes.in[v] + src + i);
+  }
+}
+
 int blocks_for(int64_t n) { return (int)((n + kTile - 1) / kTile); }
 
 }  // namespace
@@ -120,6 +152,24 @@ int fhj_compact_scatter(const uint8_t* mask, int64_t n, const long long* offsets
   const Planes planes = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
   compact_scatter_kernel<<<blocks_for(n), fhj::kThreads, 0, stream>>>(
       mask, n, offsets, planes, n_planes, n_out);
+  return (int)cudaGetLastError();
+}
+
+// K6.  counts: nblocks int32, each in [0, block_elems]; offsets: their
+// exclusive scan, int64.  in0..in3: nblocks * block_elems words each, out0..
+// out3 as long; the first n_planes (1..4) are used.  Launches nothing when
+// nblocks == 0.  Returns cudaGetLastError().
+int fhj_concat_ragged_blocks(const int* counts, const long long* offsets, int64_t nblocks,
+                             int64_t block_elems, int n_planes, const uint32_t* in0,
+                             const uint32_t* in1, const uint32_t* in2, const uint32_t* in3,
+                             uint32_t* out0, uint32_t* out1, uint32_t* out2, uint32_t* out3,
+                             cudaStream_t stream) {
+  if (nblocks <= 0) return (int)cudaSuccess;
+  if (n_planes < 1 || n_planes > kMaxPlanes || nblocks > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
+  const Planes planes = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
+  concat_ragged_kernel<<<(unsigned int)nblocks, fhj::kThreads, 0, stream>>>(
+      counts, offsets, block_elems, planes, n_planes);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,18 @@
-"""K5: stable, sort-free stream compaction (csrc/stream_compact.cu).
+"""K5 and K6: stream compaction kernels (csrc/stream_compact.cu).
 
-Replaces flash_hash_join_tpu/ops/pallas/stream_compact.py:
+K5 replaces flash_hash_join_tpu/ops/pallas/stream_compact.py:
 pack_concat_blocks, through its wrapper compact_by_mask_pack: the rows of
-V int32 planes whose mask is set come first, in input order.  The TPU
-kernel's lane-major count layout, lane rotations and MXU permutation
-matmul are not ported: the CUDA kernel writes each hit to its own address.
+V int32 planes whose mask is set come first, in input order, sort-free.
+The TPU kernel's lane-major count layout, lane rotations and MXU
+permutation matmul are not ported: the CUDA kernel writes each hit to its
+own address.
+
+K6 replaces :concat_ragged_blocks, the second half of the FHJ_COMPACT=
+stream route (ops/compact.py:compact_by_mask_stream): blocks whose valid
+elements are already at their front are concatenated at exact offsets.
+The TPU kernel's carried partial row, lane rotation, ordered DMA writes
+and 8 rows of output slack are not ported: each block is copied to its own
+offset.
 """
 
 from __future__ import annotations
@@ -79,3 +87,74 @@ def compact_by_mask(mask: torch.Tensor, cols, n_out: int):
 
 
 compact_by_mask.launches = 0
+
+
+def _check_blocks(planes, counts) -> torch.device:
+    if not 1 <= len(planes) <= MAX_PLANES:
+        raise ValueError(f"1 to {MAX_PLANES} planes, got {len(planes)}")
+    shape = planes[0].shape
+    for p in planes:
+        if (p.dtype != torch.int32 or p.dim() != 2 or p.shape != shape
+                or not p.is_contiguous() or p.device != counts.device):
+            raise ValueError("each plane must be a contiguous 2-D int32 "
+                             "tensor (nblocks, block_elems), all alike, on "
+                             "the counts' device")
+    if counts.dim() != 1 or counts.numel() != shape[0] or (
+            counts.dtype not in (torch.int32, torch.int64)):
+        raise ValueError("counts must be one int32 or int64 per block")
+    if counts.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {counts.device}")
+    return counts.device
+
+
+def concat_ragged_blocks_plain(planes, counts):
+    """Plain PyTorch version of K6: the same concatenation by index
+    arithmetic (the output position's block by a search of the running
+    ends, its source at that block's start plus its rank in the block)."""
+    nblocks, block_elems = planes[0].shape
+    counts = counts.clamp(0, block_elems).to(torch.int64)
+    ends = torch.cumsum(counts, 0)
+    total = int(ends[-1]) if nblocks else 0
+    at = torch.arange(total, device=counts.device)
+    block = torch.searchsorted(ends, at, right=True)
+    src = block * block_elems + at - (ends - counts)[block]
+    outs = []
+    for p in planes:
+        out = torch.zeros(p.numel(), dtype=torch.int32, device=p.device)
+        out[:total] = p.view(-1)[src]
+        outs.append(out)
+    return tuple(outs)
+
+
+def concat_ragged_blocks(planes, counts: torch.Tensor):
+    """Concatenate the blocks' valid prefixes: planes are 1-4 int32
+    tensors (nblocks, block_elems) whose row b holds its valid elements in
+    its first counts[b] words (counts are clamped to [0, block_elems]).
+    Returns flat int32 planes of nblocks * block_elems words whose prefix of
+    sum(counts) words is the concatenation, in block order; words past it
+    are unspecified.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    planes = tuple(planes)
+    dev = _check_blocks(planes, counts)
+    if dev.type == "cpu":
+        return concat_ragged_blocks_plain(planes, counts)
+    nblocks, block_elems = planes[0].shape
+    outs = tuple(torch.empty(p.numel(), dtype=torch.int32, device=dev)
+                 for p in planes)
+    if nblocks == 0:
+        return outs
+    counts = counts.clamp(0, block_elems).to(torch.int32)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    ptrs = [p.data_ptr() for p in planes] + [None] * (MAX_PLANES - len(planes))
+    out_ptrs = [o.data_ptr() for o in outs] + [None] * (MAX_PLANES
+                                                         - len(outs))
+    err = _build.lib().fhj_concat_ragged_blocks(
+        counts.data_ptr(), offsets.data_ptr(), nblocks, block_elems,
+        len(planes), *ptrs, *out_ptrs,
+        torch.cuda.current_stream(dev).cuda_stream)
+    concat_ragged_blocks.launches += 1
+    _build.check(err, "concat_ragged_blocks")
+    return outs
+
+
+concat_ragged_blocks.launches = 0

@@ -1,0 +1,229 @@
+"""The `global` tier: an open-addressing hash table in device memory, built
+by sorting and probed by a bounded group walk (port of
+flash_hash_join_tpu/ops/hash_table.py; plain torch, as the JAX package
+leaves it to XLA: there is no kernel here).
+
+Semantics (SURVEY.md §3, hash_join.cpp:75-204): linear probing over
+groups of G slots at a load of at most ~0.5; one winner per duplicate
+build key (the first in (home, key) sort order, which the stable sorts
+make the minimum build row); at most one match per probe row; a key whose
+chain would run past the table, or past `max_probe_iters` groups, is
+dropped and counted in special[3], and the caller reruns on `merge`.
+
+Layout, as in the JAX package: group g's slots are one row of 2G words,
+[hi_0 .. hi_{G-1}, lo_0 .. lo_{G-1}], for the keys and for the values.
+Tables and outputs are int32 bit-pattern planes (utils/u64.py); the
+build works on widened int64 values.  Empty slots hold the u64-max key; a
+real u64-max key is never stored and is answered through `special`:
+[has_max, max_val_hi, max_val_lo, n_dropped] (int64 in [0, 2^32)).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
+from flash_hash_join_tpu_torch.ops.hashing import bloom_word, hash_u64
+from flash_hash_join_tpu_torch.ops.segmented import (cummax, seg_ends,
+                                                    segmented_scan)
+from flash_hash_join_tpu_torch.utils.u64 import MASK32, narrow, widen
+
+_NEG_LARGE = -(2 ** 30)
+
+# Walk statistics of the probes run so far in this process: chunks walked
+# and walk iterations summed over them (read by chip_smoke.py).
+walk_stats = {"chunks": 0, "iterations": 0}
+
+
+class HashTable(NamedTuple):
+    """keys, vals: (total_groups, 2G) int32 bit patterns, hi words then lo
+    words; bloom: (total_groups,) int64 bloom words, or zeros((1,)) when
+    off; special: (4,) int64."""
+
+    keys: torch.Tensor
+    vals: torch.Tensor
+    bloom: torch.Tensor
+    special: torch.Tensor
+
+
+def home_group(h: torch.Tensor, gbits: int, pre_shift: int = 0) -> torch.Tensor:
+    """Home group from the top gbits of the u32 hash h (int64 in [0, 2^32))
+    after discarding its top pre_shift bits."""
+    return ((h << pre_shift) & MASK32) >> (32 - gbits)
+
+
+def _is_max(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """u64-max keys, from widened planes."""
+    return (hi == MASK32) & (lo == MASK32)
+
+
+def sort_rows(seg: torch.Tensor, kh: torch.Tensor, kl: torch.Tensor):
+    """The permutation that sorts rows stably by (seg, u64 key): torch.sort
+    takes one key, so sort by the key, then stably by seg.  kh, kl widened."""
+    key = (kh - 2**31) * 2**32 + kl          # signed order == u64 order
+    order = torch.sort(key, stable=True).indices
+    return order[torch.sort(seg[order], stable=True).indices]
+
+
+def max_key_special(kh, kl, vh, vl, row_valid):
+    """(has_max, first u64-max row's vh, vl) as int64 scalars; widened
+    planes."""
+    is_max = _is_max(kh, kl) & row_valid
+    has_max = is_max.any()
+    first = torch.argmax(is_max.to(torch.uint8))   # 0 when there is none
+    return (has_max.to(torch.int64), torch.where(has_max, vh[first], 0),
+            torch.where(has_max, vl[first], 0))
+
+
+def build_table(kh, kl, vh, vl, n_valid: int, *, gbits: int, group_size: int,
+                overflow_groups: int, with_bloom: bool, bloom_k: int = 3,
+                pre_shift: int = 0,
+                max_probe_iters: int | None = None) -> HashTable:
+    """Build the table from the first n_valid rows of the key and value
+    planes (int32 bit patterns or widened)."""
+    n, dev = kh.shape[0], kh.device
+    G = group_size
+    ntot = (1 << gbits) + overflow_groups
+    row_valid = torch.arange(n, device=dev) < n_valid
+    kh = torch.where(row_valid, widen(kh), MASK32)
+    kl = torch.where(row_valid, widen(kl), MASK32)
+    vh, vl = widen(vh), widen(vl)
+    has_max, max_vh, max_vl = max_key_special(kh, kl, vh, vl, row_valid)
+
+    h = hash_u64(kh, kl)
+    home = home_group(h, gbits, pre_shift)
+    order = sort_rows(home, kh, kl)
+    home_s, kh_s, kl_s, h_s = home[order], kh[order], kl[order], h[order]
+
+    # the first occurrence of each key, without the u64-max key, is placed
+    is_max_s = _is_max(kh_s, kl_s)
+    first_occ = torch.ones(n, dtype=torch.bool, device=dev)
+    first_occ[1:] = (kh_s[1:] != kh_s[:-1]) | (kl_s[1:] != kl_s[:-1])
+    keep = first_occ & ~is_max_s
+
+    # linear-probe slot of kept row i: rank_i + cummax(home_slot - rank)
+    rank = torch.cumsum(keep, 0) - 1
+    cand = torch.where(keep, home_s * G - rank, _NEG_LARGE)
+    slot = rank + cummax(cand)
+    in_range = slot < ntot * G
+    place = keep & in_range
+    n_dropped = (keep & ~in_range).sum()
+    if max_probe_iters is not None:
+        # a key whose chain spans max_probe_iters groups is out of the
+        # bounded walk's reach: count it as dropped so the caller reruns
+        n_dropped += (place & (slot // G - home_s >= max_probe_iters)).sum()
+
+    slot = slot[place]
+    flat_hi = (slot // G) * (2 * G) + slot % G
+    planes = {}
+    for name, fill, hi, lo in (("keys", -1, kh_s, kl_s),
+                               ("vals", 0, vh[order], vl[order])):
+        flat = torch.full((ntot * 2 * G,), fill, dtype=torch.int32,
+                          device=dev)
+        flat[flat_hi] = narrow(hi[place])
+        flat[flat_hi + G] = narrow(lo[place])
+        planes[name] = flat.view(ntot, 2 * G)
+
+    if with_bloom:
+        # per-group OR of the kept rows' signatures: a segmented scan over
+        # the rows sorted by home group, read at each group's last row
+        tag = torch.where(is_max_s, 0, bloom_word(h_s, bloom_k))
+        tag_scan, = segmented_scan(lambda a, b: (a[0] | b[0],), (tag,),
+                                   home_s)
+        ends = seg_ends(home_s)
+        bloom = torch.zeros(ntot, dtype=torch.int64, device=dev)
+        bloom[home_s[ends]] = tag_scan[ends]
+    else:
+        bloom = torch.zeros(1, dtype=torch.int64, device=dev)
+    special = torch.stack([has_max, max_vh, max_vl, n_dropped])
+    return HashTable(planes["keys"], planes["vals"], bloom, special)
+
+
+def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
+                       group_size: int, total_groups: int, use_bloom: bool,
+                       bloom_k: int, max_iters: int, pre_shift: int = 0):
+    """Resolve one chunk of probe rows (int32 planes): returns (matched,
+    g_found, j_found, sp_match).  The walk visits one group per iteration
+    for every row not yet done, at most max_iters times."""
+    G = group_size
+    wph, wpl = widen(ph), widen(pl)
+    h = hash_u64(wph, wpl)
+    g = home_group(h, gbits, pre_shift)
+
+    is_max = _is_max(wph, wpl)
+    sp_match = is_max & (table.special[0] > 0) & valid
+    done = ~valid | is_max
+    if use_bloom:
+        tag = bloom_word(h, bloom_k)
+        done |= (table.bloom[g] & tag) != tag
+    matched = torch.zeros_like(done)
+    g_found = torch.zeros_like(g)
+    j_found = torch.zeros_like(g)
+    it = 0
+    while it < max_iters and not bool(done.all()):
+        window = table.keys[g]                     # (n, 2G): one row a probe
+        wh, wl = window[:, :G], window[:, G:]
+        eq = (wh == ph[:, None]) & (wl == pl[:, None])
+        found = eq.any(1)
+        has_empty = ((wh == -1) & (wl == -1)).any(1)
+        new_found = ~done & found
+        matched |= new_found
+        g_found = torch.where(new_found, g, g_found)
+        j_found = torch.where(new_found, torch.argmax(eq.to(torch.uint8), 1),
+                              j_found)
+        g_next = torch.clamp(g + 1, max=total_groups - 1)
+        done |= found | has_empty | (g_next == g)  # off the end: absent
+        g = torch.where(done, g, g_next)
+        it += 1
+    walk_stats["chunks"] += 1
+    walk_stats["iterations"] += it
+    return matched, g_found, j_found, sp_match
+
+
+def _chunks(n: int, n_valid: int, probe_chunk: int, dev):
+    """(start, stop, valid mask) of each probe chunk."""
+    for start in range(0, n, probe_chunk):
+        stop = min(start + probe_chunk, n)
+        yield start, stop, torch.arange(start, stop, device=dev) < n_valid
+
+
+def probe_count(table: HashTable, ph, pl, n_valid: int, *, probe_chunk: int,
+                **static) -> torch.Tensor:
+    """Count the probe rows [0, n_valid) whose key is in the table (probe
+    multiplicity counts, build multiplicity does not); a 0-d int64.  The
+    probe stream goes through in chunks of probe_chunk rows."""
+    total = torch.zeros((), dtype=torch.int64, device=ph.device)
+    for start, stop, valid in _chunks(ph.shape[0], n_valid, probe_chunk,
+                                      ph.device):
+        matched, _, _, sp_match = _probe_chunk_state(
+            table, ph[start:stop], pl[start:stop], valid, **static)
+        total += (matched | sp_match).sum()
+    return total
+
+
+def probe_materialize(table: HashTable, ph, pl, n_valid: int, *,
+                      probe_chunk: int, **static):
+    """(count, out_kh, out_kl, out_vh, out_vl): the matching probe rows
+    with their build value, in probe order, compacted to the front of int32
+    planes of the probe side's length (K5 on the card)."""
+    G = static["group_size"]
+    flat_vals = table.vals.view(-1)
+    max_vh, max_vl = narrow(table.special[1:3])
+    hits, vhs, vls = [], [], []
+    for start, stop, valid in _chunks(ph.shape[0], n_valid, probe_chunk,
+                                      ph.device):
+        matched, g_found, j_found, sp_match = _probe_chunk_state(
+            table, ph[start:stop], pl[start:stop], valid, **static)
+        at = g_found * (2 * G) + j_found
+        hits.append(matched | sp_match)
+        vhs.append(torch.where(sp_match, max_vh, flat_vals[at]))
+        vls.append(torch.where(sp_match, max_vl, flat_vals[at + G]))
+    if not hits:
+        empty = ph[:0]
+        return torch.zeros((), dtype=torch.int64, device=ph.device), \
+            empty, empty, empty, empty
+    count, outs = compact_by_mask(torch.cat(hits), (ph, pl, torch.cat(vhs),
+                                                    torch.cat(vls)))
+    return (count, *outs)

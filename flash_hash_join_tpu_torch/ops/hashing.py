@@ -43,3 +43,13 @@ def hash_u64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     """32-bit hash of a u64 (hi, lo) pair with good top-bit avalanche."""
     h = fmix32(lo)
     return fmix32(h ^ _mul32(widen(hi), _GOLDEN_INT))
+
+
+def bloom_word(h: torch.Tensor, k: int) -> torch.Tensor:
+    """Per-key bloom signature: k bits set in a 32-bit word, from a
+    secondary mix of the hash h."""
+    g = (_mul32(widen(h), _GOLDEN_INT) + 1) & MASK32
+    word = torch.zeros_like(g)
+    for i in range(k):
+        word |= 1 << ((g >> (5 * i)) & 31)
+    return word

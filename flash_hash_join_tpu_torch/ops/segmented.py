@@ -54,6 +54,21 @@ def segmented_scan(combine, values: tuple, seg_ids: torch.Tensor) -> tuple:
     return values
 
 
+def cummax(x: torch.Tensor, block: int = 4096) -> torch.Tensor:
+    """Inclusive running maximum of a 1-D integer tensor.  torch.cummax
+    scans a 1-D CUDA tensor in one thread block (0.3 s at 1e8 int64 on an
+    H100), so this scans rows of `block` elements in parallel and then
+    carries each row's running maximum into the rows after it."""
+    n = x.numel()
+    if n <= block:
+        return torch.cummax(x, 0).values
+    fill = x.new_full((-n % block,), torch.iinfo(x.dtype).min)
+    rows = torch.cummax(torch.cat([x, fill]).view(-1, block), 1).values
+    carry = torch.cummax(rows[:, -1], 0).values
+    rows[1:] = torch.maximum(rows[1:], carry[:-1, None])
+    return rows.view(-1)[:n]
+
+
 def add_u64(a, b):
     """(hi, lo) + (hi, lo) mod 2**64 with carry."""
     ahi, alo = a

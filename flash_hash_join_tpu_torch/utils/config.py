@@ -22,8 +22,8 @@ def next_pow2(x: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class JoinConfig:
     """Static tuning knobs of the join engine (same fields and defaults as
-    the JAX package's JoinConfig; the global hash-table tier that reads
-    most of them is not ported yet).
+    the JAX package's JoinConfig; the global hash-table tier reads most of
+    them).
 
     Attributes:
       group_size: slots per hash-table bucket group.

@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Where the device time of one port API call goes, under torch.profiler,
+on chip_smoke.py's cells (same generators and seeds).
+
+    python3 profile_cells.py                   # every cell below
+    python3 profile_cells.py vmem-count-1e8-Q1 global-count-1e8-Q5
+
+For each cell: two warm-up calls, then one profiled call.  Prints one JSON
+line per cell: the call's core_seconds (CUDA events, as the API reports
+them; the profiler's own cost is inside), the kernels' summed device time,
+the idle share of core_seconds (1 - kernel time / core), the host->device
+copy time (outside core), the number of kernel launches, and the kernels
+with the most device time.  Needs an NVIDIA card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+CELLS = {  # name -> (chip_smoke cell, API function, keywords, FHJ_COMPACT)
+    "vmem-count-1e8-Q1": ("1e8-Q1", "join_count", {"strategy": "vmem"}, None),
+    "vmem-materialize-1e8-Q1": ("1e8-Q1", "join_materialize",
+                                {"strategy": "vmem"}, None),
+    "vmem-count-4e7-Q2": ("4e7-Q2", "join_count", {"strategy": "vmem"}, None),
+    "radix-materialize-1e8-Q1": ("1e8-Q1", "hash_join_radix", {}, None),
+    "global-count-1e8-Q5": ("1e8-Q5", "hash_join_count", {}, None),
+    "global-count-bloom-1e8-Q5": ("1e8-Q5", "hash_join_count_bloom", {},
+                                  None),
+    "global-count-config2": ("uniform-1e7x1e8", "hash_join_count", {}, None),
+    "stream-radix-1e8-Q2": ("1e8-Q2", "hash_join_radix", {}, "stream"),
+}
+
+
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def profile(name: str, cells: dict) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity
+    import flash_hash_join_tpu_torch as ft
+    cell, fn_name, kw, compact = CELLS[name]
+    c = cells[cell]
+    fn = getattr(ft, fn_name)
+    if compact:
+        os.environ["FHJ_COMPACT"] = compact
+    args = (c.build_keys, c.build_values, c.probe_keys)
+    for _ in range(2):
+        fn(*args, device="cuda", **kw)
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        count, core, info = fn(*args, device="cuda", return_info=True, **kw)
+        torch.cuda.synchronize()
+    os.environ.pop("FHJ_COMPACT", None)
+    kernels, copy_us = [], 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CPU"):
+            continue
+        us = _device_us(e)
+        if us <= 0:
+            continue
+        if e.key.startswith("Memcpy HtoD"):
+            copy_us += us
+        else:
+            kernels.append((us, e.count, e.key))
+    kernels.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernels) / 1e3
+    return dict(cell=name, fn=fn_name, fn_kwargs=kw, compact=compact,
+                count=count, strategy=info["strategy"],
+                core_ms=core * 1e3, kernel_ms=busy_ms,
+                idle_share=1 - busy_ms / (core * 1e3),
+                h2d_ms=copy_us / 1e3,
+                launches=sum(k[1] for k in kernels),
+                top=[dict(ms=us / 1e3, calls=n, kernel=key[:90])
+                     for us, n, key in kernels[:8]])
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_cells.py: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    import chip_smoke
+    names = sys.argv[1:] or list(CELLS)
+    unknown = [n for n in names if n not in CELLS]
+    if unknown:
+        print(f"profile_cells.py: unknown cells {unknown}; one of "
+              f"{list(CELLS)}", file=sys.stderr)
+        return 2
+    cells = chip_smoke.make_cells()
+    for name in names:
+        print(json.dumps(profile(name, cells)), flush=True)
+    print(chip_smoke.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"]), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -83,7 +83,8 @@ def test_dense_span_above_2_20_runs_the_large_band():
     assert set(info["launches"]) == {
         "dense_bitmap", "bitmap_probe", "range_probe_count",
         "range_probe_materialize", "compact", "probe_gather_bitmap",
-        "probe_gather_staged", "materialize_copy"}
+        "probe_gather_staged", "materialize_copy", "probe_count_vmem",
+        "probe_materialize_vmem", "concat_ragged_blocks"}
     assert set(info["launches"].values()) == {0}
 
 
@@ -169,7 +170,7 @@ def test_special_channel_reruns_on_merge(monkeypatch):
 
 
 @pytest.mark.parametrize("strategy", ["adaptive", "direct", "partitioned",
-                                      "merge"])
+                                      "merge", "global", "vmem"])
 def test_join_count_strategies(strategy):
     rng = np.random.default_rng(6)
     bk = rng.integers(7, 30_000, 9_000, dtype=np.uint64)
@@ -178,9 +179,9 @@ def test_join_count_strategies(strategy):
     count, _, info = ft.join_count(bk, bv, pk, strategy=strategy,
                                    device="cpu", return_info=True)
     assert count == oracle_count(bk, pk)
-    assert info["strategy"] == (strategy if strategy in ("partitioned",
-                                                         "merge")
-                                else "direct")
+    assert info["strategy"] == ("direct" if strategy == "adaptive"
+                                else strategy)
+    assert not info["retried"]
 
 
 def test_join_count_rejects_what_it_cannot_run():
@@ -193,12 +194,12 @@ def test_join_count_rejects_what_it_cannot_run():
     sparse = rng.integers(0, 2**31, 100).astype(np.uint64)  # span > XL cap
     with pytest.raises(ValueError):
         ft.join_count(sparse, bv, pk, strategy="direct", device="cpu")
-    for unported in ("global", "vmem"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ft.join_count(pk[:100], bv, pk, strategy=unported, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ft.join_materialize(pk[:100], bv, pk, strategy=unported,
-                                device="cpu")
+    for tier in ("global", "vmem"):                   # ported: they run
+        want = oracle_count(pk[:100], pk)
+        assert ft.join_count(pk[:100], bv, pk, strategy=tier,
+                             device="cpu")[0] == want
+        assert ft.join_materialize(pk[:100], bv, pk, strategy=tier,
+                                   device="cpu")[0] == want
     with pytest.raises(ValueError):
         ft.join_materialize(wide, bv, pk, strategy="direct", device="cpu")
     with pytest.raises(ValueError):
@@ -286,15 +287,77 @@ def _sorted(keys, vals):
     "hash_join_count_radix", "hash_join_count_radix_bloom",
     "hash_join_radix", "hash_join_radix_bloom", "adaptive_join",
     "adaptive_join_bloom", "adaptive_join_count", "adaptive_join_count_bloom",
+    "hash_join", "hash_join_bloom", "hash_join_count", "hash_join_count_bloom",
 ])
 def test_reference_functions_match_jax(name):
+    # the 12 join functions of the reference module (the 13th is
+    # initialize); hash_join* run the global tier, bloom on for _bloom
     bk, bv, pk = _unique_case()
     count, secs, info = getattr(ft, name)(bk, bv, pk, device="cpu",
                                           return_info=True)
     jcount, _ = getattr(fj, name)(bk, bv, pk)
     assert count == jcount == oracle_count(bk, pk)
-    assert info["strategy"] == "partitioned" and not info["retried"]
-    assert secs > 0.0
+    tier = name.startswith("hash_join") and "radix" not in name
+    assert info["strategy"] == ("global" if tier else "partitioned")
+    assert info["use_bloom"] == (tier and name.endswith("_bloom"))
+    assert not info["retried"] and secs > 0.0
+
+
+def test_reference_function_names_match_jax():
+    names = [n for n in dir(fj) if n.startswith(("adaptive_join", "hash_join"))]
+    assert len(names) == 12 and all(callable(getattr(ft, n)) for n in names)
+    assert ft.initialize(device="cpu") is True
+
+
+@pytest.mark.parametrize("strategy,use_bloom", [
+    ("global", False), ("global", True), ("vmem", False), ("vmem", True)])
+def test_explicit_tiers_match_jax(strategy, use_bloom):
+    # unique build keys and the u64-max key on both sides: both packages
+    # emit probe order, so the rows equal the JAX package's as they are
+    bk, bv, pk = _unique_case()
+    kw = dict(strategy=strategy, use_bloom=use_bloom)
+    count, _, info = ft.join_count(bk, bv, pk, device="cpu",
+                                   return_info=True, **kw)
+    jcount, _ = fj.join_count(bk, bv, pk, **kw)
+    assert count == jcount == oracle_count(bk, pk)
+    assert info["strategy"] == strategy and not info["retried"]
+    mcount, _, keys, vals, minfo = ft.join_materialize(
+        bk, bv, pk, device="cpu", return_arrays=True, return_info=True, **kw)
+    jmcount, _, jkeys, jvals = fj.join_materialize(bk, bv, pk,
+                                                   return_arrays=True, **kw)
+    assert mcount == jmcount == count and minfo["strategy"] == strategy
+    np.testing.assert_array_equal(keys, jkeys)
+    np.testing.assert_array_equal(vals, jvals)
+    for g, w in zip((keys, vals), _min_row_rows(bk, bv, pk)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_explicit_tiers_duplicate_keys_take_the_minimum_row():
+    rng = np.random.default_rng(21)
+    bk = rng.integers(0, 2**64, 300, dtype=np.uint64)[rng.integers(0, 300,
+                                                                   2_000)]
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 3_000),
+                         rng.integers(0, 2**64, 1_000, dtype=np.uint64)])
+    want = _min_row_rows(bk, bv, pk)
+    for strategy in ("global", "vmem"):
+        count, _, keys, vals = ft.join_materialize(
+            bk, bv, pk, strategy=strategy, device="cpu", return_arrays=True)
+        jcount, _, jkeys, jvals = fj.join_materialize(
+            bk, bv, pk, strategy=strategy, return_arrays=True)
+        assert count == jcount == want[0].size
+        for g, j, w in zip((keys, vals), (jkeys, jvals), want):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, j)
+
+
+@pytest.mark.parametrize("strategy", ["adaptive", "global", "vmem",
+                                      "partitioned", "merge"])
+@pytest.mark.parametrize("mode", ["count", "materialize"])
+def test_bloom_is_distinct_matches_jax(strategy, mode):
+    for nb, npr in ((1_000, 10_000), (10**7, 10**8)):
+        assert ft.bloom_is_distinct(nb, npr, mode, strategy, device="cpu") \
+            == japi.bloom_is_distinct(nb, npr, mode, strategy)
 
 
 @pytest.mark.parametrize("strategy", ["adaptive", "partitioned", "merge"])

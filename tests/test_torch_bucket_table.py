@@ -1,0 +1,203 @@
+"""Port parity for the `vmem` tier: flash_hash_join_tpu_torch's
+ops/bucket_table.py and the plain versions of K10 / K11
+(ops/cuda/bucket_probe.py, on CPU tensors) against the JAX package's
+ops/bucket_table.py and its Pallas kernels in interpret mode, and the numpy
+oracle.
+
+Inputs are numpy arrays from a fixed seed, handed to both packages.  The
+JAX kernels run on 8-row probe tiles (block_m=8: 1024 probes a tile) so
+interpret mode stays quick.  Tolerance: exact — tables, buckets, counts,
+hit masks and value planes are equal element for element.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flash_hash_join_tpu_torch as ft
+from flash_hash_join_tpu.ops import bucket_table as jbt
+from flash_hash_join_tpu.ops.pallas import bucket_probe as jbp
+from flash_hash_join_tpu.utils import u64 as ju64
+from flash_hash_join_tpu_torch.ops import bucket_table as tbt
+from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as tbp
+from flash_hash_join_tpu_torch.utils import u64 as tu64
+from tests.oracle import oracle_count
+
+M64 = np.uint64(2**64 - 1)
+
+
+def _planes(*cols):
+    """numpy u64 columns -> (JAX planes, torch CPU planes)."""
+    split = [p for c in cols for p in ju64.split_u64(c)]
+    return ([jnp.asarray(p) for p in split],
+            [tu64.to_device(p, "cpu") for p in split])
+
+
+def _build_keys(rng, n, dups=True):
+    bk = rng.integers(0, 2**64, n, dtype=np.uint64)
+    if dups:
+        bk[n // 2: n // 2 + n // 5] = bk[:n // 5]
+    bk[:2] = M64
+    return bk
+
+
+def _assert_tables_equal(jt, tt):
+    for name in jt._fields:
+        want = np.asarray(getattr(jt, name)).astype(np.int64)
+        got = tu64.widen(getattr(tt, name)).numpy()
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("r_slots,nb,nb_valid", [
+    (8, 600, 600),            # over capacity: drops counted
+    (8, 300, 250),            # padding rows past nb_valid
+    (512, 20_000, 20_000),    # the top rung
+    (512, 3_000, 2_999),
+])
+def test_build_bucket_table_matches_jax(r_slots, nb, nb_valid):
+    rng = np.random.default_rng(nb)
+    bk, bv = _build_keys(rng, nb), rng.integers(0, 2**64, nb, dtype=np.uint64)
+    (jkh, jkl, jvh, jvl), (tkh, tkl, tvh, tvl) = _planes(bk, bv)
+    for with_values in (False, True):
+        jt = jbt.build_bucket_table(jkh, jkl, jvh, jvl, nb_valid,
+                                    r_slots=r_slots, with_values=with_values)
+        tt = tbt.build_bucket_table(tkh, tkl, tvh, tvl, nb_valid,
+                                    r_slots=r_slots, with_values=with_values)
+        _assert_tables_equal(jt, tt)
+    assert (int(tt.special[3]) > 0) == (r_slots == 8 and nb == 600)
+    # every column is ascending by u64 key, empty slots last: what K10/K11
+    # search
+    keys = tu64.sortable(tt.tk_hi, tt.tk_lo)
+    assert bool((keys[1:] >= keys[:-1]).all())
+
+
+def test_probe_buckets_match_jax_prep():
+    rng = np.random.default_rng(3)
+    pk = rng.integers(0, 2**64, 3_000, dtype=np.uint64)
+    pk[:4] = M64
+    (jph, jpl), (tph, tpl) = _planes(pk)
+    for pre_shift in (0, 5):
+        _, _, pbkt, is_max = jbt._prep_probe(jph, jpl, 2_990,
+                                             pre_shift=pre_shift, block_m=8)
+        want = np.asarray(pbkt).reshape(-1)[:pk.size]
+        got = tbp.probe_buckets(tph, tpl, pre_shift).numpy()
+        real = pk != M64                  # JAX sends u64-max rows to bucket 0
+        real[2_990:] = False              # and pads past n_valid
+        np.testing.assert_array_equal(got[real], want[real])
+        assert (want[~real] == 0).all()
+        assert np.asarray(is_max).sum() == 4
+
+
+@pytest.mark.parametrize("r_slots,nb", [(8, 700), (16, 1_500), (128, 9_000),
+                                        (512, 30_000)])
+def test_kernels_plain_match_jax_kernels(r_slots, nb):
+    rng = np.random.default_rng(r_slots)
+    bk, bv = _build_keys(rng, nb), rng.integers(0, 2**64, nb, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 1_200),
+                         rng.integers(0, 2**64, 900, dtype=np.uint64)])
+    pk[5:8] = M64
+    np_valid = pk.size - 37
+    (jkh, jkl, jvh, jvl, jph, jpl), (tkh, tkl, tvh, tvl, tph, tpl) = \
+        _planes(bk, bv, pk)
+    jt = jbt.build_bucket_table(jkh, jkl, jvh, jvl, nb, r_slots=r_slots,
+                                with_values=True)
+    tt = tbt.build_bucket_table(tkh, tkl, tvh, tvl, nb, r_slots=r_slots,
+                                with_values=True)
+    ph_b, pl_b, pbkt_b, _ = jbt._prep_probe(jph, jpl, np_valid, pre_shift=0,
+                                            block_m=8)
+    jcount = jbp.probe_count_vmem(jt.tk_hi, jt.tk_lo, ph_b, pl_b, pbkt_b,
+                                  r_slots=r_slots, block_m=8, interpret=True)
+    tcount = tbp.probe_count_vmem(tt.tk_hi, tt.tk_lo, tph, tpl, np_valid)
+    assert tcount.dtype == torch.int64 and int(tcount) == int(jcount) > 0
+    jout = jbp.probe_materialize_vmem(jt.tk_hi, jt.tk_lo, jt.tv_hi, jt.tv_lo,
+                                      ph_b, pl_b, pbkt_b, r_slots=r_slots,
+                                      block_m=8, interpret=True)
+    tout = tbp.probe_materialize_vmem(tt.tk_hi, tt.tk_lo, tt.tv_hi, tt.tv_lo,
+                                      tph, tpl, np_valid)
+    assert tout[0].dtype == torch.bool and int(tout[0].sum()) == int(tcount)
+    for got, want in zip(tout, jout):
+        want = np.asarray(want).reshape(-1)[:pk.size].astype(np.int64)
+        np.testing.assert_array_equal(tu64.widen(got.to(torch.int32)).numpy(),
+                                      want)
+
+
+@pytest.mark.parametrize("r_slots", [64, 256])
+def test_bucket_joins_match_jax_and_oracle(r_slots):
+    rng = np.random.default_rng(r_slots + 1)
+    bk = rng.integers(0, 2**64, 1_000, dtype=np.uint64)
+    bk[[3, 9]] = M64
+    bk[500:600] = bk[100:200]                       # duplicates
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 2_000),
+                         rng.integers(0, 2**64, 1_000, dtype=np.uint64)])
+    pk[:2] = M64
+    np_valid = pk.size - 11
+    jargs, targs = _planes(bk, bv, pk)
+    jc, jsp = jbt.bucket_join_count(*jargs, bk.size, np_valid,
+                                    r_slots=r_slots, interpret=True)
+    tc, tsp = tbt.bucket_join_count(*targs, bk.size, np_valid,
+                                    r_slots=r_slots)
+    want = oracle_count(bk, pk[:np_valid])
+    assert int(tc) == int(jc) == want and int(tsp[3]) == 0
+    np.testing.assert_array_equal(tu64.widen(tsp).numpy(),
+                                  np.asarray(jsp).astype(np.int64))
+    jout = jbt.bucket_join_materialize(*jargs, bk.size, np_valid,
+                                       r_slots=r_slots, interpret=True)
+    tout = tbt.bucket_join_materialize(*targs, bk.size, np_valid,
+                                       r_slots=r_slots)
+    c = int(tout[0])
+    assert c == int(jout[0]) == want
+    for i in (1, 3):                                  # keys, then values
+        np.testing.assert_array_equal(
+            tu64.to_numpy_u64(tout[i], tout[i + 1], c),
+            ju64.join_u64(np.asarray(jout[i]), np.asarray(jout[i + 1]))[:c])
+    # probe order, minimum-build-row winner
+    uniq, first = np.unique(bk, return_index=True)
+    pos = np.searchsorted(uniq, pk[:np_valid]).clip(max=uniq.size - 1)
+    hit = uniq[pos] == pk[:np_valid]
+    np.testing.assert_array_equal(tu64.to_numpy_u64(tout[3], tout[4], c),
+                                  bv[first[pos[hit]]])
+
+
+def test_overflow_counts_drops_and_vmem_falls_back(monkeypatch):
+    rng = np.random.default_rng(8)
+    bk = np.unique(rng.integers(0, 2**63, 4_000, dtype=np.uint64))
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([bk[:50], rng.integers(0, 2**63, 50,
+                                               dtype=np.uint64)])
+    jargs, targs = _planes(bk, bv, pk)
+    _, jsp = jbt.bucket_join_count(*jargs, bk.size, pk.size, r_slots=8,
+                                   interpret=True)
+    _, tsp = tbt.bucket_join_count(*targs, bk.size, pk.size, r_slots=8)
+    assert int(tsp[3]) == int(jsp[3]) > 0
+    monkeypatch.setattr(tbt, "r_slots_for", lambda n_build: 8)
+    for fn in (ft.join_count, ft.join_materialize):
+        out = fn(bk, bv, pk, strategy="vmem", device="cpu", return_info=True)
+        assert out[0] == oracle_count(bk, pk)
+        assert out[-1]["retried"] and out[-1]["strategy"] == "merge"
+
+
+def test_r_slots_for_matches_jax():
+    for n in (0, 1, 100, 1_000, 4_000, 40_000, 10**6):
+        assert tbt.r_slots_for(n) == jbt.r_slots_for(n)
+    assert tbt.MAX_BUILD_ROWS == jbt.MAX_BUILD_ROWS
+    assert tbt.MAX_R_SLOTS == jbt.MAX_R_SLOTS
+
+
+def test_kernel_wrappers_refuse_bad_inputs():
+    tk = torch.full((8, 128), -1, dtype=torch.int32)
+    ph = torch.zeros(10, dtype=torch.int32)
+    with pytest.raises(ValueError):                     # not (R, 128)
+        tbp.probe_count_vmem(tk[:, :64].contiguous(), tk[:, :64].contiguous(),
+                             ph, ph, 10)
+    with pytest.raises(ValueError):                     # too many slot rows
+        big = torch.full((1024, 128), -1, dtype=torch.int32)
+        tbp.probe_count_vmem(big, big, ph, ph, 10)
+    with pytest.raises(ValueError):                     # np_valid past n
+        tbp.probe_count_vmem(tk, tk, ph, ph, 11)
+    with pytest.raises(ValueError):                     # int64 probes
+        tbp.probe_materialize_vmem(tk, tk, tk, tk, ph.long(), ph.long(), 10)
+    with pytest.raises(ValueError):
+        tbp.probe_count_vmem(tk, tk, ph, ph[:9], 9)
+    assert int(tbp.probe_count_vmem(tk, tk, ph, ph, 10)) == 0

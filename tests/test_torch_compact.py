@@ -92,3 +92,71 @@ def test_compact_refuses_bad_inputs():
         tsc.compact_by_mask(mask, [plane[:7]], 8)
     with pytest.raises(ValueError):
         tsc.compact_by_mask(mask, [plane], -1)
+
+
+# ---- FHJ_COMPACT=stream: blockwise sort + K6 ---------------------------------
+
+@pytest.mark.parametrize("density", [0.0, 0.03, 0.5, 1.0])
+@pytest.mark.parametrize("n_planes", [2, 3, 4])
+def test_compact_stream_matches_jax_stream_and_pack(density, n_planes):
+    n = 5_003                                  # 5 blocks of 8 x 128 rows
+    mask, cols = _inputs(n, density, n_planes, seed=n_planes)
+    planes = [tu64.to_device(c, "cpu") for c in cols]
+    count, outs = tc.compact_by_mask_stream(torch.from_numpy(mask), planes,
+                                            block_rows=8)
+    jcount, jouts = jsc.compact_by_mask_stream(
+        jnp.asarray(mask), tuple(jnp.asarray(c) for c in cols), block_rows=8,
+        interpret=True)
+    pcount, pouts = tsc.compact_by_mask(torch.from_numpy(mask), planes, n)
+    assert int(count) == int(jcount) == int(pcount) == int(mask.sum())
+    for o, j, p, c in zip(outs, jouts, pouts, cols):
+        assert o.dtype == torch.int32 and o.numel() == n
+        got = tu64.to_numpy_u32(o[:int(count)])
+        np.testing.assert_array_equal(got, np.asarray(j)[:int(count)])
+        np.testing.assert_array_equal(got, tu64.to_numpy_u32(
+            p[:int(count)]))
+        np.testing.assert_array_equal(got, c[mask])       # stable
+
+
+def test_concat_ragged_blocks_plain_matches_jax():
+    rng = np.random.default_rng(5)
+    nblocks, block = 7, 8 * 128
+    counts = rng.integers(0, block + 1, nblocks).astype(np.int32)
+    counts[[1, 4]] = [0, block]                # an empty and a full block
+    planes = [rng.integers(0, 2**32, (nblocks * 8, 128), dtype=np.uint32)
+              for _ in range(3)]
+    jouts = jsc.concat_ragged_blocks(
+        tuple(jnp.asarray(p) for p in planes), jnp.asarray(counts),
+        block_rows=8, interpret=True)
+    outs = tsc.concat_ragged_blocks(
+        [tu64.to_device(p, "cpu").view(nblocks, block) for p in planes],
+        torch.from_numpy(counts))
+    total = int(counts.sum())
+    for o, j, p in zip(outs, jouts, planes):
+        assert o.numel() == nblocks * block
+        got = tu64.to_numpy_u32(o[:total])
+        np.testing.assert_array_equal(got, np.asarray(j).reshape(-1)[:total])
+        np.testing.assert_array_equal(got, np.concatenate(
+            [row[:c] for row, c in zip(p.reshape(nblocks, block), counts)]))
+
+
+def test_fhj_compact_stream_routes_compact_by_mask(monkeypatch):
+    mask, cols = _inputs(3_000, 0.4, 4, seed=7)
+    planes = [tu64.to_device(c, "cpu") for c in cols]
+    calls = []
+    real = tc.compact_by_mask_stream
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tc, "compact_by_mask_stream", spy)
+    pack = tc.compact_by_mask(torch.from_numpy(mask), planes, n_out=2_000)
+    assert not calls                                   # "pack": the default
+    monkeypatch.setenv("FHJ_COMPACT", "stream")        # read at call time
+    stream = tc.compact_by_mask(torch.from_numpy(mask), planes, n_out=2_000)
+    assert calls == [1]
+    assert int(stream[0]) == int(pack[0]) == int(mask.sum())
+    keep = min(2_000, int(pack[0]))
+    for s, p in zip(stream[1], pack[1]):
+        assert s.numel() == 2_000 and torch.equal(s[:keep], p[:keep])

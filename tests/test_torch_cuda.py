@@ -17,8 +17,11 @@ import pytest
 import torch
 
 import flash_hash_join_tpu_torch as ft
+from flash_hash_join_tpu_torch.ops import bucket_table as bt
+from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import range_table as rt
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
+from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
@@ -282,3 +285,128 @@ def test_direct_materialize_on_card_matches_oracle(dev, span, wide, kernels):
     assert count == int(hit.sum()) and secs > 0.0
     np.testing.assert_array_equal(keys, pk[hit])       # probe order
     np.testing.assert_array_equal(vals, bv[first[pos[hit]]])
+
+
+# ---- vmem tier and stream compaction: K10, K11, K6 ---------------------------
+
+def _bucket_table(rng, r_slots, dev, fill_bucket=False):
+    """A bucket table of about 40 % load from random keys (the u64-max key
+    among them); with fill_bucket, bucket 0's column is full to its last
+    slot.  Returns (numpy build keys, table)."""
+    bk = rng.integers(0, 2**64, int(0.4 * 128 * r_slots), dtype=np.uint64)
+    if fill_bucket:
+        cand = rng.integers(0, 2**64, 400 * r_slots, dtype=np.uint64)
+        bk = np.concatenate([bk[_bucket_of(bk) != 0],
+                             cand[_bucket_of(cand) == 0][:r_slots]])
+    bk[:2] = M64
+    kh, kl = device_planes(bk, dev)
+    vh, vl = device_planes(rng.integers(0, 2**64, bk.size, dtype=np.uint64),
+                           dev)
+    return bk, bt.build_bucket_table(kh, kl, vh, vl, bk.size, r_slots=r_slots,
+                                     with_values=True)
+
+
+def _bucket_of(keys):
+    return bkp.probe_buckets(*device_planes(keys, "cpu")).numpy()
+
+
+@pytest.mark.parametrize("r_slots", [8, 16, 64, 128, 512])
+@pytest.mark.parametrize("fill", [False, True])
+def test_bucket_probe_kernels_match_plain(dev, r_slots, fill):
+    rng = np.random.default_rng(r_slots + fill)
+    bk, table = _bucket_table(rng, r_slots, dev, fill_bucket=fill)
+    if fill:
+        col = table.tk_hi[:, 0].cpu()
+        assert bool((col != -1).all()), "bucket 0 is not full"
+    for npr in (0, 7, 1_000_003):
+        pk = rng.integers(0, 2**64, npr + 1, dtype=np.uint64)
+        pk[1::2] = rng.choice(bk, pk[1::2].size)
+        pk[:4] = M64
+        ph, pl = device_planes(pk, dev)
+        for view in (slice(0, npr), slice(1, None)):    # aligned, misaligned
+            p = (ph[view], pl[view])
+            for np_valid in {npr, max(npr - 5, 0)}:
+                before = bkp.probe_count_vmem.launches
+                got = bkp.probe_count_vmem(table.tk_hi, table.tk_lo, *p,
+                                           np_valid)
+                want = bkp.probe_count_vmem_plain(table.tk_hi, table.tk_lo,
+                                                  *p, np_valid)
+                torch.cuda.synchronize()
+                assert int(got) == int(want), (r_slots, npr, np_valid)
+                assert bkp.probe_count_vmem.launches == before + (
+                    np_valid > 0)
+                args = (table.tk_hi, table.tk_lo, table.tv_hi, table.tv_lo,
+                        *p, np_valid)
+                _assert_same(bkp.probe_materialize_vmem(*args),
+                             bkp.probe_materialize_vmem_plain(*args))
+
+
+@pytest.mark.parametrize("n_planes", [2, 3, 4])
+@pytest.mark.parametrize("kind", ["empty", "full", "random"])
+def test_concat_ragged_blocks_matches_plain(dev, n_planes, kind):
+    rng = np.random.default_rng(n_planes)
+    nblocks, block = 600, 4_096
+    counts = {"empty": np.zeros(nblocks, np.int32),
+              "full": np.full(nblocks, block, np.int32),
+              "random": rng.integers(0, block + 1, nblocks).astype(
+                  np.int32)}[kind]
+    planes = [to_device(rng.integers(0, 2**32, nblocks * block,
+                                     dtype=np.uint32), dev).view(nblocks,
+                                                                 block)
+              for _ in range(n_planes)]
+    counts = torch.from_numpy(counts).to(dev)
+    before = sc.concat_ragged_blocks.launches
+    got = sc.concat_ragged_blocks(planes, counts)
+    want = sc.concat_ragged_blocks_plain(planes, counts)
+    torch.cuda.synchronize()
+    assert sc.concat_ragged_blocks.launches == before + 1
+    total = int(counts.sum())
+    for g, w in zip(got, want):
+        assert torch.equal(g[:total], w[:total])
+
+
+@pytest.mark.parametrize("strategy,use_bloom", [("vmem", False),
+                                                ("global", False),
+                                                ("global", True)])
+def test_explicit_tiers_on_card_match_oracle(dev, strategy, use_bloom):
+    rng = np.random.default_rng(5)
+    nb = 20_000 if strategy == "vmem" else 500_000
+    bk = rng.integers(0, 2**64, nb, dtype=np.uint64)
+    bk[100:200] = bk[7]                                # duplicate run
+    bk[:2] = M64
+    bv = rng.integers(0, 2**64, nb, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 1_000_000),
+                         rng.integers(0, 2**64, 1_000_000, dtype=np.uint64)])
+    uniq, first = np.unique(bk, return_index=True)     # min build row wins
+    pos = np.searchsorted(uniq, pk).clip(max=uniq.size - 1)
+    hit = uniq[pos] == pk
+    kw = dict(strategy=strategy, use_bloom=use_bloom, return_info=True)
+    count, secs, info = ft.join_count(bk, bv, pk, **kw)
+    assert count == int(hit.sum()) and secs > 0.0
+    assert info["strategy"] == strategy and not info["retried"]
+    count, _, keys, vals, info = ft.join_materialize(bk, bv, pk,
+                                                     return_arrays=True, **kw)
+    assert count == int(hit.sum()) and not info["retried"]
+    if strategy == "vmem":
+        assert info["launches"]["probe_materialize_vmem"] == 1
+    assert info["launches"]["compact"] == 1
+    np.testing.assert_array_equal(keys, pk[hit])       # probe order
+    np.testing.assert_array_equal(vals, bv[first[pos[hit]]])
+
+
+def test_stream_compaction_on_card(dev, monkeypatch):
+    rng = np.random.default_rng(2)
+    n = 3_000_001
+    mask = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+    cols = [to_device(rng.integers(0, 2**32, n, dtype=np.uint32), dev)
+            for _ in range(4)]
+    pack = cp.compact_by_mask(mask, cols)
+    monkeypatch.setenv("FHJ_COMPACT", "stream")
+    before = sc.concat_ragged_blocks.launches
+    stream = cp.compact_by_mask(mask, cols)
+    torch.cuda.synchronize()
+    assert sc.concat_ragged_blocks.launches == before + 1
+    count = int(pack[0])
+    assert int(stream[0]) == count == int(mask.sum())
+    for s, p in zip(stream[1], pack[1]):
+        assert torch.equal(s[:count], p[:count])
