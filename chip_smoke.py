@@ -9,9 +9,12 @@ Phases, one JSON line each on stdout:
               from the checkout's csrc/ (seconds, ptxas register report).
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               card (exact): K1/K2 at every bitmap rung the dense path uses;
-              K3/K4/K5 at build sizes 0, 1, 5, 2e6 and probe sizes 0, 7,
-              3e7+5, misaligned views, np_valid < npr, the u64-max key on
-              both sides, K5 with 2, 3 and 4 planes; K7 at v_rows 8, 16,
+              the range table's directory build, K3/K4/K5 at build sizes
+              0, 1, 5, 2e6 and probe sizes 0, 7, 3e7+5, and on builds that
+              stress the directory (all keys equal, the keys {0, 2^64-1},
+              99 % of 2e6 keys in one bucket, a 1e5-row duplicate run) at
+              probe sizes 0, 7, 3e6+5, misaligned views, np_valid < npr,
+              the u64-max key on both sides, K5 with 2, 3 and 4 planes; K7 at v_rows 8, 16,
               64, 128 and K8 at 256, 1024, 8192, each with 1 and 2 value
               planes, and K9, at sizes 0, 7 and 3e7+5 with misaligned,
               odd-length views and a sentinel tail (np_valid < npr); K10/K11
@@ -34,7 +37,8 @@ Phases, one JSON line each on stdout:
               Phases 4 and 5: count == oracle; the materialized rows equal
               the oracle's in probe order (hence also as sorted pairs), with
               the minimum build row as the duplicate-key winner; route
-              "partitioned" with no retry; K3 (count), K4 and K5 launched.
+              "partitioned" with no retry; the directory build, K3
+              (count), K4 and K5 launched.
   6. direct_vs_partitioned  J1 4e7 Q1, Q2, Q5 count through
               join_count(strategy="partitioned"), beside phase 3's direct.
   7. fallback a sparse 64-bit case through the exact merge join, count and
@@ -63,8 +67,9 @@ Phases 3-5 and 8-11 time a warm-up and then the best of the following
 runs: core_seconds (device time), wall seconds, probe rows/s, peak device
 bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5,
 8, 9 and 11 and read just after.  Then the seconds of each phase, the
-kernels summary (each kernel's launches on its path, error against its
-plain version, times, bound and library time), the card's name and power
+kernels summary (the 11 TPU kernels' counterparts and the range table's
+directory build: each one's launches on its path, error against its plain
+version, times, bound and library time), the card's name and power
 limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
 
 Any failed check raises, so the exit code is non-zero and the last line is
@@ -92,6 +97,8 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             "bitmap_probe": PALLAS + "bitmap_probe.py:149",
             "range_probe_count": PALLAS + "range_probe.py:330",
             "range_probe_materialize": PALLAS + "range_probe.py:368",
+            # the column boundaries of the TPU range table (plain XLA)
+            "range_directory": "flash_hash_join_tpu/ops/range_table.py:265",
             "compact": PALLAS + "stream_compact.py:337",
             "probe_gather_bitmap": PALLAS + "bitmap_probe.py:96",
             "probe_gather_staged": PALLAS + "dense_values.py:135",
@@ -104,6 +111,7 @@ KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "bitmap_probe": ("probe_count_bitmap", "bitmap_probe.cu"),
     "range_probe_count": ("range_probe_count", "range_probe.cu"),
     "range_probe_materialize": ("range_probe_materialize", "range_probe.cu"),
+    "range_directory": ("range_directory", "range_probe.cu"),
     "compact": ("compact_by_mask", "stream_compact.cu"),
     "probe_gather_bitmap": ("probe_gather_bitmap", "bitmap_probe.cu"),
     "probe_gather_staged": ("probe_gather_staged", "dense_values.cu"),
@@ -176,7 +184,7 @@ def zero_launches() -> None:
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
     for fn in (dbm.fused_bitmap_join, bp.probe_count_bitmap,
                rp.range_probe_count, rp.range_probe_materialize,
-               sc.compact_by_mask, bp.probe_gather_bitmap,
+               rp.range_directory, sc.compact_by_mask, bp.probe_gather_bitmap,
                dv.probe_gather_staged, dv.materialize_copy,
                sc.concat_ragged_blocks, bkp.probe_count_vmem,
                bkp.probe_materialize_vmem):
@@ -356,9 +364,26 @@ def _max_abs(got, want) -> int:
     return int((widen(got) - widen(want)).abs().max())
 
 
+def directory_build_keys(name: str, rng) -> np.ndarray:
+    """Build keys that stress the range table's bucket directory."""
+    n = 2_000_000
+    bk = rng.integers(0, 2**64, n, dtype=np.uint64)
+    if name == "all_equal":                            # span 0
+        bk[:] = bk[0]
+    elif name == "ends":                   # span 2^64-1: shift 64, one bucket
+        bk = np.array([M64, 0], np.uint64)
+    elif name == "crowded":        # 99 % of the keys in one bucket, outliers
+        bk[n // 100:] = rng.integers(5, 5 + n, n - n // 100, dtype=np.uint64)
+        bk[:2] = [0, M64]
+    elif name == "dup_run":                            # a 1e5-row run
+        bk[n // 2: n // 2 + 100_000] = bk[3]
+    return bk
+
+
 def phase_partitioned_kernels(cells: dict) -> dict:
-    """K3/K4/K5 == plain on edge and large shapes; then each timed against
-    its plain version on the radix path's J1 1e8 Q5 inputs."""
+    """The directory build, K3, K4 and K5 == plain on edge and large shapes
+    and on builds that stress the directory; then each timed against its
+    plain version on the radix path's J1 1e8 Q5 inputs."""
     import torch
     from flash_hash_join_tpu_torch.ops import range_table as rt
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
@@ -367,8 +392,8 @@ def phase_partitioned_kernels(cells: dict) -> dict:
                                                      to_device)
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    err = {"range_probe_count": 0, "range_probe_materialize": 0,
-           "compact": 0}
+    err = {"range_directory": 0, "range_probe_count": 0,
+           "range_probe_materialize": 0, "compact": 0}
     cases = 0
 
     def check_compact(mask, cols, n_out):
@@ -381,34 +406,41 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         err["compact"] = max(err["compact"], e)
         cases += 1
 
-    for nb in (0, 1, 5, 2_000_000):
-        bk = rng.integers(0, 2**64, nb, dtype=np.uint64)
-        bk[: min(nb, 2)] = M64                         # u64-max key
-        dups = min(nb // 2, 1000)                      # duplicate runs
-        bk[nb // 2: nb // 2 + dups] = bk[:dups]
+    def check_table(bk, probe_sizes):
+        """The directory kernel, K3, K4 and K5 against their plain versions
+        on one build: probes of each size, half of them build keys and a
+        sixth the keys just above those (misses inside buckets), the
+        u64-max key among them; aligned and misaligned, np_valid < npr."""
+        nonlocal cases
+        nb = bk.size
         bv = rng.integers(0, 2**64, nb, dtype=np.uint64)
         kh, kl = device_planes(bk, dev)
         vh, vl = device_planes(bv, dev)
         table = rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
-        for npr in (0, 7, 30_000_005):
+        want = rp.range_directory_plain(table.keys)
+        got = (table.dir, torch.stack([table.lo, table.shift]))
+        err["range_directory"] = max(err["range_directory"], *(
+            _max_abs(g, w) if g.dtype == torch.int32 else
+            int((g != w).any()) for g, w in zip(got, want)))
+        cases += 1
+        for npr in probe_sizes:
             pk = rng.integers(0, 2**64, npr, dtype=np.uint64)
             if nb:
                 pk[::2] = rng.choice(bk, pk[::2].size)
+                pk[1::6] = pk[::6][:pk[1::6].size] + np.uint64(1)
             pk[: min(npr, 3)] = M64
             ph, pl = device_planes(pk, dev)
             for view in (slice(None), slice(1, None)):  # misaligned
                 p = (ph[view], pl[view])
                 n = p[0].numel()
                 for np_valid in {n, max(n - 5, 0)}:
-                    got = rp.range_probe_count(table.keys, *p, np_valid)
-                    want = rp.range_probe_count_plain(table.keys, *p,
-                                                      np_valid)
+                    got = rp.range_probe_count(table, *p, np_valid)
+                    want = rp.range_probe_count_plain(table, *p, np_valid)
                     err["range_probe_count"] = max(
                         err["range_probe_count"], abs(int(got) - int(want)))
-                    got = rp.range_probe_materialize(
-                        table.keys, table.vh, table.vl, *p, np_valid)
-                    want = rp.range_probe_materialize_plain(
-                        table.keys, table.vh, table.vl, *p, np_valid)
+                    got = rp.range_probe_materialize(table, *p, np_valid)
+                    want = rp.range_probe_materialize_plain(table, *p,
+                                                            np_valid)
                     err["range_probe_materialize"] = max(
                         err["range_probe_materialize"],
                         *(_max_abs(g, w) for g, w in zip(got, want)))
@@ -420,6 +452,15 @@ def phase_partitioned_kernels(cells: dict) -> dict:
                                 :n_planes], n)
             del ph, pl
         del table, kh, kl, vh, vl
+
+    for nb in (0, 1, 5, 2_000_000):
+        bk = rng.integers(0, 2**64, nb, dtype=np.uint64)
+        bk[: min(nb, 2)] = M64                         # u64-max key
+        dups = min(nb // 2, 1000)                      # duplicate runs
+        bk[nb // 2: nb // 2 + dups] = bk[:dups]
+        check_table(bk, (0, 7, 30_000_005))
+    for name in ("all_equal", "ends", "crowded", "dup_run"):
+        check_table(directory_build_keys(name, rng), (0, 7, 3_000_005))
     for n in (0, 7, 30_000_005):                       # K5 alone, misaligned
         mask = torch.from_numpy(rng.random(n + 1) < 0.37).to(dev)[1:]
         cols = [to_device(rng.integers(0, 2**32, n + 1, dtype=np.uint32),
@@ -430,7 +471,7 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     torch.cuda.synchronize()
     require(all(e == 0 for e in err.values()), f"kernel != plain: {err}")
     emit("kernels_vs_plain", kernels=list(err), max_abs_err=err, cases=cases,
-         tolerance="exact (counts, hit masks and u32 planes)")
+         tolerance="exact (directories, counts, hit masks and u32 planes)")
 
     c = cells["1e8-Q5"]
     kh, kl = device_planes(c.build_keys, dev)
@@ -439,34 +480,44 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     nb, npr = kh.numel(), ph.numel()
     table = rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
     del kh, kl, vh, vl
-    hit, mvh, mvl = rp.range_probe_materialize(table.keys, table.vh,
-                                               table.vl, ph, pl, npr)
+    hit, mvh, mvl = rp.range_probe_materialize(table, ph, pl, npr)
     cols = (ph, pl, mvh, mvl)
     hits = int(hit.sum())
     # library yardsticks, timed here and used nowhere in the port: one
-    # searchsorted of the probes' sortable keys (computed beforehand), and
-    # one boolean-mask index of the four planes stacked beforehand
+    # searchsorted of the probes' sortable keys (computed beforehand), one
+    # searchsorted of the directory's bucket start keys, and one
+    # boolean-mask index of the four planes stacked beforehand
     x, stacked = sortable(ph, pl), torch.stack(cols)
     searched = cuda_ms(lambda: torch.searchsorted(table.keys, x))
-    library = {"range_probe_count": searched,
+    lo, shift = int(table.lo), int(table.shift)
+    span = int(table.keys[-1]) - lo
+    starts = lo + (torch.arange((span >> shift) + 1, device=dev) << shift)
+    library = {"range_directory": cuda_ms(
+                   lambda: torch.searchsorted(table.keys, starts)),
+               "range_probe_count": searched,
                "range_probe_materialize": searched,
                "compact": cuda_ms(lambda: stacked[:, hit])}
-    del x, stacked
+    del x, stacked, starts
     steps = 3 * (nb.bit_length() + 1) + 4     # per probe: the lower bound
-    bounds = {"range_probe_count": bound(8 * nb + 8 * npr + 8, npr * steps),
+    bounds = {  # the directory: keys read, offsets and (lo, shift) written
+              # and two buckets of about 4 operations a key
+              "range_directory": bound(8 * nb + table.dir.numel()
+                                       * table.dir.element_size() + 16,
+                                       8 * nb),
+              "range_probe_count": bound(8 * nb + 8 * npr + 8, npr * steps),
               "range_probe_materialize": bound(16 * nb + 17 * npr,
                                                npr * steps),
               # the mask, then the hit rows' 4 planes read and written
               "compact": bound(npr + 32 * hits + 8, 6 * npr)}
     runs = {
+        "range_directory": (lambda: rp.range_directory(table.keys),
+                            lambda: rp.range_directory_plain(table.keys)),
         "range_probe_count": (
-            lambda: rp.range_probe_count(table.keys, ph, pl, npr),
-            lambda: rp.range_probe_count_plain(table.keys, ph, pl, npr)),
+            lambda: rp.range_probe_count(table, ph, pl, npr),
+            lambda: rp.range_probe_count_plain(table, ph, pl, npr)),
         "range_probe_materialize": (
-            lambda: rp.range_probe_materialize(table.keys, table.vh,
-                                               table.vl, ph, pl, npr),
-            lambda: rp.range_probe_materialize_plain(table.keys, table.vh,
-                                                     table.vl, ph, pl, npr)),
+            lambda: rp.range_probe_materialize(table, ph, pl, npr),
+            lambda: rp.range_probe_materialize_plain(table, ph, pl, npr)),
         "compact": (lambda: sc.compact_by_mask(hit, cols, npr),
                     lambda: sc.compact_by_mask_plain(hit, cols, npr)),
     }
@@ -480,6 +531,10 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         emit("kernel_time", cell="1e8-Q5", kernel=name, nb=nb, npr=npr,
              ms=ms, plain_ms=plain_ms, **bounds[name],
              library_ms=library[name])
+    summary["range_directory"].update(
+        role="table build of K3/K4 (not a TPU kernel)",
+        dir_entries=table.dir.numel(), shift=shift,
+        largest_bucket=int((table.dir[1:] - table.dir[:-1]).max()))
     del table, ph, pl, hit, mvh, mvl, cols
     torch.cuda.empty_cache()
     return summary
@@ -714,10 +769,12 @@ def partitioned_cell(phase: str, name: str, c, fn_name: str,
     rows with the same strategy, for a materialize."""
     if not materialize:
         return api_cell(phase, name, c, fn_name, expect="partitioned",
-                        kernels=("range_probe_count",), **kw)
+                        kernels=("range_directory", "range_probe_count"),
+                        **kw)
     strategy = "adaptive" if fn_name == "adaptive_join" else "partitioned"
     return api_cell(phase, name, c, fn_name, expect="partitioned",
-                    kernels=("range_probe_materialize", "compact"),
+                    kernels=("range_directory", "range_probe_materialize",
+                             "compact"),
                     rows_kw=dict(strategy=strategy), **kw)
 
 
@@ -728,7 +785,7 @@ def phase_radix(cells: dict) -> dict:
                          "hash_join_radix", materialize=True)
     partitioned_cell("radix", "1e8-Q5", cells["1e8-Q5"],
                      "hash_join_count_radix", materialize=False)
-    return require_launched("radix", ("range_probe_count",
+    return require_launched("radix", ("range_directory", "range_probe_count",
                                       "range_probe_materialize", "compact"))
 
 
@@ -739,7 +796,8 @@ def phase_adaptive(cells: dict) -> dict:
                      materialize=False)
     partitioned_cell("adaptive", "uniform-1e7x1e8", c, "adaptive_join",
                      materialize=True)
-    return require_launched("adaptive", ("range_probe_count",
+    return require_launched("adaptive", ("range_directory",
+                                         "range_probe_count",
                                          "range_probe_materialize",
                                          "compact"))
 
@@ -1122,7 +1180,8 @@ def phase_stream_compact(cells: dict) -> dict:
     os.environ["FHJ_COMPACT"] = "stream"
     api_cell("stream_compact", "1e8-Q2", cells["1e8-Q2"], "hash_join_radix",
              expect="partitioned",
-             kernels=("range_probe_materialize", "concat_ragged_blocks"),
+             kernels=("range_directory", "range_probe_materialize",
+                      "concat_ragged_blocks"),
              rows_kw=dict(strategy="partitioned"), reps=1)
     api_cell("stream_compact", "1e8-Q1", cells["1e8-Q1"], "adaptive_join",
              expect="direct",
@@ -1189,7 +1248,8 @@ def main() -> int:
     summary.update(phase("bucket_kernels", phase_bucket_kernels, cells))
     launches, direct_core = phase("main", phase_main, cells)
     radix = phase("radix", phase_radix, cells)
-    for k in ("range_probe_count", "range_probe_materialize", "compact"):
+    for k in ("range_directory", "range_probe_count",
+              "range_probe_materialize", "compact"):
         launches[k] = radix[k]
     phase("adaptive", phase_adaptive, cells)
     phase("direct_vs_partitioned", phase_direct_vs_partitioned, cells,

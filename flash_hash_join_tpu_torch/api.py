@@ -87,6 +87,7 @@ def launch_counts() -> dict:
             "bitmap_probe": bp.probe_count_bitmap.launches,
             "range_probe_count": rp.range_probe_count.launches,
             "range_probe_materialize": rp.range_probe_materialize.launches,
+            "range_directory": rp.range_directory.launches,
             "compact": sc.compact_by_mask.launches,
             "probe_gather_bitmap": bp.probe_gather_bitmap.launches,
             "probe_gather_staged": dv.probe_gather_staged.launches,

@@ -1,4 +1,5 @@
-// K3 / K4: probe of the partitioned ("radix") tier, count and materialize.
+// K3 / K4: probe of the partitioned ("radix") tier, count and materialize,
+// and the bucket directory that both search through.
 //
 // Replaces flash_hash_join_tpu/ops/pallas/range_probe.py:range_probe_count
 // (kernel body _count_kernel) and :range_probe_materialize
@@ -8,122 +9,305 @@
 // FIRST build row of the key's run in the stably sorted table, which is the
 // minimum build-row index with that key.
 //
-// The table is the valid build keys as sortable int64 (u64 key with its top
-// bit flipped, utils/u64.py:sortable), sorted ascending by torch.sort
-// outside the kernel, as lax.sort is in the JAX package.  Probes stay
-// UNSORTED in input order; rows at or past np_valid never hit.
+// The table (ops/range_table.py) is the valid build keys as sortable int64
+// (u64 key with its top bit flipped, utils/u64.py:sortable), sorted
+// ascending by torch.sort outside the kernels, as lax.sort is in the JAX
+// package; the values permuted the same way as one interleaved (vh, vl)
+// plane; and a bucket directory: bucket b holds the keys whose
+// (u64)(key - lo) >> shift equals b (lo = keys[0]), and dir[b] is the first
+// index at or past bucket b, for b in [0, 2^p].  Probes stay UNSORTED in
+// input order; rows at or past np_valid never hit.
 //
-// What bounds it on an H100: each probe is a branch-free lower bound over
-// nb keys, log2(nb) dependent 8-byte loads (27 at 1e8 build rows).  The top
-// ~20 levels of every search touch few enough distinct keys to stay in the
-// 50 MB L2; the last levels go to device memory as 32-byte sector reads.
-// So the kernel is bound by the latency of those dependent loads, hidden by
-// keeping many probes in flight (one thread per probe, full occupancy).
+// What bounds it on an H100: the random 32-byte sector reads a probe needs,
+// 8 bytes used of each.  On J1 1e8 Q5 one random sector a probe costs about
+// 3.8 ms (a plain gather keys[idx]); a lower bound over all nb keys touches
+// log2(nb) of them (27 at 1e8 keys), a binary search of a bucket 3-5, each
+// step about 2-2.5 ms per 1e8 probes (bench_partitioned.py --anatomy).  The
+// bytes bound is 0.5-1 ms.
 //
 // What the design does about it, against the TPU kernel:
-//  * The TPU kernel needs a rank-balanced (S, C, 128) transposed table, its
-//    (S+1, 1, 128) column boundaries, a W-super-row window per tile with a
-//    scalar-prefetched start, sorted and tile-padded probes and SMALL /
-//    BLOCKWISE modes, because Mosaic has no per-element addressing.  Here
-//    each probe addresses the sorted keys directly: all of that is gone, and
-//    with it the window overflow, so this kernel never reports unresolved
-//    probes and needs no sentinel (the u64-max key joins like any other).
+//  * The TPU kernel searches in two levels: the (S+1, 1, 128) column
+//    boundaries place each probe (range_probe.py:_search), then it scans
+//    the column's C keys (_scan_hits).  Here the first level is the
+//    directory, 2^p + 1 offsets (p <= 23, so at most 32 MB of int32: it
+//    stays in the 50 MB L2).  A probe outside [keys[0], keys[nb - 1]] misses
+//    without a table read; otherwise one read of dir[b], dir[b + 1]
+//    (adjacent), then the sector of the bucket where x would sit if its keys
+//    were evenly spread (an interpolation guess: on uniform keys the lower
+//    bound is inside it, so one key sector a probe), and only if not, a
+//    branch-free lower bound over the side of the bucket left.  A crowded
+//    bucket costs the old whole-table search plus two reads.
+//  * The guessed sector answers the probe itself when the lower bound is
+//    inside it (no re-read).  Positions are 32-bit below 2^31 keys.  One
+//    probe a thread at full occupancy: on the H100, 2 or 4 independent
+//    probes a thread and 16-byte loads of the sector measured slower, one
+//    16-byte load of dir[b], dir[b + 1] no faster (bench_partitioned.py
+//    runs; PERF.md).
+//  * The TPU layout's window, transposed table, probe sort and tile padding
+//    serve Mosaic's lack of per-element addressing and are gone, and with
+//    them the window overflow: these kernels never report unresolved probes
+//    and need no sentinel (the u64-max key joins like any other).
+//  * K4 reads the winner's (vh, vl) as one 8-byte load: one value sector a
+//    hit, not two.
 //  * Count: each thread keeps its own hits; one warp-shuffle block reduction
 //    and one 64-bit atomicAdd per block finish the count.
+//  * The directory build reads each sorted key once, coalesced: thread i
+//    fills the buckets between bucket(keys[i - 1]) and bucket(keys[i]).  A
+//    long run of empty buckets is filled by the whole block, the buckets past
+//    the last key's by the whole grid, so skewed keys stay parallel.
 #include "common.cuh"
 
 namespace {
+
+constexpr int kShortGap = 8;  // empty-bucket runs a thread fills alone
 
 __device__ __forceinline__ long long sortable_key(uint32_t hi, uint32_t lo) {
   return (long long)((((unsigned long long)hi << 32) | lo) ^ 0x8000000000000000ull);
 }
 
-// Index of the first key >= x in keys[0, n), n >= 1; branch-free (the loop
-// count depends on n only, so a warp's searches stay converged).
-__device__ __forceinline__ int64_t lower_bound(const long long* __restrict__ keys,
-                                               int64_t n, long long x) {
-  const long long* base = keys;
+// (u64)(x - lo) >> shift, for lo <= x; 0 when shift is 64 (one bucket).
+__device__ __forceinline__ int64_t bucket_of(long long x, long long lo, int shift) {
+  const unsigned long long d = (unsigned long long)x - (unsigned long long)lo;
+  return shift >= 64 ? 0 : (int64_t)(d >> shift);
+}
+
+template <typename Dir>
+__global__ void __launch_bounds__(fhj::kThreads)
+range_directory_kernel(const long long* __restrict__ keys, int64_t nb, int p,
+                       Dir* __restrict__ dir, long long* __restrict__ meta) {
+  __shared__ int64_t gap_first[fhj::kThreads], gap_last[fhj::kThreads];
+  __shared__ int64_t gap_value[fhj::kThreads];
+  __shared__ int n_gaps;
+  const long long lo = __ldg(keys), hi = __ldg(keys + nb - 1);
+  const unsigned long long span = (unsigned long long)hi - (unsigned long long)lo;
+  const int bits = span ? 64 - __clzll((long long)span) : 0;
+  const int shift = bits > p ? bits - p : 0;
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  if (tid == 0) {
+    meta[0] = lo;
+    meta[1] = shift;
+  }
+  // the buckets past the last key's bucket start at nb
+  for (int64_t b = bucket_of(hi, lo, shift) + 1 + tid; b <= ((int64_t)1 << p); b += stride)
+    dir[b] = (Dir)nb;
+  // key i is the first of buckets (bucket(keys[i - 1]), bucket(keys[i])]
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < nb; base += stride) {
+    if (threadIdx.x == 0) n_gaps = 0;
+    __syncthreads();
+    const int64_t i = base + threadIdx.x;
+    if (i < nb) {
+      const int64_t last = bucket_of(__ldg(keys + i), lo, shift);
+      const int64_t first = i ? bucket_of(__ldg(keys + i - 1), lo, shift) + 1 : 0;
+      if (last - first < kShortGap) {
+        for (int64_t b = first; b <= last; ++b) dir[b] = (Dir)i;
+      } else {
+        const int k = atomicAdd(&n_gaps, 1);
+        gap_first[k] = first;
+        gap_last[k] = last;
+        gap_value[k] = i;
+      }
+    }
+    __syncthreads();
+    for (int k = 0; k < n_gaps; ++k)
+      for (int64_t b = gap_first[k] + threadIdx.x; b <= gap_last[k]; b += blockDim.x)
+        dir[b] = (Dir)gap_value[k];
+    __syncthreads();
+  }
+}
+
+// Positions are computed in Dir, the offsets' own type: 32-bit below 2^31
+// keys, which keeps the search's arithmetic and registers narrow.
+template <typename Dir>
+struct Table {
+  const long long* keys;
+  const Dir* dir;
+  long long lo, hi;  // keys[0], keys[nb - 1]; lo > hi for an empty table
+  int shift;
+};
+
+template <typename Dir>
+__device__ __forceinline__ Table<Dir> load_table(const long long* keys, int64_t nb,
+                                                 const Dir* dir, const long long* lo,
+                                                 const long long* shift) {
+  if (nb <= 0) return {keys, dir, 1, 0, 0};
+  return {keys, dir, __ldg(lo), __ldg(keys + nb - 1), (int)__ldg(shift)};
+}
+
+// floor(f * n) for f the fraction of x's offset within its bucket (of width
+// 2^shift), from its top 32 bits when Dir is 32-bit.
+template <typename Dir>
+__device__ __forceinline__ Dir scaled_fraction(long long x, long long lo, int shift, Dir n) {
+  const unsigned long long d = (unsigned long long)x - (unsigned long long)lo;
+  const unsigned long long f = shift == 0 ? 0ull : shift >= 64 ? d : d << (64 - shift);
+  if constexpr (sizeof(Dir) == 4)
+    return (Dir)__umulhi((unsigned)(f >> 32), (unsigned)n);
+  else
+    return (Dir)__umul64hi(f, (unsigned long long)n);
+}
+
+// Index of the first key equal to x, or -1 when x is not a key.
+template <typename Dir>
+__device__ __forceinline__ Dir find(const Table<Dir>& t, long long x) {
+  if (x < t.lo || x > t.hi) return -1;  // outside the keys: no table read
+  const Dir b = (Dir)bucket_of(x, t.lo, t.shift);
+  Dir base = __ldg(t.dir + b);
+  const Dir end = __ldg(t.dir + b + 1);
+  if (base == end) return -1;  // an empty bucket
+  // Interpolation guess: the 32-byte sector (4 keys) where x would sit if
+  // the bucket's keys were evenly spread.  Keys below the bucket count as
+  // < x and keys past it as > x.  If the lower bound is inside the sector,
+  // the sector answers; otherwise the candidates shrink to one side.  The
+  // four loads are unconditional (their index clamped into the bucket), so
+  // they are in flight together: loads behind branches measured 1.4x slower.
+  const Dir s = (base + scaled_fraction(x, t.lo, t.shift, (Dir)(end - base))) & ~(Dir)3;
+  int below = 0;
+  bool equal = false;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const Dir at = s + i;
+    const long long key = __ldg(t.keys + (at < base ? base : at < end ? at : end - 1));
+    const bool in_bucket = at >= base && at < end;
+    below += at < base || (in_bucket && key < x);
+    equal |= in_bucket && key == x;
+  }
+  Dir n;  // the lower bound is one of the n candidates [base, base + n)
+  if (below == 4) {
+    n = end - s - 3;
+    base = s + 4;
+  } else if (below > 0 || s == base) {
+    return equal ? s + below : -1;
+  } else {
+    n = s - base + 1;
+  }
+  // branch-free: each step halves the candidates with one load,
+  // keys[base + half - 1] < x meaning "past it"
   while (n > 1) {
-    const int64_t half = n >> 1;
-    base = (__ldg(base + half) < x) ? base + half : base;
+    const Dir half = n >> 1;
+    base = __ldg(t.keys + base + half - 1) < x ? base + half : base;
     n -= half;
   }
-  return (base - keys) + (__ldg(base) < x);
+  return base < end && __ldg(t.keys + base) == x ? base : -1;
 }
 
-// Position of x's run in keys[0, nb), or -1 when x is not a key.
-__device__ __forceinline__ int64_t find(const long long* __restrict__ keys, int64_t nb,
-                                        long long x) {
-  const int64_t pos = lower_bound(keys, nb, x);
-  return (pos < nb && __ldg(keys + pos) == x) ? pos : -1;
-}
-
+template <typename Dir>
 __global__ void __launch_bounds__(fhj::kThreads)
 range_probe_count_kernel(const long long* __restrict__ keys, int64_t nb,
+                         const Dir* __restrict__ dir, const long long* __restrict__ lo,
+                         const long long* __restrict__ shift,
                          const uint32_t* __restrict__ ph, const uint32_t* __restrict__ pl,
                          int64_t np, unsigned long long* __restrict__ count) {
+  const Table<Dir> t = load_table(keys, nb, dir, lo, shift);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   unsigned int hits = 0;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < np; i += stride)
-    hits += find(keys, nb, sortable_key(__ldg(ph + i), __ldg(pl + i))) >= 0;
+    hits += find(t, sortable_key(__ldg(ph + i), __ldg(pl + i))) >= 0;
   const unsigned long long total = fhj::block_sum(hits);
   if (threadIdx.x == 0 && total) atomicAdd(count, total);
 }
 
+template <typename Dir>
 __global__ void __launch_bounds__(fhj::kThreads)
 range_probe_materialize_kernel(const long long* __restrict__ keys, int64_t nb,
-                               const uint32_t* __restrict__ tvh,
-                               const uint32_t* __restrict__ tvl,
+                               const Dir* __restrict__ dir, const long long* __restrict__ lo,
+                               const long long* __restrict__ shift,
+                               const uint2* __restrict__ values,
                                const uint32_t* __restrict__ ph,
                                const uint32_t* __restrict__ pl, int64_t n,
                                int64_t np_valid, uint8_t* __restrict__ hit,
                                uint32_t* __restrict__ vh, uint32_t* __restrict__ vl) {
+  const Table<Dir> t = load_table(keys, nb, dir, lo, shift);
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int64_t pos = (i < np_valid && nb > 0)
-                            ? find(keys, nb, sortable_key(__ldg(ph + i), __ldg(pl + i)))
-                            : -1;
+    const Dir pos = i < np_valid ? find(t, sortable_key(__ldg(ph + i), __ldg(pl + i))) : -1;
+    const uint2 v = pos >= 0 ? __ldg(values + pos) : make_uint2(0u, 0u);
     hit[i] = pos >= 0;
-    vh[i] = pos >= 0 ? __ldg(tvh + pos) : 0u;
-    vl[i] = pos >= 0 ? __ldg(tvl + pos) : 0u;
+    vh[i] = v.x;
+    vl[i] = v.y;
   }
+}
+
+template <typename Dir>
+int directory(const long long* keys, int64_t nb, int p, void* dir, long long* meta,
+              cudaStream_t stream) {
+  int grid = 0;
+  const int64_t n = nb > ((int64_t)1 << p) ? nb : ((int64_t)1 << p) + 1;
+  cudaError_t e = fhj::grid_for(range_directory_kernel<Dir>, n, 0, &grid, 1);
+  if (e != cudaSuccess) return (int)e;
+  range_directory_kernel<Dir><<<grid, fhj::kThreads, 0, stream>>>(keys, nb, p,
+                                                                  static_cast<Dir*>(dir), meta);
+  return (int)cudaGetLastError();
+}
+
+template <typename Dir>
+int probe_count(const long long* keys, int64_t nb, const void* dir, const long long* lo,
+                const long long* shift, const uint32_t* ph, const uint32_t* pl, int64_t np,
+                unsigned long long* count, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t e = fhj::grid_for(range_probe_count_kernel<Dir>, np, 0, &grid, 1);
+  if (e != cudaSuccess) return (int)e;
+  range_probe_count_kernel<Dir><<<grid, fhj::kThreads, 0, stream>>>(
+      keys, nb, static_cast<const Dir*>(dir), lo, shift, ph, pl, np, count);
+  return (int)cudaGetLastError();
+}
+
+template <typename Dir>
+int probe_materialize(const long long* keys, int64_t nb, const void* dir, const long long* lo,
+                      const long long* shift, const uint32_t* values, const uint32_t* ph,
+                      const uint32_t* pl, int64_t n, int64_t np_valid, uint8_t* hit,
+                      uint32_t* vh, uint32_t* vl, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t e = fhj::grid_for(range_probe_materialize_kernel<Dir>, n, 0, &grid, 1);
+  if (e != cudaSuccess) return (int)e;
+  range_probe_materialize_kernel<Dir><<<grid, fhj::kThreads, 0, stream>>>(
+      keys, nb, static_cast<const Dir*>(dir), lo, shift,
+      reinterpret_cast<const uint2*>(values), ph, pl, n, np_valid, hit, vh, vl);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// keys: nb >= 1 sorted sortable keys; count: one zeroed u64.  Counts the
-// probes (ph, pl)[0, np) found in keys, on `stream`.  Returns
-// cudaGetLastError().
-int fhj_range_probe_count(const long long* keys, int64_t nb, const uint32_t* ph,
+// keys: nb >= 1 sorted sortable keys.  Writes the directory dir[0, 2^p]
+// (int32 when dir_bytes is 4, int64 when 8) and meta = {keys[0], shift},
+// on `stream`.  Returns cudaGetLastError().
+int fhj_range_directory(const long long* keys, int64_t nb, int p, void* dir, int dir_bytes,
+                        long long* meta, cudaStream_t stream) {
+  if (nb <= 0 || p < 0 || p > 30) return (int)cudaErrorInvalidValue;
+  return dir_bytes == 8 ? directory<long long>(keys, nb, p, dir, meta, stream)
+                        : directory<int32_t>(keys, nb, p, dir, meta, stream);
+}
+
+// keys: nb >= 1 sorted sortable keys, dir / lo / shift their directory;
+// count: one zeroed u64.  Counts the probes (ph, pl)[0, np) found in keys,
+// on `stream`.  Returns cudaGetLastError().
+int fhj_range_probe_count(const long long* keys, int64_t nb, const void* dir, int dir_bytes,
+                          const long long* lo, const long long* shift, const uint32_t* ph,
                           const uint32_t* pl, int64_t np, unsigned long long* count,
                           cudaStream_t stream) {
   if (nb <= 0 || np <= 0) return (int)cudaSuccess;
-  int grid = 0;
-  cudaError_t e = fhj::grid_for(range_probe_count_kernel, np, 0, &grid, 1);
-  if (e != cudaSuccess) return (int)e;
-  range_probe_count_kernel<<<grid, fhj::kThreads, 0, stream>>>(keys, nb, ph, pl, np,
-                                                               count);
-  return (int)cudaGetLastError();
+  return dir_bytes == 8
+             ? probe_count<long long>(keys, nb, dir, lo, shift, ph, pl, np, count, stream)
+             : probe_count<int32_t>(keys, nb, dir, lo, shift, ph, pl, np, count, stream);
 }
 
-// keys: nb >= 0 sorted sortable keys, tvh/tvl their value planes in the same
-// order.  Writes hit/vh/vl for every probe row [0, n): rows at or past
-// np_valid, and misses, get 0.  Launches nothing when n == 0.  Returns
-// cudaGetLastError().
-int fhj_range_probe_materialize(const long long* keys, int64_t nb, const uint32_t* tvh,
-                                const uint32_t* tvl, const uint32_t* ph,
+// keys: nb >= 0 sorted sortable keys, dir / lo / shift their directory,
+// values their (vh, vl) pairs in the same order.  Writes hit/vh/vl for every
+// probe row [0, n): rows at or past np_valid, and misses, get 0.  Launches
+// nothing when n == 0.  Returns cudaGetLastError().
+int fhj_range_probe_materialize(const long long* keys, int64_t nb, const void* dir,
+                                int dir_bytes, const long long* lo, const long long* shift,
+                                const uint32_t* values, const uint32_t* ph,
                                 const uint32_t* pl, int64_t n, int64_t np_valid,
                                 uint8_t* hit, uint32_t* vh, uint32_t* vl,
                                 cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  int grid = 0;
-  cudaError_t e = fhj::grid_for(range_probe_materialize_kernel, n, 0, &grid, 1);
-  if (e != cudaSuccess) return (int)e;
-  range_probe_materialize_kernel<<<grid, fhj::kThreads, 0, stream>>>(
-      keys, nb, tvh, tvl, ph, pl, n, np_valid, hit, vh, vl);
-  return (int)cudaGetLastError();
+  return dir_bytes == 8
+             ? probe_materialize<long long>(keys, nb, dir, lo, shift, values, ph, pl, n,
+                                            np_valid, hit, vh, vl, stream)
+             : probe_materialize<int32_t>(keys, nb, dir, lo, shift, values, ph, pl, n,
+                                          np_valid, hit, vh, vl, stream);
 }
 
 }  // extern "C"

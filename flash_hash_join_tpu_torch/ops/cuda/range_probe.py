@@ -1,14 +1,25 @@
-"""K3 / K4: probe of the partitioned tier, count and materialize
-(csrc/range_probe.cu).
+"""K3 / K4: probe of the partitioned tier, count and materialize, and the
+bucket directory they search through (csrc/range_probe.cu).
 
 Replaces flash_hash_join_tpu/ops/pallas/range_probe.py:range_probe_count
-and :range_probe_materialize.  The table is the valid build keys as
-sortable int64 (utils/u64.py:sortable), sorted ascending (stably, so the
-first key of a run is the minimum build row with that key); value planes,
-when given, are in the same order.  Probes are the int32 bit-pattern key
-planes in input order; rows at or past np_valid never hit.
+and :range_probe_materialize.  The table (ops/range_table.py:RangeTable) is
+  keys     the valid build keys as sortable int64 (utils/u64.py:sortable),
+           sorted ascending, stably, so the first key of a run is the
+           minimum build row with that key;
+  values   their (vh, vl) value planes in the same order, interleaved as
+           one (nb, 2) int32 tensor (materialize only);
+  dir      the bucket directory, 2^p + 1 offsets into keys (int32, int64
+           from 2^31 keys on): bucket b holds the keys whose
+           (u64)(key - lo) >> shift is b, and dir[b] is the first index at
+           or past bucket b;
+  lo, shift  keys[0] and that shift, 0-d int64 tensors.
+The directory is the Hopper form of the TPU kernel's first search level
+(its column boundaries, range_probe.py:_search); the second level searches
+the bucket's few keys (the kernels first read the sector an interpolation
+guess points at, csrc/range_probe.cu).  Probes are the int32 bit-pattern
+key planes in input order; rows at or past np_valid never hit.
 
-The TPU kernels' window, transposed table, boundaries and probe sort are
+The TPU kernels' window, transposed table, probe sort and tile padding are
 layout for Mosaic and are not ported (ops/range_table.py), so these never
 report unresolved probes.
 """
@@ -20,58 +31,154 @@ import torch
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.utils.u64 import sortable
 
+MAX_DIR_BITS = 23        # 2^23 + 1 int32 offsets: 32 MB, resident in L2
 
-def _check(keys, planes: dict, np_valid: int) -> torch.device:
+
+def directory_bits(nb: int) -> int:
+    """p for nb keys: ceil(log2 nb) - 2, clamped to [0, MAX_DIR_BITS], so
+    about 4-12 keys a bucket on uniform keys."""
+    return min(max((nb - 1).bit_length() - 2, 0), MAX_DIR_BITS)
+
+
+def _dir_dtype(nb: int) -> torch.dtype:
+    return torch.int32 if nb < 2**31 else torch.int64
+
+
+def _check_keys(keys) -> torch.device:
     if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
         raise ValueError("keys must be a contiguous 1-D int64 tensor, got "
                          f"{keys.dtype} of shape {tuple(keys.shape)}")
+    if keys.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {keys.device}")
+    return keys.device
+
+
+def _check(table, planes: dict, np_valid: int) -> torch.device:
+    dev = _check_keys(table.keys)
+    nb = table.keys.numel()
+    if (table.dir.dtype != _dir_dtype(nb) or table.dir.dim() != 1
+            or table.dir.numel() < 2 or not table.dir.is_contiguous()):
+        raise ValueError(f"dir must be a contiguous 1-D {_dir_dtype(nb)} "
+                         "tensor of 2^p + 1 offsets")
+    for name in ("dir", "lo", "shift"):
+        if getattr(table, name).device != dev:
+            raise ValueError(f"table.{name} and keys must be on one device")
     n = planes["ph"].numel()
     for name, p in planes.items():
         if p.dtype != torch.int32 or p.dim() != 1 or not p.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D int32 tensor, "
                              f"got {p.dtype} of shape {tuple(p.shape)}")
-        if p.device != keys.device:
+        if p.device != dev:
             raise ValueError(f"{name} and keys must be on one device")
     if planes["pl"].numel() != n:
         raise ValueError("ph and pl must have equal length")
     if not 0 <= np_valid <= n:
         raise ValueError(f"np_valid must be in [0, {n}], got {np_valid}")
-    dev = keys.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
     return dev
 
 
-def lookup(keys: torch.Tensor, x: torch.Tensor):
-    """Plain search: (found, position of x's run, clamped into range) for
-    sortable keys x in the sorted keys."""
-    if keys.numel() == 0:
+def range_directory_plain(keys: torch.Tensor, p: int | None = None):
+    """Plain PyTorch version of the directory build: (dir, meta), meta the
+    int64 pair (lo, shift).  One torch.searchsorted of the bucket start
+    keys.  p defaults to directory_bits(nb)."""
+    nb, dev = keys.numel(), keys.device
+    p = directory_bits(nb) if p is None else p
+    dir_ = torch.full((2**p + 1,), nb, dtype=_dir_dtype(nb), device=dev)
+    if nb == 0:
+        return dir_, torch.zeros(2, dtype=torch.int64, device=dev)
+    lo, hi = keys[[0, -1]].tolist()
+    shift = max(0, (hi - lo).bit_length() - p)
+    b = torch.arange(((hi - lo) >> shift) + 1, device=dev)
+    if shift:                    # lo + (b << shift) <= hi, summed in halves
+        half = b << (shift - 1)  # so that no int64 step overflows
+        starts = (half + lo) + half
+    else:
+        starts = b + lo
+    dir_[:b.numel()] = torch.searchsorted(keys, starts)
+    return dir_, torch.tensor([lo, shift], dtype=torch.int64, device=dev)
+
+
+def range_directory(keys: torch.Tensor):
+    """The bucket directory of the sorted sortable keys: (dir, meta), meta
+    the int64 pair (lo, shift).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    dev = _check_keys(keys)
+    if dev.type == "cpu":
+        return range_directory_plain(keys)
+    nb = keys.numel()
+    p = directory_bits(nb)
+    meta = torch.zeros(2, dtype=torch.int64, device=dev)
+    if nb == 0:
+        return torch.zeros(2, dtype=_dir_dtype(0), device=dev), meta
+    dir_ = torch.empty(2**p + 1, dtype=_dir_dtype(nb), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.lib().fhj_range_directory(
+        keys.data_ptr(), nb, p, dir_.data_ptr(), dir_.element_size(),
+        meta.data_ptr(), stream)
+    range_directory.launches += 1
+    _build.check(err, "range_directory")
+    return dir_, meta
+
+
+range_directory.launches = 0
+
+
+def _bucket(x: torch.Tensor, lo: int, shift: int) -> torch.Tensor:
+    """(u64)(x - lo) >> shift for sortable keys x >= lo, with no int64
+    overflow: (x - lo) >> 1 is taken from the halves of x and lo."""
+    if shift == 0:
+        return x - lo            # the span is below 2^MAX_DIR_BITS here
+    halved = (x >> 1) - (lo >> 1) - ((x & 1) < (lo & 1)).to(torch.int64)
+    return halved >> (shift - 1)
+
+
+def lookup(table, x: torch.Tensor):
+    """Plain directory search: (found, position of x's run) for sortable
+    keys x; the position is only meaningful where found.  Gathers dir[b]
+    and dir[b + 1], then the lower bound over keys[dir[b], dir[b + 1]) in
+    bit_length(largest bucket) torch.where halving steps."""
+    keys = table.keys
+    nb = keys.numel()
+    if nb == 0:
         return torch.zeros_like(x, dtype=torch.bool), torch.zeros_like(x)
-    pos = torch.searchsorted(keys, x).clamp_(max=keys.numel() - 1)
-    return keys[pos] == x, pos
+    lo, shift = int(table.lo), int(table.shift)
+    dir_ = table.dir.to(torch.int64)
+    inside = (x >= lo) & (x <= keys[-1])
+    b = _bucket(torch.where(inside, x, lo), lo, shift)
+    base = torch.where(inside, dir_[b], 0)
+    end = torch.where(inside, dir_[b + 1], 0)
+    n = end - base + 1                       # candidate positions [base, end]
+    for _ in range(int((dir_[1:] - dir_[:-1]).max()).bit_length()):
+        half = n >> 1
+        past = keys[(base + half - 1).clamp_(min=0)] < x
+        base = torch.where(past, base + half, base)
+        n = n - half
+    found = (base < end) & (keys[base.clamp(max=nb - 1)] == x)
+    return found, base
 
 
-def range_probe_count_plain(keys, ph, pl, np_valid: int) -> torch.Tensor:
+def range_probe_count_plain(table, ph, pl, np_valid: int) -> torch.Tensor:
     """Plain PyTorch version of K3: the count as a 0-d int64."""
-    found, _ = lookup(keys, sortable(ph[:np_valid], pl[:np_valid]))
+    found, _ = lookup(table, sortable(ph[:np_valid], pl[:np_valid]))
     return found.sum()
 
 
-def range_probe_count(keys: torch.Tensor, ph: torch.Tensor, pl: torch.Tensor,
+def range_probe_count(table, ph: torch.Tensor, pl: torch.Tensor,
                       np_valid: int) -> torch.Tensor:
-    """Count the probes (ph, pl)[:np_valid] whose key is in `keys`; a 0-d
-    int64 tensor.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
-    dev = _check(keys, {"ph": ph, "pl": pl}, np_valid)
+    """Count the probes (ph, pl)[:np_valid] whose key is in table.keys; a
+    0-d int64 tensor.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    dev = _check(table, {"ph": ph, "pl": pl}, np_valid)
     if dev.type == "cpu":
-        return range_probe_count_plain(keys, ph, pl, np_valid)
+        return range_probe_count_plain(table, ph, pl, np_valid)
     count = torch.zeros(1, dtype=torch.int64, device=dev)
-    if keys.numel() == 0 or np_valid == 0:
+    if table.keys.numel() == 0 or np_valid == 0:
         return count[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_range_probe_count(
-        keys.data_ptr(), keys.numel(), ph.data_ptr(), pl.data_ptr(), np_valid,
-        count.data_ptr(), stream)
+        table.keys.data_ptr(), table.keys.numel(), table.dir.data_ptr(),
+        table.dir.element_size(), table.lo.data_ptr(), table.shift.data_ptr(),
+        ph.data_ptr(), pl.data_ptr(), np_valid, count.data_ptr(), stream)
     range_probe_count.launches += 1
     _build.check(err, "range_probe_count")
     return count[0]
@@ -80,28 +187,33 @@ def range_probe_count(keys: torch.Tensor, ph: torch.Tensor, pl: torch.Tensor,
 range_probe_count.launches = 0
 
 
-def range_probe_materialize_plain(keys, tvh, tvl, ph, pl, np_valid: int):
+def range_probe_materialize_plain(table, ph, pl, np_valid: int):
     """Plain PyTorch version of K4: (hit bool, vh, vl int32), one row per
     probe row."""
-    found, pos = lookup(keys, sortable(ph, pl))
+    found, pos = lookup(table, sortable(ph, pl))
     hit = found & (torch.arange(ph.numel(), device=ph.device) < np_valid)
-    if keys.numel() == 0:
+    nb = table.keys.numel()
+    if nb == 0:
         return hit, torch.zeros_like(ph), torch.zeros_like(pl)
-    return hit, torch.where(hit, tvh[pos], 0), torch.where(hit, tvl[pos], 0)
+    v = table.values[pos.clamp(max=nb - 1)]
+    return hit, torch.where(hit, v[:, 0], 0), torch.where(hit, v[:, 1], 0)
 
 
-def range_probe_materialize(keys: torch.Tensor, tvh: torch.Tensor,
-                            tvl: torch.Tensor, ph: torch.Tensor,
-                            pl: torch.Tensor, np_valid: int):
+def range_probe_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
+                            np_valid: int):
     """Per probe row: (hit, vh, vl) — a bool mask and the int32 value planes
     of the first table row with the probe's key (0 on a miss and at or past
     np_valid).  CPU tensors take the plain version; CUDA tensors launch the
     kernel."""
-    dev = _check(keys, {"ph": ph, "pl": pl, "tvh": tvh, "tvl": tvl}, np_valid)
-    if tvh.numel() != keys.numel() or tvl.numel() != keys.numel():
-        raise ValueError("tvh and tvl must have one row per key")
+    dev = _check(table, {"ph": ph, "pl": pl}, np_valid)
+    values = table.values
+    if (values is None or values.dtype != torch.int32
+            or values.shape != (table.keys.numel(), 2)
+            or not values.is_contiguous() or values.device != dev):
+        raise ValueError("table.values must be a contiguous (nb, 2) int32 "
+                         "tensor beside keys")
     if dev.type == "cpu":
-        return range_probe_materialize_plain(keys, tvh, tvl, ph, pl, np_valid)
+        return range_probe_materialize_plain(table, ph, pl, np_valid)
     n = ph.numel()
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     vh = torch.empty(n, dtype=torch.int32, device=dev)
@@ -110,9 +222,10 @@ def range_probe_materialize(keys: torch.Tensor, tvh: torch.Tensor,
         return hit, vh, vl
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_range_probe_materialize(
-        keys.data_ptr(), keys.numel(), tvh.data_ptr(), tvl.data_ptr(),
-        ph.data_ptr(), pl.data_ptr(), n, np_valid, hit.data_ptr(),
-        vh.data_ptr(), vl.data_ptr(), stream)
+        table.keys.data_ptr(), table.keys.numel(), table.dir.data_ptr(),
+        table.dir.element_size(), table.lo.data_ptr(), table.shift.data_ptr(),
+        values.data_ptr(), ph.data_ptr(), pl.data_ptr(), n, np_valid,
+        hit.data_ptr(), vh.data_ptr(), vl.data_ptr(), stream)
     range_probe_materialize.launches += 1
     _build.check(err, "range_probe_materialize")
     return hit, vh, vl

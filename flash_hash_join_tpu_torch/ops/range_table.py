@@ -12,9 +12,13 @@ ops/cuda/range_probe.py), so the table is just
 
   build: the valid build rows' keys as sortable int64 (utils/u64.py),
          sorted STABLY by torch.sort (a plain sort outside any kernel, as
-         lax.sort is in the JAX package), and the value planes permuted
-         the same way;
-  probe: unsorted, in input order, one lower bound per row.
+         lax.sort is in the JAX package), the value planes permuted the
+         same way and interleaved as one (vh, vl) plane, and a bucket
+         directory over the sorted keys (one pass, range_directory): the
+         Hopper form of the TPU table's column boundaries `bnds`;
+  probe: unsorted, in input order; per row one directory read, then the
+         bucket's few keys (an interpolation guess of the key's sector,
+         then a lower bound over what is left).
 
 Not ported, because nothing here needs them: the probe sort and tile
 padding, the window and its `wstart`, SMALL and BLOCKWISE modes, the
@@ -43,16 +47,21 @@ from flash_hash_join_tpu_torch.utils.u64 import sortable
 
 
 class RangeTable(NamedTuple):
-    """The valid build rows sorted by key (device tensors).
+    """The valid build rows sorted by key, with their bucket directory
+    (device tensors; ops/cuda/range_probe.py says how K3/K4 search them).
 
     keys: (nb_valid,) int64 sortable keys, ascending, equal keys in build
-    row order; vh, vl: their int32 value planes in the same order, or None
-    for a count.
+    row order; values: their (vh, vl) value planes in the same order as one
+    (nb_valid, 2) int32 tensor, or None for a count; dir: 2^p + 1 offsets,
+    dir[b] the first index of a key whose (u64)(key - lo) >> shift is at
+    least b; lo, shift: keys[0] and that shift, 0-d int64 tensors.
     """
 
     keys: torch.Tensor
-    vh: torch.Tensor | None
-    vl: torch.Tensor | None
+    values: torch.Tensor | None
+    dir: torch.Tensor
+    lo: torch.Tensor
+    shift: torch.Tensor
 
 
 def _no_special(dev) -> torch.Tensor:
@@ -61,19 +70,21 @@ def _no_special(dev) -> torch.Tensor:
 
 def build_range_table(kh, kl, vh, vl, nb_valid: int, *,
                       with_values: bool) -> RangeTable:
-    """Sort the first nb_valid build rows by their u64 key (stable)."""
+    """Sort the first nb_valid build rows by their u64 key (stable), then
+    build the bucket directory over the sorted keys."""
     keys, order = torch.sort(sortable(kh[:nb_valid], kl[:nb_valid]),
                              stable=True)
-    if not with_values:
-        return RangeTable(keys, None, None)
-    return RangeTable(keys, vh[:nb_valid][order], vl[:nb_valid][order])
+    dir_, meta = rp.range_directory(keys)
+    values = (torch.stack((vh[:nb_valid], vl[:nb_valid]), 1)[order]
+              if with_values else None)
+    return RangeTable(keys, values, dir_, meta[0], meta[1])
 
 
 def range_join_count(kh, kl, vh, vl, ph, pl, nb_valid: int, np_valid: int):
     """Fused build + probe count.  Returns (count, special4), 0-d and (4,)
     int64 tensors; special is all zeros (never unresolved)."""
     table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=False)
-    count = rp.range_probe_count(table.keys, ph, pl, np_valid)
+    count = rp.range_probe_count(table, ph, pl, np_valid)
     return count, _no_special(count.device)
 
 
@@ -83,7 +94,6 @@ def range_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     out_vl, special4).  The matched rows come first in probe order; the
     planes are int32 bit patterns of the probe side's length."""
     table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=True)
-    hit, mvh, mvl = rp.range_probe_materialize(table.keys, table.vh,
-                                               table.vl, ph, pl, np_valid)
+    hit, mvh, mvl = rp.range_probe_materialize(table, ph, pl, np_valid)
     count, outs = compact_by_mask(hit, (ph, pl, mvh, mvl))
     return (count, *outs, _no_special(count.device))

@@ -25,6 +25,12 @@ CELLS = {  # name -> (chip_smoke cell, API function, keywords, FHJ_COMPACT)
                                 {"strategy": "vmem"}, None),
     "vmem-count-4e7-Q2": ("4e7-Q2", "join_count", {"strategy": "vmem"}, None),
     "radix-materialize-1e8-Q1": ("1e8-Q1", "hash_join_radix", {}, None),
+    "radix-materialize-1e8-Q5": ("1e8-Q5", "hash_join_radix", {}, None),
+    "radix-count-1e8-Q5": ("1e8-Q5", "hash_join_count_radix", {}, None),
+    "adaptive-count-config2": ("uniform-1e7x1e8", "adaptive_join_count", {},
+                               None),
+    "adaptive-materialize-config2": ("uniform-1e7x1e8", "adaptive_join", {},
+                                     None),
     "global-count-1e8-Q5": ("1e8-Q5", "hash_join_count", {}, None),
     "global-count-bloom-1e8-Q5": ("1e8-Q5", "hash_join_count_bloom", {},
                                   None),

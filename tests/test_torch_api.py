@@ -82,7 +82,8 @@ def test_dense_span_above_2_20_runs_the_large_band():
     # CPU tensors take the plain versions: no kernel launches here
     assert set(info["launches"]) == {
         "dense_bitmap", "bitmap_probe", "range_probe_count",
-        "range_probe_materialize", "compact", "probe_gather_bitmap",
+        "range_probe_materialize", "range_directory", "compact",
+        "probe_gather_bitmap",
         "probe_gather_staged", "materialize_copy", "probe_count_vmem",
         "probe_materialize_vmem", "concat_ragged_blocks"}
     assert set(info["launches"].values()) == {0}

@@ -26,7 +26,8 @@ from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
-from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
+from flash_hash_join_tpu_torch.utils.u64 import (device_planes, sortable,
+                                                 to_device)
 
 SENTINEL = 0xFFFFFFFF
 M64 = 2**64 - 1
@@ -124,35 +125,70 @@ def _keys(rng, n, universe):
     return keys
 
 
-def _table(rng, nb, dev):
-    bk = _keys(rng, nb, 3 * max(nb, 1))
-    bv = rng.integers(0, 2**64, nb, dtype=np.uint64)
+def _build_keys(rng, build):
+    """Build keys: `build` random rows (the u64-max key among them), or one
+    of the shapes that stress the bucket directory."""
+    if isinstance(build, int):
+        return _keys(rng, build, 3 * max(build, 1))
+    n = 200_003
+    bk = rng.integers(0, 2**64, n, dtype=np.uint64)
+    if build == "all_equal":                           # span 0
+        bk[:] = bk[0]
+    elif build == "ends":                              # span 2^64-1, shift 64
+        bk = np.array([M64, 0], np.uint64)
+    elif build == "crowded":       # 99 % in one bucket, far outliers
+        bk[n // 100:] = rng.integers(5, 5 + n, n - n // 100, dtype=np.uint64)
+        bk[:2] = [0, M64]
+    elif build == "dup_run":                           # a 1e5-row run
+        bk[50_000:150_000] = bk[3]
+    return bk
+
+
+def _table(rng, build, dev):
+    bk = _build_keys(rng, build)
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
     kh, kl = device_planes(bk, dev)
     vh, vl = device_planes(bv, dev)
-    return bk, rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
+    return bk, rt.build_range_table(kh, kl, vh, vl, bk.size, with_values=True)
 
 
-@pytest.mark.parametrize("nb", [0, 1, 5, 200_003])
+DIRECTORY_BUILDS = ["all_equal", "ends", "crowded", "dup_run"]
+
+
+@pytest.mark.parametrize("build", [0, 1, 5, 200_003, *DIRECTORY_BUILDS])
+def test_range_directory_kernel_matches_plain(dev, build):
+    bk = _build_keys(np.random.default_rng(7), build)
+    keys = torch.sort(sortable(*device_planes(bk, dev)))[0]
+    before = rp.range_directory.launches
+    got = rp.range_directory(keys)
+    want = rp.range_directory_plain(keys)
+    torch.cuda.synchronize()
+    assert rp.range_directory.launches == before + (bk.size > 0)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), build
+
+
+@pytest.mark.parametrize("nb", [0, 1, 5, 200_003, *DIRECTORY_BUILDS])
 def test_range_probe_kernels_match_plain(dev, nb):
-    rng = np.random.default_rng(nb)
+    rng = np.random.default_rng(nb if isinstance(nb, int) else len(nb))
     bk, table = _table(rng, nb, dev)
+    nb = bk.size
     for npr in (0, 7, 1_000_003):
         pk = _keys(rng, npr, 3 * max(nb, 1))
         if nb and npr:
             pk[2::3] = rng.choice(bk, len(pk[2::3]))
+            pk[1::3] = pk[2::3][:len(pk[1::3])] + np.uint64(1)
         ph, pl = device_planes(pk, dev)
         for view, np_valid in (((ph, pl), npr), ((ph[1:], pl[1:]),
                                                  max(npr - 5, 0))):
             args = (*view, min(np_valid, view[0].numel()))
             before = rp.range_probe_count.launches
-            got = int(rp.range_probe_count(table.keys, *args))
-            assert got == int(rp.range_probe_count_plain(table.keys, *args))
+            got = int(rp.range_probe_count(table, *args))
+            assert got == int(rp.range_probe_count_plain(table, *args))
             assert rp.range_probe_count.launches == before + (
                 nb > 0 and args[-1] > 0)
-            got = rp.range_probe_materialize(table.keys, table.vh, table.vl,
-                                             *args)
-            want = rp.range_probe_materialize_plain(table.keys, table.vh,
-                                                    table.vl, *args)
+            got = rp.range_probe_materialize(table, *args)
+            want = rp.range_probe_materialize_plain(table, *args)
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g, w), (nb, npr, args[-1])

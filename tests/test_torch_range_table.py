@@ -14,6 +14,7 @@ compared sorted.
 """
 
 import collections
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -237,7 +238,114 @@ def test_build_range_table_is_stable_and_ordered():
                                   with_values=True)
     order = np.argsort(bk[:-2], kind="stable")      # u64 order, row ties
     assert table.keys.tolist() == [int(k) - 2**63 for k in bk[order]]
-    np.testing.assert_array_equal(tu64.to_numpy_u64(table.vh, table.vl,
-                                                    order.size), order)
+    np.testing.assert_array_equal(tu64.to_numpy_u64(
+        table.values[:, 0], table.values[:, 1], order.size), order)
     assert trt.build_range_table(kh, kl, vh, vl, 0,
                                  with_values=False).keys.numel() == 0
+
+
+# ---- the bucket directory (K3/K4's first search level) ----------------------
+
+EDGE_BUILDS = ["empty", "one", "all_equal", "ends", "full_span", "crowded",
+               "dup_run", "uniform"]
+
+
+def _edge_build(name):
+    """(bk of 3000 rows, nb_valid): builds that stress the directory, padded
+    to one shape so that the JAX package compiles once."""
+    rng = np.random.default_rng(sum(map(ord, name)) + 11)
+    n = 3_000
+    bk = rng.integers(0, 2**64, n, dtype=np.uint64)
+    nb = n
+    if name == "empty":
+        nb = 0
+    elif name == "one":
+        nb = 1
+    elif name == "all_equal":                          # span 0
+        bk[:] = bk[0]
+    elif name == "ends":                               # span 2^64-1, shift 64
+        bk[:2] = [0, M64]
+        nb = 2
+    elif name == "full_span":                          # shift 64 - p
+        bk[[5, 9]] = [0, M64]
+    elif name == "crowded":        # 99 % of the keys in one bucket, outliers
+        bk[30:] = rng.integers(10**6, 10**6 + n, n - 30, dtype=np.uint64)
+        bk[[3, 4]] = [0, M64]
+    elif name == "dup_run":                            # a 2000-row run
+        bk[500:2_500] = bk[7]
+    elif name == "uniform":
+        bk = rng.integers(0, int(n * 1.1), n, dtype=np.uint64)
+        bk[17] = M64
+    return bk, nb
+
+
+def _edge_probes(bk, nb):
+    """9000 probes: build keys, their neighbours (misses inside buckets),
+    the ends of the key space and random keys."""
+    rng = np.random.default_rng(nb + 5)
+    valid = bk[:nb] if nb else np.array([12345], np.uint64)
+    near = rng.choice(valid, 2_000)
+    pk = np.concatenate([rng.choice(valid, 4_000), near + np.uint64(1),
+                         near - np.uint64(1),
+                         rng.integers(0, 2**64, 1_000, dtype=np.uint64)])
+    pk[:4] = [0, 1, M64, M64 - np.uint64(1)]
+    pk[4:6] = np.array([valid.min(), valid.max()]) + np.array([M64, 1],
+                                                             np.uint64)
+    return pk
+
+
+def _numpy_directory(keys_u64):
+    """(dir, lo, shift) from the definition: p = clamp(ceil(log2 nb) - 2,
+    0, 23); bucket = (key - keys[0]) >> shift over the sorted u64 keys;
+    dir[b] = the first index whose bucket is >= b."""
+    keys = np.sort(keys_u64)
+    nb = keys.size
+    p = min(max(math.ceil(math.log2(nb)) - 2, 0), 23) if nb else 0
+    if nb == 0:
+        return np.zeros(2**p + 1, np.int64), 0, 0
+    shift = max(0, (int(keys[-1]) - int(keys[0])).bit_length() - p)
+    dist = keys - keys[0]
+    buckets = (np.zeros(nb, np.uint64) if shift == 64
+               else dist >> np.uint64(shift))
+    dir_ = np.searchsorted(buckets, np.arange(2**p + 1, dtype=np.uint64))
+    return dir_, int(keys[0]) - 2**63, shift
+
+
+@pytest.mark.parametrize("name", EDGE_BUILDS)
+def test_range_directory_matches_numpy(name):
+    bk, nb = _edge_build(name)
+    kh, kl = tu64.device_planes(bk, "cpu")
+    table = trt.build_range_table(kh, kl, kh, kl, nb, with_values=False)
+    want, lo, shift = _numpy_directory(bk[:nb])
+    assert table.dir.dtype == torch.int32
+    np.testing.assert_array_equal(table.dir.numpy(), want)
+    assert int(table.shift) == shift
+    assert nb == 0 or int(table.lo) == lo
+    if name == "ends":
+        assert shift == 64 and table.dir.tolist() == [0, 2]
+    if name == "all_equal":
+        assert shift == 0 and table.dir[1:].tolist() == [nb] * (
+            table.dir.numel() - 1)
+
+
+@pytest.mark.parametrize("name", EDGE_BUILDS)
+def test_range_join_on_directory_edge_builds(name):
+    bk, nb = _edge_build(name)
+    bv = np.random.default_rng(3).integers(0, 2**64, bk.size,
+                                           dtype=np.uint64)
+    pk = _edge_probes(bk, nb)
+    count, special = _port(trt.range_join_count, bk, bv, pk, nb=nb)
+    jcount, jspecial = _jax(jrt.range_join_count, bk, bv, pk, nb=nb)
+    assert int(jspecial[3]) == 0 and special.tolist() == [0, 0, 0, 0]
+    assert int(count) == int(jcount) == oracle_count(bk[:nb], pk)
+    got = _port_rows(_port(trt.range_join_materialize, bk, bv, pk, nb=nb))
+    want = _first_match(bk[:nb], bv[:nb], pk)
+    assert got[0] == len(want[0]) == int(count) and got[3] == 0
+    np.testing.assert_array_equal(got[1], want[0])     # probe order
+    np.testing.assert_array_equal(got[2], want[1])     # minimum build row
+    jrows = _jax_rows(_jax(jrt.range_join_materialize, bk, bv, pk, nb=nb))
+    assert jrows[0] == got[0] and jrows[3] == 0
+    np.testing.assert_array_equal(np.sort(jrows[1]), np.sort(got[1]))
+    if np.unique(bk[:nb]).size == nb:                  # winner pinned
+        for g, w in zip(_sorted_pairs(*got[1:3]), _sorted_pairs(*jrows[1:3])):
+            np.testing.assert_array_equal(g, w)
