@@ -9,12 +9,16 @@ Phases, one JSON line each on stdout:
               from the checkout's csrc/ (seconds, ptxas register report).
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               card (exact): K1/K2 at every bitmap rung the dense path uses;
-              the range table's directory build, K3/K4/K5 at build sizes
-              0, 1, 5, 2e6 and probe sizes 0, 7, 3e7+5, and on builds that
-              stress the directory (all keys equal, the keys {0, 2^64-1},
-              99 % of 2e6 keys in one bucket, a 1e5-row duplicate run) at
-              probe sizes 0, 7, 3e6+5, misaligned views, np_valid < npr,
-              the u64-max key on both sides, K5 with 2, 3 and 4 planes; K7 at v_rows 8, 16,
+              K3/K4/K5 at build sizes 0, 1, 5, 2e6 and probe sizes 0, 7,
+              3e7+5, and on builds that stress the range table's bucket
+              directory (the keys {0, 2^64-1}; 2e6 keys: all equal,
+              spanning all of u64, 99 % in one bucket, a 1e5-row duplicate
+              run) at probe sizes 0, 7, 3e6+5, each table as built and with
+              its other layouts forced (no directory, one of 2^6 buckets,
+              64-bit offsets), the directory build against its plain
+              version and numpy at both offset widths; misaligned
+              views, np_valid < npr, the u64-max key on both sides, K5
+              with 2, 3 and 4 planes; K7 at v_rows 8, 16,
               64, 128 and K8 at 256, 1024, 8192, each with 1 and 2 value
               planes, and K9, at sizes 0, 7 and 3e7+5 with misaligned,
               odd-length views and a sentinel tail (np_valid < npr); K10/K11
@@ -25,7 +29,10 @@ Phases, one JSON line each on stdout:
               random.  Then each kernel and its plain version timed (CUDA
               events, median of 5 after a warm-up) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
-              the same function, that call's time.
+              the same function, that call's time; K3/K4 at J1 1e8 Q5 with
+              the directory's offsets as int32 (as built) and as int64; and
+              K3/K4 on both table layouts (searched whole, or through a
+              directory) at build sizes 100 to 1e5.
   3. main     adaptive_join_count(device="cuda") on the db-benchmark J1
               cells: 4e7 Q1, Q2, Q5 (j1_suite seed 0), bench.py's 4e7 case
               (default_rng(2026)) and 1e8 Q5.  Each count must equal the
@@ -37,8 +44,9 @@ Phases, one JSON line each on stdout:
               Phases 4 and 5: count == oracle; the materialized rows equal
               the oracle's in probe order (hence also as sorted pairs), with
               the minimum build row as the duplicate-key winner; route
-              "partitioned" with no retry; the directory build, K3
-              (count), K4 and K5 launched.
+              "partitioned" with no retry; K3 (count), K4 and K5
+              launched, and in each phase the directory build (the J1 Q1
+              table, 100 keys, has none).
   6. direct_vs_partitioned  J1 4e7 Q1, Q2, Q5 count through
               join_count(strategy="partitioned"), beside phase 3's direct.
   7. fallback a sparse 64-bit case through the exact merge join, count and
@@ -79,6 +87,7 @@ before doing anything.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import statistics
@@ -366,12 +375,14 @@ def _max_abs(got, want) -> int:
 
 def directory_build_keys(name: str, rng) -> np.ndarray:
     """Build keys that stress the range table's bucket directory."""
+    if name == "two_ends":             # span 2^64-1 in a table searched whole
+        return np.array([M64, 0], np.uint64)
     n = 2_000_000
     bk = rng.integers(0, 2**64, n, dtype=np.uint64)
     if name == "all_equal":                            # span 0
         bk[:] = bk[0]
-    elif name == "ends":                   # span 2^64-1: shift 64, one bucket
-        bk = np.array([M64, 0], np.uint64)
+    elif name == "full_span":                          # shift 64 - p
+        bk[[5, 9]] = [0, M64]
     elif name == "crowded":        # 99 % of the keys in one bucket, outliers
         bk[n // 100:] = rng.integers(5, 5 + n, n - n // 100, dtype=np.uint64)
         bk[:2] = [0, M64]
@@ -380,10 +391,31 @@ def directory_build_keys(name: str, rng) -> np.ndarray:
     return bk
 
 
+def directory_reference(bk: np.ndarray, p: int):
+    """The bucket directory of build keys from its definition, in numpy:
+    (dir, shift), bucket = (key - min) >> shift, shift = max(0,
+    bit_length(span) - p), dir[b] = the first sorted index whose bucket is
+    at least b."""
+    keys = np.sort(bk)
+    shift = max(0, (int(keys[-1]) - int(keys[0])).bit_length() - p)
+    buckets = (keys - keys[0]) >> np.uint64(shift)
+    return (np.searchsorted(buckets, np.arange(2**p + 1, dtype=np.uint64)),
+            shift)
+
+
+def key_planes(x):
+    """Sortable int64 keys -> their (hi, lo) int32 bit-pattern planes."""
+    import torch
+    u = x ^ -2**63
+    return ((u >> 32).to(torch.int32).contiguous(),
+            (u & 0xFFFFFFFF).to(torch.int32).contiguous())
+
+
 def phase_partitioned_kernels(cells: dict) -> dict:
-    """The directory build, K3, K4 and K5 == plain on edge and large shapes
-    and on builds that stress the directory; then each timed against its
-    plain version on the radix path's J1 1e8 Q5 inputs."""
+    """K3, K4 and K5 == plain on edge and large shapes and on builds that
+    stress the directory, on both table layouts; then each timed against
+    its plain version on the radix path's J1 1e8 Q5 inputs, and K3/K4 on
+    both layouts on small builds."""
     import torch
     from flash_hash_join_tpu_torch.ops import range_table as rt
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
@@ -394,6 +426,7 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     rng = np.random.default_rng(1)
     err = {"range_directory": 0, "range_probe_count": 0,
            "range_probe_materialize": 0, "compact": 0}
+    layouts_checked = 0
     cases = 0
 
     def check_compact(mask, cols, n_out):
@@ -406,23 +439,45 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         err["compact"] = max(err["compact"], e)
         cases += 1
 
-    def check_table(bk, probe_sizes):
-        """The directory kernel, K3, K4 and K5 against their plain versions
-        on one build: probes of each size, half of them build keys and a
-        sixth the keys just above those (misses inside buckets), the
-        u64-max key among them; aligned and misaligned, np_valid < npr."""
+    def check_directory(keys, bk, p, dtype):
+        """The directory kernel against its plain version and numpy's."""
         nonlocal cases
+        got = rp.range_directory(keys, p, dtype)
+        plain = rp.range_directory_plain(keys, p, dtype)
+        want, shift = directory_reference(bk, p)
+        err["range_directory"] = max(
+            err["range_directory"], int(got[0].dtype != dtype),
+            *(int(not torch.equal(g, w)) for g, w in zip(got, plain)),
+            int(not np.array_equal(got[0].cpu().numpy(), want)),
+            abs(int(got[1]) - shift))
+        cases += 1
+        return got
+
+    def check_table(bk, probe_sizes):
+        """K3, K4 and K5 against their plain versions on one build, the
+        table as built and with its other layouts forced (no directory, a
+        directory of 2^6 buckets, 64-bit offsets); the directories against
+        their plain versions and numpy's.  Probes of each size, half of
+        them build keys and a sixth the keys just above those (misses
+        inside buckets), the u64-max key among them; aligned and
+        misaligned, np_valid < npr."""
+        nonlocal cases, layouts_checked
         nb = bk.size
         bv = rng.integers(0, 2**64, nb, dtype=np.uint64)
         kh, kl = device_planes(bk, dev)
         vh, vl = device_planes(bv, dev)
-        table = rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
-        want = rp.range_directory_plain(table.keys)
-        got = (table.dir, torch.stack([table.lo, table.shift]))
-        err["range_directory"] = max(err["range_directory"], *(
-            _max_abs(g, w) if g.dtype == torch.int32 else
-            int((g != w).any()) for g, w in zip(got, want)))
-        cases += 1
+        built = rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
+        tables = [built]
+        p = rp.directory_bits(nb)
+        if p:
+            check_directory(built.keys, bk, p, torch.int32)
+            wide = check_directory(built.keys, bk, p, torch.int64)
+            tables += [built._replace(dir=None, shift=None),
+                       built._replace(dir=wide[0], shift=wide[1])]
+        elif nb:
+            small = check_directory(built.keys, bk, 6, torch.int32)
+            tables.append(built._replace(dir=small[0], shift=small[1]))
+        layouts_checked += len(tables)
         for npr in probe_sizes:
             pk = rng.integers(0, 2**64, npr, dtype=np.uint64)
             if nb:
@@ -430,7 +485,8 @@ def phase_partitioned_kernels(cells: dict) -> dict:
                 pk[1::6] = pk[::6][:pk[1::6].size] + np.uint64(1)
             pk[: min(npr, 3)] = M64
             ph, pl = device_planes(pk, dev)
-            for view in (slice(None), slice(1, None)):  # misaligned
+            for table, view in itertools.product(
+                    tables, (slice(None), slice(1, None))):   # misaligned
                 p = (ph[view], pl[view])
                 n = p[0].numel()
                 for np_valid in {n, max(n - 5, 0)}:
@@ -445,13 +501,14 @@ def phase_partitioned_kernels(cells: dict) -> dict:
                         err["range_probe_materialize"],
                         *(_max_abs(g, w) for g, w in zip(got, want)))
                     cases += 2
-                    if view == slice(None) and np_valid == n:
+                    if (table is built and view == slice(None)
+                            and np_valid == n):
                         hit, mvh, mvl = got
                         for n_planes in (2, 3, 4):
                             check_compact(hit, (p[0], p[1], mvh, mvl)[
                                 :n_planes], n)
             del ph, pl
-        del table, kh, kl, vh, vl
+        del built, tables, kh, kl, vh, vl
 
     for nb in (0, 1, 5, 2_000_000):
         bk = rng.integers(0, 2**64, nb, dtype=np.uint64)
@@ -459,7 +516,8 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         dups = min(nb // 2, 1000)                      # duplicate runs
         bk[nb // 2: nb // 2 + dups] = bk[:dups]
         check_table(bk, (0, 7, 30_000_005))
-    for name in ("all_equal", "ends", "crowded", "dup_run"):
+    for name in ("two_ends", "all_equal", "full_span", "crowded",
+                 "dup_run"):
         check_table(directory_build_keys(name, rng), (0, 7, 3_000_005))
     for n in (0, 7, 30_000_005):                       # K5 alone, misaligned
         mask = torch.from_numpy(rng.random(n + 1) < 0.37).to(dev)[1:]
@@ -471,7 +529,9 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     torch.cuda.synchronize()
     require(all(e == 0 for e in err.values()), f"kernel != plain: {err}")
     emit("kernels_vs_plain", kernels=list(err), max_abs_err=err, cases=cases,
-         tolerance="exact (directories, counts, hit masks and u32 planes)")
+         table_layouts=layouts_checked,
+         tolerance="exact (directories against numpy, counts, hit masks "
+                   "and u32 planes)")
 
     c = cells["1e8-Q5"]
     kh, kl = device_planes(c.build_keys, dev)
@@ -485,33 +545,35 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     hits = int(hit.sum())
     # library yardsticks, timed here and used nowhere in the port: one
     # searchsorted of the probes' sortable keys (computed beforehand), one
-    # searchsorted of the directory's bucket start keys, and one
-    # boolean-mask index of the four planes stacked beforehand
+    # searchsorted of the directory's bucket start keys (computed
+    # beforehand), and one boolean-mask index of the four planes stacked
+    # beforehand
     x, stacked = sortable(ph, pl), torch.stack(cols)
     searched = cuda_ms(lambda: torch.searchsorted(table.keys, x))
-    lo, shift = int(table.lo), int(table.shift)
-    span = int(table.keys[-1]) - lo
-    starts = lo + (torch.arange((span >> shift) + 1, device=dev) << shift)
+    p, shift = rp.directory_bits(nb), int(table.shift)
+    lo = int(table.keys[0])
+    starts = lo + (torch.arange(((int(table.keys[-1]) - lo) >> shift) + 1,
+                                device=dev) << shift)
     library = {"range_directory": cuda_ms(
                    lambda: torch.searchsorted(table.keys, starts)),
                "range_probe_count": searched,
                "range_probe_materialize": searched,
                "compact": cuda_ms(lambda: stacked[:, hit])}
-    del x, stacked, starts
+    del stacked, starts
     steps = 3 * (nb.bit_length() + 1) + 4     # per probe: the lower bound
-    bounds = {  # the directory: keys read, offsets and (lo, shift) written
-              # and two buckets of about 4 operations a key
+    bounds = {  # the directory: keys read, offsets and shift written; one
+                # lower bound of the keys a bucket
               "range_directory": bound(8 * nb + table.dir.numel()
-                                       * table.dir.element_size() + 16,
-                                       8 * nb),
+                                       * table.dir.element_size() + 8,
+                                       table.dir.numel() * steps),
               "range_probe_count": bound(8 * nb + 8 * npr + 8, npr * steps),
               "range_probe_materialize": bound(16 * nb + 17 * npr,
                                                npr * steps),
               # the mask, then the hit rows' 4 planes read and written
               "compact": bound(npr + 32 * hits + 8, 6 * npr)}
     runs = {
-        "range_directory": (lambda: rp.range_directory(table.keys),
-                            lambda: rp.range_directory_plain(table.keys)),
+        "range_directory": (lambda: rp.range_directory(table.keys, p),
+                            lambda: rp.range_directory_plain(table.keys, p)),
         "range_probe_count": (
             lambda: rp.range_probe_count(table, ph, pl, npr),
             lambda: rp.range_probe_count_plain(table, ph, pl, npr)),
@@ -535,7 +597,59 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         role="table build of K3/K4 (not a TPU kernel)",
         dir_entries=table.dir.numel(), shift=shift,
         largest_bucket=int((table.dir[1:] - table.dir[:-1]).max()))
-    del table, ph, pl, hit, mvh, mvl, cols
+
+    # the offsets' two widths on the same table and probes: the 32-bit
+    # directory as built, and the same offsets as int64 (the layout from
+    # 2^31 keys on), K3 and K4 timed in turn
+    wide = table._replace(dir=table.dir.to(torch.int64))
+    require(int(rp.range_probe_count(wide, ph, pl, npr)) == hits,
+            "the 64-bit directory's count differs")
+    widths = {}
+    for _ in range(2):
+        for name, t in (("int32", table), ("int64", wide)):
+            widths.setdefault(name, []).append(dict(
+                K3_ms=cuda_ms(lambda: rp.range_probe_count(t, ph, pl, npr)),
+                K4_ms=cuda_ms(lambda: rp.range_probe_materialize(t, ph, pl,
+                                                                 npr))))
+    emit("offset_widths", cell="1e8-Q5", **widths)
+    del wide
+
+    # the two table layouts on small builds: evenly spaced keys of the Q5
+    # build, probed by half the Q5 probes (misses inside the keys' range)
+    # and half drawn from those keys; searched whole (no directory, the
+    # layout up to rp.SMALL_TABLE keys) and through a directory of the
+    # size directory_bits gives larger tables
+    gen = torch.Generator(device=dev).manual_seed(0)
+    layouts = []
+    for n_small in (100, 300, 1_000, 3_000, 10_000, 100_000):
+        idx = torch.arange(n_small, device=dev) * (nb - 1) // (n_small - 1)
+        keys, values = table.keys[idx], table.values[idx]
+        q = x.clone()
+        q[::2] = keys[torch.randint(0, n_small, (q[::2].numel(),),
+                                    device=dev, generator=gen)]
+        qh, ql = key_planes(q)
+        p = max(1, (n_small - 1).bit_length() - 2)
+        whole = rt.RangeTable(keys, values, None, None)
+        directed = rt.RangeTable(keys, values, *rp.range_directory(keys, p))
+        row = dict(nb=n_small, p=p)
+        for name, t in (("whole", whole), ("directory", directed)):
+            got = (int(rp.range_probe_count(t, qh, ql, npr)),
+                   *rp.range_probe_materialize(t, qh, ql, npr))
+            if name == "whole":
+                first = got
+            require(got[0] == first[0] and all(torch.equal(g, f) for g, f
+                                               in zip(got[1:], first[1:])),
+                    f"table layouts disagree at {n_small} keys")
+            row[name] = dict(
+                K3_ms=cuda_ms(lambda: rp.range_probe_count(t, qh, ql, npr)),
+                K4_ms=cuda_ms(lambda: rp.range_probe_materialize(t, qh, ql,
+                                                                 npr)))
+        row["count"] = first[0]
+        layouts.append(row)
+        del q, qh, ql, whole, directed, first, got
+    emit("table_layouts", npr=npr, small_table=rp.SMALL_TABLE,
+         layouts=layouts)
+    del table, x, ph, pl, hit, mvh, mvl, cols
     torch.cuda.empty_cache()
     return summary
 
@@ -769,12 +883,10 @@ def partitioned_cell(phase: str, name: str, c, fn_name: str,
     rows with the same strategy, for a materialize."""
     if not materialize:
         return api_cell(phase, name, c, fn_name, expect="partitioned",
-                        kernels=("range_directory", "range_probe_count"),
-                        **kw)
+                        kernels=("range_probe_count",), **kw)
     strategy = "adaptive" if fn_name == "adaptive_join" else "partitioned"
     return api_cell(phase, name, c, fn_name, expect="partitioned",
-                    kernels=("range_directory", "range_probe_materialize",
-                             "compact"),
+                    kernels=("range_probe_materialize", "compact"),
                     rows_kw=dict(strategy=strategy), **kw)
 
 
@@ -1180,8 +1292,7 @@ def phase_stream_compact(cells: dict) -> dict:
     os.environ["FHJ_COMPACT"] = "stream"
     api_cell("stream_compact", "1e8-Q2", cells["1e8-Q2"], "hash_join_radix",
              expect="partitioned",
-             kernels=("range_directory", "range_probe_materialize",
-                      "concat_ragged_blocks"),
+             kernels=("range_probe_materialize", "concat_ragged_blocks"),
              rows_kw=dict(strategy="partitioned"), reps=1)
     api_cell("stream_compact", "1e8-Q1", cells["1e8-Q1"], "adaptive_join",
              expect="direct",

@@ -40,15 +40,14 @@ _SIGNATURES = {
     "fhj_staged_gather": [_P, _P, _P, _I, _P, _I64, _P, _P, _P, _P],
     # src, dst, n, stream
     "fhj_materialize_copy": [_P, _P, _I64, _P],
-    # keys, nb, p, dir, dir_bytes, meta, stream
+    # keys, nb, p, dir, dir_bytes, shift, stream
     "fhj_range_directory": [_P, _I64, _I, _P, _I, _P, _P],
-    # keys, nb, dir, dir_bytes, lo, shift, ph, pl, np, count, stream
-    "fhj_range_probe_count": [_P, _I64, _P, _I, _P, _P, _P, _P, _I64, _P,
-                              _P],
-    # keys, nb, dir, dir_bytes, lo, shift, values, ph, pl, n, np_valid,
-    # hit, vh, vl, stream
-    "fhj_range_probe_materialize": [_P, _I64, _P, _I, _P, _P, _P, _P, _P,
-                                    _I64, _I64, _P, _P, _P, _P],
+    # keys, nb, dir, dir_bytes, shift, ph, pl, np, count, stream
+    "fhj_range_probe_count": [_P, _I64, _P, _I, _P, _P, _P, _I64, _P, _P],
+    # keys, nb, dir, dir_bytes, shift, values, ph, pl, n, np_valid, hit, vh,
+    # vl, stream
+    "fhj_range_probe_materialize": [_P, _I64, _P, _I, _P, _P, _P, _P, _I64,
+                                    _I64, _P, _P, _P, _P],
     "fhj_compact_tile_rows": [],
     # mask, n, tile counts, stream
     "fhj_compact_count": [_P, _I64, _P, _P],

@@ -1,5 +1,5 @@
-"""K3 / K4: probe of the partitioned tier, count and materialize, and the
-bucket directory they search through (csrc/range_probe.cu).
+"""K3 / K4: probe of the partitioned tier, count and materialize
+(csrc/range_probe.cu), and the bucket directory they search through.
 
 Replaces flash_hash_join_tpu/ops/pallas/range_probe.py:range_probe_count
 and :range_probe_materialize.  The table (ops/range_table.py:RangeTable) is
@@ -8,11 +8,12 @@ and :range_probe_materialize.  The table (ops/range_table.py:RangeTable) is
            minimum build row with that key;
   values   their (vh, vl) value planes in the same order, interleaved as
            one (nb, 2) int32 tensor (materialize only);
-  dir      the bucket directory, 2^p + 1 offsets into keys (int32, int64
-           from 2^31 keys on): bucket b holds the keys whose
-           (u64)(key - lo) >> shift is b, and dir[b] is the first index at
-           or past bucket b;
-  lo, shift  keys[0] and that shift, 0-d int64 tensors.
+  dir      above SMALL_TABLE keys, the bucket directory: 2^p + 1 offsets
+           into keys (int32, int64 from 2^31 keys on), bucket b holding the
+           keys whose (u64)(key - keys[0]) >> shift is b, and dir[b] the
+           first index at or past bucket b; None for a smaller table, which
+           is searched whole;
+  shift    that shift, a 0-d int64 tensor (None with no directory).
 The directory is the Hopper form of the TPU kernel's first search level
 (its column boundaries, range_probe.py:_search); the second level searches
 the bucket's few keys (the kernels first read the sector an interpolation
@@ -31,38 +32,116 @@ import torch
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.utils.u64 import sortable
 
-MAX_DIR_BITS = 23        # 2^23 + 1 int32 offsets: 32 MB, resident in L2
+# Tables of at most this many keys (2 KB, in L1) have no directory: a
+# search of all of them beat the directory at 100 keys, the directory won
+# from 300 keys on (PERF.md, chip_smoke.py's layout timings).
+SMALL_TABLE = 256
+MAX_DIR_BITS = 23        # 2^23 + 1 int32 offsets: 32 MB
 
 
 def directory_bits(nb: int) -> int:
-    """p for nb keys: ceil(log2 nb) - 2, clamped to [0, MAX_DIR_BITS], so
-    about 4-12 keys a bucket on uniform keys."""
-    return min(max((nb - 1).bit_length() - 2, 0), MAX_DIR_BITS)
+    """p for a table of nb keys: 0 (no directory) up to SMALL_TABLE keys,
+    else ceil(log2 nb) - 2 up to MAX_DIR_BITS, about 4-8 keys a bucket on
+    uniform keys."""
+    if nb <= SMALL_TABLE:
+        return 0
+    return min((nb - 1).bit_length() - 2, MAX_DIR_BITS)
 
 
-def _dir_dtype(nb: int) -> torch.dtype:
+def dir_dtype(nb: int) -> torch.dtype:
+    """The directory's offsets, and so K3/K4's positions: 32-bit below 2^31
+    keys."""
     return torch.int32 if nb < 2**31 else torch.int64
 
 
-def _check_keys(keys) -> torch.device:
-    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
-        raise ValueError("keys must be a contiguous 1-D int64 tensor, got "
-                         f"{keys.dtype} of shape {tuple(keys.shape)}")
-    if keys.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {keys.device}")
-    return keys.device
+def _offset_halves(x: torch.Tensor, lo: torch.Tensor):
+    """((u64)(x - lo) >> 1, (x - lo) & 1) for sortable keys x >= lo, with
+    no int64 overflow: the first from the halves of x and lo."""
+    half = (x >> 1) - (lo >> 1) - ((x & 1) < (lo & 1)).to(torch.int64)
+    return half, (x ^ lo) & 1
+
+
+def _shift_right(half, odd, shift):
+    """(u64)(x - lo) >> shift from _offset_halves, for 0 <= shift < 64 (an
+    int or a 0-d tensor); with shift 0 the offset must be below 2^62."""
+    zero = (shift == 0)
+    zero = zero.to(torch.int64) if isinstance(zero, torch.Tensor) else int(zero)
+    return ((half >> (shift - 1 + zero)) << zero) + (odd & zero)
+
+
+def range_directory_plain(keys: torch.Tensor, p: int, dtype=None):
+    """Plain PyTorch version of the directory build, with no host sync: the
+    bucket start keys, then one torch.searchsorted."""
+    nb, dev = keys.numel(), keys.device
+    lo, hi = keys[0], keys[-1]
+    half, odd = _offset_halves(hi, lo)
+    # span >> s >= 2^p exactly when s < bit_length(span) - p
+    shift = ((half >> torch.arange(63, device=dev)) >= 2**(p - 1)).sum()
+    b = torch.arange(2**p + 1, device=dev)
+    last = _shift_right(half, odd, shift)          # the last key's bucket
+    # start of bucket min(b, last): lo + (b << shift) in halves, so that no
+    # step passes hi
+    zero = (shift == 0).to(torch.int64)
+    bb = torch.minimum(b, last)
+    step = (bb << (shift - 1 + zero)) >> zero
+    starts = (lo + step) + step + (bb & zero)
+    dir_ = torch.where(b <= last, torch.searchsorted(keys, starts), nb)
+    return dir_.to(dtype or dir_dtype(nb)), shift
+
+
+def range_directory(keys: torch.Tensor, p: int, dtype=None):
+    """The bucket directory of nb >= 1 sorted sortable keys, with 2^p
+    buckets (1 <= p <= 30): (dir, shift), dir the 2^p + 1 offsets (of
+    `dtype`, by default dir_dtype(nb)) and shift a 0-d int64 tensor,
+    max(0, bit_length(span) - p).  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (one thread a bucket)."""
+    nb = keys.numel()
+    if nb == 0 or not 1 <= p <= 30:
+        raise ValueError("a directory needs keys and 1 <= p <= 30")
+    if (keys.dtype != torch.int64 or keys.dim() != 1
+            or not keys.is_contiguous()):
+        raise ValueError("keys must be a contiguous 1-D int64 tensor")
+    dtype = dtype or dir_dtype(nb)
+    if dtype not in (torch.int32, torch.int64) or (
+            dtype.itemsize < dir_dtype(nb).itemsize):
+        raise ValueError(f"no directory of {dtype} for {nb} keys")
+    if keys.device.type == "cpu":
+        return range_directory_plain(keys, p, dtype)
+    dir_ = torch.empty(2**p + 1, dtype=dtype, device=keys.device)
+    shift = torch.empty((), dtype=torch.int64, device=keys.device)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = _build.lib().fhj_range_directory(
+        keys.data_ptr(), nb, p, dir_.data_ptr(), dir_.element_size(),
+        shift.data_ptr(), stream)
+    range_directory.launches += 1
+    _build.check(err, "range_directory")
+    return dir_, shift
+
+
+range_directory.launches = 0
 
 
 def _check(table, planes: dict, np_valid: int) -> torch.device:
-    dev = _check_keys(table.keys)
-    nb = table.keys.numel()
-    if (table.dir.dtype != _dir_dtype(nb) or table.dir.dim() != 1
-            or table.dir.numel() < 2 or not table.dir.is_contiguous()):
-        raise ValueError(f"dir must be a contiguous 1-D {_dir_dtype(nb)} "
-                         "tensor of 2^p + 1 offsets")
-    for name in ("dir", "lo", "shift"):
-        if getattr(table, name).device != dev:
-            raise ValueError(f"table.{name} and keys must be on one device")
+    keys = table.keys
+    if keys.dtype != torch.int64 or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous 1-D int64 tensor, got "
+                         f"{keys.dtype} of shape {tuple(keys.shape)}")
+    dev = keys.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    if table.dir is not None:
+        d, s = table.dir, table.shift
+        if (d.dtype not in (torch.int32, torch.int64) or d.dim() != 1
+                or d.numel() < 3 or (d.numel() - 1) & (d.numel() - 2)
+                or not d.is_contiguous()
+                or d.dtype.itemsize < dir_dtype(keys.numel()).itemsize
+                or s is None or s.dtype != torch.int64 or s.dim() != 0):
+            raise ValueError("dir must be a contiguous 1-D int32 or int64 "
+                             "tensor of 2^p + 1 offsets (int64 from 2^31 "
+                             "keys on) and shift a 0-d int64 tensor")
+        if d.device != dev or s.device != dev:
+            raise ValueError("table.dir, table.shift and keys must be on one "
+                             "device")
     n = planes["ph"].numel()
     for name, p in planes.items():
         if p.dtype != torch.int32 or p.dim() != 1 or not p.is_contiguous():
@@ -77,78 +156,40 @@ def _check(table, planes: dict, np_valid: int) -> torch.device:
     return dev
 
 
-def range_directory_plain(keys: torch.Tensor, p: int | None = None):
-    """Plain PyTorch version of the directory build: (dir, meta), meta the
-    int64 pair (lo, shift).  One torch.searchsorted of the bucket start
-    keys.  p defaults to directory_bits(nb)."""
-    nb, dev = keys.numel(), keys.device
-    p = directory_bits(nb) if p is None else p
-    dir_ = torch.full((2**p + 1,), nb, dtype=_dir_dtype(nb), device=dev)
-    if nb == 0:
-        return dir_, torch.zeros(2, dtype=torch.int64, device=dev)
-    lo, hi = keys[[0, -1]].tolist()
-    shift = max(0, (hi - lo).bit_length() - p)
-    b = torch.arange(((hi - lo) >> shift) + 1, device=dev)
-    if shift:                    # lo + (b << shift) <= hi, summed in halves
-        half = b << (shift - 1)  # so that no int64 step overflows
-        starts = (half + lo) + half
-    else:
-        starts = b + lo
-    dir_[:b.numel()] = torch.searchsorted(keys, starts)
-    return dir_, torch.tensor([lo, shift], dtype=torch.int64, device=dev)
-
-
-def range_directory(keys: torch.Tensor):
-    """The bucket directory of the sorted sortable keys: (dir, meta), meta
-    the int64 pair (lo, shift).  CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    dev = _check_keys(keys)
-    if dev.type == "cpu":
-        return range_directory_plain(keys)
-    nb = keys.numel()
-    p = directory_bits(nb)
-    meta = torch.zeros(2, dtype=torch.int64, device=dev)
-    if nb == 0:
-        return torch.zeros(2, dtype=_dir_dtype(0), device=dev), meta
-    dir_ = torch.empty(2**p + 1, dtype=_dir_dtype(nb), device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_range_directory(
-        keys.data_ptr(), nb, p, dir_.data_ptr(), dir_.element_size(),
-        meta.data_ptr(), stream)
-    range_directory.launches += 1
-    _build.check(err, "range_directory")
-    return dir_, meta
-
-
-range_directory.launches = 0
-
-
-def _bucket(x: torch.Tensor, lo: int, shift: int) -> torch.Tensor:
-    """(u64)(x - lo) >> shift for sortable keys x >= lo, with no int64
-    overflow: (x - lo) >> 1 is taken from the halves of x and lo."""
-    if shift == 0:
-        return x - lo            # the span is below 2^MAX_DIR_BITS here
-    halved = (x >> 1) - (lo >> 1) - ((x & 1) < (lo & 1)).to(torch.int64)
-    return halved >> (shift - 1)
+def _table_ptrs(table) -> tuple:
+    """keys, nb, dir, dir_bytes, shift as the kernels' first arguments."""
+    d, nb = table.dir, table.keys.numel()
+    if d is None:
+        return (table.keys.data_ptr(), nb, None,
+                dir_dtype(nb).itemsize, None)
+    return (table.keys.data_ptr(), nb, d.data_ptr(), d.element_size(),
+            table.shift.data_ptr())
 
 
 def lookup(table, x: torch.Tensor):
-    """Plain directory search: (found, position of x's run) for sortable
-    keys x; the position is only meaningful where found.  Gathers dir[b]
-    and dir[b + 1], then the lower bound over keys[dir[b], dir[b + 1]) in
-    bit_length(largest bucket) torch.where halving steps."""
+    """Plain search: (found, position of x's run) for sortable keys x; the
+    position is only meaningful where found.  With a directory, gathers
+    dir[b] and dir[b + 1]; then the lower bound over the candidates in
+    bit_length(largest bucket, or nb) torch.where halving steps."""
     keys = table.keys
     nb = keys.numel()
     if nb == 0:
         return torch.zeros_like(x, dtype=torch.bool), torch.zeros_like(x)
-    lo, shift = int(table.lo), int(table.shift)
-    dir_ = table.dir.to(torch.int64)
+    lo = keys[0]
     inside = (x >= lo) & (x <= keys[-1])
-    b = _bucket(torch.where(inside, x, lo), lo, shift)
-    base = torch.where(inside, dir_[b], 0)
-    end = torch.where(inside, dir_[b + 1], 0)
+    if table.dir is None:
+        base = torch.zeros_like(x)
+        end = torch.where(inside, nb, 0)
+        steps = nb.bit_length()
+    else:
+        b = _shift_right(*_offset_halves(torch.where(inside, x, lo), lo),
+                         int(table.shift))
+        dir_ = table.dir.to(torch.int64)
+        base = torch.where(inside, dir_[b], 0)
+        end = torch.where(inside, dir_[b + 1], 0)
+        steps = int((dir_[1:] - dir_[:-1]).max()).bit_length()
     n = end - base + 1                       # candidate positions [base, end]
-    for _ in range(int((dir_[1:] - dir_[:-1]).max()).bit_length()):
+    for _ in range(steps):
         half = n >> 1
         past = keys[(base + half - 1).clamp_(min=0)] < x
         base = torch.where(past, base + half, base)
@@ -176,9 +217,8 @@ def range_probe_count(table, ph: torch.Tensor, pl: torch.Tensor,
         return count[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_range_probe_count(
-        table.keys.data_ptr(), table.keys.numel(), table.dir.data_ptr(),
-        table.dir.element_size(), table.lo.data_ptr(), table.shift.data_ptr(),
-        ph.data_ptr(), pl.data_ptr(), np_valid, count.data_ptr(), stream)
+        *_table_ptrs(table), ph.data_ptr(), pl.data_ptr(), np_valid,
+        count.data_ptr(), stream)
     range_probe_count.launches += 1
     _build.check(err, "range_probe_count")
     return count[0]
@@ -222,10 +262,8 @@ def range_probe_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
         return hit, vh, vl
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_range_probe_materialize(
-        table.keys.data_ptr(), table.keys.numel(), table.dir.data_ptr(),
-        table.dir.element_size(), table.lo.data_ptr(), table.shift.data_ptr(),
-        values.data_ptr(), ph.data_ptr(), pl.data_ptr(), n, np_valid,
-        hit.data_ptr(), vh.data_ptr(), vl.data_ptr(), stream)
+        *_table_ptrs(table), values.data_ptr(), ph.data_ptr(), pl.data_ptr(),
+        n, np_valid, hit.data_ptr(), vh.data_ptr(), vl.data_ptr(), stream)
     range_probe_materialize.launches += 1
     _build.check(err, "range_probe_materialize")
     return hit, vh, vl

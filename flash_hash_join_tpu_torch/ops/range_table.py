@@ -13,12 +13,14 @@ ops/cuda/range_probe.py), so the table is just
   build: the valid build rows' keys as sortable int64 (utils/u64.py),
          sorted STABLY by torch.sort (a plain sort outside any kernel, as
          lax.sort is in the JAX package), the value planes permuted the
-         same way and interleaved as one (vh, vl) plane, and a bucket
-         directory over the sorted keys (one pass, range_directory): the
-         Hopper form of the TPU table's column boundaries `bnds`;
+         same way and interleaved as one (vh, vl) plane, and above
+         rp.SMALL_TABLE keys a bucket directory over the sorted keys
+         (range_directory, one thread a bucket): the Hopper form of the
+         TPU table's column boundaries `bnds`;
   probe: unsorted, in input order; per row one directory read, then the
          bucket's few keys (an interpolation guess of the key's sector,
-         then a lower bound over what is left).
+         then a lower bound over what is left); a smaller table, in L1,
+         is searched whole.
 
 Not ported, because nothing here needs them: the probe sort and tile
 padding, the window and its `wstart`, SMALL and BLOCKWISE modes, the
@@ -52,16 +54,16 @@ class RangeTable(NamedTuple):
 
     keys: (nb_valid,) int64 sortable keys, ascending, equal keys in build
     row order; values: their (vh, vl) value planes in the same order as one
-    (nb_valid, 2) int32 tensor, or None for a count; dir: 2^p + 1 offsets,
-    dir[b] the first index of a key whose (u64)(key - lo) >> shift is at
-    least b; lo, shift: keys[0] and that shift, 0-d int64 tensors.
+    (nb_valid, 2) int32 tensor, or None for a count; dir: 2^p + 1 offsets
+    (rp.dir_dtype), dir[b] the first index of a key whose
+    (u64)(key - keys[0]) >> shift is at least b, or None up to
+    rp.SMALL_TABLE keys; shift: that shift, a 0-d int64 tensor, or None.
     """
 
     keys: torch.Tensor
     values: torch.Tensor | None
-    dir: torch.Tensor
-    lo: torch.Tensor
-    shift: torch.Tensor
+    dir: torch.Tensor | None
+    shift: torch.Tensor | None
 
 
 def _no_special(dev) -> torch.Tensor:
@@ -71,13 +73,15 @@ def _no_special(dev) -> torch.Tensor:
 def build_range_table(kh, kl, vh, vl, nb_valid: int, *,
                       with_values: bool) -> RangeTable:
     """Sort the first nb_valid build rows by their u64 key (stable), then
-    build the bucket directory over the sorted keys."""
+    build the bucket directory over the sorted keys if the table needs
+    one."""
     keys, order = torch.sort(sortable(kh[:nb_valid], kl[:nb_valid]),
                              stable=True)
-    dir_, meta = rp.range_directory(keys)
+    p = rp.directory_bits(nb_valid)
+    dir_, shift = rp.range_directory(keys, p) if p else (None, None)
     values = (torch.stack((vh[:nb_valid], vl[:nb_valid]), 1)[order]
               if with_values else None)
-    return RangeTable(keys, values, dir_, meta[0], meta[1])
+    return RangeTable(keys, values, dir_, shift)
 
 
 def range_join_count(kh, kl, vh, vl, ph, pl, nb_valid: int, np_valid: int):

@@ -12,6 +12,8 @@ Tolerance: exact equality — every output is an integer count or a u32 bit
 pattern.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -130,12 +132,14 @@ def _build_keys(rng, build):
     of the shapes that stress the bucket directory."""
     if isinstance(build, int):
         return _keys(rng, build, 3 * max(build, 1))
+    if build == "two_ends":            # span 2^64-1 in a table searched whole
+        return np.array([M64, 0], np.uint64)
     n = 200_003
     bk = rng.integers(0, 2**64, n, dtype=np.uint64)
     if build == "all_equal":                           # span 0
         bk[:] = bk[0]
-    elif build == "ends":                              # span 2^64-1, shift 64
-        bk = np.array([M64, 0], np.uint64)
+    elif build == "full_span":                         # shift 64 - p
+        bk[[5, 9]] = [0, M64]
     elif build == "crowded":       # 99 % in one bucket, far outliers
         bk[n // 100:] = rng.integers(5, 5 + n, n - n // 100, dtype=np.uint64)
         bk[:2] = [0, M64]
@@ -144,34 +148,50 @@ def _build_keys(rng, build):
     return bk
 
 
-def _table(rng, build, dev):
+def _table(rng, build, dev, layout):
+    """The range table of a build: as build_range_table makes it, or with
+    its directory forced to `layout`: None (no directory, searched whole),
+    p bits, or "wide" (its own size, 64-bit offsets)."""
     bk = _build_keys(rng, build)
     bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
     kh, kl = device_planes(bk, dev)
     vh, vl = device_planes(bv, dev)
-    return bk, rt.build_range_table(kh, kl, vh, vl, bk.size, with_values=True)
+    table = rt.build_range_table(kh, kl, vh, vl, bk.size, with_values=True)
+    if layout == "built" or bk.size == 0:
+        return bk, table
+    if layout is None:
+        return bk, table._replace(dir=None, shift=None)
+    p = rp.directory_bits(bk.size) or 6 if layout == "wide" else layout
+    dir_, shift = rp.range_directory(
+        table.keys, p, torch.int64 if layout == "wide" else None)
+    return bk, table._replace(dir=dir_, shift=shift)
 
 
-DIRECTORY_BUILDS = ["all_equal", "ends", "crowded", "dup_run"]
+DIRECTORY_BUILDS = ["two_ends", "all_equal", "full_span", "crowded",
+                    "dup_run"]
 
 
-@pytest.mark.parametrize("build", [0, 1, 5, 200_003, *DIRECTORY_BUILDS])
+@pytest.mark.parametrize("build", [1, 5, 200_003, *DIRECTORY_BUILDS])
 def test_range_directory_kernel_matches_plain(dev, build):
-    bk = _build_keys(np.random.default_rng(7), build)
-    keys = torch.sort(sortable(*device_planes(bk, dev)))[0]
-    before = rp.range_directory.launches
-    got = rp.range_directory(keys)
-    want = rp.range_directory_plain(keys)
-    torch.cuda.synchronize()
-    assert rp.range_directory.launches == before + (bk.size > 0)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w), build
+    keys = torch.sort(sortable(*device_planes(
+        _build_keys(np.random.default_rng(7), build), dev)))[0]
+    for p, dtype in itertools.product((1, 12, rp.MAX_DIR_BITS),
+                                      (torch.int32, torch.int64)):
+        before = rp.range_directory.launches
+        got = rp.range_directory(keys, p, dtype)
+        want = rp.range_directory_plain(keys, p, dtype)
+        torch.cuda.synchronize()
+        assert rp.range_directory.launches == before + 1
+        assert got[0].dtype == dtype
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (build, p, dtype)
 
 
+@pytest.mark.parametrize("layout", ["built", None, 6, "wide"])
 @pytest.mark.parametrize("nb", [0, 1, 5, 200_003, *DIRECTORY_BUILDS])
-def test_range_probe_kernels_match_plain(dev, nb):
+def test_range_probe_kernels_match_plain(dev, nb, layout):
     rng = np.random.default_rng(nb if isinstance(nb, int) else len(nb))
-    bk, table = _table(rng, nb, dev)
+    bk, table = _table(rng, nb, dev, layout)
     nb = bk.size
     for npr in (0, 7, 1_000_003):
         pk = _keys(rng, npr, 3 * max(nb, 1))

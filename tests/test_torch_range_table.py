@@ -25,6 +25,7 @@ from flash_hash_join_tpu.ops import range_table as jrt
 from flash_hash_join_tpu.utils import u64 as ju64
 from flash_hash_join_tpu_torch.ops import merge_join as tmj
 from flash_hash_join_tpu_torch.ops import range_table as trt
+from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.utils import u64 as tu64
 from tests.oracle import oracle_count
 
@@ -263,7 +264,7 @@ def _edge_build(name):
         nb = 1
     elif name == "all_equal":                          # span 0
         bk[:] = bk[0]
-    elif name == "ends":                               # span 2^64-1, shift 64
+    elif name == "ends":             # span 2^64-1 in two keys: no directory
         bk[:2] = [0, M64]
         nb = 2
     elif name == "full_span":                          # shift 64 - p
@@ -294,21 +295,19 @@ def _edge_probes(bk, nb):
     return pk
 
 
-def _numpy_directory(keys_u64):
-    """(dir, lo, shift) from the definition: p = clamp(ceil(log2 nb) - 2,
-    0, 23); bucket = (key - keys[0]) >> shift over the sorted u64 keys;
-    dir[b] = the first index whose bucket is >= b."""
+def _numpy_directory(keys_u64, p):
+    """(dir, shift) from the definition: bucket = (key - keys[0]) >> shift
+    over the sorted u64 keys, shift = max(0, bit_length(span) - p), and
+    dir[b] = the first index whose bucket is >= b, for b in [0, 2^p]."""
     keys = np.sort(keys_u64)
-    nb = keys.size
-    p = min(max(math.ceil(math.log2(nb)) - 2, 0), 23) if nb else 0
-    if nb == 0:
-        return np.zeros(2**p + 1, np.int64), 0, 0
     shift = max(0, (int(keys[-1]) - int(keys[0])).bit_length() - p)
-    dist = keys - keys[0]
-    buckets = (np.zeros(nb, np.uint64) if shift == 64
-               else dist >> np.uint64(shift))
-    dir_ = np.searchsorted(buckets, np.arange(2**p + 1, dtype=np.uint64))
-    return dir_, int(keys[0]) - 2**63, shift
+    buckets = (keys - keys[0]) >> np.uint64(shift)
+    return np.searchsorted(buckets, np.arange(2**p + 1, dtype=np.uint64)), shift
+
+
+def _sorted_keys(bk, nb):
+    kh, kl = tu64.device_planes(bk[:nb], "cpu")
+    return torch.sort(tu64.sortable(kh, kl))[0]
 
 
 @pytest.mark.parametrize("name", EDGE_BUILDS)
@@ -316,16 +315,60 @@ def test_range_directory_matches_numpy(name):
     bk, nb = _edge_build(name)
     kh, kl = tu64.device_planes(bk, "cpu")
     table = trt.build_range_table(kh, kl, kh, kl, nb, with_values=False)
-    want, lo, shift = _numpy_directory(bk[:nb])
-    assert table.dir.dtype == torch.int32
+    if nb <= rp.SMALL_TABLE:                   # a small table: no directory
+        assert rp.directory_bits(nb) == 0
+        assert table.dir is None and table.shift is None
+        return
+    p = min(math.ceil(math.log2(nb)) - 2, 23)
+    assert rp.directory_bits(nb) == p
+    want, shift = _numpy_directory(bk[:nb], p)
+    assert table.dir.dtype == torch.int32 and table.dir.numel() == 2**p + 1
     np.testing.assert_array_equal(table.dir.numpy(), want)
     assert int(table.shift) == shift
-    assert nb == 0 or int(table.lo) == lo
-    if name == "ends":
-        assert shift == 64 and table.dir.tolist() == [0, 2]
+    if name == "full_span":
+        assert shift == 64 - p
     if name == "all_equal":
-        assert shift == 0 and table.dir[1:].tolist() == [nb] * (
-            table.dir.numel() - 1)
+        assert shift == 0 and table.dir[1:].tolist() == [nb] * 2**p
+
+
+@pytest.mark.parametrize("name", [n for n in EDGE_BUILDS if n != "empty"])
+@pytest.mark.parametrize("p", [1, 6, 14])
+def test_range_directory_at_any_size_matches_numpy(name, p):
+    """range_directory at a forced size, down to two buckets: shift 63
+    when the keys span all of u64."""
+    bk, nb = _edge_build(name)
+    dir_, shift = rp.range_directory(_sorted_keys(bk, nb), p)
+    want, want_shift = _numpy_directory(bk[:nb], p)
+    np.testing.assert_array_equal(dir_.numpy(), want)
+    assert int(shift) == want_shift
+    if name in ("ends", "full_span"):
+        assert want_shift == 64 - p
+
+
+@pytest.mark.parametrize("name", EDGE_BUILDS)
+def test_range_probe_plain_on_either_layout(name):
+    """The plain K3/K4 give the oracle's answer whether the table has no
+    directory or one of any size."""
+    bk, nb = _edge_build(name)
+    bv = np.random.default_rng(4).integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = _edge_probes(bk, nb)
+    kh, kl = tu64.device_planes(bk, "cpu")
+    vh, vl = tu64.device_planes(bv, "cpu")
+    built = trt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
+    ph, pl = tu64.device_planes(pk, "cpu")
+    want = _first_match(bk[:nb], bv[:nb], pk)
+    layouts = [None] + ([1, 6, 14] if nb else [])
+    for p in layouts:
+        dir_, shift = (rp.range_directory(built.keys, p) if p
+                       else (None, None))
+        table = trt.RangeTable(built.keys, built.values, dir_, shift)
+        assert int(rp.range_probe_count(table, ph, pl, pk.size)) == len(
+            want[0]), p
+        hit, mvh, mvl = rp.range_probe_materialize(table, ph, pl, pk.size)
+        hit = hit.numpy()
+        np.testing.assert_array_equal(pk[hit], want[0])
+        np.testing.assert_array_equal(
+            tu64.to_numpy_u64(mvh, mvl, pk.size)[hit], want[1])
 
 
 @pytest.mark.parametrize("name", EDGE_BUILDS)
@@ -349,3 +392,20 @@ def test_range_join_on_directory_edge_builds(name):
     if np.unique(bk[:nb]).size == nb:                  # winner pinned
         for g, w in zip(_sorted_pairs(*got[1:3]), _sorted_pairs(*jrows[1:3])):
             np.testing.assert_array_equal(g, w)
+
+
+def test_range_directory_and_probes_refuse_bad_tables():
+    keys = _sorted_keys(np.arange(10, dtype=np.uint64), 10)
+    for bad in ((keys[:0], 3, None), (keys, 0, None), (keys, 31, None),
+                (keys, 3, torch.int16), (keys.to(torch.int32), 3, None)):
+        with pytest.raises(ValueError):
+            rp.range_directory(*bad)
+    dir_, shift = rp.range_directory(keys, 3)
+    ph, pl = tu64.device_planes(np.arange(4, dtype=np.uint64), "cpu")
+    for table in (trt.RangeTable(keys, None, dir_[:-1], shift),
+                  trt.RangeTable(keys, None, dir_.to(torch.int16), shift),
+                  trt.RangeTable(keys, None, dir_, None)):
+        with pytest.raises(ValueError):
+            rp.range_probe_count(table, ph, pl, 4)
+    assert int(rp.range_probe_count(trt.RangeTable(keys, None, dir_, shift),
+                                    ph, pl, 4)) == 4
