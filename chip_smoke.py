@@ -8,7 +8,12 @@ Phases, one JSON line each on stdout:
   1. env      torch/CUDA versions, the card, nvcc, and the kernels' build
               from the checkout's csrc/ (seconds, ptxas register report).
   2. kernels  each CUDA kernel against its plain PyTorch version on the
-              card (exact): K1/K2 at every bitmap rung the dense path uses;
+              card (exact): K1/K2 at every bitmap rung the dense path uses,
+              K1 in both forms: on domain indices, and on the key planes
+              (the path's) with a nonzero lo, high-word, out-of-domain,
+              below-lo and u32-max keys, views misaligned alike and each
+              its own way, validity tails, empty sides and a build of bad
+              rows only;
               K3/K4/K5 at build sizes 0, 1, 5, 2e6 and probe sizes 0, 7,
               3e7+5, and on builds that stress the range table's bucket
               directory (the keys {0, 2^64-1}; 2e6 keys: all equal,
@@ -20,7 +25,8 @@ Phases, one JSON line each on stdout:
               views, np_valid < npr, the u64-max key on both sides, K5
               with 2, 3 and 4 planes; K7 at v_rows 8, 16,
               64, 128 and K8 at 256, 1024, 8192, each with 1 and 2 value
-              planes, and K9, at sizes 0, 7 and 3e7+5 with misaligned,
+              planes, and K9, at sizes 0, 7 and 3e7+5 (K9 also around
+              its 4096-word block step) with misaligned,
               odd-length views and a sentinel tail (np_valid < npr); K10/K11
               at every vmem rung (R 8, 16, 64, 128, 512) with a bucket full
               to its last slot, probe sizes 0, 7, 3e7+5, misaligned views,
@@ -29,7 +35,9 @@ Phases, one JSON line each on stdout:
               random.  Then each kernel and its plain version timed (CUDA
               events, median of 5 after a warm-up) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
-              the same function, that call's time; K3/K4 at J1 1e8 Q5 with
+              the same function, that call's time (K1: torch.isin of the
+              domain indices; K9: clone, timed in turns with it); K1's
+              index form beside it; K3/K4 at J1 1e8 Q5 with
               the directory's offsets as int32 (as built) and as int64; and
               K3/K4 on both table layouts (searched whole, or through a
               directory) at build sizes 100 to 1e5.
@@ -116,7 +124,7 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             "probe_count_vmem": PALLAS + "bucket_probe.py:116",
             "probe_materialize_vmem": PALLAS + "bucket_probe.py:138"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
-    "dense_bitmap": ("fused_bitmap_join", "dense_bitmap.cu"),
+    "dense_bitmap": ("fused_domain_bitmap_join", "dense_bitmap.cu"),
     "bitmap_probe": ("probe_count_bitmap", "bitmap_probe.cu"),
     "range_probe_count": ("range_probe_count", "range_probe.cu"),
     "range_probe_materialize": ("range_probe_materialize", "range_probe.cu"),
@@ -191,7 +199,8 @@ def zero_launches() -> None:
     from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
-    for fn in (dbm.fused_bitmap_join, bp.probe_count_bitmap,
+    for fn in (dbm.fused_domain_bitmap_join, dbm.fused_bitmap_join,
+               bp.probe_count_bitmap,
                rp.range_probe_count, rp.range_probe_materialize,
                rp.range_directory, sc.compact_by_mask, bp.probe_gather_bitmap,
                dv.probe_gather_staged, dv.materialize_copy,
@@ -250,6 +259,34 @@ def random_indices(rng, n: int, n_bits: int, dev):
     return to_device(idx, dev)
 
 
+def domain_keys(rng, n: int, lo: int, n_bits: int) -> np.ndarray:
+    """u64 keys of K1's domain entry: most in the n_bits slots from lo,
+    1 % with a nonzero high word, 1 % past the domain's top, 1 % below lo
+    (they wrap), and the u32-max key."""
+    keys = rng.integers(lo, lo + n_bits, n, dtype=np.uint64)
+    r = rng.random(n)
+    keys[r < 0.01] += np.uint64(2**32)                 # high-word rows
+    keys[(r >= 0.01) & (r < 0.02)] += np.uint64(n_bits)
+    below = (r >= 0.02) & (r < 0.03)
+    keys[below] = rng.integers(0, lo, int(below.sum()), dtype=np.uint64)
+    keys[3:5] = 2**32 - 1
+    return keys
+
+
+def domain_views(keys: np.ndarray, dev, shift: tuple[int, int]):
+    """The (hi, lo) planes of keys as views that start `shift` words into
+    longer planes: (0, 0) aligned, (1, 1) both misaligned alike, (1, 3)
+    misaligned each its own way."""
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes
+    n = keys.size
+    pad = np.zeros(3, np.uint64)
+    hi = device_planes(np.concatenate([pad[:shift[0]], keys,
+                                       pad[shift[0]:]]), dev)[0]
+    lo = device_planes(np.concatenate([pad[:shift[1]], keys,
+                                       pad[shift[1]:]]), dev)[1]
+    return hi[shift[0]:shift[0] + n], lo[shift[1]:shift[1] + n]
+
+
 def phase_env():
     import torch
     from flash_hash_join_tpu_torch.ops.cuda import _build
@@ -279,15 +316,16 @@ def ptxas_usage(report: str) -> dict:
 
 
 def phase_kernels(cells: dict) -> dict:
-    """K1/K2 == plain at every rung; then both timed on main-path inputs.
-    Returns the per-kernel summary fields (max_abs_err, ms, plain_ms)."""
+    """K1 (both entries) and K2 == plain at every rung; then both timed on
+    main-path inputs.  Returns the per-kernel summary fields (max_abs_err,
+    ms, plain_ms, bound, library_ms)."""
     import torch
     from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
     from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
-    from flash_hash_join_tpu_torch.utils.u64 import to_device
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    err = {"bitmap_probe": 0, "dense_bitmap": 0}
+    err = {"bitmap_probe": 0, "dense_bitmap": 0, "dense_bitmap_index": 0}
     checked = []
 
     for d_rows in (8, 16, 128, 256):
@@ -310,50 +348,105 @@ def phase_kernels(cells: dict) -> dict:
             pidx = random_indices(rng, npr, n_bits, dev)
             got = int(dbm.fused_bitmap_join(bidx, pidx, d_rows)[0])
             want = int(dbm.fused_bitmap_join_plain(bidx, pidx, d_rows))
-            err["dense_bitmap"] = max(err["dense_bitmap"], abs(got - want))
-            checked.append(["dense_bitmap", d_rows, nb, npr, got, want])
+            err["dense_bitmap_index"] = max(err["dense_bitmap_index"],
+                                            abs(got - want))
+            checked.append(["dense_bitmap_index", d_rows, nb, npr, got,
+                            want])
+        # the domain entry on key planes: a nonzero lo, high-word, out-of-
+        # domain, below-lo and u32-max keys, aligned and misaligned views,
+        # validity tails, an empty side, a build of bad rows only
+        lo = int(rng.integers(1, 2**31))
+        for nb, npr in ((5_000_001, 6_000_003), (0, 1_000), (1_000, 0),
+                        (5, 7), (-1_000, 1_000)):
+            bk = domain_keys(rng, abs(nb), lo, n_bits)
+            if nb < 0:                                 # every build row bad
+                bk |= np.uint64(2**40)
+            pk = domain_keys(rng, npr, lo, n_bits)
+            pk[::3] = rng.choice(bk, pk[::3].size) if bk.size else 0
+            for shift in ((0, 0), (1, 1), (1, 3)):
+                kh, kl = domain_views(bk, dev, shift)
+                ph, pl = domain_views(pk, dev, shift[::-1])
+                for nbv, npv in {(kh.numel(), ph.numel()),
+                                 (max(kh.numel() - 5, 0),
+                                  max(ph.numel() - 3, 0))}:
+                    args = (kh, kl, ph, pl, nbv, npv, d_rows)
+                    got = [int(x) for x in dbm.fused_domain_bitmap_join(*args)]
+                    want = [int(x) for x in
+                            dbm.fused_domain_bitmap_join_plain(*args)]
+                    err["dense_bitmap"] = max(
+                        err["dense_bitmap"],
+                        *(abs(g - w) for g, w in zip(got, want)))
+                    checked.append(["dense_bitmap", d_rows, nbv, npv, shift,
+                                    got, want])
+            del bk, pk, kh, kl, ph, pl
     torch.cuda.synchronize()
-    require(err == {"bitmap_probe": 0, "dense_bitmap": 0},
-            f"kernel != plain: {checked}")
-    emit("kernels_vs_plain", kernels=["dense_bitmap", "bitmap_probe"],
+    require(all(e == 0 for e in err.values()), f"kernel != plain: {checked}")
+    emit("kernels_vs_plain", kernels=list(err),
          tolerance="exact (integer counts)", max_abs_err=err,
          cases=len(checked))
 
     timing = {}
     for name in ("4e7-Q1", "4e7-Q2", "4e7-Q5", "1e8-Q5"):
-        bidx_np, pidx_np, d_rows = domain_indices(
-            cells[name].build_keys, cells[name].probe_keys)
+        c = cells[name]
+        bidx_np, pidx_np, d_rows = domain_indices(c.build_keys, c.probe_keys)
         bidx, pidx = to_device(bidx_np, dev), to_device(pidx_np, dev)
         if d_rows <= bp.MAX_D_ROWS:
             kernel = "bitmap_probe"
             bitmap = dbm.pack_bitmap(bidx, d_rows)
             got = int(bp.probe_count_bitmap(bitmap, pidx, d_rows))
             want = int(bp.probe_count_bitmap_plain(bitmap, pidx, d_rows))
-            ms = cuda_ms(lambda: bp.probe_count_bitmap(bitmap, pidx, d_rows))
-            plain_ms = cuda_ms(
+            ms, plain_ms = paired_ms(
+                lambda: bp.probe_count_bitmap(bitmap, pidx, d_rows),
                 lambda: bp.probe_count_bitmap_plain(bitmap, pidx, d_rows))
+            extra = {}
         else:
             kernel = "dense_bitmap"
-            got = int(dbm.fused_bitmap_join(bidx, pidx, d_rows)[0])
-            want = int(dbm.fused_bitmap_join_plain(bidx, pidx, d_rows))
-            ms = cuda_ms(lambda: dbm.fused_bitmap_join(bidx, pidx, d_rows))
-            plain_ms = cuda_ms(
-                lambda: dbm.fused_bitmap_join_plain(bidx, pidx, d_rows))
+            kh, kl = device_planes(c.build_keys, dev)
+            ph, pl = device_planes(c.probe_keys, dev)
+            args = (kh, kl, ph, pl, kh.numel(), ph.numel(), d_rows)
+            got, bad = (int(x) for x in dbm.fused_domain_bitmap_join(*args))
+            want = int(dbm.fused_domain_bitmap_join_plain(*args)[0])
+            require(bad == 0, f"{name}: {bad} bad build rows")
+            require(got == int(dbm.fused_bitmap_join(bidx, pidx, d_rows)[0]),
+                    f"{name}: the two K1 entries disagree")
+            ms, plain_ms = paired_ms(
+                lambda: dbm.fused_domain_bitmap_join(*args),
+                lambda: dbm.fused_domain_bitmap_join_plain(*args))
+            # the index form on the same cell's indices (mapped on the
+            # host), and the library yardstick: one torch.isin of those
+            # indices, timed here and used nowhere in the port
+            extra = dict(
+                index_form_ms=cuda_ms(
+                    lambda: dbm.fused_bitmap_join(bidx, pidx, d_rows)),
+                library_ms=cuda_ms(lambda: torch.isin(pidx, bidx).sum()))
+            del kh, kl, ph, pl, args
         require(got == want, f"{kernel} {name}: kernel {got} != plain {want}")
-        err[kernel] = max(err[kernel], abs(got - want))
         timing[name] = dict(kernel=kernel, d_rows=d_rows, nb=bidx.numel(),
-                            npr=pidx.numel(), ms=ms, plain_ms=plain_ms)
-        emit("kernel_time", cell=name, **timing[name])
+                            npr=pidx.numel(), ms=min(ms),
+                            plain_ms=min(plain_ms), **extra)
+        emit("kernel_time", cell=name, **timing[name], ms_runs=ms,
+             plain_ms_runs=plain_ms)
         del bidx, pidx
-    # K1 reads both index planes, K2 the probe indices and its bitmap;
-    # about 4 integer operations per index (shift, mask, test or atomic OR)
+        torch.cuda.empty_cache()
+    # K1 reads the four key planes once (8 B a row of each side) and
+    # writes the count and the bad-row count; its design reads the build
+    # planes twice (the lo pass), 16 B a build row.  The index form reads
+    # 4 B a row of each side.  K2 reads the probe indices and its bitmap.
+    # About 4 integer operations a row (subtract, compare, shift, mask,
+    # test or atomic OR).
     q5, q2 = timing["4e7-Q5"], timing["4e7-Q2"]
-    return {"dense_bitmap": dict(max_abs_err=err["dense_bitmap"],
-                                 ms=q5["ms"], plain_ms=q5["plain_ms"],
-                                 **bound(4 * (q5["nb"] + q5["npr"]) + 8,
-                                         4 * (q5["nb"] + q5["npr"])),
-                                 library_ms=None,
-                                 at="J1 4e7 Q5, d_rows 16384"),
+    nb5, np5 = q5["nb"], q5["npr"]
+    return {"dense_bitmap": dict(
+                max_abs_err=err["dense_bitmap"], ms=q5["ms"],
+                plain_ms=q5["plain_ms"],
+                **bound(8 * (nb5 + np5) + 16, 4 * (nb5 + np5)),
+                library_ms=q5["library_ms"],
+                design_floor_ms=bound(16 * nb5 + 8 * np5 + 16, 0)["bound_ms"],
+                index_form=dict(max_abs_err=err["dense_bitmap_index"],
+                                ms=q5["index_form_ms"],
+                                **bound(4 * (nb5 + np5) + 8,
+                                        4 * (nb5 + np5))),
+                at="J1 4e7 Q5, d_rows 16384"),
             "bitmap_probe": dict(max_abs_err=err["bitmap_probe"],
                                  ms=q2["ms"], plain_ms=q2["plain_ms"],
                                  **bound(4 * q2["npr"] + q2["d_rows"] * 512
@@ -660,6 +753,7 @@ def dense_inputs(c, dev):
     (v_rows, build domain indices, occupied-slot mask, value planes, probe
     domain indices)."""
     from flash_hash_join_tpu_torch.ops import direct_bitmap as db
+    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
     from flash_hash_join_tpu_torch.utils.u64 import device_planes
     bk, bv, pk = c.build_keys, c.build_values, c.probe_keys
     v_rows = db.v_rows_for(int(bk.max() - bk.min()) + 1)
@@ -669,7 +763,7 @@ def dense_inputs(c, dev):
     lo, _, bidx, occ, planes = db._dense_value_planes(
         kh, kl, vh, vl, len(bk), v_rows=v_rows,
         narrow_values=int(bv.max()) < 2**32)
-    pidx = db._probe_idx(ph, pl, len(pk), lo, v_rows * db.LANES)
+    pidx = dbm.probe_domain_idx(ph, pl, len(pk), lo, v_rows * db.LANES)
     return v_rows, bidx, occ, planes, pidx
 
 
@@ -722,7 +816,9 @@ def phase_dense_kernels(cells: dict) -> dict:
                               dv.probe_gather_staged(*args),
                               dv.probe_gather_staged_plain(*args))
             del idx
-    for n in sizes:
+    # K9 also around one block step of its unrolled loop (4 words a
+    # 16-byte load, 4 loads a thread, 256 threads: 4096 words)
+    for n in sizes + (4_095, 4_096, 4_097, 8_191, 8_193):
         x = to_device(rng.integers(0, 2**32, n + 3, dtype=np.uint32), dev)
         # aligned, misaligned by 4 and 12 bytes, odd length
         for view in (x[:n], x[1:n + 1], x[3:], x[2:n + 1]):
@@ -762,12 +858,15 @@ def phase_dense_kernels(cells: dict) -> dict:
             "probe_gather_staged": bound((1 + k) * v_rows * 512 + 5 * n
                                          + 4 * k * n, 6 * n),
             "materialize_copy": bound(8 * n, n)}
-        library = ({"materialize_copy": cuda_ms(lambda: pidx.clone())}
-                   if "materialize_copy" in runs else {})
+        library = {}
         for kernel, (run, plain) in runs.items():
             check(kernel, run(), plain())
             require(err[kernel] == 0, f"{kernel} {name}: kernel != plain")
             ms, plain_ms = paired_ms(run, plain)
+            if kernel == "materialize_copy":
+                # K9's plain version is the library call, torch's clone:
+                # timed in turns with the kernel, clone, K9, K9, clone
+                library[kernel] = min(plain_ms)
             timing[kernel, name] = dict(ms=min(ms), plain_ms=min(plain_ms),
                                         **bounds[kernel],
                                         library_ms=library.get(kernel))

@@ -83,7 +83,7 @@ def _as_u64(arr) -> np.ndarray:
 
 def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel."""
-    return {"dense_bitmap": dbm.fused_bitmap_join.launches,
+    return {"dense_bitmap": dbm.fused_domain_bitmap_join.launches,
             "bitmap_probe": bp.probe_count_bitmap.launches,
             "range_probe_count": rp.range_probe_count.launches,
             "range_probe_materialize": rp.range_probe_materialize.launches,

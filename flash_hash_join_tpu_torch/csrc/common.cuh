@@ -1,6 +1,7 @@
-// Shared device helpers: the index stream walk and the membership bit test
-// of the bitmap kernels (dense_bitmap.cu, bitmap_probe.cu), the block
-// reduction and the grid size of every kernel.
+// Shared device helpers: the index stream walk, the key-plane pair walk,
+// the dense-domain test and the membership bit test of the bitmap kernels
+// (dense_bitmap.cu, bitmap_probe.cu), the block reductions and the grid
+// size of every kernel.
 //
 // Domain indices are u32 with sentinel 0xFFFFFFFF (torch int32 bit
 // patterns on the Python side).  Bitmap word w holds slots [32w, 32w+32);
@@ -40,8 +41,77 @@ __device__ __forceinline__ void for_each_index(const uint32_t* __restrict__ idx,
   if (tid < n - tail) visit(idx[tail + tid]);
 }
 
+// Calls visit(h, l) for every i < n with h = hi[i], l = lo[i]: the two u32
+// planes of a u64 key column, walked like for_each_index.  The body is
+// aligned on hi; lo is read with 16-byte loads too when it then lies on a
+// 16-byte boundary, else with four scalar loads (the choice is the same
+// for the whole grid).
+template <typename Visit>
+__device__ __forceinline__ void for_each_pair(const uint32_t* __restrict__ hi,
+                                              const uint32_t* __restrict__ lo,
+                                              int64_t n, Visit visit) {
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t head = (int64_t)((16 - (reinterpret_cast<uintptr_t>(hi) & 15)) & 15) >> 2;
+  if (head > n) head = n;
+  const int64_t n4 = (n - head) >> 2;
+  const uint4* h4 = reinterpret_cast<const uint4*>(hi + head);
+  const uint32_t* l1 = lo + head;
+  if ((reinterpret_cast<uintptr_t>(l1) & 15) == 0) {
+    const uint4* l4 = reinterpret_cast<const uint4*>(l1);
+    for (int64_t i = tid; i < n4; i += stride) {
+      const uint4 h = __ldg(h4 + i);
+      const uint4 l = __ldg(l4 + i);
+      visit(h.x, l.x);
+      visit(h.y, l.y);
+      visit(h.z, l.z);
+      visit(h.w, l.w);
+    }
+  } else {
+    for (int64_t i = tid; i < n4; i += stride) {
+      const uint4 h = __ldg(h4 + i);
+      const uint32_t* l = l1 + 4 * i;
+      visit(h.x, __ldg(l));
+      visit(h.y, __ldg(l + 1));
+      visit(h.z, __ldg(l + 2));
+      visit(h.w, __ldg(l + 3));
+    }
+  }
+  const int64_t tail = head + (n4 << 2);
+  if (tid < head) visit(hi[tid], lo[tid]);
+  if (tid < n - tail) visit(hi[tail + tid], lo[tail + tid]);
+}
+
+// The dense-domain test of a u64 key (hi, lo) against a domain of n_bits
+// slots from `base`: *idx = (lo - base) mod 2^32, and the key is in the
+// domain when hi == 0 and *idx < n_bits.  Keys below base wrap to huge
+// indices and fall outside, so a probe below the domain misses and a build
+// row below it is bad.  The u32 twin of ops/direct_bitmap.py's int64
+// mapping (_build_idx / _probe_idx).
+__device__ __forceinline__ bool in_domain(uint32_t hi, uint32_t lo, uint32_t base,
+                                          uint32_t n_bits, uint32_t* idx) {
+  *idx = lo - base;
+  return hi == 0u && *idx < n_bits;
+}
+
 __device__ __forceinline__ unsigned int bit_of(uint32_t word, uint32_t v) {
   return (word >> (v & 31u)) & 1u;
+}
+
+// Minimum of v over the block, valid in thread 0.  blockDim.x == kThreads.
+__device__ __forceinline__ uint32_t block_min(uint32_t v) {
+  __shared__ uint32_t warp_mins[kThreads / 32];
+  v = __reduce_min_sync(0xffffffffu, v);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_mins[warp] = v;
+  __syncthreads();
+  v = 0xFFFFFFFFu;
+  if (warp == 0) {
+    v = lane < kThreads / 32 ? warp_mins[lane] : 0xFFFFFFFFu;
+    v = __reduce_min_sync(0xffffffffu, v);
+  }
+  return v;
 }
 
 // Sum of v over the block, valid in thread 0.  blockDim.x == kThreads.

@@ -25,9 +25,15 @@
 // copy.  In the JAX package it is an XLA:TPU fusion barrier in front of the
 // staged band's consumers; PyTorch runs eagerly and fuses nothing, so here
 // it is a plain copy of the probe indices that K8 then reads.  Bound by
-// bandwidth (8 B per element moved): 16-byte vector loads and stores over
-// the body, scalar head and tail for views that start off a 16-byte
-// boundary or end ragged.
+// bandwidth: 8 B per element moved.  A grid-stride loop with one 16-byte
+// load then its store a step keeps 16 B in flight a thread and ran slower
+// than torch's clone on an H100; so each thread issues kCopyUnroll
+// independent 16-byte loads, then their stores, and the grid (the card
+// full) keeps kCopyUnroll * 16 B in flight a thread.  The loads and stores
+// are streaming (__ldcs / __stcs, evict-first), so the copy does not push
+// K8's value planes, which K8 reads from L2 right after, out of the cache.
+// Scalar head and tail for views that start off a 16-byte boundary or end
+// ragged.
 #include "common.cuh"
 
 namespace {
@@ -48,24 +54,42 @@ staged_gather_kernel(const uint32_t* __restrict__ presence,
   }
 }
 
+constexpr int kCopyUnroll = 4;
+
 // dst[i] = src[i] for i < n.  `head` words bring dst to a 16-byte boundary;
 // src is read with vector loads too when it then lies on one as well.
+// Each step of a thread moves the 16-byte words base + k * blockDim.x,
+// k < kCopyUnroll: coalesced across the warp for every k.
 __global__ void __launch_bounds__(fhj::kThreads)
 copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_t n) {
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t step = (int64_t)kCopyUnroll * blockDim.x;
+  const int64_t stride = step * gridDim.x;
   int64_t head = (int64_t)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2;
   if (head > n) head = n;
   const int64_t n4 = (n - head) >> 2;
   const uint32_t* s = src + head;
   uint4* d = reinterpret_cast<uint4*>(dst + head);
-  if ((reinterpret_cast<uintptr_t>(s) & 15) == 0) {
-    const uint4* s4 = reinterpret_cast<const uint4*>(s);
-    for (int64_t i = tid; i < n4; i += stride) d[i] = __ldg(s4 + i);
-  } else {
-    for (int64_t i = tid; i < n4; i += stride) {
-      const uint32_t* q = s + 4 * i;
-      d[i] = make_uint4(__ldg(q), __ldg(q + 1), __ldg(q + 2), __ldg(q + 3));
+  const bool aligned = (reinterpret_cast<uintptr_t>(s) & 15) == 0;
+  for (int64_t base = (int64_t)blockIdx.x * step + threadIdx.x; base < n4;
+       base += stride) {
+    uint4 v[kCopyUnroll];
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const int64_t i = base + (int64_t)k * blockDim.x;
+      if (i < n4) {
+        if (aligned) {
+          v[k] = __ldcs(reinterpret_cast<const uint4*>(s) + i);
+        } else {
+          const uint32_t* q = s + 4 * i;
+          v[k] = make_uint4(__ldcs(q), __ldcs(q + 1), __ldcs(q + 2), __ldcs(q + 3));
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCopyUnroll; ++k) {
+      const int64_t i = base + (int64_t)k * blockDim.x;
+      if (i < n4) __stcs(d + i, v[k]);
     }
   }
   const int64_t tail = head + (n4 << 2);
@@ -98,7 +122,7 @@ int fhj_materialize_copy(const uint32_t* src, uint32_t* dst, int64_t n,
                          cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
   int grid = 0;
-  cudaError_t e = fhj::grid_for(copy_kernel, n, 0, &grid);
+  cudaError_t e = fhj::grid_for(copy_kernel, n, 0, &grid, 4 * kCopyUnroll);
   if (e != cudaSuccess) return (int)e;
   copy_kernel<<<grid, fhj::kThreads, 0, stream>>>(src, dst, n);
   return (int)cudaGetLastError();

@@ -32,6 +32,9 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     # build_idx, nb, probe_idx, np, bitmap, d_rows, count, stream
     "fhj_fused_bitmap_join": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
+    # kh, kl, nb, ph, pl, np, bitmap, d_rows, scratch, stream
+    "fhj_fused_domain_bitmap_join": [_P, _P, _I64, _P, _P, _I64, _P, _I64,
+                                     _P, _P],
     # bitmap, d_rows, idx, n, count, stream
     "fhj_bitmap_probe_count": [_P, _I, _P, _I64, _P, _P],
     # bitmap, d_rows, p0, p1, v_rows, idx, n, hit, o0, o1, stream

@@ -13,15 +13,18 @@ Split of work:
     MAX_BUILD_ROWS build rows and v_rows_for(span) <= MAT_MAX_V_ROWS) and
     picks the d_rows (count) or v_rows (materialize) rung.
   this module (torch, on the device): lo, the lo-relative u32 domain
-    indices of both sides, and the kernels.  Count:
+    indices of both sides (plain int64 torch, ops/cuda/dense_bitmap.py's
+    build_domain_idx / probe_domain_idx), and the kernels.  Count:
       scan band  (d_rows <= 256): bitmap packed in plain torch, as the JAX
                  package packs it outside any kernel; K2 probe
                  (ops/cuda/bitmap_probe.py).
-      large band (d_rows > 256): K1 build + probe (ops/cuda/dense_bitmap.py)
-                 on UNSORTED indices.  The JAX band's blockwise sort, `rs`
-                 windows and the density gates that size them
-                 (sort_block_for, large_span_ok) exist only for the TPU
-                 kernel's row window and are not ported.
+      large band (d_rows > 256): K1 (ops/cuda/dense_bitmap.py
+                 fused_domain_bitmap_join): lo, the mapping, build and probe
+                 inside the kernel, straight from the UNSORTED key planes,
+                 so no int64 pass runs on the card.  The JAX band's
+                 blockwise sort, `rs` windows and the density gates that
+                 size them (sort_block_for, large_span_ok) exist only for
+                 the TPU kernel's row window and are not ported.
     Materialize (value planes at slot granularity, built in plain torch
     as the JAX package builds them outside any kernel):
       scan band   (v_rows <= 128): K7 (ops/cuda/bitmap_probe.py) on
@@ -49,9 +52,8 @@ from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
-from flash_hash_join_tpu_torch.utils.u64 import MASK32, narrow, widen
+from flash_hash_join_tpu_torch.utils.u64 import widen
 
-SENTINEL = 0xFFFFFFFF
 LANES = bp.LANES
 
 # Domain cap of the scan band: 2^20 slots = 256 bitmap rows.
@@ -99,29 +101,6 @@ def v_rows_for(span: int) -> int:
     return r
 
 
-def _masked_min(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """min(values[mask]) as a 0-d tensor, SENTINEL when nothing is masked
-    in (jnp.min(..., initial=SENTINEL))."""
-    if values.numel() == 0:
-        return torch.tensor(SENTINEL, dtype=values.dtype, device=values.device)
-    return torch.where(mask, values, SENTINEL).amin()
-
-
-def _build_idx(kh, kl, bvalid, lo, d_bits: int):
-    """(bad-row count, build domain indices as int32 bit patterns)."""
-    diff = (widen(kl) - lo) & MASK32          # keys < lo wrap to huge
-    bad = bvalid & ((kh != 0) | (diff >= d_bits))
-    idx = torch.where(bvalid & ~bad, diff, SENTINEL)
-    return bad.sum(), narrow(idx)
-
-
-def _probe_idx(ph, pl, np_valid: int, lo, d_bits: int) -> torch.Tensor:
-    pvalid = torch.arange(ph.shape[0], device=ph.device) < np_valid
-    pdiff = (widen(pl) - lo) & MASK32
-    pok = pvalid & (ph == 0) & (pdiff < d_bits)
-    return narrow(torch.where(pok, pdiff, SENTINEL))
-
-
 def _special(n_bad: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros((), dtype=torch.int64, device=n_bad.device)
     return torch.stack([zero, zero, zero, n_bad.to(torch.int64)])
@@ -142,25 +121,22 @@ def direct_join_count(kh, kl, ph, pl, nb_valid: int, np_valid: int, *,
     d_bits = d_rows * bp.BITS_PER_ROW
     bvalid = torch.arange(kh.shape[0], device=kh.device) < nb_valid
     # the scan band's lo is the min over EVERY valid row, hi-word rows too
-    lo = _masked_min(widen(kl), bvalid)
-    n_bad, bidx = _build_idx(kh, kl, bvalid, lo, d_bits)
+    lo = dbm.masked_min(widen(kl), bvalid)
+    n_bad, bidx = dbm.build_domain_idx(kh, kl, bvalid, lo, d_bits)
     bitmap = dbm.pack_bitmap(bidx, d_rows)
-    pidx = _probe_idx(ph, pl, np_valid, lo, d_bits)
+    pidx = dbm.probe_domain_idx(ph, pl, np_valid, lo, d_bits)
     count = bp.probe_count_bitmap(bitmap, pidx, d_rows)
     return count, _special(n_bad)
 
 
 def direct_join_count_large(kh, kl, ph, pl, nb_valid: int, np_valid: int, *,
                             d_rows: int):
-    """Large-span dense-domain count via K1 (ops/cuda/dense_bitmap.py).
-    Same (count, special4) contract as direct_join_count."""
-    d_bits = d_rows * bp.BITS_PER_ROW
-    bvalid = torch.arange(kh.shape[0], device=kh.device) < nb_valid
-    # the large band's lo is the min over valid rows with a zero hi-word
-    lo = _masked_min(widen(kl), bvalid & (kh == 0))
-    n_bad, bidx = _build_idx(kh, kl, bvalid, lo, d_bits)
-    pidx = _probe_idx(ph, pl, np_valid, lo, d_bits)
-    count, _, _ = dbm.fused_bitmap_join(bidx, pidx, d_rows)  # never unresolved
+    """Large-span dense-domain count via K1 (ops/cuda/dense_bitmap.py),
+    which maps the key planes to domain indices inside the kernel.  Same
+    (count, special4) contract as direct_join_count; lo is the min over
+    valid rows with a zero hi-word."""
+    count, n_bad = dbm.fused_domain_bitmap_join(kh, kl, ph, pl, nb_valid,
+                                                np_valid, d_rows)
     return count, _special(n_bad)
 
 
@@ -177,8 +153,8 @@ def _dense_value_planes(kh, kl, vh, vl, nb_valid: int, *, v_rows: int,
     v_slots = v_rows * LANES
     bvalid = torch.arange(n, device=kh.device) < nb_valid
     # lo is the min over valid rows with a zero hi-word (both bands)
-    lo = _masked_min(widen(kl), bvalid & (kh == 0))
-    n_bad, bidx = _build_idx(kh, kl, bvalid, lo, v_slots)
+    lo = dbm.masked_min(widen(kl), bvalid & (kh == 0))
+    n_bad, bidx = dbm.build_domain_idx(kh, kl, bvalid, lo, v_slots)
     # rows outside the domain land on the extra slot v_slots, which is cut
     # off (torch's scatter has no mode="drop")
     slot = widen(bidx).clamp_(max=v_slots)
@@ -212,7 +188,7 @@ def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     v_slots = v_rows * LANES
     lo, n_bad, bidx, occ, planes = _dense_value_planes(
         kh, kl, vh, vl, nb_valid, v_rows=v_rows, narrow_values=narrow_values)
-    pidx = _probe_idx(ph, pl, np_valid, lo, v_slots)
+    pidx = dbm.probe_domain_idx(ph, pl, np_valid, lo, v_slots)
     if v_rows <= MAT_SCAN_MAX_V_ROWS:
         d_rows = max(8, v_rows // 32)
         bitmap = dbm.pack_bitmap(bidx, d_rows)

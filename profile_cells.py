@@ -6,9 +6,11 @@ on chip_smoke.py's cells (same generators and seeds).
     python3 profile_cells.py vmem-count-1e8-Q1 global-count-1e8-Q5
 
 For each cell: a warm-up call, three timed calls (the best core_seconds,
-CUDA events as the API reports them, is `best_core_ms`), then one profiled
-call.  Prints one JSON line per cell: the profiled call's core_seconds (the
-profiler's own cost is inside), the kernels' summed device time,
+CUDA events as the API reports them, is `best_core_ms`; the best host
+clock around the whole call is `best_wall_s`; the most device memory any
+of them held is `peak_device_bytes`), then one profiled call.  Prints one
+JSON line per cell: the profiled call's core_seconds (the profiler's own
+cost is inside), the kernels' summed device time,
 the idle share of core_seconds (1 - kernel time / core), the host->device
 copy time (outside core), the number of kernel launches, and the kernels
 with the most device time.  Needs an NVIDIA card.
@@ -19,8 +21,17 @@ from __future__ import annotations
 import json
 import os
 import sys
+import time
 
 CELLS = {  # name -> (chip_smoke cell, API function, keywords, FHJ_COMPACT)
+    # the direct count (K2 on Q1/Q2, K1 on Q5: bench.py's main path) and
+    # the dense materialize's staged band (K9 + K8)
+    "direct-count-4e7-Q1": ("4e7-Q1", "adaptive_join_count", {}, None),
+    "direct-count-4e7-Q2": ("4e7-Q2", "adaptive_join_count", {}, None),
+    "direct-count-4e7-Q5": ("4e7-Q5", "adaptive_join_count", {}, None),
+    "direct-count-bench-4e7": ("bench-4e7", "adaptive_join_count", {}, None),
+    "direct-count-1e8-Q5": ("1e8-Q5", "adaptive_join_count", {}, None),
+    "dense-mat-1e8-Q2": ("1e8-Q2", "adaptive_join", {}, None),
     "vmem-count-1e8-Q1": ("1e8-Q1", "join_count", {"strategy": "vmem"}, None),
     "vmem-materialize-1e8-Q1": ("1e8-Q1", "join_materialize",
                                 {"strategy": "vmem"}, None),
@@ -57,7 +68,13 @@ def profile(name: str, cells: dict) -> dict:
         os.environ["FHJ_COMPACT"] = compact
     args = (c.build_keys, c.build_values, c.probe_keys)
     fn(*args, device="cuda", **kw)
-    best = min(fn(*args, device="cuda", **kw)[1] for _ in range(3))
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        core = fn(*args, device="cuda", **kw)[1]
+        runs.append((core, time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         count, core, info = fn(*args, device="cuda", return_info=True, **kw)
@@ -78,13 +95,19 @@ def profile(name: str, cells: dict) -> dict:
     busy_ms = sum(k[0] for k in kernels) / 1e3
     return dict(cell=name, fn=fn_name, fn_kwargs=kw, compact=compact,
                 count=count, strategy=info["strategy"],
-                best_core_ms=best * 1e3, core_ms=core * 1e3,
+                best_core_ms=min(r[0] for r in runs) * 1e3,
+                best_wall_s=min(r[1] for r in runs),
+                peak_device_bytes=peak,
+                peak_bytes_per_probe_row=peak / len(c.probe_keys),
+                core_ms=core * 1e3,
                 kernel_ms=busy_ms,
                 idle_share=1 - busy_ms / (core * 1e3),
                 h2d_ms=copy_us / 1e3,
                 launches=sum(k[1] for k in kernels),
+                wrapper_launches={k: v for k, v in info["launches"].items()
+                                  if v},
                 top=[dict(ms=us / 1e3, calls=n, kernel=key[:90])
-                     for us, n, key in kernels[:8]])
+                     for us, n, key in kernels[:10]])
 
 
 def main() -> int:
