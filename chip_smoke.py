@@ -26,14 +26,15 @@ Phases, one JSON line each on stdout:
               with 2, 3 and 4 planes; K7 at v_rows 8, 16,
               64, 128 and K8 at 256, 1024, 8192, each with 1 and 2 value
               planes, and K9, at sizes 0, 7 and 3e7+5 (K9 also around
-              its 4096-word block step) with misaligned,
+              its 4096-word block) with misaligned,
               odd-length views and a sentinel tail (np_valid < npr); K10/K11
               at every vmem rung (R 8, 16, 64, 128, 512) with a bucket full
               to its last slot, probe sizes 0, 7, 3e7+5, misaligned views,
               np_valid < npr and the u64-max key on both sides, and K6 with
               2, 3 and 4 planes over 520 blocks, all empty, all full and
               random.  Then each kernel and its plain version timed (CUDA
-              events, median of 5 after a warm-up) on its path's own
+              events: a lone call, median of 5 after a warm-up; the kernel
+              also over runs of 5 calls back to back) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
               the same function, that call's time (K1: torch.isin of the
               domain indices; K9: clone, timed in turns with it); K1's
@@ -79,6 +80,9 @@ Phases, one JSON line each on stdout:
               and adaptive_join on J1 1e8 Q1 (direct), rows equal to the
               oracle's in probe order (as in phases 4 and 8), K6 launched
               and K5 not.
+Kernel times, two readings: "ms", each call alone between two CUDA events
+(cuda_ms, whose window holds the wrapper's host work); "ms_b2b", runs of
+calls back to back (cuda_ms_b2b, where that work overlaps the card's).
 Phases 3-5 and 8-11 time a warm-up and then the best of the following
 runs: core_seconds (device time), wall seconds, probe rows/s, peak device
 bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5,
@@ -167,7 +171,9 @@ def run(cmd: list[str]) -> str:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median milliseconds of fn() on the card, after one warm-up call."""
+    """Median milliseconds of fn() on the card, after one warm-up call:
+    each call alone between two CUDA events, so the window also holds the
+    call's host work (a Python wrapper's checks and launch)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -183,13 +189,46 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def paired_ms(kernel, plain) -> tuple[list, list]:
-    """([kernel ms] * 2, [plain ms] * 2) timed plain, kernel, kernel,
-    plain: the first and last bracket any drift of the card's clock within
-    the call."""
-    first = cuda_ms(plain)
-    ms = [cuda_ms(kernel), cuda_ms(kernel)]
-    return ms, [first, cuda_ms(plain)]
+def cuda_ms_b2b(fn, reps: int = 5, runs: int = 3) -> float:
+    """Milliseconds of one call of fn() when calls run back to back: after
+    a warm-up call, `runs` runs of `reps` calls between two CUDA events, the
+    median of the runs' means.  A call's host work then overlaps the card's
+    work on the call before, as on the path."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def paired_ms(kernel, plain, plain_b2b: bool = False) -> dict:
+    """A kernel and its plain version timed in turns, plain, kernel, kernel,
+    plain (the first and last bracket any drift of the card's clock within
+    the call), two readings each: "ms" and "plain_ms" by cuda_ms, "ms_b2b"
+    by cuda_ms_b2b, and "plain_ms_b2b" too when plain_b2b."""
+    t = {"plain_ms": [], "ms": [], "ms_b2b": []}
+    if plain_b2b:
+        t["plain_ms_b2b"] = []
+    for key, fn in (("plain_ms", plain), ("ms", kernel), ("ms", kernel),
+                    ("plain_ms", plain)):
+        t[key].append(cuda_ms(fn))
+        if key + "_b2b" in t:
+            t[key + "_b2b"].append(cuda_ms_b2b(fn))
+    return t
+
+
+def best(t: dict) -> dict:
+    """The least of each reading of paired_ms."""
+    return {k: min(v) for k, v in t.items()}
 
 
 def zero_launches() -> None:
@@ -259,34 +298,6 @@ def random_indices(rng, n: int, n_bits: int, dev):
     return to_device(idx, dev)
 
 
-def domain_keys(rng, n: int, lo: int, n_bits: int) -> np.ndarray:
-    """u64 keys of K1's domain entry: most in the n_bits slots from lo,
-    1 % with a nonzero high word, 1 % past the domain's top, 1 % below lo
-    (they wrap), and the u32-max key."""
-    keys = rng.integers(lo, lo + n_bits, n, dtype=np.uint64)
-    r = rng.random(n)
-    keys[r < 0.01] += np.uint64(2**32)                 # high-word rows
-    keys[(r >= 0.01) & (r < 0.02)] += np.uint64(n_bits)
-    below = (r >= 0.02) & (r < 0.03)
-    keys[below] = rng.integers(0, lo, int(below.sum()), dtype=np.uint64)
-    keys[3:5] = 2**32 - 1
-    return keys
-
-
-def domain_views(keys: np.ndarray, dev, shift: tuple[int, int]):
-    """The (hi, lo) planes of keys as views that start `shift` words into
-    longer planes: (0, 0) aligned, (1, 1) both misaligned alike, (1, 3)
-    misaligned each its own way."""
-    from flash_hash_join_tpu_torch.utils.u64 import device_planes
-    n = keys.size
-    pad = np.zeros(3, np.uint64)
-    hi = device_planes(np.concatenate([pad[:shift[0]], keys,
-                                       pad[shift[0]:]]), dev)[0]
-    lo = device_planes(np.concatenate([pad[:shift[1]], keys,
-                                       pad[shift[1]:]]), dev)[1]
-    return hi[shift[0]:shift[0] + n], lo[shift[1]:shift[1] + n]
-
-
 def phase_env():
     import torch
     from flash_hash_join_tpu_torch.ops.cuda import _build
@@ -318,8 +329,10 @@ def ptxas_usage(report: str) -> dict:
 def phase_kernels(cells: dict) -> dict:
     """K1 (both entries) and K2 == plain at every rung; then both timed on
     main-path inputs.  Returns the per-kernel summary fields (max_abs_err,
-    ms, plain_ms, bound, library_ms)."""
+    ms, ms_b2b, plain_ms, bound, library_ms)."""
     import torch
+    from flash_hash_join_tpu_torch.models.workload import (
+        dense_domain_keys, offset_plane_views)
     from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
     from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
     from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
@@ -358,14 +371,14 @@ def phase_kernels(cells: dict) -> dict:
         lo = int(rng.integers(1, 2**31))
         for nb, npr in ((5_000_001, 6_000_003), (0, 1_000), (1_000, 0),
                         (5, 7), (-1_000, 1_000)):
-            bk = domain_keys(rng, abs(nb), lo, n_bits)
+            bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
             if nb < 0:                                 # every build row bad
                 bk |= np.uint64(2**40)
-            pk = domain_keys(rng, npr, lo, n_bits)
+            pk = dense_domain_keys(rng, npr, lo, n_bits)
             pk[::3] = rng.choice(bk, pk[::3].size) if bk.size else 0
             for shift in ((0, 0), (1, 1), (1, 3)):
-                kh, kl = domain_views(bk, dev, shift)
-                ph, pl = domain_views(pk, dev, shift[::-1])
+                kh, kl = offset_plane_views(bk, dev, *shift)
+                ph, pl = offset_plane_views(pk, dev, *shift[::-1])
                 for nbv, npv in {(kh.numel(), ph.numel()),
                                  (max(kh.numel() - 5, 0),
                                   max(ph.numel() - 3, 0))}:
@@ -395,7 +408,7 @@ def phase_kernels(cells: dict) -> dict:
             bitmap = dbm.pack_bitmap(bidx, d_rows)
             got = int(bp.probe_count_bitmap(bitmap, pidx, d_rows))
             want = int(bp.probe_count_bitmap_plain(bitmap, pidx, d_rows))
-            ms, plain_ms = paired_ms(
+            t = paired_ms(
                 lambda: bp.probe_count_bitmap(bitmap, pidx, d_rows),
                 lambda: bp.probe_count_bitmap_plain(bitmap, pidx, d_rows))
             extra = {}
@@ -409,7 +422,7 @@ def phase_kernels(cells: dict) -> dict:
             require(bad == 0, f"{name}: {bad} bad build rows")
             require(got == int(dbm.fused_bitmap_join(bidx, pidx, d_rows)[0]),
                     f"{name}: the two K1 entries disagree")
-            ms, plain_ms = paired_ms(
+            t = paired_ms(
                 lambda: dbm.fused_domain_bitmap_join(*args),
                 lambda: dbm.fused_domain_bitmap_join_plain(*args))
             # the index form on the same cell's indices (mapped on the
@@ -422,10 +435,9 @@ def phase_kernels(cells: dict) -> dict:
             del kh, kl, ph, pl, args
         require(got == want, f"{kernel} {name}: kernel {got} != plain {want}")
         timing[name] = dict(kernel=kernel, d_rows=d_rows, nb=bidx.numel(),
-                            npr=pidx.numel(), ms=min(ms),
-                            plain_ms=min(plain_ms), **extra)
-        emit("kernel_time", cell=name, **timing[name], ms_runs=ms,
-             plain_ms_runs=plain_ms)
+                            npr=pidx.numel(), **best(t), **extra)
+        emit("kernel_time", cell=name, **timing[name],
+             runs={k + "_runs": v for k, v in t.items()})
         del bidx, pidx
         torch.cuda.empty_cache()
     # K1 reads the four key planes once (8 B a row of each side) and
@@ -438,7 +450,7 @@ def phase_kernels(cells: dict) -> dict:
     nb5, np5 = q5["nb"], q5["npr"]
     return {"dense_bitmap": dict(
                 max_abs_err=err["dense_bitmap"], ms=q5["ms"],
-                plain_ms=q5["plain_ms"],
+                ms_b2b=q5["ms_b2b"], plain_ms=q5["plain_ms"],
                 **bound(8 * (nb5 + np5) + 16, 4 * (nb5 + np5)),
                 library_ms=q5["library_ms"],
                 design_floor_ms=bound(16 * nb5 + 8 * np5 + 16, 0)["bound_ms"],
@@ -448,7 +460,8 @@ def phase_kernels(cells: dict) -> dict:
                                         4 * (nb5 + np5))),
                 at="J1 4e7 Q5, d_rows 16384"),
             "bitmap_probe": dict(max_abs_err=err["bitmap_probe"],
-                                 ms=q2["ms"], plain_ms=q2["plain_ms"],
+                                 ms=q2["ms"], ms_b2b=q2["ms_b2b"],
+                                 plain_ms=q2["plain_ms"],
                                  **bound(4 * q2["npr"] + q2["d_rows"] * 512
                                          + 8, 4 * q2["npr"]),
                                  library_ms=None,
@@ -678,14 +691,12 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     }
     summary = {}
     for name, (kernel, plain) in runs.items():
-        ms, plain_ms = paired_ms(kernel, plain)
-        summary[name] = dict(max_abs_err=err[name], ms=min(ms),
-                             plain_ms=min(plain_ms), **bounds[name],
+        t = paired_ms(kernel, plain)
+        summary[name] = dict(max_abs_err=err[name], **best(t), **bounds[name],
                              library_ms=library[name],
                              at="J1 1e8 Q5 (1e8 build x 1e8 probe rows)")
-        emit("kernel_time", cell="1e8-Q5", kernel=name, nb=nb, npr=npr,
-             ms=ms, plain_ms=plain_ms, **bounds[name],
-             library_ms=library[name])
+        emit("kernel_time", cell="1e8-Q5", kernel=name, nb=nb, npr=npr, **t,
+             **bounds[name], library_ms=library[name])
     summary["range_directory"].update(
         role="table build of K3/K4 (not a TPU kernel)",
         dir_entries=table.dir.numel(), shift=shift,
@@ -816,8 +827,8 @@ def phase_dense_kernels(cells: dict) -> dict:
                               dv.probe_gather_staged(*args),
                               dv.probe_gather_staged_plain(*args))
             del idx
-    # K9 also around one block step of its unrolled loop (4 words a
-    # 16-byte load, 4 loads a thread, 256 threads: 4096 words)
+    # K9 also around one of its blocks (4 words a 16-byte load, 4 loads a
+    # thread, 256 threads: 4096 words)
     for n in sizes + (4_095, 4_096, 4_097, 8_191, 8_193):
         x = to_device(rng.integers(0, 2**32, n + 3, dtype=np.uint32), dev)
         # aligned, misaligned by 4 and 12 bytes, odd length
@@ -862,17 +873,21 @@ def phase_dense_kernels(cells: dict) -> dict:
         for kernel, (run, plain) in runs.items():
             check(kernel, run(), plain())
             require(err[kernel] == 0, f"{kernel} {name}: kernel != plain")
-            ms, plain_ms = paired_ms(run, plain)
-            if kernel == "materialize_copy":
-                # K9's plain version is the library call, torch's clone:
-                # timed in turns with the kernel, clone, K9, K9, clone
-                library[kernel] = min(plain_ms)
-            timing[kernel, name] = dict(ms=min(ms), plain_ms=min(plain_ms),
-                                        **bounds[kernel],
+            # K9's plain version is the library call, torch's clone: timed
+            # in turns with the kernel, clone, K9, K9, clone, by both timers
+            copy = kernel == "materialize_copy"
+            t = paired_ms(run, plain, plain_b2b=copy)
+            if copy:
+                library[kernel] = min(t["plain_ms"])
+                library[kernel + "_b2b"] = min(t["plain_ms_b2b"])
+            timing[kernel, name] = dict(**best(t), **bounds[kernel],
                                         library_ms=library.get(kernel))
+            if copy:
+                timing[kernel, name]["library_ms_b2b"] = library[
+                    kernel + "_b2b"]
             emit("kernel_time", cell=name, kernel=kernel, v_rows=v_rows,
-                 n_planes=k, npr=n, ms=ms, plain_ms=plain_ms,
-                 **bounds[kernel], library_ms=library.get(kernel))
+                 n_planes=k, npr=n, **t, **bounds[kernel],
+                 library_ms=library.get(kernel))
         del bidx, occ, vplanes, pidx, runs
         torch.cuda.empty_cache()
     at = {"probe_gather_bitmap": ("1e7-Q2", "J1 1e7 Q2, v_rows 128"),
@@ -1240,12 +1255,11 @@ def phase_bucket_kernels(cells: dict) -> dict:
             e = (abs(int(got) - int(want)) if kernel == "probe_count_vmem"
                  else max(_max_abs(g, w) for g, w in zip(got, want)))
             require(e == 0, f"{kernel} {name}: kernel != plain")
-            ms, plain_ms = paired_ms(run, plain)
+            t = paired_ms(run, plain)
             timing[kernel, name] = dict(
-                ms=min(ms), plain_ms=min(plain_ms), **bnd,
-                library_ms=cuda_ms(lib) if lib else None)
+                **best(t), **bnd, library_ms=cuda_ms(lib) if lib else None)
             emit("kernel_time", cell=name, kernel=kernel, r_slots=r_slots,
-                 npr=npr, ms=ms, plain_ms=plain_ms, **bnd,
+                 npr=npr, **t, **bnd,
                  library_ms=timing[kernel, name]["library_ms"])
         del table, ph, pl, x, keys, runs, mat, tables
         torch.cuda.empty_cache()
@@ -1268,16 +1282,15 @@ def phase_bucket_kernels(cells: dict) -> dict:
     prefix = (torch.arange(planes[0].shape[1], device=dev)
               < counts[:, None]).view(-1)
     stacked = torch.stack([p.view(-1) for p in planes])
-    ms, plain_ms = paired_ms(lambda: sc.concat_ragged_blocks(planes, counts),
-                             lambda: sc.concat_ragged_blocks_plain(planes,
-                                                                   counts))
+    t = paired_ms(lambda: sc.concat_ragged_blocks(planes, counts),
+                  lambda: sc.concat_ragged_blocks_plain(planes, counts))
     bnd = bound(4 * counts.numel() + 32 * total, 8 * total)
     library_ms = cuda_ms(lambda: stacked[:, prefix])
     timing["concat_ragged_blocks", "1e8"] = dict(
-        ms=min(ms), plain_ms=min(plain_ms), **bnd, library_ms=library_ms)
+        **best(t), **bnd, library_ms=library_ms)
     emit("kernel_time", cell="1e8 rows, 4 planes, 60 % hits",
          kernel="concat_ragged_blocks", nblocks=counts.numel(), total=total,
-         ms=ms, plain_ms=plain_ms, **bnd, library_ms=library_ms)
+         **t, **bnd, library_ms=library_ms)
     del planes, counts, prefix, stacked
     torch.cuda.empty_cache()
     at = {"probe_count_vmem": ("1e8-Q1", "J1 1e8 Q1, R 16"),

@@ -86,8 +86,8 @@ __device__ __forceinline__ void for_each_pair(const uint32_t* __restrict__ hi,
 // slots from `base`: *idx = (lo - base) mod 2^32, and the key is in the
 // domain when hi == 0 and *idx < n_bits.  Keys below base wrap to huge
 // indices and fall outside, so a probe below the domain misses and a build
-// row below it is bad.  The u32 twin of ops/direct_bitmap.py's int64
-// mapping (_build_idx / _probe_idx).
+// row below it is bad.  The u32 twin of the int64 mapping of the plain
+// paths (ops/cuda/dense_bitmap.py: build_domain_idx / probe_domain_idx).
 __device__ __forceinline__ bool in_domain(uint32_t hi, uint32_t lo, uint32_t base,
                                           uint32_t n_bits, uint32_t* idx) {
   *idx = lo - base;

@@ -25,15 +25,20 @@
 // copy.  In the JAX package it is an XLA:TPU fusion barrier in front of the
 // staged band's consumers; PyTorch runs eagerly and fuses nothing, so here
 // it is a plain copy of the probe indices that K8 then reads.  Bound by
-// bandwidth: 8 B per element moved.  A grid-stride loop with one 16-byte
-// load then its store a step keeps 16 B in flight a thread and ran slower
-// than torch's clone on an H100; so each thread issues kCopyUnroll
-// independent 16-byte loads, then their stores, and the grid (the card
-// full) keeps kCopyUnroll * 16 B in flight a thread.  The loads and stores
+// bandwidth: 8 B per element moved.  A grid of the card's size (SMs x
+// occupancy) looping over the copy ran slower than torch's clone on an
+// H100, with one 16-byte load a step or four; a grid that covers the copy,
+// one step a thread, ran 1-2 % faster than clone when launched alone, and
+// at clone's speed through the Python wrapper (PERF.md §6).  So each thread
+// moves kCopyUnroll 16-byte words, all loads before the stores, and the
+// grid has one block per kCopyUnroll * 256 of them.  The loads and stores
 // are streaming (__ldcs / __stcs, evict-first), so the copy does not push
 // K8's value planes, which K8 reads from L2 right after, out of the cache.
 // Scalar head and tail for views that start off a 16-byte boundary or end
 // ragged.
+#include <algorithm>
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -56,21 +61,21 @@ staged_gather_kernel(const uint32_t* __restrict__ presence,
 
 constexpr int kCopyUnroll = 4;
 
-// dst[i] = src[i] for i < n.  `head` words bring dst to a 16-byte boundary;
-// src is read with vector loads too when it then lies on one as well.
-// Each step of a thread moves the 16-byte words base + k * blockDim.x,
-// k < kCopyUnroll: coalesced across the warp for every k.
+// dst[i] = src[i] for i < n.  The first `head` words bring dst to a 16-byte
+// boundary; kAligned: src + head lies on one as well, and is read with
+// vector loads too.  A thread moves the 16-byte words base + k * blockDim.x,
+// k < kCopyUnroll (coalesced across the warp for every k), and again a grid
+// further on while any are left.
+template <bool kAligned>
 __global__ void __launch_bounds__(fhj::kThreads)
-copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_t n) {
+copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_t n,
+            int64_t head) {
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t step = (int64_t)kCopyUnroll * blockDim.x;
   const int64_t stride = step * gridDim.x;
-  int64_t head = (int64_t)((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2;
-  if (head > n) head = n;
   const int64_t n4 = (n - head) >> 2;
   const uint32_t* s = src + head;
   uint4* d = reinterpret_cast<uint4*>(dst + head);
-  const bool aligned = (reinterpret_cast<uintptr_t>(s) & 15) == 0;
   for (int64_t base = (int64_t)blockIdx.x * step + threadIdx.x; base < n4;
        base += stride) {
     uint4 v[kCopyUnroll];
@@ -78,7 +83,7 @@ copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_
     for (int k = 0; k < kCopyUnroll; ++k) {
       const int64_t i = base + (int64_t)k * blockDim.x;
       if (i < n4) {
-        if (aligned) {
+        if (kAligned) {
           v[k] = __ldcs(reinterpret_cast<const uint4*>(s) + i);
         } else {
           const uint32_t* q = s + 4 * i;
@@ -121,10 +126,14 @@ int fhj_staged_gather(const uint32_t* presence, const uint32_t* p0, const uint32
 int fhj_materialize_copy(const uint32_t* src, uint32_t* dst, int64_t n,
                          cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  int grid = 0;
-  cudaError_t e = fhj::grid_for(copy_kernel, n, 0, &grid, 4 * kCopyUnroll);
-  if (e != cudaSuccess) return (int)e;
-  copy_kernel<<<grid, fhj::kThreads, 0, stream>>>(src, dst, n);
+  const int64_t per_block = 4LL * kCopyUnroll * fhj::kThreads;   // words
+  const int64_t grid = std::min<int64_t>((n + per_block - 1) / per_block, INT_MAX);
+  const int64_t head =
+      std::min<int64_t>(((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2, n);
+  if ((reinterpret_cast<uintptr_t>(src + head) & 15) == 0)
+    copy_kernel<true><<<(unsigned)grid, fhj::kThreads, 0, stream>>>(src, dst, n, head);
+  else
+    copy_kernel<false><<<(unsigned)grid, fhj::kThreads, 0, stream>>>(src, dst, n, head);
   return (int)cudaGetLastError();
 }
 

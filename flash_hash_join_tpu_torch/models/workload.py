@@ -72,3 +72,33 @@ def zipf_probe_case(n_build: int, n_probe: int, a: float = 1.2,
     ranks = rng.zipf(a, size=n_probe)
     pk = bk[np.minimum(ranks - 1, len(bk) - 1)]
     return JoinCase(f"zipf_{a}", bk, bv, pk)
+
+
+def dense_domain_keys(rng: np.random.Generator, n: int, lo: int,
+                      n_bits: int) -> np.ndarray:
+    """u64 keys that stress the dense count's domain mapping: most in the
+    n_bits slots from lo, 1 % with a nonzero high word, 1 % past the
+    domain's top, 1 % below lo (their u32 offset from lo wraps), and the
+    u32-max key at rows 3 and 4."""
+    keys = rng.integers(lo, lo + n_bits, n, dtype=np.uint64)
+    r = rng.random(n)
+    keys[r < 0.01] += np.uint64(2**32)                 # high-word rows
+    keys[(r >= 0.01) & (r < 0.02)] += np.uint64(n_bits)
+    below = (r >= 0.02) & (r < 0.03)
+    keys[below] = rng.integers(0, lo, int(below.sum()), dtype=np.uint64)
+    keys[3:5] = 2**32 - 1
+    return keys
+
+
+def offset_plane_views(keys: np.ndarray, device, hi_off: int, lo_off: int):
+    """The (hi, lo) int32 planes of u64 keys on `device`, as views that
+    start hi_off / lo_off words (0-3) into longer planes: (0, 0) aligned to
+    16 bytes, (1, 1) misaligned alike, (1, 3) each its own way."""
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes
+    n = keys.size
+    pad = np.zeros(3, np.uint64)
+    hi = device_planes(np.concatenate([pad[:hi_off], keys, pad[hi_off:]]),
+                       device)[0]
+    lo = device_planes(np.concatenate([pad[:lo_off], keys, pad[lo_off:]]),
+                       device)[1]
+    return hi[hi_off:hi_off + n], lo[lo_off:lo_off + n]

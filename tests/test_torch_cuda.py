@@ -19,6 +19,8 @@ import pytest
 import torch
 
 import flash_hash_join_tpu_torch as ft
+from flash_hash_join_tpu_torch.models.workload import (dense_domain_keys,
+                                                        offset_plane_views)
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import range_table as rt
@@ -79,31 +81,6 @@ def test_fused_bitmap_join_matches_plain(dev, d_rows):
         assert int(got) == int(want), (d_rows, nb, npr)
 
 
-def _domain_keys(rng, n, lo, n_bits):
-    """Keys of K1's domain entry: most in the n_bits slots from lo, 1 % with
-    a high word, 1 % past the domain, 1 % below lo, and the u32-max key."""
-    keys = rng.integers(lo, lo + n_bits, n, dtype=np.uint64)
-    r = rng.random(n)
-    keys[r < 0.01] += np.uint64(2**32)
-    keys[(r >= 0.01) & (r < 0.02)] += np.uint64(n_bits)
-    below = (r >= 0.02) & (r < 0.03)
-    keys[below] = rng.integers(0, lo, int(below.sum()), dtype=np.uint64)
-    keys[3:5] = 2**32 - 1
-    return keys
-
-
-def _plane_views(keys, dev, hi_off, lo_off):
-    """The (hi, lo) planes of keys as views starting hi_off / lo_off words
-    into longer planes (16-byte aligned at offset 0)."""
-    n = keys.size
-    pad = np.zeros(3, np.uint64)
-    hi = device_planes(np.concatenate([pad[:hi_off], keys, pad[hi_off:]]),
-                       dev)[0]
-    lo = device_planes(np.concatenate([pad[:lo_off], keys, pad[lo_off:]]),
-                       dev)[1]
-    return hi[hi_off:hi_off + n], lo[lo_off:lo_off + n]
-
-
 @pytest.mark.parametrize("d_rows", [512, 16384, 28672])
 def test_fused_domain_bitmap_join_matches_plain(dev, d_rows):
     rng = np.random.default_rng(d_rows + 1)
@@ -111,16 +88,16 @@ def test_fused_domain_bitmap_join_matches_plain(dev, d_rows):
     lo = int(rng.integers(1, 2**31))
     for nb, npr in ((2_000_001, 3_000_005), (0, 1_000), (1_000, 0), (5, 7),
                     (-1_001, 2_003)):
-        bk = _domain_keys(rng, abs(nb), lo, n_bits)
+        bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
         if nb < 0:                                     # every build row bad
             bk |= np.uint64(2**40)
-        pk = _domain_keys(rng, npr, lo, n_bits)
+        pk = dense_domain_keys(rng, npr, lo, n_bits)
         if bk.size and npr:
             pk[::3] = rng.choice(bk, pk[::3].size)
         # aligned; misaligned alike; each plane its own way (odd lengths)
         for offs in ((0, 0), (1, 1), (1, 3), (2, 0)):
-            kh, kl = _plane_views(bk, dev, *offs)
-            ph, pl = _plane_views(pk, dev, *offs[::-1])
+            kh, kl = offset_plane_views(bk, dev, *offs)
+            ph, pl = offset_plane_views(pk, dev, *offs[::-1])
             for nbv, npv in {(bk.size, npr),
                              (max(bk.size - 5, 0), max(npr - 3, 0))}:
                 args = (kh, kl, ph, pl, nbv, npv, d_rows)
@@ -370,9 +347,8 @@ def test_materialize_copy_matches_plain(dev, n):
     _check_copy(dev, n)
 
 
-# around one block step of K9's unrolled loop (4 words a 16-byte load, 4
-# loads a thread, 256 threads: 4096 words), and around one step of a full
-# grid on an H100 (132 SMs x 8 blocks x 4096 words)
+# around one block of K9 (4 words a 16-byte load, 4 loads a thread, 256
+# threads: 4096 words), and around 1056 blocks
 @pytest.mark.parametrize("n", [4_095, 4_096, 4_097, 8_191, 8_192, 8_193,
                                4_325_375, 4_325_377])
 def test_materialize_copy_around_its_unroll(dev, n):

@@ -17,6 +17,7 @@ import torch
 
 from flash_hash_join_tpu.ops import direct_bitmap as jdb
 from flash_hash_join_tpu.utils import u64 as ju64
+from flash_hash_join_tpu_torch.models import workload
 from flash_hash_join_tpu_torch.ops import direct_bitmap as tdb
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as tdbm
 from flash_hash_join_tpu_torch.utils import u64 as tu64
@@ -165,6 +166,26 @@ def test_domain_entry_at_every_rung_matches_numpy_spec(d_rows):
     got = tdbm.fused_domain_bitmap_join(*_torch_planes(bk), *_torch_planes(pk),
                                         len(bk), len(pk), d_rows)
     assert (int(got[0]), int(got[1])) == _numpy_spec_at(bk, pk, n_bits)
+
+
+@pytest.mark.parametrize("offs", [(0, 0), (1, 1), (1, 3), (2, 0)])
+def test_domain_entry_on_edge_key_views_matches_numpy_spec(offs):
+    # the edge keys and plane views the card tests and chip_smoke.py give
+    # the kernel, here through its plain version
+    rng = np.random.default_rng(sum(offs))
+    lo = 123_456_789
+    bk = workload.dense_domain_keys(rng, 5_003, lo, D_BITS)
+    pk = workload.dense_domain_keys(rng, 7_001, lo, D_BITS)
+    pk[::3] = rng.choice(bk, pk[::3].size)
+    assert (bk >= 2**32).any() and (bk < lo).any() and (bk == U32_MAX).any()
+    kh, kl = workload.offset_plane_views(bk, "cpu", *offs)
+    ph, pl = workload.offset_plane_views(pk, "cpu", *offs[::-1])
+    assert (kh.storage_offset(), kl.storage_offset()) == offs
+    assert np.array_equal(tu64.to_numpy_u64(kh, kl, len(bk)), bk)
+    assert np.array_equal(tu64.to_numpy_u64(ph, pl, len(pk)), pk)
+    for nbv, npv in ((len(bk), len(pk)), (len(bk) - 5, len(pk) - 3)):
+        got = tdbm.fused_domain_bitmap_join(kh, kl, ph, pl, nbv, npv, D_ROWS)
+        assert [int(x) for x in got] == list(_numpy_spec(bk, pk, nbv, npv))
 
 
 def _numpy_spec_at(bk, pk, n_bits):
