@@ -8,12 +8,12 @@ Phases, one JSON line each on stdout:
   1. env      torch/CUDA versions, the card, nvcc, and the kernels' build
               from the checkout's csrc/ (seconds, ptxas register report).
   2. kernels  each CUDA kernel against its plain PyTorch version on the
-              card (exact): K1/K2 at every bitmap rung the dense path uses,
-              K1 in both forms: on domain indices, and on the key planes
-              (the path's) with a nonzero lo, high-word, out-of-domain,
-              below-lo and u32-max keys, views misaligned alike and each
-              its own way, validity tails, empty sides and a build of bad
-              rows only;
+              card (exact): K1 and K2, which read the key planes, at every
+              bitmap rung of their bands (K2: 8-256 rows; K1: 512, 16384,
+              28672) with a nonzero lo, high-word, out-of-domain, below-lo
+              and u32-max keys, views misaligned alike and each its own
+              way, validity tails, empty sides and a build of bad rows
+              only;
               K3/K4/K5 at build sizes 0, 1, 5, 2e6 and probe sizes 0, 7,
               3e7+5, and on builds that stress the range table's bucket
               directory (the keys {0, 2^64-1}; 2e6 keys: all equal,
@@ -23,11 +23,15 @@ Phases, one JSON line each on stdout:
               64-bit offsets), the directory build against its plain
               version and numpy at both offset widths; misaligned
               views, np_valid < npr, the u64-max key on both sides, K5
-              with 2, 3 and 4 planes; K7 at v_rows 8, 16,
-              64, 128 and K8 at 256, 1024, 8192, each with 1 and 2 value
-              planes, and K9, at sizes 0, 7 and 3e7+5 (K9 also around
-              its 4096-word block) with misaligned,
-              odd-length views and a sentinel tail (np_valid < npr); K10/K11
+              with 2, 3 and 4 planes; K7 at v_rows 8, 16, 64, 128 on
+              domain indices, at sizes 0, 7 and 3e7+5, with misaligned
+              views and a sentinel tail; K8, which reads the probe key
+              planes, at every rung 256-8192 with the count's edge keys,
+              lo inside u32, 0, at its top and 0xFFFFFFFF, views misaligned
+              each plane its own way and np_valid < npr, at sizes 0, 7 and
+              3e6+5; K7 and K8 with 1 and 2 value planes; K9 (on no path:
+              the TPU kernel's counterpart) at sizes 0, 7, 3e7+5 and around
+              its 4096-word block, on misaligned, odd-length views; K10/K11
               at every vmem rung (R 8, 16, 64, 128, 512) with a bucket full
               to its last slot, probe sizes 0, 7, 3e7+5, misaligned views,
               np_valid < npr and the u64-max key on both sides, and K6 with
@@ -37,15 +41,16 @@ Phases, one JSON line each on stdout:
               also over runs of 5 calls back to back) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
               the same function, that call's time (K1: torch.isin of the
-              domain indices; K9: clone, timed in turns with it); K1's
-              index form beside it; K3/K4 at J1 1e8 Q5 with
+              domain indices; K9: clone, timed in turns with it, on 1e8
+              words); K3/K4 at J1 1e8 Q5 with
               the directory's offsets as int32 (as built) and as int64; and
               K3/K4 on both table layouts (searched whole, or through a
               directory) at build sizes 100 to 1e5.
   3. main     adaptive_join_count(device="cuda") on the db-benchmark J1
               cells: 4e7 Q1, Q2, Q5 (j1_suite seed 0), bench.py's 4e7 case
               (default_rng(2026)) and 1e8 Q5.  Each count must equal the
-              numpy oracle, route "direct" with no retry, and launch K1/K2.
+              numpy oracle, route "direct" with no retry, and launch K1
+              (Q5) or K2 (Q1, Q2).
   4. radix    BASELINE.json config #4: J1 1e8 Q1, Q2, Q5 through
               hash_join_radix, and Q5 through hash_join_count_radix.
   5. adaptive BASELINE.json config #2: uniform 1e7 x 1e8, 50 % match,
@@ -61,11 +66,12 @@ Phases, one JSON line each on stdout:
   7. fallback a sparse 64-bit case through the exact merge join, count and
               materialize, beside the partitioned tier on the same input.
   8. dense_mat  dense-domain materialize: J1 1e7 Q2 (K7 at v_rows 128),
-              4e7 Q1 and Q2, 1e8 Q1 and Q2 (1e8 Q2: K9 + K8 at v_rows
-              1024) through adaptive_join and join_materialize(
-              return_arrays=True): count and probe-order rows equal the
-              oracle, route "direct" with no retry, K7 or K9 + K8, and K5
-              launched; the same cell through strategy="partitioned"
+              4e7 Q1 and Q2, 1e8 Q1 and Q2 (4e7 Q2 and 1e8 Q2: K8 at
+              v_rows 512 and 1024) through adaptive_join and
+              join_materialize(return_arrays=True): count and probe-order
+              rows equal the oracle, route "direct" with no retry, K7 or
+              K8, and K5 launched, and K9 not; the same cell through
+              strategy="partitioned"
               beside it.  Then a wide-value cell (u64 values, 2 value
               planes) at the 4e7 Q2 shape, where direct, partitioned and
               merge must agree with the oracle.
@@ -115,7 +121,7 @@ SENTINEL = 0xFFFFFFFF
 M64 = 2**64 - 1
 PALLAS = "flash_hash_join_tpu/ops/pallas/"
 REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
-            "bitmap_probe": PALLAS + "bitmap_probe.py:149",
+            "scan_domain_count": PALLAS + "bitmap_probe.py:149",
             "range_probe_count": PALLAS + "range_probe.py:330",
             "range_probe_materialize": PALLAS + "range_probe.py:368",
             # the column boundaries of the TPU range table (plain XLA)
@@ -129,7 +135,7 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             "probe_materialize_vmem": PALLAS + "bucket_probe.py:138"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "dense_bitmap": ("fused_domain_bitmap_join", "dense_bitmap.cu"),
-    "bitmap_probe": ("probe_count_bitmap", "bitmap_probe.cu"),
+    "scan_domain_count": ("scan_domain_count", "bitmap_probe.cu"),
     "range_probe_count": ("range_probe_count", "range_probe.cu"),
     "range_probe_materialize": ("range_probe_materialize", "range_probe.cu"),
     "range_directory": ("range_directory", "range_probe.cu"),
@@ -238,8 +244,7 @@ def zero_launches() -> None:
     from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
-    for fn in (dbm.fused_domain_bitmap_join, dbm.fused_bitmap_join,
-               bp.probe_count_bitmap,
+    for fn in (dbm.fused_domain_bitmap_join, bp.scan_domain_count,
                rp.range_probe_count, rp.range_probe_materialize,
                rp.range_directory, sc.compact_by_mask, bp.probe_gather_bitmap,
                dv.probe_gather_staged, dv.materialize_copy,
@@ -326,56 +331,39 @@ def ptxas_usage(report: str) -> dict:
     return usage
 
 
-def phase_kernels(cells: dict) -> dict:
-    """K1 (both entries) and K2 == plain at every rung; then both timed on
-    main-path inputs.  Returns the per-kernel summary fields (max_abs_err,
-    ms, ms_b2b, plain_ms, bound, library_ms)."""
-    import torch
-    from flash_hash_join_tpu_torch.models.workload import (
-        dense_domain_keys, offset_plane_views)
-    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
-    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
-    from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(0)
-    err = {"bitmap_probe": 0, "dense_bitmap": 0, "dense_bitmap_index": 0}
-    checked = []
+def domain_sides(rng, nb: int, npr: int, lo: int, n_bits: int,
+                 below_lo: bool = True):
+    """Build and probe keys for a domain entry's check: the edge keys of
+    dense_domain_keys, a third of the probes drawn from the build side.
+    nb < 0: |nb| rows, every one of them bad (a high word).  Without
+    below_lo the build rows below lo are raised to lo, so a scan-band lo
+    (over every row) stays at lo and most build rows are in the domain."""
+    from flash_hash_join_tpu_torch.models.workload import dense_domain_keys
+    bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
+    if nb < 0:
+        bk |= np.uint64(2**40)
+    elif not below_lo:
+        bk = np.maximum(bk, np.uint64(lo))
+    pk = dense_domain_keys(rng, npr, lo, n_bits)
+    if bk.size and npr:
+        pk[::3] = rng.choice(bk, pk[::3].size)
+    return bk, pk
 
-    for d_rows in (8, 16, 128, 256):
-        bitmap = to_device(rng.integers(0, 2**32, (d_rows, 128),
-                                        dtype=np.uint32), dev)
-        for n in (1, 3, 4_000_037):
-            idx = random_indices(rng, n, d_rows * 4096, dev)
-            for view in (idx, idx[1:]):                # ragged, misaligned
-                got = int(bp.probe_count_bitmap(bitmap, view, d_rows))
-                want = int(bp.probe_count_bitmap_plain(bitmap, view, d_rows))
-                err["bitmap_probe"] = max(err["bitmap_probe"],
-                                          abs(got - want))
-                checked.append(["bitmap_probe", d_rows, view.numel(), got,
-                                want])
-    for d_rows in (512, 16384, 28672):
+
+def check_domain_entry(kernel, plain, rungs, sizes, err: list, rng):
+    """A count entry on key planes (K1 or K2) against its plain version at
+    each rung: a nonzero lo, the edge keys of domain_sides, aligned and
+    misaligned views, validity tails, empty sides, a build of bad rows
+    only.  Adds the largest |kernel - plain| to err[0]; returns the cases."""
+    from flash_hash_join_tpu_torch.models.workload import offset_plane_views
+    import torch
+    dev = torch.device("cuda")
+    cases = []
+    for d_rows in rungs:
         n_bits = d_rows * 4096
-        for nb, npr in ((20_000_001, 30_000_005), (0, 1_000), (1_000, 0),
-                        (5, 7)):
-            bidx = random_indices(rng, nb, n_bits, dev)
-            pidx = random_indices(rng, npr, n_bits, dev)
-            got = int(dbm.fused_bitmap_join(bidx, pidx, d_rows)[0])
-            want = int(dbm.fused_bitmap_join_plain(bidx, pidx, d_rows))
-            err["dense_bitmap_index"] = max(err["dense_bitmap_index"],
-                                            abs(got - want))
-            checked.append(["dense_bitmap_index", d_rows, nb, npr, got,
-                            want])
-        # the domain entry on key planes: a nonzero lo, high-word, out-of-
-        # domain, below-lo and u32-max keys, aligned and misaligned views,
-        # validity tails, an empty side, a build of bad rows only
         lo = int(rng.integers(1, 2**31))
-        for nb, npr in ((5_000_001, 6_000_003), (0, 1_000), (1_000, 0),
-                        (5, 7), (-1_000, 1_000)):
-            bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
-            if nb < 0:                                 # every build row bad
-                bk |= np.uint64(2**40)
-            pk = dense_domain_keys(rng, npr, lo, n_bits)
-            pk[::3] = rng.choice(bk, pk[::3].size) if bk.size else 0
+        for i, (nb, npr) in enumerate(sizes):
+            bk, pk = domain_sides(rng, nb, npr, lo, n_bits, below_lo=i != 1)
             for shift in ((0, 0), (1, 1), (1, 3)):
                 kh, kl = offset_plane_views(bk, dev, *shift)
                 ph, pl = offset_plane_views(pk, dev, *shift[::-1])
@@ -383,89 +371,96 @@ def phase_kernels(cells: dict) -> dict:
                                  (max(kh.numel() - 5, 0),
                                   max(ph.numel() - 3, 0))}:
                     args = (kh, kl, ph, pl, nbv, npv, d_rows)
-                    got = [int(x) for x in dbm.fused_domain_bitmap_join(*args)]
-                    want = [int(x) for x in
-                            dbm.fused_domain_bitmap_join_plain(*args)]
-                    err["dense_bitmap"] = max(
-                        err["dense_bitmap"],
-                        *(abs(g - w) for g, w in zip(got, want)))
-                    checked.append(["dense_bitmap", d_rows, nbv, npv, shift,
-                                    got, want])
+                    got = [int(x) for x in kernel(*args)]
+                    want = [int(x) for x in plain(*args)]
+                    err[0] = max(err[0], *(abs(g - w)
+                                           for g, w in zip(got, want)))
+                    cases.append([d_rows, nbv, npv, shift, got, want])
             del bk, pk, kh, kl, ph, pl
+    return cases
+
+
+def phase_kernels(cells: dict) -> dict:
+    """K1 and K2, both on key planes, == plain at every rung; then both
+    timed on main-path inputs.  Returns the per-kernel summary fields
+    (max_abs_err, ms, ms_b2b, plain_ms, bound, library_ms)."""
+    import torch
+    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
+    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes, to_device
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    err = {"scan_domain_count": [0], "dense_bitmap": [0]}
+    checked = {
+        "scan_domain_count": check_domain_entry(
+            bp.scan_domain_count, bp.scan_domain_count_plain,
+            (8, 16, 32, 64, 128, 256),
+            ((2_000_001, 6_000_003), (2_000_003, 6_000_001), (0, 1_000),
+             (1_000, 0), (5, 7), (-1_000, 1_000)),
+            err["scan_domain_count"], rng),
+        "dense_bitmap": check_domain_entry(
+            dbm.fused_domain_bitmap_join, dbm.fused_domain_bitmap_join_plain,
+            (512, 16384, 28672),
+            ((5_000_001, 6_000_003), (5_000_003, 6_000_001), (0, 1_000),
+             (1_000, 0), (5, 7), (-1_000, 1_000)),
+            err["dense_bitmap"], rng)}
     torch.cuda.synchronize()
+    err = {k: v[0] for k, v in err.items()}
     require(all(e == 0 for e in err.values()), f"kernel != plain: {checked}")
     emit("kernels_vs_plain", kernels=list(err),
          tolerance="exact (integer counts)", max_abs_err=err,
-         cases=len(checked))
+         cases=sum(len(v) for v in checked.values()))
 
     timing = {}
     for name in ("4e7-Q1", "4e7-Q2", "4e7-Q5", "1e8-Q5"):
         c = cells[name]
+        kh, kl = device_planes(c.build_keys, dev)
+        ph, pl = device_planes(c.probe_keys, dev)
         bidx_np, pidx_np, d_rows = domain_indices(c.build_keys, c.probe_keys)
-        bidx, pidx = to_device(bidx_np, dev), to_device(pidx_np, dev)
-        if d_rows <= bp.MAX_D_ROWS:
-            kernel = "bitmap_probe"
-            bitmap = dbm.pack_bitmap(bidx, d_rows)
-            got = int(bp.probe_count_bitmap(bitmap, pidx, d_rows))
-            want = int(bp.probe_count_bitmap_plain(bitmap, pidx, d_rows))
-            t = paired_ms(
-                lambda: bp.probe_count_bitmap(bitmap, pidx, d_rows),
-                lambda: bp.probe_count_bitmap_plain(bitmap, pidx, d_rows))
-            extra = {}
-        else:
-            kernel = "dense_bitmap"
-            kh, kl = device_planes(c.build_keys, dev)
-            ph, pl = device_planes(c.probe_keys, dev)
-            args = (kh, kl, ph, pl, kh.numel(), ph.numel(), d_rows)
-            got, bad = (int(x) for x in dbm.fused_domain_bitmap_join(*args))
-            want = int(dbm.fused_domain_bitmap_join_plain(*args)[0])
-            require(bad == 0, f"{name}: {bad} bad build rows")
-            require(got == int(dbm.fused_bitmap_join(bidx, pidx, d_rows)[0]),
-                    f"{name}: the two K1 entries disagree")
-            t = paired_ms(
-                lambda: dbm.fused_domain_bitmap_join(*args),
-                lambda: dbm.fused_domain_bitmap_join_plain(*args))
-            # the index form on the same cell's indices (mapped on the
-            # host), and the library yardstick: one torch.isin of those
-            # indices, timed here and used nowhere in the port
-            extra = dict(
-                index_form_ms=cuda_ms(
-                    lambda: dbm.fused_bitmap_join(bidx, pidx, d_rows)),
-                library_ms=cuda_ms(lambda: torch.isin(pidx, bidx).sum()))
-            del kh, kl, ph, pl, args
+        args = (kh, kl, ph, pl, kh.numel(), ph.numel(), d_rows)
+        kernel, fn, plain = (
+            ("scan_domain_count", bp.scan_domain_count,
+             bp.scan_domain_count_plain) if d_rows <= bp.MAX_D_ROWS else
+            ("dense_bitmap", dbm.fused_domain_bitmap_join,
+             dbm.fused_domain_bitmap_join_plain))
+        got, bad = (int(x) for x in fn(*args))
+        want = int(plain(*args)[0])
+        require(bad == 0, f"{name}: {bad} bad build rows")
         require(got == want, f"{kernel} {name}: kernel {got} != plain {want}")
-        timing[name] = dict(kernel=kernel, d_rows=d_rows, nb=bidx.numel(),
-                            npr=pidx.numel(), **best(t), **extra)
+        t = paired_ms(lambda: fn(*args), lambda: plain(*args))
+        extra = {}
+        if kernel == "dense_bitmap":
+            # the library yardstick: one torch.isin of the cell's domain
+            # indices (mapped on the host), timed here and used nowhere in
+            # the port
+            bidx, pidx = to_device(bidx_np, dev), to_device(pidx_np, dev)
+            extra["library_ms"] = cuda_ms(lambda: torch.isin(pidx, bidx).sum())
+            del bidx, pidx
+        timing[name] = dict(kernel=kernel, d_rows=d_rows, nb=kh.numel(),
+                            npr=ph.numel(), **best(t), **extra)
         emit("kernel_time", cell=name, **timing[name],
              runs={k + "_runs": v for k, v in t.items()})
-        del bidx, pidx
+        del kh, kl, ph, pl, args
         torch.cuda.empty_cache()
-    # K1 reads the four key planes once (8 B a row of each side) and
-    # writes the count and the bad-row count; its design reads the build
-    # planes twice (the lo pass), 16 B a build row.  The index form reads
-    # 4 B a row of each side.  K2 reads the probe indices and its bitmap.
-    # About 4 integer operations a row (subtract, compare, shift, mask,
-    # test or atomic OR).
-    q5, q2 = timing["4e7-Q5"], timing["4e7-Q2"]
-    nb5, np5 = q5["nb"], q5["npr"]
-    return {"dense_bitmap": dict(
-                max_abs_err=err["dense_bitmap"], ms=q5["ms"],
-                ms_b2b=q5["ms_b2b"], plain_ms=q5["plain_ms"],
-                **bound(8 * (nb5 + np5) + 16, 4 * (nb5 + np5)),
-                library_ms=q5["library_ms"],
-                design_floor_ms=bound(16 * nb5 + 8 * np5 + 16, 0)["bound_ms"],
-                index_form=dict(max_abs_err=err["dense_bitmap_index"],
-                                ms=q5["index_form_ms"],
-                                **bound(4 * (nb5 + np5) + 8,
-                                        4 * (nb5 + np5))),
-                at="J1 4e7 Q5, d_rows 16384"),
-            "bitmap_probe": dict(max_abs_err=err["bitmap_probe"],
-                                 ms=q2["ms"], ms_b2b=q2["ms_b2b"],
-                                 plain_ms=q2["plain_ms"],
-                                 **bound(4 * q2["npr"] + q2["d_rows"] * 512
-                                         + 8, 4 * q2["npr"]),
-                                 library_ms=None,
-                                 at="J1 4e7 Q2, d_rows 16")}
+    # K1 and K2 read the four key planes once (8 B a row of each side) and
+    # write the count and the bad-row count; their design reads the build
+    # planes twice (the lo pass), 16 B a build row.  About 4 integer
+    # operations a row (subtract, compare, shift, mask, test or atomic OR).
+    summary = {}
+    for kernel, cell, at in (("dense_bitmap", "4e7-Q5",
+                              "J1 4e7 Q5, d_rows 16384"),
+                             ("scan_domain_count", "4e7-Q2",
+                              "J1 4e7 Q2, d_rows 16")):
+        q = timing[cell]
+        nb, npr = q["nb"], q["npr"]
+        summary[kernel] = dict(
+            max_abs_err=err[kernel], ms=q["ms"], ms_b2b=q["ms_b2b"],
+            plain_ms=q["plain_ms"], **bound(8 * (nb + npr) + 16,
+                                            4 * (nb + npr)),
+            library_ms=q.get("library_ms"),
+            design_floor_ms=bound(16 * nb + 8 * npr + 16, 0)["bound_ms"],
+            at=at)
+    return summary
 
 
 def _max_abs(got, want) -> int:
@@ -761,29 +756,30 @@ def phase_partitioned_kernels(cells: dict) -> dict:
 def dense_inputs(c, dev):
     """The dense materialize path's kernel inputs for a cell, computed on
     the card as ops/direct_bitmap.direct_join_materialize computes them:
-    (v_rows, build domain indices, occupied-slot mask, value planes, probe
-    domain indices)."""
+    (v_rows, lo, the occupied slots' bitmap, value planes, probe key
+    planes)."""
     from flash_hash_join_tpu_torch.ops import direct_bitmap as db
-    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
     from flash_hash_join_tpu_torch.utils.u64 import device_planes
     bk, bv, pk = c.build_keys, c.build_values, c.probe_keys
     v_rows = db.v_rows_for(int(bk.max() - bk.min()) + 1)
     kh, kl = device_planes(bk, dev)
     vh, vl = device_planes(bv, dev)
     ph, pl = device_planes(pk, dev)
-    lo, _, bidx, occ, planes = db._dense_value_planes(
+    lo, _, bidx, _, planes = db._dense_value_planes(
         kh, kl, vh, vl, len(bk), v_rows=v_rows,
         narrow_values=int(bv.max()) < 2**32)
-    pidx = dbm.probe_domain_idx(ph, pl, len(pk), lo, v_rows * db.LANES)
-    return v_rows, bidx, occ, planes, pidx
+    bitmap = bp.pack_bitmap(bidx, max(8, v_rows // 32))
+    return v_rows, lo, bitmap, planes, ph, pl
 
 
 def phase_dense_kernels(cells: dict) -> dict:
     """K7/K8/K9 == plain at every rung, edge sizes and views; then each
     timed against its plain version on the dense_mat cells' inputs."""
     import torch
+    from flash_hash_join_tpu_torch.models.workload import (
+        dense_domain_keys, offset_plane_views)
     from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
-    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
     from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
     from flash_hash_join_tpu_torch.utils.u64 import to_device
     dev = torch.device("cuda")
@@ -804,29 +800,39 @@ def phase_dense_kernels(cells: dict) -> dict:
                      for _ in range(n))
 
     sizes = (0, 7, 30_000_005)
-    for v_rows in (8, 16, 64, 128, 256, 1024, 8192):
+    for v_rows in (8, 16, 64, 128):                    # K7, domain indices
         v_slots = v_rows * 128
         d_rows = max(8, v_rows // 32)
         bitmap, = planes(d_rows, 1)
-        presence = to_device(rng.integers(0, 2, (v_rows, 128),
-                                          dtype=np.uint32), dev)
         vplanes = planes(v_rows, 2)
         for n in sizes:
             idx = random_indices(rng, n + 1, v_slots + v_slots // 8, dev)
             idx[-6:] = -1                  # the tail past np_valid
             for view in (idx[:n], idx[1:]):                # misaligned
                 for k in (1, 2):
-                    if v_rows <= 128:
-                        args = (bitmap, vplanes[:k], view, d_rows, v_rows)
-                        check("probe_gather_bitmap",
-                              bp.probe_gather_bitmap(*args),
-                              bp.probe_gather_bitmap_plain(*args))
-                    else:
-                        args = ((presence, *vplanes[:k]), view, v_rows)
+                    args = (bitmap, vplanes[:k], view, d_rows, v_rows)
+                    check("probe_gather_bitmap",
+                          bp.probe_gather_bitmap(*args),
+                          bp.probe_gather_bitmap_plain(*args))
+            del idx
+    for v_rows in (256, 512, 1024, 2048, 4096, 8192):  # K8, key planes
+        v_slots = v_rows * 128
+        bitmap, = planes(v_rows // 32, 1)
+        vplanes = planes(v_rows, 2)
+        for lo in (int(rng.integers(1, 2**31)), 0,
+                   2**32 - 1 - v_slots // 2, SENTINEL):
+            lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
+            for n in (0, 7, 3_000_005):
+                pk = dense_domain_keys(rng, n, max(lo, 1), v_slots)
+                for shift in ((0, 0), (1, 3)):
+                    ph, pl = offset_plane_views(pk, dev, *shift)
+                    for k, npv in ((1, n), (2, max(n - 5, 0))):
+                        args = (bitmap, vplanes[:k], ph, pl, npv, lo_t,
+                                v_rows)
                         check("probe_gather_staged",
                               dv.probe_gather_staged(*args),
-                              dv.probe_gather_staged_plain(*args))
-            del idx
+                              dv.probe_gather_staged_domain_plain(*args))
+                del pk, ph, pl
     # K9 also around one of its blocks (4 words a 16-byte load, 4 loads a
     # thread, 256 threads: 4096 words)
     for n in sizes + (4_095, 4_096, 4_097, 8_191, 8_193):
@@ -841,33 +847,36 @@ def phase_dense_kernels(cells: dict) -> dict:
          tolerance="exact (hit masks and u32 planes)")
 
     timing = {}
-    for name in ("1e7-Q2", "4e7-Q1", "4e7-Q2", "1e8-Q1", "1e8-Q2"):
-        v_rows, bidx, occ, vplanes, pidx = dense_inputs(cells[name], dev)
+    for name in ("1e7-Q2", "4e7-Q1", "4e7-Q2", "4e7-Q2-wide", "1e8-Q1",
+                 "1e8-Q2"):
+        v_rows, lo, bitmap, vplanes, ph, pl = dense_inputs(cells[name], dev)
+        n, k = ph.numel(), len(vplanes)
         runs = {}
         if v_rows <= 128:
             d_rows = max(8, v_rows // 32)
-            args = (dbm.pack_bitmap(bidx, d_rows), vplanes, pidx, d_rows,
-                    v_rows)
+            pidx = bp.probe_domain_idx(ph, pl, n, lo, v_rows * 128)
+            args = (bitmap, vplanes, pidx, d_rows, v_rows)
             runs["probe_gather_bitmap"] = (
                 lambda: bp.probe_gather_bitmap(*args),
                 lambda: bp.probe_gather_bitmap_plain(*args))
         else:
-            copied = dv.materialize_copy(pidx)
-            staged = ((occ.to(torch.int32).view(v_rows, 128), *vplanes),
-                      copied, v_rows)
-            runs["materialize_copy"] = (
-                lambda: (dv.materialize_copy(pidx),),
-                lambda: (dv.materialize_copy_plain(pidx),))
+            staged = (bitmap, vplanes, ph, pl, n, lo, v_rows)
             runs["probe_gather_staged"] = (
                 lambda: dv.probe_gather_staged(*staged),
-                lambda: dv.probe_gather_staged_plain(*staged))
-        n, k = pidx.numel(), len(vplanes)
-        bounds = {  # index reads, plane reads, hit and value writes
+                lambda: dv.probe_gather_staged_domain_plain(*staged))
+            if name == "1e8-Q2":
+                # K9 is on no path: held against its plain version, clone,
+                # on a plane of the cell's size (the probes' low words)
+                runs["materialize_copy"] = (
+                    lambda: (dv.materialize_copy(pl),),
+                    lambda: (dv.materialize_copy_plain(pl),))
+        bounds = {  # K7: index reads; K8: key-plane reads; the bitmap and
+                    # value planes read once; hit and value writes
             "probe_gather_bitmap": bound(
                 max(8, v_rows // 32) * 512 + k * v_rows * 512 + 5 * n
                 + 4 * k * n, 6 * n),
-            "probe_gather_staged": bound((1 + k) * v_rows * 512 + 5 * n
-                                         + 4 * k * n, 6 * n),
+            "probe_gather_staged": bound(v_rows * 16 + k * v_rows * 512
+                                         + 9 * n + 4 * k * n + 8, 6 * n),
             "materialize_copy": bound(8 * n, n)}
         library = {}
         for kernel, (run, plain) in runs.items():
@@ -888,11 +897,12 @@ def phase_dense_kernels(cells: dict) -> dict:
             emit("kernel_time", cell=name, kernel=kernel, v_rows=v_rows,
                  n_planes=k, npr=n, **t, **bounds[kernel],
                  library_ms=library.get(kernel))
-        del bidx, occ, vplanes, pidx, runs
+        del lo, bitmap, vplanes, ph, pl, runs
         torch.cuda.empty_cache()
     at = {"probe_gather_bitmap": ("1e7-Q2", "J1 1e7 Q2, v_rows 128"),
           "probe_gather_staged": ("1e8-Q2", "J1 1e8 Q2, v_rows 1024"),
-          "materialize_copy": ("1e8-Q2", "J1 1e8 Q2, 1e8 indices")}
+          "materialize_copy": ("1e8-Q2", "1e8 words (J1 1e8 Q2's probe "
+                                         "plane); on no path")}
     return {k: dict(max_abs_err=err[k], **timing[k, cell], at=where)
             for k, (cell, where) in at.items()}
 
@@ -913,7 +923,7 @@ def _timed_runs(fn, c, reps: int):
 def phase_main(cells: dict) -> tuple[dict, dict]:
     import torch
     import flash_hash_join_tpu_torch as ft
-    expect = {"4e7-Q1": "bitmap_probe", "4e7-Q2": "bitmap_probe",
+    expect = {"4e7-Q1": "scan_domain_count", "4e7-Q2": "scan_domain_count",
               "4e7-Q5": "dense_bitmap", "bench-4e7": "dense_bitmap",
               "1e8-Q5": "dense_bitmap"}
     want = {name: int(oracle(name, cells[name])[0].sum()) for name in expect}
@@ -937,7 +947,7 @@ def phase_main(cells: dict) -> tuple[dict, dict]:
              core_seconds=best, probe_rows_per_s=len(c.probe_keys) / best,
              wall_seconds=wall, core_seconds_runs=runs,
              peak_device_bytes=torch.cuda.max_memory_allocated())
-    return require_launched("main", ("dense_bitmap", "bitmap_probe")), core
+    return require_launched("main", ("dense_bitmap", "scan_domain_count")), core
 
 
 def check_rows(name: str, c, keys, vals, probe_order: bool) -> None:
@@ -1079,10 +1089,13 @@ def dense_mat_cell(name: str, c) -> None:
     require(info["strategy"] == "direct" and not info["retried"],
             f"dense_mat {name}: routed {info}")
     staged = info["d_rows"] > db.MAT_SCAN_MAX_V_ROWS
-    kernels = (("materialize_copy", "probe_gather_staged") if staged
+    kernels = (("probe_gather_staged",) if staged
                else ("probe_gather_bitmap",)) + ("compact",)
     require(all(info["launches"][k] > 0 for k in kernels),
             f"dense_mat {name}: kernels not launched: {info}")
+    # K8 reads the key planes: no copy of probe indices on the path (K9)
+    require(info["launches"]["materialize_copy"] == 0,
+            f"dense_mat {name}: materialize_copy launched: {info}")
     count, _, keys, vals, minfo = ft.join_materialize(
         c.build_keys, c.build_values, c.probe_keys, device="cuda",
         return_arrays=True, return_info=True)
@@ -1131,9 +1144,12 @@ def phase_dense_mat(cells: dict) -> dict:
         emit("dense_mat_wide", cell=name, strategy=strategy, count=count,
              oracle=want, v_rows=info["d_rows"], core_seconds=secs,
              launches=info["launches"])
-    return require_launched("dense_mat", ("probe_gather_bitmap",
-                                          "probe_gather_staged",
-                                          "materialize_copy", "compact"))
+    launches = require_launched("dense_mat", ("probe_gather_bitmap",
+                                              "probe_gather_staged",
+                                              "compact"))
+    require(launches["materialize_copy"] == 0,
+            f"dense_mat: materialize_copy launched: {launches}")
+    return launches
 
 
 def bucket_of(keys: np.ndarray) -> np.ndarray:

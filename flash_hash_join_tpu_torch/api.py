@@ -17,7 +17,7 @@ a dense domain -> `direct`.  Count: build keys below 2^32 spanning at
 most MAX_XL_DOMAIN_BITS slots (bitmap kernels K1/K2).  Materialize: build
 keys below 2^32, at most MAX_BUILD_ROWS (2^20) build rows and
 v_rows_for(span) <= MAT_MAX_V_ROWS (span <= 2^20 slots; value-plane
-kernels K7, or K9 + K8, then K5), with one value plane when every build
+kernels K7 or K8, then K5), with one value plane when every build
 value is below 2^32.  Everything else -> `partitioned` (sorted range
 table, K3/K4, and K5 for materialize).  An explicit strategy="direct"
 outside those bounds raises ValueError.  The JAX package's extra gates
@@ -84,7 +84,7 @@ def _as_u64(arr) -> np.ndarray:
 def launch_counts() -> dict:
     """Kernel launches so far in this process, by kernel."""
     return {"dense_bitmap": dbm.fused_domain_bitmap_join.launches,
-            "bitmap_probe": bp.probe_count_bitmap.launches,
+            "scan_domain_count": bp.scan_domain_count.launches,
             "range_probe_count": rp.range_probe_count.launches,
             "range_probe_materialize": rp.range_probe_materialize.launches,
             "range_directory": rp.range_directory.launches,

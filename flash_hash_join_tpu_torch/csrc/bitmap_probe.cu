@@ -1,30 +1,47 @@
-// K2: membership count of probe domain indices in a small bitmap.
+// K2: the scan band of the dense-domain count, straight from the key
+// planes.
 //
 // Replaces flash_hash_join_tpu/ops/pallas/bitmap_probe.py:probe_count_bitmap
-// (kernel body _count_kernel): the scan band of the dense-domain count,
-// bitmaps of d_rows <= 256 rows x 128 u32 words (<= 128 KB, spans <= 2^20).
+// (kernel body _count_kernel) together with the domain mapping and the
+// bitmap pack that flash_hash_join_tpu/ops/direct_bitmap.py:
+// direct_join_count does around it in XLA: bitmaps of d_rows <= 256 rows x
+// 128 u32 words (<= 128 KB, spans <= 2^20).  Same function as K1's
+// (dense_bitmap.cu) but for lo, which is the least low word of EVERY valid
+// build key, high-word rows included (0xFFFFFFFF when there is none): a
+// valid build key is bad when it is not in the domain of d_rows * 4096
+// slots from lo (fhj::in_domain), else it sets its bit; the count is the
+// number of valid probe keys in the domain whose bit is set.
 //
-// What bounds it on an H100: each probe index is 4 B read once from device
-// memory and one bitmap word read; with the bitmap in shared memory the
-// kernel is a pure stream of the indices, bound by device-memory bandwidth.
-// On an NVIDIA H100 80GB HBM3 at 700 W, 4e7 indices (160 MB) took 0.064 ms
-// of kernel time (2.5 TB/s of the 3.35 TB/s peak), 0.08-0.09 ms per
-// wrapper call.
+// Four steps on one stream, no host sync: memsets of the bitmap and the
+// scratch words, the lo min and the build (common.cuh's domain build,
+// shared with K1; over the build planes, 4e4 rows at J1 4e7 Q2), then the
+// probe, K2 proper.
+//
+// What bounds the probe on an H100: each probe row is 8 B of key planes
+// read once from device memory and one bitmap word read; with the bitmap
+// in shared memory the kernel is a pure stream of the planes, bound by
+// device-memory bandwidth (0.096 ms for 4e7 rows at 3.35 TB/s).
 //
 // What the design does about it, against the TPU kernel:
 //  * The TPU kernel scans EVERY bitmap row for every tile (a lane gather
 //    plus a row-match select per row) because Mosaic cannot address a
 //    sublane-dynamic row.  Here each block copies the whole bitmap into
-//    dynamic shared memory once and then tests each index with one direct
+//    dynamic shared memory once and then tests each key with one direct
 //    word read: the cost no longer grows with d_rows.
+//  * The TPU kernel took lo-relative u32 indices that XLA mapped from the
+//    planes in fused passes; PyTorch runs such a mapping one eager int64
+//    pass an operation (2.75 ms of device time at J1 4e7 Q2 around a
+//    0.075 ms index-form kernel on an H100), so the probe maps each key in
+//    registers (fhj::in_domain) against the lo that the lo launch left in
+//    device memory.
 //  * Above 48 KB of dynamic shared memory (the 128- and 256-row rungs) the
 //    launch is refused unless cudaFuncAttributeMaxDynamicSharedMemorySize
 //    is raised first; the entry point does that.  The grid is capped at
 //    the blocks that fit on the card, so each block's bitmap copy is
-//    amortised over a grid-stride share of the indices.
-//  * 16-byte index loads.  Each thread keeps its own hit count, so one
-//    warp-shuffle block reduction and one 64-bit atomicAdd per block finish
-//    the count.
+//    amortised over a grid-stride share of the rows.
+//  * 16-byte loads of both planes (fhj::for_each_pair).  Each thread keeps
+//    its own hit count, so one warp-shuffle block reduction and one 64-bit
+//    atomicAdd per block finish the count.
 //
 // K7: membership plus value gather, the scan band of the dense-domain
 // materialize.  Replaces flash_hash_join_tpu/ops/pallas/bitmap_probe.py:
@@ -45,30 +62,34 @@
 
 namespace {
 
-__global__ void __launch_bounds__(fhj::kThreads)
-bitmap_probe_smem_kernel(const uint32_t* __restrict__ bitmap, int n_words,
-                         const uint32_t* __restrict__ idx, int64_t n,
-                         unsigned long long* __restrict__ count) {
-  extern __shared__ uint4 smem[];
-  const uint4* src = reinterpret_cast<const uint4*>(bitmap);
-  for (int i = threadIdx.x; i < n_words / 4; i += blockDim.x) smem[i] = __ldg(src + i);
-  __syncthreads();
-  const uint32_t* bm = reinterpret_cast<const uint32_t*>(smem);
-  const uint32_t n_bits = (uint32_t)n_words * 32u;
-  unsigned int hits = 0;
-  fhj::for_each_index(idx, n, [&](uint32_t v) {
-    if (v < n_bits) hits += fhj::bit_of(bm[v >> 5], v);
-  });
-  const unsigned long long total = fhj::block_sum(hits);
-  if (threadIdx.x == 0 && total) atomicAdd(count, total);
-}
-
 // Copies n32 words (a multiple of 4, 16-byte aligned) into shared memory.
 __device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* __restrict__ src,
                                       int n32) {
   uint4* d = reinterpret_cast<uint4*>(dst);
   const uint4* s = reinterpret_cast<const uint4*>(src);
   for (int i = threadIdx.x; i < n32 / 4; i += blockDim.x) d[i] = __ldg(s + i);
+}
+
+// K2: the bit test of every probe key in the domain from *lo.
+__global__ void __launch_bounds__(fhj::kThreads)
+scan_domain_probe_kernel(const uint32_t* __restrict__ bitmap, int n_words,
+                         const uint32_t* __restrict__ ph,
+                         const uint32_t* __restrict__ pl, int64_t n,
+                         const uint32_t* __restrict__ lo,
+                         unsigned long long* __restrict__ count) {
+  extern __shared__ uint4 smem[];
+  uint32_t* bm = reinterpret_cast<uint32_t*>(smem);
+  stage(bm, bitmap, n_words);
+  __syncthreads();
+  const uint32_t base = __ldg(lo);
+  const uint32_t n_bits = (uint32_t)n_words * 32u;
+  unsigned int hits = 0;
+  fhj::for_each_pair(ph, pl, n, [&](uint32_t h, uint32_t l) {
+    uint32_t v;
+    if (fhj::in_domain(h, l, base, n_bits, &v)) hits += fhj::bit_of(bm[v >> 5], v);
+  });
+  const unsigned long long total = fhj::block_sum(hits);
+  if (threadIdx.x == 0 && total) atomicAdd(count, total);
 }
 
 // K7: hit flag and the value planes at each probe's slot.  Shared memory
@@ -102,23 +123,30 @@ bitmap_gather_kernel(const uint32_t* __restrict__ bitmap, int n_words,
 
 extern "C" {
 
-// bitmap: d_rows * 128 words, 16-byte aligned; count: one zeroed u64.
-// Launches one kernel over idx[0, n) on `stream` (none when n == 0).
-// Returns cudaGetLastError().
-int fhj_bitmap_probe_count(const uint32_t* bitmap, int d_rows,
-                           const uint32_t* idx, int64_t n,
-                           unsigned long long* count, cudaStream_t stream) {
-  if (n <= 0) return (int)cudaSuccess;
+// kh/kl: the build key planes, rows [0, nb) valid; ph/pl: the probe key
+// planes, rows [0, np) valid.  bitmap: d_rows * 128 words, 16-byte
+// aligned; scratch: three u64 words, {count, n_bad, lo}.  On `stream`:
+// zeroes the scratch (lo = 0xFFFFFFFF) and, over a nonempty build, the
+// bitmap, then launches the lo min and the build, and the probe when both
+// sides are nonempty.  Returns cudaGetLastError().
+int fhj_scan_domain_count(const uint32_t* kh, const uint32_t* kl, int64_t nb,
+                          const uint32_t* ph, const uint32_t* pl, int64_t np,
+                          uint32_t* bitmap, int d_rows, unsigned long long* scratch,
+                          cudaStream_t stream) {
   const int n_words = d_rows * 128;
+  cudaError_t e = fhj::domain_build(kh, kl, nb, true, bitmap, (uint32_t)n_words * 32u,
+                                    scratch, stream);
+  if (e != cudaSuccess || nb <= 0 || np <= 0) return (int)e;
   const size_t smem = (size_t)n_words * sizeof(uint32_t);
-  cudaError_t e = cudaFuncSetAttribute(
-      bitmap_probe_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  e = cudaFuncSetAttribute(scan_domain_probe_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int grid = 0;
-  e = fhj::grid_for(bitmap_probe_smem_kernel, n, smem, &grid);
+  e = fhj::grid_for(scan_domain_probe_kernel, np, smem, &grid);
   if (e != cudaSuccess) return (int)e;
-  bitmap_probe_smem_kernel<<<grid, fhj::kThreads, smem, stream>>>(bitmap, n_words, idx,
-                                                                  n, count);
+  scan_domain_probe_kernel<<<grid, fhj::kThreads, smem, stream>>>(
+      bitmap, n_words, ph, pl, np, reinterpret_cast<const uint32_t*>(scratch + 2),
+      scratch);
   return (int)cudaGetLastError();
 }
 

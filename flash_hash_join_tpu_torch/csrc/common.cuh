@@ -1,7 +1,8 @@
 // Shared device helpers: the index stream walk, the key-plane pair walk,
 // the dense-domain test and the membership bit test of the bitmap kernels
-// (dense_bitmap.cu, bitmap_probe.cu), the block reductions and the grid
-// size of every kernel.
+// (dense_bitmap.cu, bitmap_probe.cu, dense_values.cu), the block
+// reductions and the grid size of every kernel; and the domain build that
+// K1 and K2 share (the lo min and the bitmap build over the key planes).
 //
 // Domain indices are u32 with sentinel 0xFFFFFFFF (torch int32 bit
 // patterns on the Python side).  Bitmap word w holds slots [32w, 32w+32);
@@ -41,15 +42,16 @@ __device__ __forceinline__ void for_each_index(const uint32_t* __restrict__ idx,
   if (tid < n - tail) visit(idx[tail + tid]);
 }
 
-// Calls visit(h, l) for every i < n with h = hi[i], l = lo[i]: the two u32
-// planes of a u64 key column, walked like for_each_index.  The body is
+// Calls visit(i, h, l) for every i < n with h = hi[i], l = lo[i]: the two
+// u32 planes of a u64 key column, walked like for_each_index.  The body is
 // aligned on hi; lo is read with 16-byte loads too when it then lies on a
 // 16-byte boundary, else with four scalar loads (the choice is the same
-// for the whole grid).
+// for the whole grid).  A thread visits the rows of a 16-byte body word in
+// order, i to i + 3.
 template <typename Visit>
-__device__ __forceinline__ void for_each_pair(const uint32_t* __restrict__ hi,
-                                              const uint32_t* __restrict__ lo,
-                                              int64_t n, Visit visit) {
+__device__ __forceinline__ void for_each_pair_at(const uint32_t* __restrict__ hi,
+                                                 const uint32_t* __restrict__ lo,
+                                                 int64_t n, Visit visit) {
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   int64_t head = (int64_t)((16 - (reinterpret_cast<uintptr_t>(hi) & 15)) & 15) >> 2;
@@ -62,24 +64,34 @@ __device__ __forceinline__ void for_each_pair(const uint32_t* __restrict__ hi,
     for (int64_t i = tid; i < n4; i += stride) {
       const uint4 h = __ldg(h4 + i);
       const uint4 l = __ldg(l4 + i);
-      visit(h.x, l.x);
-      visit(h.y, l.y);
-      visit(h.z, l.z);
-      visit(h.w, l.w);
+      const int64_t r = head + 4 * i;
+      visit(r, h.x, l.x);
+      visit(r + 1, h.y, l.y);
+      visit(r + 2, h.z, l.z);
+      visit(r + 3, h.w, l.w);
     }
   } else {
     for (int64_t i = tid; i < n4; i += stride) {
       const uint4 h = __ldg(h4 + i);
       const uint32_t* l = l1 + 4 * i;
-      visit(h.x, __ldg(l));
-      visit(h.y, __ldg(l + 1));
-      visit(h.z, __ldg(l + 2));
-      visit(h.w, __ldg(l + 3));
+      const int64_t r = head + 4 * i;
+      visit(r, h.x, __ldg(l));
+      visit(r + 1, h.y, __ldg(l + 1));
+      visit(r + 2, h.z, __ldg(l + 2));
+      visit(r + 3, h.w, __ldg(l + 3));
     }
   }
   const int64_t tail = head + (n4 << 2);
-  if (tid < head) visit(hi[tid], lo[tid]);
-  if (tid < n - tail) visit(hi[tail + tid], lo[tail + tid]);
+  if (tid < head) visit(tid, hi[tid], lo[tid]);
+  if (tid < n - tail) visit(tail + tid, hi[tail + tid], lo[tail + tid]);
+}
+
+// for_each_pair_at for a visitor that needs no row index: visit(h, l).
+template <typename Visit>
+__device__ __forceinline__ void for_each_pair(const uint32_t* __restrict__ hi,
+                                              const uint32_t* __restrict__ lo,
+                                              int64_t n, Visit visit) {
+  for_each_pair_at(hi, lo, n, [&](int64_t, uint32_t h, uint32_t l) { visit(h, l); });
 }
 
 // The dense-domain test of a u64 key (hi, lo) against a domain of n_bits
@@ -147,5 +159,74 @@ inline cudaError_t grid_for(Kernel kernel, int64_t n, size_t smem, int* grid,
   *grid = (int)(need < 1 ? 1 : (need < cap ? need : cap));
   return cudaSuccess;
 }
+
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, int64_t n, cudaStream_t stream, Args... args) {
+  int grid = 0;
+  cudaError_t e = grid_for(kernel, n, 0, &grid);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kThreads, 0, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+// The domain build of a dense-domain count.  Internal linkage: each source
+// that includes this header launches its own copy.
+namespace {
+
+// *lo = min(*lo, the low words of the keys): every key when kEveryRow (the
+// scan band's lo, K2), else the keys whose high word is 0 (K1's).
+template <bool kEveryRow>
+__global__ void __launch_bounds__(kThreads)
+domain_lo_kernel(const uint32_t* __restrict__ kh, const uint32_t* __restrict__ kl,
+                 int64_t n, uint32_t* __restrict__ lo) {
+  uint32_t m = 0xFFFFFFFFu;
+  for_each_pair(kh, kl, n, [&](uint32_t h, uint32_t l) {
+    if ((kEveryRow || h == 0u) && l < m) m = l;
+  });
+  m = block_min(m);
+  if (threadIdx.x == 0 && m != 0xFFFFFFFFu) atomicMin(lo, m);
+}
+
+// Sets the bit of every key in the domain of n_bits slots from *lo; counts
+// the others into *n_bad.
+__global__ void __launch_bounds__(kThreads)
+domain_build_kernel(const uint32_t* __restrict__ kh, const uint32_t* __restrict__ kl,
+                    int64_t n, const uint32_t* __restrict__ lo, uint32_t n_bits,
+                    uint32_t* __restrict__ bitmap,
+                    unsigned long long* __restrict__ n_bad) {
+  const uint32_t base = __ldg(lo);
+  unsigned int bad = 0;
+  for_each_pair(kh, kl, n, [&](uint32_t h, uint32_t l) {
+    uint32_t v;
+    if (in_domain(h, l, base, n_bits, &v))
+      atomicOr(bitmap + (v >> 5), 1u << (v & 31u));
+    else
+      ++bad;
+  });
+  const unsigned long long total = block_sum(bad);
+  if (threadIdx.x == 0 && total) atomicAdd(n_bad, total);
+}
+
+// scratch: three u64 words {count, n_bad, lo}; bitmap: n_bits / 32 words.
+// On `stream`: zeroes count and n_bad and sets lo = 0xFFFFFFFF; over a
+// nonempty build (kh/kl rows [0, nb)) also zeroes the bitmap and launches
+// the lo min and the build.  Returns the first error.
+inline cudaError_t domain_build(const uint32_t* kh, const uint32_t* kl, int64_t nb,
+                                bool every_row, uint32_t* bitmap, uint32_t n_bits,
+                                unsigned long long* scratch, cudaStream_t stream) {
+  uint32_t* lo = reinterpret_cast<uint32_t*>(scratch + 2);
+  cudaError_t e = cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned long long), stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(lo, 0xFF, sizeof(uint32_t), stream);
+  if (e != cudaSuccess || nb <= 0) return e;
+  e = cudaMemsetAsync(bitmap, 0, (size_t)(n_bits / 32) * sizeof(uint32_t), stream);
+  if (e != cudaSuccess) return e;
+  e = every_row ? launch(domain_lo_kernel<true>, nb, stream, kh, kl, nb, lo)
+                : launch(domain_lo_kernel<false>, nb, stream, kh, kl, nb, lo);
+  if (e != cudaSuccess) return e;
+  return launch(domain_build_kernel, nb, stream, kh, kl, nb, (const uint32_t*)lo,
+                n_bits, bitmap, scratch + 1);
+}
+
+}  // namespace
 
 }  // namespace fhj

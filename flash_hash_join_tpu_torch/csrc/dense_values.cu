@@ -1,39 +1,59 @@
 // K8 and K9: the staged band of the dense-domain materialize.
 //
 // K8 replaces flash_hash_join_tpu/ops/pallas/dense_values.py:
-// probe_gather_staged (kernel body _kernel): per probe domain index, the hit
-// flag (the presence plane is nonzero at its slot) and the 1-2 dense value
-// planes there (0 on a miss).  Planes are (v_rows <= 8192, 128) u32 words,
-// slot s at word s: at most 4 MB each, 12 MB for presence plus two value
-// planes.
+// probe_gather_staged (kernel body _kernel) together with the probe-side
+// domain mapping that flash_hash_join_tpu/ops/direct_bitmap.py:
+// direct_join_materialize does in front of it in XLA (_probe_idx).  Per
+// probe row i, straight from the u32 key planes: the row is in the domain
+// when i < np_valid, its high word is 0 and (lo - base) mod 2^32 is below
+// v_rows * 128 (fhj::in_domain, base = the least low word of the valid
+// build rows with a zero high word, which the caller leaves in device
+// memory); it hits when its slot is occupied; hit[i] and the 1-2 dense
+// value planes at the slot are written in probe order (0 on a miss).
+// Planes are (v_rows <= 8192, 128) u32 words, slot s at word s: at most
+// 4 MB each.
 //
-// What bounds K8 on an H100: per probe a 4 B index read, 2-3 random 4 B
-// reads of the planes and 5-9 B written.  The planes stay resident in the
-// 50 MB L2, so the random reads are L2 sector reads and the stream of
-// indices and outputs is bound by device-memory bandwidth.
+// What bounds K8 on an H100: per probe row 8 B of key planes read, one
+// random 4 B read of each value plane on a hit, and 5-9 B written.  The
+// planes stay resident in the 50 MB L2, so the random reads are L2 sector
+// reads and the stream of keys and outputs is bound by device-memory
+// bandwidth: 13 B a row, 0.388 ms for J1 1e8 Q2 with narrow values.
 //
-// What the design does about it, against the TPU kernel: the TPU kernel
-// block-sorts the probes (one u32 column), gives every 128-probe tile row a
-// window of `sels` consecutive value rows (`rs` starts, scalar-prefetched),
-// stages those rows in VMEM with dynamic-row copies and counts the probes
-// that fall outside the window as unresolved; it passes the sorted indices
-// through as keys.  All of that is there because Mosaic cannot address a
-// row per element.  Here each thread reads its own probe's words through
-// L2: no sort, no window, never unresolved, probe order kept.
+// What the design does about it, against the TPU kernel:
+//  * The TPU kernel block-sorts the probes (one u32 column), gives every
+//    128-probe tile row a window of `sels` consecutive value rows (`rs`
+//    starts, scalar-prefetched), stages those rows in VMEM with
+//    dynamic-row copies and counts the probes that fall outside the window
+//    as unresolved; it passes the sorted indices through as keys.  All of
+//    that is there because Mosaic cannot address a row per element.  Here
+//    each thread reads its own probe's words through L2: no sort, no
+//    window, never unresolved, probe order kept.
+//  * The TPU kernel took lo-relative u32 indices that XLA mapped from the
+//    planes; PyTorch runs that mapping one eager int64 pass an operation
+//    (about 7 ms of device time at J1 1e8 Q2 on an H100, with K9's copy of
+//    its output), so each row is mapped in registers, and nothing is
+//    written between the key planes and K8's outputs.
+//  * 16-byte loads of both key planes (fhj::for_each_pair_at, which hands
+//    the row index to the visitor); each thread writes its four rows.
+//  * Presence, two layouts (kBits): the 0/1 presence plane (v_rows x 128
+//    words, read through L2), or a bitmap of the occupied slots (v_rows x 4
+//    words, at most 128 KB) staged in each block's shared memory as K2
+//    stages its bitmap.  The bitmap spares one dependent L2 read a row and
+//    costs occupancy.
 //
 // K9 replaces dense_values.py:materialize_copy (_copy_kernel): an identity
 // copy.  In the JAX package it is an XLA:TPU fusion barrier in front of the
-// staged band's consumers; PyTorch runs eagerly and fuses nothing, so here
-// it is a plain copy of the probe indices that K8 then reads.  Bound by
-// bandwidth: 8 B per element moved.  A grid of the card's size (SMs x
-// occupancy) looping over the copy ran slower than torch's clone on an
-// H100, with one 16-byte load a step or four; a grid that covers the copy,
-// one step a thread, ran 1-2 % faster than clone when launched alone, and
-// at clone's speed through the Python wrapper (PERF.md §6).  So each thread
-// moves kCopyUnroll 16-byte words, all loads before the stores, and the
-// grid has one block per kCopyUnroll * 256 of them.  The loads and stores
-// are streaming (__ldcs / __stcs, evict-first), so the copy does not push
-// K8's value planes, which K8 reads from L2 right after, out of the cache.
+// staged band's consumers; PyTorch runs eagerly and fuses nothing, and K8
+// reads the key planes, so no path copies anything: K9 is on no path.  It
+// stays as the TPU kernel's only counterpart.  Bound by bandwidth: 8 B per
+// element moved.  A grid of the card's size (SMs x occupancy) looping over
+// the copy ran slower than torch's clone on an H100, with one 16-byte load
+// a step or four; a grid that covers the copy, one step a thread, ran 1-2 %
+// faster than clone when launched alone, and at clone's speed through the
+// Python wrapper (PERF.md §6).  So each thread moves kCopyUnroll 16-byte
+// words, all loads before the stores, and the grid has one block per
+// kCopyUnroll * 256 of them.  The loads and stores are streaming (__ldcs /
+// __stcs, evict-first), so a copy does not push other data out of L2.
 // Scalar head and tail for views that start off a 16-byte boundary or end
 // ragged.
 #include <algorithm>
@@ -43,20 +63,55 @@
 
 namespace {
 
+// K8.  kBits: presence is the bitmap of the occupied slots (v_slots / 32
+// words), staged in shared memory; else the 0/1 presence plane.
+template <bool kBits>
 __global__ void __launch_bounds__(fhj::kThreads)
-staged_gather_kernel(const uint32_t* __restrict__ presence,
-                     const uint32_t* __restrict__ p0, const uint32_t* __restrict__ p1,
-                     uint32_t v_slots, const uint32_t* __restrict__ idx, int64_t n,
-                     uint8_t* __restrict__ hit, uint32_t* __restrict__ o0,
-                     uint32_t* __restrict__ o1) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const uint32_t v = __ldg(idx + i);
-    const bool h = v < v_slots && __ldg(presence + v) != 0u;
-    hit[i] = h;
-    o0[i] = h ? __ldg(p0 + v) : 0u;
-    if (p1) o1[i] = h ? __ldg(p1 + v) : 0u;
+staged_domain_gather_kernel(const uint32_t* __restrict__ presence,
+                            const uint32_t* __restrict__ p0,
+                            const uint32_t* __restrict__ p1, uint32_t v_slots,
+                            const uint32_t* __restrict__ ph,
+                            const uint32_t* __restrict__ pl, int64_t n,
+                            int64_t np_valid, const long long* __restrict__ lo,
+                            uint8_t* __restrict__ hit, uint32_t* __restrict__ o0,
+                            uint32_t* __restrict__ o1) {
+  extern __shared__ uint4 smem[];
+  const uint32_t* bm = reinterpret_cast<const uint32_t*>(smem);
+  if (kBits) {
+    const uint4* src = reinterpret_cast<const uint4*>(presence);
+    for (uint32_t i = threadIdx.x; i < v_slots / 128u; i += blockDim.x)
+      smem[i] = __ldg(src + i);
+    __syncthreads();
   }
+  const uint32_t base = (uint32_t)__ldg(lo);
+  fhj::for_each_pair_at(ph, pl, n, [&](int64_t i, uint32_t h, uint32_t l) {
+    uint32_t v = 0;
+    const bool in = i < np_valid && fhj::in_domain(h, l, base, v_slots, &v);
+    const bool found =
+        in && (kBits ? fhj::bit_of(bm[v >> 5], v) != 0u : __ldg(presence + v) != 0u);
+    hit[i] = found;
+    o0[i] = found ? __ldg(p0 + v) : 0u;
+    if (p1) o1[i] = found ? __ldg(p1 + v) : 0u;
+  });
+}
+
+template <bool kBits>
+cudaError_t launch_staged(const uint32_t* presence, const uint32_t* p0,
+                          const uint32_t* p1, uint32_t v_slots, const uint32_t* ph,
+                          const uint32_t* pl, int64_t n, int64_t np_valid,
+                          const long long* lo, uint8_t* hit, uint32_t* o0,
+                          uint32_t* o1, cudaStream_t stream) {
+  const size_t smem = kBits ? (size_t)(v_slots / 32u) * sizeof(uint32_t) : 0;
+  cudaError_t e = cudaFuncSetAttribute(staged_domain_gather_kernel<kBits>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  int grid = 0;
+  e = fhj::grid_for(staged_domain_gather_kernel<kBits>, n, smem, &grid);
+  if (e != cudaSuccess) return e;
+  staged_domain_gather_kernel<kBits><<<grid, fhj::kThreads, smem, stream>>>(
+      presence, p0, p1, v_slots, ph, pl, n, np_valid, lo, hit, o0, o1);
+  return cudaGetLastError();
 }
 
 constexpr int kCopyUnroll = 4;
@@ -106,19 +161,25 @@ copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_
 
 extern "C" {
 
-// presence, p0 and p1 (p1 may be null): v_rows * 128 words each.  Writes
-// hit[i], o0[i] and (with p1) o1[i] for every i < n on `stream` (no launch
-// when n == 0).  Returns cudaGetLastError().
-int fhj_staged_gather(const uint32_t* presence, const uint32_t* p0, const uint32_t* p1,
-                      int v_rows, const uint32_t* idx, int64_t n, uint8_t* hit,
-                      uint32_t* o0, uint32_t* o1, cudaStream_t stream) {
+// presence: with presence_bits, the bitmap of the occupied slots (v_rows *
+// 4 words), else the 0/1 presence plane (v_rows * 128 words); p0 and p1
+// (p1 may be null): v_rows * 128 words each; all 16-byte aligned.  ph/pl:
+// the probe key planes, n rows, [0, np_valid) valid; lo: the domain base,
+// one int64 in device memory.  Writes hit[i], o0[i] and (with p1) o1[i]
+// for every i < n on `stream` (no launch when n == 0).  Returns
+// cudaGetLastError().
+int fhj_staged_domain_gather(const uint32_t* presence, int presence_bits,
+                             const uint32_t* p0, const uint32_t* p1, int v_rows,
+                             const uint32_t* ph, const uint32_t* pl, int64_t n,
+                             int64_t np_valid, const long long* lo, uint8_t* hit,
+                             uint32_t* o0, uint32_t* o1, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  int grid = 0;
-  cudaError_t e = fhj::grid_for(staged_gather_kernel, n, 0, &grid, 1);
-  if (e != cudaSuccess) return (int)e;
-  staged_gather_kernel<<<grid, fhj::kThreads, 0, stream>>>(
-      presence, p0, p1, (uint32_t)v_rows * 128u, idx, n, hit, o0, o1);
-  return (int)cudaGetLastError();
+  const uint32_t v_slots = (uint32_t)v_rows * 128u;
+  return (int)(presence_bits
+                   ? launch_staged<true>(presence, p0, p1, v_slots, ph, pl, n,
+                                         np_valid, lo, hit, o0, o1, stream)
+                   : launch_staged<false>(presence, p0, p1, v_slots, ph, pl, n,
+                                          np_valid, lo, hit, o0, o1, stream));
 }
 
 // Copies src[0, n) to dst[0, n) (both 4-byte aligned, not overlapping) on

@@ -30,17 +30,17 @@ COMPILE_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
-    # build_idx, nb, probe_idx, np, bitmap, d_rows, count, stream
-    "fhj_fused_bitmap_join": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
     # kh, kl, nb, ph, pl, np, bitmap, d_rows, scratch, stream
     "fhj_fused_domain_bitmap_join": [_P, _P, _I64, _P, _P, _I64, _P, _I64,
                                      _P, _P],
-    # bitmap, d_rows, idx, n, count, stream
-    "fhj_bitmap_probe_count": [_P, _I, _P, _I64, _P, _P],
+    # kh, kl, nb, ph, pl, np, bitmap, d_rows, scratch, stream
+    "fhj_scan_domain_count": [_P, _P, _I64, _P, _P, _I64, _P, _I, _P, _P],
     # bitmap, d_rows, p0, p1, v_rows, idx, n, hit, o0, o1, stream
     "fhj_bitmap_probe_gather": [_P, _I, _P, _P, _I, _P, _I64, _P, _P, _P, _P],
-    # presence, p0, p1, v_rows, idx, n, hit, o0, o1, stream
-    "fhj_staged_gather": [_P, _P, _P, _I, _P, _I64, _P, _P, _P, _P],
+    # presence, presence_bits, p0, p1, v_rows, ph, pl, n, np_valid, lo,
+    # hit, o0, o1, stream
+    "fhj_staged_domain_gather": [_P, _I, _P, _P, _I, _P, _P, _I64, _I64, _P,
+                                 _P, _P, _P, _P],
     # src, dst, n, stream
     "fhj_materialize_copy": [_P, _P, _I64, _P],
     # keys, nb, p, dir, dir_bytes, shift, stream

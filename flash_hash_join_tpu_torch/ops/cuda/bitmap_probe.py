@@ -1,18 +1,29 @@
-"""K2 and K7: probes of a small bitmap (csrc/bitmap_probe.cu).
+"""K2 and K7: probes of a small bitmap (csrc/bitmap_probe.cu), and the
+int64 domain mapping of the dense paths' plain versions.
 
 K2 replaces flash_hash_join_tpu/ops/pallas/bitmap_probe.py:
-probe_count_bitmap, the scan band of the dense-domain count (d_rows <= 256,
-spans <= 2^20).  K7 replaces probe_gather_bitmap, the scan band of the
-dense-domain materialize (v_rows <= 128): the hit flag plus the dense value
-planes at each probe's slot.  The TPU kernels scan every bitmap (and value)
-row per tile; the CUDA kernels stage the bitmap (and the planes) in shared
-memory and read each probe's word directly.
+probe_count_bitmap together with the mapping and the bitmap pack that the
+JAX package's direct_join_count runs around it: `scan_domain_count`, the
+scan band of the dense-domain count (d_rows <= 256, spans <= 2^20), reads
+the u32 key planes of both sides, so the card runs no int64 pass over the
+rows.  The TPU kernel's index form keeps its plain version,
+`probe_count_bitmap_plain`, held against it in the CPU tests.  K7 replaces
+probe_gather_bitmap, the scan band of the dense-domain materialize
+(v_rows <= 128): the hit flag plus the dense value planes at each probe's
+slot.  The TPU kernels scan every bitmap (and value) row per tile; the CUDA
+kernels stage the bitmap (and the planes) in shared memory and read each
+probe's word directly.
 
 Bitmap: (d_rows, 128) int32 words, word w = idx >> 5 holds bit idx & 31.
 Value planes: (v_rows, 128) int32 words, slot s at word s.
 Indices: 1-D int32 tensor of u32 bit patterns, sentinel 0xFFFFFFFF (= -1);
 any index >= d_rows * 4096 counts nothing, any index >= v_rows * 128 reads
 value 0.
+
+The int64 mapping (masked_min, build_domain_idx, probe_domain_idx,
+pack_bitmap) maps key planes to those indices in plain torch: the plain
+versions of the domain entries here and in dense_bitmap.py and
+dense_values.py, and K7's band of ops/direct_bitmap.py.
 """
 
 from __future__ import annotations
@@ -20,18 +31,70 @@ from __future__ import annotations
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
-from flash_hash_join_tpu_torch.utils.u64 import widen
+from flash_hash_join_tpu_torch.utils.u64 import MASK32, narrow, widen
 
 LANES = 128
 BITS_PER_ROW = 32 * LANES          # 4096 domain slots per bitmap row
 MAX_D_ROWS = 256                   # 2^20-slot domain cap (128 KB of shared memory)
 MAX_SMEM_BYTES = 232_448           # dynamic shared memory of one block (H100)
+SENTINEL = 0xFFFFFFFF
 
 
 def check_idx(idx: torch.Tensor, name: str) -> None:
     if idx.dtype != torch.int32 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 1-D int32 tensor, got "
                          f"{idx.dtype} of shape {tuple(idx.shape)}")
+
+
+def check_key_planes(hi, lo, n_valid: int, side: str, dev) -> None:
+    """The (hi, lo) key planes of one side of a domain entry: contiguous 1-D
+    int32 of one length on `dev`, with n_valid rows inside them."""
+    check_idx(hi, f"{side} hi plane")
+    check_idx(lo, f"{side} lo plane")
+    if hi.shape != lo.shape:
+        raise ValueError(f"the two {side} planes must have one length")
+    if not 0 <= n_valid <= hi.numel():
+        raise ValueError(f"{side}: {n_valid} valid rows outside its "
+                         f"{hi.numel()}-row planes")
+    if hi.device != dev or lo.device != dev:
+        raise ValueError("the key planes must be on one device")
+
+
+def masked_min(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """min(values[mask]) as a 0-d tensor, SENTINEL when nothing is masked
+    in (jnp.min(..., initial=SENTINEL))."""
+    if values.numel() == 0:
+        return torch.tensor(SENTINEL, dtype=values.dtype, device=values.device)
+    return torch.where(mask, values, SENTINEL).amin()
+
+
+def build_domain_idx(kh, kl, bvalid, lo, d_bits: int):
+    """(bad-row count, build domain indices as int32 bit patterns)."""
+    diff = (widen(kl) - lo) & MASK32          # keys < lo wrap to huge
+    bad = bvalid & ((kh != 0) | (diff >= d_bits))
+    idx = torch.where(bvalid & ~bad, diff, SENTINEL)
+    return bad.sum(), narrow(idx)
+
+
+def probe_domain_idx(ph, pl, np_valid: int, lo, d_bits: int) -> torch.Tensor:
+    pvalid = torch.arange(ph.shape[0], device=ph.device) < np_valid
+    pdiff = (widen(pl) - lo) & MASK32
+    pok = pvalid & (ph == 0) & (pdiff < d_bits)
+    return narrow(torch.where(pok, pdiff, SENTINEL))
+
+
+def pack_bitmap(idx: torch.Tensor, d_rows: int) -> torch.Tensor:
+    """Plain build: bool scatter of the in-domain indices, then bit pack
+    into a (d_rows, 128) int32 word bitmap."""
+    n_bits = d_rows * BITS_PER_ROW
+    v = widen(idx)
+    # out-of-domain indices land on the extra slot n_bits, which is cut off
+    # (a masked select would sync the card to size its result)
+    bits = torch.zeros(n_bits + 1, dtype=torch.bool, device=idx.device)
+    bits[torch.where(v < n_bits, v, n_bits)] = True
+    shifts = torch.arange(32, device=idx.device)
+    words = (bits[:n_bits].view(-1, 32).to(torch.int64) << shifts).sum(1)
+    return narrow(words).view(d_rows, LANES)
 
 
 def check_plane(plane: torch.Tensor, rows: int, name: str,
@@ -67,38 +130,65 @@ def member(bitmap: torch.Tensor, idx: torch.Tensor, d_rows: int) -> torch.Tensor
 
 def probe_count_bitmap_plain(bitmap: torch.Tensor, idx: torch.Tensor,
                              d_rows: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the count as a 0-d int64."""
+    """Plain PyTorch version of the TPU kernel's index form: the count of
+    the indices whose bit is set, as a 0-d int64."""
     return member(bitmap, idx, d_rows).sum()
 
 
-def probe_count_bitmap(bitmap: torch.Tensor, idx: torch.Tensor,
-                       d_rows: int) -> torch.Tensor:
-    """Count the indices whose bit is set; a 0-d int64 tensor.
+def scan_domain_count_plain(kh, kl, ph, pl, nb_valid: int, np_valid: int,
+                            d_rows: int):
+    """Plain PyTorch version of K2's entry: the int64 mapping, the bitmap
+    pack, then the index form's plain version.  Returns (count, n_bad),
+    0-d int64."""
+    d_bits = d_rows * BITS_PER_ROW
+    bvalid = torch.arange(kh.shape[0], device=kh.device) < nb_valid
+    # the scan band's lo is the min over EVERY valid row, hi-word rows too
+    lo = masked_min(widen(kl), bvalid)
+    n_bad, bidx = build_domain_idx(kh, kl, bvalid, lo, d_bits)
+    bitmap = pack_bitmap(bidx, d_rows)
+    pidx = probe_domain_idx(ph, pl, np_valid, lo, d_bits)
+    return probe_count_bitmap_plain(bitmap, pidx, d_rows), n_bad
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel.
+
+def scan_domain_count(kh, kl, ph, pl, nb_valid: int, np_valid: int,
+                      d_rows: int):
+    """The scan band's dense-domain count straight from the key planes.
+
+    kh/kl, ph/pl: the u32 (hi, lo) planes of the build and probe keys as
+    1-D int32 tensors, rows [0, nb_valid) and [0, np_valid) valid.  lo is
+    the least low word of EVERY valid build row, high-word rows included
+    (0xFFFFFFFF when there is none); a valid build row outside the
+    d_rows * 4096 slots from lo (high word != 0, or (kl - lo) mod 2^32 past
+    the domain) is bad, every other one sets its bit; the count is the
+    number of valid probe rows in the domain whose bit is set.
+
+    Returns (count, n_bad), 0-d int64 tensors on the planes' device, with
+    no host sync.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel.
     """
     if not 8 <= d_rows <= MAX_D_ROWS:
         raise ValueError(f"d_rows must be in [8, {MAX_D_ROWS}], got {d_rows}")
-    check_idx(idx, "idx")
-    dev = idx.device
-    check_plane(bitmap, d_rows, "bitmap", dev)
+    dev = kh.device
+    check_key_planes(kh, kl, nb_valid, "build", dev)
+    check_key_planes(ph, pl, np_valid, "probe", dev)
     if dev.type == "cpu":
-        return probe_count_bitmap_plain(bitmap, idx, d_rows)
+        return scan_domain_count_plain(kh, kl, ph, pl, nb_valid, np_valid,
+                                       d_rows)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
-    if idx.numel() == 0:
-        return count[0]
+    bitmap = torch.empty((d_rows, LANES), dtype=torch.int32, device=dev)
+    scratch = torch.empty(3, dtype=torch.int64, device=dev)  # count, n_bad, lo
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_bitmap_probe_count(
-        bitmap.data_ptr(), d_rows, idx.data_ptr(), idx.numel(),
-        count.data_ptr(), stream)
-    probe_count_bitmap.launches += 1
-    _build.check(err, "probe_count_bitmap")
-    return count[0]
+    err = _build.lib().fhj_scan_domain_count(
+        kh.data_ptr(), kl.data_ptr(), nb_valid, ph.data_ptr(), pl.data_ptr(),
+        np_valid, bitmap.data_ptr(), d_rows, scratch.data_ptr(), stream)
+    if nb_valid > 0:
+        scan_domain_count.launches += 1
+    _build.check(err, "scan_domain_count")
+    return scratch[0], scratch[1]
 
 
-probe_count_bitmap.launches = 0
+scan_domain_count.launches = 0
 
 
 def probe_gather_bitmap_plain(bitmap: torch.Tensor, vplanes, idx: torch.Tensor,

@@ -2,22 +2,28 @@
 (csrc/dense_values.cu).
 
 K8 replaces flash_hash_join_tpu/ops/pallas/dense_values.py:
-probe_gather_staged: per probe domain index, the hit (the presence plane is
-nonzero at its slot) and the value planes there.  The TPU kernel takes
-block-sorted indices and a `sels`-row window per tile row, passes the
-indices through as keys and counts the probes its window misses as
-unresolved.  The CUDA kernel takes UNSORTED indices and reads the planes
-(<= 4 MB each, resident in L2) at each probe's slot: output in probe order,
-nothing unresolved, no keys pass-through.
+probe_gather_staged together with the probe-side domain mapping that the
+JAX package's direct_join_materialize runs in front of it:
+`probe_gather_staged` reads the u32 probe key planes and maps each row to
+its domain slot in registers, so the card runs no int64 pass over the
+probe rows.  Per row: the hit (the row is valid and in the domain and its
+slot is occupied) and the value planes there, in probe order, 0 on a miss.
+The TPU kernel takes block-sorted indices and a `sels`-row window per tile
+row, passes the indices through as keys and counts the probes its window
+misses as unresolved; the CUDA kernel reads the planes (<= 4 MB each,
+resident in L2) at each row's slot: nothing unresolved, no keys
+pass-through.  The TPU kernel's index form keeps its plain version,
+`probe_gather_staged_plain`, held against it in the CPU tests.
 
 K9 replaces dense_values.py:materialize_copy, the identity copy the JAX
 package puts in front of the staged band's consumers as an XLA:TPU fusion
-barrier.  PyTorch fuses nothing, so the copy changes no result; the staged
-band keeps it where the JAX package has it (ops/direct_bitmap.py).
+barrier.  K8 reads the key planes, so the port has no index array to copy:
+K9 is on no path, and stays as the TPU kernel's only counterpart.
 
-Planes: (v_rows, 128) int32 words, slot s at word s (plane 0 of K8 is the
-0/1 presence).  Indices: 1-D int32 tensors of u32 bit patterns, sentinel
-0xFFFFFFFF (= -1); any index >= v_rows * 128 misses.
+Planes: (v_rows, 128) int32 words, slot s at word s; presence is the 0/1
+plane, or the bitmap of the occupied slots, (v_rows // 32, 128) words,
+word w holding slots 32w..32w+31.  Indices: 1-D int32 tensors of u32 bit
+patterns, sentinel 0xFFFFFFFF (= -1); any index >= v_rows * 128 misses.
 """
 
 from __future__ import annotations
@@ -26,14 +32,18 @@ import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda.bitmap_probe import (
-    LANES, check_idx, check_plane, gather_slots)
+    LANES, check_idx, check_key_planes, check_plane, gather_slots, member,
+    probe_domain_idx)
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 MAX_V_ROWS = 8192                  # 2^20 slots, 4 MB per plane
 
 
 def probe_gather_staged_plain(planes, idx: torch.Tensor, v_rows: int):
-    """Plain PyTorch version of K8: (hit bool, *values int32)."""
+    """Plain PyTorch version of the TPU kernel's index form: per index, the
+    hit (the presence plane, plane 0, is nonzero there) and each value
+    plane (planes 1..) where it hits, 0 on a miss.  (hit bool,
+    *values int32)."""
     presence, *vplanes = planes
     inside = widen(idx) < v_rows * LANES
     (present,) = gather_slots((presence,), idx, inside)
@@ -41,40 +51,70 @@ def probe_gather_staged_plain(planes, idx: torch.Tensor, v_rows: int):
     return (hit, *gather_slots(vplanes, idx, hit))
 
 
-def probe_gather_staged(planes, idx: torch.Tensor, v_rows: int):
-    """Per index: (hit, *values) — a bool mask of the indices whose
-    presence word (plane 0) is nonzero, and each of the 1 or 2 value planes
-    (planes 1..) at the index where it hits (0 on a miss), as int32 tensors
-    shaped like idx.
+def _is_bitmap(presence: torch.Tensor, v_rows: int) -> bool:
+    return presence.shape[0] != v_rows
+
+
+def probe_gather_staged_domain_plain(presence, vplanes, ph, pl,
+                                     np_valid: int, lo, v_rows: int):
+    """Plain PyTorch version of K8's entry: the int64 probe mapping, then
+    the index form's plain version.  (hit bool, *values int32)."""
+    idx = probe_domain_idx(ph, pl, np_valid, lo, v_rows * LANES)
+    if _is_bitmap(presence, v_rows):
+        hit = member(presence, idx, presence.shape[0])
+        return (hit, *gather_slots(vplanes, idx, hit))
+    return probe_gather_staged_plain((presence, *vplanes), idx, v_rows)
+
+
+def probe_gather_staged(presence, vplanes, ph, pl, np_valid: int, lo,
+                        v_rows: int):
+    """Per probe row, straight from the key planes: (hit, *values).
+
+    presence: the 0/1 presence plane, (v_rows, 128), or the bitmap of the
+    occupied slots, (v_rows // 32, 128); vplanes: 1 or 2 value planes,
+    (v_rows, 128), all contiguous int32.  ph/pl: the probe key planes,
+    rows [0, np_valid) valid.  lo: the domain base, a one-element int64
+    tensor on the planes' device (no host sync).  Row i hits when
+    i < np_valid, its high word is 0, s = (pl[i] - lo) mod 2^32 is below
+    v_rows * 128 and slot s is occupied; hit is a bool mask shaped like ph,
+    and each value output the plane's word at s where it hits, 0 elsewhere.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
-    planes = tuple(planes)
-    check_idx(idx, "idx")
-    dev = idx.device
-    if not 2 <= len(planes) <= 3:
-        raise ValueError(f"presence plus 1 or 2 value planes, got "
-                         f"{len(planes)} planes")
-    if not 1 <= v_rows <= MAX_V_ROWS:
-        raise ValueError(f"v_rows must be in [1, {MAX_V_ROWS}], got {v_rows}")
-    for i, p in enumerate(planes):
-        check_plane(p, v_rows, f"planes[{i}]", dev)
+    vplanes = tuple(vplanes)
+    if not 1 <= len(vplanes) <= 2:
+        raise ValueError(f"1 or 2 value planes, got {len(vplanes)}")
+    if not 256 <= v_rows <= MAX_V_ROWS or v_rows % 32:
+        raise ValueError(f"v_rows must be a multiple of 32 in [256, "
+                         f"{MAX_V_ROWS}], got {v_rows}")
+    dev = ph.device
+    check_key_planes(ph, pl, np_valid, "probe", dev)
+    bits = _is_bitmap(presence, v_rows)
+    check_plane(presence, v_rows // 32 if bits else v_rows, "presence", dev)
+    for i, p in enumerate(vplanes):
+        check_plane(p, v_rows, f"vplanes[{i}]", dev)
+    if lo.dtype != torch.int64 or lo.numel() != 1 or lo.device != dev:
+        raise ValueError("lo must be a one-element int64 tensor on the "
+                         "planes' device")
     if dev.type == "cpu":
-        return probe_gather_staged_plain(planes, idx, v_rows)
+        return probe_gather_staged_domain_plain(presence, vplanes, ph, pl,
+                                                np_valid, lo, v_rows)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    n = idx.numel()
+    n = ph.numel()
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
-                 for _ in planes[1:])
+                 for _ in vplanes)
     if n == 0:
         return (hit, *outs)
-    ptrs = [p.data_ptr() for p in planes] + [None]
+    lo = lo.contiguous()
     out_ptrs = [o.data_ptr() for o in outs] + [None]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_staged_gather(
-        ptrs[0], ptrs[1], ptrs[2], v_rows, idx.data_ptr(), n, hit.data_ptr(),
-        out_ptrs[0], out_ptrs[1], stream)
+    err = _build.lib().fhj_staged_domain_gather(
+        presence.data_ptr(), int(bits), vplanes[0].data_ptr(),
+        vplanes[1].data_ptr() if len(vplanes) > 1 else None, v_rows,
+        ph.data_ptr(), pl.data_ptr(), n, np_valid, lo.data_ptr(),
+        hit.data_ptr(), out_ptrs[0], out_ptrs[1], stream)
     probe_gather_staged.launches += 1
     _build.check(err, "probe_gather_staged")
     return (hit, *outs)

@@ -12,28 +12,29 @@ Split of work:
     2^32; count: span <= MAX_XL_DOMAIN_BITS, materialize: at most
     MAX_BUILD_ROWS build rows and v_rows_for(span) <= MAT_MAX_V_ROWS) and
     picks the d_rows (count) or v_rows (materialize) rung.
-  this module (torch, on the device): lo, the lo-relative u32 domain
-    indices of both sides (plain int64 torch, ops/cuda/dense_bitmap.py's
-    build_domain_idx / probe_domain_idx), and the kernels.  Count:
-      scan band  (d_rows <= 256): bitmap packed in plain torch, as the JAX
-                 package packs it outside any kernel; K2 probe
-                 (ops/cuda/bitmap_probe.py).
+  this module (torch, on the device).  Count, both bands straight from the
+    UNSORTED key planes, so no int64 pass runs on the card:
+      scan band  (d_rows <= 256): K2 (ops/cuda/bitmap_probe.py
+                 scan_domain_count): lo over every valid build row, the
+                 mapping, the bitmap build and the probe inside the kernel.
       large band (d_rows > 256): K1 (ops/cuda/dense_bitmap.py
-                 fused_domain_bitmap_join): lo, the mapping, build and probe
-                 inside the kernel, straight from the UNSORTED key planes,
-                 so no int64 pass runs on the card.  The JAX band's
-                 blockwise sort, `rs` windows and the density gates that
-                 size them (sort_block_for, large_span_ok) exist only for
-                 the TPU kernel's row window and are not ported.
-    Materialize (value planes at slot granularity, built in plain torch
-    as the JAX package builds them outside any kernel):
-      scan band   (v_rows <= 128): K7 (ops/cuda/bitmap_probe.py) on
-                  unsorted probes.
-      staged band (v_rows <= 8192): K9 copy of the probe indices, then K8
-                  (ops/cuda/dense_values.py) on them, unsorted.  The JAX
-                  band's one-column probe sort, `sels` window and `rs`
-                  starts, keys pass-through and density gate (mat_span_ok)
-                  exist only for the TPU kernel's window and are not ported.
+                 fused_domain_bitmap_join): lo over the zero-hi-word rows,
+                 the same steps.  The JAX band's blockwise sort, `rs`
+                 windows and the density gates that size them
+                 (sort_block_for, large_span_ok) exist only for the TPU
+                 kernel's row window and are not ported.
+    Materialize: lo, the build rows' domain indices and the value planes
+    at slot granularity in plain torch over the build side (<= 2^20 rows),
+    as the JAX package builds them outside any kernel; then
+      scan band   (v_rows <= 128): the probe rows' domain indices in plain
+                  int64 torch (ops/cuda/bitmap_probe.py probe_domain_idx),
+                  then K7 (ops/cuda/bitmap_probe.py) on them.
+      staged band (v_rows <= 8192): K8 (ops/cuda/dense_values.py) straight
+                  from the probe key planes, the mapping inside the kernel.
+                  The JAX band's one-column probe sort, `sels` window and
+                  `rs` starts, keys pass-through, density gate
+                  (mat_span_ok) and fusion-barrier copy (K9) exist only for
+                  the TPU kernel and XLA:TPU and are not ported.
     Both bands end in K5 (ops/compact.py) and emit probe order; the JAX
     staged band emits ascending domain order (same row multiset).
 
@@ -113,19 +114,13 @@ def direct_join_count(kh, kl, ph, pl, nb_valid: int, np_valid: int, *,
 
     kh/kl, ph/pl: int32 u32-pattern key planes (utils/u64.py).
     special[3] = build rows outside the declared domain (caller must fall
-    back when nonzero).  Scan band up to bp.MAX_D_ROWS rows, K1 above.
+    back when nonzero).  Scan band (K2) up to bp.MAX_D_ROWS rows, K1 above.
     """
     if d_rows > bp.MAX_D_ROWS:
         return direct_join_count_large(kh, kl, ph, pl, nb_valid, np_valid,
                                        d_rows=d_rows)
-    d_bits = d_rows * bp.BITS_PER_ROW
-    bvalid = torch.arange(kh.shape[0], device=kh.device) < nb_valid
-    # the scan band's lo is the min over EVERY valid row, hi-word rows too
-    lo = dbm.masked_min(widen(kl), bvalid)
-    n_bad, bidx = dbm.build_domain_idx(kh, kl, bvalid, lo, d_bits)
-    bitmap = dbm.pack_bitmap(bidx, d_rows)
-    pidx = dbm.probe_domain_idx(ph, pl, np_valid, lo, d_bits)
-    count = bp.probe_count_bitmap(bitmap, pidx, d_rows)
+    count, n_bad = bp.scan_domain_count(kh, kl, ph, pl, nb_valid, np_valid,
+                                        d_rows)
     return count, _special(n_bad)
 
 
@@ -153,8 +148,8 @@ def _dense_value_planes(kh, kl, vh, vl, nb_valid: int, *, v_rows: int,
     v_slots = v_rows * LANES
     bvalid = torch.arange(n, device=kh.device) < nb_valid
     # lo is the min over valid rows with a zero hi-word (both bands)
-    lo = dbm.masked_min(widen(kl), bvalid & (kh == 0))
-    n_bad, bidx = dbm.build_domain_idx(kh, kl, bvalid, lo, v_slots)
+    lo = bp.masked_min(widen(kl), bvalid & (kh == 0))
+    n_bad, bidx = bp.build_domain_idx(kh, kl, bvalid, lo, v_slots)
     # rows outside the domain land on the extra slot v_slots, which is cut
     # off (torch's scatter has no mode="drop")
     slot = widen(bidx).clamp_(max=v_slots)
@@ -177,7 +172,7 @@ def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     side's length (out_vh is zeros when narrow_values).
 
     v_rows: the value-plane rung (v_rows_for(span)); scan band (K7) up to
-    MAT_SCAN_MAX_V_ROWS, staged band (K9 + K8) up to MAT_MAX_V_ROWS.
+    MAT_SCAN_MAX_V_ROWS, staged band (K8) up to MAT_MAX_V_ROWS.
     narrow_values: every value is below 2^32, so the hi plane is dropped.
     special[3] = build rows outside the domain (caller must fall back when
     nonzero).
@@ -185,20 +180,18 @@ def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     if not 8 <= v_rows <= MAT_MAX_V_ROWS:
         raise ValueError(f"v_rows must be in [8, {MAT_MAX_V_ROWS}], got "
                          f"{v_rows}")
-    v_slots = v_rows * LANES
-    lo, n_bad, bidx, occ, planes = _dense_value_planes(
+    lo, n_bad, bidx, _, planes = _dense_value_planes(
         kh, kl, vh, vl, nb_valid, v_rows=v_rows, narrow_values=narrow_values)
-    pidx = dbm.probe_domain_idx(ph, pl, np_valid, lo, v_slots)
+    # the occupied slots as a bitmap: K7's rows, or K8's v_rows // 32
+    d_rows = max(8, v_rows // 32)
+    bitmap = bp.pack_bitmap(bidx, d_rows)
     if v_rows <= MAT_SCAN_MAX_V_ROWS:
-        d_rows = max(8, v_rows // 32)
-        bitmap = dbm.pack_bitmap(bidx, d_rows)
+        pidx = bp.probe_domain_idx(ph, pl, np_valid, lo, v_rows * LANES)
         hit, *vals = bp.probe_gather_bitmap(bitmap, planes, pidx, d_rows,
                                             v_rows)
     else:
-        # the JAX package's fusion-barrier copy, kept on the path (K9)
-        pidx = dv.materialize_copy(pidx)
-        presence = occ.to(torch.int32).view(v_rows, LANES)
-        hit, *vals = dv.probe_gather_staged((presence, *planes), pidx, v_rows)
+        hit, *vals = dv.probe_gather_staged(bitmap, planes, ph, pl, np_valid,
+                                            lo, v_rows)
     if narrow_values:
         count, (okh, okl, ovl) = compact_by_mask(hit, (ph, pl, *vals))
         ovh = torch.zeros_like(ovl)

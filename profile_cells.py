@@ -24,14 +24,26 @@ import sys
 import time
 
 CELLS = {  # name -> (chip_smoke cell, API function, keywords, FHJ_COMPACT)
-    # the direct count (K2 on Q1/Q2, K1 on Q5: bench.py's main path) and
-    # the dense materialize's staged band (K9 + K8)
+    # the direct count (K2 on Q1/Q2, K1 on Q5: bench.py's main path), the
+    # dense materialize's staged band (K8; 4e7-Q2-wide: u64 values) and
+    # its scan band (K7)
     "direct-count-4e7-Q1": ("4e7-Q1", "adaptive_join_count", {}, None),
     "direct-count-4e7-Q2": ("4e7-Q2", "adaptive_join_count", {}, None),
     "direct-count-4e7-Q5": ("4e7-Q5", "adaptive_join_count", {}, None),
     "direct-count-bench-4e7": ("bench-4e7", "adaptive_join_count", {}, None),
     "direct-count-1e8-Q5": ("1e8-Q5", "adaptive_join_count", {}, None),
     "dense-mat-1e8-Q2": ("1e8-Q2", "adaptive_join", {}, None),
+    "dense-mat-4e7-Q2": ("4e7-Q2", "adaptive_join", {}, None),
+    "dense-mat-4e7-Q2-wide": ("4e7-Q2-wide", "adaptive_join", {}, None),
+    "dense-mat-1e7-Q2": ("1e7-Q2", "adaptive_join", {}, None),
+    "dense-mat-4e7-Q1": ("4e7-Q1", "adaptive_join", {}, None),
+    "dense-mat-1e8-Q1": ("1e8-Q1", "adaptive_join", {}, None),
+    "partitioned-count-4e7-Q1": ("4e7-Q1", "join_count",
+                                 {"strategy": "partitioned"}, None),
+    "partitioned-count-4e7-Q2": ("4e7-Q2", "join_count",
+                                 {"strategy": "partitioned"}, None),
+    "partitioned-materialize-1e8-Q2": ("1e8-Q2", "join_materialize",
+                                       {"strategy": "partitioned"}, None),
     "vmem-count-1e8-Q1": ("1e8-Q1", "join_count", {"strategy": "vmem"}, None),
     "vmem-materialize-1e8-Q1": ("1e8-Q1", "join_materialize",
                                 {"strategy": "vmem"}, None),

@@ -81,7 +81,7 @@ def test_dense_span_above_2_20_runs_the_large_band():
     assert not info["retried"]
     # CPU tensors take the plain versions: no kernel launches here
     assert set(info["launches"]) == {
-        "dense_bitmap", "bitmap_probe", "range_probe_count",
+        "dense_bitmap", "scan_domain_count", "range_probe_count",
         "range_probe_materialize", "range_directory", "compact",
         "probe_gather_bitmap",
         "probe_gather_staged", "materialize_copy", "probe_count_vmem",

@@ -52,33 +52,46 @@ def _idx(rng, n, n_bits, dev):
     return to_device(idx, dev)
 
 
-@pytest.mark.parametrize("d_rows", [8, 16, 128, 256])
-def test_probe_count_bitmap_matches_plain(dev, d_rows):
-    rng = np.random.default_rng(d_rows)
-    bitmap = to_device(rng.integers(0, 2**32, (d_rows, 128), dtype=np.uint32),
-                       dev)
-    for n in (1, 3, 1_000_003):
-        idx = _idx(rng, n, d_rows * 4096, dev)
-        for view in (idx, idx[1:]):                     # ragged, misaligned
-            before = bp.probe_count_bitmap.launches
-            got = bp.probe_count_bitmap(bitmap, view, d_rows)
-            want = bp.probe_count_bitmap_plain(bitmap, view, d_rows)
-            torch.cuda.synchronize()
-            assert int(got) == int(want), (d_rows, view.numel())
-            assert bp.probe_count_bitmap.launches == before + (view.numel() > 0)
+def _domain_sides(rng, nb, npr, lo, n_bits):
+    """Build and probe keys of a domain entry's card test: the edge keys of
+    dense_domain_keys, a third of the probes drawn from the build side;
+    nb < 0: |nb| rows, every one of them bad (a high word)."""
+    bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
+    if nb < 0:
+        bk |= np.uint64(2**40)
+    pk = dense_domain_keys(rng, npr, lo, n_bits)
+    if bk.size and npr:
+        pk[::3] = rng.choice(bk, pk[::3].size)
+    return bk, pk
 
 
-@pytest.mark.parametrize("d_rows", [512, 16384, 28672])
-def test_fused_bitmap_join_matches_plain(dev, d_rows):
-    rng = np.random.default_rng(d_rows)
+# aligned; misaligned alike; each plane its own way (odd lengths)
+PLANE_OFFSETS = ((0, 0), (1, 1), (1, 3), (2, 0))
+
+
+@pytest.mark.parametrize("d_rows", [8, 16, 32, 64, 128, 256])
+def test_scan_domain_count_matches_plain(dev, d_rows):
+    rng = np.random.default_rng(d_rows + 2)
     n_bits = d_rows * 4096
-    for nb, npr in ((2_000_001, 3_000_005), (0, 1_000), (1_000, 0), (5, 7)):
-        bidx = _idx(rng, nb, n_bits, dev)
-        pidx = _idx(rng, npr, n_bits, dev)
-        got = dbm.fused_bitmap_join(bidx, pidx, d_rows)[0]
-        want = dbm.fused_bitmap_join_plain(bidx, pidx, d_rows)
-        torch.cuda.synchronize()
-        assert int(got) == int(want), (d_rows, nb, npr)
+    lo = int(rng.integers(1, 2**31))
+    for nb, npr in ((200_001, 3_000_005), (0, 1_000), (1_000, 0), (5, 7),
+                    (-1_001, 2_003)):
+        bk, pk = _domain_sides(rng, nb, npr, lo, n_bits)
+        for offs in PLANE_OFFSETS:
+            kh, kl = offset_plane_views(bk, dev, *offs)
+            ph, pl = offset_plane_views(pk, dev, *offs[::-1])
+            for nbv, npv in {(bk.size, npr),
+                             (max(bk.size - 5, 0), max(npr - 3, 0))}:
+                args = (kh, kl, ph, pl, nbv, npv, d_rows)
+                before = bp.scan_domain_count.launches
+                got = bp.scan_domain_count(*args)
+                want = bp.scan_domain_count_plain(*args)
+                torch.cuda.synchronize()
+                assert [int(x) for x in got] == [int(x) for x in want], (
+                    d_rows, nb, npr, offs, nbv, npv)
+                assert bp.scan_domain_count.launches == before + (nbv > 0)
+                assert all(x.dim() == 0 and x.dtype == torch.int64
+                           and x.device.type == "cuda" for x in got)
 
 
 @pytest.mark.parametrize("d_rows", [512, 16384, 28672])
@@ -88,14 +101,8 @@ def test_fused_domain_bitmap_join_matches_plain(dev, d_rows):
     lo = int(rng.integers(1, 2**31))
     for nb, npr in ((2_000_001, 3_000_005), (0, 1_000), (1_000, 0), (5, 7),
                     (-1_001, 2_003)):
-        bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
-        if nb < 0:                                     # every build row bad
-            bk |= np.uint64(2**40)
-        pk = dense_domain_keys(rng, npr, lo, n_bits)
-        if bk.size and npr:
-            pk[::3] = rng.choice(bk, pk[::3].size)
-        # aligned; misaligned alike; each plane its own way (odd lengths)
-        for offs in ((0, 0), (1, 1), (1, 3), (2, 0)):
+        bk, pk = _domain_sides(rng, nb, npr, lo, n_bits)
+        for offs in PLANE_OFFSETS:
             kh, kl = offset_plane_views(bk, dev, *offs)
             ph, pl = offset_plane_views(pk, dev, *offs[::-1])
             for nbv, npv in {(bk.size, npr),
@@ -114,15 +121,20 @@ def test_fused_domain_bitmap_join_matches_plain(dev, d_rows):
 
 
 def test_wrappers_refuse_bad_inputs(dev):
-    idx = torch.zeros(16, dtype=torch.int64, device=dev)
-    with pytest.raises(ValueError):
-        dbm.fused_bitmap_join(idx, idx, 512)
-    bitmap = torch.zeros((8, 128), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError):
-        bp.probe_count_bitmap(bitmap, idx.to(torch.int32).cpu(), 8)
+    kh, kl = device_planes(np.arange(16, dtype=np.uint64), dev)
+    with pytest.raises(ValueError):                    # int64 planes
+        dbm.fused_domain_bitmap_join(kh.long(), kl.long(), kh, kl, 16, 16,
+                                     512)
+    with pytest.raises(ValueError):                    # a side on the CPU
+        bp.scan_domain_count(kh, kl, kh.cpu(), kl.cpu(), 16, 16, 8)
+    presence = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    plane = torch.zeros((256, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                    # lo on the CPU
+        dv.probe_gather_staged(presence, [plane], kh, kl, 16,
+                               torch.tensor(0, dtype=torch.int64), 256)
 
 
-@pytest.mark.parametrize("span,expect", [(44_000, "bitmap_probe"),
+@pytest.mark.parametrize("span,expect", [(44_000, "scan_domain_count"),
                                          (3_000_000, "dense_bitmap")])
 def test_adaptive_join_count_on_card(dev, span, expect):
     rng = np.random.default_rng(span)
@@ -327,19 +339,38 @@ def test_probe_gather_bitmap_matches_plain(dev, v_rows, n_planes):
                 view.numel() > 0)
 
 
-@pytest.mark.parametrize("v_rows", [256, 1024, 8192])
+def _bitmap_of(occ: np.ndarray, rows: int, dev) -> torch.Tensor:
+    """The (rows, 128)-word bitmap of a bool mask over the slots."""
+    words = np.packbits(occ.reshape(-1, 32), axis=1, bitorder="little")
+    return to_device(words.view(np.uint32).reshape(rows, 128), dev)
+
+
+@pytest.mark.parametrize("v_rows", [256, 512, 1024, 2048, 4096, 8192])
 @pytest.mark.parametrize("n_planes", [1, 2])
 def test_probe_gather_staged_matches_plain(dev, v_rows, n_planes):
+    # K8's domain entry: probe key planes with the edge keys of the count
+    # tests, views aligned and misaligned each plane its own way, validity
+    # tails, and lo inside u32, 0, at the top of u32 and SENTINEL
     rng = np.random.default_rng(v_rows + n_planes)
-    presence = to_device(rng.integers(0, 2, (v_rows, 128), dtype=np.uint32),
-                         dev)
-    planes = (presence, *_planes(rng, v_rows, n_planes, dev))
-    for n in (0, 7, 1_000_003):
-        idx = _idx(rng, n + 1, v_rows * 128 + 1_000, dev)
-        for view in (idx[:n], idx[1:]):
-            got = dv.probe_gather_staged(planes, view, v_rows)
-            want = dv.probe_gather_staged_plain(planes, view, v_rows)
-            _assert_same(got, want)
+    v_slots = v_rows * 128
+    occ = rng.random(v_slots) < 0.6
+    occ[[0, -1]] = True
+    presence = _bitmap_of(occ, v_rows // 32, dev)
+    vplanes = _planes(rng, v_rows, n_planes, dev)
+    for lo in (123_456_789, 0, 2**32 - 1 - v_slots // 2, SENTINEL):
+        lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
+        for npr in (0, 7, 1_000_003):
+            pk = dense_domain_keys(rng, npr, max(lo, 1), v_slots)
+            for offs in PLANE_OFFSETS:
+                ph, pl = offset_plane_views(pk, dev, *offs)
+                for npv in {npr, max(npr - 5, 0)}:
+                    args = (presence, vplanes, ph, pl, npv, lo_t, v_rows)
+                    before = dv.probe_gather_staged.launches
+                    got = dv.probe_gather_staged(*args)
+                    want = dv.probe_gather_staged_domain_plain(*args)
+                    _assert_same(got, want)
+                    assert dv.probe_gather_staged.launches == before + (
+                        npr > 0)
 
 
 @pytest.mark.parametrize("n", [0, 1, 3, 4, 7, 1_000_003])
@@ -367,8 +398,8 @@ def _check_copy(dev, n):
 @pytest.mark.parametrize("span,wide,kernels", [
     (44, False, ("probe_gather_bitmap",)),             # J1 Q1 shape, v_rows 8
     (11_000, True, ("probe_gather_bitmap",)),          # v_rows 128, 2 planes
-    (110_000, False, ("materialize_copy", "probe_gather_staged")),
-    (1_000_000, True, ("materialize_copy", "probe_gather_staged"))])
+    (110_000, False, ("probe_gather_staged",)),
+    (1_000_000, True, ("probe_gather_staged",))])
 def test_direct_materialize_on_card_matches_oracle(dev, span, wide, kernels):
     rng = np.random.default_rng(span)
     nb = min(span, 100_000)
@@ -384,6 +415,7 @@ def test_direct_materialize_on_card_matches_oracle(dev, span, wide, kernels):
     assert info["strategy"] == "direct" and not info["retried"]
     for k in kernels + ("compact",):
         assert info["launches"][k] == 1, info
+    assert info["launches"]["materialize_copy"] == 0, info   # on no path
     assert count == int(hit.sum()) and secs > 0.0
     np.testing.assert_array_equal(keys, pk[hit])       # probe order
     np.testing.assert_array_equal(vals, bv[first[pos[hit]]])

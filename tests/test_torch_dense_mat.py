@@ -28,6 +28,7 @@ from flash_hash_join_tpu.ops import direct_bitmap as jdb
 from flash_hash_join_tpu.ops.pallas import bitmap_probe as jbp
 from flash_hash_join_tpu.ops.pallas import dense_values as jdv
 from flash_hash_join_tpu.utils import u64 as ju64
+from flash_hash_join_tpu_torch.models import workload
 from flash_hash_join_tpu_torch.ops import direct_bitmap as tdb
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as tbp
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as tdv
@@ -105,7 +106,7 @@ def test_k7_wrapper_checks_its_inputs():
     assert hit.numel() == val.numel() == 0
 
 
-# --- K8: probe_gather_staged -----------------------------------------------------
+# --- K8: the index form's plain version, and the domain entry -------------------
 
 def test_k8_plain_matches_pallas_on_sorted_stream():
     # the JAX kernel takes block-sorted indices and `rs` windows; the port's
@@ -129,31 +130,118 @@ def test_k8_plain_matches_pallas_on_sorted_stream():
     assert int(unres) == 0
     sorted_idx = np.array(s).reshape(-1)
     np.testing.assert_array_equal(np.asarray(keys).reshape(-1), sorted_idx)
-    hit, got_vh, got_vl = tdv.probe_gather_staged(
+    hit, got_vh, got_vl = tdv.probe_gather_staged_plain(
         [_t(p) for p in planes], _t(sorted_idx), v_rows)
     np.testing.assert_array_equal(hit.numpy(), np.asarray(mask).reshape(-1) != 0)
     np.testing.assert_array_equal(_u32(got_vh), np.asarray(vh).reshape(-1))
     np.testing.assert_array_equal(_u32(got_vl), np.asarray(vl).reshape(-1))
     # unsorted: the same rows, in the input's order
-    hit_u, _, vl_u = tdv.probe_gather_staged([_t(p) for p in planes], _t(idx),
-                                             v_rows)
+    hit_u, _, vl_u = tdv.probe_gather_staged_plain(
+        [_t(p) for p in planes], _t(idx), v_rows)
     order = np.argsort(idx, kind="stable")
     np.testing.assert_array_equal(hit_u.numpy()[order],
                                   hit.numpy()[:n])
     np.testing.assert_array_equal(_u32(vl_u)[order], _u32(got_vl)[:n])
 
 
+def _lo(value: int) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.int64)
+
+
 def test_k8_wrapper_checks_its_inputs():
-    plane = _t(np.zeros((256, 128), np.uint32))
-    idx = _t(np.arange(10, dtype=np.uint32))
+    v_rows = 256
+    occ = np.zeros(v_rows * 128, bool)
+    presence = _presence(occ, v_rows)
+    plane = _t(np.zeros((v_rows, 128), np.uint32))
+    ph, pl = tu64.device_planes(np.arange(10, dtype=np.uint64), "cpu")
+    args = (ph, pl, 10, _lo(0))
     with pytest.raises(ValueError):                       # no value plane
-        tdv.probe_gather_staged([plane], idx, 256)
-    with pytest.raises(ValueError):
-        tdv.probe_gather_staged([plane, plane], idx, 16384)
-    with pytest.raises(ValueError):
-        tdv.probe_gather_staged([plane, plane[:128]], idx, 256)
-    hit, val = tdv.probe_gather_staged([plane, plane], idx, 256)
-    assert not hit.any() and not val.any()
+        tdv.probe_gather_staged(presence, [], *args, v_rows)
+    with pytest.raises(ValueError):                       # past the band
+        tdv.probe_gather_staged(presence, [plane], *args, 16384)
+    with pytest.raises(ValueError):                       # the scan band's
+        tdv.probe_gather_staged(presence, [plane], *args, 128)
+    with pytest.raises(ValueError):                       # plane of 128 rows
+        tdv.probe_gather_staged(presence, [plane[:128]], *args, v_rows)
+    with pytest.raises(ValueError):                       # presence rows
+        tdv.probe_gather_staged(presence[:4], [plane], *args, v_rows)
+    with pytest.raises(ValueError):                       # int32 lo
+        tdv.probe_gather_staged(presence, [plane], ph, pl, 10,
+                                _lo(0).int(), v_rows)
+    with pytest.raises(ValueError):                       # np_valid past rows
+        tdv.probe_gather_staged(presence, [plane], ph, pl, 11, _lo(0), v_rows)
+    hit, val = tdv.probe_gather_staged(presence, [plane], *args, v_rows)
+    assert hit.dtype == torch.bool and not hit.any() and not val.any()
+    hit, val = tdv.probe_gather_staged(presence, [plane], ph[:0], pl[:0], 0,
+                                       _lo(0), v_rows)
+    assert hit.numel() == val.numel() == 0
+
+
+def _presence(occ: np.ndarray, v_rows: int) -> torch.Tensor:
+    """The presence input of K8's entry for the occupied slots `occ`: the
+    bitmap of (v_rows // 32, 128) words, slot s at bit s & 31 of word
+    s >> 5."""
+    words = np.packbits(occ.reshape(-1, 32), axis=1, bitorder="little")
+    return _t(words.view(np.uint32).reshape(v_rows // 32, 128))
+
+
+def _staged_spec(occ, vplanes, pk, npv, lo):
+    """K8's entry from its definition, in numpy, per probe row: (hit,
+    *values) in probe order."""
+    v_slots = occ.size
+    pdiff = (pk - np.uint64(lo)) & np.uint64(SENTINEL)
+    ok = (np.arange(pk.size) < npv) & (pk < 2**32) & (pdiff < v_slots)
+    slot = np.where(ok, pdiff, 0).astype(np.int64)
+    hit = ok & occ[slot]
+    return (hit, *(np.where(hit, p.reshape(-1)[slot], 0) for p in vplanes))
+
+
+def _check_staged_entry(rng, v_rows, ph, pl, pk, npv, lo, n_planes,
+                        density=0.6):
+    occ = rng.random(v_rows * 128) < density
+    occ[[0, -1]] = True                    # the first and the last slot
+    vplanes = [rng.integers(0, 2**32, (v_rows, 128), dtype=np.uint32)
+               for _ in range(n_planes)]
+    got = tdv.probe_gather_staged(_presence(occ, v_rows),
+                                  [_t(p) for p in vplanes], ph, pl, npv,
+                                  _lo(lo), v_rows)
+    want = _staged_spec(occ, vplanes, pk, npv, lo)
+    assert got[0].dtype == torch.bool and len(got) == 1 + n_planes
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_array_equal(_u32(g), w)
+    return want[0]
+
+
+@pytest.mark.parametrize("v_rows", [256, 512, 1024, 2048, 4096, 8192])
+def test_k8_domain_at_every_rung_matches_numpy_spec(v_rows):
+    # a lo inside u32, lo 0, a domain at the top of u32 (2^32 - 1 at its
+    # first slot, small keys wrapping into the slots past it) and lo =
+    # SENTINEL (no zero-hi build row: 2^32 - 1 lands on slot 0)
+    rng = np.random.default_rng(v_rows)
+    v_slots = v_rows * 128
+    for lo in (123_456_789, 0, 2**32 - 1 - v_slots // 2, SENTINEL):
+        pk = workload.dense_domain_keys(rng, 6_001, max(lo, 1), v_slots)
+        pk[7:9] = [lo + v_slots - 1, lo + v_slots]         # last slot, past
+        pk[9:11] = [2**32 - 1, 2**64 - 1]
+        ph, pl = tu64.device_planes(pk, "cpu")
+        for npv in (pk.size, pk.size - 5):
+            hit = _check_staged_entry(rng, v_rows, ph, pl, pk, npv, lo,
+                                      1 + (lo % 2))
+            assert hit.any() and not hit[npv:].any()
+
+
+@pytest.mark.parametrize("offs", [(0, 0), (1, 1), (1, 3), (2, 0)])
+def test_k8_domain_on_edge_key_views_matches_numpy_spec(offs):
+    # probe planes that start 0-3 words into longer planes, each its own way
+    rng = np.random.default_rng(sum(offs) + 80)
+    v_rows, lo = 1024, 987_654_321
+    pk = workload.dense_domain_keys(rng, 5_003, lo, v_rows * 128)
+    ph, pl = workload.offset_plane_views(pk, "cpu", *offs)
+    assert (ph.storage_offset(), pl.storage_offset()) == offs
+    for n_planes in (1, 2):
+        _check_staged_entry(rng, v_rows, ph, pl, pk, pk.size - 3, lo,
+                            n_planes)
 
 
 # --- K9: materialize_copy -------------------------------------------------------
@@ -277,6 +365,99 @@ def test_direct_join_materialize_matches_jax_and_oracle(name):
         assert got[0] == keys.size
         np.testing.assert_array_equal(got[1], keys)
         np.testing.assert_array_equal(got[2], vals)
+
+
+def _staged_domain_case(name):
+    """(bk, pk, nb_valid, np_valid) of one staged-band case: 15,000 build
+    rows over a span of 20,000 keys and 16,000 probe rows (the shapes of
+    the staged cases above, so the JAX calls share their compiles), dense
+    enough that the TPU kernel's window resolves every probe."""
+    rng = np.random.default_rng(len(name) + 100)
+    base = 700_000_000
+    bk = rng.integers(base, base + 20_000, 15_000, dtype=np.uint64)
+    pk = rng.integers(base - 2_000, base + 22_000, 16_000, dtype=np.uint64)
+    nbv, npv = len(bk), len(pk)
+    if name == "hi_word_rows":
+        # bad hi-word build rows, one with a low word below lo, which must
+        # not set it (the materialize lo is over zero-hi rows); hi-word
+        # probes whose low word is a build key
+        bk[[3, 70]] = [2**40 + 5, 2**33 + base - 10]
+        pk[:40] = 2**40 + 5
+        pk[40:60] = bk[100] + np.uint64(2**32)
+    elif name == "below_lo":
+        pk[:800] = rng.integers(0, base, 800, dtype=np.uint64)
+        pk[800:810] = base - 1
+    elif name == "u32_and_u64_max":
+        # a domain at the top of u32: 2^32 - 1 joins; small probe keys wrap
+        # into the slots past it and miss; 2^64 - 1 is a bad build row and
+        # a probe that misses
+        bk = rng.integers(2**32 - 20_000, 2**32, 15_000, dtype=np.uint64)
+        bk[0], bk[1] = 2**32 - 1, 2**64 - 1
+        pk = np.concatenate([rng.choice(bk[2:], 13_000),
+                             np.arange(3_000, dtype=np.uint64)])
+        pk[:5], pk[5:10] = 2**32 - 1, 2**64 - 1
+    elif name == "padding_tail":
+        # rows past the valid counts: build keys below lo that would move
+        # it, probes of build keys that must not join
+        nbv, npv = 12_000, 14_000
+        bk[nbv:] = rng.integers(base - 5_000, base, bk.size - nbv,
+                                dtype=np.uint64)
+        pk[npv:] = rng.choice(bk[:nbv], pk.size - npv)
+    elif name == "empty_valid_build":
+        nbv = 0
+    elif name == "empty_valid_probe":
+        npv = 0
+    elif name == "no_zero_hi_build":
+        # no zero-hi build row: lo = SENTINEL, every build row is bad, and a
+        # probe of 2^32 - 1 maps to slot 0, which is empty
+        bk |= np.uint64(2**36)
+        pk[:10] = 2**32 - 1
+    else:
+        raise KeyError(name)
+    return bk, pk, nbv, npv
+
+
+def _good_rows_spec(bk, bv, pk, nbv, npv, v_rows):
+    """The staged band's rows from their definition, in probe order: the
+    oracle over the valid build rows in the domain (lo over the zero-hi
+    ones), and the bad-row count."""
+    bk, bv, pk = bk[:nbv], bv[:nbv], pk[:npv]
+    zero_hi = bk[bk < 2**32]
+    lo = int(zero_hi.min()) if zero_hi.size else SENTINEL
+    bdiff = (bk - np.uint64(lo)) & np.uint64(SENTINEL)
+    good = (bk < 2**32) & (bdiff < v_rows * 128)
+    keys, vals = _oracle_rows(bk[good], bv[good], pk)
+    return keys, vals, int((~good).sum())
+
+
+STAGED_DOMAIN_CASES = ["hi_word_rows", "below_lo", "u32_and_u64_max",
+                       "padding_tail", "empty_valid_build",
+                       "empty_valid_probe", "no_zero_hi_build"]
+
+
+@pytest.mark.parametrize("name", STAGED_DOMAIN_CASES)
+@pytest.mark.parametrize("v_rows", [256, 1024])
+def test_staged_domain_entry_matches_jax_and_spec(name, v_rows):
+    # narrow values at v_rows 256, u64 values (two value planes) at 1024;
+    # JAX emits domain order (compared as sorted pairs), the port and the
+    # spec probe order
+    bk, pk, nbv, npv = _staged_domain_case(name)
+    rng = np.random.default_rng(v_rows)
+    narrow = v_rows == 256
+    bv = rng.integers(1, 101 if narrow else 2**64, bk.size, dtype=np.uint64)
+    got = _port_mat(bk, bv, pk, nbv, npv, v_rows, narrow)
+    want = _jax_mat(bk, bv, pk, nbv, npv, v_rows, narrow)
+    assert (got[0], got[3]) == (want[0], want[3])
+    for g, w in zip(_sorted(*got[1:3]), _sorted(*want[1:3])):
+        np.testing.assert_array_equal(g, w)
+    keys, vals, n_bad = _good_rows_spec(bk, bv, pk, nbv, npv, v_rows)
+    assert got[3] == n_bad and got[0] == keys.size
+    np.testing.assert_array_equal(got[1], keys)
+    np.testing.assert_array_equal(got[2], vals)
+    if name in ("hi_word_rows", "u32_and_u64_max", "no_zero_hi_build"):
+        assert n_bad > 0
+    if name == "u32_and_u64_max":
+        assert (keys == 2**32 - 1).sum() == 5
 
 
 @pytest.mark.parametrize("v_rows", [8, 1024])

@@ -19,6 +19,7 @@ from flash_hash_join_tpu.ops import direct_bitmap as jdb
 from flash_hash_join_tpu.ops.pallas import bitmap_probe as jbp
 from flash_hash_join_tpu.ops.pallas import dense_bitmap as jdbm
 from flash_hash_join_tpu.utils import u64 as ju64
+from flash_hash_join_tpu_torch.models import workload
 from flash_hash_join_tpu_torch.ops import direct_bitmap as tdb
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as tbp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as tdbm
@@ -54,7 +55,7 @@ def _torch_count(fn, bk, pk, nb_valid, np_valid, d_rows):
     return int(cnt), int(special[3])
 
 
-# --- K2: probe_count_bitmap ---------------------------------------------------
+# --- K2: the index form's plain version, and scan_domain_count ---------------
 
 @pytest.mark.parametrize("d_rows", [8, 16, 256])
 def test_k2_plain_matches_pallas(d_rows):
@@ -70,24 +71,163 @@ def test_k2_plain_matches_pallas(d_rows):
     want = int(jbp.probe_count_bitmap(
         jnp.asarray(bitmap), jnp.asarray(padded.reshape(-1, 128)),
         d_rows=d_rows, block_m=40, interpret=True))
-    got = tbp.probe_count_bitmap(_t(bitmap), _t(idx), d_rows)
+    got = tbp.probe_count_bitmap_plain(_t(bitmap), _t(idx), d_rows)
     assert got.dtype == torch.int64 and int(got) == want
-    assert int(tbp.probe_count_bitmap(_t(bitmap), _t(padded), d_rows)) == want
+    assert int(tbp.probe_count_bitmap_plain(_t(bitmap), _t(padded),
+                                            d_rows)) == want
 
 
 def test_k2_wrapper_checks_its_inputs():
-    bitmap = _t(np.zeros((8, 128), np.uint32))
-    idx = _t(np.arange(10, dtype=np.uint32))
-    with pytest.raises(ValueError):
-        tbp.probe_count_bitmap(bitmap, idx, 512)          # past the scan band
-    with pytest.raises(ValueError):
-        tbp.probe_count_bitmap(bitmap, idx.to(torch.int64), 8)
-    with pytest.raises(ValueError):
-        tbp.probe_count_bitmap(bitmap[:4], idx, 8)
-    assert int(tbp.probe_count_bitmap(bitmap, idx[:0], 8)) == 0
+    kh, kl = tu64.device_planes(np.arange(10, dtype=np.uint64), "cpu")
+    with pytest.raises(ValueError):                       # past the scan band
+        tbp.scan_domain_count(kh, kl, kh, kl, 10, 10, 512)
+    with pytest.raises(ValueError):                       # int64 planes
+        tbp.scan_domain_count(kh.long(), kl.long(), kh, kl, 10, 10, 8)
+    with pytest.raises(ValueError):                       # planes of two lengths
+        tbp.scan_domain_count(kh, kl, kh[:4], kl, 4, 4, 8)
+    with pytest.raises(ValueError):                       # np_valid past the rows
+        tbp.scan_domain_count(kh, kl, kh, kl, 10, 11, 8)
+    with pytest.raises(ValueError):                       # not contiguous
+        tbp.scan_domain_count(kh[::2], kl[::2], kh, kl, 5, 10, 8)
+    count, n_bad = tbp.scan_domain_count(kh, kl, kh[:0], kl[:0], 10, 0, 8)
+    assert (int(count), int(n_bad)) == (0, 0)
+    assert [int(x) for x in tbp.scan_domain_count(kh, kl, kh, kl, 10, 10,
+                                                  8)] == [10, 0]
 
 
-# --- K1: fused_bitmap_join ----------------------------------------------------
+def _scan_spec(bk, pk, nbv, npv, d_rows):
+    """The scan band's count from its definition, in numpy: lo over EVERY
+    valid build row (high-word rows too), u32 wrap-around, bad rows,
+    membership."""
+    bk, pk = bk[:nbv], pk[:npv]
+    lo = int((bk & np.uint64(SENTINEL)).min()) if bk.size else SENTINEL
+    d_bits = d_rows * 4096
+    bdiff = (bk - np.uint64(lo)) & np.uint64(SENTINEL)
+    good = (bk < 2**32) & (bdiff < d_bits)
+    pdiff = (pk - np.uint64(lo)) & np.uint64(SENTINEL)
+    pin = (pk < 2**32) & (pdiff < d_bits)
+    return int(np.isin(pdiff[pin], bdiff[good]).sum()), int((~good).sum())
+
+
+def _scan_domain_case(name, d_rows):
+    """(build keys, probe keys, nb_valid, np_valid) of one scan-band case
+    in a domain of d_rows * 4096 slots.  Keys stay dense, so the JAX scan
+    band (which has no window) and the spec see the same rows."""
+    rng = np.random.default_rng(len(name) + d_rows)
+    d_bits = d_rows * 4096
+    lo = 3_000_000_000
+    bk = rng.integers(lo, lo + d_bits, 3_000, dtype=np.uint64)
+    pk = rng.integers(lo - d_bits // 8, lo + d_bits + d_bits // 8, 9_000,
+                      dtype=np.uint64)
+    pk[::4] = rng.choice(bk, pk[::4].size)
+    nbv, npv = len(bk), len(pk)
+    if name == "hi_word_rows_set_lo":
+        # a hi-word row with the least low word: it sets lo (lo - 64), is
+        # bad, and shifts the domain down under the top build keys
+        bk[[7, 90]] = [2**40 + lo - 64, 2**33 + lo + 5]
+        pk[:20] = 2**40 + lo - 64
+    elif name == "below_lo_and_hi_probes":
+        pk[:600] = rng.integers(0, lo, 600, dtype=np.uint64)
+        pk[600:620] = lo - 1
+        pk[620:700] = bk[:80] + np.uint64(2**32)            # hi-word probes
+    elif name == "u32_and_u64_max":
+        # 2^32 - 1 sits past a domain from 3e9 + small spans: a bad build
+        # row and a missing probe; 2^64 - 1 a hi-word row on both sides
+        bk[[3, 4]] = [2**32 - 1, 2**64 - 1]
+        pk[:10] = 2**32 - 1
+        pk[10:20] = 2**64 - 1
+    elif name == "u32_max_in_domain":
+        # a domain at the top of u32: 2^32 - 1 is a build key and its probes
+        # join; small probe keys wrap into the slots past 2^32 - 1 and miss
+        bk = rng.integers(2**32 - 2_000, 2**32, 3_000, dtype=np.uint64)
+        bk[0] = 2**32 - 1
+        pk = np.concatenate([rng.choice(bk, 6_000),
+                             np.arange(3_000, dtype=np.uint64)])
+        pk[:10] = 2**32 - 1
+    elif name == "padding_tail":
+        # in-domain build and probe keys past the valid counts count nothing
+        nbv, npv = 2_500, 7_000
+        bk[nbv:] = rng.integers(lo - 5_000, lo, bk.size - nbv,
+                                dtype=np.uint64)          # would move lo
+        pk[npv:] = rng.choice(bk[:nbv], pk.size - npv)
+    elif name == "empty_valid_build":
+        nbv = 0
+    elif name == "empty_valid_probe":
+        npv = 0
+    elif name == "no_zero_hi_build":
+        # every valid build row has a high word: lo is their least low word
+        # and every one of them is bad
+        bk |= np.uint64(2**36)
+    else:
+        raise KeyError(name)
+    return bk, pk, nbv, npv
+
+
+SCAN_DOMAIN_CASES = ["hi_word_rows_set_lo", "below_lo_and_hi_probes",
+                     "u32_and_u64_max", "u32_max_in_domain", "padding_tail",
+                     "empty_valid_build", "empty_valid_probe",
+                     "no_zero_hi_build"]
+
+
+@pytest.mark.parametrize("name", SCAN_DOMAIN_CASES)
+@pytest.mark.parametrize("d_rows", [8, 64])
+def test_scan_domain_count_plain_matches_jax_and_spec(name, d_rows):
+    bk, pk, nbv, npv = _scan_domain_case(name, d_rows)
+    kh, kl = _planes(bk)
+    ph, pl = _planes(pk)
+    got = tbp.scan_domain_count(_t(kh), _t(kl), _t(ph), _t(pl), nbv, npv,
+                                d_rows)
+    assert all(x.dtype == torch.int64 and x.dim() == 0 for x in got)
+    got = tuple(int(x) for x in got)
+    assert got == _jax_count(jdb.direct_join_count, bk, pk, nbv, npv, d_rows)
+    assert got == _scan_spec(bk, pk, nbv, npv, d_rows)
+    assert got == _torch_count(tdb.direct_join_count, bk, pk, nbv, npv,
+                               d_rows)
+    if name in ("hi_word_rows_set_lo", "u32_and_u64_max", "no_zero_hi_build"):
+        assert got[1] > 0
+    if name == "u32_max_in_domain":
+        assert got == (6_000, 0)
+
+
+@pytest.mark.parametrize("d_rows", [8, 16, 32, 64, 128, 256])
+def test_scan_domain_count_at_every_rung_matches_numpy_spec(d_rows):
+    # the edge keys of the card tests: hi-word, past-domain, below-lo and
+    # u32-max rows on both sides, the domain's last slot and one past it
+    rng = np.random.default_rng(d_rows)
+    n_bits, lo = d_rows * 4096, 7_000_000
+    bk = workload.dense_domain_keys(rng, 9_000, lo, n_bits)
+    pk = workload.dense_domain_keys(rng, 12_000, lo, n_bits)
+    pk[::3] = rng.choice(bk, pk[::3].size)
+    base = int(bk.min())                   # the scan band's lo: every row
+    bk[5:7] = [base + n_bits - 1, base + n_bits]
+    pk[5:7] = [base + n_bits - 1, base + n_bits]
+    for nbv, npv in ((len(bk), len(pk)), (len(bk) - 7, len(pk) - 5)):
+        got = tbp.scan_domain_count(*tu64.device_planes(bk, "cpu"),
+                                    *tu64.device_planes(pk, "cpu"), nbv, npv,
+                                    d_rows)
+        assert [int(x) for x in got] == list(_scan_spec(bk, pk, nbv, npv,
+                                                        d_rows))
+
+
+@pytest.mark.parametrize("offs", [(0, 0), (1, 1), (1, 3), (2, 0)])
+def test_scan_domain_count_on_edge_key_views_matches_numpy_spec(offs):
+    # plane views that start 0-3 words into longer planes, the two planes
+    # of a side each its own way, as the card tests give the kernel
+    rng = np.random.default_rng(sum(offs) + 50)
+    d_rows, lo = 16, 123_456_789
+    bk = workload.dense_domain_keys(rng, 5_003, lo, d_rows * 4096)
+    pk = workload.dense_domain_keys(rng, 7_001, lo, d_rows * 4096)
+    pk[::3] = rng.choice(bk, pk[::3].size)
+    kh, kl = workload.offset_plane_views(bk, "cpu", *offs)
+    ph, pl = workload.offset_plane_views(pk, "cpu", *offs[::-1])
+    assert (kh.storage_offset(), kl.storage_offset()) == offs
+    for nbv, npv in ((len(bk), len(pk)), (len(bk) - 5, len(pk) - 3)):
+        got = tbp.scan_domain_count(kh, kl, ph, pl, nbv, npv, d_rows)
+        assert [int(x) for x in got] == list(_scan_spec(bk, pk, nbv, npv,
+                                                        d_rows))
+
+
+# --- K1: the index form's plain version ----------------------------------------
 
 def test_k1_plain_matches_pallas_on_sorted_stream():
     # the JAX kernel takes its blockwise-sorted stream and `rs` windows; the
@@ -111,20 +251,22 @@ def test_k1_plain_matches_pallas_on_sorted_stream():
         nbb=bs.shape[0] // block_rows, d_rows=d_rows,
         block_rows=block_rows, sels=sels, interpret=True)
     assert (int(ub), int(up)) == (0, 0)
-    count, ub_t, up_t = tdbm.fused_bitmap_join(_t(bidx), _t(pidx), d_rows)
-    assert int(count) == int(cnt)
-    assert (ub_t, up_t) == (0, 0)
+    count = tdbm.fused_bitmap_join_plain(_t(bidx), _t(pidx), d_rows)
+    assert count.dtype == torch.int64 and int(count) == int(cnt)
     assert int(count) == int(np.isin(pidx, bidx[bidx != SENTINEL]).sum())
 
 
 def test_k1_wrapper_checks_its_inputs():
-    idx = _t(np.arange(10, dtype=np.uint32))
+    # K1's one entry, the domain form: rung and plane checks, empty sides
+    kh, kl = tu64.device_planes(np.arange(10, dtype=np.uint64), "cpu")
     with pytest.raises(ValueError):
-        tdbm.fused_bitmap_join(idx, idx, tdbm.MAX_D_ROWS + 4096)
-    with pytest.raises(ValueError):
-        tdbm.fused_bitmap_join(idx, idx[::2], 512)         # not contiguous
-    assert int(tdbm.fused_bitmap_join(idx[:0], idx, 512)[0]) == 0
-    assert int(tdbm.fused_bitmap_join(idx, idx[:0], 512)[0]) == 0
+        tdbm.fused_domain_bitmap_join(kh, kl, kh, kl, 10, 10,
+                                      tdbm.MAX_D_ROWS + 4096)
+    with pytest.raises(ValueError):                       # not contiguous
+        tdbm.fused_domain_bitmap_join(kh, kl, kh[::2], kl[::2], 10, 5, 512)
+    for nbv, npv in ((0, 10), (10, 0)):
+        assert [int(x) for x in tdbm.fused_domain_bitmap_join(
+            kh, kl, kh, kl, nbv, npv, 512)] == [0, 0]
 
 
 # --- direct_join_count (scan band) ----------------------------------------------
