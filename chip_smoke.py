@@ -12,8 +12,11 @@ Phases, one JSON line each on stdout:
               bitmap rung of their bands (K2: 8-256 rows; K1: 512, 16384,
               28672) with a nonzero lo, high-word, out-of-domain, below-lo
               and u32-max keys, views misaligned alike and each its own
-              way, validity tails, empty sides and a build of bad rows
-              only;
+              way, validity tails, empty sides, a build of bad rows only,
+              and a high-word build row under every other row's low word,
+              where each must also differ from the other's plain version
+              (K2 takes lo over every row, K1 over the zero-high-word
+              rows);
               K3/K4/K5 at build sizes 0, 1, 5, 2e6 and probe sizes 0, 7,
               3e7+5, and on builds that stress the range table's bucket
               directory (the keys {0, 2^64-1}; 2e6 keys: all equal,
@@ -40,8 +43,8 @@ Phases, one JSON line each on stdout:
               events: a lone call, median of 5 after a warm-up; the kernel
               also over runs of 5 calls back to back) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
-              the same function, that call's time (K1: torch.isin of the
-              domain indices; K9: clone, timed in turns with it, on 1e8
+              the same function, that call's time (K1, K2: torch.isin of
+              the domain indices; K9: clone, timed in turns with it, on 1e8
               words); K3/K4 at J1 1e8 Q5 with
               the directory's offsets as int32 (as built) and as int64; and
               K3/K4 on both table layouts (searched whole, or through a
@@ -283,8 +286,10 @@ def oracle(name: str, c):
 
 
 def domain_indices(bk: np.ndarray, pk: np.ndarray):
-    """The main path's K1/K2 inputs, computed independently in numpy:
-    lo-relative u32 domain indices of both sides and the bitmap rung."""
+    """A J1 count cell's lo-relative u32 domain indices of both sides and
+    its bitmap rung, computed independently in numpy (the input of K1's
+    and K2's library yardstick, torch.isin).  J1 keys are below 2^32, so
+    K1's lo and K2's are both the build side's least key."""
     from flash_hash_join_tpu_torch.ops import direct_bitmap as db
     lo = bk.min()
     d_rows = db.d_rows_for(int(bk.max() - lo) + 1)
@@ -331,39 +336,29 @@ def ptxas_usage(report: str) -> dict:
     return usage
 
 
-def domain_sides(rng, nb: int, npr: int, lo: int, n_bits: int,
-                 below_lo: bool = True):
-    """Build and probe keys for a domain entry's check: the edge keys of
-    dense_domain_keys, a third of the probes drawn from the build side.
-    nb < 0: |nb| rows, every one of them bad (a high word).  Without
-    below_lo the build rows below lo are raised to lo, so a scan-band lo
-    (over every row) stays at lo and most build rows are in the domain."""
-    from flash_hash_join_tpu_torch.models.workload import dense_domain_keys
-    bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
-    if nb < 0:
-        bk |= np.uint64(2**40)
-    elif not below_lo:
-        bk = np.maximum(bk, np.uint64(lo))
-    pk = dense_domain_keys(rng, npr, lo, n_bits)
-    if bk.size and npr:
-        pk[::3] = rng.choice(bk, pk[::3].size)
-    return bk, pk
-
-
-def check_domain_entry(kernel, plain, rungs, sizes, err: list, rng):
+def check_domain_entry(kernel, plain, other_plain, rungs, sizes, err: list,
+                       rng):
     """A count entry on key planes (K1 or K2) against its plain version at
     each rung: a nonzero lo, the edge keys of domain_sides, aligned and
     misaligned views, validity tails, empty sides, a build of bad rows
-    only.  Adds the largest |kernel - plain| to err[0]; returns the cases."""
-    from flash_hash_join_tpu_torch.models.workload import offset_plane_views
+    only.  sizes[1] keeps every build row at or above lo; sizes[-1] adds a
+    high-word build row whose low word is under every other row's, where
+    K1's lo (zero-high-word rows) and K2's (every row) part: there the
+    kernel must also differ from the other entry's plain version.  Adds
+    the largest |kernel - plain| to err[0]; returns the cases."""
     import torch
+    from flash_hash_join_tpu_torch.models.workload import (
+        domain_sides, offset_plane_views)
     dev = torch.device("cuda")
     cases = []
     for d_rows in rungs:
         n_bits = d_rows * 4096
-        lo = int(rng.integers(1, 2**31))
+        lo = int(rng.integers(n_bits, 2**31))
         for i, (nb, npr) in enumerate(sizes):
-            bk, pk = domain_sides(rng, nb, npr, lo, n_bits, below_lo=i != 1)
+            hi_under = i == len(sizes) - 1
+            bk, pk = domain_sides(rng, nb, npr, lo, n_bits,
+                                  below_lo=i != 1 and not hi_under,
+                                  hi_under=hi_under)
             for shift in ((0, 0), (1, 1), (1, 3)):
                 kh, kl = offset_plane_views(bk, dev, *shift)
                 ph, pl = offset_plane_views(pk, dev, *shift[::-1])
@@ -375,6 +370,11 @@ def check_domain_entry(kernel, plain, rungs, sizes, err: list, rng):
                     want = [int(x) for x in plain(*args)]
                     err[0] = max(err[0], *(abs(g - w)
                                            for g, w in zip(got, want)))
+                    if hi_under:
+                        other = [int(x) for x in other_plain(*args)]
+                        require(got != other, f"{kernel.__name__} d_rows "
+                                f"{d_rows}: the other band's lo gives the "
+                                f"same {got}")
                     cases.append([d_rows, nbv, npv, shift, got, want])
             del bk, pk, kh, kl, ph, pl
     return cases
@@ -394,15 +394,15 @@ def phase_kernels(cells: dict) -> dict:
     checked = {
         "scan_domain_count": check_domain_entry(
             bp.scan_domain_count, bp.scan_domain_count_plain,
-            (8, 16, 32, 64, 128, 256),
+            dbm.fused_domain_bitmap_join_plain, (8, 16, 32, 64, 128, 256),
             ((2_000_001, 6_000_003), (2_000_003, 6_000_001), (0, 1_000),
-             (1_000, 0), (5, 7), (-1_000, 1_000)),
+             (1_000, 0), (5, 7), (-1_000, 1_000), (200_005, 600_007)),
             err["scan_domain_count"], rng),
         "dense_bitmap": check_domain_entry(
             dbm.fused_domain_bitmap_join, dbm.fused_domain_bitmap_join_plain,
-            (512, 16384, 28672),
+            bp.scan_domain_count_plain, (512, 16384, 28672),
             ((5_000_001, 6_000_003), (5_000_003, 6_000_001), (0, 1_000),
-             (1_000, 0), (5, 7), (-1_000, 1_000)),
+             (1_000, 0), (5, 7), (-1_000, 1_000), (500_005, 600_007)),
             err["dense_bitmap"], rng)}
     torch.cuda.synchronize()
     err = {k: v[0] for k, v in err.items()}
@@ -428,16 +428,14 @@ def phase_kernels(cells: dict) -> dict:
         require(bad == 0, f"{name}: {bad} bad build rows")
         require(got == want, f"{kernel} {name}: kernel {got} != plain {want}")
         t = paired_ms(lambda: fn(*args), lambda: plain(*args))
-        extra = {}
-        if kernel == "dense_bitmap":
-            # the library yardstick: one torch.isin of the cell's domain
-            # indices (mapped on the host), timed here and used nowhere in
-            # the port
-            bidx, pidx = to_device(bidx_np, dev), to_device(pidx_np, dev)
-            extra["library_ms"] = cuda_ms(lambda: torch.isin(pidx, bidx).sum())
-            del bidx, pidx
+        # the library yardstick of K1 and K2: one torch.isin of the cell's
+        # domain indices (mapped on the host), timed here and used nowhere
+        # in the port
+        bidx, pidx = to_device(bidx_np, dev), to_device(pidx_np, dev)
+        library_ms = cuda_ms(lambda: torch.isin(pidx, bidx).sum())
+        del bidx, pidx
         timing[name] = dict(kernel=kernel, d_rows=d_rows, nb=kh.numel(),
-                            npr=ph.numel(), **best(t), **extra)
+                            npr=ph.numel(), **best(t), library_ms=library_ms)
         emit("kernel_time", cell=name, **timing[name],
              runs={k + "_runs": v for k, v in t.items()})
         del kh, kl, ph, pl, args
@@ -457,7 +455,7 @@ def phase_kernels(cells: dict) -> dict:
             max_abs_err=err[kernel], ms=q["ms"], ms_b2b=q["ms_b2b"],
             plain_ms=q["plain_ms"], **bound(8 * (nb + npr) + 16,
                                             4 * (nb + npr)),
-            library_ms=q.get("library_ms"),
+            library_ms=q["library_ms"],
             design_floor_ms=bound(16 * nb + 8 * npr + 16, 0)["bound_ms"],
             at=at)
     return summary
@@ -759,17 +757,17 @@ def dense_inputs(c, dev):
     (v_rows, lo, the occupied slots' bitmap, value planes, probe key
     planes)."""
     from flash_hash_join_tpu_torch.ops import direct_bitmap as db
-    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
+    from flash_hash_join_tpu_torch.ops import domain_map as dm
     from flash_hash_join_tpu_torch.utils.u64 import device_planes
     bk, bv, pk = c.build_keys, c.build_values, c.probe_keys
     v_rows = db.v_rows_for(int(bk.max() - bk.min()) + 1)
     kh, kl = device_planes(bk, dev)
     vh, vl = device_planes(bv, dev)
     ph, pl = device_planes(pk, dev)
-    lo, _, bidx, _, planes = db._dense_value_planes(
+    lo, _, bidx, planes = db._dense_value_planes(
         kh, kl, vh, vl, len(bk), v_rows=v_rows,
         narrow_values=int(bv.max()) < 2**32)
-    bitmap = bp.pack_bitmap(bidx, max(8, v_rows // 32))
+    bitmap = dm.pack_bitmap(bidx, max(8, v_rows // 32))
     return v_rows, lo, bitmap, planes, ph, pl
 
 
@@ -779,6 +777,7 @@ def phase_dense_kernels(cells: dict) -> dict:
     import torch
     from flash_hash_join_tpu_torch.models.workload import (
         dense_domain_keys, offset_plane_views)
+    from flash_hash_join_tpu_torch.ops import domain_map as dm
     from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
     from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
     from flash_hash_join_tpu_torch.utils.u64 import to_device
@@ -823,7 +822,7 @@ def phase_dense_kernels(cells: dict) -> dict:
                    2**32 - 1 - v_slots // 2, SENTINEL):
             lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
             for n in (0, 7, 3_000_005):
-                pk = dense_domain_keys(rng, n, max(lo, 1), v_slots)
+                pk = dense_domain_keys(rng, n, lo, v_slots)
                 for shift in ((0, 0), (1, 3)):
                     ph, pl = offset_plane_views(pk, dev, *shift)
                     for k, npv in ((1, n), (2, max(n - 5, 0))):
@@ -854,7 +853,7 @@ def phase_dense_kernels(cells: dict) -> dict:
         runs = {}
         if v_rows <= 128:
             d_rows = max(8, v_rows // 32)
-            pidx = bp.probe_domain_idx(ph, pl, n, lo, v_rows * 128)
+            pidx = dm.probe_domain_idx(ph, pl, n, lo, v_rows * 128)
             args = (bitmap, vplanes, pidx, d_rows, v_rows)
             runs["probe_gather_bitmap"] = (
                 lambda: bp.probe_gather_bitmap(*args),

@@ -13,7 +13,7 @@
 // number of valid probe keys in the domain whose bit is set.
 //
 // Four steps on one stream, no host sync: memsets of the bitmap and the
-// scratch words, the lo min and the build (common.cuh's domain build,
+// scratch words, the lo min and the build (domain.cuh's domain build,
 // shared with K1; over the build planes, 4e4 rows at J1 4e7 Q2), then the
 // probe, K2 proper.
 //
@@ -58,7 +58,7 @@
 // row-match select each), so its cost grows with v_rows; here every probe
 // reads its own word, one thread per probe, and the grid is capped at the
 // blocks that fit on the card so each block stages the planes once.
-#include "common.cuh"
+#include "domain.cuh"
 
 namespace {
 

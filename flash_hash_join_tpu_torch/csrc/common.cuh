@@ -1,8 +1,7 @@
 // Shared device helpers: the index stream walk, the key-plane pair walk,
 // the dense-domain test and the membership bit test of the bitmap kernels
 // (dense_bitmap.cu, bitmap_probe.cu, dense_values.cu), the block
-// reductions and the grid size of every kernel; and the domain build that
-// K1 and K2 share (the lo min and the bitmap build over the key planes).
+// reductions, the grid size of every kernel and a launch over n rows.
 //
 // Domain indices are u32 with sentinel 0xFFFFFFFF (torch int32 bit
 // patterns on the Python side).  Bitmap word w holds slots [32w, 32w+32);
@@ -160,6 +159,8 @@ inline cudaError_t grid_for(Kernel kernel, int64_t n, size_t smem, int* grid,
   return cudaSuccess;
 }
 
+// Launches a grid-stride kernel over n rows (grid_for's grid, no dynamic
+// shared memory) on `stream`; returns cudaGetLastError().
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, int64_t n, cudaStream_t stream, Args... args) {
   int grid = 0;
@@ -168,65 +169,5 @@ cudaError_t launch(Kernel kernel, int64_t n, cudaStream_t stream, Args... args) 
   kernel<<<grid, kThreads, 0, stream>>>(args...);
   return cudaGetLastError();
 }
-
-// The domain build of a dense-domain count.  Internal linkage: each source
-// that includes this header launches its own copy.
-namespace {
-
-// *lo = min(*lo, the low words of the keys): every key when kEveryRow (the
-// scan band's lo, K2), else the keys whose high word is 0 (K1's).
-template <bool kEveryRow>
-__global__ void __launch_bounds__(kThreads)
-domain_lo_kernel(const uint32_t* __restrict__ kh, const uint32_t* __restrict__ kl,
-                 int64_t n, uint32_t* __restrict__ lo) {
-  uint32_t m = 0xFFFFFFFFu;
-  for_each_pair(kh, kl, n, [&](uint32_t h, uint32_t l) {
-    if ((kEveryRow || h == 0u) && l < m) m = l;
-  });
-  m = block_min(m);
-  if (threadIdx.x == 0 && m != 0xFFFFFFFFu) atomicMin(lo, m);
-}
-
-// Sets the bit of every key in the domain of n_bits slots from *lo; counts
-// the others into *n_bad.
-__global__ void __launch_bounds__(kThreads)
-domain_build_kernel(const uint32_t* __restrict__ kh, const uint32_t* __restrict__ kl,
-                    int64_t n, const uint32_t* __restrict__ lo, uint32_t n_bits,
-                    uint32_t* __restrict__ bitmap,
-                    unsigned long long* __restrict__ n_bad) {
-  const uint32_t base = __ldg(lo);
-  unsigned int bad = 0;
-  for_each_pair(kh, kl, n, [&](uint32_t h, uint32_t l) {
-    uint32_t v;
-    if (in_domain(h, l, base, n_bits, &v))
-      atomicOr(bitmap + (v >> 5), 1u << (v & 31u));
-    else
-      ++bad;
-  });
-  const unsigned long long total = block_sum(bad);
-  if (threadIdx.x == 0 && total) atomicAdd(n_bad, total);
-}
-
-// scratch: three u64 words {count, n_bad, lo}; bitmap: n_bits / 32 words.
-// On `stream`: zeroes count and n_bad and sets lo = 0xFFFFFFFF; over a
-// nonempty build (kh/kl rows [0, nb)) also zeroes the bitmap and launches
-// the lo min and the build.  Returns the first error.
-inline cudaError_t domain_build(const uint32_t* kh, const uint32_t* kl, int64_t nb,
-                                bool every_row, uint32_t* bitmap, uint32_t n_bits,
-                                unsigned long long* scratch, cudaStream_t stream) {
-  uint32_t* lo = reinterpret_cast<uint32_t*>(scratch + 2);
-  cudaError_t e = cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned long long), stream);
-  if (e == cudaSuccess) e = cudaMemsetAsync(lo, 0xFF, sizeof(uint32_t), stream);
-  if (e != cudaSuccess || nb <= 0) return e;
-  e = cudaMemsetAsync(bitmap, 0, (size_t)(n_bits / 32) * sizeof(uint32_t), stream);
-  if (e != cudaSuccess) return e;
-  e = every_row ? launch(domain_lo_kernel<true>, nb, stream, kh, kl, nb, lo)
-                : launch(domain_lo_kernel<false>, nb, stream, kh, kl, nb, lo);
-  if (e != cudaSuccess) return e;
-  return launch(domain_build_kernel, nb, stream, kh, kl, nb, (const uint32_t*)lo,
-                n_bits, bitmap, scratch + 1);
-}
-
-}  // namespace
 
 }  // namespace fhj

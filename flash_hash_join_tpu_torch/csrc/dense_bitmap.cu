@@ -14,7 +14,7 @@
 // (hi, lo) of both sides and maps them to domain indices in registers, in
 // three launches on one stream: the lo min over the build planes, the
 // build (bad-row count and atomicOr), the probe (bit test and count); the
-// first two are common.cuh's domain build, which K2 shares.  PyTorch runs
+// first two are domain.cuh's domain build, which K2 shares.  PyTorch runs
 // a mapping eagerly, one pass over 4e7-row int64 tensors per operation
 // (about 25 of them, 77-84 % of the count's device time on an H100 at J1
 // 4e7 Q5, and 64 B of device memory a probe row); here it costs no pass
@@ -49,7 +49,7 @@
 //    its own bad-row or hit count, so one block reduction and one 64-bit
 //    atomicAdd a block finish it.  The build's atomicOr returns nothing
 //    (a RED).
-#include "common.cuh"
+#include "domain.cuh"
 
 namespace {
 

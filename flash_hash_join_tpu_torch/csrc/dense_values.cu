@@ -5,11 +5,12 @@
 // domain mapping that flash_hash_join_tpu/ops/direct_bitmap.py:
 // direct_join_materialize does in front of it in XLA (_probe_idx).  Per
 // probe row i, straight from the u32 key planes: the row is in the domain
-// when i < np_valid, its high word is 0 and (lo - base) mod 2^32 is below
-// v_rows * 128 (fhj::in_domain, base = the least low word of the valid
-// build rows with a zero high word, which the caller leaves in device
-// memory); it hits when its slot is occupied; hit[i] and the 1-2 dense
-// value planes at the slot are written in probe order (0 on a miss).
+// when i < np_valid, its high word is 0 and its slot, (low word - base)
+// mod 2^32, is below v_rows * 128 (fhj::in_domain; base = the least low
+// word of the valid build rows with a zero high word, which the caller
+// leaves in device memory); it hits when its slot is occupied; hit[i] and
+// the 1-2 dense value planes at the slot are written in probe order (0 on
+// a miss).
 // Planes are (v_rows <= 8192, 128) u32 words, slot s at word s: at most
 // 4 MB each.
 //
@@ -35,11 +36,14 @@
 //    written between the key planes and K8's outputs.
 //  * 16-byte loads of both key planes (fhj::for_each_pair_at, which hands
 //    the row index to the visitor); each thread writes its four rows.
-//  * Presence, two layouts (kBits): the 0/1 presence plane (v_rows x 128
-//    words, read through L2), or a bitmap of the occupied slots (v_rows x 4
-//    words, at most 128 KB) staged in each block's shared memory as K2
-//    stages its bitmap.  The bitmap spares one dependent L2 read a row and
-//    costs occupancy.
+//  * Presence is a bitmap of the occupied slots (v_rows x 4 words, at
+//    most 128 KB) staged in each block's shared memory, as K2 stages its
+//    bitmap, so a row's one dependent L2 read is its value.  Against the
+//    0/1 presence plane read through L2 (the TPU kernel's plane 0) it ran
+//    0.975 ms against 1.540 at J1 1e8 Q2 (v_rows 1024), 0.411 against
+//    0.622 at 4e7 Q2 (v_rows 512) and 1.396 against 1.656 at the top rung
+//    (v_rows 8192, one block an SM) on an NVIDIA H100 80GB HBM3 at 700 W
+//    (PERF.md §6), so the plane layout went.
 //
 // K9 replaces dense_values.py:materialize_copy (_copy_kernel): an identity
 // copy.  In the JAX package it is an XLA:TPU fusion barrier in front of the
@@ -63,11 +67,9 @@
 
 namespace {
 
-// K8.  kBits: presence is the bitmap of the occupied slots (v_slots / 32
-// words), staged in shared memory; else the 0/1 presence plane.
-template <bool kBits>
+// K8.  Shared memory holds the bitmap of the occupied slots.
 __global__ void __launch_bounds__(fhj::kThreads)
-staged_domain_gather_kernel(const uint32_t* __restrict__ presence,
+staged_domain_gather_kernel(const uint32_t* __restrict__ bitmap,
                             const uint32_t* __restrict__ p0,
                             const uint32_t* __restrict__ p1, uint32_t v_slots,
                             const uint32_t* __restrict__ ph,
@@ -76,42 +78,20 @@ staged_domain_gather_kernel(const uint32_t* __restrict__ presence,
                             uint8_t* __restrict__ hit, uint32_t* __restrict__ o0,
                             uint32_t* __restrict__ o1) {
   extern __shared__ uint4 smem[];
+  const uint4* src = reinterpret_cast<const uint4*>(bitmap);
+  for (uint32_t i = threadIdx.x; i < v_slots / 128u; i += blockDim.x)
+    smem[i] = __ldg(src + i);
+  __syncthreads();
   const uint32_t* bm = reinterpret_cast<const uint32_t*>(smem);
-  if (kBits) {
-    const uint4* src = reinterpret_cast<const uint4*>(presence);
-    for (uint32_t i = threadIdx.x; i < v_slots / 128u; i += blockDim.x)
-      smem[i] = __ldg(src + i);
-    __syncthreads();
-  }
   const uint32_t base = (uint32_t)__ldg(lo);
-  fhj::for_each_pair_at(ph, pl, n, [&](int64_t i, uint32_t h, uint32_t l) {
-    uint32_t v = 0;
-    const bool in = i < np_valid && fhj::in_domain(h, l, base, v_slots, &v);
-    const bool found =
-        in && (kBits ? fhj::bit_of(bm[v >> 5], v) != 0u : __ldg(presence + v) != 0u);
+  fhj::for_each_pair_at(ph, pl, n, [=](int64_t i, uint32_t h, uint32_t l) {
+    uint32_t v;
+    const bool found = fhj::in_domain(h, l, base, v_slots, &v) && i < np_valid &&
+                       fhj::bit_of(bm[v >> 5], v) != 0u;
     hit[i] = found;
     o0[i] = found ? __ldg(p0 + v) : 0u;
     if (p1) o1[i] = found ? __ldg(p1 + v) : 0u;
   });
-}
-
-template <bool kBits>
-cudaError_t launch_staged(const uint32_t* presence, const uint32_t* p0,
-                          const uint32_t* p1, uint32_t v_slots, const uint32_t* ph,
-                          const uint32_t* pl, int64_t n, int64_t np_valid,
-                          const long long* lo, uint8_t* hit, uint32_t* o0,
-                          uint32_t* o1, cudaStream_t stream) {
-  const size_t smem = kBits ? (size_t)(v_slots / 32u) * sizeof(uint32_t) : 0;
-  cudaError_t e = cudaFuncSetAttribute(staged_domain_gather_kernel<kBits>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return e;
-  int grid = 0;
-  e = fhj::grid_for(staged_domain_gather_kernel<kBits>, n, smem, &grid);
-  if (e != cudaSuccess) return e;
-  staged_domain_gather_kernel<kBits><<<grid, fhj::kThreads, smem, stream>>>(
-      presence, p0, p1, v_slots, ph, pl, n, np_valid, lo, hit, o0, o1);
-  return cudaGetLastError();
 }
 
 constexpr int kCopyUnroll = 4;
@@ -161,25 +141,28 @@ copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_
 
 extern "C" {
 
-// presence: with presence_bits, the bitmap of the occupied slots (v_rows *
-// 4 words), else the 0/1 presence plane (v_rows * 128 words); p0 and p1
-// (p1 may be null): v_rows * 128 words each; all 16-byte aligned.  ph/pl:
-// the probe key planes, n rows, [0, np_valid) valid; lo: the domain base,
-// one int64 in device memory.  Writes hit[i], o0[i] and (with p1) o1[i]
-// for every i < n on `stream` (no launch when n == 0).  Returns
-// cudaGetLastError().
-int fhj_staged_domain_gather(const uint32_t* presence, int presence_bits,
-                             const uint32_t* p0, const uint32_t* p1, int v_rows,
-                             const uint32_t* ph, const uint32_t* pl, int64_t n,
-                             int64_t np_valid, const long long* lo, uint8_t* hit,
-                             uint32_t* o0, uint32_t* o1, cudaStream_t stream) {
+// bitmap: the occupied slots, v_rows * 4 words; p0 and p1 (p1 may be
+// null): v_rows * 128 words each; all 16-byte aligned.  ph/pl: the probe
+// key planes, n rows, [0, np_valid) valid; lo: the domain base, one int64
+// in device memory.  Writes hit[i], o0[i] and (with p1) o1[i] for every
+// i < n on `stream` (no launch when n == 0).  Returns cudaGetLastError().
+int fhj_staged_domain_gather(const uint32_t* bitmap, const uint32_t* p0,
+                             const uint32_t* p1, int v_rows, const uint32_t* ph,
+                             const uint32_t* pl, int64_t n, int64_t np_valid,
+                             const long long* lo, uint8_t* hit, uint32_t* o0,
+                             uint32_t* o1, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
   const uint32_t v_slots = (uint32_t)v_rows * 128u;
-  return (int)(presence_bits
-                   ? launch_staged<true>(presence, p0, p1, v_slots, ph, pl, n,
-                                         np_valid, lo, hit, o0, o1, stream)
-                   : launch_staged<false>(presence, p0, p1, v_slots, ph, pl, n,
-                                          np_valid, lo, hit, o0, o1, stream));
+  const size_t smem = (size_t)(v_slots / 32u) * sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(
+      staged_domain_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int grid = 0;
+  e = fhj::grid_for(staged_domain_gather_kernel, n, smem, &grid);
+  if (e != cudaSuccess) return (int)e;
+  staged_domain_gather_kernel<<<grid, fhj::kThreads, smem, stream>>>(
+      bitmap, p0, p1, v_slots, ph, pl, n, np_valid, lo, hit, o0, o1);
+  return (int)cudaGetLastError();
 }
 
 // Copies src[0, n) to dst[0, n) (both 4-byte aligned, not overlapping) on

@@ -78,16 +78,42 @@ def dense_domain_keys(rng: np.random.Generator, n: int, lo: int,
                       n_bits: int) -> np.ndarray:
     """u64 keys that stress the dense count's domain mapping: most in the
     n_bits slots from lo, 1 % with a nonzero high word, 1 % past the
-    domain's top, 1 % below lo (their u32 offset from lo wraps), and the
-    u32-max key at rows 3 and 4."""
+    domain's top, 1 % below lo (their u32 offset from lo wraps; 0 when lo
+    is 0), and the u32-max key at rows 3 and 4."""
     keys = rng.integers(lo, lo + n_bits, n, dtype=np.uint64)
     r = rng.random(n)
     keys[r < 0.01] += np.uint64(2**32)                 # high-word rows
     keys[(r >= 0.01) & (r < 0.02)] += np.uint64(n_bits)
     below = (r >= 0.02) & (r < 0.03)
-    keys[below] = rng.integers(0, lo, int(below.sum()), dtype=np.uint64)
+    keys[below] = rng.integers(0, max(lo, 1), int(below.sum()),
+                               dtype=np.uint64)
     keys[3:5] = 2**32 - 1
     return keys
+
+
+def domain_sides(rng: np.random.Generator, nb: int, npr: int, lo: int,
+                 n_bits: int, below_lo: bool = True, hi_under: bool = False):
+    """Build and probe keys for checking a dense-domain entry: the edge keys
+    of dense_domain_keys, a third of the probes drawn from the build side.
+    nb < 0: |nb| rows, every one of them bad (a high word).  Without
+    below_lo the build rows below lo are raised to lo, so a scan-band lo
+    (over every row) stays at lo and most build rows are in the domain.
+    hi_under (with below_lo False, lo > 0): build row 0 gets a high word
+    and the low word max(lo - n_bits // 2, 0), under every zero-high-word
+    row's, so the scan band's lo (over every row) falls under the large
+    band's (over the zero-high-word rows) and about half of the build rows
+    leave the scan band's domain."""
+    bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
+    if nb < 0:
+        bk |= np.uint64(2**40)
+    elif not below_lo:
+        bk = np.maximum(bk, np.uint64(lo))
+    if hi_under and nb > 0:
+        bk[0] = 2**32 + max(lo - n_bits // 2, 0)
+    pk = dense_domain_keys(rng, npr, lo, n_bits)
+    if bk.size and npr:
+        pk[::3] = rng.choice(bk, pk[::3].size)
+    return bk, pk
 
 
 def offset_plane_views(keys: np.ndarray, device, hi_off: int, lo_off: int):

@@ -37,10 +37,9 @@ _SIGNATURES = {
     "fhj_scan_domain_count": [_P, _P, _I64, _P, _P, _I64, _P, _I, _P, _P],
     # bitmap, d_rows, p0, p1, v_rows, idx, n, hit, o0, o1, stream
     "fhj_bitmap_probe_gather": [_P, _I, _P, _P, _I, _P, _I64, _P, _P, _P, _P],
-    # presence, presence_bits, p0, p1, v_rows, ph, pl, n, np_valid, lo,
-    # hit, o0, o1, stream
-    "fhj_staged_domain_gather": [_P, _I, _P, _P, _I, _P, _P, _I64, _I64, _P,
-                                 _P, _P, _P, _P],
+    # bitmap, p0, p1, v_rows, ph, pl, n, np_valid, lo, hit, o0, o1, stream
+    "fhj_staged_domain_gather": [_P, _P, _P, _I, _P, _P, _I64, _I64, _P, _P,
+                                 _P, _P, _P],
     # src, dst, n, stream
     "fhj_materialize_copy": [_P, _P, _I64, _P],
     # keys, nb, p, dir, dir_bytes, shift, stream

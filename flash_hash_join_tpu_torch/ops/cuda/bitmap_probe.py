@@ -1,5 +1,4 @@
-"""K2 and K7: probes of a small bitmap (csrc/bitmap_probe.cu), and the
-int64 domain mapping of the dense paths' plain versions.
+"""K2 and K7: probes of a small bitmap (csrc/bitmap_probe.cu).
 
 K2 replaces flash_hash_join_tpu/ops/pallas/bitmap_probe.py:
 probe_count_bitmap together with the mapping and the bitmap pack that the
@@ -20,10 +19,8 @@ Indices: 1-D int32 tensor of u32 bit patterns, sentinel 0xFFFFFFFF (= -1);
 any index >= d_rows * 4096 counts nothing, any index >= v_rows * 128 reads
 value 0.
 
-The int64 mapping (masked_min, build_domain_idx, probe_domain_idx,
-pack_bitmap) maps key planes to those indices in plain torch: the plain
-versions of the domain entries here and in dense_bitmap.py and
-dense_values.py, and K7's band of ops/direct_bitmap.py.
+K2's plain version maps the key planes to those indices with the int64
+mapping of ops/domain_map.py.
 """
 
 from __future__ import annotations
@@ -31,13 +28,13 @@ from __future__ import annotations
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
-from flash_hash_join_tpu_torch.utils.u64 import MASK32, narrow, widen
+from flash_hash_join_tpu_torch.ops.domain_map import (
+    BITS_PER_ROW, LANES, build_domain_idx, masked_min, pack_bitmap,
+    probe_domain_idx)
+from flash_hash_join_tpu_torch.utils.u64 import widen
 
-LANES = 128
-BITS_PER_ROW = 32 * LANES          # 4096 domain slots per bitmap row
 MAX_D_ROWS = 256                   # 2^20-slot domain cap (128 KB of shared memory)
 MAX_SMEM_BYTES = 232_448           # dynamic shared memory of one block (H100)
-SENTINEL = 0xFFFFFFFF
 
 
 def check_idx(idx: torch.Tensor, name: str) -> None:
@@ -58,43 +55,6 @@ def check_key_planes(hi, lo, n_valid: int, side: str, dev) -> None:
                          f"{hi.numel()}-row planes")
     if hi.device != dev or lo.device != dev:
         raise ValueError("the key planes must be on one device")
-
-
-def masked_min(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """min(values[mask]) as a 0-d tensor, SENTINEL when nothing is masked
-    in (jnp.min(..., initial=SENTINEL))."""
-    if values.numel() == 0:
-        return torch.tensor(SENTINEL, dtype=values.dtype, device=values.device)
-    return torch.where(mask, values, SENTINEL).amin()
-
-
-def build_domain_idx(kh, kl, bvalid, lo, d_bits: int):
-    """(bad-row count, build domain indices as int32 bit patterns)."""
-    diff = (widen(kl) - lo) & MASK32          # keys < lo wrap to huge
-    bad = bvalid & ((kh != 0) | (diff >= d_bits))
-    idx = torch.where(bvalid & ~bad, diff, SENTINEL)
-    return bad.sum(), narrow(idx)
-
-
-def probe_domain_idx(ph, pl, np_valid: int, lo, d_bits: int) -> torch.Tensor:
-    pvalid = torch.arange(ph.shape[0], device=ph.device) < np_valid
-    pdiff = (widen(pl) - lo) & MASK32
-    pok = pvalid & (ph == 0) & (pdiff < d_bits)
-    return narrow(torch.where(pok, pdiff, SENTINEL))
-
-
-def pack_bitmap(idx: torch.Tensor, d_rows: int) -> torch.Tensor:
-    """Plain build: bool scatter of the in-domain indices, then bit pack
-    into a (d_rows, 128) int32 word bitmap."""
-    n_bits = d_rows * BITS_PER_ROW
-    v = widen(idx)
-    # out-of-domain indices land on the extra slot n_bits, which is cut off
-    # (a masked select would sync the card to size its result)
-    bits = torch.zeros(n_bits + 1, dtype=torch.bool, device=idx.device)
-    bits[torch.where(v < n_bits, v, n_bits)] = True
-    shifts = torch.arange(32, device=idx.device)
-    words = (bits[:n_bits].view(-1, 32).to(torch.int64) << shifts).sum(1)
-    return narrow(words).view(d_rows, LANES)
 
 
 def check_plane(plane: torch.Tensor, rows: int, name: str,

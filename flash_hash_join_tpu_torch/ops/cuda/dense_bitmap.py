@@ -15,7 +15,7 @@ u32 bit patterns, utils/u64.py, sentinel 0xFFFFFFFF = -1, into a
 has no CUDA entry; its plain version, `fused_bitmap_join_plain`, is held
 against the Pallas kernel in the CPU tests and is half of the domain
 entry's plain version.  The int64 mapping it takes its indices from lives
-in bitmap_probe.py.
+in ops/domain_map.py.
 """
 
 from __future__ import annotations
@@ -24,8 +24,10 @@ import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda.bitmap_probe import (
-    BITS_PER_ROW, LANES, build_domain_idx, check_key_planes, masked_min,
-    member, pack_bitmap, probe_domain_idx)
+    check_key_planes, member)
+from flash_hash_join_tpu_torch.ops.domain_map import (
+    BITS_PER_ROW, LANES, build_domain_idx, masked_min, pack_bitmap,
+    probe_domain_idx)
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 MAX_D_ROWS = 28672          # the XL rung of ops/direct_bitmap.py (14.7 MB)

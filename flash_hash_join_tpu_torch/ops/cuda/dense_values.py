@@ -20,10 +20,12 @@ package puts in front of the staged band's consumers as an XLA:TPU fusion
 barrier.  K8 reads the key planes, so the port has no index array to copy:
 K9 is on no path, and stays as the TPU kernel's only counterpart.
 
-Planes: (v_rows, 128) int32 words, slot s at word s; presence is the 0/1
-plane, or the bitmap of the occupied slots, (v_rows // 32, 128) words,
-word w holding slots 32w..32w+31.  Indices: 1-D int32 tensors of u32 bit
-patterns, sentinel 0xFFFFFFFF (= -1); any index >= v_rows * 128 misses.
+Planes: (v_rows, 128) int32 words, slot s at word s.  K8 takes presence
+as the bitmap of the occupied slots, (v_rows // 32, 128) words, word w
+holding slots 32w..32w+31, which it stages in shared memory; the index
+form's plane 0 is the 0/1 presence plane.  Indices: 1-D int32 tensors of
+u32 bit patterns, sentinel 0xFFFFFFFF (= -1); any index >= v_rows * 128
+misses.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda.bitmap_probe import (
-    LANES, check_idx, check_key_planes, check_plane, gather_slots, member,
-    probe_domain_idx)
+    check_key_planes, check_plane, gather_slots)
+from flash_hash_join_tpu_torch.ops.domain_map import LANES, probe_domain_idx
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 MAX_V_ROWS = 8192                  # 2^20 slots, 4 MB per plane
@@ -51,33 +53,36 @@ def probe_gather_staged_plain(planes, idx: torch.Tensor, v_rows: int):
     return (hit, *gather_slots(vplanes, idx, hit))
 
 
-def _is_bitmap(presence: torch.Tensor, v_rows: int) -> bool:
-    return presence.shape[0] != v_rows
+def presence_plane(bitmap: torch.Tensor) -> torch.Tensor:
+    """The 0/1 presence plane, (32 * rows, 128) int32, of a (rows, 128)
+    bitmap of occupied slots."""
+    shifts = torch.arange(32, device=bitmap.device)
+    bits = (widen(bitmap.reshape(-1, 1)) >> shifts) & 1
+    return bits.to(torch.int32).view(-1, LANES)
 
 
-def probe_gather_staged_domain_plain(presence, vplanes, ph, pl,
-                                     np_valid: int, lo, v_rows: int):
+def probe_gather_staged_domain_plain(bitmap, vplanes, ph, pl, np_valid: int,
+                                     lo, v_rows: int):
     """Plain PyTorch version of K8's entry: the int64 probe mapping, then
-    the index form's plain version.  (hit bool, *values int32)."""
+    the index form's plain version on the bitmap's presence plane.
+    (hit bool, *values int32)."""
     idx = probe_domain_idx(ph, pl, np_valid, lo, v_rows * LANES)
-    if _is_bitmap(presence, v_rows):
-        hit = member(presence, idx, presence.shape[0])
-        return (hit, *gather_slots(vplanes, idx, hit))
-    return probe_gather_staged_plain((presence, *vplanes), idx, v_rows)
+    return probe_gather_staged_plain((presence_plane(bitmap), *vplanes), idx,
+                                     v_rows)
 
 
-def probe_gather_staged(presence, vplanes, ph, pl, np_valid: int, lo,
+def probe_gather_staged(bitmap, vplanes, ph, pl, np_valid: int, lo,
                         v_rows: int):
     """Per probe row, straight from the key planes: (hit, *values).
 
-    presence: the 0/1 presence plane, (v_rows, 128), or the bitmap of the
-    occupied slots, (v_rows // 32, 128); vplanes: 1 or 2 value planes,
-    (v_rows, 128), all contiguous int32.  ph/pl: the probe key planes,
-    rows [0, np_valid) valid.  lo: the domain base, a one-element int64
-    tensor on the planes' device (no host sync).  Row i hits when
-    i < np_valid, its high word is 0, s = (pl[i] - lo) mod 2^32 is below
-    v_rows * 128 and slot s is occupied; hit is a bool mask shaped like ph,
-    and each value output the plane's word at s where it hits, 0 elsewhere.
+    bitmap: the occupied slots, (v_rows // 32, 128); vplanes: 1 or 2 value
+    planes, (v_rows, 128); all contiguous int32.  ph/pl: the probe key
+    planes, rows [0, np_valid) valid.  lo: the domain base, a one-element
+    int64 tensor on the planes' device (no host sync).  Row i hits when
+    i < np_valid, its high word is 0, its slot s = (pl[i] - lo) mod 2^32 is
+    below v_rows * 128 and s is occupied; hit is a bool mask shaped like
+    ph, and each value output the plane's word at s where it hits, 0
+    elsewhere.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
@@ -89,15 +94,14 @@ def probe_gather_staged(presence, vplanes, ph, pl, np_valid: int, lo,
                          f"{MAX_V_ROWS}], got {v_rows}")
     dev = ph.device
     check_key_planes(ph, pl, np_valid, "probe", dev)
-    bits = _is_bitmap(presence, v_rows)
-    check_plane(presence, v_rows // 32 if bits else v_rows, "presence", dev)
+    check_plane(bitmap, v_rows // 32, "bitmap", dev)
     for i, p in enumerate(vplanes):
         check_plane(p, v_rows, f"vplanes[{i}]", dev)
     if lo.dtype != torch.int64 or lo.numel() != 1 or lo.device != dev:
         raise ValueError("lo must be a one-element int64 tensor on the "
                          "planes' device")
     if dev.type == "cpu":
-        return probe_gather_staged_domain_plain(presence, vplanes, ph, pl,
+        return probe_gather_staged_domain_plain(bitmap, vplanes, ph, pl,
                                                 np_valid, lo, v_rows)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
@@ -107,11 +111,10 @@ def probe_gather_staged(presence, vplanes, ph, pl, np_valid: int, lo,
                  for _ in vplanes)
     if n == 0:
         return (hit, *outs)
-    lo = lo.contiguous()
     out_ptrs = [o.data_ptr() for o in outs] + [None]
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_staged_domain_gather(
-        presence.data_ptr(), int(bits), vplanes[0].data_ptr(),
+        bitmap.data_ptr(), vplanes[0].data_ptr(),
         vplanes[1].data_ptr() if len(vplanes) > 1 else None, v_rows,
         ph.data_ptr(), pl.data_ptr(), n, np_valid, lo.data_ptr(),
         hit.data_ptr(), out_ptrs[0], out_ptrs[1], stream)

@@ -27,7 +27,7 @@ Split of work:
     at slot granularity in plain torch over the build side (<= 2^20 rows),
     as the JAX package builds them outside any kernel; then
       scan band   (v_rows <= 128): the probe rows' domain indices in plain
-                  int64 torch (ops/cuda/bitmap_probe.py probe_domain_idx),
+                  int64 torch (ops/domain_map.py probe_domain_idx),
                   then K7 (ops/cuda/bitmap_probe.py) on them.
       staged band (v_rows <= 8192): K8 (ops/cuda/dense_values.py) straight
                   from the probe key planes, the mapping inside the kernel.
@@ -49,6 +49,7 @@ from __future__ import annotations
 
 import torch
 
+from flash_hash_join_tpu_torch.ops import domain_map as dm
 from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
@@ -138,9 +139,9 @@ def direct_join_count_large(kh, kl, ph, pl, nb_valid: int, np_valid: int, *,
 def _dense_value_planes(kh, kl, vh, vl, nb_valid: int, *, v_rows: int,
                         narrow_values: bool):
     """Scatter the build values into dense planes.  Returns (lo, n_bad,
-    build domain indices as int32 bit patterns, occupied-slot mask,
-    value planes: (vl,) when narrow_values, else (vh, vl), each
-    (v_rows, 128) int32).
+    build domain indices as int32 bit patterns, value planes: (vl,) when
+    narrow_values, else (vh, vl), each (v_rows, 128) int32; unoccupied
+    slots hold 0).
 
     Winner on duplicate build keys: the MIN build-row index, as in the JAX
     package's .at[].min and the port's partitioned and merge tiers."""
@@ -148,8 +149,8 @@ def _dense_value_planes(kh, kl, vh, vl, nb_valid: int, *, v_rows: int,
     v_slots = v_rows * LANES
     bvalid = torch.arange(n, device=kh.device) < nb_valid
     # lo is the min over valid rows with a zero hi-word (both bands)
-    lo = bp.masked_min(widen(kl), bvalid & (kh == 0))
-    n_bad, bidx = bp.build_domain_idx(kh, kl, bvalid, lo, v_slots)
+    lo = dm.masked_min(widen(kl), bvalid & (kh == 0))
+    n_bad, bidx = dm.build_domain_idx(kh, kl, bvalid, lo, v_slots)
     # rows outside the domain land on the extra slot v_slots, which is cut
     # off (torch's scatter has no mode="drop")
     slot = widen(bidx).clamp_(max=v_slots)
@@ -160,7 +161,7 @@ def _dense_value_planes(kh, kl, vh, vl, nb_valid: int, *, v_rows: int,
     cols = (vl,) if narrow_values else (vh, vl)
     planes = tuple(torch.cat([c, c.new_zeros(1)])[win].view(v_rows, LANES)
                    for c in cols)
-    return lo, n_bad, bidx, win < n, planes
+    return lo, n_bad, bidx, planes
 
 
 def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
@@ -171,22 +172,23 @@ def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     rows first, in probe order, as int32 bit-pattern planes of the probe
     side's length (out_vh is zeros when narrow_values).
 
-    v_rows: the value-plane rung (v_rows_for(span)); scan band (K7) up to
-    MAT_SCAN_MAX_V_ROWS, staged band (K8) up to MAT_MAX_V_ROWS.
+    v_rows: the value-plane rung (v_rows_for(span): a power of two from 8
+    to MAT_MAX_V_ROWS); scan band (K7) up to MAT_SCAN_MAX_V_ROWS, staged
+    band (K8) above.
     narrow_values: every value is below 2^32, so the hi plane is dropped.
     special[3] = build rows outside the domain (caller must fall back when
     nonzero).
     """
-    if not 8 <= v_rows <= MAT_MAX_V_ROWS:
-        raise ValueError(f"v_rows must be in [8, {MAT_MAX_V_ROWS}], got "
-                         f"{v_rows}")
-    lo, n_bad, bidx, _, planes = _dense_value_planes(
+    if not 8 <= v_rows <= MAT_MAX_V_ROWS or v_rows & (v_rows - 1):
+        raise ValueError(f"v_rows must be a power of two in [8, "
+                         f"{MAT_MAX_V_ROWS}], got {v_rows}")
+    lo, n_bad, bidx, planes = _dense_value_planes(
         kh, kl, vh, vl, nb_valid, v_rows=v_rows, narrow_values=narrow_values)
     # the occupied slots as a bitmap: K7's rows, or K8's v_rows // 32
     d_rows = max(8, v_rows // 32)
-    bitmap = bp.pack_bitmap(bidx, d_rows)
+    bitmap = dm.pack_bitmap(bidx, d_rows)
     if v_rows <= MAT_SCAN_MAX_V_ROWS:
-        pidx = bp.probe_domain_idx(ph, pl, np_valid, lo, v_rows * LANES)
+        pidx = dm.probe_domain_idx(ph, pl, np_valid, lo, v_rows * LANES)
         hit, *vals = bp.probe_gather_bitmap(bitmap, planes, pidx, d_rows,
                                             v_rows)
     else:

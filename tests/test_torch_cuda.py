@@ -19,8 +19,8 @@ import pytest
 import torch
 
 import flash_hash_join_tpu_torch as ft
-from flash_hash_join_tpu_torch.models.workload import (dense_domain_keys,
-                                                        offset_plane_views)
+from flash_hash_join_tpu_torch.models.workload import (
+    dense_domain_keys, domain_sides, offset_plane_views)
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import range_table as rt
@@ -52,31 +52,34 @@ def _idx(rng, n, n_bits, dev):
     return to_device(idx, dev)
 
 
-def _domain_sides(rng, nb, npr, lo, n_bits):
-    """Build and probe keys of a domain entry's card test: the edge keys of
-    dense_domain_keys, a third of the probes drawn from the build side;
-    nb < 0: |nb| rows, every one of them bad (a high word)."""
-    bk = dense_domain_keys(rng, abs(nb), lo, n_bits)
-    if nb < 0:
-        bk |= np.uint64(2**40)
-    pk = dense_domain_keys(rng, npr, lo, n_bits)
-    if bk.size and npr:
-        pk[::3] = rng.choice(bk, pk[::3].size)
-    return bk, pk
-
-
 # aligned; misaligned alike; each plane its own way (odd lengths)
 PLANE_OFFSETS = ((0, 0), (1, 1), (1, 3), (2, 0))
+
+
+def _domain_entry_cases(rng, sizes, lo, n_bits):
+    """domain_sides for each (nb, npr) of sizes: the second keeps every
+    build row at or above lo, so the scan band's lo (over every row) stays
+    put and most rows are in the domain; the last adds a high-word build
+    row under every other row's low word, where the scan band's lo and the
+    large band's part.  Yields (bk, pk, hi_under)."""
+    for i, (nb, npr) in enumerate(sizes):
+        hi_under = i == len(sizes) - 1
+        bk, pk = domain_sides(rng, nb, npr, lo, n_bits,
+                              below_lo=i != 1 and not hi_under,
+                              hi_under=hi_under)
+        yield bk, pk, hi_under
 
 
 @pytest.mark.parametrize("d_rows", [8, 16, 32, 64, 128, 256])
 def test_scan_domain_count_matches_plain(dev, d_rows):
     rng = np.random.default_rng(d_rows + 2)
     n_bits = d_rows * 4096
-    lo = int(rng.integers(1, 2**31))
-    for nb, npr in ((200_001, 3_000_005), (0, 1_000), (1_000, 0), (5, 7),
-                    (-1_001, 2_003)):
-        bk, pk = _domain_sides(rng, nb, npr, lo, n_bits)
+    lo = int(rng.integers(n_bits, 2**31))
+    for bk, pk, hi_under in _domain_entry_cases(
+            rng, ((200_001, 3_000_005), (200_003, 3_000_001), (0, 1_000),
+                  (1_000, 0), (5, 7), (-1_001, 2_003), (200_005, 600_007)),
+            lo, n_bits):
+        npr = pk.size
         for offs in PLANE_OFFSETS:
             kh, kl = offset_plane_views(bk, dev, *offs)
             ph, pl = offset_plane_views(pk, dev, *offs[::-1])
@@ -88,8 +91,12 @@ def test_scan_domain_count_matches_plain(dev, d_rows):
                 want = bp.scan_domain_count_plain(*args)
                 torch.cuda.synchronize()
                 assert [int(x) for x in got] == [int(x) for x in want], (
-                    d_rows, nb, npr, offs, nbv, npv)
+                    d_rows, bk.size, npr, offs, nbv, npv)
                 assert bp.scan_domain_count.launches == before + (nbv > 0)
+                if hi_under:                    # lo over EVERY valid row
+                    assert [int(x) for x in got] != [
+                        int(x) for x in dbm.fused_domain_bitmap_join_plain(
+                            *args)]
                 assert all(x.dim() == 0 and x.dtype == torch.int64
                            and x.device.type == "cuda" for x in got)
 
@@ -98,10 +105,12 @@ def test_scan_domain_count_matches_plain(dev, d_rows):
 def test_fused_domain_bitmap_join_matches_plain(dev, d_rows):
     rng = np.random.default_rng(d_rows + 1)
     n_bits = d_rows * 4096
-    lo = int(rng.integers(1, 2**31))
-    for nb, npr in ((2_000_001, 3_000_005), (0, 1_000), (1_000, 0), (5, 7),
-                    (-1_001, 2_003)):
-        bk, pk = _domain_sides(rng, nb, npr, lo, n_bits)
+    lo = int(rng.integers(n_bits, 2**31))
+    for bk, pk, hi_under in _domain_entry_cases(
+            rng, ((2_000_001, 3_000_005), (2_000_003, 3_000_001), (0, 1_000),
+                  (1_000, 0), (5, 7), (-1_001, 2_003), (500_005, 600_007)),
+            lo, n_bits):
+        npr = pk.size
         for offs in PLANE_OFFSETS:
             kh, kl = offset_plane_views(bk, dev, *offs)
             ph, pl = offset_plane_views(pk, dev, *offs[::-1])
@@ -113,9 +122,12 @@ def test_fused_domain_bitmap_join_matches_plain(dev, d_rows):
                 want = dbm.fused_domain_bitmap_join_plain(*args)
                 torch.cuda.synchronize()
                 assert [int(x) for x in got] == [int(x) for x in want], (
-                    d_rows, nb, npr, offs, nbv, npv)
+                    d_rows, bk.size, npr, offs, nbv, npv)
                 assert dbm.fused_domain_bitmap_join.launches == before + (
                     nbv > 0)
+                if hi_under:           # lo over the zero-high-word rows
+                    assert [int(x) for x in got] != [
+                        int(x) for x in bp.scan_domain_count_plain(*args)]
                 assert all(x.dim() == 0 and x.dtype == torch.int64
                            and x.device.type == "cuda" for x in got)
 
@@ -360,7 +372,7 @@ def test_probe_gather_staged_matches_plain(dev, v_rows, n_planes):
     for lo in (123_456_789, 0, 2**32 - 1 - v_slots // 2, SENTINEL):
         lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
         for npr in (0, 7, 1_000_003):
-            pk = dense_domain_keys(rng, npr, max(lo, 1), v_slots)
+            pk = dense_domain_keys(rng, npr, lo, v_slots)
             for offs in PLANE_OFFSETS:
                 ph, pl = offset_plane_views(pk, dev, *offs)
                 for npv in {npr, max(npr - 5, 0)}:

@@ -19,6 +19,7 @@ from flash_hash_join_tpu.ops import direct_bitmap as jdb
 from flash_hash_join_tpu.utils import u64 as ju64
 from flash_hash_join_tpu_torch.models import workload
 from flash_hash_join_tpu_torch.ops import direct_bitmap as tdb
+from flash_hash_join_tpu_torch.ops import domain_map as tdm
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as tbp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as tdbm
 from flash_hash_join_tpu_torch.utils import u64 as tu64
@@ -136,9 +137,9 @@ def test_domain_entry_matches_index_composition(name):
     kh, kl = _torch_planes(bk)
     ph, pl = _torch_planes(pk)
     bvalid = torch.arange(kh.shape[0]) < nbv
-    lo = tbp.masked_min(tu64.widen(kl), bvalid & (kh == 0))
-    n_bad, bidx = tbp.build_domain_idx(kh, kl, bvalid, lo, D_BITS)
-    pidx = tbp.probe_domain_idx(ph, pl, npv, lo, D_BITS)
+    lo = tdm.masked_min(tu64.widen(kl), bvalid & (kh == 0))
+    n_bad, bidx = tdm.build_domain_idx(kh, kl, bvalid, lo, D_BITS)
+    pidx = tdm.probe_domain_idx(ph, pl, npv, lo, D_BITS)
     count = tdbm.fused_bitmap_join_plain(bidx, pidx, D_ROWS)
     assert _entry(bk, pk, nbv, npv) == (int(count), int(n_bad))
 

@@ -221,7 +221,7 @@ def test_k8_domain_at_every_rung_matches_numpy_spec(v_rows):
     rng = np.random.default_rng(v_rows)
     v_slots = v_rows * 128
     for lo in (123_456_789, 0, 2**32 - 1 - v_slots // 2, SENTINEL):
-        pk = workload.dense_domain_keys(rng, 6_001, max(lo, 1), v_slots)
+        pk = workload.dense_domain_keys(rng, 6_001, lo, v_slots)
         pk[7:9] = [lo + v_slots - 1, lo + v_slots]         # last slot, past
         pk[9:11] = [2**32 - 1, 2**64 - 1]
         ph, pl = tu64.device_planes(pk, "cpu")
@@ -470,6 +470,18 @@ def test_direct_join_materialize_empty_sides(v_rows, empty):
     bk, pk = (none, keys) if empty == "build" else (keys, none)
     got = _port_mat(bk, bk, pk, len(bk), len(pk), v_rows, True)
     assert (got[0], got[3]) == (0, 0)
+
+
+@pytest.mark.parametrize("v_rows", [4, 200, 288, 16384])
+def test_direct_join_materialize_takes_only_its_rungs(v_rows):
+    # v_rows_for's rungs are the powers of two from 8 to MAT_MAX_V_ROWS; K8
+    # stages v_rows // 32 bitmap rows, so an off-rung v_rows is refused at
+    # the band's entry, not inside a kernel's wrapper
+    keys = np.arange(100, dtype=np.uint64)
+    with pytest.raises(ValueError, match="power of two"):
+        tdb.direct_join_materialize(
+            *(_t(a) for a in _planes_of(keys, keys, keys)), 100, 100,
+            v_rows=v_rows)
 
 
 def test_staged_gap_is_exact():

@@ -158,6 +158,14 @@ def _scan_domain_case(name, d_rows):
         # every valid build row has a high word: lo is their least low word
         # and every one of them is bad
         bk |= np.uint64(2**36)
+    elif name == "hi_under_domain_sides":
+        # the card tests' and chip_smoke's case where the two bands' lo
+        # part: a high-word build row whose low word is under every other
+        # row's sets the scan band's lo, and about half of the build rows
+        # leave the domain
+        bk, pk = workload.domain_sides(rng, 3_005, 9_001, 50_000_000, d_bits,
+                                       below_lo=False, hi_under=True)
+        nbv, npv = len(bk) - 5, len(pk) - 3
     else:
         raise KeyError(name)
     return bk, pk, nbv, npv
@@ -166,7 +174,7 @@ def _scan_domain_case(name, d_rows):
 SCAN_DOMAIN_CASES = ["hi_word_rows_set_lo", "below_lo_and_hi_probes",
                      "u32_and_u64_max", "u32_max_in_domain", "padding_tail",
                      "empty_valid_build", "empty_valid_probe",
-                     "no_zero_hi_build"]
+                     "no_zero_hi_build", "hi_under_domain_sides"]
 
 
 @pytest.mark.parametrize("name", SCAN_DOMAIN_CASES)
@@ -187,6 +195,10 @@ def test_scan_domain_count_plain_matches_jax_and_spec(name, d_rows):
         assert got[1] > 0
     if name == "u32_max_in_domain":
         assert got == (6_000, 0)
+    if name == "hi_under_domain_sides":       # not the large band's lo
+        assert got[1] > nbv // 3
+        assert got != tuple(int(x) for x in tdbm.fused_domain_bitmap_join_plain(
+            _t(kh), _t(kl), _t(ph), _t(pl), nbv, npv, d_rows))
 
 
 @pytest.mark.parametrize("d_rows", [8, 16, 32, 64, 128, 256])
