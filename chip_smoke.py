@@ -26,18 +26,23 @@ Phases, one JSON line each on stdout:
               64-bit offsets), the directory build against its plain
               version and numpy at both offset widths; misaligned
               views, np_valid < npr, the u64-max key on both sides, K5
-              with 2, 3 and 4 planes; K7 at v_rows 8, 16, 64, 128 on
-              domain indices, at sizes 0, 7 and 3e7+5, with misaligned
-              views and a sentinel tail; K8, which reads the probe key
-              planes, at every rung 256-8192 with the count's edge keys,
+              with 2, 3 and 4 planes; K7, which reads the probe key
+              planes, at v_rows 8, 16, 64, 128 (lo 0, inside u32, at its
+              top and 0xFFFFFFFF) with the domain's edge keys (lo, its
+              last slot, past it, below lo, a high word, u32-max,
+              u64-max), views misaligned each plane its own way and
+              np_valid < npr, at sizes 0, 7 and 3e7+5; K8, which reads the
+              probe key planes, at every rung 256-8192 with the count's
+              edge keys,
               lo inside u32, 0, at its top and 0xFFFFFFFF, views misaligned
               each plane its own way and np_valid < npr, at sizes 0, 7 and
               3e6+5; K7 and K8 with 1 and 2 value planes; K9 (on no path:
               the TPU kernel's counterpart) at sizes 0, 7, 3e7+5 and around
               its 4096-word block, on misaligned, odd-length views; K10/K11
-              at every vmem rung (R 8, 16, 64, 128, 512) with a bucket full
-              to its last slot, probe sizes 0, 7, 3e7+5, misaligned views,
-              np_valid < npr and the u64-max key on both sides, and K6 with
+              at every vmem rung (R 8-512) with a bucket full to its last
+              slot, probe sizes 0, 7, 3e7+5, misaligned views, np_valid <
+              npr and the u64-max key on both sides, K11's layout launch
+              (the bucket-major copy) alone at each rung, and K6 with
               2, 3 and 4 planes over 520 blocks, all empty, all full and
               random.  Then each kernel and its plain version timed (CUDA
               events: a lone call, median of 5 after a warm-up; the kernel
@@ -48,7 +53,11 @@ Phases, one JSON line each on stdout:
               words); K3/K4 at J1 1e8 Q5 with
               the directory's offsets as int32 (as built) and as int64; and
               K3/K4 on both table layouts (searched whole, or through a
-              directory) at build sizes 100 to 1e5.
+              directory) at build sizes 100 to 1e5.  K7 is timed on each of
+              its path's cells (J1 1e7 Q2, 4e7 Q1, 1e8 Q1), K8 on its own,
+              K10 and K11 at R 16 (J1 1e8 Q1) and R 512 (J1 4e7 Q2); the
+              kernels line gives one cell a kernel and the rest under
+              other_cells.
   3. main     adaptive_join_count(device="cuda") on the db-benchmark J1
               cells: 4e7 Q1, Q2, Q5 (j1_suite seed 0), bench.py's 4e7 case
               (default_rng(2026)) and 1e8 Q5.  Each count must equal the
@@ -73,7 +82,9 @@ Phases, one JSON line each on stdout:
               v_rows 512 and 1024) through adaptive_join and
               join_materialize(return_arrays=True): count and probe-order
               rows equal the oracle, route "direct" with no retry, K7 or
-              K8, and K5 launched, and K9 not; the same cell through
+              K8, and K5 launched, and K9 and the plain int64 probe mapping
+              not (both bands map the key planes in-kernel); the same
+              cell through
               strategy="partitioned"
               beside it.  Then a wide-value cell (u64 values, 2 value
               planes) at the 4e7 Q2 shape, where direct, partitioned and
@@ -108,6 +119,7 @@ before doing anything.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import re
@@ -298,14 +310,6 @@ def domain_indices(bk: np.ndarray, pk: np.ndarray):
     pd = pk - lo                                       # wraps below lo
     pidx = np.where((pk >= lo) & (pd < d_bits), pd, SENTINEL)
     return bidx, pidx.astype(np.uint32), d_rows
-
-
-def random_indices(rng, n: int, n_bits: int, dev):
-    from flash_hash_join_tpu_torch.utils.u64 import to_device
-    idx = rng.integers(0, n_bits, n, dtype=np.uint32)
-    idx[rng.random(n) < 0.05] = SENTINEL
-    idx[:3] = n_bits + 7                               # out of the domain
-    return to_device(idx, dev)
 
 
 def phase_env():
@@ -777,7 +781,6 @@ def phase_dense_kernels(cells: dict) -> dict:
     import torch
     from flash_hash_join_tpu_torch.models.workload import (
         dense_domain_keys, offset_plane_views)
-    from flash_hash_join_tpu_torch.ops import domain_map as dm
     from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
     from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
     from flash_hash_join_tpu_torch.utils.u64 import to_device
@@ -799,21 +802,25 @@ def phase_dense_kernels(cells: dict) -> dict:
                      for _ in range(n))
 
     sizes = (0, 7, 30_000_005)
-    for v_rows in (8, 16, 64, 128):                    # K7, domain indices
-        v_slots = v_rows * 128
-        d_rows = max(8, v_rows // 32)
-        bitmap, = planes(d_rows, 1)
+    for v_rows, lo in ((8, 0), (16, int(rng.integers(1, 2**31))),
+                       (64, 2**32 - 1 - 64 * 64), (128, SENTINEL)):
+        v_slots = v_rows * 128             # K7, key planes: one lo a rung
+        bitmap, = planes(bp.GATHER_D_ROWS, 1)
         vplanes = planes(v_rows, 2)
+        lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
         for n in sizes:
-            idx = random_indices(rng, n + 1, v_slots + v_slots // 8, dev)
-            idx[-6:] = -1                  # the tail past np_valid
-            for view in (idx[:n], idx[1:]):                # misaligned
-                for k in (1, 2):
-                    args = (bitmap, vplanes[:k], view, d_rows, v_rows)
+            pk = dense_domain_keys(rng, n, lo, v_slots)
+            pk[:min(n, 7)] = np.array(     # the domain's edges, u64-max
+                [lo, lo + v_slots - 1, lo + v_slots, max(lo, 1) - 1,
+                 2**32 + lo, SENTINEL, M64], np.uint64)[:min(n, 7)]
+            for shift in ((0, 0), (1, 3)):
+                ph, pl = offset_plane_views(pk, dev, *shift)
+                for k, npv in ((1, n), (2, max(n - 5, 0))):
+                    args = (bitmap, vplanes[:k], ph, pl, npv, lo_t, v_rows)
                     check("probe_gather_bitmap",
                           bp.probe_gather_bitmap(*args),
-                          bp.probe_gather_bitmap_plain(*args))
-            del idx
+                          bp.probe_gather_bitmap_domain_plain(*args))
+            del pk, ph, pl
     for v_rows in (256, 512, 1024, 2048, 4096, 8192):  # K8, key planes
         v_slots = v_rows * 128
         bitmap, = planes(v_rows // 32, 1)
@@ -851,32 +858,28 @@ def phase_dense_kernels(cells: dict) -> dict:
         v_rows, lo, bitmap, vplanes, ph, pl = dense_inputs(cells[name], dev)
         n, k = ph.numel(), len(vplanes)
         runs = {}
+        args = (bitmap, vplanes, ph, pl, n, lo, v_rows)
         if v_rows <= 128:
-            d_rows = max(8, v_rows // 32)
-            pidx = dm.probe_domain_idx(ph, pl, n, lo, v_rows * 128)
-            args = (bitmap, vplanes, pidx, d_rows, v_rows)
             runs["probe_gather_bitmap"] = (
                 lambda: bp.probe_gather_bitmap(*args),
-                lambda: bp.probe_gather_bitmap_plain(*args))
+                lambda: bp.probe_gather_bitmap_domain_plain(*args))
         else:
-            staged = (bitmap, vplanes, ph, pl, n, lo, v_rows)
             runs["probe_gather_staged"] = (
-                lambda: dv.probe_gather_staged(*staged),
-                lambda: dv.probe_gather_staged_domain_plain(*staged))
+                lambda: dv.probe_gather_staged(*args),
+                lambda: dv.probe_gather_staged_domain_plain(*args))
             if name == "1e8-Q2":
                 # K9 is on no path: held against its plain version, clone,
                 # on a plane of the cell's size (the probes' low words)
                 runs["materialize_copy"] = (
                     lambda: (dv.materialize_copy(pl),),
                     lambda: (dv.materialize_copy_plain(pl),))
-        bounds = {  # K7: index reads; K8: key-plane reads; the bitmap and
-                    # value planes read once; hit and value writes
-            "probe_gather_bitmap": bound(
-                max(8, v_rows // 32) * 512 + k * v_rows * 512 + 5 * n
-                + 4 * k * n, 6 * n),
-            "probe_gather_staged": bound(v_rows * 16 + k * v_rows * 512
-                                         + 9 * n + 4 * k * n + 8, 6 * n),
-            "materialize_copy": bound(8 * n, n)}
+        # K7, K8: key-plane reads, the occupied slots' bitmap and value
+        # planes read once, hit and value writes, lo
+        gather = bound(v_rows * 16 + k * v_rows * 512 + 9 * n + 4 * k * n
+                       + 8, 6 * n)
+        bounds = {"probe_gather_bitmap": gather,
+                  "probe_gather_staged": gather,
+                  "materialize_copy": bound(8 * n, n)}
         library = {}
         for kernel, (run, plain) in runs.items():
             check(kernel, run(), plain())
@@ -896,13 +899,15 @@ def phase_dense_kernels(cells: dict) -> dict:
             emit("kernel_time", cell=name, kernel=kernel, v_rows=v_rows,
                  n_planes=k, npr=n, **t, **bounds[kernel],
                  library_ms=library.get(kernel))
-        del lo, bitmap, vplanes, ph, pl, runs
+        del lo, bitmap, vplanes, ph, pl, runs, args
         torch.cuda.empty_cache()
-    at = {"probe_gather_bitmap": ("1e7-Q2", "J1 1e7 Q2, v_rows 128"),
+    at = {"probe_gather_bitmap": ("1e8-Q1", "J1 1e8 Q1, v_rows 8"),
           "probe_gather_staged": ("1e8-Q2", "J1 1e8 Q2, v_rows 1024"),
           "materialize_copy": ("1e8-Q2", "1e8 words (J1 1e8 Q2's probe "
                                          "plane); on no path")}
-    return {k: dict(max_abs_err=err[k], **timing[k, cell], at=where)
+    return {k: dict(max_abs_err=err[k], **timing[k, cell], at=where,
+                    other_cells={c: timing[k, c] for kk, c in timing
+                                 if kk == k and c != cell})
             for k, (cell, where) in at.items()}
 
 
@@ -1072,6 +1077,30 @@ def phase_fallback(c) -> None:
              materialize_launches=minfo["launches"])
 
 
+@contextlib.contextmanager
+def probe_mapping_calls():
+    """Counts the calls of the plain int64 probe mapping (domain_map.
+    probe_domain_idx, under every name the package imports it by) on card
+    tensors inside the block: yields the list they append to."""
+    from flash_hash_join_tpu_torch.ops import domain_map as dm
+    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
+    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
+    from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+    calls, mapping, modules = [], dm.probe_domain_idx, (dm, bp, dbm, dv)
+
+    def spy(ph, *args):
+        if ph.device.type == "cuda":
+            calls.append(ph.numel())
+        return mapping(ph, *args)
+    for module in modules:
+        module.probe_domain_idx = spy
+    try:
+        yield calls
+    finally:
+        for module in modules:
+            module.probe_domain_idx = mapping
+
+
 def dense_mat_cell(name: str, c) -> None:
     """Drive one dense cell through adaptive_join (timed) and
     join_materialize(return_arrays=True), checked against the oracle, then
@@ -1081,9 +1110,13 @@ def dense_mat_cell(name: str, c) -> None:
     from flash_hash_join_tpu_torch.ops import direct_bitmap as db
     want = int(oracle(name, c)[0].sum())
     torch.cuda.reset_peak_memory_stats()
-    best, wall, runs, (count, _, info) = _timed_runs(ft.adaptive_join, c,
-                                                     reps=2)
+    with probe_mapping_calls() as calls:
+        best, wall, runs, (count, _, info) = _timed_runs(ft.adaptive_join, c,
+                                                         reps=2)
     peak = torch.cuda.max_memory_allocated()
+    # K7 and K8 map the probe key planes inside the kernel
+    require(not calls, f"dense_mat {name}: the int64 probe mapping ran on "
+            f"the card ({len(calls)} calls)")
     require(count == want, f"dense_mat {name}: count {count} != {want}")
     require(info["strategy"] == "direct" and not info["retried"],
             f"dense_mat {name}: routed {info}")
@@ -1182,7 +1215,7 @@ def phase_bucket_kernels(cells: dict) -> dict:
     err = {"probe_count_vmem": 0, "probe_materialize_vmem": 0,
            "concat_ragged_blocks": 0}
     cases = 0
-    for r_slots in (8, 16, 64, 128, 512):
+    for r_slots in (8, 16, 32, 64, 128, 256, 512):
         # 40 % load from random keys, bucket 0 filled to its last slot
         bk = rng.integers(0, 2**64, int(0.4 * 128 * r_slots), dtype=np.uint64)
         cand = rng.integers(0, 2**64, 400 * r_slots, dtype=np.uint64)
@@ -1197,6 +1230,13 @@ def phase_bucket_kernels(cells: dict) -> dict:
                 f"r_slots {r_slots}: bucket 0 not full, or rows dropped")
         tables = (table.tk_hi, table.tk_lo)
         values = (table.tv_hi, table.tv_lo)
+        # K11's first launch alone: the bucket-major copy of the table
+        err["probe_materialize_vmem"] = max(
+            err["probe_materialize_vmem"],
+            *(_max_abs(g.view(torch.int32), w.view(torch.int32))
+              for g, w in zip(bkp.bucket_major(*tables, *values),
+                              bkp.bucket_major_plain(*tables, *values))))
+        cases += 1
         for npr in (0, 7, 30_000_005):
             pk = rng.integers(0, 2**64, npr + 1, dtype=np.uint64)
             pk[1::2] = rng.choice(bk, pk[1::2].size)
@@ -1309,9 +1349,11 @@ def phase_bucket_kernels(cells: dict) -> dict:
     del planes, counts, prefix, stacked
     torch.cuda.empty_cache()
     at = {"probe_count_vmem": ("1e8-Q1", "J1 1e8 Q1, R 16"),
-          "probe_materialize_vmem": ("1e8-Q1", "J1 1e8 Q1, R 16"),
+          "probe_materialize_vmem": ("4e7-Q2", "J1 4e7 Q2, R 512"),
           "concat_ragged_blocks": ("1e8", "1e8 rows, 4 planes, 60 % hits")}
-    return {k: dict(max_abs_err=err[k], **timing[k, cell], at=where)
+    return {k: dict(max_abs_err=err[k], **timing[k, cell], at=where,
+                    other_cells={c: timing[k, c] for kk, c in timing
+                                 if kk == k and c != cell})
             for k, (cell, where) in at.items()}
 
 

@@ -44,31 +44,41 @@
 //    atomicAdd per block finish the count.
 //
 // K7: membership plus value gather, the scan band of the dense-domain
-// materialize.  Replaces flash_hash_join_tpu/ops/pallas/bitmap_probe.py:
-// probe_gather_bitmap (kernel body _gather_kernel): per unsorted probe index,
-// the 0/1 hit of its bitmap bit and the 1-2 dense value planes at its slot
-// (row idx >> 7, lane idx & 127 of a (v_rows, 128) plane, i.e. word idx);
-// an index at or past v_rows * 128 reads 0, as the TPU kernel's row scan
-// matches no row for it.
+// materialize, straight from the probe key planes.  Replaces
+// flash_hash_join_tpu/ops/pallas/bitmap_probe.py:probe_gather_bitmap
+// (kernel body _gather_kernel) together with the probe-side domain mapping
+// that flash_hash_join_tpu/ops/direct_bitmap.py:direct_join_materialize
+// runs in front of it in XLA (_probe_idx).  Per probe row i: the row is
+// inside when i < np_valid, its high word is 0 and its slot, (low word -
+// base) mod 2^32, is below v_rows * 128 (fhj::in_domain; base = the least
+// low word of the valid zero-high-word build rows, which the caller leaves
+// in device memory); hit[i] is the slot's bit in the occupied slots'
+// bitmap, and the 1-2 dense value planes are read at the slot (row s >> 7,
+// lane s & 127 of a (v_rows <= 128, 128) plane, i.e. word s); a row that
+// is not inside misses and reads 0, as the TPU kernel's scan matches no
+// row for the sentinel index.
 //
-// What bounds it: per probe 4 B read and 5-9 B written, so device-memory
-// bandwidth, once the bitmap (4 KB in the scan band) and the planes (at
-// most 2 x 64 KB at v_rows = 128) sit in dynamic shared memory.  The TPU
-// kernel scans all v_rows value rows per tile (a lane gather and a
-// row-match select each), so its cost grows with v_rows; here every probe
-// reads its own word, one thread per probe, and the grid is capped at the
-// blocks that fit on the card so each block stages the planes once.
+// What bounds it: per probe row 8 B of key planes read and 5-9 B written
+// (13 B narrow: 0.388 ms for J1 1e8 Q1 at 3.35 TB/s), so device-memory
+// bandwidth, once the bitmap (v_rows * 16 B) and the planes (at most
+// 2 x 64 KB at v_rows = 128) sit in dynamic shared memory.
+//
+// What the design does about it, against the TPU kernel:
+//  * The TPU kernel scans all v_rows value rows per tile (a lane gather
+//    and a row-match select each), so its cost grows with v_rows; here
+//    every row reads its own words from shared memory.
+//  * The TPU kernel took lo-relative u32 indices that XLA mapped from the
+//    planes; PyTorch runs that mapping one eager int64 pass an operation
+//    (about 6.7 of 8.3 ms of device time at J1 1e8 Q1 around a 0.4 ms
+//    index-form kernel on an H100), so each row is mapped in registers, as
+//    K8 does (dense_values.cu), and nothing is written between the key
+//    planes and K7's outputs.
+//  * 16-byte loads of both key planes (fhj::for_each_pair_at); the grid is
+//    capped at the blocks that fit on the card, so each block stages the
+//    bitmap and planes once for a grid-stride share of the rows.
 #include "domain.cuh"
 
 namespace {
-
-// Copies n32 words (a multiple of 4, 16-byte aligned) into shared memory.
-__device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* __restrict__ src,
-                                      int n32) {
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  for (int i = threadIdx.x; i < n32 / 4; i += blockDim.x) d[i] = __ldg(s + i);
-}
 
 // K2: the bit test of every probe key in the domain from *lo.
 __global__ void __launch_bounds__(fhj::kThreads)
@@ -79,7 +89,7 @@ scan_domain_probe_kernel(const uint32_t* __restrict__ bitmap, int n_words,
                          unsigned long long* __restrict__ count) {
   extern __shared__ uint4 smem[];
   uint32_t* bm = reinterpret_cast<uint32_t*>(smem);
-  stage(bm, bitmap, n_words);
+  fhj::stage(bm, bitmap, n_words);
   __syncthreads();
   const uint32_t base = __ldg(lo);
   const uint32_t n_bits = (uint32_t)n_words * 32u;
@@ -92,31 +102,34 @@ scan_domain_probe_kernel(const uint32_t* __restrict__ bitmap, int n_words,
   if (threadIdx.x == 0 && total) atomicAdd(count, total);
 }
 
-// K7: hit flag and the value planes at each probe's slot.  Shared memory
-// holds the bitmap, then plane 0, then plane 1 (when p1 is given).
+// K7: hit flag and the value planes at each probe row's slot.  Shared
+// memory holds the occupied slots' bitmap (v_slots / 32 words), then plane
+// 0, then plane 1 (when p1 is given).
 __global__ void __launch_bounds__(fhj::kThreads)
-bitmap_gather_kernel(const uint32_t* __restrict__ bitmap, int n_words,
-                     const uint32_t* __restrict__ p0, const uint32_t* __restrict__ p1,
-                     int v_slots, const uint32_t* __restrict__ idx, int64_t n,
-                     uint8_t* __restrict__ hit, uint32_t* __restrict__ o0,
-                     uint32_t* __restrict__ o1) {
+scan_domain_gather_kernel(const uint32_t* __restrict__ bitmap,
+                          const uint32_t* __restrict__ p0,
+                          const uint32_t* __restrict__ p1, uint32_t v_slots,
+                          const uint32_t* __restrict__ ph,
+                          const uint32_t* __restrict__ pl, int64_t n,
+                          int64_t np_valid, const long long* __restrict__ lo,
+                          uint8_t* __restrict__ hit, uint32_t* __restrict__ o0,
+                          uint32_t* __restrict__ o1) {
   extern __shared__ uint4 smem[];
   uint32_t* bm = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* s0 = bm + n_words;
+  uint32_t* s0 = bm + v_slots / 32u;
   uint32_t* s1 = s0 + v_slots;
-  stage(bm, bitmap, n_words);
-  stage(s0, p0, v_slots);
-  if (p1) stage(s1, p1, v_slots);
+  fhj::stage(bm, bitmap, (int)(v_slots / 32u));
+  fhj::stage(s0, p0, (int)v_slots);
+  if (p1) fhj::stage(s1, p1, (int)v_slots);
   __syncthreads();
-  const uint32_t n_bits = (uint32_t)n_words * 32u;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const uint32_t v = __ldg(idx + i);
-    const bool inside = v < (uint32_t)v_slots;
-    hit[i] = v < n_bits ? (uint8_t)fhj::bit_of(bm[v >> 5], v) : (uint8_t)0;
+  const uint32_t base = (uint32_t)__ldg(lo);
+  fhj::for_each_pair_at(ph, pl, n, [=](int64_t i, uint32_t h, uint32_t l) {
+    uint32_t v;
+    const bool inside = fhj::in_domain(h, l, base, v_slots, &v) && i < np_valid;
+    hit[i] = inside && fhj::bit_of(bm[v >> 5], v) != 0u;
     o0[i] = inside ? s0[v] : 0u;
     if (p1) o1[i] = inside ? s1[v] : 0u;
-  }
+  });
 }
 
 }  // namespace
@@ -150,26 +163,28 @@ int fhj_scan_domain_count(const uint32_t* kh, const uint32_t* kl, int64_t nb,
   return (int)cudaGetLastError();
 }
 
-// bitmap: d_rows * 128 words; p0 and p1 (p1 may be null): v_rows * 128 words
-// each; all 16-byte aligned, and bitmap plus planes at most the block's
-// shared memory.  Writes hit[i], o0[i] and (with p1) o1[i] for every
-// i < n on `stream` (no launch when n == 0).  Returns cudaGetLastError().
-int fhj_bitmap_probe_gather(const uint32_t* bitmap, int d_rows, const uint32_t* p0,
-                            const uint32_t* p1, int v_rows, const uint32_t* idx,
-                            int64_t n, uint8_t* hit, uint32_t* o0, uint32_t* o1,
-                            cudaStream_t stream) {
+// bitmap: the occupied slots, at least v_rows * 4 words; p0 and p1 (p1
+// may be null): v_rows * 128 words each (v_rows <= 128); all 16-byte
+// aligned.  ph/pl: the probe key planes, n rows, [0, np_valid) valid; lo:
+// the domain base, one int64 in device memory.  Writes hit[i], o0[i] and
+// (with p1) o1[i] for every i < n on `stream` (no launch when n == 0).
+// Returns cudaGetLastError().
+int fhj_scan_domain_gather(const uint32_t* bitmap, const uint32_t* p0,
+                           const uint32_t* p1, int v_rows, const uint32_t* ph,
+                           const uint32_t* pl, int64_t n, int64_t np_valid,
+                           const long long* lo, uint8_t* hit, uint32_t* o0,
+                           uint32_t* o1, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const int n_words = d_rows * 128;
-  const int v_slots = v_rows * 128;
-  const size_t smem = (size_t)(n_words + v_slots * (p1 ? 2 : 1)) * sizeof(uint32_t);
+  const uint32_t v_slots = (uint32_t)v_rows * 128u;
+  const size_t smem = (size_t)(v_slots / 32u + v_slots * (p1 ? 2u : 1u)) * sizeof(uint32_t);
   cudaError_t e = cudaFuncSetAttribute(
-      bitmap_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      scan_domain_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int grid = 0;
-  e = fhj::grid_for(bitmap_gather_kernel, n, smem, &grid, 1);
+  e = fhj::grid_for(scan_domain_gather_kernel, n, smem, &grid);
   if (e != cudaSuccess) return (int)e;
-  bitmap_gather_kernel<<<grid, fhj::kThreads, smem, stream>>>(bitmap, n_words, p0, p1,
-                                                              v_slots, idx, n, hit, o0, o1);
+  scan_domain_gather_kernel<<<grid, fhj::kThreads, smem, stream>>>(
+      bitmap, p0, p1, v_slots, ph, pl, n, np_valid, lo, hit, o0, o1);
   return (int)cudaGetLastError();
 }
 

@@ -13,26 +13,44 @@
 // Table layout, (R, 128) u32 planes, slot-major: word r * 128 + b is slot r
 // of bucket b.  ops/bucket_table.py sorts the build by (bucket, key) and
 // writes each bucket's kept keys at dense ranks, so column b is ascending by
-// u64 key with the empty (u64-max) slots after the keys.
+// u64 key with the empty (u64-max) slots after the keys.  Kept keys are
+// distinct, so a key is found by equality alone.
 //
-// What bounds it on an H100: the probe planes, 8 bytes read per row (K11
-// writes 9 more), streamed once.  The table is at most 512 KB of keys (1 MB
-// with K11's values) and stays in L2; the search is log2(R) + 1 dependent
-// loads from it (10 at R = 512), hidden by one thread per probe at full
-// occupancy.
+// What bounds them on an H100: the probe planes, 8 bytes read per row (K11
+// writes 9 more: 0.203 ms for J1 4e7 Q2), streamed once.  The table is at
+// most 512 KB of keys (1 MB with K11's values) and stays in L2; what a
+// probe costs beyond its stream is the L2 sectors its search touches.
 //
-// What the design does about it, against the TPU kernel:
-//  * The TPU kernel scans all R slot rows of every probe tile, because
-//    Mosaic gathers only within a vreg: R steps per probe.  Here each thread
-//    addresses its bucket's column directly and runs a branch-free lower
-//    bound over it: log2(R) steps.
-//  * The TPU path hashes the probes and pads them into (M, 128) tiles in
-//    XLA before the kernel; here the hash and bucket are computed in-kernel
-//    in u32 arithmetic, so the probe planes are read once and nothing is
-//    padded.
-//  * The table is read through L1/L2 with __ldg rather than staged in
-//    shared memory: at R = 512 the key planes alone are 512 KB, more than a
-//    block's 227 KB, so every rung takes this one path.
+// K10 (count) searches the (R, 128) planes as they are: a branch-free lower
+// bound down column b, log2(R) + 1 dependent steps (10 at R = 512), each a
+// 4-byte read of both planes 512 bytes from the last: about 20 scattered
+// sector reads a probe.
+//
+// K11 (materialize) searches a layout of its own, which its entry builds
+// first in one launch from the planes (bucket_major_kernel, at most 1 MB):
+//  * keys bucket-major as u64, (128, R): bucket b's slots are R
+//    consecutive words, so a run of kRun = min(R, 16) keys is one 64- or
+//    128-byte line, read with 16-byte loads and compared with the key all
+//    at once (one dependent step);
+//  * values bucket-major and interleaved, (128, R) pairs (vh, vl): a hit
+//    is one 8-byte read;
+//  * for R >= 32, the upper levels of the search in shared memory: each
+//    block stages the fences, the key of every kRun-th slot of every
+//    bucket, (R / 16, 128) u64 (32 KB at R = 512) from rows 0, 16, 32, ...
+//    of the planes, contiguous 512-byte rows.  A probe finds its run by a
+//    branch-free search of its bucket's R / 16 fences (log2(R / 16)
+//    shared-memory steps) and never touches L2 for it.
+// By rung: R = 8, one 64-byte line a bucket and no fences; R = 16, one
+// 128-byte line and no fences; R = 32 to 512, 2 to 32 fences a bucket in
+// shared memory, then one 128-byte line.  A probe then costs one line and
+// one value sector of L2 traffic instead of about 20 sectors.  The blocks
+// are 1024 threads, so an SM holds few copies of the fences and keeps most
+// of its L1 for the lines.
+//
+// Both kernels hash the unpadded probe planes in-kernel in u32 arithmetic
+// (bucket_of), where the TPU path hashes and pads them into (M, 128) tiles
+// in XLA, and the TPU kernels scan all R slot rows of every tile (Mosaic
+// gathers only within a vreg).
 #include "common.cuh"
 
 namespace {
@@ -96,26 +114,132 @@ bucket_probe_count_kernel(const uint32_t* __restrict__ tk_hi,
   if (threadIdx.x == 0 && total) atomicAdd(count, total);
 }
 
+constexpr int kMatThreads = 1024;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// The bucket-major copy K11 reads: keys[b * R + r] = slot r of bucket b as
+// one u64, vals[b * R + r] = its (vh, vl).  One thread a slot.
 __global__ void __launch_bounds__(fhj::kThreads)
+bucket_major_kernel(const uint32_t* __restrict__ tk_hi, const uint32_t* __restrict__ tk_lo,
+                    const uint32_t* __restrict__ tv_hi, const uint32_t* __restrict__ tv_lo,
+                    int r_slots, unsigned long long* __restrict__ keys,
+                    uint2* __restrict__ vals) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= r_slots * kLanes) return;
+  const int b = o / r_slots;
+  const int at = (o - b * r_slots) * kLanes + b;
+  keys[o] = slot_key(tk_hi, tk_lo, at);
+  vals[o] = make_uint2(__ldg(tv_hi + at), __ldg(tv_lo + at));
+}
+
+// K11 on the bucket-major copy.  Runs of kRun keys; n_fences = R / kRun
+// fences a bucket ((n_fences, 128) u64 in shared memory, staged from the
+// planes' rows 0, kRun, 2 kRun, ...), none when R == kRun.  One probe row a
+// lane, a warp's 32 rows consecutive (coalesced key loads and output
+// stores).  Each lane finds its run in shared memory; then kRun / 2 lanes
+// read each run together, 16 bytes a lane, so one warp load covers
+// 64 / kRun runs, and a ballot tells the row's owner which key matched.
+template <int kRun>
+__global__ void __launch_bounds__(kMatThreads, 2)
 bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
                                 const uint32_t* __restrict__ tk_lo,
-                                const uint32_t* __restrict__ tv_hi,
-                                const uint32_t* __restrict__ tv_lo, int r_slots,
-                                const uint32_t* __restrict__ ph,
+                                const unsigned long long* __restrict__ keys,
+                                const uint2* __restrict__ vals, int r_slots,
+                                int n_fences, const uint32_t* __restrict__ ph,
                                 const uint32_t* __restrict__ pl, int64_t n,
-                                int64_t np_valid, int pre_shift, uint8_t* __restrict__ hit,
-                                uint32_t* __restrict__ vh, uint32_t* __restrict__ vl) {
+                                int64_t np_valid, int pre_shift,
+                                uint8_t* __restrict__ hit, uint32_t* __restrict__ vh,
+                                uint32_t* __restrict__ vl) {
+  constexpr int kReaders = kRun / 2;           // lanes reading one run
+  constexpr int kRuns = 32 / kReaders;         // runs one warp load reads
+  extern __shared__ unsigned long long fences[];
+  for (int k = threadIdx.x; k < n_fences * kLanes; k += blockDim.x)
+    fences[k] = slot_key(tk_hi, tk_lo, (k / kLanes) * kRun * kLanes + k % kLanes);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    int b = 0;
-    const int slot = i < np_valid ? find_slot(tk_hi, tk_lo, r_slots, __ldg(ph + i),
-                                              __ldg(pl + i), pre_shift, &b)
-                                  : -1;
-    const int at = slot * kLanes + b;
-    hit[i] = slot >= 0;
-    vh[i] = slot >= 0 ? __ldg(tv_hi + at) : 0u;
-    vl[i] = slot >= 0 ? __ldg(tv_lo + at) : 0u;
+  // warp-uniform trip count: every lane takes part in the shuffles
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane; base < n;
+       base += stride) {
+    const int64_t i = base + lane;
+    const bool valid = i < n;
+    const uint32_t h = valid ? __ldg(ph + i) : 0u;
+    const uint32_t l = valid ? __ldg(pl + i) : 0u;
+    const unsigned long long x = ((unsigned long long)h << 32) | l;
+    const int b = (int)bucket_of(h, l, pre_shift);
+    // the run: the last fence at or under x (branch-free over n_fences, a
+    // power of two); run 0 without fences
+    int run = 0;
+    for (int span = n_fences; span > 1; span >>= 1) {
+      const int half = span >> 1;
+      run = fences[(run + half) * kLanes + b] <= x ? run + half : run;
+    }
+    // the run's first slot in the copy, -1 for a row that cannot hit
+    const int first = valid && i < np_valid && x != ~0ull ? b * r_slots + run * kRun : -1;
+    int slot = -1;
+#pragma unroll
+    for (int r = 0; r < kReaders; ++r) {
+      // lanes g * kReaders .. g * kReaders + kReaders - 1 read the run of
+      // lane r * kRuns + g
+      const int owner = r * kRuns + lane / kReaders;
+      const int f = __shfl_sync(kFullWarp, first, owner);
+      const unsigned long long y = __shfl_sync(kFullWarp, x, owner);
+      bool m0 = false, m1 = false;
+      if (f >= 0) {
+        const ulonglong2 q =
+            __ldg(reinterpret_cast<const ulonglong2*>(keys + f) + lane % kReaders);
+        m0 = q.x == y;
+        m1 = q.y == y;
+      }
+      const unsigned b0 = __ballot_sync(kFullWarp, m0);
+      const unsigned b1 = __ballot_sync(kFullWarp, m1);
+      if (lane / kRuns == r) {
+        const int shift = (lane % kRuns) * kReaders;
+        const unsigned g0 = (b0 >> shift) & ((1u << kReaders) - 1u);
+        const unsigned g1 = (b1 >> shift) & ((1u << kReaders) - 1u);
+        slot = g0 ? 2 * (__ffs(g0) - 1) : g1 ? 2 * (__ffs(g1) - 1) + 1 : -1;
+      }
+    }
+    if (valid) {
+      const uint2 v = slot >= 0 ? __ldg(vals + first + slot) : make_uint2(0u, 0u);
+      hit[i] = slot >= 0;
+      vh[i] = v.x;
+      vl[i] = v.y;
+    }
   }
+}
+
+template <int kRun>
+cudaError_t launch_materialize(const uint32_t* tk_hi, const uint32_t* tk_lo,
+                               const unsigned long long* keys, const uint2* vals,
+                               int r_slots, const uint32_t* ph, const uint32_t* pl,
+                               int64_t n, int64_t np_valid, int pre_shift, uint8_t* hit,
+                               uint32_t* vh, uint32_t* vl, cudaStream_t stream) {
+  auto kernel = bucket_probe_materialize_kernel<kRun>;
+  const int n_fences = r_slots > kRun ? r_slots / kRun : 0;
+  const size_t smem = (size_t)n_fences * kLanes * sizeof(unsigned long long);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  int grid = 0;
+  e = fhj::grid_for(kernel, n, smem, &grid, 1, kMatThreads);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kMatThreads, smem, stream>>>(tk_hi, tk_lo, keys, vals, r_slots, n_fences,
+                                              ph, pl, n, np_valid, pre_shift, hit, vh, vl);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bucket_major(const uint32_t* tk_hi, const uint32_t* tk_lo,
+                                const uint32_t* tv_hi, const uint32_t* tv_lo, int r_slots,
+                                unsigned long long* keys, uint2* vals, cudaStream_t stream) {
+  const int slots = r_slots * kLanes;
+  bucket_major_kernel<<<(slots + fhj::kThreads - 1) / fhj::kThreads, fhj::kThreads, 0,
+                        stream>>>(tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, vals);
+  return cudaGetLastError();
+}
+
+bool materialize_rung(int r_slots) {
+  return r_slots >= 8 && r_slots <= 512 && (r_slots & (r_slots - 1)) == 0;
 }
 
 }  // namespace
@@ -139,24 +263,43 @@ int fhj_bucket_probe_count(const uint32_t* tk_hi, const uint32_t* tk_lo, int r_s
   return (int)cudaGetLastError();
 }
 
-// As above, plus tv_hi, tv_lo: the value planes, laid out like the keys.
-// Writes hit/vh/vl for every probe row [0, n): rows at or past np_valid,
-// and misses, get 0.  Launches nothing when n == 0.  Returns
-// cudaGetLastError().
+// tk_hi, tk_lo, tv_hi, tv_lo: the (r_slots, 128) key and value planes,
+// r_slots a power of two in [8, 512]; run: keys a run, 8 or 16 (8 when
+// r_slots is); keys, vals: r_slots * 128 u64 words
+// each of scratch, 16-byte aligned.  On `stream`: builds the bucket-major
+// copy into keys and vals, then writes hit/vh/vl for every probe row
+// [0, n): rows at or past np_valid, and misses, get 0.  Launches nothing
+// when n == 0.  Returns cudaGetLastError().
 int fhj_bucket_probe_materialize(const uint32_t* tk_hi, const uint32_t* tk_lo,
                                  const uint32_t* tv_hi, const uint32_t* tv_lo, int r_slots,
+                                 int run, unsigned long long* keys, unsigned long long* vals,
                                  const uint32_t* ph, const uint32_t* pl, int64_t n,
                                  int64_t np_valid, int pre_shift, uint8_t* hit, uint32_t* vh,
                                  uint32_t* vl, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (r_slots < 1 || pre_shift < 0 || pre_shift > 32 - kBucketBits)
+  if (!materialize_rung(r_slots) || (run != 8 && run != 16) || pre_shift < 0 ||
+      pre_shift > 32 - kBucketBits)
     return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t e = fhj::grid_for(bucket_probe_materialize_kernel, n, 0, &grid, 1);
+  uint2* pairs = reinterpret_cast<uint2*>(vals);
+  cudaError_t e = launch_bucket_major(tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, pairs,
+                                      stream);
   if (e != cudaSuccess) return (int)e;
-  bucket_probe_materialize_kernel<<<grid, fhj::kThreads, 0, stream>>>(
-      tk_hi, tk_lo, tv_hi, tv_lo, r_slots, ph, pl, n, np_valid, pre_shift, hit, vh, vl);
-  return (int)cudaGetLastError();
+  e = run == 8 || r_slots == 8
+          ? launch_materialize<8>(tk_hi, tk_lo, keys, pairs, r_slots, ph, pl, n, np_valid,
+                                  pre_shift, hit, vh, vl, stream)
+          : launch_materialize<16>(tk_hi, tk_lo, keys, pairs, r_slots, ph, pl, n, np_valid,
+                                   pre_shift, hit, vh, vl, stream);
+  return (int)e;
+}
+
+// The bucket-major copy alone (K11's first launch), for its checks: as
+// above, into keys and vals.  Returns cudaGetLastError().
+int fhj_bucket_major(const uint32_t* tk_hi, const uint32_t* tk_lo, const uint32_t* tv_hi,
+                     const uint32_t* tv_lo, int r_slots, unsigned long long* keys,
+                     unsigned long long* vals, cudaStream_t stream) {
+  if (!materialize_rung(r_slots)) return (int)cudaErrorInvalidValue;
+  return (int)launch_bucket_major(tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys,
+                                  reinterpret_cast<uint2*>(vals), stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Shared device helpers: the index stream walk, the key-plane pair walk,
-// the dense-domain test and the membership bit test of the bitmap kernels
-// (dense_bitmap.cu, bitmap_probe.cu, dense_values.cu), the block
-// reductions, the grid size of every kernel and a launch over n rows.
+// the dense-domain test, the membership bit test and the shared-memory
+// staging of the bitmap kernels (dense_bitmap.cu, bitmap_probe.cu,
+// dense_values.cu), the block reductions, the grid size of every kernel
+// and a launch over n rows.
 //
 // Domain indices are u32 with sentinel 0xFFFFFFFF (torch int32 bit
 // patterns on the Python side).  Bitmap word w holds slots [32w, 32w+32);
@@ -109,6 +110,15 @@ __device__ __forceinline__ unsigned int bit_of(uint32_t word, uint32_t v) {
   return (word >> (v & 31u)) & 1u;
 }
 
+// Copies n32 words (a multiple of 4, both sides 16-byte aligned) into the
+// block's shared memory at dst, 16 bytes a thread a step.
+__device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* __restrict__ src,
+                                      int n32) {
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  for (int i = threadIdx.x; i < n32 / 4; i += blockDim.x) d[i] = __ldg(s + i);
+}
+
 // Minimum of v over the block, valid in thread 0.  blockDim.x == kThreads.
 __device__ __forceinline__ uint32_t block_min(uint32_t v) {
   __shared__ uint32_t warp_mins[kThreads / 32];
@@ -141,19 +151,20 @@ __device__ __forceinline__ unsigned long long block_sum(unsigned long long v) {
   return v;
 }
 
-// Blocks for a grid-stride kernel over n elements (`per_thread` per thread
-// per step): enough to cover n, at most what fits on the card at once.
+// Blocks of `threads` for a grid-stride kernel over n elements
+// (`per_thread` per thread per step): enough to cover n, at most what fits
+// on the card at once.
 template <typename Kernel>
 inline cudaError_t grid_for(Kernel kernel, int64_t n, size_t smem, int* grid,
-                            int per_thread = 4) {
+                            int per_thread = 4, int threads = kThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return e;
-  const int64_t need = ((n + per_thread - 1) / per_thread + kThreads - 1) / kThreads;
+  const int64_t need = ((n + per_thread - 1) / per_thread + threads - 1) / threads;
   const int64_t cap = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
   *grid = (int)(need < 1 ? 1 : (need < cap ? need : cap));
   return cudaSuccess;

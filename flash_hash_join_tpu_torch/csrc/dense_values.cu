@@ -78,11 +78,9 @@ staged_domain_gather_kernel(const uint32_t* __restrict__ bitmap,
                             uint8_t* __restrict__ hit, uint32_t* __restrict__ o0,
                             uint32_t* __restrict__ o1) {
   extern __shared__ uint4 smem[];
-  const uint4* src = reinterpret_cast<const uint4*>(bitmap);
-  for (uint32_t i = threadIdx.x; i < v_slots / 128u; i += blockDim.x)
-    smem[i] = __ldg(src + i);
+  uint32_t* bm = reinterpret_cast<uint32_t*>(smem);
+  fhj::stage(bm, bitmap, (int)(v_slots / 32u));
   __syncthreads();
-  const uint32_t* bm = reinterpret_cast<const uint32_t*>(smem);
   const uint32_t base = (uint32_t)__ldg(lo);
   fhj::for_each_pair_at(ph, pl, n, [=](int64_t i, uint32_t h, uint32_t l) {
     uint32_t v;

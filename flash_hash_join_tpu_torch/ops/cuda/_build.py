@@ -35,8 +35,9 @@ _SIGNATURES = {
                                      _P, _P],
     # kh, kl, nb, ph, pl, np, bitmap, d_rows, scratch, stream
     "fhj_scan_domain_count": [_P, _P, _I64, _P, _P, _I64, _P, _I, _P, _P],
-    # bitmap, d_rows, p0, p1, v_rows, idx, n, hit, o0, o1, stream
-    "fhj_bitmap_probe_gather": [_P, _I, _P, _P, _I, _P, _I64, _P, _P, _P, _P],
+    # bitmap, p0, p1, v_rows, ph, pl, n, np_valid, lo, hit, o0, o1, stream
+    "fhj_scan_domain_gather": [_P, _P, _P, _I, _P, _P, _I64, _I64, _P, _P, _P,
+                               _P, _P],
     # bitmap, p0, p1, v_rows, ph, pl, n, np_valid, lo, hit, o0, o1, stream
     "fhj_staged_domain_gather": [_P, _P, _P, _I, _P, _P, _I64, _I64, _P, _P,
                                  _P, _P, _P],
@@ -60,10 +61,12 @@ _SIGNATURES = {
     "fhj_concat_ragged_blocks": [_P, _P, _I64, _I64, _I, *[_P] * 8, _P],
     # tk_hi, tk_lo, r_slots, ph, pl, np, pre_shift, count, stream
     "fhj_bucket_probe_count": [_P, _P, _I, _P, _P, _I64, _I, _P, _P],
-    # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, ph, pl, n, np_valid, pre_shift,
-    # hit, vh, vl, stream
-    "fhj_bucket_probe_materialize": [_P, _P, _P, _P, _I, _P, _P, _I64, _I64,
-                                     _I, _P, _P, _P, _P],
+    # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, run, keys, vals, ph, pl, n,
+    # np_valid, pre_shift, hit, vh, vl, stream
+    "fhj_bucket_probe_materialize": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
+                                     _I64, _I64, _I, _P, _P, _P, _P],
+    # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, vals, stream
+    "fhj_bucket_major": [_P, _P, _P, _P, _I, _P, _P, _P],
 }
 
 _lock = threading.Lock()

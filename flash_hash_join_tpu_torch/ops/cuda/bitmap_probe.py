@@ -5,22 +5,24 @@ probe_count_bitmap together with the mapping and the bitmap pack that the
 JAX package's direct_join_count runs around it: `scan_domain_count`, the
 scan band of the dense-domain count (d_rows <= 256, spans <= 2^20), reads
 the u32 key planes of both sides, so the card runs no int64 pass over the
-rows.  The TPU kernel's index form keeps its plain version,
-`probe_count_bitmap_plain`, held against it in the CPU tests.  K7 replaces
-probe_gather_bitmap, the scan band of the dense-domain materialize
-(v_rows <= 128): the hit flag plus the dense value planes at each probe's
-slot.  The TPU kernels scan every bitmap (and value) row per tile; the CUDA
-kernels stage the bitmap (and the planes) in shared memory and read each
-probe's word directly.
+rows.  K7 replaces probe_gather_bitmap together with the probe-side
+mapping in front of it: `probe_gather_bitmap`, the scan band of the
+dense-domain materialize (v_rows <= 128), reads the u32 probe key planes
+and the domain base from device memory and writes the hit flag plus the
+dense value planes at each probe row's slot.  The TPU kernels scan every
+bitmap (and value) row per tile; the CUDA kernels stage the bitmap (and
+the planes) in shared memory and read each row's word directly.  The TPU
+kernels' index forms keep their plain versions, `probe_count_bitmap_plain`
+and `probe_gather_bitmap_plain`, held against them in the CPU tests.
 
 Bitmap: (d_rows, 128) int32 words, word w = idx >> 5 holds bit idx & 31.
 Value planes: (v_rows, 128) int32 words, slot s at word s.
-Indices: 1-D int32 tensor of u32 bit patterns, sentinel 0xFFFFFFFF (= -1);
-any index >= d_rows * 4096 counts nothing, any index >= v_rows * 128 reads
-value 0.
+Indices (the index forms): 1-D int32 tensor of u32 bit patterns, sentinel
+0xFFFFFFFF (= -1); any index >= d_rows * 4096 counts nothing, any index
+>= v_rows * 128 reads value 0.
 
-K2's plain version maps the key planes to those indices with the int64
-mapping of ops/domain_map.py.
+The plain versions of the key-plane entries map the key planes to those
+indices with the int64 mapping of ops/domain_map.py.
 """
 
 from __future__ import annotations
@@ -34,7 +36,10 @@ from flash_hash_join_tpu_torch.ops.domain_map import (
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 MAX_D_ROWS = 256                   # 2^20-slot domain cap (128 KB of shared memory)
-MAX_SMEM_BYTES = 232_448           # dynamic shared memory of one block (H100)
+# K7's planes: 2 x 64 KB of shared memory at 128 rows; its bitmap has the
+# TPU kernel's least rung of rows, which covers 2^15 slots
+MAX_V_ROWS = 128
+GATHER_D_ROWS = 8
 
 
 def check_idx(idx: torch.Tensor, name: str) -> None:
@@ -67,9 +72,18 @@ def check_plane(plane: torch.Tensor, rows: int, name: str,
                          f"int32 tensor, got {plane.dtype} "
                          f"{tuple(plane.shape)}")
     if plane.device != dev:
-        raise ValueError(f"{name} and idx must be on one device")
+        raise ValueError(f"{name} must be on the probes' device")
     if dev.type == "cuda" and plane.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def check_lo(lo: torch.Tensor, dev: torch.device) -> None:
+    """The domain base of a key-plane gather entry (K7, K8): a one-element
+    int64 tensor on the planes' device, read by the kernel (no host
+    sync)."""
+    if lo.dtype != torch.int64 or lo.numel() != 1 or lo.device != dev:
+        raise ValueError("lo must be a one-element int64 tensor on the "
+                         "planes' device")
 
 
 def gather_slots(planes, idx: torch.Tensor, take: torch.Tensor):
@@ -153,47 +167,66 @@ scan_domain_count.launches = 0
 
 def probe_gather_bitmap_plain(bitmap: torch.Tensor, vplanes, idx: torch.Tensor,
                               d_rows: int, v_rows: int):
-    """Plain PyTorch version of K7: (hit bool, *values int32)."""
+    """Plain PyTorch version of the TPU kernel's index form: per index, the
+    hit (its bit is set) and each value plane's word there (0 at or past
+    v_rows * 128).  (hit bool, *values int32)."""
     inside = widen(idx) < v_rows * LANES
     return (member(bitmap, idx, d_rows), *gather_slots(vplanes, idx, inside))
 
 
-def probe_gather_bitmap(bitmap: torch.Tensor, vplanes, idx: torch.Tensor,
-                        d_rows: int, v_rows: int):
-    """Per index: (hit, *values) — a bool mask of the indices whose bit is
-    set, and each of the 1 or 2 value planes' word at the index (0 at or
-    past v_rows * 128), as int32 tensors shaped like idx.
+def probe_gather_bitmap_domain_plain(bitmap, vplanes, ph, pl, np_valid: int,
+                                     lo, v_rows: int):
+    """Plain PyTorch version of K7's entry: the int64 probe mapping, then
+    the index form's plain version.  (hit bool, *values int32)."""
+    idx = probe_domain_idx(ph, pl, np_valid, lo, v_rows * LANES)
+    return probe_gather_bitmap_plain(bitmap, vplanes, idx, GATHER_D_ROWS,
+                                     v_rows)
+
+
+def probe_gather_bitmap(bitmap, vplanes, ph, pl, np_valid: int, lo,
+                        v_rows: int):
+    """Per probe row, straight from the key planes: (hit, *values).
+
+    bitmap: the occupied slots, (8, 128) words (slot s at bit s & 31 of
+    word s >> 5); vplanes: 1 or 2 value planes, (v_rows, 128), v_rows in
+    [8, 128]; all contiguous int32.  ph/pl: the probe key planes, rows
+    [0, np_valid) valid.  lo: the domain base, a one-element int64 tensor
+    on the planes' device (no host sync).  Row i is inside when
+    i < np_valid, its high word is 0 and its slot s = (pl[i] - lo) mod 2^32
+    is below v_rows * 128; it hits when it is inside and s is occupied.
+    hit is a bool mask shaped like ph, and each value output the plane's
+    word at s where the row is inside, 0 elsewhere.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel.
     """
     vplanes = tuple(vplanes)
-    check_idx(idx, "idx")
-    dev = idx.device
     if not 1 <= len(vplanes) <= 2:
         raise ValueError(f"1 or 2 value planes, got {len(vplanes)}")
-    check_plane(bitmap, d_rows, "bitmap", dev)
+    if not 8 <= v_rows <= MAX_V_ROWS:
+        raise ValueError(f"v_rows must be in [8, {MAX_V_ROWS}], got {v_rows}")
+    dev = ph.device
+    check_key_planes(ph, pl, np_valid, "probe", dev)
+    check_plane(bitmap, GATHER_D_ROWS, "bitmap", dev)
     for i, p in enumerate(vplanes):
         check_plane(p, v_rows, f"vplanes[{i}]", dev)
-    smem = 4 * LANES * (d_rows + len(vplanes) * v_rows)
-    if d_rows < 1 or v_rows < 1 or smem > MAX_SMEM_BYTES:
-        raise ValueError(f"bitmap and planes must fit {MAX_SMEM_BYTES} bytes "
-                         f"of shared memory (d_rows {d_rows}, v_rows {v_rows}, "
-                         f"{len(vplanes)} planes)")
+    check_lo(lo, dev)
     if dev.type == "cpu":
-        return probe_gather_bitmap_plain(bitmap, vplanes, idx, d_rows, v_rows)
+        return probe_gather_bitmap_domain_plain(bitmap, vplanes, ph, pl,
+                                                np_valid, lo, v_rows)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    n = idx.numel()
+    n = ph.numel()
     hit = torch.empty(n, dtype=torch.bool, device=dev)
     outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
                  for _ in vplanes)
     if n == 0:
         return (hit, *outs)
-    ptrs = [p.data_ptr() for p in vplanes] + [None]
     out_ptrs = [o.data_ptr() for o in outs] + [None]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_bitmap_probe_gather(
-        bitmap.data_ptr(), d_rows, ptrs[0], ptrs[1], v_rows, idx.data_ptr(), n,
+    err = _build.lib().fhj_scan_domain_gather(
+        bitmap.data_ptr(), vplanes[0].data_ptr(),
+        vplanes[1].data_ptr() if len(vplanes) > 1 else None, v_rows,
+        ph.data_ptr(), pl.data_ptr(), n, np_valid, lo.data_ptr(),
         hit.data_ptr(), out_ptrs[0], out_ptrs[1], stream)
     probe_gather_bitmap.launches += 1
     _build.check(err, "probe_gather_bitmap")

@@ -13,7 +13,14 @@ np_valid never hit.
 The TPU kernels take the probes padded into (M, 128) tiles with a bucket
 plane computed outside, and scan all R slot rows per tile because Mosaic
 gathers only within a vreg.  The CUDA kernels take the probe planes as
-they are, hash each key in-kernel and search its bucket's sorted column.
+they are and hash each key in-kernel.  K10 searches its bucket's column of
+the planes.  K11 first builds a layout of its own from the planes, in one
+launch (`bucket_major`): the keys bucket-major as u64 and the values as
+interleaved (vh, vl) pairs, so a run of FENCE_STRIDE keys is one 128-byte
+line and a hit one 8-byte read; each block stages the fences
+(`bucket_fences`, the key of every FENCE_STRIDE-th slot of every bucket)
+in shared memory, finds a probe's run there and compares the run's keys
+at once.  Tables of R <= FENCE_STRIDE have no fences (one run a bucket).
 """
 
 from __future__ import annotations
@@ -22,10 +29,12 @@ import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.hashing import hash_u64
+from flash_hash_join_tpu_torch.utils.u64 import widen
 
 LANES = 128
 BUCKET_BITS = 7
 MAX_R_SLOTS = 512
+FENCE_STRIDE = 16                  # u64 keys a run: one 128-byte line
 
 
 def probe_buckets(ph: torch.Tensor, pl: torch.Tensor,
@@ -36,15 +45,21 @@ def probe_buckets(ph: torch.Tensor, pl: torch.Tensor,
     return ((h << pre_shift) & 0xFFFFFFFF) >> (32 - BUCKET_BITS)
 
 
-def _check(tables: dict, ph, pl, np_valid: int, pre_shift: int):
+def _check_tables(tables: dict, dev) -> None:
     r_slots = tables["tk_hi"].shape[0]
     for name, t in tables.items():
         if (t.dtype != torch.int32 or t.shape != (r_slots, LANES)
-                or not t.is_contiguous() or t.device != ph.device):
+                or not t.is_contiguous() or t.device != dev):
             raise ValueError(f"{name} must be a contiguous ({r_slots}, "
                              f"{LANES}) int32 tensor on the probes' device")
     if not 1 <= r_slots <= MAX_R_SLOTS:
         raise ValueError(f"1 to {MAX_R_SLOTS} slot rows, got {r_slots}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+
+
+def _check(tables: dict, ph, pl, np_valid: int, pre_shift: int):
+    _check_tables(tables, ph.device)
     for name, p in (("ph", ph), ("pl", pl)):
         if p.dtype != torch.int32 or p.dim() != 1 or not p.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 1-D int32 tensor, "
@@ -56,8 +71,6 @@ def _check(tables: dict, ph, pl, np_valid: int, pre_shift: int):
                          f"{np_valid}")
     if not 0 <= pre_shift <= 32 - BUCKET_BITS:
         raise ValueError(f"pre_shift must be in [0, {32 - BUCKET_BITS}]")
-    if ph.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {ph.device}")
     return ph.device
 
 
@@ -108,6 +121,60 @@ def probe_count_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
 probe_count_vmem.launches = 0
 
 
+def _u64_words(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int32 bit-pattern planes -> int64 holding the u64 bit patterns."""
+    return hi.to(torch.int64) << 32 | widen(lo)
+
+
+def bucket_fences(tk_hi: torch.Tensor, tk_lo: torch.Tensor) -> torch.Tensor:
+    """The fences K11's blocks stage in shared memory: (R // FENCE_STRIDE,
+    128) int64, [j, b] = the u64 bit pattern of slot FENCE_STRIDE * j of
+    bucket b; no rows when R <= FENCE_STRIDE."""
+    r_slots = tk_hi.shape[0]
+    rows = r_slots // FENCE_STRIDE if r_slots > FENCE_STRIDE else 0
+    at = slice(0, rows * FENCE_STRIDE, FENCE_STRIDE)
+    return _u64_words(tk_hi[at], tk_lo[at])
+
+
+def bucket_major_plain(tk_hi, tk_lo, tv_hi, tv_lo):
+    """Plain PyTorch version of K11's layout launch: (keys, values) with
+    keys (128, R) int64, [b, r] = the u64 bit pattern of slot r of bucket
+    b, and values (128, R, 2) int32, [b, r] = that slot's (vh, vl)."""
+    keys = _u64_words(tk_hi, tk_lo).t().contiguous()
+    values = torch.stack([tv_hi, tv_lo], dim=-1).transpose(0, 1).contiguous()
+    return keys, values
+
+
+def _check_rung(r_slots: int) -> None:
+    if not 8 <= r_slots <= MAX_R_SLOTS or r_slots & (r_slots - 1):
+        raise ValueError(f"K11 takes a power of two in [8, {MAX_R_SLOTS}] "
+                         f"slot rows, got {r_slots}")
+
+
+def bucket_major(tk_hi, tk_lo, tv_hi, tv_lo):
+    """K11's layout of the table, as bucket_major_plain returns it.  CPU
+    tensors take the plain version; CUDA tensors launch the layout kernel,
+    the first of K11's two launches (not counted on its own)."""
+    tables = {"tk_hi": tk_hi, "tk_lo": tk_lo, "tv_hi": tv_hi, "tv_lo": tv_lo}
+    _check_tables(tables, tk_hi.device)
+    _check_rung(tk_hi.shape[0])
+    if tk_hi.device.type == "cpu":
+        return bucket_major_plain(tk_hi, tk_lo, tv_hi, tv_lo)
+    keys, values = _bucket_major_scratch(tk_hi)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = _build.lib().fhj_bucket_major(
+        *(t.data_ptr() for t in tables.values()), tk_hi.shape[0],
+        keys.data_ptr(), values.data_ptr(), stream)
+    _build.check(err, "bucket_major")
+    return keys, values
+
+
+def _bucket_major_scratch(tk_hi):
+    r_slots, dev = tk_hi.shape[0], tk_hi.device
+    return (torch.empty((LANES, r_slots), dtype=torch.int64, device=dev),
+            torch.empty((LANES, r_slots, 2), dtype=torch.int32, device=dev))
+
+
 def probe_materialize_vmem_plain(tk_hi, tk_lo, tv_hi, tv_lo, ph, pl,
                                  np_valid: int, pre_shift: int = 0):
     """Plain PyTorch version of K11: (hit bool, vh, vl int32) per probe
@@ -123,9 +190,12 @@ def probe_materialize_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
                            pre_shift: int = 0):
     """Per probe row: (hit, vh, vl) — a bool mask and the int32 value
     planes of the probe key's slot (0 on a miss and at or past np_valid).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    dev = _check({"tk_hi": tk_hi, "tk_lo": tk_lo, "tv_hi": tv_hi,
-                  "tv_lo": tv_lo}, ph, pl, np_valid, pre_shift)
+    The table's R must be a power of two in [8, 512] (r_slots_for's
+    rungs).  CPU tensors take the plain version; CUDA tensors launch the
+    layout kernel, then the probe."""
+    tables = {"tk_hi": tk_hi, "tk_lo": tk_lo, "tv_hi": tv_hi, "tv_lo": tv_lo}
+    dev = _check(tables, ph, pl, np_valid, pre_shift)
+    _check_rung(tk_hi.shape[0])
     if dev.type == "cpu":
         return probe_materialize_vmem_plain(tk_hi, tk_lo, tv_hi, tv_lo, ph,
                                             pl, np_valid, pre_shift)
@@ -135,12 +205,14 @@ def probe_materialize_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
     vl = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return hit, vh, vl
+    keys, values = _bucket_major_scratch(tk_hi)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_bucket_probe_materialize(
         tk_hi.data_ptr(), tk_lo.data_ptr(), tv_hi.data_ptr(),
-        tv_lo.data_ptr(), tk_hi.shape[0], ph.data_ptr(), pl.data_ptr(), n,
-        np_valid, pre_shift, hit.data_ptr(), vh.data_ptr(), vl.data_ptr(),
-        stream)
+        tv_lo.data_ptr(), tk_hi.shape[0], FENCE_STRIDE, keys.data_ptr(),
+        values.data_ptr(),
+        ph.data_ptr(), pl.data_ptr(), n, np_valid, pre_shift, hit.data_ptr(),
+        vh.data_ptr(), vl.data_ptr(), stream)
     probe_materialize_vmem.launches += 1
     _build.check(err, "probe_materialize_vmem")
     return hit, vh, vl

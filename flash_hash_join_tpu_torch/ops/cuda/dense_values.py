@@ -34,7 +34,7 @@ import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda.bitmap_probe import (
-    check_key_planes, check_plane, gather_slots)
+    check_key_planes, check_lo, check_plane, gather_slots)
 from flash_hash_join_tpu_torch.ops.domain_map import LANES, probe_domain_idx
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
@@ -97,9 +97,7 @@ def probe_gather_staged(bitmap, vplanes, ph, pl, np_valid: int, lo,
     check_plane(bitmap, v_rows // 32, "bitmap", dev)
     for i, p in enumerate(vplanes):
         check_plane(p, v_rows, f"vplanes[{i}]", dev)
-    if lo.dtype != torch.int64 or lo.numel() != 1 or lo.device != dev:
-        raise ValueError("lo must be a one-element int64 tensor on the "
-                         "planes' device")
+    check_lo(lo, dev)
     if dev.type == "cpu":
         return probe_gather_staged_domain_plain(bitmap, vplanes, ph, pl,
                                                 np_valid, lo, v_rows)

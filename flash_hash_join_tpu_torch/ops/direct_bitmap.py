@@ -25,14 +25,15 @@ Split of work:
                  kernel's row window and are not ported.
     Materialize: lo, the build rows' domain indices and the value planes
     at slot granularity in plain torch over the build side (<= 2^20 rows),
-    as the JAX package builds them outside any kernel; then
-      scan band   (v_rows <= 128): the probe rows' domain indices in plain
-                  int64 torch (ops/domain_map.py probe_domain_idx),
-                  then K7 (ops/cuda/bitmap_probe.py) on them.
-      staged band (v_rows <= 8192): K8 (ops/cuda/dense_values.py) straight
-                  from the probe key planes, the mapping inside the kernel.
-                  The JAX band's one-column probe sort, `sels` window and
-                  `rs` starts, keys pass-through, density gate
+    as the JAX package builds them outside any kernel; then both bands
+    straight from the probe key planes, the mapping inside the kernel, so
+    no int64 pass runs over the probe rows:
+      scan band   (v_rows <= 128): K7 (ops/cuda/bitmap_probe.py), the
+                  bitmap and the value planes in shared memory.
+      staged band (v_rows <= 8192): K8 (ops/cuda/dense_values.py), the
+                  bitmap in shared memory, the value planes read through
+                  L2.  The JAX band's one-column probe sort, `sels` window
+                  and `rs` starts, keys pass-through, density gate
                   (mat_span_ok) and fusion-barrier copy (K9) exist only for
                   the TPU kernel and XLA:TPU and are not ported.
     Both bands end in K5 (ops/compact.py) and emit probe order; the JAX
@@ -184,13 +185,12 @@ def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
                          f"{MAT_MAX_V_ROWS}], got {v_rows}")
     lo, n_bad, bidx, planes = _dense_value_planes(
         kh, kl, vh, vl, nb_valid, v_rows=v_rows, narrow_values=narrow_values)
-    # the occupied slots as a bitmap: K7's rows, or K8's v_rows // 32
-    d_rows = max(8, v_rows // 32)
+    # the occupied slots as a bitmap: K7's 8 rows, or K8's v_rows // 32
+    d_rows = max(bp.GATHER_D_ROWS, v_rows // 32)
     bitmap = dm.pack_bitmap(bidx, d_rows)
     if v_rows <= MAT_SCAN_MAX_V_ROWS:
-        pidx = dm.probe_domain_idx(ph, pl, np_valid, lo, v_rows * LANES)
-        hit, *vals = bp.probe_gather_bitmap(bitmap, planes, pidx, d_rows,
-                                            v_rows)
+        hit, *vals = bp.probe_gather_bitmap(bitmap, planes, ph, pl, np_valid,
+                                            lo, v_rows)
     else:
         hit, *vals = dv.probe_gather_staged(bitmap, planes, ph, pl, np_valid,
                                             lo, v_rows)

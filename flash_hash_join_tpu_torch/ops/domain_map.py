@@ -2,11 +2,12 @@
 domain indices, and the bitmap of a set of indices.
 
 The JAX package's direct_join_count and direct_join_materialize run this
-mapping around their Pallas kernels.  In the port, K1, K2 and K8 map the
-u32 key planes inside their CUDA kernels; these functions are the mapping
-half of their plain versions (ops/cuda/dense_bitmap.py, bitmap_probe.py,
-dense_values.py), and the mapping that ops/direct_bitmap.py still runs in
-plain torch: the materialize's build side, and the probe side of K7's band.
+mapping around their Pallas kernels.  In the port, K1, K2, K7 and K8 map
+the u32 key planes inside their CUDA kernels; these functions are the
+mapping half of their plain versions (ops/cuda/dense_bitmap.py,
+bitmap_probe.py, dense_values.py), and the mapping that
+ops/direct_bitmap.py still runs in plain torch over the materialize's build
+side (<= 2^20 rows).
 
 Indices: 1-D int32 tensors of u32 bit patterns (utils/u64.py), sentinel
 0xFFFFFFFF (= -1) for a row outside the domain.  Bitmap: (d_rows, 128)

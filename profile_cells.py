@@ -48,6 +48,9 @@ CELLS = {  # name -> (chip_smoke cell, API function, keywords, FHJ_COMPACT)
     "vmem-materialize-1e8-Q1": ("1e8-Q1", "join_materialize",
                                 {"strategy": "vmem"}, None),
     "vmem-count-4e7-Q2": ("4e7-Q2", "join_count", {"strategy": "vmem"}, None),
+    # K11 at R 512, the rung it is judged on
+    "vmem-materialize-4e7-Q2": ("4e7-Q2", "join_materialize",
+                                {"strategy": "vmem"}, None),
     "radix-materialize-1e8-Q1": ("1e8-Q1", "hash_join_radix", {}, None),
     "radix-materialize-1e8-Q2": ("1e8-Q2", "hash_join_radix", {}, None),
     "radix-materialize-1e8-Q5": ("1e8-Q5", "hash_join_radix", {}, None),

@@ -2,7 +2,8 @@
 ops/bucket_table.py and the plain versions of K10 / K11
 (ops/cuda/bucket_probe.py, on CPU tensors) against the JAX package's
 ops/bucket_table.py and its Pallas kernels in interpret mode, and the numpy
-oracle.
+oracle; and K11's own layout of the table (bucket-major keys and values,
+fences) against numpy.
 
 Inputs are numpy arrays from a fixed seed, handed to both packages.  The
 JAX kernels run on 8-row probe tiles (block_m=8: 1024 probes a tile) so
@@ -40,6 +41,10 @@ def _build_keys(rng, n, dups=True):
         bk[n // 2: n // 2 + n // 5] = bk[:n // 5]
     bk[:2] = M64
     return bk
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return tu64.to_numpy_u32(t)
 
 
 def _assert_tables_equal(jt, tt):
@@ -185,6 +190,103 @@ def test_r_slots_for_matches_jax():
     assert tbt.MAX_R_SLOTS == jbt.MAX_R_SLOTS
 
 
+def _np_bucket(keys: np.ndarray) -> np.ndarray:
+    """The vmem bucket of u64 keys in numpy: the top 7 bits of murmur3's
+    32-bit finalizer over the two words (ops/hashing.py), pre_shift 0."""
+    def fmix32(h):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
+    hi, lo = ju64.split_u64(keys)
+    with np.errstate(over="ignore"):
+        h = fmix32(fmix32(lo) ^ (hi * np.uint32(0x9E3779B9)))
+    return (h >> np.uint32(25)).astype(np.int64)
+
+
+def _layout_spec(bk, bv, r_slots):
+    """K11's layout from its definition, in numpy: row b of the keys holds
+    bucket b's distinct non-max keys ascending (the first r_slots of them),
+    then u64-max; the values the (hi, lo) words of each key's first build
+    row, then 0; the fences every FENCE_STRIDE-th key of every row."""
+    keys = np.full((128, r_slots), M64, np.uint64)
+    vals = np.zeros((128, r_slots), np.uint64)
+    uniq, first = np.unique(bk, return_index=True)
+    keep = uniq != M64
+    uniq, first = uniq[keep], first[keep]
+    bucket = _np_bucket(uniq)
+    for b in range(128):
+        k = uniq[bucket == b][:r_slots]
+        keys[b, :k.size] = k
+        vals[b, :k.size] = bv[first[bucket == b][:r_slots]]
+    stride = tbp.FENCE_STRIDE
+    fences = keys[:, ::stride].T if r_slots > stride else keys[:, :0].T
+    pairs = np.stack(ju64.split_u64(vals.reshape(-1)), axis=-1)
+    return keys, pairs.reshape(128, r_slots, 2), fences
+
+
+def _search_like_k11(fences, keys, vals, pk):
+    """The search of K11's kernel, in numpy: the last fence at or under
+    the key (branch-free over the bucket's fences), then the key's run of
+    min(R, FENCE_STRIDE) keys compared at once.  (hit, vh, vl)."""
+    r_slots = keys.shape[1]
+    run_len = min(r_slots, tbp.FENCE_STRIDE)
+    b = _np_bucket(pk)
+    run = np.zeros(pk.size, np.int64)
+    span = fences.shape[0]
+    while span > 1:
+        half = span // 2
+        run = np.where(fences[run + half, b] <= pk, run + half, run)
+        span //= 2
+    line = keys[b[:, None], run[:, None] * run_len + np.arange(run_len)]
+    eq = line == pk[:, None]
+    hit = eq.any(1) & (pk != M64)
+    slot = run * run_len + eq.argmax(1)
+    return (hit, *(np.where(hit, vals[b, slot, w], 0) for w in (0, 1)))
+
+
+@pytest.mark.parametrize("r_slots", [8, 16, 128, 512])
+def test_bucket_layout_matches_numpy(r_slots):
+    # K11's layout, built in plain torch from the table (the bucket-major
+    # keys and (vh, vl) pairs of bucket_major, the fences of bucket_fences),
+    # against numpy from the build keys: a bucket full to its last slot,
+    # empty buckets, the u64-max key and duplicates; then the kernel's
+    # search run in numpy over that layout finds every key
+    rng = np.random.default_rng(r_slots + 40)
+    bk = rng.integers(0, 2**64, int(0.3 * 128 * r_slots), dtype=np.uint64)
+    cand = rng.integers(0, 2**64, 300 * r_slots, dtype=np.uint64)
+    bk = np.concatenate([bk[~np.isin(_np_bucket(bk), [0, 5, 77])],
+                         cand[_np_bucket(cand) == 0][:r_slots]])
+    bk[:2] = M64                                       # u64-max build key
+    bk[10:30] = bk[-20:]                               # duplicates
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    _, (tkh, tkl, tvh, tvl) = _planes(bk, bv)
+    tt = tbt.build_bucket_table(tkh, tkl, tvh, tvl, bk.size,
+                                r_slots=r_slots, with_values=True)
+    keys, vals = tbp.bucket_major(tt.tk_hi, tt.tk_lo, tt.tv_hi, tt.tv_lo)
+    fences = tbp.bucket_fences(tt.tk_hi, tt.tk_lo)
+    want_keys, want_vals, want_fences = _layout_spec(bk, bv, r_slots)
+    assert keys.dtype == fences.dtype == torch.int64
+    assert vals.dtype == torch.int32 and vals.shape == (128, r_slots, 2)
+    np.testing.assert_array_equal(keys.numpy().view(np.uint64), want_keys)
+    np.testing.assert_array_equal(vals.numpy().view(np.uint32), want_vals)
+    np.testing.assert_array_equal(fences.numpy().view(np.uint64),
+                                  want_fences)
+    assert (want_keys[0] != M64).all()                 # bucket 0 full
+    assert (want_keys[[5, 77]] == M64).all()           # empty buckets
+    pk = np.concatenate([rng.choice(bk, 3_000),
+                         rng.integers(0, 2**64, 1_000, dtype=np.uint64)])
+    got = _search_like_k11(want_fences, want_keys, want_vals, pk)
+    _, (tph, tpl) = _planes(pk)
+    plain = tbp.probe_materialize_vmem_plain(tt.tk_hi, tt.tk_lo, tt.tv_hi,
+                                             tt.tv_lo, tph, tpl, pk.size)
+    np.testing.assert_array_equal(got[0], plain[0].numpy())
+    for g, w in zip(got[1:], plain[1:]):
+        np.testing.assert_array_equal(g.astype(np.uint32), _u32(w))
+    assert got[0].sum() > 2_000 and not got[0][pk == M64].any()
+
+
 def test_kernel_wrappers_refuse_bad_inputs():
     tk = torch.full((8, 128), -1, dtype=torch.int32)
     ph = torch.zeros(10, dtype=torch.int32)
@@ -201,3 +303,8 @@ def test_kernel_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         tbp.probe_count_vmem(tk, tk, ph, ph[:9], 9)
     assert int(tbp.probe_count_vmem(tk, tk, ph, ph, 10)) == 0
+    odd = torch.full((12, 128), -1, dtype=torch.int32)  # K11: off its rungs
+    with pytest.raises(ValueError):
+        tbp.probe_materialize_vmem(odd, odd, odd, odd, ph, ph, 10)
+    with pytest.raises(ValueError):
+        tbp.bucket_major(odd, odd, odd, odd)

@@ -45,13 +45,6 @@ def dev():
     return torch.device("cuda")
 
 
-def _idx(rng, n, n_bits, dev):
-    idx = rng.integers(0, n_bits, n, dtype=np.uint32)
-    idx[rng.random(n) < 0.05] = SENTINEL
-    idx[:3] = n_bits + 7                                # out of the domain
-    return to_device(idx, dev)
-
-
 # aligned; misaligned alike; each plane its own way (odd lengths)
 PLANE_OFFSETS = ((0, 0), (1, 1), (1, 3), (2, 0))
 
@@ -144,6 +137,12 @@ def test_wrappers_refuse_bad_inputs(dev):
     with pytest.raises(ValueError):                    # lo on the CPU
         dv.probe_gather_staged(presence, [plane], kh, kl, 16,
                                torch.tensor(0, dtype=torch.int64), 256)
+    with pytest.raises(ValueError):                    # lo on the CPU
+        bp.probe_gather_bitmap(presence, [plane[:128]], kh, kl, 16,
+                               torch.tensor(0, dtype=torch.int64), 128)
+    tk = torch.full((24, 128), -1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                    # K11 off its rungs
+        bkp.probe_materialize_vmem(tk, tk, tk, tk, kh, kl, 16)
 
 
 @pytest.mark.parametrize("span,expect", [(44_000, "scan_domain_count"),
@@ -332,23 +331,59 @@ def _assert_same(got, want):
         assert torch.equal(g, w)
 
 
+def _spy_on_probe_mapping(monkeypatch) -> list:
+    """Make every call of the int64 probe mapping (domain_map.
+    probe_domain_idx, under each name the package imports it by) on card
+    tensors append to the returned list."""
+    from flash_hash_join_tpu_torch.ops import domain_map as dm
+    calls, mapping = [], dm.probe_domain_idx
+
+    def spy(ph, *args):
+        if ph.device.type == "cuda":
+            calls.append(ph.numel())
+        return mapping(ph, *args)
+    for module in (dm, bp, dv, dbm):
+        monkeypatch.setattr(module, "probe_domain_idx", spy)
+    return calls
+
+
+# one domain base per rung: 0, inside u32, the top of u32, SENTINEL
+K7_LOS = {8: 0, 16: 123_456_789, 64: 2**32 - 1 - 64 * 64, 128: SENTINEL}
+
+
 @pytest.mark.parametrize("v_rows", [8, 16, 64, 128])
 @pytest.mark.parametrize("n_planes", [1, 2])
-def test_probe_gather_bitmap_matches_plain(dev, v_rows, n_planes):
+def test_probe_gather_bitmap_matches_plain(dev, v_rows, n_planes,
+                                           monkeypatch):
+    # K7's entry on the probe key planes: the edge keys (lo, the last slot,
+    # past it, below lo, high words, u32-max, u64-max), views aligned and
+    # misaligned each plane its own way, validity tails; one launch a call
+    # and no int64 probe mapping on the card
     rng = np.random.default_rng(v_rows + n_planes)
-    d_rows = max(8, v_rows // 32)
-    bitmap = _planes(rng, d_rows, 1, dev)[0]
+    v_slots, lo = v_rows * 128, K7_LOS[v_rows]
+    occ = np.zeros(8 * 4096, bool)
+    occ[:v_slots] = rng.random(v_slots) < 0.6
+    occ[[0, v_slots - 1]] = True
+    bitmap = _bitmap_of(occ, 8, dev)
     vplanes = _planes(rng, v_rows, n_planes, dev)
-    for n in (0, 7, 1_000_003):
-        idx = _idx(rng, n + 1, 2 * v_rows * 128, dev)
-        for view in (idx[:n], idx[1:]):                 # aligned, misaligned
-            before = bp.probe_gather_bitmap.launches
-            got = bp.probe_gather_bitmap(bitmap, vplanes, view, d_rows, v_rows)
-            want = bp.probe_gather_bitmap_plain(bitmap, vplanes, view, d_rows,
-                                                v_rows)
-            _assert_same(got, want)
-            assert bp.probe_gather_bitmap.launches == before + (
-                view.numel() > 0)
+    lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
+    calls = _spy_on_probe_mapping(monkeypatch)
+    for npr in (0, 7, 1_000_003):
+        pk = dense_domain_keys(rng, npr, lo, v_slots)
+        pk[:min(npr, 7)] = np.array(
+            [lo, lo + v_slots - 1, lo + v_slots, max(lo, 1) - 1, 2**32 + lo,
+             2**32 - 1, M64], np.uint64)[:min(npr, 7)]
+        for offs in PLANE_OFFSETS:
+            ph, pl = offset_plane_views(pk, dev, *offs)
+            for npv in {npr, max(npr - 5, 0)}:
+                args = (bitmap, vplanes, ph, pl, npv, lo_t, v_rows)
+                before = bp.probe_gather_bitmap.launches
+                got = bp.probe_gather_bitmap(*args)
+                assert bp.probe_gather_bitmap.launches == before + (npr > 0)
+                assert not calls, "the kernel's entry mapped on the card"
+                want = bp.probe_gather_bitmap_domain_plain(*args)
+                calls.clear()
+                _assert_same(got, want)
 
 
 def _bitmap_of(occ: np.ndarray, rows: int, dev) -> torch.Tensor:
@@ -412,7 +447,11 @@ def _check_copy(dev, n):
     (11_000, True, ("probe_gather_bitmap",)),          # v_rows 128, 2 planes
     (110_000, False, ("probe_gather_staged",)),
     (1_000_000, True, ("probe_gather_staged",))])
-def test_direct_materialize_on_card_matches_oracle(dev, span, wide, kernels):
+def test_direct_materialize_on_card_matches_oracle(dev, span, wide, kernels,
+                                                   monkeypatch):
+    # both bands map the probe key planes inside their kernel: no int64
+    # probe mapping on the card
+    calls = _spy_on_probe_mapping(monkeypatch)
     rng = np.random.default_rng(span)
     nb = min(span, 100_000)
     bk = rng.integers(7, 7 + span, nb, dtype=np.uint64)
@@ -428,6 +467,7 @@ def test_direct_materialize_on_card_matches_oracle(dev, span, wide, kernels):
     for k in kernels + ("compact",):
         assert info["launches"][k] == 1, info
     assert info["launches"]["materialize_copy"] == 0, info   # on no path
+    assert not calls, "the probe side was mapped in plain torch"
     assert count == int(hit.sum()) and secs > 0.0
     np.testing.assert_array_equal(keys, pk[hit])       # probe order
     np.testing.assert_array_equal(vals, bv[first[pos[hit]]])
@@ -456,15 +496,21 @@ def _bucket_of(keys):
     return bkp.probe_buckets(*device_planes(keys, "cpu")).numpy()
 
 
-@pytest.mark.parametrize("r_slots", [8, 16, 64, 128, 512])
+@pytest.mark.parametrize("r_slots", [8, 16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("fill", [False, True])
 def test_bucket_probe_kernels_match_plain(dev, r_slots, fill):
+    # K10 and K11 at every vmem rung (K11 on its own layout, whose launch is
+    # checked alone too), the u64-max key on both sides, misaligned views
+    # and validity tails
     rng = np.random.default_rng(r_slots + fill)
     bk, table = _bucket_table(rng, r_slots, dev, fill_bucket=fill)
     if fill:
         col = table.tk_hi[:, 0].cpu()
         assert bool((col != -1).all()), "bucket 0 is not full"
-    for npr in (0, 7, 1_000_003):
+    planes = (table.tk_hi, table.tk_lo, table.tv_hi, table.tv_lo)
+    _assert_same(bkp.bucket_major(*planes),
+                 bkp.bucket_major_plain(*planes))
+    for npr in (0, 7, 3_000_005):
         pk = rng.integers(0, 2**64, npr + 1, dtype=np.uint64)
         pk[1::2] = rng.choice(bk, pk[1::2].size)
         pk[:4] = M64
@@ -481,10 +527,12 @@ def test_bucket_probe_kernels_match_plain(dev, r_slots, fill):
                 assert int(got) == int(want), (r_slots, npr, np_valid)
                 assert bkp.probe_count_vmem.launches == before + (
                     np_valid > 0)
-                args = (table.tk_hi, table.tk_lo, table.tv_hi, table.tv_lo,
-                        *p, np_valid)
-                _assert_same(bkp.probe_materialize_vmem(*args),
-                             bkp.probe_materialize_vmem_plain(*args))
+                args = (*planes, *p, np_valid)
+                before = bkp.probe_materialize_vmem.launches
+                got = bkp.probe_materialize_vmem(*args)
+                assert bkp.probe_materialize_vmem.launches == before + (
+                    npr > 0)
+                _assert_same(got, bkp.probe_materialize_vmem_plain(*args))
 
 
 @pytest.mark.parametrize("n_planes", [2, 3, 4])

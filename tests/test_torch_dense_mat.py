@@ -65,6 +65,8 @@ def _sorted(keys, vals):
 
 @pytest.mark.parametrize("v_rows,n_planes", [(8, 1), (128, 2)])
 def test_k7_plain_matches_pallas(v_rows, n_planes):
+    # the TPU kernel's index form: its plain version, on indices past the
+    # planes and past the bitmap
     rng = np.random.default_rng(v_rows + n_planes)
     d_rows = max(8, v_rows // 32)
     bitmap = rng.integers(0, 2**32, (d_rows, 128), dtype=np.uint32)
@@ -78,8 +80,8 @@ def test_k7_plain_matches_pallas(v_rows, n_planes):
         jnp.asarray(bitmap), tuple(jnp.asarray(p) for p in planes),
         jnp.asarray(idx.reshape(-1, 128)), d_rows=d_rows, v_rows=v_rows,
         block_m=40, interpret=True)
-    hit, *vals = tbp.probe_gather_bitmap(_t(bitmap), [_t(p) for p in planes],
-                                         _t(idx), d_rows, v_rows)
+    hit, *vals = tbp.probe_gather_bitmap_plain(
+        _t(bitmap), [_t(p) for p in planes], _t(idx), d_rows, v_rows)
     want_hit = np.asarray(outs[0]).reshape(-1)
     assert set(np.unique(want_hit).tolist()) == {0, 1}
     assert hit.dtype == torch.bool
@@ -89,20 +91,86 @@ def test_k7_plain_matches_pallas(v_rows, n_planes):
         np.testing.assert_array_equal(_u32(g), np.asarray(w).reshape(-1))
 
 
+def _lo(value: int) -> torch.Tensor:
+    return torch.tensor(value, dtype=torch.int64)
+
+
+# one domain base per rung: 0, inside u32, a domain at the top of u32 (small
+# keys wrap into the slots past 2^32 - 1) and SENTINEL (no zero-hi build
+# row)
+K7_LOS = {8: 0, 16: 123_456_789, 64: 2**32 - 1 - 64 * 64, 128: SENTINEL}
+
+
+@pytest.mark.parametrize("v_rows", [8, 16, 64, 128])
+@pytest.mark.parametrize("n_planes", [1, 2])
+def test_k7_domain_entry_matches_jax_scan_band(v_rows, n_planes):
+    # K7's entry on the probe key planes (on the CPU: the int64 mapping,
+    # then the index form's plain version) against the JAX scan band on
+    # the same numpy inputs: _probe_idx, then the TPU kernel in interpret
+    # mode, exact
+    rng = np.random.default_rng(v_rows * 10 + n_planes)
+    v_slots, lo = v_rows * 128, K7_LOS[v_rows]
+    bitmap = rng.integers(0, 2**32, (8, 128), dtype=np.uint32)
+    flat = bitmap.reshape(-1)
+    flat[0] |= 1                                   # the first slot and
+    flat[(v_slots - 1) >> 5] |= np.uint32(1 << 31)  # the last, occupied
+    planes = [rng.integers(0, 2**32, (v_rows, 128), dtype=np.uint32)
+              for _ in range(n_planes)]
+    n, npv = 40 * 128, 40 * 128 - 7
+    pk = workload.dense_domain_keys(rng, n, lo, v_slots)
+    # lo, the last slot, past it, below lo (lo itself at lo 0), a high
+    # word, u32-max, u64-max
+    pk[10:17] = np.array([lo, lo + v_slots - 1, lo + v_slots,
+                          max(lo, 1) - 1, 2**32 + lo, 2**32 - 1, 2**64 - 1],
+                         np.uint64)
+    pk[npv:] = lo                          # in the domain, past np_valid
+    jph, jpl = (jnp.asarray(a) for a in ju64.split_u64(pk))
+    pidx = jdb._probe_idx(jph, jpl, np.int32(npv), jnp.uint32(lo), v_slots)
+    outs = jbp.probe_gather_bitmap(
+        jnp.asarray(bitmap), tuple(jnp.asarray(p) for p in planes),
+        pidx.reshape(-1, 128), d_rows=8, v_rows=v_rows, block_m=40,
+        interpret=True)
+    ph, pl = tu64.device_planes(pk, "cpu")
+    hit, *vals = tbp.probe_gather_bitmap(_t(bitmap), [_t(p) for p in planes],
+                                         ph, pl, npv, _lo(lo), v_rows)
+    assert hit.dtype == torch.bool and len(vals) == n_planes
+    want_hit = np.asarray(outs[0]).reshape(-1) == 1
+    np.testing.assert_array_equal(hit.numpy(), want_hit)
+    for g, w in zip(vals, outs[1:]):
+        np.testing.assert_array_equal(_u32(g), np.asarray(w).reshape(-1))
+    assert want_hit.any() and not want_hit[npv:].any()
+    # the first slot; the last, unless a high word puts it out of reach
+    assert want_hit[10] and (want_hit[11] or lo + v_slots > 2**32)
+    assert not want_hit[[12, 14, 16]].any()    # past the domain, hi word, max
+    assert (np.asarray(outs[1]).reshape(-1)[npv:] == 0).all()
+
+
 def test_k7_wrapper_checks_its_inputs():
     bitmap = _t(np.zeros((8, 128), np.uint32))
     plane = _t(np.zeros((128, 128), np.uint32))
-    idx = _t(np.arange(10, dtype=np.uint32))
+    ph, pl = tu64.device_planes(np.arange(10, dtype=np.uint64), "cpu")
+    args = (ph, pl, 10, _lo(0))
     with pytest.raises(ValueError):                       # shape != (v_rows, 128)
-        tbp.probe_gather_bitmap(bitmap, [plane], idx, 8, 64)
+        tbp.probe_gather_bitmap(bitmap, [plane], *args, 64)
     with pytest.raises(ValueError):                       # three planes
-        tbp.probe_gather_bitmap(bitmap, [plane] * 3, idx, 8, 128)
-    with pytest.raises(ValueError):                       # past shared memory
-        tbp.probe_gather_bitmap(_t(np.zeros((256, 128), np.uint32)),
-                                [plane, plane], idx, 256, 128)
-    with pytest.raises(ValueError):
-        tbp.probe_gather_bitmap(bitmap, [plane], idx.to(torch.int64), 8, 128)
-    hit, val = tbp.probe_gather_bitmap(bitmap, [plane], idx[:0], 8, 128)
+        tbp.probe_gather_bitmap(bitmap, [plane] * 3, *args, 128)
+    with pytest.raises(ValueError):                       # past the band
+        tbp.probe_gather_bitmap(bitmap, [_t(np.zeros((256, 128), np.uint32))],
+                                *args, 256)
+    with pytest.raises(ValueError):                       # bitmap rows
+        tbp.probe_gather_bitmap(bitmap[:4], [plane], *args, 128)
+    with pytest.raises(ValueError):                       # int64 key planes
+        tbp.probe_gather_bitmap(bitmap, [plane], ph.long(), pl.long(), 10,
+                                _lo(0), 128)
+    with pytest.raises(ValueError):                       # int32 lo
+        tbp.probe_gather_bitmap(bitmap, [plane], ph, pl, 10, _lo(0).int(),
+                                128)
+    with pytest.raises(ValueError):                       # np_valid past rows
+        tbp.probe_gather_bitmap(bitmap, [plane], ph, pl, 11, _lo(0), 128)
+    hit, val = tbp.probe_gather_bitmap(bitmap, [plane], *args, 128)
+    assert hit.dtype == torch.bool and not hit.any() and not val.any()
+    hit, val = tbp.probe_gather_bitmap(bitmap, [plane], ph[:0], pl[:0], 0,
+                                       _lo(0), 128)
     assert hit.numel() == val.numel() == 0
 
 
@@ -142,10 +210,6 @@ def test_k8_plain_matches_pallas_on_sorted_stream():
     np.testing.assert_array_equal(hit_u.numpy()[order],
                                   hit.numpy()[:n])
     np.testing.assert_array_equal(_u32(vl_u)[order], _u32(got_vl)[:n])
-
-
-def _lo(value: int) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.int64)
 
 
 def test_k8_wrapper_checks_its_inputs():
