@@ -26,26 +26,32 @@
 // 4-byte read of both planes 512 bytes from the last: about 20 scattered
 // sector reads a probe.
 //
-// K11 (materialize) searches a layout of its own, which its entry builds
-// first in one launch from the planes (bucket_major_kernel, at most 1 MB):
-//  * keys bucket-major as u64, (128, R): bucket b's slots are R
-//    consecutive words, so a run of kRun = min(R, 16) keys is one 64- or
-//    128-byte line, read with 16-byte loads and compared with the key all
-//    at once (one dependent step);
-//  * values bucket-major and interleaved, (128, R) pairs (vh, vl): a hit
-//    is one 8-byte read;
-//  * for R >= 32, the upper levels of the search in shared memory: each
-//    block stages the fences, the key of every kRun-th slot of every
-//    bucket, (R / 16, 128) u64 (32 KB at R = 512) from rows 0, 16, 32, ...
-//    of the planes, contiguous 512-byte rows.  A probe finds its run by a
-//    branch-free search of its bucket's R / 16 fences (log2(R / 16)
-//    shared-memory steps) and never touches L2 for it.
-// By rung: R = 8, one 64-byte line a bucket and no fences; R = 16, one
-// 128-byte line and no fences; R = 32 to 512, 2 to 32 fences a bucket in
-// shared memory, then one 128-byte line.  A probe then costs one line and
-// one value sector of L2 traffic instead of about 20 sectors.  The blocks
-// are 1024 threads, so an SM holds few copies of the fences and keeps most
-// of its L1 for the lines.
+// K11 (materialize) keeps the search off L2 and off scattered loads.  By
+// rung:
+//  * R = 8 to 32: the whole table in each block's shared memory (16 bytes a
+//    slot: the key as u64, the value as a (vh, vl) pair; at most 64 KB),
+//    staged from the planes' contiguous 512-byte rows; one thread a probe
+//    searches its bucket's column there (log2(R) + 1 shared-memory steps)
+//    and reads its value there: no fences, no copy, one launch.
+//  * R = 64 to 512: a bucket-major copy of the table, built first in one
+//    launch (bucket_major_kernel, at most 1 MB): keys as u64, (128, R), so
+//    a run of kRun = 8 keys is one 64-byte line, and values as (vh, vl)
+//    pairs, so a hit is one 8-byte read.  Each block stages the fences, the
+//    key of every 8th slot of every bucket ((R / 8, 128) u64, 64 KB at
+//    R = 512), from the planes' rows 0, 8, 16, ...; a probe finds its run
+//    among its bucket's fences in shared memory (log2(R / 8) steps), then 4
+//    lanes read the run together and a ballot finds the key: one line and
+//    one value sector of L2 traffic a probe, against about 20 sectors.
+// Lines read one a lane were the first design: 16-byte loads of 32
+// different lines a warp load, 8 of them a 128-byte run, ran at 1.59 ms at
+// J1 4e7 Q2 (R 512) and 3.44 ms at 1e8 Q1 (R 16), against the old search's
+// 1.91 and 0.83; read by 8 or 4 lanes together, runs of 16 and 8 keys ran
+// 0.84 and 0.62 ms at R 512 and 1.72 and 1.21 at R 16 (back to back, an
+// NVIDIA H100 80GB HBM3 at 700 W; PERF.md), so runs are 8 keys, and the
+// small rungs, where the shuffles cost more than L1 saves, search shared
+// memory instead (0.68 ms at R 16).  Blocks are 1024 threads of at most 32
+// registers, two a SM, so an SM holds two copies of the fences and keeps
+// the rest of its L1 for the lines.
 //
 // Both kernels hash the unpadded probe planes in-kernel in u32 arithmetic
 // (bucket_of), where the TPU path hashes and pads them into (M, 128) tiles
@@ -115,10 +121,13 @@ bucket_probe_count_kernel(const uint32_t* __restrict__ tk_hi,
 }
 
 constexpr int kMatThreads = 1024;
+constexpr int kStagedMaxSlots = 32;   // tables up to here sit whole in shared memory
+constexpr int kRun = 8;               // above: keys a run, one 64-byte line
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// The bucket-major copy K11 reads: keys[b * R + r] = slot r of bucket b as
-// one u64, vals[b * R + r] = its (vh, vl).  One thread a slot.
+// The bucket-major copy K11 reads above kStagedMaxSlots: keys[b * R + r] =
+// slot r of bucket b as one u64, vals[b * R + r] = its (vh, vl).  One
+// thread a slot.
 __global__ void __launch_bounds__(fhj::kThreads)
 bucket_major_kernel(const uint32_t* __restrict__ tk_hi, const uint32_t* __restrict__ tk_lo,
                     const uint32_t* __restrict__ tv_hi, const uint32_t* __restrict__ tv_lo,
@@ -132,20 +141,77 @@ bucket_major_kernel(const uint32_t* __restrict__ tk_hi, const uint32_t* __restri
   vals[o] = make_uint2(__ldg(tv_hi + at), __ldg(tv_lo + at));
 }
 
-// K11 on the bucket-major copy.  Runs of kRun keys; n_fences = R / kRun
-// fences a bucket ((n_fences, 128) u64 in shared memory, staged from the
-// planes' rows 0, kRun, 2 kRun, ...), none when R == kRun.  One probe row a
-// lane, a warp's 32 rows consecutive (coalesced key loads and output
-// stores).  Each lane finds its run in shared memory; then kRun / 2 lanes
-// read each run together, 16 bytes a lane, so one warp load covers
-// 64 / kRun runs, and a ballot tells the row's owner which key matched.
-template <int kRun>
+// Stages the key of every stride-th slot of every bucket into shared memory
+// as u64, slot-major like the planes: fences[j * 128 + b] = slot j * stride
+// of bucket b, for j < rows.  Each j is a contiguous 512-byte row of both
+// planes.
+__device__ __forceinline__ void stage_fences(unsigned long long* fences,
+                                             const uint32_t* __restrict__ tk_hi,
+                                             const uint32_t* __restrict__ tk_lo, int rows,
+                                             int stride) {
+  for (int k = threadIdx.x; k < rows * kLanes; k += blockDim.x)
+    fences[k] = slot_key(tk_hi, tk_lo, (k / kLanes) * stride * kLanes + k % kLanes);
+}
+
+// The last row j in [0, rows) (a power of two) with fences[j * 128 + b] <= x,
+// branch-free: 0 when none is.
+__device__ __forceinline__ int last_at_or_under(const unsigned long long* fences, int rows,
+                                                int b, unsigned long long x) {
+  int j = 0;
+  for (int span = rows; span > 1; span >>= 1) {
+    const int half = span >> 1;
+    j = fences[(j + half) * kLanes + b] <= x ? j + half : j;
+  }
+  return j;
+}
+
+// K11 at R <= kStagedMaxSlots: the whole table in shared memory, the keys
+// (as fences of stride 1) then the values as (vh, vl) pairs, 16 bytes a
+// slot.  One probe row a thread: the search of its bucket's column runs in
+// shared memory, and the row's value comes from there.
+__global__ void __launch_bounds__(kMatThreads, 2)
+bucket_probe_staged_kernel(const uint32_t* __restrict__ tk_hi,
+                           const uint32_t* __restrict__ tk_lo,
+                           const uint32_t* __restrict__ tv_hi,
+                           const uint32_t* __restrict__ tv_lo, int r_slots,
+                           const uint32_t* __restrict__ ph, const uint32_t* __restrict__ pl,
+                           int64_t n, int64_t np_valid, int pre_shift,
+                           uint8_t* __restrict__ hit, uint32_t* __restrict__ vh,
+                           uint32_t* __restrict__ vl) {
+  extern __shared__ unsigned long long table[];
+  uint2* vals = reinterpret_cast<uint2*>(table + r_slots * kLanes);
+  stage_fences(table, tk_hi, tk_lo, r_slots, 1);
+  for (int k = threadIdx.x; k < r_slots * kLanes; k += blockDim.x)
+    vals[k] = make_uint2(__ldg(tv_hi + k), __ldg(tv_lo + k));
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const uint32_t h = __ldg(ph + i), l = __ldg(pl + i);
+    const unsigned long long x = ((unsigned long long)h << 32) | l;
+    const int b = (int)bucket_of(h, l, pre_shift);
+    const int at = last_at_or_under(table, r_slots, b, x) * kLanes + b;
+    const bool found = table[at] == x && x != ~0ull && i < np_valid;
+    const uint2 v = found ? vals[at] : make_uint2(0u, 0u);
+    hit[i] = found;
+    vh[i] = v.x;
+    vl[i] = v.y;
+  }
+}
+
+// K11 above kStagedMaxSlots, on the bucket-major copy: n_fences = R / kRun
+// fences a bucket in shared memory (stage_fences), runs of kRun keys.  One
+// probe row a lane, a warp's 32 rows consecutive (coalesced key loads and
+// output stores).  Each lane finds its run among its bucket's fences; then
+// kRun / 2 lanes read each run together, 16 bytes a lane, so one warp load
+// covers 8 runs (8 lines, where a lane reading its own run in 16-byte
+// loads touches 32 lines a load, 4 loads a run), and a ballot tells the
+// row's owner which key matched.
 __global__ void __launch_bounds__(kMatThreads, 2)
 bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
                                 const uint32_t* __restrict__ tk_lo,
                                 const unsigned long long* __restrict__ keys,
                                 const uint2* __restrict__ vals, int r_slots,
-                                int n_fences, const uint32_t* __restrict__ ph,
+                                const uint32_t* __restrict__ ph,
                                 const uint32_t* __restrict__ pl, int64_t n,
                                 int64_t np_valid, int pre_shift,
                                 uint8_t* __restrict__ hit, uint32_t* __restrict__ vh,
@@ -153,8 +219,8 @@ bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
   constexpr int kReaders = kRun / 2;           // lanes reading one run
   constexpr int kRuns = 32 / kReaders;         // runs one warp load reads
   extern __shared__ unsigned long long fences[];
-  for (int k = threadIdx.x; k < n_fences * kLanes; k += blockDim.x)
-    fences[k] = slot_key(tk_hi, tk_lo, (k / kLanes) * kRun * kLanes + k % kLanes);
+  const int n_fences = r_slots / kRun;
+  stage_fences(fences, tk_hi, tk_lo, n_fences, kRun);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -167,15 +233,10 @@ bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
     const uint32_t l = valid ? __ldg(pl + i) : 0u;
     const unsigned long long x = ((unsigned long long)h << 32) | l;
     const int b = (int)bucket_of(h, l, pre_shift);
-    // the run: the last fence at or under x (branch-free over n_fences, a
-    // power of two); run 0 without fences
-    int run = 0;
-    for (int span = n_fences; span > 1; span >>= 1) {
-      const int half = span >> 1;
-      run = fences[(run + half) * kLanes + b] <= x ? run + half : run;
-    }
     // the run's first slot in the copy, -1 for a row that cannot hit
-    const int first = valid && i < np_valid && x != ~0ull ? b * r_slots + run * kRun : -1;
+    const int first = valid && i < np_valid && x != ~0ull
+                          ? b * r_slots + last_at_or_under(fences, n_fences, b, x) * kRun
+                          : -1;
     int slot = -1;
 #pragma unroll
     for (int r = 0; r < kReaders; ++r) {
@@ -209,23 +270,18 @@ bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
   }
 }
 
-template <int kRun>
-cudaError_t launch_materialize(const uint32_t* tk_hi, const uint32_t* tk_lo,
-                               const unsigned long long* keys, const uint2* vals,
-                               int r_slots, const uint32_t* ph, const uint32_t* pl,
-                               int64_t n, int64_t np_valid, int pre_shift, uint8_t* hit,
-                               uint32_t* vh, uint32_t* vl, cudaStream_t stream) {
-  auto kernel = bucket_probe_materialize_kernel<kRun>;
-  const int n_fences = r_slots > kRun ? r_slots / kRun : 0;
-  const size_t smem = (size_t)n_fences * kLanes * sizeof(unsigned long long);
+// Launches a K11 kernel over n rows: blocks of kMatThreads, `smem` bytes of
+// dynamic shared memory, the grid capped at what fits on the card.
+template <typename Kernel, typename... Args>
+cudaError_t launch_probe(Kernel kernel, int64_t n, size_t smem, cudaStream_t stream,
+                         Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
   int grid = 0;
   e = fhj::grid_for(kernel, n, smem, &grid, 1, kMatThreads);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, kMatThreads, smem, stream>>>(tk_hi, tk_lo, keys, vals, r_slots, n_fences,
-                                              ph, pl, n, np_valid, pre_shift, hit, vh, vl);
+  kernel<<<grid, kMatThreads, smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
@@ -264,32 +320,34 @@ int fhj_bucket_probe_count(const uint32_t* tk_hi, const uint32_t* tk_lo, int r_s
 }
 
 // tk_hi, tk_lo, tv_hi, tv_lo: the (r_slots, 128) key and value planes,
-// r_slots a power of two in [8, 512]; run: keys a run, 8 or 16 (8 when
-// r_slots is); keys, vals: r_slots * 128 u64 words
-// each of scratch, 16-byte aligned.  On `stream`: builds the bucket-major
-// copy into keys and vals, then writes hit/vh/vl for every probe row
-// [0, n): rows at or past np_valid, and misses, get 0.  Launches nothing
-// when n == 0.  Returns cudaGetLastError().
+// r_slots a power of two in [8, 512]; keys, vals: r_slots * 128 u64 words
+// each of scratch, 16-byte aligned (unused when r_slots <= 32).  On
+// `stream`: above 32 slot rows builds the bucket-major copy into keys and
+// vals; then writes hit/vh/vl for every probe row [0, n): rows at or past
+// np_valid, and misses, get 0.  Launches nothing when n == 0.  Returns
+// cudaGetLastError().
 int fhj_bucket_probe_materialize(const uint32_t* tk_hi, const uint32_t* tk_lo,
                                  const uint32_t* tv_hi, const uint32_t* tv_lo, int r_slots,
-                                 int run, unsigned long long* keys, unsigned long long* vals,
+                                 unsigned long long* keys, unsigned long long* vals,
                                  const uint32_t* ph, const uint32_t* pl, int64_t n,
                                  int64_t np_valid, int pre_shift, uint8_t* hit, uint32_t* vh,
                                  uint32_t* vl, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (!materialize_rung(r_slots) || (run != 8 && run != 16) || pre_shift < 0 ||
-      pre_shift > 32 - kBucketBits)
+  if (!materialize_rung(r_slots) || pre_shift < 0 || pre_shift > 32 - kBucketBits)
     return (int)cudaErrorInvalidValue;
+  if (r_slots <= kStagedMaxSlots)
+    return (int)launch_probe(bucket_probe_staged_kernel, n,
+                             (size_t)r_slots * kLanes * 2 * sizeof(unsigned long long),
+                             stream, tk_hi, tk_lo, tv_hi, tv_lo, r_slots, ph, pl, n,
+                             np_valid, pre_shift, hit, vh, vl);
   uint2* pairs = reinterpret_cast<uint2*>(vals);
   cudaError_t e = launch_bucket_major(tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, pairs,
                                       stream);
   if (e != cudaSuccess) return (int)e;
-  e = run == 8 || r_slots == 8
-          ? launch_materialize<8>(tk_hi, tk_lo, keys, pairs, r_slots, ph, pl, n, np_valid,
-                                  pre_shift, hit, vh, vl, stream)
-          : launch_materialize<16>(tk_hi, tk_lo, keys, pairs, r_slots, ph, pl, n, np_valid,
-                                   pre_shift, hit, vh, vl, stream);
-  return (int)e;
+  const size_t smem = (size_t)(r_slots / kRun) * kLanes * sizeof(unsigned long long);
+  return (int)launch_probe(bucket_probe_materialize_kernel, n, smem, stream, tk_hi, tk_lo,
+                           (const unsigned long long*)keys, (const uint2*)pairs, r_slots,
+                           ph, pl, n, np_valid, pre_shift, hit, vh, vl);
 }
 
 // The bucket-major copy alone (K11's first launch), for its checks: as

@@ -61,10 +61,10 @@ _SIGNATURES = {
     "fhj_concat_ragged_blocks": [_P, _P, _I64, _I64, _I, *[_P] * 8, _P],
     # tk_hi, tk_lo, r_slots, ph, pl, np, pre_shift, count, stream
     "fhj_bucket_probe_count": [_P, _P, _I, _P, _P, _I64, _I, _P, _P],
-    # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, run, keys, vals, ph, pl, n,
-    # np_valid, pre_shift, hit, vh, vl, stream
-    "fhj_bucket_probe_materialize": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P,
-                                     _I64, _I64, _I, _P, _P, _P, _P],
+    # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, vals, ph, pl, n, np_valid,
+    # pre_shift, hit, vh, vl, stream
+    "fhj_bucket_probe_materialize": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I64,
+                                     _I64, _I, _P, _P, _P, _P],
     # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, vals, stream
     "fhj_bucket_major": [_P, _P, _P, _P, _I, _P, _P, _P],
 }

@@ -14,13 +14,14 @@ The TPU kernels take the probes padded into (M, 128) tiles with a bucket
 plane computed outside, and scan all R slot rows per tile because Mosaic
 gathers only within a vreg.  The CUDA kernels take the probe planes as
 they are and hash each key in-kernel.  K10 searches its bucket's column of
-the planes.  K11 first builds a layout of its own from the planes, in one
-launch (`bucket_major`): the keys bucket-major as u64 and the values as
-interleaved (vh, vl) pairs, so a run of FENCE_STRIDE keys is one 128-byte
-line and a hit one 8-byte read; each block stages the fences
-(`bucket_fences`, the key of every FENCE_STRIDE-th slot of every bucket)
-in shared memory, finds a probe's run there and compares the run's keys
-at once.  Tables of R <= FENCE_STRIDE have no fences (one run a bucket).
+the planes.  K11 searches fences in shared memory: the key of every
+`fence_stride(R)`-th slot of every bucket (`bucket_fences`).  Up to
+STAGED_MAX_R_SLOTS rows the stride is 1, so the whole table (with its
+values) sits in shared memory and the search ends there.  Above, the
+stride is RUN_KEYS: K11 first builds a layout of its own from the planes in
+one launch (`bucket_major`: the keys bucket-major as u64 and the values as
+interleaved (vh, vl) pairs), and a probe's run of RUN_KEYS keys, one
+64-byte line, is read by 4 lanes together and compared at once.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ from flash_hash_join_tpu_torch.utils.u64 import widen
 LANES = 128
 BUCKET_BITS = 7
 MAX_R_SLOTS = 512
-FENCE_STRIDE = 16                  # u64 keys a run: one 128-byte line
+STAGED_MAX_R_SLOTS = 32            # K11: the whole table in shared memory
+RUN_KEYS = 8                       # above: u64 keys a run, one 64-byte line
 
 
 def probe_buckets(ph: torch.Tensor, pl: torch.Tensor,
@@ -126,13 +128,17 @@ def _u64_words(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return hi.to(torch.int64) << 32 | widen(lo)
 
 
+def fence_stride(r_slots: int) -> int:
+    """Slots between two of K11's fences: 1 (every slot) up to
+    STAGED_MAX_R_SLOTS rows, RUN_KEYS above."""
+    return 1 if r_slots <= STAGED_MAX_R_SLOTS else RUN_KEYS
+
+
 def bucket_fences(tk_hi: torch.Tensor, tk_lo: torch.Tensor) -> torch.Tensor:
-    """The fences K11's blocks stage in shared memory: (R // FENCE_STRIDE,
-    128) int64, [j, b] = the u64 bit pattern of slot FENCE_STRIDE * j of
-    bucket b; no rows when R <= FENCE_STRIDE."""
-    r_slots = tk_hi.shape[0]
-    rows = r_slots // FENCE_STRIDE if r_slots > FENCE_STRIDE else 0
-    at = slice(0, rows * FENCE_STRIDE, FENCE_STRIDE)
+    """The fences K11's blocks stage in shared memory: (R // stride, 128)
+    int64, [j, b] = the u64 bit pattern of slot stride * j of bucket b,
+    stride = fence_stride(R)."""
+    at = slice(None, None, fence_stride(tk_hi.shape[0]))
     return _u64_words(tk_hi[at], tk_lo[at])
 
 
@@ -152,9 +158,10 @@ def _check_rung(r_slots: int) -> None:
 
 
 def bucket_major(tk_hi, tk_lo, tv_hi, tv_lo):
-    """K11's layout of the table, as bucket_major_plain returns it.  CPU
-    tensors take the plain version; CUDA tensors launch the layout kernel,
-    the first of K11's two launches (not counted on its own)."""
+    """K11's copy of the table above STAGED_MAX_R_SLOTS rows, as
+    bucket_major_plain returns it (any rung).  CPU tensors take the plain
+    version; CUDA tensors launch the layout kernel, the first of K11's two
+    launches there (not counted on its own)."""
     tables = {"tk_hi": tk_hi, "tk_lo": tk_lo, "tv_hi": tv_hi, "tv_lo": tv_lo}
     _check_tables(tables, tk_hi.device)
     _check_rung(tk_hi.shape[0])
@@ -192,7 +199,7 @@ def probe_materialize_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
     planes of the probe key's slot (0 on a miss and at or past np_valid).
     The table's R must be a power of two in [8, 512] (r_slots_for's
     rungs).  CPU tensors take the plain version; CUDA tensors launch the
-    layout kernel, then the probe."""
+    kernel (above STAGED_MAX_R_SLOTS rows, the layout kernel first)."""
     tables = {"tk_hi": tk_hi, "tk_lo": tk_lo, "tv_hi": tv_hi, "tv_lo": tv_lo}
     dev = _check(tables, ph, pl, np_valid, pre_shift)
     _check_rung(tk_hi.shape[0])
@@ -205,12 +212,11 @@ def probe_materialize_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
     vl = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return hit, vh, vl
-    keys, values = _bucket_major_scratch(tk_hi)
+    keys, values = _bucket_major_scratch(tk_hi)    # read above R 32 only
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_bucket_probe_materialize(
         tk_hi.data_ptr(), tk_lo.data_ptr(), tv_hi.data_ptr(),
-        tv_lo.data_ptr(), tk_hi.shape[0], FENCE_STRIDE, keys.data_ptr(),
-        values.data_ptr(),
+        tv_lo.data_ptr(), tk_hi.shape[0], keys.data_ptr(), values.data_ptr(),
         ph.data_ptr(), pl.data_ptr(), n, np_valid, pre_shift, hit.data_ptr(),
         vh.data_ptr(), vl.data_ptr(), stream)
     probe_materialize_vmem.launches += 1

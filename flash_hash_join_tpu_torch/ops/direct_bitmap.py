@@ -77,7 +77,7 @@ XL_STEP_ROWS = 4096
 # planes in shared memory up to 128 rows (2 x 64 KB); K8 reads them through
 # L2 up to 8192 rows (2^20 slots, 4 MB per plane).  The build side is
 # capped at 2^20 rows, as in the JAX package.
-MAT_SCAN_MAX_V_ROWS = 128
+MAT_SCAN_MAX_V_ROWS = bp.MAX_V_ROWS
 MAT_MAX_V_ROWS = dv.MAX_V_ROWS
 MAX_BUILD_ROWS = 1 << 20
 

@@ -209,7 +209,8 @@ def _layout_spec(bk, bv, r_slots):
     """K11's layout from its definition, in numpy: row b of the keys holds
     bucket b's distinct non-max keys ascending (the first r_slots of them),
     then u64-max; the values the (hi, lo) words of each key's first build
-    row, then 0; the fences every FENCE_STRIDE-th key of every row."""
+    row, then 0; the fences every fence_stride(R)-th key of every row
+    (every key up to STAGED_MAX_R_SLOTS rows)."""
     keys = np.full((128, r_slots), M64, np.uint64)
     vals = np.zeros((128, r_slots), np.uint64)
     uniq, first = np.unique(bk, return_index=True)
@@ -220,18 +221,17 @@ def _layout_spec(bk, bv, r_slots):
         k = uniq[bucket == b][:r_slots]
         keys[b, :k.size] = k
         vals[b, :k.size] = bv[first[bucket == b][:r_slots]]
-    stride = tbp.FENCE_STRIDE
-    fences = keys[:, ::stride].T if r_slots > stride else keys[:, :0].T
+    fences = keys[:, ::tbp.fence_stride(r_slots)].T
     pairs = np.stack(ju64.split_u64(vals.reshape(-1)), axis=-1)
     return keys, pairs.reshape(128, r_slots, 2), fences
 
 
 def _search_like_k11(fences, keys, vals, pk):
-    """The search of K11's kernel, in numpy: the last fence at or under
+    """The search of K11's kernels, in numpy: the last fence at or under
     the key (branch-free over the bucket's fences), then the key's run of
-    min(R, FENCE_STRIDE) keys compared at once.  (hit, vh, vl)."""
-    r_slots = keys.shape[1]
-    run_len = min(r_slots, tbp.FENCE_STRIDE)
+    fence_stride(R) keys compared at once (the fence itself when the
+    stride is 1).  (hit, vh, vl)."""
+    run_len = tbp.fence_stride(keys.shape[1])
     b = _np_bucket(pk)
     run = np.zeros(pk.size, np.int64)
     span = fences.shape[0]
@@ -249,10 +249,11 @@ def _search_like_k11(fences, keys, vals, pk):
 @pytest.mark.parametrize("r_slots", [8, 16, 128, 512])
 def test_bucket_layout_matches_numpy(r_slots):
     # K11's layout, built in plain torch from the table (the bucket-major
-    # keys and (vh, vl) pairs of bucket_major, the fences of bucket_fences),
-    # against numpy from the build keys: a bucket full to its last slot,
-    # empty buckets, the u64-max key and duplicates; then the kernel's
-    # search run in numpy over that layout finds every key
+    # keys and (vh, vl) pairs of bucket_major, the fences of bucket_fences:
+    # every slot up to R 32, every 8th above), against numpy from the build
+    # keys: a bucket full to its last slot, empty buckets, the u64-max key
+    # and duplicates; then the kernels' search run in numpy over that
+    # layout finds every key
     rng = np.random.default_rng(r_slots + 40)
     bk = rng.integers(0, 2**64, int(0.3 * 128 * r_slots), dtype=np.uint64)
     cand = rng.integers(0, 2**64, 300 * r_slots, dtype=np.uint64)
