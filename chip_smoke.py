@@ -26,7 +26,9 @@ Phases, one JSON line each on stdout:
               64-bit offsets), the directory build against its plain
               version and numpy at both offset widths; misaligned
               views, np_valid < npr, the u64-max key on both sides, K5
-              with 2, 3 and 4 planes; K7, which reads the probe key
+              with 2, 3 and 4 planes, and alone around its 4096-row tile
+              (the first tiles empty, the last full), each call made twice
+              back to back; K7, which reads the probe key
               planes, at v_rows 8, 16, 64, 128 (lo 0, inside u32, at its
               top and 0xFFFFFFFF) with the domain's edge keys (lo, its
               last slot, past it, below lo, a high word, u32-max,
@@ -41,8 +43,9 @@ Phases, one JSON line each on stdout:
               its 4096-word block, on misaligned, odd-length views; K10/K11
               at every vmem rung (R 8-512) with a bucket full to its last
               slot, probe sizes 0, 7, 3e7+5, misaligned views, np_valid <
-              npr and the u64-max key on both sides, K11's layout launch
-              (the bucket-major copy) alone at each rung, and K6 with
+              npr and the u64-max key on both sides, the layout launches
+              alone at each rung (K11's bucket-major copy of keys and
+              values, K10's of the keys alone), and K6 with
               2, 3 and 4 planes over 520 blocks, all empty, all full and
               random.  Then each kernel and its plain version timed (CUDA
               events: a lone call, median of 5 after a warm-up; the kernel
@@ -622,13 +625,22 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     for name in ("two_ends", "all_equal", "full_span", "crowded",
                  "dup_run"):
         check_table(directory_build_keys(name, rng), (0, 7, 3_000_005))
-    for n in (0, 7, 30_000_005):                       # K5 alone, misaligned
-        mask = torch.from_numpy(rng.random(n + 1) < 0.37).to(dev)[1:]
+    # K5 alone, misaligned: edge sizes, sizes around its tile (the first
+    # tiles empty, the last ones full), and each call made twice back to
+    # back (its look-back scratch starts from zero every call)
+    tile = sc.TILE_ROWS
+    for n in (0, 7, tile - 1, tile, tile + 1, 3 * tile + 1, 30_000_005):
+        bits = rng.random(n + 1) < 0.37
+        if 0 < n < 30_000_005:
+            bits[1:n // 2 + 1] = False
+            bits[n + 1 - n // 3:] = True
+        mask = torch.from_numpy(bits).to(dev)[1:]
         cols = [to_device(rng.integers(0, 2**32, n + 1, dtype=np.uint32),
                           dev)[1:] for _ in range(4)]
         for n_planes in (2, 3, 4):
-            check_compact(mask, cols[:n_planes], n)
-            check_compact(mask, cols[:n_planes], n // 3)
+            for _ in range(2):
+                check_compact(mask, cols[:n_planes], n)
+                check_compact(mask, cols[:n_planes], n // 3)
     torch.cuda.synchronize()
     require(all(e == 0 for e in err.values()), f"kernel != plain: {err}")
     emit("kernels_vs_plain", kernels=list(err), max_abs_err=err, cases=cases,
@@ -1230,13 +1242,18 @@ def phase_bucket_kernels(cells: dict) -> dict:
                 f"r_slots {r_slots}: bucket 0 not full, or rows dropped")
         tables = (table.tk_hi, table.tk_lo)
         values = (table.tv_hi, table.tv_lo)
-        # K11's first launch alone: the bucket-major copy of the table
+        # the first launch of each above R 32 alone: the bucket-major copy
+        # of the table, K11's keys and values and K10's keys alone
         err["probe_materialize_vmem"] = max(
             err["probe_materialize_vmem"],
             *(_max_abs(g.view(torch.int32), w.view(torch.int32))
               for g, w in zip(bkp.bucket_major(*tables, *values),
                               bkp.bucket_major_plain(*tables, *values))))
-        cases += 1
+        err["probe_count_vmem"] = max(
+            err["probe_count_vmem"],
+            _max_abs(bkp.bucket_major_keys(*tables).view(torch.int32),
+                     bkp.bucket_major_keys_plain(*tables).view(torch.int32)))
+        cases += 2
         for npr in (0, 7, 30_000_005):
             pk = rng.integers(0, 2**64, npr + 1, dtype=np.uint64)
             pk[1::2] = rng.choice(bk, pk[1::2].size)

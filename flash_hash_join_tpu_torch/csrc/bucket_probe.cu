@@ -21,28 +21,30 @@
 // most 512 KB of keys (1 MB with K11's values) and stays in L2; what a
 // probe costs beyond its stream is the L2 sectors its search touches.
 //
-// K10 (count) searches the (R, 128) planes as they are: a branch-free lower
-// bound down column b, log2(R) + 1 dependent steps (10 at R = 512), each a
-// 4-byte read of both planes 512 bytes from the last: about 20 scattered
-// sector reads a probe.
-//
-// K11 (materialize) keeps the search off L2 and off scattered loads.  By
-// rung:
-//  * R = 8 to 32: the whole table in each block's shared memory (16 bytes a
-//    slot: the key as u64, the value as a (vh, vl) pair; at most 64 KB),
-//    staged from the planes' contiguous 512-byte rows; one thread a probe
-//    searches its bucket's column there (log2(R) + 1 shared-memory steps)
-//    and reads its value there: no fences, no copy, one launch.
+// K10 (count) and K11 (materialize) search the same layouts, by rung:
+//  * R = 8 to 32 (kStagedMaxSlots): the whole table in each block's shared
+//    memory, staged from the planes' contiguous 512-byte rows: the keys
+//    as u64 (8 bytes a slot; K11 adds the value as a (vh, vl) pair, 16
+//    bytes a slot, at most 64 KB); one thread a probe searches its
+//    bucket's column there (log2(R) + 1 shared-memory steps), and K11 reads
+//    its value there: no fences, no copy, one launch.
 //  * R = 64 to 512: a bucket-major copy of the table, built first in one
 //    launch (bucket_major_kernel, at most 1 MB): keys as u64, (128, R), so
-//    a run of kRun = 8 keys is one 64-byte line, and values as (vh, vl)
-//    pairs, so a hit is one 8-byte read.  Each block stages the fences, the
-//    key of every 8th slot of every bucket ((R / 8, 128) u64, 64 KB at
-//    R = 512), from the planes' rows 0, 8, 16, ...; a probe finds its run
-//    among its bucket's fences in shared memory (log2(R / 8) steps), then 4
-//    lanes read the run together and a ballot finds the key: one line and
-//    one value sector of L2 traffic a probe, against about 20 sectors.
-// Lines read one a lane were the first design: 16-byte loads of 32
+//    a run of kRun = 8 keys is one 64-byte line, and, for K11 only, values
+//    as (vh, vl) pairs, so a hit is one 8-byte read (K10's table has no
+//    values: its copy is the keys alone, 512 KB at R = 512).  Each block
+//    stages the fences, the key of every 8th slot of every bucket ((R / 8,
+//    128) u64, 64 KB at R = 512), from the planes' rows 0, 8, 16, ...; a
+//    probe finds its run among its bucket's fences in shared memory
+//    (log2(R / 8) steps), then 4 lanes read the run together and a ballot
+//    finds the key (find_in_run, which both kernels call): one line (and
+//    for K11 one value sector) of L2 traffic a probe.
+// K10 first ran the slot-major search of the planes as they are: a
+// branch-free lower bound down column b, log2(R) + 1 dependent steps (10
+// at R = 512), each a 4-byte read of both planes 512 bytes from the last,
+// about 20 scattered sector reads a probe: 0.889 ms at J1 4e7 Q2 (R 512)
+// and 0.724 at 1e8 Q1 (R 16), against bounds of 0.096 and 0.239.
+// K11's lines read one a lane were its first design: 16-byte loads of 32
 // different lines a warp load, 8 of them a 128-byte run, ran at 1.59 ms at
 // J1 4e7 Q2 (R 512) and 3.44 ms at 1e8 Q1 (R 16), against the old search's
 // 1.91 and 0.83; read by 8 or 4 lanes together, runs of 16 and 8 keys ran
@@ -85,49 +87,14 @@ __device__ __forceinline__ unsigned long long slot_key(const uint32_t* __restric
   return ((unsigned long long)__ldg(tk_hi + at) << 32) | __ldg(tk_lo + at);
 }
 
-// Slot row of probe i's key in its bucket's column, or -1 when it is not
-// there (or is u64-max).
-__device__ __forceinline__ int find_slot(const uint32_t* __restrict__ tk_hi,
-                                         const uint32_t* __restrict__ tk_lo, int r_slots,
-                                         uint32_t hi, uint32_t lo, int pre_shift,
-                                         int* bucket) {
-  const unsigned long long x = ((unsigned long long)hi << 32) | lo;
-  const int b = (int)bucket_of(hi, lo, pre_shift);
-  *bucket = b;
-  if (x == ~0ull) return -1;
-  // branch-free lower bound over rows [0, r_slots) of column b
-  int base = 0, n = r_slots;
-  while (n > 1) {
-    const int half = n >> 1;
-    base = slot_key(tk_hi, tk_lo, (base + half) * kLanes + b) < x ? base + half : base;
-    n -= half;
-  }
-  const int pos = base + (slot_key(tk_hi, tk_lo, base * kLanes + b) < x);
-  return (pos < r_slots && slot_key(tk_hi, tk_lo, pos * kLanes + b) == x) ? pos : -1;
-}
-
-__global__ void __launch_bounds__(fhj::kThreads)
-bucket_probe_count_kernel(const uint32_t* __restrict__ tk_hi,
-                          const uint32_t* __restrict__ tk_lo, int r_slots,
-                          const uint32_t* __restrict__ ph, const uint32_t* __restrict__ pl,
-                          int64_t np, int pre_shift, unsigned long long* __restrict__ count) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  unsigned int hits = 0;
-  int b;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < np; i += stride)
-    hits += find_slot(tk_hi, tk_lo, r_slots, __ldg(ph + i), __ldg(pl + i), pre_shift, &b) >= 0;
-  const unsigned long long total = fhj::block_sum(hits);
-  if (threadIdx.x == 0 && total) atomicAdd(count, total);
-}
-
 constexpr int kMatThreads = 1024;
 constexpr int kStagedMaxSlots = 32;   // tables up to here sit whole in shared memory
 constexpr int kRun = 8;               // above: keys a run, one 64-byte line
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// The bucket-major copy K11 reads above kStagedMaxSlots: keys[b * R + r] =
-// slot r of bucket b as one u64, vals[b * R + r] = its (vh, vl).  One
-// thread a slot.
+// The bucket-major copy K10 and K11 read above kStagedMaxSlots: keys[b * R
+// + r] = slot r of bucket b as one u64 and, when vals is not null, vals[b *
+// R + r] = its (vh, vl).  One thread a slot.
 __global__ void __launch_bounds__(fhj::kThreads)
 bucket_major_kernel(const uint32_t* __restrict__ tk_hi, const uint32_t* __restrict__ tk_lo,
                     const uint32_t* __restrict__ tv_hi, const uint32_t* __restrict__ tv_lo,
@@ -138,7 +105,7 @@ bucket_major_kernel(const uint32_t* __restrict__ tk_hi, const uint32_t* __restri
   const int b = o / r_slots;
   const int at = (o - b * r_slots) * kLanes + b;
   keys[o] = slot_key(tk_hi, tk_lo, at);
-  vals[o] = make_uint2(__ldg(tv_hi + at), __ldg(tv_lo + at));
+  if (vals != nullptr) vals[o] = make_uint2(__ldg(tv_hi + at), __ldg(tv_lo + at));
 }
 
 // Stages the key of every stride-th slot of every bucket into shared memory
@@ -165,6 +132,119 @@ __device__ __forceinline__ int last_at_or_under(const unsigned long long* fences
   return j;
 }
 
+// At or under kStagedMaxSlots: where key x of bucket b sits in the whole
+// table staged as fences of stride 1 (j * 128 + b), or -1 when it is not
+// there (or is u64-max).
+__device__ __forceinline__ int staged_at(const unsigned long long* table, int r_slots, int b,
+                                         unsigned long long x) {
+  const int at = last_at_or_under(table, r_slots, b, x) * kLanes + b;
+  return table[at] == x && x != ~0ull ? at : -1;
+}
+
+// Above kStagedMaxSlots: the first slot, in the bucket-major copy, of the
+// run that may hold key x of bucket b (by the R / kRun fences staged in
+// shared memory), or -1 for a row that cannot hit (not live, or u64-max).
+__device__ __forceinline__ int run_first(const unsigned long long* fences, int r_slots, int b,
+                                         unsigned long long x, bool live) {
+  return live && x != ~0ull
+             ? b * r_slots + last_at_or_under(fences, r_slots / kRun, b, x) * kRun
+             : -1;
+}
+
+// The slot of x inside the run that starts at keys[first] (0 .. kRun - 1),
+// or -1 when it is not there or first is -1.  Every lane of the warp calls
+// it together, each with its own row: kRun / 2 lanes read each run
+// together, 16 bytes a lane, so one warp load covers 8 runs (8 lines,
+// where a lane reading its own run in 16-byte loads touches 32 lines a
+// load, 4 loads a run), and a ballot tells the row's owner which key
+// matched.
+__device__ __forceinline__ int find_in_run(const unsigned long long* __restrict__ keys,
+                                           int first, unsigned long long x) {
+  constexpr int kReaders = kRun / 2;           // lanes reading one run
+  constexpr int kRuns = 32 / kReaders;         // runs one warp load reads
+  const int lane = threadIdx.x & 31;
+  int slot = -1;
+#pragma unroll
+  for (int r = 0; r < kReaders; ++r) {
+    // lanes g * kReaders .. g * kReaders + kReaders - 1 read the run of
+    // lane r * kRuns + g
+    const int owner = r * kRuns + lane / kReaders;
+    const int f = __shfl_sync(kFullWarp, first, owner);
+    const unsigned long long y = __shfl_sync(kFullWarp, x, owner);
+    bool m0 = false, m1 = false;
+    if (f >= 0) {
+      const ulonglong2 q =
+          __ldg(reinterpret_cast<const ulonglong2*>(keys + f) + lane % kReaders);
+      m0 = q.x == y;
+      m1 = q.y == y;
+    }
+    const unsigned b0 = __ballot_sync(kFullWarp, m0);
+    const unsigned b1 = __ballot_sync(kFullWarp, m1);
+    if (lane / kRuns == r) {
+      const int shift = (lane % kRuns) * kReaders;
+      const unsigned g0 = (b0 >> shift) & ((1u << kReaders) - 1u);
+      const unsigned g1 = (b1 >> shift) & ((1u << kReaders) - 1u);
+      slot = g0 ? 2 * (__ffs(g0) - 1) : g1 ? 2 * (__ffs(g1) - 1) + 1 : -1;
+    }
+  }
+  return slot;
+}
+
+// K10's result: the block's hits summed, one atomicAdd a block.
+__device__ __forceinline__ void add_block_hits(unsigned int hits,
+                                               unsigned long long* __restrict__ count) {
+  const unsigned long long total = fhj::block_sum<kMatThreads>(hits);
+  if (threadIdx.x == 0 && total) atomicAdd(count, total);
+}
+
+// K10 at R <= kStagedMaxSlots: the keys in shared memory, one probe row a
+// thread.
+__global__ void __launch_bounds__(kMatThreads, 2)
+bucket_count_staged_kernel(const uint32_t* __restrict__ tk_hi,
+                           const uint32_t* __restrict__ tk_lo, int r_slots,
+                           const uint32_t* __restrict__ ph, const uint32_t* __restrict__ pl,
+                           int64_t np, int pre_shift, unsigned long long* __restrict__ count) {
+  extern __shared__ unsigned long long table[];
+  stage_fences(table, tk_hi, tk_lo, r_slots, 1);
+  __syncthreads();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  unsigned int hits = 0;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < np; i += stride) {
+    const uint32_t h = __ldg(ph + i), l = __ldg(pl + i);
+    const unsigned long long x = ((unsigned long long)h << 32) | l;
+    hits += staged_at(table, r_slots, (int)bucket_of(h, l, pre_shift), x) >= 0;
+  }
+  add_block_hits(hits, count);
+}
+
+// K10 above kStagedMaxSlots, on the keys-only bucket-major copy: fences in
+// shared memory, one probe row a lane, find_in_run.
+__global__ void __launch_bounds__(kMatThreads, 2)
+bucket_count_runs_kernel(const uint32_t* __restrict__ tk_hi,
+                         const uint32_t* __restrict__ tk_lo,
+                         const unsigned long long* __restrict__ keys, int r_slots,
+                         const uint32_t* __restrict__ ph, const uint32_t* __restrict__ pl,
+                         int64_t np, int pre_shift, unsigned long long* __restrict__ count) {
+  extern __shared__ unsigned long long fences[];
+  stage_fences(fences, tk_hi, tk_lo, r_slots / kRun, kRun);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  unsigned int hits = 0;
+  // warp-uniform trip count: every lane takes part in the shuffles
+  for (int64_t base = (int64_t)blockIdx.x * blockDim.x + threadIdx.x - lane; base < np;
+       base += stride) {
+    const int64_t i = base + lane;
+    const bool valid = i < np;
+    const uint32_t h = valid ? __ldg(ph + i) : 0u;
+    const uint32_t l = valid ? __ldg(pl + i) : 0u;
+    const unsigned long long x = ((unsigned long long)h << 32) | l;
+    const int first = run_first(fences, r_slots, (int)bucket_of(h, l, pre_shift), x, valid);
+    hits += find_in_run(keys, first, x) >= 0;
+  }
+  add_block_hits(hits, count);
+}
+
 // K11 at R <= kStagedMaxSlots: the whole table in shared memory, the keys
 // (as fences of stride 1) then the values as (vh, vl) pairs, 16 bytes a
 // slot.  One probe row a thread: the search of its bucket's column runs in
@@ -188,11 +268,10 @@ bucket_probe_staged_kernel(const uint32_t* __restrict__ tk_hi,
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const uint32_t h = __ldg(ph + i), l = __ldg(pl + i);
     const unsigned long long x = ((unsigned long long)h << 32) | l;
-    const int b = (int)bucket_of(h, l, pre_shift);
-    const int at = last_at_or_under(table, r_slots, b, x) * kLanes + b;
-    const bool found = table[at] == x && x != ~0ull && i < np_valid;
-    const uint2 v = found ? vals[at] : make_uint2(0u, 0u);
-    hit[i] = found;
+    const int at = i < np_valid ? staged_at(table, r_slots, (int)bucket_of(h, l, pre_shift), x)
+                                : -1;
+    const uint2 v = at >= 0 ? vals[at] : make_uint2(0u, 0u);
+    hit[i] = at >= 0;
     vh[i] = v.x;
     vl[i] = v.y;
   }
@@ -201,11 +280,7 @@ bucket_probe_staged_kernel(const uint32_t* __restrict__ tk_hi,
 // K11 above kStagedMaxSlots, on the bucket-major copy: n_fences = R / kRun
 // fences a bucket in shared memory (stage_fences), runs of kRun keys.  One
 // probe row a lane, a warp's 32 rows consecutive (coalesced key loads and
-// output stores).  Each lane finds its run among its bucket's fences; then
-// kRun / 2 lanes read each run together, 16 bytes a lane, so one warp load
-// covers 8 runs (8 lines, where a lane reading its own run in 16-byte
-// loads touches 32 lines a load, 4 loads a run), and a ballot tells the
-// row's owner which key matched.
+// output stores); find_in_run, then the hit's value from the copy.
 __global__ void __launch_bounds__(kMatThreads, 2)
 bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
                                 const uint32_t* __restrict__ tk_lo,
@@ -216,11 +291,8 @@ bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
                                 int64_t np_valid, int pre_shift,
                                 uint8_t* __restrict__ hit, uint32_t* __restrict__ vh,
                                 uint32_t* __restrict__ vl) {
-  constexpr int kReaders = kRun / 2;           // lanes reading one run
-  constexpr int kRuns = 32 / kReaders;         // runs one warp load reads
   extern __shared__ unsigned long long fences[];
-  const int n_fences = r_slots / kRun;
-  stage_fences(fences, tk_hi, tk_lo, n_fences, kRun);
+  stage_fences(fences, tk_hi, tk_lo, r_slots / kRun, kRun);
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
@@ -232,35 +304,9 @@ bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
     const uint32_t h = valid ? __ldg(ph + i) : 0u;
     const uint32_t l = valid ? __ldg(pl + i) : 0u;
     const unsigned long long x = ((unsigned long long)h << 32) | l;
-    const int b = (int)bucket_of(h, l, pre_shift);
-    // the run's first slot in the copy, -1 for a row that cannot hit
-    const int first = valid && i < np_valid && x != ~0ull
-                          ? b * r_slots + last_at_or_under(fences, n_fences, b, x) * kRun
-                          : -1;
-    int slot = -1;
-#pragma unroll
-    for (int r = 0; r < kReaders; ++r) {
-      // lanes g * kReaders .. g * kReaders + kReaders - 1 read the run of
-      // lane r * kRuns + g
-      const int owner = r * kRuns + lane / kReaders;
-      const int f = __shfl_sync(kFullWarp, first, owner);
-      const unsigned long long y = __shfl_sync(kFullWarp, x, owner);
-      bool m0 = false, m1 = false;
-      if (f >= 0) {
-        const ulonglong2 q =
-            __ldg(reinterpret_cast<const ulonglong2*>(keys + f) + lane % kReaders);
-        m0 = q.x == y;
-        m1 = q.y == y;
-      }
-      const unsigned b0 = __ballot_sync(kFullWarp, m0);
-      const unsigned b1 = __ballot_sync(kFullWarp, m1);
-      if (lane / kRuns == r) {
-        const int shift = (lane % kRuns) * kReaders;
-        const unsigned g0 = (b0 >> shift) & ((1u << kReaders) - 1u);
-        const unsigned g1 = (b1 >> shift) & ((1u << kReaders) - 1u);
-        slot = g0 ? 2 * (__ffs(g0) - 1) : g1 ? 2 * (__ffs(g1) - 1) + 1 : -1;
-      }
-    }
+    const int first = run_first(fences, r_slots, (int)bucket_of(h, l, pre_shift), x,
+                                valid && i < np_valid);
+    const int slot = find_in_run(keys, first, x);
     if (valid) {
       const uint2 v = slot >= 0 ? __ldg(vals + first + slot) : make_uint2(0u, 0u);
       hit[i] = slot >= 0;
@@ -270,8 +316,8 @@ bucket_probe_materialize_kernel(const uint32_t* __restrict__ tk_hi,
   }
 }
 
-// Launches a K11 kernel over n rows: blocks of kMatThreads, `smem` bytes of
-// dynamic shared memory, the grid capped at what fits on the card.
+// Launches a K10 or K11 kernel over n rows: blocks of kMatThreads, `smem`
+// bytes of dynamic shared memory, the grid capped at what fits on the card.
 template <typename Kernel, typename... Args>
 cudaError_t launch_probe(Kernel kernel, int64_t n, size_t smem, cudaStream_t stream,
                          Args... args) {
@@ -294,7 +340,12 @@ cudaError_t launch_bucket_major(const uint32_t* tk_hi, const uint32_t* tk_lo,
   return cudaGetLastError();
 }
 
-bool materialize_rung(int r_slots) {
+// Shared memory of the fences above kStagedMaxSlots.
+size_t fence_bytes(int r_slots) {
+  return (size_t)(r_slots / kRun) * kLanes * sizeof(unsigned long long);
+}
+
+bool vmem_rung(int r_slots) {
   return r_slots >= 8 && r_slots <= 512 && (r_slots & (r_slots - 1)) == 0;
 }
 
@@ -302,26 +353,36 @@ bool materialize_rung(int r_slots) {
 
 extern "C" {
 
-// tk_hi, tk_lo: (r_slots, 128) planes; count: one zeroed u64.  Counts the
-// probes (ph, pl)[0, np) found in their bucket, on `stream`.  Returns
+// K10.  tk_hi, tk_lo: the (r_slots, 128) key planes, r_slots a power of two
+// in [8, 512]; keys: r_slots * 128 u64 words of scratch, 16-byte aligned
+// (unused up to staged_max); count: one zeroed u64.  staged_max: 32 or 64,
+// the last rung searched in shared memory.  On `stream`: above staged_max
+// builds the keys-only bucket-major copy into keys; then adds to count the
+// probes (ph, pl)[0, np) found in their bucket.  Returns
 // cudaGetLastError().
 int fhj_bucket_probe_count(const uint32_t* tk_hi, const uint32_t* tk_lo, int r_slots,
-                           const uint32_t* ph, const uint32_t* pl, int64_t np, int pre_shift,
+                           unsigned long long* keys, const uint32_t* ph, const uint32_t* pl,
+                           int64_t np, int pre_shift, int staged_max,
                            unsigned long long* count, cudaStream_t stream) {
   if (np <= 0) return (int)cudaSuccess;
-  if (r_slots < 1 || pre_shift < 0 || pre_shift > 32 - kBucketBits)
+  if (!vmem_rung(r_slots) || pre_shift < 0 || pre_shift > 32 - kBucketBits ||
+      (staged_max != 32 && staged_max != 64))
     return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  cudaError_t e = fhj::grid_for(bucket_probe_count_kernel, np, 0, &grid, 1);
+  if (r_slots <= staged_max)
+    return (int)launch_probe(bucket_count_staged_kernel, np,
+                             (size_t)r_slots * kLanes * sizeof(unsigned long long), stream,
+                             tk_hi, tk_lo, r_slots, ph, pl, np, pre_shift, count);
+  cudaError_t e = launch_bucket_major(tk_hi, tk_lo, nullptr, nullptr, r_slots, keys, nullptr,
+                                      stream);
   if (e != cudaSuccess) return (int)e;
-  bucket_probe_count_kernel<<<grid, fhj::kThreads, 0, stream>>>(tk_hi, tk_lo, r_slots, ph,
-                                                                pl, np, pre_shift, count);
-  return (int)cudaGetLastError();
+  return (int)launch_probe(bucket_count_runs_kernel, np, fence_bytes(r_slots), stream, tk_hi,
+                           tk_lo, (const unsigned long long*)keys, r_slots, ph, pl, np,
+                           pre_shift, count);
 }
 
-// tk_hi, tk_lo, tv_hi, tv_lo: the (r_slots, 128) key and value planes,
-// r_slots a power of two in [8, 512]; keys, vals: r_slots * 128 u64 words
-// each of scratch, 16-byte aligned (unused when r_slots <= 32).  On
+// K11.  tk_hi, tk_lo, tv_hi, tv_lo: the (r_slots, 128) key and value
+// planes, r_slots a power of two in [8, 512]; keys, vals: r_slots * 128 u64
+// words each of scratch, 16-byte aligned (unused when r_slots <= 32).  On
 // `stream`: above 32 slot rows builds the bucket-major copy into keys and
 // vals; then writes hit/vh/vl for every probe row [0, n): rows at or past
 // np_valid, and misses, get 0.  Launches nothing when n == 0.  Returns
@@ -333,7 +394,7 @@ int fhj_bucket_probe_materialize(const uint32_t* tk_hi, const uint32_t* tk_lo,
                                  int64_t np_valid, int pre_shift, uint8_t* hit, uint32_t* vh,
                                  uint32_t* vl, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (!materialize_rung(r_slots) || pre_shift < 0 || pre_shift > 32 - kBucketBits)
+  if (!vmem_rung(r_slots) || pre_shift < 0 || pre_shift > 32 - kBucketBits)
     return (int)cudaErrorInvalidValue;
   if (r_slots <= kStagedMaxSlots)
     return (int)launch_probe(bucket_probe_staged_kernel, n,
@@ -344,18 +405,20 @@ int fhj_bucket_probe_materialize(const uint32_t* tk_hi, const uint32_t* tk_lo,
   cudaError_t e = launch_bucket_major(tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, pairs,
                                       stream);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = (size_t)(r_slots / kRun) * kLanes * sizeof(unsigned long long);
-  return (int)launch_probe(bucket_probe_materialize_kernel, n, smem, stream, tk_hi, tk_lo,
-                           (const unsigned long long*)keys, (const uint2*)pairs, r_slots,
-                           ph, pl, n, np_valid, pre_shift, hit, vh, vl);
+  return (int)launch_probe(bucket_probe_materialize_kernel, n, fence_bytes(r_slots), stream,
+                           tk_hi, tk_lo, (const unsigned long long*)keys,
+                           (const uint2*)pairs, r_slots, ph, pl, n, np_valid, pre_shift,
+                           hit, vh, vl);
 }
 
-// The bucket-major copy alone (K11's first launch), for its checks: as
-// above, into keys and vals.  Returns cudaGetLastError().
+// The bucket-major copy alone (the first launch of K11, and of K10 above
+// its staged rungs), for its checks: as above, into keys and, when tv_hi,
+// tv_lo and vals are not null, vals.  Returns cudaGetLastError().
 int fhj_bucket_major(const uint32_t* tk_hi, const uint32_t* tk_lo, const uint32_t* tv_hi,
                      const uint32_t* tv_lo, int r_slots, unsigned long long* keys,
                      unsigned long long* vals, cudaStream_t stream) {
-  if (!materialize_rung(r_slots)) return (int)cudaErrorInvalidValue;
+  if (!vmem_rung(r_slots) || (vals != nullptr && (tv_hi == nullptr || tv_lo == nullptr)))
+    return (int)cudaErrorInvalidValue;
   return (int)launch_bucket_major(tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys,
                                   reinterpret_cast<uint2*>(vals), stream);
 }

@@ -135,9 +135,11 @@ __device__ __forceinline__ uint32_t block_min(uint32_t v) {
   return v;
 }
 
-// Sum of v over the block, valid in thread 0.  blockDim.x == kThreads.
+// Sum of v over the block, valid in thread 0.  blockDim.x == kBlock, at
+// most 1024.
+template <int kBlock = kThreads>
 __device__ __forceinline__ unsigned long long block_sum(unsigned long long v) {
-  __shared__ unsigned long long warp_sums[kThreads / 32];
+  __shared__ unsigned long long warp_sums[kBlock / 32];
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -145,7 +147,7 @@ __device__ __forceinline__ unsigned long long block_sum(unsigned long long v) {
   __syncthreads();
   v = 0;
   if (warp == 0) {
-    v = lane < kThreads / 32 ? warp_sums[lane] : 0ull;
+    v = lane < kBlock / 32 ? warp_sums[lane] : 0ull;
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   }
   return v;

@@ -1,33 +1,53 @@
-// K5: stable, sort-free stream compaction.
+// K5: stable, sort-free stream compaction, in one pass.
 //
 // Replaces flash_hash_join_tpu/ops/pallas/stream_compact.py:
 // pack_concat_blocks (kernel body _pack_kernel), which every materialize
 // path ends in.  Same function: the rows of V u32 planes whose mask is set
 // are written to the front of V output planes, in input order, at exact
-// offsets.
+// offsets, and the total number of set rows is written to the card.
 //
-// Two launches and a small scan between them, all on one stream:
-//   1. compact_count_kernel: hits per tile of kTile rows (one block each);
-//   2. the caller's exclusive scan of the tile counts (torch.cumsum over
-//      n / kTile values, as the JAX package leaves its row counts to XLA);
-//   3. compact_scatter_kernel: each block walks its tile in kRounds rounds
-//      of one row per thread; __ballot_sync / __popc give each hit its rank
-//      inside the warp, a shared-memory pass over the warp totals its rank
-//      inside the round, and a running total carries the tile's offset from
-//      round to round, so the output is stable.
+// One launch (after one memset of its scratch) does the whole call: a
+// single-pass scan with a decoupled look-back, the card's form of the TPU
+// kernel's running total carried across its sequential grid (the SMEM `L`
+// of _pack_kernel).  Each block takes the next tile of kTile mask rows
+// from an atomic counter (CUDA gives no forward-progress guarantee to a
+// block that waits on one not yet scheduled, so tiles are handed out in
+// the order blocks start, never by blockIdx):
+//   1. each thread reads 16 mask bytes with one 16-byte load (the mask is
+//      read once; the chunks at the ends of a misaligned view byte by
+//      byte) and the block scans the per-thread hit counts;
+//   2. warp 0 publishes the tile's hit count as an "aggregate" state, then
+//      walks back over the states of the 32 tiles before it at a time,
+//      summing aggregates until it meets an "inclusive prefix", and
+//      publishes its own inclusive prefix: a tile waits only for tiles
+//      that have started, and never for a whole chain of them;
+//   3. meanwhile the block writes its hits' tile-local row numbers to
+//      shared memory in order; then, per plane, consecutive threads copy
+//      consecutive hits, so the stores are whole 128-byte lines (the walk
+//      starts at the 32-word boundary under the tile's offset) and the
+//      loads read only the hit rows, merged by the coalescer.
+// A tile state is one 64-bit word, flag in the top two bits and the
+// prefix below, stored with release and loaded with acquire semantics, so
+// a reader never sees a torn state.  The last tile writes the total.
 //
 // What bounds it on an H100: device-memory traffic.  It reads the 1-byte
-// mask twice and the hit rows' V 4-byte values, and writes V 4-byte values
-// per hit: at 1e8 rows, 4 planes and a 50 % hit rate, ~2.6 GB (the value
-// reads fetch nearly every 32-byte sector), a floor of ~0.8 ms at the
-// 3.35 TB/s peak.  Reads of a round are coalesced; writes are contiguous
-// runs of the hits of a warp.
+// mask once, and the hit rows' V 4-byte values, and writes V 4-byte values
+// per hit: at 1e8 rows, 4 planes and a 60 % hit rate, 0.1 GB of mask and
+// 1.92 GB of values, a floor of 0.60 ms at the 3.35 TB/s peak
+// (chip_smoke.bound).  At that rate nearly every 32-byte sector of the
+// input planes holds a hit, so the reads fetch ~1.6 GB rather than 0.96.
+//
+// The tile: kTile = 4096 rows, 256 threads a block, one 16-byte mask load
+// a thread, 8 KB of row numbers in shared memory (TILE NOTE).
 //
 // What the design does about it, against the TPU kernel: the TPU kernel
 // packs lanes with rotations and moves rows with an MXU permutation matmul
 // over a lane-major count layout, because Mosaic cannot scatter; here each
 // hit is written to its own address, so none of that, nor the staging and
-// carry rows, is needed.
+// carry rows, is needed.  Against the first port (a count kernel, a
+// torch.cumsum of the tile counts, a subtraction and a scatter kernel that
+// walked its tile in 16 rounds of 256 rows, each hit a lone 4-byte store):
+// one launch instead of four, the mask read once, and whole-line stores.
 //
 // K6: exact-offset concatenation of ragged blocks.  Replaces
 // flash_hash_join_tpu/ops/pallas/stream_compact.py:concat_ragged_blocks
@@ -46,61 +66,172 @@
 
 namespace {
 
-constexpr int kRounds = 16;
-constexpr int kTile = fhj::kThreads * kRounds;  // rows per block: 4096
 constexpr int kMaxPlanes = 4;
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 struct Planes {
   const uint32_t* in[kMaxPlanes];
   uint32_t* out[kMaxPlanes];
 };
 
-__global__ void __launch_bounds__(fhj::kThreads)
-compact_count_kernel(const uint8_t* __restrict__ mask, int64_t n, int* __restrict__ counts) {
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x;
-  unsigned int hits = 0;
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    const int64_t i = base + r * fhj::kThreads;
-    hits += i < n && mask[i];
-  }
-  const unsigned long long total = fhj::block_sum(hits);
-  if (threadIdx.x == 0) counts[blockIdx.x] = (int)total;
+// Tile states of the look-back: flag in bits 62-63, prefix below.
+constexpr unsigned long long kAggregate = 1ull << 62;  // the tile's own hits
+constexpr unsigned long long kInclusive = 2ull << 62;  // hits up to its end
+constexpr unsigned long long kValue = (1ull << 62) - 1;
+
+__device__ __forceinline__ void store_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-__global__ void __launch_bounds__(fhj::kThreads)
-compact_scatter_kernel(const uint8_t* __restrict__ mask, int64_t n,
-                       const long long* __restrict__ offsets, Planes planes, int n_planes,
-                       int64_t n_out) {
-  __shared__ int warp_hits[fhj::kThreads / 32];
+__device__ __forceinline__ unsigned long long load_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Bit k (k < 4) set when byte k of w is nonzero.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  const uint32_t top = (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
+  return ((top >> 7) * 0x10204080u) >> 28;
+}
+
+// Bit j set when mask row row0 + j (j < 16) is set; rows outside [0, n)
+// read as clear.  A chunk inside the mask is one 16-byte load (mask + row0
+// is then 16-byte aligned: the caller walks the 16-byte grid of the view).
+__device__ __forceinline__ uint32_t mask_bits(const uint8_t* __restrict__ mask, int64_t n,
+                                              int64_t row0) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (row0 >= 0 && row0 + 16 <= n) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(mask + row0));
+    w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int64_t r = row0 + j;
+      if (r >= 0 && r < n) w[j >> 2] |= (uint32_t)mask[r] << (8 * (j & 3));
+    }
+  }
+  return nonzero_bytes(w[0]) | nonzero_bytes(w[1]) << 4 | nonzero_bytes(w[2]) << 8 |
+         nonzero_bytes(w[3]) << 12;
+}
+
+// The tile's exclusive prefix: the hits of every tile before it.  Called
+// by warp 0 of the block after the tile's count `agg` is known; publishes
+// the tile's states on the way.
+__device__ __forceinline__ long long look_back(unsigned long long* __restrict__ state,
+                                               long long tile, long long agg) {
+  const int lane = threadIdx.x & 31;
+  if (tile == 0) {
+    if (lane == 0) store_release(state, kInclusive | (unsigned long long)agg);
+    return 0;
+  }
+  if (lane == 0) store_release(state + tile, kAggregate | (unsigned long long)agg);
+  long long excl = 0;
+  for (long long end = tile;; end -= 32) {
+    // lane k reads tile end - 1 - k; before tile 0 reads as a prefix of 0
+    const long long j = end - 1 - lane;
+    unsigned long long s;
+    do {
+      s = j >= 0 ? load_acquire(state + j) : kInclusive;
+    } while (__any_sync(kFullWarp, (s >> 62) == 0));
+    const unsigned inclusive = __ballot_sync(kFullWarp, (s >> 62) == 2);
+    const int stop = inclusive ? __ffs(inclusive) - 1 : 31;
+    long long v = lane <= stop ? (long long)(s & kValue) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullWarp, v, o);
+    excl += v;
+    if (inclusive) break;
+  }
+  if (lane == 0) store_release(state + tile, kInclusive | (unsigned long long)(excl + agg));
+  return excl;
+}
+
+// scratch: [0] the total (written by the last tile), [1] the tile counter,
+// [2 ..] one state a tile; all zero at launch.  One block a tile of
+// kBlock * 16 rows of the mask's 16-byte grid: tile t covers the view's
+// rows [t * kTile - head, (t + 1) * kTile - head), head = the view's
+// offset from the 16-byte boundary under it.
+template <int kBlock>
+__global__ void __launch_bounds__(kBlock)
+compact_kernel(const uint8_t* __restrict__ mask, int64_t n, Planes planes, int n_planes,
+               int64_t n_out, unsigned long long* __restrict__ scratch) {
+  constexpr int kTile = kBlock * 16;
+  constexpr int kWarps = kBlock / 32;
+  constexpr int kUnroll = 4;
+  __shared__ uint16_t rows[kTile];  // the tile's hits, tile-local row numbers
+  __shared__ int warp_ends[kWarps];
+  __shared__ long long tile_sh, excl_sh;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const unsigned int below = (1u << lane) - 1u;  // lanes before this one
-  const int64_t base = (int64_t)blockIdx.x * kTile + threadIdx.x;
-  int64_t run = offsets[blockIdx.x];
-  for (int r = 0; r < kRounds; ++r) {
-    const int64_t i = base + r * fhj::kThreads;
-    const bool hit = i < n && mask[i];
-    const unsigned int ballot = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) warp_hits[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0, round_hits = 0;
+  if (threadIdx.x == 0)
+    tile_sh = atomicAdd(reinterpret_cast<unsigned int*>(scratch + 1), 1u);
+  __syncthreads();
+  const long long tile = tile_sh;
+  const int64_t first = tile * kTile - (int64_t)(reinterpret_cast<uintptr_t>(mask) & 15);
+  uint32_t bits = mask_bits(mask, n, first + 16 * threadIdx.x);
+
+  // block scan of the threads' hit counts
+  const int hits = __popc(bits);
+  int incl = hits;
 #pragma unroll
-    for (int w = 0; w < fhj::kThreads / 32; ++w) {
-      const int h = warp_hits[w];
-      before += w < warp ? h : 0;
-      round_hits += h;
-    }
-    if (hit) {
-      const int64_t dst = run + before + __popc(ballot & below);
-      // unrolled over the fixed maximum, so the plane pointers are read
-      // from the parameter space instead of a local copy of the struct
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFullWarp, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_ends[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kWarps ? warp_ends[lane] : 0;
 #pragma unroll
-      for (int v = 0; v < kMaxPlanes; ++v)
-        if (v < n_planes && dst < n_out) planes.out[v][dst] = __ldg(planes.in[v] + i);
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFullWarp, w, o);
+      if (lane >= o) w += y;
     }
-    run += round_hits;
-    __syncthreads();  // warp_hits is rewritten by the next round
+    if (lane < kWarps) warp_ends[lane] = w;
+  }
+  __syncthreads();
+  const int agg = warp_ends[kWarps - 1];
+  if (warp == 0) {
+    const long long excl = look_back(scratch + 2, tile, agg);
+    if (lane == 0) {
+      excl_sh = excl;
+      if (tile == gridDim.x - 1) scratch[0] = (unsigned long long)(excl + agg);
+    }
+  }
+  int at = incl - hits + (warp ? warp_ends[warp - 1] : 0);
+  while (bits) {
+    rows[at++] = (uint16_t)(16 * threadIdx.x + __ffs(bits) - 1);
+    bits &= bits - 1;
+  }
+  __syncthreads();
+
+  // the tile's hits go to [excl, excl + agg), cut at n_out; the walk starts
+  // on the 32-word boundary under excl, so each warp stores whole lines
+  const int64_t excl = excl_sh;
+  const int64_t end = excl + agg < n_out ? excl + agg : n_out;
+  for (int64_t d0 = (excl & ~31ll) + threadIdx.x; d0 < end; d0 += kBlock * kUnroll) {
+    uint32_t v[kUnroll][kMaxPlanes];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t d = d0 + u * kBlock;
+      if (d >= excl && d < end) {
+        const int64_t src = first + rows[d - excl];
+        // unrolled over the fixed maximum, so the plane pointers are read
+        // from the parameter space instead of a local copy of the struct
+#pragma unroll
+        for (int p = 0; p < kMaxPlanes; ++p)
+          if (p < n_planes) v[u][p] = __ldg(planes.in[p] + src);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t d = d0 + u * kBlock;
+      if (d >= excl && d < end) {
+#pragma unroll
+        for (int p = 0; p < kMaxPlanes; ++p)
+          if (p < n_planes) planes.out[p][d] = v[u][p];
+      }
+    }
   }
 }
 
@@ -122,37 +253,45 @@ concat_ragged_kernel(const int* __restrict__ counts, const long long* __restrict
   }
 }
 
-int blocks_for(int64_t n) { return (int)((n + kTile - 1) / kTile); }
+template <int kBlock>
+cudaError_t launch_compact(const uint8_t* mask, int64_t n, const Planes& planes, int n_planes,
+                           int64_t n_out, unsigned long long* scratch, int64_t scratch_words,
+                           cudaStream_t stream) {
+  constexpr int64_t kTile = kBlock * 16;
+  const int64_t tiles = ((int64_t)(reinterpret_cast<uintptr_t>(mask) & 15) + n + kTile - 1) / kTile;
+  if (tiles > 0x7fffffff || scratch_words < tiles + 2) return cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(tiles + 2) * sizeof(*scratch), stream);
+  if (e != cudaSuccess) return e;
+  compact_kernel<kBlock><<<(unsigned int)tiles, kBlock, 0, stream>>>(mask, n, planes, n_planes,
+                                                                     n_out, scratch);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// Rows per tile: the caller sizes the tile-count array with it.
-int fhj_compact_tile_rows() { return kTile; }
-
-// counts: ceil(n / tile_rows) int32, written in full.  Launches nothing when
-// n == 0.  Returns cudaGetLastError().
-int fhj_compact_count(const uint8_t* mask, int64_t n, int* counts, cudaStream_t stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  compact_count_kernel<<<blocks_for(n), fhj::kThreads, 0, stream>>>(mask, n, counts);
-  return (int)cudaGetLastError();
-}
-
-// offsets: the exclusive scan of the tile counts, int64.  in0..in3 / out0..
-// out3: the first n_planes (1..4) are used; output rows >= n_out are
-// dropped.  Launches nothing when n == 0.  Returns cudaGetLastError().
-int fhj_compact_scatter(const uint8_t* mask, int64_t n, const long long* offsets,
-                        int n_planes, const uint32_t* in0, const uint32_t* in1,
-                        const uint32_t* in2, const uint32_t* in3, uint32_t* out0,
-                        uint32_t* out1, uint32_t* out2, uint32_t* out3, int64_t n_out,
-                        cudaStream_t stream) {
+// K5.  mask: n bytes (any alignment), nonzero = hit; in0..in3 / out0..out3:
+// the first n_planes (1..4) are used, n words in, n_out words out (hits at
+// or past n_out are dropped).  scratch: scratch_words u64 of device memory,
+// at least ceil((n + 15) / tile_rows) + 2; on return scratch[0] holds the
+// number of hits.  tile_rows: 4096 or 8192.  One memset and one launch on
+// `stream`, nothing when n == 0.  Returns cudaGetLastError().
+int fhj_compact_by_mask(const uint8_t* mask, int64_t n, int n_planes, const uint32_t* in0,
+                        const uint32_t* in1, const uint32_t* in2, const uint32_t* in3,
+                        uint32_t* out0, uint32_t* out1, uint32_t* out2, uint32_t* out3,
+                        int64_t n_out, int tile_rows, unsigned long long* scratch,
+                        int64_t scratch_words, cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (n_planes < 1 || n_planes > kMaxPlanes) return (int)cudaErrorInvalidValue;
   const Planes planes = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
-  compact_scatter_kernel<<<blocks_for(n), fhj::kThreads, 0, stream>>>(
-      mask, n, offsets, planes, n_planes, n_out);
-  return (int)cudaGetLastError();
+  if (tile_rows == 4096)
+    return (int)launch_compact<256>(mask, n, planes, n_planes, n_out, scratch, scratch_words,
+                                    stream);
+  if (tile_rows == 8192)
+    return (int)launch_compact<512>(mask, n, planes, n_planes, n_out, scratch, scratch_words,
+                                    stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K6.  counts: nblocks int32, each in [0, block_elems]; offsets: their

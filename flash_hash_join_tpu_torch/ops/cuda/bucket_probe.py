@@ -13,15 +13,17 @@ np_valid never hit.
 The TPU kernels take the probes padded into (M, 128) tiles with a bucket
 plane computed outside, and scan all R slot rows per tile because Mosaic
 gathers only within a vreg.  The CUDA kernels take the probe planes as
-they are and hash each key in-kernel.  K10 searches its bucket's column of
-the planes.  K11 searches fences in shared memory: the key of every
-`fence_stride(R)`-th slot of every bucket (`bucket_fences`).  Up to
-STAGED_MAX_R_SLOTS rows the stride is 1, so the whole table (with its
-values) sits in shared memory and the search ends there.  Above, the
-stride is RUN_KEYS: K11 first builds a layout of its own from the planes in
-one launch (`bucket_major`: the keys bucket-major as u64 and the values as
-interleaved (vh, vl) pairs), and a probe's run of RUN_KEYS keys, one
-64-byte line, is read by 4 lanes together and compared at once.
+they are and hash each key in-kernel, and both search fences in shared
+memory: the key of every `fence_stride(R)`-th slot of every bucket
+(`bucket_fences`).  Up to STAGED_MAX_R_SLOTS rows the stride is 1, so the
+whole table (with K11's values) sits in shared memory and the search ends
+there.  Above, the stride is RUN_KEYS: the kernel first builds a layout of
+its own from the planes in one launch (`bucket_major`: the keys
+bucket-major as u64 and K11's values as interleaved (vh, vl) pairs;
+`bucket_major_keys`: K10's, the keys alone), and a probe's run of RUN_KEYS
+keys, one 64-byte line, is read by 4 lanes together and compared at once.
+Both take R a power of two in [8, 512] (`_check_rung`, the rungs of
+ops/bucket_table.r_slots_for).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from flash_hash_join_tpu_torch.utils.u64 import widen
 LANES = 128
 BUCKET_BITS = 7
 MAX_R_SLOTS = 512
-STAGED_MAX_R_SLOTS = 32            # K11: the whole table in shared memory
+STAGED_MAX_R_SLOTS = 32            # the whole table in shared memory
+COUNT_STAGED_MAX_R_SLOTS = 32      # K10's keys alone: 32 or 64
 RUN_KEYS = 8                       # above: u64 keys a run, one 64-byte line
 
 
@@ -101,20 +104,25 @@ def probe_count_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
                      ph: torch.Tensor, pl: torch.Tensor, np_valid: int,
                      pre_shift: int = 0) -> torch.Tensor:
     """Count the probe rows [0, np_valid) whose key is in its bucket's
-    column of the table; a 0-d int64 tensor.  CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    column of the table; a 0-d int64 tensor.  The table's R must be a
+    power of two in [8, 512].  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (above COUNT_STAGED_MAX_R_SLOTS rows, the
+    keys-only layout kernel first)."""
     dev = _check({"tk_hi": tk_hi, "tk_lo": tk_lo}, ph, pl, np_valid,
                  pre_shift)
+    _check_rung(tk_hi.shape[0])
     if dev.type == "cpu":
         return probe_count_vmem_plain(tk_hi, tk_lo, ph, pl, np_valid,
                                       pre_shift)
     count = torch.zeros(1, dtype=torch.int64, device=dev)
     if np_valid == 0:
         return count[0]
+    keys = _keys_scratch(tk_hi)     # read above COUNT_STAGED_MAX_R_SLOTS only
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_bucket_probe_count(
-        tk_hi.data_ptr(), tk_lo.data_ptr(), tk_hi.shape[0], ph.data_ptr(),
-        pl.data_ptr(), np_valid, pre_shift, count.data_ptr(), stream)
+        tk_hi.data_ptr(), tk_lo.data_ptr(), tk_hi.shape[0], keys.data_ptr(),
+        ph.data_ptr(), pl.data_ptr(), np_valid, pre_shift,
+        COUNT_STAGED_MAX_R_SLOTS, count.data_ptr(), stream)
     probe_count_vmem.launches += 1
     _build.check(err, "probe_count_vmem")
     return count[0]
@@ -142,19 +150,43 @@ def bucket_fences(tk_hi: torch.Tensor, tk_lo: torch.Tensor) -> torch.Tensor:
     return _u64_words(tk_hi[at], tk_lo[at])
 
 
+def bucket_major_keys_plain(tk_hi, tk_lo):
+    """Plain PyTorch version of K10's layout launch: keys (128, R) int64,
+    [b, r] = the u64 bit pattern of slot r of bucket b."""
+    return _u64_words(tk_hi, tk_lo).t().contiguous()
+
+
 def bucket_major_plain(tk_hi, tk_lo, tv_hi, tv_lo):
     """Plain PyTorch version of K11's layout launch: (keys, values) with
-    keys (128, R) int64, [b, r] = the u64 bit pattern of slot r of bucket
-    b, and values (128, R, 2) int32, [b, r] = that slot's (vh, vl)."""
-    keys = _u64_words(tk_hi, tk_lo).t().contiguous()
+    keys as bucket_major_keys_plain returns them and values (128, R, 2)
+    int32, [b, r] = slot r of bucket b's (vh, vl)."""
     values = torch.stack([tv_hi, tv_lo], dim=-1).transpose(0, 1).contiguous()
-    return keys, values
+    return bucket_major_keys_plain(tk_hi, tk_lo), values
 
 
 def _check_rung(r_slots: int) -> None:
     if not 8 <= r_slots <= MAX_R_SLOTS or r_slots & (r_slots - 1):
-        raise ValueError(f"K11 takes a power of two in [8, {MAX_R_SLOTS}] "
-                         f"slot rows, got {r_slots}")
+        raise ValueError(f"K10 and K11 take a power of two in [8, "
+                         f"{MAX_R_SLOTS}] slot rows, got {r_slots}")
+
+
+def bucket_major_keys(tk_hi, tk_lo):
+    """K10's copy of the table's keys above COUNT_STAGED_MAX_R_SLOTS rows,
+    as bucket_major_keys_plain returns it (any rung).  CPU tensors take the
+    plain version; CUDA tensors launch the layout kernel, the first of
+    K10's two launches there (not counted on its own)."""
+    tables = {"tk_hi": tk_hi, "tk_lo": tk_lo}
+    _check_tables(tables, tk_hi.device)
+    _check_rung(tk_hi.shape[0])
+    if tk_hi.device.type == "cpu":
+        return bucket_major_keys_plain(tk_hi, tk_lo)
+    keys = _keys_scratch(tk_hi)
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    err = _build.lib().fhj_bucket_major(
+        tk_hi.data_ptr(), tk_lo.data_ptr(), None, None, tk_hi.shape[0],
+        keys.data_ptr(), None, stream)
+    _build.check(err, "bucket_major_keys")
+    return keys
 
 
 def bucket_major(tk_hi, tk_lo, tv_hi, tv_lo):
@@ -176,10 +208,15 @@ def bucket_major(tk_hi, tk_lo, tv_hi, tv_lo):
     return keys, values
 
 
+def _keys_scratch(tk_hi):
+    return torch.empty((LANES, tk_hi.shape[0]), dtype=torch.int64,
+                       device=tk_hi.device)
+
+
 def _bucket_major_scratch(tk_hi):
-    r_slots, dev = tk_hi.shape[0], tk_hi.device
-    return (torch.empty((LANES, r_slots), dtype=torch.int64, device=dev),
-            torch.empty((LANES, r_slots, 2), dtype=torch.int32, device=dev))
+    return (_keys_scratch(tk_hi),
+            torch.empty((LANES, tk_hi.shape[0], 2), dtype=torch.int32,
+                        device=tk_hi.device))
 
 
 def probe_materialize_vmem_plain(tk_hi, tk_lo, tv_hi, tv_lo, ph, pl,

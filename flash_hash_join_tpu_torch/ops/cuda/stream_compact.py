@@ -3,9 +3,12 @@
 K5 replaces flash_hash_join_tpu/ops/pallas/stream_compact.py:
 pack_concat_blocks, through its wrapper compact_by_mask_pack: the rows of
 V int32 planes whose mask is set come first, in input order, sort-free.
-The TPU kernel's lane-major count layout, lane rotations and MXU
-permutation matmul are not ported: the CUDA kernel writes each hit to its
-own address.
+The TPU kernel carries a running total across its sequential grid; the
+CUDA kernel does the same in one launch by a single-pass scan with a
+decoupled look-back over tiles of TILE_ROWS mask rows, and writes the total
+to the card.  The TPU kernel's lane-major count layout, lane rotations and
+MXU permutation matmul are not ported: the CUDA kernel writes each hit to
+its own address.
 
 K6 replaces :concat_ragged_blocks, the second half of the FHJ_COMPACT=
 stream route (ops/compact.py:compact_by_mask_stream): blocks whose valid
@@ -22,6 +25,7 @@ import torch
 from flash_hash_join_tpu_torch.ops.cuda import _build
 
 MAX_PLANES = 4
+TILE_ROWS = 4096        # mask rows a K5 tile (csrc/stream_compact.cu)
 
 
 def _check(mask: torch.Tensor, cols, n_out: int) -> torch.device:
@@ -57,8 +61,9 @@ def compact_by_mask(mask: torch.Tensor, cols, n_out: int):
     """(count, cols'): each of the 1-4 int32 planes with its masked rows
     moved to the front in input order, n_out rows long (hits past n_out
     are dropped; rows past count are unspecified).  count is a 0-d int64
-    tensor.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    tensor on the mask's device, with no host sync.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel: one memset of its
+    scratch and one launch."""
     cols = tuple(cols)
     dev = _check(mask, cols, n_out)
     if dev.type == "cpu":
@@ -68,22 +73,18 @@ def compact_by_mask(mask: torch.Tensor, cols, n_out: int):
     n = mask.numel()
     if n == 0:
         return torch.zeros((), dtype=torch.int64, device=dev), outs
-    lib = _build.lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    tile_counts = torch.empty(-(-n // lib.fhj_compact_tile_rows()),
-                              dtype=torch.int32, device=dev)
-    _build.check(lib.fhj_compact_count(mask.data_ptr(), n,
-                                       tile_counts.data_ptr(), stream),
-                 "compact_by_mask (count)")
-    ends = torch.cumsum(tile_counts, 0, dtype=torch.int64)
-    offsets = ends - tile_counts
+    # [0] the count, [1] the tile counter, then one look-back state a tile
+    # (a misaligned view's first tile holds fewer rows: 2 tiles of slack)
+    scratch = torch.empty(n // TILE_ROWS + 4, dtype=torch.int64, device=dev)
     ptrs = [c.data_ptr() for c in cols] + [None] * (MAX_PLANES - len(cols))
     out_ptrs = [o.data_ptr() for o in outs] + [None] * (MAX_PLANES - len(cols))
-    err = lib.fhj_compact_scatter(mask.data_ptr(), n, offsets.data_ptr(),
-                                  len(cols), *ptrs, *out_ptrs, n_out, stream)
+    err = _build.lib().fhj_compact_by_mask(
+        mask.data_ptr(), n, len(cols), *ptrs, *out_ptrs, n_out, TILE_ROWS,
+        scratch.data_ptr(), scratch.numel(),
+        torch.cuda.current_stream(dev).cuda_stream)
     compact_by_mask.launches += 1
-    _build.check(err, "compact_by_mask (scatter)")
-    return ends[-1], outs
+    _build.check(err, "compact_by_mask")
+    return scratch[0], outs
 
 
 compact_by_mask.launches = 0

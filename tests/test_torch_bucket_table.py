@@ -2,8 +2,8 @@
 ops/bucket_table.py and the plain versions of K10 / K11
 (ops/cuda/bucket_probe.py, on CPU tensors) against the JAX package's
 ops/bucket_table.py and its Pallas kernels in interpret mode, and the numpy
-oracle; and K11's own layout of the table (bucket-major keys and values,
-fences) against numpy.
+oracle; and the kernels' own layouts of the table (K11's bucket-major keys
+and values, K10's keys alone, the fences) against numpy.
 
 Inputs are numpy arrays from a fixed seed, handed to both packages.  The
 JAX kernels run on 8-row probe tiles (block_m=8: 1024 probes a tile) so
@@ -206,11 +206,12 @@ def _np_bucket(keys: np.ndarray) -> np.ndarray:
 
 
 def _layout_spec(bk, bv, r_slots):
-    """K11's layout from its definition, in numpy: row b of the keys holds
-    bucket b's distinct non-max keys ascending (the first r_slots of them),
-    then u64-max; the values the (hi, lo) words of each key's first build
-    row, then 0; the fences every fence_stride(R)-th key of every row
-    (every key up to STAGED_MAX_R_SLOTS rows)."""
+    """The kernels' layout from its definition, in numpy: row b of the keys
+    holds bucket b's distinct non-max keys ascending (the first r_slots of
+    them), then u64-max; the values (K11's; None when bv is None) the (hi,
+    lo) words of each key's first build row, then 0; the fences every
+    fence_stride(R)-th key of every row (every key up to
+    STAGED_MAX_R_SLOTS rows)."""
     keys = np.full((128, r_slots), M64, np.uint64)
     vals = np.zeros((128, r_slots), np.uint64)
     uniq, first = np.unique(bk, return_index=True)
@@ -220,17 +221,20 @@ def _layout_spec(bk, bv, r_slots):
     for b in range(128):
         k = uniq[bucket == b][:r_slots]
         keys[b, :k.size] = k
-        vals[b, :k.size] = bv[first[bucket == b][:r_slots]]
+        if bv is not None:
+            vals[b, :k.size] = bv[first[bucket == b][:r_slots]]
     fences = keys[:, ::tbp.fence_stride(r_slots)].T
+    if bv is None:
+        return keys, None, fences
     pairs = np.stack(ju64.split_u64(vals.reshape(-1)), axis=-1)
     return keys, pairs.reshape(128, r_slots, 2), fences
 
 
-def _search_like_k11(fences, keys, vals, pk):
-    """The search of K11's kernels, in numpy: the last fence at or under
-    the key (branch-free over the bucket's fences), then the key's run of
-    fence_stride(R) keys compared at once (the fence itself when the
-    stride is 1).  (hit, vh, vl)."""
+def _search_like_kernels(fences, keys, vals, pk):
+    """The search of the K10 / K11 kernels, in numpy: the last fence at or
+    under the key (branch-free over the bucket's fences), then the key's
+    run of fence_stride(R) keys compared at once (the fence itself when the
+    stride is 1).  (hit, vh, vl); (hit,) alone when vals is None (K10)."""
     run_len = tbp.fence_stride(keys.shape[1])
     b = _np_bucket(pk)
     run = np.zeros(pk.size, np.int64)
@@ -242,8 +246,23 @@ def _search_like_k11(fences, keys, vals, pk):
     line = keys[b[:, None], run[:, None] * run_len + np.arange(run_len)]
     eq = line == pk[:, None]
     hit = eq.any(1) & (pk != M64)
+    if vals is None:
+        return (hit,)
     slot = run * run_len + eq.argmax(1)
     return (hit, *(np.where(hit, vals[b, slot, w], 0) for w in (0, 1)))
+
+
+def _full_bucket_keys(rng, r_slots):
+    """Build keys for the layout tests: about 30 % load, buckets 5 and 77
+    empty, bucket 0 full to its last slot, the u64-max key and 20
+    duplicates."""
+    bk = rng.integers(0, 2**64, int(0.3 * 128 * r_slots), dtype=np.uint64)
+    cand = rng.integers(0, 2**64, 300 * r_slots, dtype=np.uint64)
+    bk = np.concatenate([bk[~np.isin(_np_bucket(bk), [0, 5, 77])],
+                         cand[_np_bucket(cand) == 0][:r_slots]])
+    bk[:2] = M64                                       # u64-max build key
+    bk[10:30] = bk[-20:]                               # duplicates
+    return bk
 
 
 @pytest.mark.parametrize("r_slots", [8, 16, 128, 512])
@@ -255,12 +274,7 @@ def test_bucket_layout_matches_numpy(r_slots):
     # and duplicates; then the kernels' search run in numpy over that
     # layout finds every key
     rng = np.random.default_rng(r_slots + 40)
-    bk = rng.integers(0, 2**64, int(0.3 * 128 * r_slots), dtype=np.uint64)
-    cand = rng.integers(0, 2**64, 300 * r_slots, dtype=np.uint64)
-    bk = np.concatenate([bk[~np.isin(_np_bucket(bk), [0, 5, 77])],
-                         cand[_np_bucket(cand) == 0][:r_slots]])
-    bk[:2] = M64                                       # u64-max build key
-    bk[10:30] = bk[-20:]                               # duplicates
+    bk = _full_bucket_keys(rng, r_slots)
     bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
     _, (tkh, tkl, tvh, tvl) = _planes(bk, bv)
     tt = tbt.build_bucket_table(tkh, tkl, tvh, tvl, bk.size,
@@ -278,7 +292,7 @@ def test_bucket_layout_matches_numpy(r_slots):
     assert (want_keys[[5, 77]] == M64).all()           # empty buckets
     pk = np.concatenate([rng.choice(bk, 3_000),
                          rng.integers(0, 2**64, 1_000, dtype=np.uint64)])
-    got = _search_like_k11(want_fences, want_keys, want_vals, pk)
+    got = _search_like_kernels(want_fences, want_keys, want_vals, pk)
     _, (tph, tpl) = _planes(pk)
     plain = tbp.probe_materialize_vmem_plain(tt.tk_hi, tt.tk_lo, tt.tv_hi,
                                              tt.tv_lo, tph, tpl, pk.size)
@@ -286,6 +300,48 @@ def test_bucket_layout_matches_numpy(r_slots):
     for g, w in zip(got[1:], plain[1:]):
         np.testing.assert_array_equal(g.astype(np.uint32), _u32(w))
     assert got[0].sum() > 2_000 and not got[0][pk == M64].any()
+
+
+@pytest.mark.parametrize("r_slots", [8, 16, 128, 512])
+def test_count_layout_matches_numpy_and_jax(r_slots):
+    # K10's layout: the keys-only bucket-major copy (bucket_major_keys, in
+    # plain torch) of a table built without values, and its fences, against
+    # numpy from the build keys (a full bucket, empty buckets, the u64-max
+    # key, duplicates); then the kernels' search run in numpy over that
+    # layout counts what probe_count_vmem_plain and the JAX kernel in
+    # interpret mode count, np_valid < npr
+    rng = np.random.default_rng(r_slots + 80)
+    bk = _full_bucket_keys(rng, r_slots)
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 2_000),
+                         rng.integers(0, 2**64, 1_000, dtype=np.uint64)])
+    pk[7:9] = M64
+    np_valid = pk.size - 29
+    (jkh, jkl, jvh, jvl, jph, jpl), (tkh, tkl, tvh, tvl, tph, tpl) = \
+        _planes(bk, bv, pk)
+    tt = tbt.build_bucket_table(tkh, tkl, tvh, tvl, bk.size,
+                                r_slots=r_slots, with_values=False)
+    assert tt.tv_hi.shape == (1, 128)                  # no value planes
+    keys = tbp.bucket_major_keys(tt.tk_hi, tt.tk_lo)
+    want_keys, _, want_fences = _layout_spec(bk, None, r_slots)
+    assert keys.dtype == torch.int64 and keys.shape == (128, r_slots)
+    np.testing.assert_array_equal(keys.numpy().view(np.uint64), want_keys)
+    np.testing.assert_array_equal(
+        tbp.bucket_fences(tt.tk_hi, tt.tk_lo).numpy().view(np.uint64),
+        want_fences)
+    hit = _search_like_kernels(want_fences, want_keys, None,
+                               pk[:np_valid])[0]
+    plain = tbp.probe_count_vmem_plain(tt.tk_hi, tt.tk_lo, tph, tpl,
+                                       np_valid)
+    jt = jbt.build_bucket_table(jkh, jkl, jvh, jvl, bk.size,
+                                r_slots=r_slots, with_values=False)
+    ph_b, pl_b, pbkt_b, _ = jbt._prep_probe(jph, jpl, np_valid, pre_shift=0,
+                                            block_m=8)
+    jcount = jbp.probe_count_vmem(jt.tk_hi, jt.tk_lo, ph_b, pl_b, pbkt_b,
+                                  r_slots=r_slots, block_m=8, interpret=True)
+    assert int(hit.sum()) == int(plain) == int(jcount) > 1_500
+    assert int(tbp.probe_count_vmem(tt.tk_hi, tt.tk_lo, tph, tpl,
+                                    np_valid)) == int(plain)
 
 
 def test_kernel_wrappers_refuse_bad_inputs():
@@ -304,8 +360,12 @@ def test_kernel_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError):
         tbp.probe_count_vmem(tk, tk, ph, ph[:9], 9)
     assert int(tbp.probe_count_vmem(tk, tk, ph, ph, 10)) == 0
-    odd = torch.full((12, 128), -1, dtype=torch.int32)  # K11: off its rungs
+    odd = torch.full((12, 128), -1, dtype=torch.int32)  # off the rungs
     with pytest.raises(ValueError):
         tbp.probe_materialize_vmem(odd, odd, odd, odd, ph, ph, 10)
     with pytest.raises(ValueError):
+        tbp.probe_count_vmem(odd, odd, ph, ph, 10)
+    with pytest.raises(ValueError):
         tbp.bucket_major(odd, odd, odd, odd)
+    with pytest.raises(ValueError):
+        tbp.bucket_major_keys(odd, odd)

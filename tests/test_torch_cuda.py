@@ -143,6 +143,8 @@ def test_wrappers_refuse_bad_inputs(dev):
     tk = torch.full((24, 128), -1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):                    # K11 off its rungs
         bkp.probe_materialize_vmem(tk, tk, tk, tk, kh, kl, 16)
+    with pytest.raises(ValueError):                    # K10 off its rungs
+        bkp.probe_count_vmem(tk, tk, kh, kl, 16)
 
 
 @pytest.mark.parametrize("span,expect", [(44_000, "scan_domain_count"),
@@ -288,6 +290,40 @@ def test_compact_kernel_matches_plain(dev, n, density):
             keep = min(int(count), n_out)
             for o, w in zip(outs, wouts):
                 assert torch.equal(o[:keep], w[:keep])
+
+
+@pytest.mark.parametrize("n", [sc.TILE_ROWS - 1, sc.TILE_ROWS,
+                               sc.TILE_ROWS + 1, 5 * sc.TILE_ROWS + 1])
+@pytest.mark.parametrize("offset", [0, 1, 15])
+def test_compact_kernel_at_tile_boundaries(dev, n, offset):
+    # K5 around its tile (one less, one, one more, a multiple and one row),
+    # views 0, 1 and 15 bytes past a 16-byte boundary: the first half of
+    # the rows missing (whole first tiles empty) and the last third hit
+    # (whole last tiles full), n_out at and below the count; two calls back
+    # to back on one stream give the same (the look-back's scratch starts
+    # from zero each call); one launch a call, the count a 0-d int64 on the
+    # card
+    rng = np.random.default_rng(n + offset)
+    bits = rng.random(n + offset) < 0.5
+    bits[offset:offset + n // 2] = False
+    bits[offset + n - n // 3:] = True
+    mask = torch.from_numpy(bits).to(dev)[offset:]
+    cols = [to_device(rng.integers(0, 2**32, n + offset, dtype=np.uint32),
+                      dev)[offset:] for _ in range(3)]
+    hits = int(bits[offset:].sum())
+    for n_out in (n, hits // 2):
+        wcount, want = sc.compact_by_mask_plain(mask, cols, n_out)
+        before = sc.compact_by_mask.launches
+        runs = [sc.compact_by_mask(mask, cols, n_out) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert sc.compact_by_mask.launches == before + 2
+        keep = min(hits, n_out)
+        for count, outs in runs:
+            assert count.dim() == 0 and count.dtype == torch.int64
+            assert count.device.type == "cuda"
+            assert int(count) == int(wcount) == hits
+            for o, w in zip(outs, want):
+                assert torch.equal(o[:keep], w[:keep]), (n, offset, n_out)
 
 
 @pytest.mark.parametrize("fn", ["hash_join_radix", "adaptive_join"])
@@ -499,9 +535,10 @@ def _bucket_of(keys):
 @pytest.mark.parametrize("r_slots", [8, 16, 32, 64, 128, 256, 512])
 @pytest.mark.parametrize("fill", [False, True])
 def test_bucket_probe_kernels_match_plain(dev, r_slots, fill):
-    # K10 and K11 at every vmem rung (K11 on its own layout, whose launch is
-    # checked alone too), the u64-max key on both sides, misaligned views
-    # and validity tails
+    # K10 and K11 at every vmem rung (each above R 32 on its own layout,
+    # whose launch is checked alone too: K11's keys and values, K10's keys
+    # alone), the u64-max key on both sides, misaligned views and validity
+    # tails
     rng = np.random.default_rng(r_slots + fill)
     bk, table = _bucket_table(rng, r_slots, dev, fill_bucket=fill)
     if fill:
@@ -510,6 +547,8 @@ def test_bucket_probe_kernels_match_plain(dev, r_slots, fill):
     planes = (table.tk_hi, table.tk_lo, table.tv_hi, table.tv_lo)
     _assert_same(bkp.bucket_major(*planes),
                  bkp.bucket_major_plain(*planes))
+    _assert_same((bkp.bucket_major_keys(*planes[:2]),),
+                 (bkp.bucket_major_keys_plain(*planes[:2]),))
     for npr in (0, 7, 3_000_005):
         pk = rng.integers(0, 2**64, npr + 1, dtype=np.uint64)
         pk[1::2] = rng.choice(bk, pk[1::2].size)
