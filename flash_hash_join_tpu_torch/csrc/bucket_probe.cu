@@ -355,7 +355,7 @@ extern "C" {
 
 // K10.  tk_hi, tk_lo: the (r_slots, 128) key planes, r_slots a power of two
 // in [8, 512]; keys: r_slots * 128 u64 words of scratch, 16-byte aligned
-// (unused up to staged_max); count: one zeroed u64.  staged_max: 32 or 64,
+// (unused up to staged_max); count: one zeroed u64.  staged_max: 32, 64 or 128,
 // the last rung searched in shared memory.  On `stream`: above staged_max
 // builds the keys-only bucket-major copy into keys; then adds to count the
 // probes (ph, pl)[0, np) found in their bucket.  Returns
@@ -366,7 +366,7 @@ int fhj_bucket_probe_count(const uint32_t* tk_hi, const uint32_t* tk_lo, int r_s
                            unsigned long long* count, cudaStream_t stream) {
   if (np <= 0) return (int)cudaSuccess;
   if (!vmem_rung(r_slots) || pre_shift < 0 || pre_shift > 32 - kBucketBits ||
-      (staged_max != 32 && staged_max != 64))
+      (staged_max != 32 && staged_max != 64 && staged_max != 128))
     return (int)cudaErrorInvalidValue;
   if (r_slots <= staged_max)
     return (int)launch_probe(bucket_count_staged_kernel, np,

@@ -37,8 +37,14 @@
 // (chip_smoke.bound).  At that rate nearly every 32-byte sector of the
 // input planes holds a hit, so the reads fetch ~1.6 GB rather than 0.96.
 //
-// The tile: kTile = 4096 rows, 256 threads a block, one 16-byte mask load
-// a thread, 8 KB of row numbers in shared memory (TILE NOTE).
+// The tile: kTile = 8192 rows, 512 threads a block, one 16-byte mask load
+// a thread, 16 KB of row numbers in shared memory.  Against 4096 rows (256
+// threads, 8 KB) it ran 4-7 % faster back to back at 1e8 rows (4 planes at
+// 60 % and 5 % hits, 3 planes at 60 %: 0.95 against 0.99 ms, 0.46 against
+// 0.49, 0.76 against 0.79; an NVIDIA H100 80GB HBM3 at 700 W, PERF.md):
+// half the tiles, so half the look-backs and tile-counter atomics, and as
+// many rows in flight (three blocks a SM at 40 registers a thread, against
+// six).
 //
 // What the design does about it, against the TPU kernel: the TPU kernel
 // packs lanes with rotations and moves rows with an MXU permutation matmul
@@ -146,16 +152,17 @@ __device__ __forceinline__ long long look_back(unsigned long long* __restrict__ 
   return excl;
 }
 
+constexpr int kBlock = 512;            // threads a block, one tile
+constexpr int kTile = kBlock * 16;      // mask rows a tile: 8192
+
 // scratch: [0] the total (written by the last tile), [1] the tile counter,
-// [2 ..] one state a tile; all zero at launch.  One block a tile of
-// kBlock * 16 rows of the mask's 16-byte grid: tile t covers the view's
-// rows [t * kTile - head, (t + 1) * kTile - head), head = the view's
-// offset from the 16-byte boundary under it.
-template <int kBlock>
+// [2 ..] one state a tile; all zero at launch.  One block a tile of kTile
+// rows of the mask's 16-byte grid: tile t covers the view's rows
+// [t * kTile - head, (t + 1) * kTile - head), head = the view's offset from
+// the 16-byte boundary under it.
 __global__ void __launch_bounds__(kBlock)
 compact_kernel(const uint8_t* __restrict__ mask, int64_t n, Planes planes, int n_planes,
                int64_t n_out, unsigned long long* __restrict__ scratch) {
-  constexpr int kTile = kBlock * 16;
   constexpr int kWarps = kBlock / 32;
   constexpr int kUnroll = 4;
   __shared__ uint16_t rows[kTile];  // the tile's hits, tile-local row numbers
@@ -253,45 +260,37 @@ concat_ragged_kernel(const int* __restrict__ counts, const long long* __restrict
   }
 }
 
-template <int kBlock>
-cudaError_t launch_compact(const uint8_t* mask, int64_t n, const Planes& planes, int n_planes,
-                           int64_t n_out, unsigned long long* scratch, int64_t scratch_words,
-                           cudaStream_t stream) {
-  constexpr int64_t kTile = kBlock * 16;
-  const int64_t tiles = ((int64_t)(reinterpret_cast<uintptr_t>(mask) & 15) + n + kTile - 1) / kTile;
-  if (tiles > 0x7fffffff || scratch_words < tiles + 2) return cudaErrorInvalidValue;
-  cudaError_t e = cudaMemsetAsync(scratch, 0, (size_t)(tiles + 2) * sizeof(*scratch), stream);
-  if (e != cudaSuccess) return e;
-  compact_kernel<kBlock><<<(unsigned int)tiles, kBlock, 0, stream>>>(mask, n, planes, n_planes,
-                                                                     n_out, scratch);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
+
+// Rows a K5 tile covers: the caller sizes the scratch with it.
+int fhj_compact_tile_rows() { return kTile; }
 
 // K5.  mask: n bytes (any alignment), nonzero = hit; in0..in3 / out0..out3:
 // the first n_planes (1..4) are used, n words in, n_out words out (hits at
 // or past n_out are dropped).  scratch: scratch_words u64 of device memory,
 // at least ceil((n + 15) / tile_rows) + 2; on return scratch[0] holds the
-// number of hits.  tile_rows: 4096 or 8192.  One memset and one launch on
-// `stream`, nothing when n == 0.  Returns cudaGetLastError().
+// number of hits.  One memset and one launch on `stream`, nothing when
+// n == 0.  Returns cudaGetLastError().
 int fhj_compact_by_mask(const uint8_t* mask, int64_t n, int n_planes, const uint32_t* in0,
                         const uint32_t* in1, const uint32_t* in2, const uint32_t* in3,
                         uint32_t* out0, uint32_t* out1, uint32_t* out2, uint32_t* out3,
-                        int64_t n_out, int tile_rows, unsigned long long* scratch,
-                        int64_t scratch_words, cudaStream_t stream) {
+                        int64_t n_out, unsigned long long* scratch, int64_t scratch_words,
+                        cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (n_planes < 1 || n_planes > kMaxPlanes) return (int)cudaErrorInvalidValue;
+  const int64_t head = (int64_t)(reinterpret_cast<uintptr_t>(mask) & 15);
+  const int64_t tiles = (head + n + kTile - 1) / kTile;
+  if (n_planes < 1 || n_planes > kMaxPlanes || tiles > 0x7fffffff ||
+      scratch_words < tiles + 2)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaMemsetAsync(scratch, 0, (size_t)(tiles + 2) * sizeof(*scratch), stream);
+  if (e != cudaSuccess) return (int)e;
   const Planes planes = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
-  if (tile_rows == 4096)
-    return (int)launch_compact<256>(mask, n, planes, n_planes, n_out, scratch, scratch_words,
-                                    stream);
-  if (tile_rows == 8192)
-    return (int)launch_compact<512>(mask, n, planes, n_planes, n_out, scratch, scratch_words,
-                                    stream);
-  return (int)cudaErrorInvalidValue;
+  compact_kernel<<<(unsigned int)tiles, kBlock, 0, stream>>>(mask, n, planes, n_planes, n_out,
+                                                             scratch);
+  return (int)cudaGetLastError();
 }
 
 // K6.  counts: nblocks int32, each in [0, block_elems]; offsets: their

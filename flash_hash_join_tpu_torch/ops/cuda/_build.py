@@ -51,9 +51,10 @@ _SIGNATURES = {
     # vl, stream
     "fhj_range_probe_materialize": [_P, _I64, _P, _I, _P, _P, _P, _P, _I64,
                                     _I64, _P, _P, _P, _P],
-    # mask, n, n_planes, in0..in3, out0..out3, n_out, tile_rows, scratch,
-    # scratch_words, stream
-    "fhj_compact_by_mask": [_P, _I64, _I, *[_P] * 8, _I64, _I, _P, _I64, _P],
+    "fhj_compact_tile_rows": [],
+    # mask, n, n_planes, in0..in3, out0..out3, n_out, scratch, scratch_words,
+    # stream
+    "fhj_compact_by_mask": [_P, _I64, _I, *[_P] * 8, _I64, _P, _I64, _P],
     # counts, offsets, nblocks, block_elems, n_planes, in0..in3,
     # out0..out3, stream
     "fhj_concat_ragged_blocks": [_P, _P, _I64, _I64, _I, *[_P] * 8, _P],

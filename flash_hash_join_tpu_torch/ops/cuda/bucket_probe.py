@@ -15,9 +15,10 @@ plane computed outside, and scan all R slot rows per tile because Mosaic
 gathers only within a vreg.  The CUDA kernels take the probe planes as
 they are and hash each key in-kernel, and both search fences in shared
 memory: the key of every `fence_stride(R)`-th slot of every bucket
-(`bucket_fences`).  Up to STAGED_MAX_R_SLOTS rows the stride is 1, so the
-whole table (with K11's values) sits in shared memory and the search ends
-there.  Above, the stride is RUN_KEYS: the kernel first builds a layout of
+(`bucket_fences`).  Up to STAGED_MAX_R_SLOTS rows for K11 and
+COUNT_STAGED_MAX_R_SLOTS for K10, whose table has no values, the stride is
+1, so the whole table (with K11's values) sits in shared memory and the
+search ends there.  Above, the stride is RUN_KEYS: the kernel first builds a layout of
 its own from the planes in one launch (`bucket_major`: the keys
 bucket-major as u64 and K11's values as interleaved (vh, vl) pairs;
 `bucket_major_keys`: K10's, the keys alone), and a probe's run of RUN_KEYS
@@ -38,7 +39,7 @@ LANES = 128
 BUCKET_BITS = 7
 MAX_R_SLOTS = 512
 STAGED_MAX_R_SLOTS = 32            # the whole table in shared memory
-COUNT_STAGED_MAX_R_SLOTS = 32      # K10's keys alone: 32 or 64
+COUNT_STAGED_MAX_R_SLOTS = 64      # K10: its keys alone in shared memory
 RUN_KEYS = 8                       # above: u64 keys a run, one 64-byte line
 
 
@@ -136,17 +137,19 @@ def _u64_words(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
     return hi.to(torch.int64) << 32 | widen(lo)
 
 
-def fence_stride(r_slots: int) -> int:
-    """Slots between two of K11's fences: 1 (every slot) up to
-    STAGED_MAX_R_SLOTS rows, RUN_KEYS above."""
-    return 1 if r_slots <= STAGED_MAX_R_SLOTS else RUN_KEYS
+def fence_stride(r_slots: int, staged_max: int = STAGED_MAX_R_SLOTS) -> int:
+    """Slots between two fences: 1 (every slot) up to staged_max rows
+    (K11's STAGED_MAX_R_SLOTS, K10's COUNT_STAGED_MAX_R_SLOTS), RUN_KEYS
+    above."""
+    return 1 if r_slots <= staged_max else RUN_KEYS
 
 
-def bucket_fences(tk_hi: torch.Tensor, tk_lo: torch.Tensor) -> torch.Tensor:
-    """The fences K11's blocks stage in shared memory: (R // stride, 128)
-    int64, [j, b] = the u64 bit pattern of slot stride * j of bucket b,
-    stride = fence_stride(R)."""
-    at = slice(None, None, fence_stride(tk_hi.shape[0]))
+def bucket_fences(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
+                  staged_max: int = STAGED_MAX_R_SLOTS) -> torch.Tensor:
+    """The fences the kernels' blocks stage in shared memory: (R // stride,
+    128) int64, [j, b] = the u64 bit pattern of slot stride * j of bucket
+    b, stride = fence_stride(R, staged_max)."""
+    at = slice(None, None, fence_stride(tk_hi.shape[0], staged_max))
     return _u64_words(tk_hi[at], tk_lo[at])
 
 

@@ -25,7 +25,7 @@ import torch
 from flash_hash_join_tpu_torch.ops.cuda import _build
 
 MAX_PLANES = 4
-TILE_ROWS = 4096        # mask rows a K5 tile (csrc/stream_compact.cu)
+TILE_ROWS = 8192        # mask rows a K5 tile: fhj_compact_tile_rows()
 
 
 def _check(mask: torch.Tensor, cols, n_out: int) -> torch.device:
@@ -79,7 +79,7 @@ def compact_by_mask(mask: torch.Tensor, cols, n_out: int):
     ptrs = [c.data_ptr() for c in cols] + [None] * (MAX_PLANES - len(cols))
     out_ptrs = [o.data_ptr() for o in outs] + [None] * (MAX_PLANES - len(cols))
     err = _build.lib().fhj_compact_by_mask(
-        mask.data_ptr(), n, len(cols), *ptrs, *out_ptrs, n_out, TILE_ROWS,
+        mask.data_ptr(), n, len(cols), *ptrs, *out_ptrs, n_out,
         scratch.data_ptr(), scratch.numel(),
         torch.cuda.current_stream(dev).cuda_stream)
     compact_by_mask.launches += 1

@@ -17,11 +17,12 @@ only what every checkout since the port began has, so it can be copied into
 another checkout (such as the parent's `git archive`) and run there, in
 turns with this one.
 
---variants times, in turns A, B, B, A, the design choices of this
-checkout's kernels: K5's tile of 4096 rows against 8192, at each K5 cell;
-and K10 at R 64 (2,500 uniform build keys, 4e7 probes, half of them build
-keys) with its keys in shared memory against its fences and keys-only
-copy.  Prints one JSON line a cell, then the card's name and power limit.
+--variants times, in turns A, B, B, A, K10's rungs that could search its
+keys in shared memory or through its fences and keys-only copy: R 64
+(2,500 uniform build keys) and R 128 (7,000), 4e7 probes, half of them
+build keys.  (K5's tile of 4096 rows against 8192 was timed the same way
+by this script in commit 281b589.)  Prints one JSON line a cell, then the
+card's name and power limit.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ def require_equal(got, want, what: str) -> None:
         raise RuntimeError(f"{what}: kernel != plain")
 
 
-def bench_k5(variants: bool) -> None:
+def bench_k5() -> None:
     import torch
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -74,21 +75,10 @@ def bench_k5(variants: bool) -> None:
         want = sc.compact_by_mask_plain(mask, cols, n)
         hits = int(want[0])
 
-        def k5(tile=None):
-            def call():
-                if tile:
-                    sc.TILE_ROWS = tile
-                return sc.compact_by_mask(mask, cols, n)
-            return call
-        if variants:
-            runs = {"tile4096": k5(4096), "tile8192": k5(8192)}
-            for name, fn in runs.items():
-                require_equal(fn(), want, f"K5 {name}")
-            t = turns(runs, ("tile4096", "tile8192", "tile8192", "tile4096"))
-            sc.TILE_ROWS = 4096
-        else:
-            require_equal(k5()(), want, "K5")
-            t = turns({"k5": k5()}, ("k5", "k5"))
+        def k5():
+            return sc.compact_by_mask(mask, cols, n)
+        require_equal(k5(), want, "K5")
+        t = turns({"k5": k5}, ("k5", "k5"))
         print(json.dumps({"kernel": "compact_by_mask", "rows": n,
                           "planes": n_planes, "hits": hits, **t}),
               flush=True)
@@ -107,10 +97,12 @@ def bench_k10(variants: bool) -> None:
              "4e7-Q2": j1_suite(40_000_000, seed=0)[1]}
     if variants:
         rng = np.random.default_rng(64)
-        bk = rng.integers(0, 2**64, 2_500, dtype=np.uint64)
-        pk = rng.integers(0, 2**64, 40_000_000, dtype=np.uint64)
-        pk[::2] = rng.choice(bk, pk[::2].size)
-        cells = {"uniform-2500x4e7": (bk, pk)}
+        cells = {}
+        for nb in (2_500, 7_000):
+            bk = rng.integers(0, 2**64, nb, dtype=np.uint64)
+            pk = rng.integers(0, 2**64, 40_000_000, dtype=np.uint64)
+            pk[::2] = rng.choice(bk, pk[::2].size)
+            cells[f"uniform-{nb}x4e7"] = (bk, pk)
     for name, c in cells.items():
         bk, pk = c if variants else (c.build_keys, c.probe_keys)
         r_slots = bt.r_slots_for(len(bk))
@@ -130,11 +122,11 @@ def bench_k10(variants: bool) -> None:
                                             npr)
             return call
         if variants:
-            runs = {"fences": k10(32), "staged": k10(64)}
+            runs = {"fences": k10(r_slots // 2), "staged": k10(r_slots)}
             for key, fn in runs.items():
                 require_equal(fn(), want, f"K10 {key} at {name}")
             t = turns(runs, ("fences", "staged", "staged", "fences"))
-            bkp.COUNT_STAGED_MAX_R_SLOTS = 32
+            bkp.COUNT_STAGED_MAX_R_SLOTS = 64
         else:
             require_equal(k10()(), want, f"K10 at {name}")
             t = turns({"k10": k10()}, ("k10", "k10"))
@@ -155,7 +147,8 @@ def main() -> int:
         print("bench_k5_k10.py: needs an NVIDIA card", file=sys.stderr)
         return 1
     from chip_smoke import run
-    bench_k5(args.variants)
+    if not args.variants:
+        bench_k5()
     bench_k10(args.variants)
     print(run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]), flush=True)

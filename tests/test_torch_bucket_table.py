@@ -205,13 +205,13 @@ def _np_bucket(keys: np.ndarray) -> np.ndarray:
     return (h >> np.uint32(25)).astype(np.int64)
 
 
-def _layout_spec(bk, bv, r_slots):
+def _layout_spec(bk, bv, r_slots, staged_max=tbp.STAGED_MAX_R_SLOTS):
     """The kernels' layout from its definition, in numpy: row b of the keys
     holds bucket b's distinct non-max keys ascending (the first r_slots of
     them), then u64-max; the values (K11's; None when bv is None) the (hi,
     lo) words of each key's first build row, then 0; the fences every
-    fence_stride(R)-th key of every row (every key up to
-    STAGED_MAX_R_SLOTS rows)."""
+    fence_stride(R, staged_max)-th key of every row (every key up to
+    staged_max rows: K11's STAGED_MAX_R_SLOTS by default)."""
     keys = np.full((128, r_slots), M64, np.uint64)
     vals = np.zeros((128, r_slots), np.uint64)
     uniq, first = np.unique(bk, return_index=True)
@@ -223,7 +223,7 @@ def _layout_spec(bk, bv, r_slots):
         keys[b, :k.size] = k
         if bv is not None:
             vals[b, :k.size] = bv[first[bucket == b][:r_slots]]
-    fences = keys[:, ::tbp.fence_stride(r_slots)].T
+    fences = keys[:, ::tbp.fence_stride(r_slots, staged_max)].T
     if bv is None:
         return keys, None, fences
     pairs = np.stack(ju64.split_u64(vals.reshape(-1)), axis=-1)
@@ -233,9 +233,10 @@ def _layout_spec(bk, bv, r_slots):
 def _search_like_kernels(fences, keys, vals, pk):
     """The search of the K10 / K11 kernels, in numpy: the last fence at or
     under the key (branch-free over the bucket's fences), then the key's
-    run of fence_stride(R) keys compared at once (the fence itself when the
-    stride is 1).  (hit, vh, vl); (hit,) alone when vals is None (K10)."""
-    run_len = tbp.fence_stride(keys.shape[1])
+    run of R // len(fences) keys compared at once (the fence itself when
+    every key is a fence).  (hit, vh, vl); (hit,) alone when vals is None
+    (K10)."""
+    run_len = keys.shape[1] // fences.shape[0]
     b = _np_bucket(pk)
     run = np.zeros(pk.size, np.int64)
     span = fences.shape[0]
@@ -302,7 +303,7 @@ def test_bucket_layout_matches_numpy(r_slots):
     assert got[0].sum() > 2_000 and not got[0][pk == M64].any()
 
 
-@pytest.mark.parametrize("r_slots", [8, 16, 128, 512])
+@pytest.mark.parametrize("r_slots", [8, 16, 64, 128, 512])
 def test_count_layout_matches_numpy_and_jax(r_slots):
     # K10's layout: the keys-only bucket-major copy (bucket_major_keys, in
     # plain torch) of a table built without values, and its fences, against
@@ -323,12 +324,13 @@ def test_count_layout_matches_numpy_and_jax(r_slots):
                                 r_slots=r_slots, with_values=False)
     assert tt.tv_hi.shape == (1, 128)                  # no value planes
     keys = tbp.bucket_major_keys(tt.tk_hi, tt.tk_lo)
-    want_keys, _, want_fences = _layout_spec(bk, None, r_slots)
+    staged_max = tbp.COUNT_STAGED_MAX_R_SLOTS
+    want_keys, _, want_fences = _layout_spec(bk, None, r_slots, staged_max)
     assert keys.dtype == torch.int64 and keys.shape == (128, r_slots)
     np.testing.assert_array_equal(keys.numpy().view(np.uint64), want_keys)
     np.testing.assert_array_equal(
-        tbp.bucket_fences(tt.tk_hi, tt.tk_lo).numpy().view(np.uint64),
-        want_fences)
+        tbp.bucket_fences(tt.tk_hi, tt.tk_lo, staged_max).numpy().view(
+            np.uint64), want_fences)
     hit = _search_like_kernels(want_fences, want_keys, None,
                                pk[:np_valid])[0]
     plain = tbp.probe_count_vmem_plain(tt.tk_hi, tt.tk_lo, tph, tpl,

@@ -24,6 +24,7 @@ from flash_hash_join_tpu_torch.models.workload import (
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import range_table as rt
+from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
@@ -303,6 +304,7 @@ def test_compact_kernel_at_tile_boundaries(dev, n, offset):
     # to back on one stream give the same (the look-back's scratch starts
     # from zero each call); one launch a call, the count a 0-d int64 on the
     # card
+    assert sc.TILE_ROWS == _build.lib().fhj_compact_tile_rows()
     rng = np.random.default_rng(n + offset)
     bits = rng.random(n + offset) < 0.5
     bits[offset:offset + n // 2] = False
