@@ -26,7 +26,7 @@ Phases, one JSON line each on stdout:
               64-bit offsets), the directory build against its plain
               version and numpy at both offset widths; misaligned
               views, np_valid < npr, the u64-max key on both sides, K5
-              with 2, 3 and 4 planes, and alone around its 4096-row tile
+              with 2, 3 and 4 planes, and alone around its 8192-row tile
               (the first tiles empty, the last full), each call made twice
               back to back; K7, which reads the probe key
               planes, at v_rows 8, 16, 64, 128 (lo 0, inside u32, at its

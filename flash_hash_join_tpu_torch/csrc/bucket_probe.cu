@@ -22,13 +22,18 @@
 // probe costs beyond its stream is the L2 sectors its search touches.
 //
 // K10 (count) and K11 (materialize) search the same layouts, by rung:
-//  * R = 8 to 32 (kStagedMaxSlots): the whole table in each block's shared
-//    memory, staged from the planes' contiguous 512-byte rows: the keys
-//    as u64 (8 bytes a slot; K11 adds the value as a (vh, vl) pair, 16
-//    bytes a slot, at most 64 KB); one thread a probe searches its
+//  * K11 up to R = 32 (kStagedMaxSlots), K10 up to R = 128
+//    (kCountStagedMaxSlots): the whole table in each block's shared
+//    memory, staged from the planes' contiguous 512-byte rows: the keys as
+//    u64 (8 bytes a slot, K10's table; K11 adds the value as a (vh, vl)
+//    pair, 16 bytes a slot, at most 64 KB); one thread a probe searches its
 //    bucket's column there (log2(R) + 1 shared-memory steps), and K11 reads
-//    its value there: no fences, no copy, one launch.
-//  * R = 64 to 512: a bucket-major copy of the table, built first in one
+//    its value there: no fences, no copy, one launch.  K10's keys alone
+//    fit two blocks a SM up to R = 64 and one at R = 128, where the search
+//    in shared memory still ran 0.25 against 0.49 ms (R 64) and 0.32
+//    against 0.52 (R 128) for the fence path below (4e7 probes, back to
+//    back, an NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+//  * Above: a bucket-major copy of the table, built first in one
 //    launch (bucket_major_kernel, at most 1 MB): keys as u64, (128, R), so
 //    a run of kRun = 8 keys is one 64-byte line, and, for K11 only, values
 //    as (vh, vl) pairs, so a hit is one 8-byte read (K10's table has no
@@ -88,7 +93,8 @@ __device__ __forceinline__ unsigned long long slot_key(const uint32_t* __restric
 }
 
 constexpr int kMatThreads = 1024;
-constexpr int kStagedMaxSlots = 32;   // tables up to here sit whole in shared memory
+constexpr int kStagedMaxSlots = 32;   // K11's tables up to here sit in shared memory
+constexpr int kCountStagedMaxSlots = 128;  // and K10's keys alone, up to here
 constexpr int kRun = 8;               // above: keys a run, one 64-byte line
 constexpr unsigned kFullWarp = 0xffffffffu;
 
@@ -197,8 +203,8 @@ __device__ __forceinline__ void add_block_hits(unsigned int hits,
   if (threadIdx.x == 0 && total) atomicAdd(count, total);
 }
 
-// K10 at R <= kStagedMaxSlots: the keys in shared memory, one probe row a
-// thread.
+// K10 at R <= kCountStagedMaxSlots: the keys in shared memory (128 KB at
+// R = 128: then one block a SM), one probe row a thread.
 __global__ void __launch_bounds__(kMatThreads, 2)
 bucket_count_staged_kernel(const uint32_t* __restrict__ tk_hi,
                            const uint32_t* __restrict__ tk_lo, int r_slots,
@@ -217,8 +223,8 @@ bucket_count_staged_kernel(const uint32_t* __restrict__ tk_hi,
   add_block_hits(hits, count);
 }
 
-// K10 above kStagedMaxSlots, on the keys-only bucket-major copy: fences in
-// shared memory, one probe row a lane, find_in_run.
+// K10 above kCountStagedMaxSlots, on the keys-only bucket-major copy:
+// fences in shared memory, one probe row a lane, find_in_run.
 __global__ void __launch_bounds__(kMatThreads, 2)
 bucket_count_runs_kernel(const uint32_t* __restrict__ tk_hi,
                          const uint32_t* __restrict__ tk_lo,
@@ -355,20 +361,18 @@ extern "C" {
 
 // K10.  tk_hi, tk_lo: the (r_slots, 128) key planes, r_slots a power of two
 // in [8, 512]; keys: r_slots * 128 u64 words of scratch, 16-byte aligned
-// (unused up to staged_max); count: one zeroed u64.  staged_max: 32, 64 or 128,
-// the last rung searched in shared memory.  On `stream`: above staged_max
-// builds the keys-only bucket-major copy into keys; then adds to count the
-// probes (ph, pl)[0, np) found in their bucket.  Returns
+// (unused up to 128 slot rows); count: one zeroed u64.  On `stream`: above
+// 128 slot rows builds the keys-only bucket-major copy into keys; then adds
+// to count the probes (ph, pl)[0, np) found in their bucket.  Returns
 // cudaGetLastError().
 int fhj_bucket_probe_count(const uint32_t* tk_hi, const uint32_t* tk_lo, int r_slots,
                            unsigned long long* keys, const uint32_t* ph, const uint32_t* pl,
-                           int64_t np, int pre_shift, int staged_max,
-                           unsigned long long* count, cudaStream_t stream) {
+                           int64_t np, int pre_shift, unsigned long long* count,
+                           cudaStream_t stream) {
   if (np <= 0) return (int)cudaSuccess;
-  if (!vmem_rung(r_slots) || pre_shift < 0 || pre_shift > 32 - kBucketBits ||
-      (staged_max != 32 && staged_max != 64 && staged_max != 128))
+  if (!vmem_rung(r_slots) || pre_shift < 0 || pre_shift > 32 - kBucketBits)
     return (int)cudaErrorInvalidValue;
-  if (r_slots <= staged_max)
+  if (r_slots <= kCountStagedMaxSlots)
     return (int)launch_probe(bucket_count_staged_kernel, np,
                              (size_t)r_slots * kLanes * sizeof(unsigned long long), stream,
                              tk_hi, tk_lo, r_slots, ph, pl, np, pre_shift, count);

@@ -39,7 +39,7 @@
 //
 // The tile: kTile = 8192 rows, 512 threads a block, one 16-byte mask load
 // a thread, 16 KB of row numbers in shared memory.  Against 4096 rows (256
-// threads, 8 KB) it ran 4-7 % faster back to back at 1e8 rows (4 planes at
+// threads, 8 KB) it ran 3-7 % faster back to back at 1e8 rows (4 planes at
 // 60 % and 5 % hits, 3 planes at 60 %: 0.95 against 0.99 ms, 0.46 against
 // 0.49, 0.76 against 0.79; an NVIDIA H100 80GB HBM3 at 700 W, PERF.md):
 // half the tiles, so half the look-backs and tile-counter atomics, and as

@@ -58,9 +58,8 @@ _SIGNATURES = {
     # counts, offsets, nblocks, block_elems, n_planes, in0..in3,
     # out0..out3, stream
     "fhj_concat_ragged_blocks": [_P, _P, _I64, _I64, _I, *[_P] * 8, _P],
-    # tk_hi, tk_lo, r_slots, keys, ph, pl, np, pre_shift, staged_max,
-    # count, stream
-    "fhj_bucket_probe_count": [_P, _P, _I, _P, _P, _P, _I64, _I, _I, _P, _P],
+    # tk_hi, tk_lo, r_slots, keys, ph, pl, np, pre_shift, count, stream
+    "fhj_bucket_probe_count": [_P, _P, _I, _P, _P, _P, _I64, _I, _P, _P],
     # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, vals, ph, pl, n, np_valid,
     # pre_shift, hit, vh, vl, stream
     "fhj_bucket_probe_materialize": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I64,

@@ -18,9 +18,9 @@ memory: the key of every `fence_stride(R)`-th slot of every bucket
 (`bucket_fences`).  Up to STAGED_MAX_R_SLOTS rows for K11 and
 COUNT_STAGED_MAX_R_SLOTS for K10, whose table has no values, the stride is
 1, so the whole table (with K11's values) sits in shared memory and the
-search ends there.  Above, the stride is RUN_KEYS: the kernel first builds a layout of
-its own from the planes in one launch (`bucket_major`: the keys
-bucket-major as u64 and K11's values as interleaved (vh, vl) pairs;
+search ends there.  Above, the stride is RUN_KEYS: the kernel first builds
+a layout of its own from the planes in one launch (`bucket_major`: the
+keys bucket-major as u64 and K11's values as interleaved (vh, vl) pairs;
 `bucket_major_keys`: K10's, the keys alone), and a probe's run of RUN_KEYS
 keys, one 64-byte line, is read by 4 lanes together and compared at once.
 Both take R a power of two in [8, 512] (`_check_rung`, the rungs of
@@ -38,8 +38,8 @@ from flash_hash_join_tpu_torch.utils.u64 import widen
 LANES = 128
 BUCKET_BITS = 7
 MAX_R_SLOTS = 512
-STAGED_MAX_R_SLOTS = 32            # the whole table in shared memory
-COUNT_STAGED_MAX_R_SLOTS = 64      # K10: its keys alone in shared memory
+STAGED_MAX_R_SLOTS = 32            # K11: its whole table in shared memory
+COUNT_STAGED_MAX_R_SLOTS = 128     # K10: its keys alone in shared memory
 RUN_KEYS = 8                       # above: u64 keys a run, one 64-byte line
 
 
@@ -122,8 +122,8 @@ def probe_count_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _build.lib().fhj_bucket_probe_count(
         tk_hi.data_ptr(), tk_lo.data_ptr(), tk_hi.shape[0], keys.data_ptr(),
-        ph.data_ptr(), pl.data_ptr(), np_valid, pre_shift,
-        COUNT_STAGED_MAX_R_SLOTS, count.data_ptr(), stream)
+        ph.data_ptr(), pl.data_ptr(), np_valid, pre_shift, count.data_ptr(),
+        stream)
     probe_count_vmem.launches += 1
     _build.check(err, "probe_count_vmem")
     return count[0]

@@ -2,8 +2,7 @@
 """K5 (compact_by_mask) and K10 (probe_count_vmem) of this checkout, on one
 NVIDIA card, through the wrappers the join paths call.
 
-    python3 scripts/bench_k5_k10.py              # the kernels' cells
-    python3 scripts/bench_k5_k10.py --variants   # and the design choices
+    python3 scripts/bench_k5_k10.py
 
 Cells: K5 on 1e8 rows and 4 planes with 60 % and 5 % of the rows hit, and
 on 3 planes at 60 % (the dense materialize's narrow-value shape); random
@@ -15,19 +14,16 @@ version, then read by both of chip_smoke.py's timers: cuda_ms (a lone
 call) and cuda_ms_b2b (calls back to back), in two turns.  The script uses
 only what every checkout since the port began has, so it can be copied into
 another checkout (such as the parent's `git archive`) and run there, in
-turns with this one.
+turns with this one.  Prints one JSON line a cell, then the card's name
+and power limit.
 
---variants times, in turns A, B, B, A, K10's rungs that could search its
-keys in shared memory or through its fences and keys-only copy: R 64
-(2,500 uniform build keys) and R 128 (7,000), 4e7 probes, half of them
-build keys.  (K5's tile of 4096 rows against 8192 was timed the same way
-by this script in commit 281b589.)  Prints one JSON line a cell, then the
-card's name and power limit.
+Its --variants option, in commits 281b589 and 4be6ae1, timed the kernels'
+design choices in turns: K5's tile of 4096 rows against 8192, and K10 at R
+64 and R 128 with its keys in shared memory against its fence path.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import sys
 from pathlib import Path
@@ -86,8 +82,7 @@ def bench_k5() -> None:
         torch.cuda.empty_cache()
 
 
-def bench_k10(variants: bool) -> None:
-    import numpy as np
+def bench_k10() -> None:
     import torch
     from flash_hash_join_tpu_torch.models.workload import j1_suite
     from flash_hash_join_tpu_torch.ops import bucket_table as bt
@@ -95,41 +90,20 @@ def bench_k10(variants: bool) -> None:
     from flash_hash_join_tpu_torch.utils.u64 import device_planes
     cells = {"1e8-Q1": j1_suite(100_000_000, seed=0)[0],
              "4e7-Q2": j1_suite(40_000_000, seed=0)[1]}
-    if variants:
-        rng = np.random.default_rng(64)
-        cells = {}
-        for nb in (2_500, 7_000):
-            bk = rng.integers(0, 2**64, nb, dtype=np.uint64)
-            pk = rng.integers(0, 2**64, 40_000_000, dtype=np.uint64)
-            pk[::2] = rng.choice(bk, pk[::2].size)
-            cells[f"uniform-{nb}x4e7"] = (bk, pk)
     for name, c in cells.items():
-        bk, pk = c if variants else (c.build_keys, c.probe_keys)
-        r_slots = bt.r_slots_for(len(bk))
-        kh, kl = device_planes(bk, "cuda")
-        table = bt.build_bucket_table(kh, kl, kh, kl, len(bk),
+        r_slots = bt.r_slots_for(len(c.build_keys))
+        kh, kl = device_planes(c.build_keys, "cuda")
+        table = bt.build_bucket_table(kh, kl, kh, kl, len(c.build_keys),
                                       r_slots=r_slots, with_values=False)
-        ph, pl = device_planes(pk, "cuda")
+        ph, pl = device_planes(c.probe_keys, "cuda")
         npr = ph.numel()
         want = bkp.probe_count_vmem_plain(table.tk_hi, table.tk_lo, ph, pl,
                                           npr)
 
-        def k10(staged=None):
-            def call():
-                if staged:
-                    bkp.COUNT_STAGED_MAX_R_SLOTS = staged
-                return bkp.probe_count_vmem(table.tk_hi, table.tk_lo, ph, pl,
-                                            npr)
-            return call
-        if variants:
-            runs = {"fences": k10(r_slots // 2), "staged": k10(r_slots)}
-            for key, fn in runs.items():
-                require_equal(fn(), want, f"K10 {key} at {name}")
-            t = turns(runs, ("fences", "staged", "staged", "fences"))
-            bkp.COUNT_STAGED_MAX_R_SLOTS = 64
-        else:
-            require_equal(k10()(), want, f"K10 at {name}")
-            t = turns({"k10": k10()}, ("k10", "k10"))
+        def k10():
+            return bkp.probe_count_vmem(table.tk_hi, table.tk_lo, ph, pl, npr)
+        require_equal(k10(), want, f"K10 at {name}")
+        t = turns({"k10": k10}, ("k10", "k10"))
         print(json.dumps({"kernel": "probe_count_vmem", "cell": name,
                           "r_slots": r_slots, "npr": npr,
                           "count": int(want), **t}), flush=True)
@@ -139,17 +113,12 @@ def bench_k10(variants: bool) -> None:
 
 def main() -> int:
     import torch
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--variants", action="store_true",
-                        help="time the kernels' design choices instead")
-    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bench_k5_k10.py: needs an NVIDIA card", file=sys.stderr)
         return 1
     from chip_smoke import run
-    if not args.variants:
-        bench_k5()
-    bench_k10(args.variants)
+    bench_k5()
+    bench_k10()
     print(run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]), flush=True)
     return 0

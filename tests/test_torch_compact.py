@@ -32,7 +32,7 @@ def _inputs(n, density, n_planes, seed):
     (0, 0.5, 2),            # empty
     (5, 0.8, 4),            # one partial block
     (1_000, 0.5, 2),
-    (4_097, 0.0, 3),        # all miss, one row past a K5 tile
+    (4_097, 0.0, 3),        # all miss, one row past 4096
     (40_000, 1.0, 3),       # all hit, not a multiple of either block
     (33_001, 0.31, 4),
 ])
