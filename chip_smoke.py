@@ -1274,25 +1274,46 @@ def phase_bucket_kernels(cells: dict) -> dict:
                             bkp.probe_materialize_vmem_plain(*args))))
                     cases += 2
             del ph, pl
+    # K6 with 1-4 planes over one block, 520 blocks of 64K words and more
+    # than 32 x 132 blocks of 1001 words (each block's source at another
+    # 16-byte offset); plane p a view at word offset (off + p) mod 4; counts
+    # all empty, all full, random, every residue mod 4, empty and full
+    # alternating, and out of range (negative, past the block); int32 counts
+    # at even offsets, int64 at odd
     gen = torch.Generator(device=dev).manual_seed(3)
-    nblocks, block = 520, cp.DEFAULT_BLOCK_ROWS * cp.LANES
-    for n_planes in (2, 3, 4):
-        planes = [torch.randint(-2**31, 2**31, (nblocks, block), device=dev,
-                                dtype=torch.int32, generator=gen)
-                  for _ in range(n_planes)]
-        for counts in (torch.zeros(nblocks, dtype=torch.int32, device=dev),
-                       torch.full((nblocks,), block, dtype=torch.int32,
-                                  device=dev),
-                       torch.randint(0, block + 1, (nblocks,), device=dev,
-                                     dtype=torch.int32, generator=gen)):
-            total = int(counts.sum())
-            err["concat_ragged_blocks"] = max(
-                err["concat_ragged_blocks"],
-                *(_max_abs(g[:total], w[:total]) for g, w in zip(
-                    sc.concat_ragged_blocks(planes, counts),
-                    sc.concat_ragged_blocks_plain(planes, counts))))
-            cases += 1
-        del planes
+    for n_planes in (1, 2, 3, 4):
+        for nblocks, block in ((1, 65_536), (520, 65_536), (5_000, 1_001)):
+            idx = np.arange(nblocks)
+            rand = rng.integers(0, block + 1, nblocks)
+            res = rand - rand % 4 + idx % 4
+            kinds = {"empty": np.zeros(nblocks, np.int64),
+                     "full": np.full(nblocks, block),
+                     "random": rand,
+                     "residues": np.where(res > block, res - 4, res),
+                     "alternating": np.where(idx % 2, block, 0),
+                     "out_of_range": np.select(
+                         [idx % 3 == 0, idx % 3 == 1],
+                         [-rand - 1, rand + block + 1], rand)}
+            for off in range(4):
+                planes = [torch.randint(
+                    -2**31, 2**31, (nblocks * block + (off + p) % 4,),
+                    device=dev, dtype=torch.int32,
+                    generator=gen)[(off + p) % 4:].view(nblocks, block)
+                    for p in range(n_planes)]
+                dtype = torch.int64 if off % 2 else torch.int32
+                for counts in kinds.values():
+                    total = int(counts.clip(0, block).sum())
+                    counts = torch.from_numpy(counts).to(dtype).to(dev)
+                    got_total, got = sc.concat_ragged_blocks(
+                        planes, counts, with_total=True)
+                    err["concat_ragged_blocks"] = max(
+                        err["concat_ragged_blocks"],
+                        abs(int(got_total) - total),
+                        *(_max_abs(g[:total], w[:total]) for g, w in zip(
+                            got, sc.concat_ragged_blocks_plain(planes,
+                                                               counts))))
+                    cases += 1
+                del planes
     torch.cuda.synchronize()
     require(all(e == 0 for e in err.values()), f"kernel != plain: {err}")
     emit("kernels_vs_plain", kernels=list(err), max_abs_err=err, cases=cases,
@@ -1336,35 +1357,41 @@ def phase_bucket_kernels(cells: dict) -> dict:
         del table, ph, pl, x, keys, runs, mat, tables
         torch.cuda.empty_cache()
 
-    # K6 on the stream route's inputs at 1e8 rows, 4 planes, 60 % hits
+    # K6 on the stream route's inputs at 1e8 rows: 4 planes at 60 % and 5 %
+    # hits, 2 planes at 60 %
     n = 100_000_000
-    mask = torch.rand(n, device=dev, generator=gen) < 0.6
-    cols = [torch.randint(-2**31, 2**31, (n,), device=dev, dtype=torch.int32,
-                          generator=gen) for _ in range(4)]
-    planes, counts = cp.stream_blocks(mask, cols, n)
-    del mask, cols
-    total = int(counts.sum())
-    got = sc.concat_ragged_blocks(planes, counts)
-    want = sc.concat_ragged_blocks_plain(planes, counts)
-    require(max(_max_abs(g[:total], w[:total]) for g, w in zip(got, want))
-            == 0, "concat_ragged_blocks at 1e8: kernel != plain")
-    del got, want
-    # library yardstick: one boolean-mask index of the stacked planes
-    # (stacked, with the mask of each block's prefix, beforehand)
-    prefix = (torch.arange(planes[0].shape[1], device=dev)
-              < counts[:, None]).view(-1)
-    stacked = torch.stack([p.view(-1) for p in planes])
-    t = paired_ms(lambda: sc.concat_ragged_blocks(planes, counts),
-                  lambda: sc.concat_ragged_blocks_plain(planes, counts))
-    bnd = bound(4 * counts.numel() + 32 * total, 8 * total)
-    library_ms = cuda_ms(lambda: stacked[:, prefix])
-    timing["concat_ragged_blocks", "1e8"] = dict(
-        **best(t), **bnd, library_ms=library_ms)
-    emit("kernel_time", cell="1e8 rows, 4 planes, 60 % hits",
-         kernel="concat_ragged_blocks", nblocks=counts.numel(), total=total,
-         **t, **bnd, library_ms=library_ms)
-    del planes, counts, prefix, stacked
-    torch.cuda.empty_cache()
+    for cell, density, n_planes in (("1e8", 0.6, 4), ("1e8-5%", 0.05, 4),
+                                    ("1e8-2-planes", 0.6, 2)):
+        mask = torch.rand(n, device=dev, generator=gen) < density
+        cols = [torch.randint(-2**31, 2**31, (n,), device=dev,
+                              dtype=torch.int32, generator=gen)
+                for _ in range(n_planes)]
+        planes, counts = cp.stream_blocks(mask, cols, n)
+        del mask, cols
+        total = int(counts.sum())
+        got = sc.concat_ragged_blocks(planes, counts)
+        want = sc.concat_ragged_blocks_plain(planes, counts)
+        require(max(_max_abs(g[:total], w[:total]) for g, w in zip(got, want))
+                == 0, f"concat_ragged_blocks at {cell}: kernel != plain")
+        del got, want
+        # library yardstick: one boolean-mask index of the stacked planes
+        # (stacked, with the mask of each block's prefix, beforehand)
+        prefix = (torch.arange(planes[0].shape[1], device=dev)
+                  < counts[:, None]).view(-1)
+        stacked = torch.stack([p.view(-1) for p in planes])
+        t = paired_ms(lambda: sc.concat_ragged_blocks(planes, counts),
+                      lambda: sc.concat_ragged_blocks_plain(planes, counts))
+        bnd = bound(4 * counts.numel() + 8 * n_planes * total,
+                    2 * n_planes * total)
+        library_ms = cuda_ms(lambda: stacked[:, prefix])
+        timing["concat_ragged_blocks", cell] = dict(
+            **best(t), **bnd, library_ms=library_ms)
+        emit("kernel_time", cell=f"1e8 rows, {n_planes} planes, "
+             f"{density * 100:.0f} % hits", kernel="concat_ragged_blocks",
+             nblocks=counts.numel(), total=total, **t, **bnd,
+             library_ms=library_ms)
+        del planes, counts, prefix, stacked
+        torch.cuda.empty_cache()
     at = {"probe_count_vmem": ("1e8-Q1", "J1 1e8 Q1, R 16"),
           "probe_materialize_vmem": ("4e7-Q2", "J1 4e7 Q2, R 512"),
           "concat_ragged_blocks": ("1e8", "1e8 rows, 4 planes, 60 % hits")}

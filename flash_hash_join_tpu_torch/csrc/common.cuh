@@ -119,6 +119,104 @@ __device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* __restrict_
   for (int i = threadIdx.x; i < n32 / 4; i += blockDim.x) d[i] = __ldg(s + i);
 }
 
+constexpr int kCopyUnroll = 4;
+constexpr bool kCopyShuffle = true;  // K9's load form for a misaligned source
+
+// Quad i (i < n4) of the words at s, whose 16-byte offset is `shift`
+// words: one 16-byte load where s is aligned.  Otherwise, with kShuffle,
+// each lane loads the aligned quad under its words (i <= n4: the quad
+// past its last also holds wanted words) and takes the rest from the next
+// lane's (lane 31 loads that one itself); without, four scalar loads that
+// the coalescer merges.  Called by the whole warp, consecutive lanes on
+// consecutive i.
+template <bool kShuffle>
+__device__ __forceinline__ uint4 load_quad(const uint32_t* __restrict__ s, int shift,
+                                           int64_t i, int64_t n4) {
+  uint4 q = make_uint4(0u, 0u, 0u, 0u);
+  if (shift == 0) {
+    if (i < n4) q = __ldcs(reinterpret_cast<const uint4*>(s) + i);
+    return q;
+  }
+  if (!kShuffle) {
+    if (i < n4) {
+      const uint32_t* w = s + 4 * i;
+      q = make_uint4(__ldcs(w), __ldcs(w + 1), __ldcs(w + 2), __ldcs(w + 3));
+    }
+    return q;
+  }
+  const uint4* a = reinterpret_cast<const uint4*>(s - shift);
+  if (i <= n4 && n4 > 0) q = __ldcs(a + i);
+  uint4 nx;
+  nx.x = __shfl_down_sync(0xffffffffu, q.x, 1);
+  nx.y = __shfl_down_sync(0xffffffffu, q.y, 1);
+  nx.z = __shfl_down_sync(0xffffffffu, q.z, 1);
+  nx.w = __shfl_down_sync(0xffffffffu, q.w, 1);
+  if ((threadIdx.x & 31) == 31 && i < n4) nx = __ldcs(a + i + 1);
+  if (shift == 1) return make_uint4(q.y, q.z, q.w, nx.x);
+  if (shift == 2) return make_uint4(q.z, q.w, nx.x, nx.y);
+  return make_uint4(q.w, nx.x, nx.y, nx.z);
+}
+
+// The copy loop of K9 and K6: src[p][0, n) to dst[p][0, n) for each plane
+// p < n_planes (at most kPlanes; no overlap), shared by `groups` blocks of
+// which the caller's is number `group` (K9: the grid; K6: one block
+// alone).  Each plane's words up to its destination's first 16-byte
+// boundary (at most 3) and its ragged tail are scalar; the rest goes out
+// as whole 16-byte words (streaming, __stcs).  A thread moves the 16-byte
+// words base + k * blockDim.x, k < kCopyUnroll, of every plane in one
+// pass, all loads before the stores (n_planes * kCopyUnroll loads in
+// flight), then again `groups` blocks further on while any are left; the
+// loop is warp-uniform, as load_quad's shuffles need.
+template <bool kShuffle, int kPlanes>
+__device__ __forceinline__ void copy_planes(const uint32_t* const (&src)[kPlanes],
+                                            uint32_t* const (&dst)[kPlanes], int n_planes,
+                                            int64_t n, int64_t group, int64_t groups) {
+  int64_t head[kPlanes], n4[kPlanes], n4_max = 0;
+  int shift[kPlanes];
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) {
+    head[p] = n4[p] = shift[p] = 0;
+    if (p < n_planes) {
+      const int64_t h = (int64_t)((16 - (reinterpret_cast<uintptr_t>(dst[p]) & 15)) & 15) >> 2;
+      head[p] = h < n ? h : n;
+      n4[p] = (n - head[p]) >> 2;
+      shift[p] = (int)((reinterpret_cast<uintptr_t>(src[p] + head[p]) & 15) >> 2);
+      n4_max = n4[p] > n4_max ? n4[p] : n4_max;
+    }
+  }
+  const int64_t step = (int64_t)kCopyUnroll * blockDim.x;
+  for (int64_t w0 = group * step + (threadIdx.x & ~31); w0 < n4_max; w0 += step * groups) {
+    const int64_t base = w0 + (threadIdx.x & 31);
+    uint4 v[kPlanes][kCopyUnroll];
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p)
+      if (p < n_planes) {
+#pragma unroll
+        for (int k = 0; k < kCopyUnroll; ++k)
+          v[p][k] = load_quad<kShuffle>(src[p] + head[p], shift[p],
+                                        base + (int64_t)k * blockDim.x, n4[p]);
+      }
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p)
+      if (p < n_planes) {
+        uint4* d = reinterpret_cast<uint4*>(dst[p] + head[p]);
+#pragma unroll
+        for (int k = 0; k < kCopyUnroll; ++k) {
+          const int64_t i = base + (int64_t)k * blockDim.x;
+          if (i < n4[p]) __stcs(d + i, v[p][k]);
+        }
+      }
+  }
+  const int64_t t = group * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p)
+    if (p < n_planes) {
+      const int64_t tail = head[p] + (n4[p] << 2);
+      if (t < head[p]) dst[p][t] = src[p][t];
+      if (t < n - tail) dst[p][tail + t] = src[p][tail + t];
+    }
+}
+
 // Minimum of v over the block, valid in thread 0.  blockDim.x == kThreads.
 __device__ __forceinline__ uint32_t block_min(uint32_t v) {
   __shared__ uint32_t warp_mins[kThreads / 32];

@@ -92,47 +92,12 @@ staged_domain_gather_kernel(const uint32_t* __restrict__ bitmap,
   });
 }
 
-constexpr int kCopyUnroll = 4;
-
-// dst[i] = src[i] for i < n.  The first `head` words bring dst to a 16-byte
-// boundary; kAligned: src + head lies on one as well, and is read with
-// vector loads too.  A thread moves the 16-byte words base + k * blockDim.x,
-// k < kCopyUnroll (coalesced across the warp for every k), and again a grid
-// further on while any are left.
-template <bool kAligned>
+// K9: the copy loop shared with K6 (fhj::copy_planes), the grid sharing it.
 __global__ void __launch_bounds__(fhj::kThreads)
-copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_t n,
-            int64_t head) {
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t step = (int64_t)kCopyUnroll * blockDim.x;
-  const int64_t stride = step * gridDim.x;
-  const int64_t n4 = (n - head) >> 2;
-  const uint32_t* s = src + head;
-  uint4* d = reinterpret_cast<uint4*>(dst + head);
-  for (int64_t base = (int64_t)blockIdx.x * step + threadIdx.x; base < n4;
-       base += stride) {
-    uint4 v[kCopyUnroll];
-#pragma unroll
-    for (int k = 0; k < kCopyUnroll; ++k) {
-      const int64_t i = base + (int64_t)k * blockDim.x;
-      if (i < n4) {
-        if (kAligned) {
-          v[k] = __ldcs(reinterpret_cast<const uint4*>(s) + i);
-        } else {
-          const uint32_t* q = s + 4 * i;
-          v[k] = make_uint4(__ldcs(q), __ldcs(q + 1), __ldcs(q + 2), __ldcs(q + 3));
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kCopyUnroll; ++k) {
-      const int64_t i = base + (int64_t)k * blockDim.x;
-      if (i < n4) __stcs(d + i, v[k]);
-    }
-  }
-  const int64_t tail = head + (n4 << 2);
-  if (tid < head) dst[tid] = src[tid];
-  if (tid < n - tail) dst[tail + tid] = src[tail + tid];
+copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_t n) {
+  const uint32_t* s[1] = {src};
+  uint32_t* d[1] = {dst};
+  fhj::copy_planes<fhj::kCopyShuffle, 1>(s, d, 1, n, blockIdx.x, gridDim.x);
 }
 
 }  // namespace
@@ -168,14 +133,9 @@ int fhj_staged_domain_gather(const uint32_t* bitmap, const uint32_t* p0,
 int fhj_materialize_copy(const uint32_t* src, uint32_t* dst, int64_t n,
                          cudaStream_t stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const int64_t per_block = 4LL * kCopyUnroll * fhj::kThreads;   // words
+  const int64_t per_block = 4LL * fhj::kCopyUnroll * fhj::kThreads;   // words
   const int64_t grid = std::min<int64_t>((n + per_block - 1) / per_block, INT_MAX);
-  const int64_t head =
-      std::min<int64_t>(((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15) >> 2, n);
-  if ((reinterpret_cast<uintptr_t>(src + head) & 15) == 0)
-    copy_kernel<true><<<(unsigned)grid, fhj::kThreads, 0, stream>>>(src, dst, n, head);
-  else
-    copy_kernel<false><<<(unsigned)grid, fhj::kThreads, 0, stream>>>(src, dst, n, head);
+  copy_kernel<<<(unsigned)grid, fhj::kThreads, 0, stream>>>(src, dst, n);
   return (int)cudaGetLastError();
 }
 

@@ -242,22 +242,39 @@ compact_kernel(const uint8_t* __restrict__ mask, int64_t n, Planes planes, int n
   }
 }
 
-// K6: one CTA per input block copies the block's counts[b] leading elements
-// of each plane to out[offsets[b], offsets[b] + counts[b]).  Loads and
-// stores are consecutive words across the threads of a warp.
-__global__ void __launch_bounds__(fhj::kThreads)
-concat_ragged_kernel(const int* __restrict__ counts, const long long* __restrict__ offsets,
-                     int64_t block_elems, Planes planes, int n_planes) {
-  const int64_t b = blockIdx.x;
-  const int64_t count = counts[b];
-  const int64_t src = b * block_elems;
-  const int64_t dst = offsets[b];
-#pragma unroll
-  for (int v = 0; v < kMaxPlanes; ++v) {
-    if (v >= n_planes) break;
-    for (int64_t i = threadIdx.x; i < count; i += fhj::kThreads)
-      planes.out[v][dst + i] = __ldg(planes.in[v] + src + i);
+// K6: one block a ragged block, taken from the ticket counter in
+// scratch[1] in the order blocks start.  Warp 0 reads the block's count,
+// clamps it to [0, block_elems], publishes it and looks back for its
+// offset (K5's look_back over scratch[2 ..]); then the whole block copies
+// the block's prefix of every plane to that offset (fhj::copy_planes).
+template <bool kShuffle, int kThreads, int kMinBlocks>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+concat_ragged_kernel(const void* __restrict__ counts, int count_bytes, int64_t block_elems,
+                     Planes planes, int n_planes, unsigned long long* __restrict__ scratch) {
+  __shared__ long long block_sh, dst_sh, count_sh;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    unsigned int ticket = 0;
+    if (lane == 0) ticket = atomicAdd(reinterpret_cast<unsigned int*>(scratch + 1), 1u);
+    const long long b = __shfl_sync(kFullWarp, ticket, 0);
+    long long c = count_bytes == 8 ? __ldg(static_cast<const long long*>(counts) + b)
+                                   : (long long)__ldg(static_cast<const int*>(counts) + b);
+    c = c < 0 ? 0 : (c > block_elems ? block_elems : c);
+    const long long excl = look_back(scratch + 2, b, c);
+    if (lane == 0) {
+      block_sh = b, dst_sh = excl, count_sh = c;
+      if (b == gridDim.x - 1) scratch[0] = (unsigned long long)(excl + c);
+    }
   }
+  __syncthreads();
+  const uint32_t* src[kMaxPlanes];
+  uint32_t* dst[kMaxPlanes];
+#pragma unroll
+  for (int p = 0; p < kMaxPlanes; ++p) {
+    src[p] = p < n_planes ? planes.in[p] + block_sh * block_elems : nullptr;
+    dst[p] = p < n_planes ? planes.out[p] + dst_sh : nullptr;
+  }
+  fhj::copy_planes<kShuffle, kMaxPlanes>(src, dst, n_planes, count_sh, 0, 1);
 }
 
 }  // namespace
@@ -293,21 +310,36 @@ int fhj_compact_by_mask(const uint8_t* mask, int64_t n, int n_planes, const uint
   return (int)cudaGetLastError();
 }
 
-// K6.  counts: nblocks int32, each in [0, block_elems]; offsets: their
-// exclusive scan, int64.  in0..in3: nblocks * block_elems words each, out0..
-// out3 as long; the first n_planes (1..4) are used.  Launches nothing when
+// K6.  counts: nblocks integers of count_bytes (4 or 8) each, clamped to
+// [0, block_elems] in the kernel.  in0..in3: nblocks * block_elems words
+// each (any 4-byte alignment), out0..out3 as long; the first n_planes
+// (1..4) are used.  scratch: scratch_words u64 of device memory, at least
+// nblocks + 2; on return scratch[0] holds the sum of the clamped counts.
+// variant: bit 0 reads a misaligned source with shuffles, bit 1 runs 512
+// threads a block; 4: shuffles, 256 threads, at most 128 registers.  One memset and one launch on `stream`, nothing when
 // nblocks == 0.  Returns cudaGetLastError().
-int fhj_concat_ragged_blocks(const int* counts, const long long* offsets, int64_t nblocks,
+int fhj_concat_ragged_blocks(const void* counts, int count_bytes, int64_t nblocks,
                              int64_t block_elems, int n_planes, const uint32_t* in0,
                              const uint32_t* in1, const uint32_t* in2, const uint32_t* in3,
                              uint32_t* out0, uint32_t* out1, uint32_t* out2, uint32_t* out3,
+                             unsigned long long* scratch, int64_t scratch_words, int variant,
                              cudaStream_t stream) {
   if (nblocks <= 0) return (int)cudaSuccess;
-  if (n_planes < 1 || n_planes > kMaxPlanes || nblocks > 0x7fffffff)
+  if (n_planes < 1 || n_planes > kMaxPlanes || nblocks > 0x7fffffff ||
+      (count_bytes != 4 && count_bytes != 8) || scratch_words < nblocks + 2)
     return (int)cudaErrorInvalidValue;
+  const cudaError_t e =
+      cudaMemsetAsync(scratch, 0, (size_t)(nblocks + 2) * sizeof(*scratch), stream);
+  if (e != cudaSuccess) return (int)e;
   const Planes planes = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
-  concat_ragged_kernel<<<(unsigned int)nblocks, fhj::kThreads, 0, stream>>>(
-      counts, offsets, block_elems, planes, n_planes);
+  const unsigned grid = (unsigned)nblocks;
+  const auto kernel = variant == 0   ? concat_ragged_kernel<false, 256, 1>
+                      : variant == 1 ? concat_ragged_kernel<true, 256, 1>
+                      : variant == 2 ? concat_ragged_kernel<false, 512, 1>
+                      : variant == 3 ? concat_ragged_kernel<true, 512, 1>
+                                     : concat_ragged_kernel<true, 256, 2>;
+  kernel<<<grid, (variant & 2) ? 512 : 256, 0, stream>>>(counts, count_bytes, block_elems,
+                                                          planes, n_planes, scratch);
   return (int)cudaGetLastError();
 }
 

@@ -55,8 +55,8 @@ def compact_by_mask_stream(mask: torch.Tensor, cols, n_out: int | None = None,
     compact_by_mask."""
     n_out = mask.numel() if n_out is None else n_out
     planes, counts = stream_blocks(mask, cols, n_out, block_rows=block_rows)
-    outs = sc.concat_ragged_blocks(planes, counts)
-    return counts.sum(dtype=torch.int64), tuple(o[:n_out] for o in outs)
+    total, outs = sc.concat_ragged_blocks(planes, counts, with_total=True)
+    return total, tuple(o[:n_out] for o in outs)
 
 
 def compact_by_mask(mask: torch.Tensor, cols, n_out: int | None = None):

@@ -127,35 +127,44 @@ def concat_ragged_blocks_plain(planes, counts):
     return tuple(outs)
 
 
-def concat_ragged_blocks(planes, counts: torch.Tensor):
+def concat_ragged_blocks(planes, counts: torch.Tensor, *,
+                         with_total: bool = False):
     """Concatenate the blocks' valid prefixes: planes are 1-4 int32
     tensors (nblocks, block_elems) whose row b holds its valid elements in
     its first counts[b] words (counts are clamped to [0, block_elems]).
     Returns flat int32 planes of nblocks * block_elems words whose prefix of
     sum(counts) words is the concatenation, in block order; words past it
-    are unspecified.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    are unspecified.  With with_total, returns (total, planes), total the
+    sum of the clamped counts as a 0-d int64 tensor on the counts' device.
+    CPU tensors take the plain version; CUDA tensors launch the kernel: one
+    memset of its scratch and one launch, which also computes the blocks'
+    offsets and the total."""
     planes = tuple(planes)
     dev = _check_blocks(planes, counts)
-    if dev.type == "cpu":
-        return concat_ragged_blocks_plain(planes, counts)
     nblocks, block_elems = planes[0].shape
+    if dev.type == "cpu":
+        outs = concat_ragged_blocks_plain(planes, counts)
+        total = counts.clamp(0, block_elems).sum(dtype=torch.int64)
+        return (total, outs) if with_total else outs
     outs = tuple(torch.empty(p.numel(), dtype=torch.int32, device=dev)
                  for p in planes)
     if nblocks == 0:
-        return outs
-    counts = counts.clamp(0, block_elems).to(torch.int32)
-    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        return (total, outs) if with_total else outs
+    counts = counts.contiguous()
+    # [0] the total, [1] the block counter, then one look-back state a block
+    scratch = torch.empty(nblocks + 2, dtype=torch.int64, device=dev)
     ptrs = [p.data_ptr() for p in planes] + [None] * (MAX_PLANES - len(planes))
-    out_ptrs = [o.data_ptr() for o in outs] + [None] * (MAX_PLANES
-                                                         - len(outs))
+    out_ptrs = [o.data_ptr() for o in outs] + [None] * (MAX_PLANES - len(outs))
     err = _build.lib().fhj_concat_ragged_blocks(
-        counts.data_ptr(), offsets.data_ptr(), nblocks, block_elems,
-        len(planes), *ptrs, *out_ptrs,
+        counts.data_ptr(), counts.element_size(), nblocks, block_elems,
+        len(planes), *ptrs, *out_ptrs, scratch.data_ptr(), scratch.numel(),
+        concat_ragged_blocks.variant,
         torch.cuda.current_stream(dev).cuda_stream)
     concat_ragged_blocks.launches += 1
     _build.check(err, "concat_ragged_blocks")
-    return outs
+    return (scratch[0], outs) if with_total else outs
 
 
 concat_ragged_blocks.launches = 0
+concat_ragged_blocks.variant = 1   # bit 0: shuffled loads; bit 1: 512 threads

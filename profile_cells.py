@@ -63,7 +63,9 @@ CELLS = {  # name -> (chip_smoke cell, API function, keywords, FHJ_COMPACT)
     "global-count-bloom-1e8-Q5": ("1e8-Q5", "hash_join_count_bloom", {},
                                   None),
     "global-count-config2": ("uniform-1e7x1e8", "hash_join_count", {}, None),
+    # chip_smoke.py's two stream_compact cells (blockwise sort + K6)
     "stream-radix-1e8-Q2": ("1e8-Q2", "hash_join_radix", {}, "stream"),
+    "stream-adaptive-1e8-Q1": ("1e8-Q1", "adaptive_join", {}, "stream"),
 }
 
 

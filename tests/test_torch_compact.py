@@ -118,26 +118,65 @@ def test_compact_stream_matches_jax_stream_and_pack(density, n_planes):
         np.testing.assert_array_equal(got, c[mask])       # stable
 
 
-def test_concat_ragged_blocks_plain_matches_jax():
-    rng = np.random.default_rng(5)
-    nblocks, block = 7, 8 * 128
+def _ragged_counts(pattern, nblocks, block, rng):
+    """Block counts of a named pattern: random with an empty and a full
+    block; every residue mod 4 (and the ends); all empty; all full."""
+    if pattern == "empty":
+        return np.zeros(nblocks, np.int32)
+    if pattern == "full":
+        return np.full(nblocks, block, np.int32)
     counts = rng.integers(0, block + 1, nblocks).astype(np.int32)
-    counts[[1, 4]] = [0, block]                # an empty and a full block
+    if pattern == "random":
+        counts[[1, 4]] = [0, block]            # an empty and a full block
+    else:                                      # "residues": c mod 4 = b mod 4
+        counts = counts - counts % 4 + np.arange(nblocks) % 4
+        counts[counts > block] -= 4
+        counts[[0, -1]] = [block - 1, 1]
+    return counts
+
+
+@pytest.mark.parametrize("pattern", ["random", "residues", "empty", "full"])
+@pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
+def test_concat_ragged_blocks_plain_matches_jax(n_planes, pattern):
+    rng = np.random.default_rng(5 + n_planes)
+    nblocks, block = 7, 8 * 128
+    counts = _ragged_counts(pattern, nblocks, block, rng)
     planes = [rng.integers(0, 2**32, (nblocks * 8, 128), dtype=np.uint32)
-              for _ in range(3)]
+              for _ in range(n_planes)]
     jouts = jsc.concat_ragged_blocks(
         tuple(jnp.asarray(p) for p in planes), jnp.asarray(counts),
         block_rows=8, interpret=True)
-    outs = tsc.concat_ragged_blocks(
+    total, outs = tsc.concat_ragged_blocks(
         [tu64.to_device(p, "cpu").view(nblocks, block) for p in planes],
-        torch.from_numpy(counts))
-    total = int(counts.sum())
+        torch.from_numpy(counts), with_total=True)
+    assert int(total) == int(counts.sum())
     for o, j, p in zip(outs, jouts, planes):
         assert o.numel() == nblocks * block
-        got = tu64.to_numpy_u32(o[:total])
-        np.testing.assert_array_equal(got, np.asarray(j).reshape(-1)[:total])
+        got = tu64.to_numpy_u32(o[:int(total)])
+        np.testing.assert_array_equal(
+            got, np.asarray(j).reshape(-1)[:int(total)])
         np.testing.assert_array_equal(got, np.concatenate(
             [row[:c] for row, c in zip(p.reshape(nblocks, block), counts)]))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_concat_ragged_blocks_clamps_counts(dtype):
+    # counts below 0 and above the block length act as 0 and the length,
+    # in the planes and in the total
+    rng = np.random.default_rng(9)
+    nblocks, block = 6, 1_001
+    planes = [torch.from_numpy(rng.integers(-2**31, 2**31, (nblocks, block),
+                                            dtype=np.int64).astype(np.int32))
+              for _ in range(2)]
+    counts = torch.tensor([-5, 2_000, 3, -2**31, 2**31 - 1, 997], dtype=dtype)
+    clamped = counts.clamp(0, block).to(torch.int32)
+    total, outs = tsc.concat_ragged_blocks(planes, counts, with_total=True)
+    assert total.dtype == torch.int64 and int(total) == 3_002
+    want = tsc.concat_ragged_blocks(planes, clamped)
+    for o, w, p in zip(outs, want, planes):
+        assert torch.equal(o[:3_002], w[:3_002])
+        assert torch.equal(o[:3_002], torch.cat(
+            [p[1], p[2, :3], p[4], p[5, :997]]))
 
 
 def test_fhj_compact_stream_routes_compact_by_mask(monkeypatch):

@@ -576,28 +576,88 @@ def test_bucket_probe_kernels_match_plain(dev, r_slots, fill):
                 _assert_same(got, bkp.probe_materialize_vmem_plain(*args))
 
 
-@pytest.mark.parametrize("n_planes", [2, 3, 4])
-@pytest.mark.parametrize("kind", ["empty", "full", "random"])
+def _ragged_counts(rng, kind, nblocks, block):
+    """Block counts of a named kind: all empty, all full, random, every
+    residue mod 4 (count = block index mod 4, then random multiples of 4),
+    empty and full blocks alternating, and out of range (negative and
+    above block, which the kernel clamps)."""
+    if kind == "empty":
+        return np.zeros(nblocks, np.int64)
+    if kind == "full":
+        return np.full(nblocks, block, np.int64)
+    if kind == "alternating":
+        return np.where(np.arange(nblocks) % 2, block, 0)
+    counts = rng.integers(0, block + 1, nblocks)
+    if kind == "residues":
+        counts = counts - counts % 4 + np.arange(nblocks) % 4
+        counts[counts > block] -= 4
+    elif kind == "out_of_range":
+        counts[::3] = rng.integers(-2**40, 0, counts[::3].size)
+        counts[1::3] = rng.integers(block + 1, 2**40, counts[1::3].size)
+    return counts
+
+
+@pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", ["empty", "full", "random", "residues",
+                                  "alternating", "out_of_range"])
 def test_concat_ragged_blocks_matches_plain(dev, n_planes, kind):
+    # one block and more than 32 x 132 (look-backs over many windows of 32
+    # blocks); a block length that is no multiple of 4, so each block's
+    # source lies at another 16-byte offset; plane p a view at word offset
+    # (off + p) mod 4; int32 and int64 counts
     rng = np.random.default_rng(n_planes)
-    nblocks, block = 600, 4_096
-    counts = {"empty": np.zeros(nblocks, np.int32),
-              "full": np.full(nblocks, block, np.int32),
-              "random": rng.integers(0, block + 1, nblocks).astype(
-                  np.int32)}[kind]
-    planes = [to_device(rng.integers(0, 2**32, nblocks * block,
-                                     dtype=np.uint32), dev).view(nblocks,
-                                                                 block)
-              for _ in range(n_planes)]
-    counts = torch.from_numpy(counts).to(dev)
-    before = sc.concat_ragged_blocks.launches
-    got = sc.concat_ragged_blocks(planes, counts)
-    want = sc.concat_ragged_blocks_plain(planes, counts)
+    gen = torch.Generator(device=dev).manual_seed(n_planes)
+    for nblocks, block in ((1, 4_096), (600, 4_096), (5_000, 1_001)):
+        counts64 = _ragged_counts(rng, kind, nblocks, block)
+        if kind != "out_of_range":
+            assert counts64.min() >= 0 and counts64.max() <= block
+        total = int(counts64.clip(0, block).sum())
+        for off in range(4):
+            planes = []
+            for p in range(n_planes):
+                o = (off + p) % 4
+                flat = torch.randint(-2**31, 2**31, (nblocks * block + o,),
+                                     device=dev, dtype=torch.int32,
+                                     generator=gen)
+                planes.append(flat[o:].view(nblocks, block))
+            for dtype in (torch.int32, torch.int64):
+                if dtype == torch.int32 and kind == "out_of_range":
+                    counts = torch.from_numpy(counts64.clip(
+                        -2**31, 2**31 - 1).astype(np.int32)).to(dev)
+                else:
+                    counts = torch.from_numpy(counts64).to(dtype).to(dev)
+                before = sc.concat_ragged_blocks.launches
+                got_total, got = sc.concat_ragged_blocks(planes, counts,
+                                                         with_total=True)
+                want = sc.concat_ragged_blocks_plain(planes, counts)
+                torch.cuda.synchronize()
+                assert sc.concat_ragged_blocks.launches == before + 1
+                assert int(got_total) == total, (nblocks, off, dtype)
+                for g, w in zip(got, want):
+                    assert g.numel() == nblocks * block
+                    assert torch.equal(g[:total], w[:total]), (
+                        nblocks, block, off, dtype)
+
+
+def test_concat_ragged_blocks_is_one_memset_and_one_kernel(dev):
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(0)
+    planes = [torch.randint(-2**31, 2**31, (300, 65_536), device=dev,
+                            dtype=torch.int32, generator=gen)
+              for _ in range(4)]
+    counts = torch.randint(0, 65_537, (300,), device=dev, dtype=torch.int32,
+                           generator=gen)
+    sc.concat_ragged_blocks(planes, counts)               # build, warm up
     torch.cuda.synchronize()
-    assert sc.concat_ragged_blocks.launches == before + 1
-    total = int(counts.sum())
-    for g, w in zip(got, want):
-        assert torch.equal(g[:total], w[:total])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sc.concat_ragged_blocks(planes, counts)
+        torch.cuda.synchronize()
+    device = {e.key: e.count for e in prof.key_averages()
+              if not str(e.device_type).endswith("CPU")}
+    assert sum(device.values()) == 2, device
+    assert any("concat_ragged_kernel" in k for k in device), device
+    assert any(k.startswith("Memset") for k in device), device
 
 
 @pytest.mark.parametrize("strategy,use_bloom", [("vmem", False),
@@ -642,6 +702,8 @@ def test_stream_compaction_on_card(dev, monkeypatch):
     torch.cuda.synchronize()
     assert sc.concat_ragged_blocks.launches == before + 1
     count = int(pack[0])
+    # the count is K6's total, left on the card
+    assert stream[0].device.type == "cuda"
     assert int(stream[0]) == count == int(mask.sum())
     for s, p in zip(stream[1], pack[1]):
         assert torch.equal(s[:count], p[:count])
