@@ -45,9 +45,13 @@ Phases, one JSON line each on stdout:
               slot, probe sizes 0, 7, 3e7+5, misaligned views, np_valid <
               npr and the u64-max key on both sides, the layout launches
               alone at each rung (K11's bucket-major copy of keys and
-              values, K10's of the keys alone), and K6 with
-              2, 3 and 4 planes over 520 blocks, all empty, all full and
-              random.  Then each kernel and its plain version timed (CUDA
+              values, K10's of the keys alone), and K6 with 1-4 planes
+              over 1 block, 520 blocks of 64K words and 5000 of 1001
+              words (look-backs over many windows; each block's source at
+              another 16-byte offset), planes viewed at word offsets 0-3,
+              counts all empty, all full, random, of every residue mod 4,
+              empty and full alternating and out of range, int32 and
+              int64, its total checked too.  Then each kernel and its plain version timed (CUDA
               events: a lone call, median of 5 after a warm-up; the kernel
               also over runs of 5 calls back to back) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
@@ -58,7 +62,9 @@ Phases, one JSON line each on stdout:
               K3/K4 on both table layouts (searched whole, or through a
               directory) at build sizes 100 to 1e5.  K7 is timed on each of
               its path's cells (J1 1e7 Q2, 4e7 Q1, 1e8 Q1), K8 on its own,
-              K10 and K11 at R 16 (J1 1e8 Q1) and R 512 (J1 4e7 Q2); the
+              K10 and K11 at R 16 (J1 1e8 Q1) and R 512 (J1 4e7 Q2), K6 at
+              1e8 rows with 4 planes at 60 and 5 % hits and 2 planes at 60 %
+              (each beside one boolean-mask index of the stacked planes); the
               kernels line gives one cell a kernel and the rest under
               other_cells.
   3. main     adaptive_join_count(device="cuda") on the db-benchmark J1
@@ -1214,8 +1220,9 @@ def bucket_table_for(bk: np.ndarray, bv: np.ndarray, dev, r_slots: int):
 
 def phase_bucket_kernels(cells: dict) -> dict:
     """K10/K11 == plain at every rung, edge sizes and views, and K6 ==
-    plain over 520 blocks; then each timed against its plain version and
-    its library yardstick on the path's own inputs."""
+    plain at its edge cases (sizes, views, counts); then each timed against
+    its plain version and its library yardstick on the path's own
+    inputs."""
     import torch
     from flash_hash_join_tpu_torch.ops import bucket_table as bt
     from flash_hash_join_tpu_torch.ops import compact as cp

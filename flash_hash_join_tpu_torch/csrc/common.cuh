@@ -1,7 +1,8 @@
 // Shared device helpers: the index stream walk, the key-plane pair walk,
 // the dense-domain test, the membership bit test and the shared-memory
 // staging of the bitmap kernels (dense_bitmap.cu, bitmap_probe.cu,
-// dense_values.cu), the block reductions, the grid size of every kernel
+// dense_values.cu), the copy loop of K9 and K6 (dense_values.cu,
+// stream_compact.cu), the block reductions, the grid size of every kernel
 // and a launch over n rows.
 //
 // Domain indices are u32 with sentinel 0xFFFFFFFF (torch int32 bit
@@ -120,41 +121,17 @@ __device__ __forceinline__ void stage(uint32_t* dst, const uint32_t* __restrict_
 }
 
 constexpr int kCopyUnroll = 4;
-constexpr bool kCopyShuffle = true;  // K9's load form for a misaligned source
 
 // Quad i (i < n4) of the words at s, whose 16-byte offset is `shift`
-// words: one 16-byte load where s is aligned.  Otherwise, with kShuffle,
-// each lane loads the aligned quad under its words (i <= n4: the quad
-// past its last also holds wanted words) and takes the rest from the next
-// lane's (lane 31 loads that one itself); without, four scalar loads that
-// the coalescer merges.  Called by the whole warp, consecutive lanes on
-// consecutive i.
-template <bool kShuffle>
+// words: one 16-byte load where s is aligned, else four scalar loads that
+// the coalescer merges.  (Realigning aligned 16-byte loads with warp
+// shuffles took 140-198 registers a thread and ran twice as long in K6 on
+// an H100: PERF.md, PR 10.)
 __device__ __forceinline__ uint4 load_quad(const uint32_t* __restrict__ s, int shift,
-                                           int64_t i, int64_t n4) {
-  uint4 q = make_uint4(0u, 0u, 0u, 0u);
-  if (shift == 0) {
-    if (i < n4) q = __ldcs(reinterpret_cast<const uint4*>(s) + i);
-    return q;
-  }
-  if (!kShuffle) {
-    if (i < n4) {
-      const uint32_t* w = s + 4 * i;
-      q = make_uint4(__ldcs(w), __ldcs(w + 1), __ldcs(w + 2), __ldcs(w + 3));
-    }
-    return q;
-  }
-  const uint4* a = reinterpret_cast<const uint4*>(s - shift);
-  if (i <= n4 && n4 > 0) q = __ldcs(a + i);
-  uint4 nx;
-  nx.x = __shfl_down_sync(0xffffffffu, q.x, 1);
-  nx.y = __shfl_down_sync(0xffffffffu, q.y, 1);
-  nx.z = __shfl_down_sync(0xffffffffu, q.z, 1);
-  nx.w = __shfl_down_sync(0xffffffffu, q.w, 1);
-  if ((threadIdx.x & 31) == 31 && i < n4) nx = __ldcs(a + i + 1);
-  if (shift == 1) return make_uint4(q.y, q.z, q.w, nx.x);
-  if (shift == 2) return make_uint4(q.z, q.w, nx.x, nx.y);
-  return make_uint4(q.w, nx.x, nx.y, nx.z);
+                                           int64_t i) {
+  if (shift == 0) return __ldcs(reinterpret_cast<const uint4*>(s) + i);
+  const uint32_t* w = s + 4 * i;
+  return make_uint4(__ldcs(w), __ldcs(w + 1), __ldcs(w + 2), __ldcs(w + 3));
 }
 
 // The copy loop of K9 and K6: src[p][0, n) to dst[p][0, n) for each plane
@@ -165,9 +142,8 @@ __device__ __forceinline__ uint4 load_quad(const uint32_t* __restrict__ s, int s
 // as whole 16-byte words (streaming, __stcs).  A thread moves the 16-byte
 // words base + k * blockDim.x, k < kCopyUnroll, of every plane in one
 // pass, all loads before the stores (n_planes * kCopyUnroll loads in
-// flight), then again `groups` blocks further on while any are left; the
-// loop is warp-uniform, as load_quad's shuffles need.
-template <bool kShuffle, int kPlanes>
+// flight), then again `groups` blocks further on while any are left.
+template <int kPlanes>
 __device__ __forceinline__ void copy_planes(const uint32_t* const (&src)[kPlanes],
                                             uint32_t* const (&dst)[kPlanes], int n_planes,
                                             int64_t n, int64_t group, int64_t groups) {
@@ -185,16 +161,16 @@ __device__ __forceinline__ void copy_planes(const uint32_t* const (&src)[kPlanes
     }
   }
   const int64_t step = (int64_t)kCopyUnroll * blockDim.x;
-  for (int64_t w0 = group * step + (threadIdx.x & ~31); w0 < n4_max; w0 += step * groups) {
-    const int64_t base = w0 + (threadIdx.x & 31);
+  for (int64_t base = group * step + threadIdx.x; base < n4_max; base += step * groups) {
     uint4 v[kPlanes][kCopyUnroll];
 #pragma unroll
     for (int p = 0; p < kPlanes; ++p)
       if (p < n_planes) {
 #pragma unroll
-        for (int k = 0; k < kCopyUnroll; ++k)
-          v[p][k] = load_quad<kShuffle>(src[p] + head[p], shift[p],
-                                        base + (int64_t)k * blockDim.x, n4[p]);
+        for (int k = 0; k < kCopyUnroll; ++k) {
+          const int64_t i = base + (int64_t)k * blockDim.x;
+          if (i < n4[p]) v[p][k] = load_quad(src[p] + head[p], shift[p], i);
+        }
       }
 #pragma unroll
     for (int p = 0; p < kPlanes; ++p)

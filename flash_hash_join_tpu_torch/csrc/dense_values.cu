@@ -59,7 +59,7 @@
 // kCopyUnroll * 256 of them.  The loads and stores are streaming (__ldcs /
 // __stcs, evict-first), so a copy does not push other data out of L2.
 // Scalar head and tail for views that start off a 16-byte boundary or end
-// ragged.
+// ragged.  The loop is fhj::copy_planes (common.cuh), which K6 shares.
 #include <algorithm>
 #include <climits>
 
@@ -97,7 +97,7 @@ __global__ void __launch_bounds__(fhj::kThreads)
 copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_t n) {
   const uint32_t* s[1] = {src};
   uint32_t* d[1] = {dst};
-  fhj::copy_planes<fhj::kCopyShuffle, 1>(s, d, 1, n, blockIdx.x, gridDim.x);
+  fhj::copy_planes<1>(s, d, 1, n, blockIdx.x, gridDim.x);
 }
 
 }  // namespace

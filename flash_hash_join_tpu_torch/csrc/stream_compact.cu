@@ -61,13 +61,38 @@
 // compaction: each block of block_elems words arrives with its valid
 // elements already moved to its front (a blockwise torch.sort, in
 // ops/compact.py), and the block's prefix of counts[b] elements goes to the
-// running offset, the exclusive scan of the counts (torch.cumsum in the
-// caller).  What bounds it: device-memory traffic, V 4-byte reads and
-// writes per kept element.  The TPU kernel carries the running total across
-// its sequential grid, rotates lanes, merges a carried partial row and
-// orders overlapping DMA writes with semaphores, writing 8 rows of slack
-// past the end, because Mosaic has no per-element addressing; here one CTA
-// per block copies its prefix to its own offset, with no slack.
+// running offset, the exclusive scan of the counts.
+//
+// One launch (after one memset of its scratch) does the whole call, as in
+// K5: each block takes the next input block from a ticket counter; warp 0
+// reads its count, clamps it to [0, block_elems], publishes it and finds
+// the block's offset by K5's look_back, which takes the place of the TPU
+// kernel's running total; the last block writes the total.  Then the block
+// copies the prefix of every plane with K9's loop (fhj::copy_planes): the
+// words up to the destination's first 16-byte boundary one by one, then
+// whole 16-byte stores, 4 x n_planes 16-byte words in flight a thread, and
+// a scalar tail.  In 3 blocks of 4 the source lies at another 16-byte
+// offset than the destination and is read with four scalar loads a 16-byte
+// word; realigning 16-byte loads with warp shuffles took 140-198 registers
+// a thread and ran about twice as long (bench_k6.py's variants, PERF.md).
+// 512 threads a block ran as fast as 256.
+//
+// What bounds it on an H100: device-memory traffic, each kept word read
+// once and written once, plane by plane: at 1e8 rows, 4 planes and 60 %
+// hits 1.92 GB, 0.573 ms at the 3.35 TB/s peak.  It reads a dense prefix of
+// each block, so every sector it fetches is wanted and the bound is its
+// floor.  It runs at 0.77-0.80 ms back to back there (93 registers, two
+// blocks an SM), against 1.28-1.30 for the first port (a clamp, a
+// torch.cumsum and a subtraction in the wrapper, then one block a block
+// with one 4-byte load and store in flight a thread, stores at any word
+// offset: four launches for two), on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md).
+//
+// What the design does about it, against the TPU kernel: the TPU kernel
+// rotates lanes, merges a carried partial row and orders overlapping DMA
+// writes with semaphores, writing 8 rows of slack past the end, because
+// Mosaic has no per-element addressing; here each block copies its prefix
+// to its own offset, with no slack.
 #include "common.cuh"
 
 namespace {
@@ -121,9 +146,10 @@ __device__ __forceinline__ uint32_t mask_bits(const uint8_t* __restrict__ mask, 
          nonzero_bytes(w[3]) << 12;
 }
 
-// The tile's exclusive prefix: the hits of every tile before it.  Called
-// by warp 0 of the block after the tile's count `agg` is known; publishes
-// the tile's states on the way.
+// The tile's exclusive prefix: the hits of every tile before it (K6: the
+// kept words of every block before it).  Called by warp 0 of the block
+// after the tile's count `agg` is known; publishes the tile's states on
+// the way.
 __device__ __forceinline__ long long look_back(unsigned long long* __restrict__ state,
                                                long long tile, long long agg) {
   const int lane = threadIdx.x & 31;
@@ -247,8 +273,7 @@ compact_kernel(const uint8_t* __restrict__ mask, int64_t n, Planes planes, int n
 // clamps it to [0, block_elems], publishes it and looks back for its
 // offset (K5's look_back over scratch[2 ..]); then the whole block copies
 // the block's prefix of every plane to that offset (fhj::copy_planes).
-template <bool kShuffle, int kThreads, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(fhj::kThreads)
 concat_ragged_kernel(const void* __restrict__ counts, int count_bytes, int64_t block_elems,
                      Planes planes, int n_planes, unsigned long long* __restrict__ scratch) {
   __shared__ long long block_sh, dst_sh, count_sh;
@@ -274,7 +299,7 @@ concat_ragged_kernel(const void* __restrict__ counts, int count_bytes, int64_t b
     src[p] = p < n_planes ? planes.in[p] + block_sh * block_elems : nullptr;
     dst[p] = p < n_planes ? planes.out[p] + dst_sh : nullptr;
   }
-  fhj::copy_planes<kShuffle, kMaxPlanes>(src, dst, n_planes, count_sh, 0, 1);
+  fhj::copy_planes<kMaxPlanes>(src, dst, n_planes, count_sh, 0, 1);
 }
 
 }  // namespace
@@ -315,14 +340,13 @@ int fhj_compact_by_mask(const uint8_t* mask, int64_t n, int n_planes, const uint
 // each (any 4-byte alignment), out0..out3 as long; the first n_planes
 // (1..4) are used.  scratch: scratch_words u64 of device memory, at least
 // nblocks + 2; on return scratch[0] holds the sum of the clamped counts.
-// variant: bit 0 reads a misaligned source with shuffles, bit 1 runs 512
-// threads a block; 4: shuffles, 256 threads, at most 128 registers.  One memset and one launch on `stream`, nothing when
+// One memset and one launch on `stream`, nothing when
 // nblocks == 0.  Returns cudaGetLastError().
 int fhj_concat_ragged_blocks(const void* counts, int count_bytes, int64_t nblocks,
                              int64_t block_elems, int n_planes, const uint32_t* in0,
                              const uint32_t* in1, const uint32_t* in2, const uint32_t* in3,
                              uint32_t* out0, uint32_t* out1, uint32_t* out2, uint32_t* out3,
-                             unsigned long long* scratch, int64_t scratch_words, int variant,
+                             unsigned long long* scratch, int64_t scratch_words,
                              cudaStream_t stream) {
   if (nblocks <= 0) return (int)cudaSuccess;
   if (n_planes < 1 || n_planes > kMaxPlanes || nblocks > 0x7fffffff ||
@@ -332,14 +356,8 @@ int fhj_concat_ragged_blocks(const void* counts, int count_bytes, int64_t nblock
       cudaMemsetAsync(scratch, 0, (size_t)(nblocks + 2) * sizeof(*scratch), stream);
   if (e != cudaSuccess) return (int)e;
   const Planes planes = {{in0, in1, in2, in3}, {out0, out1, out2, out3}};
-  const unsigned grid = (unsigned)nblocks;
-  const auto kernel = variant == 0   ? concat_ragged_kernel<false, 256, 1>
-                      : variant == 1 ? concat_ragged_kernel<true, 256, 1>
-                      : variant == 2 ? concat_ragged_kernel<false, 512, 1>
-                      : variant == 3 ? concat_ragged_kernel<true, 512, 1>
-                                     : concat_ragged_kernel<true, 256, 2>;
-  kernel<<<grid, (variant & 2) ? 512 : 256, 0, stream>>>(counts, count_bytes, block_elems,
-                                                          planes, n_planes, scratch);
+  concat_ragged_kernel<<<(unsigned)nblocks, fhj::kThreads, 0, stream>>>(
+      counts, count_bytes, block_elems, planes, n_planes, scratch);
   return (int)cudaGetLastError();
 }
 

@@ -50,9 +50,9 @@ def compact_by_mask_stream(mask: torch.Tensor, cols, n_out: int | None = None,
                            *, block_rows: int = DEFAULT_BLOCK_ROWS):
     """Stable compaction by blocks (port of flash_hash_join_tpu/ops/pallas/
     stream_compact.py:compact_by_mask_stream): stream_blocks moves each
-    block's hits to its front, then K6 concatenates the blocks' prefixes.
-    mask: bool; cols: int32 planes of the mask's length.  Same result as
-    compact_by_mask."""
+    block's hits to its front, then K6 concatenates the blocks' prefixes;
+    the count is K6's total.  mask: bool; cols: int32 planes of the mask's
+    length.  Same result as compact_by_mask."""
     n_out = mask.numel() if n_out is None else n_out
     planes, counts = stream_blocks(mask, cols, n_out, block_rows=block_rows)
     total, outs = sc.concat_ragged_blocks(planes, counts, with_total=True)

@@ -56,9 +56,9 @@ _SIGNATURES = {
     # stream
     "fhj_compact_by_mask": [_P, _I64, _I, *[_P] * 8, _I64, _P, _I64, _P],
     # counts, count_bytes, nblocks, block_elems, n_planes, in0..in3,
-    # out0..out3, scratch, scratch_words, variant, stream
+    # out0..out3, scratch, scratch_words, stream
     "fhj_concat_ragged_blocks": [_P, _I, _I64, _I64, _I, *[_P] * 8, _P, _I64,
-                                 _I, _P],
+                                 _P],
     # tk_hi, tk_lo, r_slots, keys, ph, pl, np, pre_shift, count, stream
     "fhj_bucket_probe_count": [_P, _P, _I, _P, _P, _P, _I64, _I, _P, _P],
     # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, vals, ph, pl, n, np_valid,

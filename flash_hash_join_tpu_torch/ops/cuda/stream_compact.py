@@ -13,9 +13,11 @@ its own address.
 K6 replaces :concat_ragged_blocks, the second half of the FHJ_COMPACT=
 stream route (ops/compact.py:compact_by_mask_stream): blocks whose valid
 elements are already at their front are concatenated at exact offsets.
-The TPU kernel's carried partial row, lane rotation, ordered DMA writes
-and 8 rows of output slack are not ported: each block is copied to its own
-offset.
+The TPU kernel's running total becomes K5's decoupled look-back over the
+blocks, in the same launch as the copy, which also leaves the total on the
+card.  Its carried partial row, lane rotation, ordered DMA writes and 8
+rows of output slack are not ported: each block is copied to its own
+offset, in whole 16-byte stores.
 """
 
 from __future__ import annotations
@@ -159,7 +161,6 @@ def concat_ragged_blocks(planes, counts: torch.Tensor, *,
     err = _build.lib().fhj_concat_ragged_blocks(
         counts.data_ptr(), counts.element_size(), nblocks, block_elems,
         len(planes), *ptrs, *out_ptrs, scratch.data_ptr(), scratch.numel(),
-        concat_ragged_blocks.variant,
         torch.cuda.current_stream(dev).cuda_stream)
     concat_ragged_blocks.launches += 1
     _build.check(err, "concat_ragged_blocks")
@@ -167,4 +168,3 @@ def concat_ragged_blocks(planes, counts: torch.Tensor, *,
 
 
 concat_ragged_blocks.launches = 0
-concat_ragged_blocks.variant = 1   # bit 0: shuffled loads; bit 1: 512 threads
