@@ -1224,6 +1224,8 @@ def phase_bucket_kernels(cells: dict) -> dict:
     its plain version and its library yardstick on the path's own
     inputs."""
     import torch
+    from flash_hash_join_tpu_torch.models.workload import (RAGGED_KINDS,
+                                                            ragged_counts)
     from flash_hash_join_tpu_torch.ops import bucket_table as bt
     from flash_hash_join_tpu_torch.ops import compact as cp
     from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
@@ -1285,22 +1287,13 @@ def phase_bucket_kernels(cells: dict) -> dict:
     # than 32 x 132 blocks of 1001 words (each block's source at another
     # 16-byte offset); plane p a view at word offset (off + p) mod 4; counts
     # all empty, all full, random, every residue mod 4, empty and full
-    # alternating, and out of range (negative, past the block); int32 counts
-    # at even offsets, int64 at odd
+    # alternating, and out of range (negative; 2^32 past the block, int32
+    # clipped); int32 counts at even offsets, int64 at odd
     gen = torch.Generator(device=dev).manual_seed(3)
     for n_planes in (1, 2, 3, 4):
         for nblocks, block in ((1, 65_536), (520, 65_536), (5_000, 1_001)):
-            idx = np.arange(nblocks)
-            rand = rng.integers(0, block + 1, nblocks)
-            res = rand - rand % 4 + idx % 4
-            kinds = {"empty": np.zeros(nblocks, np.int64),
-                     "full": np.full(nblocks, block),
-                     "random": rand,
-                     "residues": np.where(res > block, res - 4, res),
-                     "alternating": np.where(idx % 2, block, 0),
-                     "out_of_range": np.select(
-                         [idx % 3 == 0, idx % 3 == 1],
-                         [-rand - 1, rand + block + 1], rand)}
+            kinds = [ragged_counts(rng, kind, nblocks, block)
+                     for kind in RAGGED_KINDS]
             for off in range(4):
                 planes = [torch.randint(
                     -2**31, 2**31, (nblocks * block + (off + p) % 4,),
@@ -1308,8 +1301,10 @@ def phase_bucket_kernels(cells: dict) -> dict:
                     generator=gen)[(off + p) % 4:].view(nblocks, block)
                     for p in range(n_planes)]
                 dtype = torch.int64 if off % 2 else torch.int32
-                for counts in kinds.values():
+                for counts in kinds:
                     total = int(counts.clip(0, block).sum())
+                    if dtype == torch.int32:
+                        counts = counts.clip(-2**31, 2**31 - 1)
                     counts = torch.from_numpy(counts).to(dtype).to(dev)
                     got_total, got = sc.concat_ragged_blocks(
                         planes, counts, with_total=True)

@@ -128,3 +128,35 @@ def offset_plane_views(keys: np.ndarray, device, hi_off: int, lo_off: int):
     lo = device_planes(np.concatenate([pad[:lo_off], keys, pad[lo_off:]]),
                        device)[1]
     return hi[hi_off:hi_off + n], lo[lo_off:lo_off + n]
+
+
+RAGGED_KINDS = ("empty", "full", "random", "residues", "alternating",
+                "out_of_range")
+
+
+def ragged_counts(rng: np.random.Generator, kind: str, nblocks: int,
+                  block: int) -> np.ndarray:
+    """int64 counts of `nblocks` ragged blocks of `block` words (the input
+    of ops/cuda/stream_compact.concat_ragged_blocks), by kind: all empty;
+    all full; random in [0, block]; random with count mod 4 = block index
+    mod 4, so that the running offsets take every residue; empty and full
+    alternating; random with every third count negative and every third
+    2^32 past it (out of range, clamped to [0, block]: only the whole int64
+    word says so, its low word is in range)."""
+    if kind == "empty":
+        return np.zeros(nblocks, np.int64)
+    if kind == "full":
+        return np.full(nblocks, block, np.int64)
+    idx = np.arange(nblocks)
+    if kind == "alternating":
+        return np.where(idx % 2, block, 0).astype(np.int64)
+    counts = rng.integers(0, block + 1, nblocks)
+    if kind == "residues":
+        counts = counts - counts % 4 + idx % 4
+        return np.where(counts > block, counts - 4, counts)
+    if kind == "out_of_range":
+        return np.select([idx % 3 == 0, idx % 3 == 1],
+                         [-counts - 1, counts + 2**32], counts)
+    if kind != "random":
+        raise ValueError(f"unknown kind {kind!r}; one of {RAGGED_KINDS}")
+    return counts

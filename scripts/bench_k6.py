@@ -35,19 +35,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def turns(runs: dict, order) -> dict:
-    """Both timers of chip_smoke.py over each named call, in the order
-    given."""
-    from chip_smoke import cuda_ms, cuda_ms_b2b
-    out = {name: {"ms": [], "ms_b2b": []} for name in runs}
-    for name in order:
-        out[name]["ms"].append(cuda_ms(runs[name]))
-        out[name]["ms_b2b"].append(cuda_ms_b2b(runs[name]))
-    return out
-
-
 def bench() -> None:
     import torch
+    from bench_k5_k10 import turns
     from chip_smoke import bound, cuda_ms
     from flash_hash_join_tpu_torch.ops import compact as cp
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from flash_hash_join_tpu.ops.pallas import stream_compact as jsc
+from flash_hash_join_tpu_torch.models.workload import ragged_counts
 from flash_hash_join_tpu_torch.ops import compact as tc
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as tsc
 from flash_hash_join_tpu_torch.utils import u64 as tu64
@@ -118,29 +119,16 @@ def test_compact_stream_matches_jax_stream_and_pack(density, n_planes):
         np.testing.assert_array_equal(got, c[mask])       # stable
 
 
-def _ragged_counts(pattern, nblocks, block, rng):
-    """Block counts of a named pattern: random with an empty and a full
-    block; every residue mod 4 (and the ends); all empty; all full."""
-    if pattern == "empty":
-        return np.zeros(nblocks, np.int32)
-    if pattern == "full":
-        return np.full(nblocks, block, np.int32)
-    counts = rng.integers(0, block + 1, nblocks).astype(np.int32)
-    if pattern == "random":
-        counts[[1, 4]] = [0, block]            # an empty and a full block
-    else:                                      # "residues": c mod 4 = b mod 4
-        counts = counts - counts % 4 + np.arange(nblocks) % 4
-        counts[counts > block] -= 4
-        counts[[0, -1]] = [block - 1, 1]
-    return counts
-
-
-@pytest.mark.parametrize("pattern", ["random", "residues", "empty", "full"])
+@pytest.mark.parametrize("kind", ["random", "residues", "alternating",
+                                  "empty", "full"])
 @pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
-def test_concat_ragged_blocks_plain_matches_jax(n_planes, pattern):
+def test_concat_ragged_blocks_plain_matches_jax(n_planes, kind):
+    # the JAX kernel takes counts in [0, block] only
     rng = np.random.default_rng(5 + n_planes)
     nblocks, block = 7, 8 * 128
-    counts = _ragged_counts(pattern, nblocks, block, rng)
+    counts = ragged_counts(rng, kind, nblocks, block).astype(np.int32)
+    if kind == "random":
+        counts[[1, 4]] = [0, block]            # an empty and a full block
     planes = [rng.integers(0, 2**32, (nblocks * 8, 128), dtype=np.uint32)
               for _ in range(n_planes)]
     jouts = jsc.concat_ragged_blocks(
@@ -168,7 +156,8 @@ def test_concat_ragged_blocks_clamps_counts(dtype):
     planes = [torch.from_numpy(rng.integers(-2**31, 2**31, (nblocks, block),
                                             dtype=np.int64).astype(np.int32))
               for _ in range(2)]
-    counts = torch.tensor([-5, 2_000, 3, -2**31, 2**31 - 1, 997], dtype=dtype)
+    big = 2**32 + 3 if dtype == torch.int64 else 2**31 - 1  # low word 3
+    counts = torch.tensor([-5, 2_000, 3, -2**31, big, 997], dtype=dtype)
     clamped = counts.clamp(0, block).to(torch.int32)
     total, outs = tsc.concat_ragged_blocks(planes, counts, with_total=True)
     assert total.dtype == torch.int64 and int(total) == 3_002

@@ -20,7 +20,8 @@ import torch
 
 import flash_hash_join_tpu_torch as ft
 from flash_hash_join_tpu_torch.models.workload import (
-    dense_domain_keys, domain_sides, offset_plane_views)
+    RAGGED_KINDS, dense_domain_keys, domain_sides, offset_plane_views,
+    ragged_counts)
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import range_table as rt
@@ -576,41 +577,17 @@ def test_bucket_probe_kernels_match_plain(dev, r_slots, fill):
                 _assert_same(got, bkp.probe_materialize_vmem_plain(*args))
 
 
-def _ragged_counts(rng, kind, nblocks, block):
-    """Block counts of a named kind: all empty, all full, random, every
-    residue mod 4 (count = block index mod 4, then random multiples of 4),
-    empty and full blocks alternating, and out of range (negative and
-    above block, which the kernel clamps)."""
-    if kind == "empty":
-        return np.zeros(nblocks, np.int64)
-    if kind == "full":
-        return np.full(nblocks, block, np.int64)
-    if kind == "alternating":
-        return np.where(np.arange(nblocks) % 2, block, 0)
-    counts = rng.integers(0, block + 1, nblocks)
-    if kind == "residues":
-        counts = counts - counts % 4 + np.arange(nblocks) % 4
-        counts[counts > block] -= 4
-    elif kind == "out_of_range":
-        counts[::3] = rng.integers(-2**40, 0, counts[::3].size)
-        counts[1::3] = rng.integers(block + 1, 2**40, counts[1::3].size)
-    return counts
-
-
 @pytest.mark.parametrize("n_planes", [1, 2, 3, 4])
-@pytest.mark.parametrize("kind", ["empty", "full", "random", "residues",
-                                  "alternating", "out_of_range"])
+@pytest.mark.parametrize("kind", RAGGED_KINDS)
 def test_concat_ragged_blocks_matches_plain(dev, n_planes, kind):
     # one block and more than 32 x 132 (look-backs over many windows of 32
     # blocks); a block length that is no multiple of 4, so each block's
     # source lies at another 16-byte offset; plane p a view at word offset
-    # (off + p) mod 4; int32 and int64 counts
+    # (off + p) mod 4; int32 and int64 counts (out of range: int32 clipped)
     rng = np.random.default_rng(n_planes)
     gen = torch.Generator(device=dev).manual_seed(n_planes)
     for nblocks, block in ((1, 4_096), (600, 4_096), (5_000, 1_001)):
-        counts64 = _ragged_counts(rng, kind, nblocks, block)
-        if kind != "out_of_range":
-            assert counts64.min() >= 0 and counts64.max() <= block
+        counts64 = ragged_counts(rng, kind, nblocks, block)
         total = int(counts64.clip(0, block).sum())
         for off in range(4):
             planes = []
@@ -621,11 +598,9 @@ def test_concat_ragged_blocks_matches_plain(dev, n_planes, kind):
                                      generator=gen)
                 planes.append(flat[o:].view(nblocks, block))
             for dtype in (torch.int32, torch.int64):
-                if dtype == torch.int32 and kind == "out_of_range":
-                    counts = torch.from_numpy(counts64.clip(
-                        -2**31, 2**31 - 1).astype(np.int32)).to(dev)
-                else:
-                    counts = torch.from_numpy(counts64).to(dtype).to(dev)
+                c = (counts64 if dtype == torch.int64
+                     else counts64.clip(-2**31, 2**31 - 1))
+                counts = torch.from_numpy(c).to(dtype).to(dev)
                 before = sc.concat_ragged_blocks.launches
                 got_total, got = sc.concat_ragged_blocks(planes, counts,
                                                          with_total=True)
