@@ -92,7 +92,7 @@ staged_domain_gather_kernel(const uint32_t* __restrict__ bitmap,
   });
 }
 
-// K9: the copy loop shared with K6 (fhj::copy_planes), the grid sharing it.
+// K9: fhj::copy_planes over one plane, shared by the whole grid.
 __global__ void __launch_bounds__(fhj::kThreads)
 copy_kernel(const uint32_t* __restrict__ src, uint32_t* __restrict__ dst, int64_t n) {
   const uint32_t* s[1] = {src};
