@@ -126,7 +126,7 @@ constexpr int kCopyUnroll = 4;
 // words: one 16-byte load where s is aligned, else four scalar loads that
 // the coalescer merges.  (Realigning aligned 16-byte loads with warp
 // shuffles took 140-198 registers a thread and ran twice as long in K6 on
-// an H100: PERF.md, PR 10.)
+// an H100: PERF.md.)
 __device__ __forceinline__ uint4 load_quad(const uint32_t* __restrict__ s, int shift,
                                            int64_t i) {
   if (shift == 0) return __ldcs(reinterpret_cast<const uint4*>(s) + i);
