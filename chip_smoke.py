@@ -5,8 +5,9 @@ NVIDIA card.
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, one JSON line each on stdout:
-  1. env      torch/CUDA versions, the card, nvcc, and the kernels' build
-              from the checkout's csrc/ (seconds, ptxas register report).
+  1. env      torch/CUDA versions, the card, the host's RAM, nvcc, and the
+              kernels' build from the checkout's csrc/ (seconds, ptxas
+              register report).
   2. kernels  each CUDA kernel against its plain PyTorch version on the
               card (exact): K1 and K2, which read the key planes, at every
               bitmap rung of their bands (K2: 8-256 rows; K1: 512, 16384,
@@ -109,13 +110,31 @@ Phases, one JSON line each on stdout:
               and adaptive_join on J1 1e8 Q1 (direct), rows equal to the
               oracle's in probe order (as in phases 4 and 8), K6 launched
               and K5 not.
+ 12. config3  BASELINE.json config #3, uniform 1e7 x 1e9 at 5 % match
+              (64-bit keys, partitioned), made in the phase and freed
+              after: adaptive_join_count and join_materialize(return_arrays=
+              True) at the card's own budget (one chunk) and with the
+              planner's budget patched to 4 chunks, streamed by the depth-2
+              pipeline and serially (FHJ_CHUNK_OVERLAP=0): count and rows
+              equal to the oracle (the probe keys below 2^62, in probe
+              order), probe_chunks 1 or 4, no merge retry; core, wall and
+              peak allocated and reserved bytes a probe row.
+ 13. stream_direct  J1 1e8 Q5 adaptive_join_count planned in 4 chunks: the
+              main phase's count, direct, K1 launched once a chunk.
+ 14. measure  measure_device_seconds on bench.py's 4e7 cell and J1 1e8 Q5:
+              the oracle's count, chained False, 0 < device_seconds <=
+              single_call_seconds, beside the main phase's best core.
+ 15. primitives  db-benchmark groupby G1 (1e8 rows, id6 over [1, 1e6], v1
+              over [1, 5]): hash_aggregate, filter_columns on between_u64,
+              sort_u64, radix_partition_by_hash(pbits=8), each exact
+              against numpy and timed.
 Kernel times, two readings: "ms", each call alone between two CUDA events
 (cuda_ms, whose window holds the wrapper's host work); "ms_b2b", runs of
 calls back to back (cuda_ms_b2b, where that work overlaps the card's).
 Phases 3-5 and 8-11 time a warm-up and then the best of the following
 runs: core_seconds (device time), wall seconds, probe rows/s, peak device
 bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5,
-8, 9 and 11 and read just after.  Then the seconds of each phase, the
+8, 9 and 11-15 and read just after.  Then the seconds of each phase, the
 kernels summary (the 11 TPU kernels' counterparts and the range table's
 directory build: each one's launches on its path, error against its plain
 version, times, bound and library time), the card's name and power
@@ -129,8 +148,10 @@ before doing anything.  It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import itertools
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -333,6 +354,8 @@ def phase_env():
          count=torch.cuda.device_count(),
          nvidia_smi=run(["nvidia-smi", "--query-gpu=name,power.limit",
                          "--format=csv,noheader"]),
+         host_ram_bytes=os.sysconf("SC_PAGE_SIZE") * os.sysconf(
+             "SC_PHYS_PAGES"),
          nvcc=run([_build._nvcc(), "--version"]).splitlines()[-1],
          build_seconds=build_s, ptxas=ptxas_usage(report))
 
@@ -930,26 +953,28 @@ def phase_dense_kernels(cells: dict) -> dict:
 
 
 def _timed_runs(fn, c, reps: int):
-    """A warm-up call, then `reps` timed calls; returns (best core,
-    best wall, all core seconds, last result)."""
+    """A warm-up call, then `reps` timed calls (reps 0: the one call is
+    timed); returns (best core, best wall, all core seconds, last
+    result)."""
     runs = []
     for _ in range(reps + 1):
         t0 = time.perf_counter()
         res = fn(c.build_keys, c.build_values, c.probe_keys, device="cuda",
                  return_info=True)
         runs.append((res[1], time.perf_counter() - t0))
-    return (min(r[0] for r in runs[1:]), min(r[1] for r in runs[1:]),
+    timed = runs[1:] or runs                           # reps 0: the one call
+    return (min(r[0] for r in timed), min(r[1] for r in timed),
             [r[0] for r in runs], res)
 
 
-def phase_main(cells: dict) -> tuple[dict, dict]:
+def phase_main(cells: dict) -> tuple[dict, dict, dict]:
     import torch
     import flash_hash_join_tpu_torch as ft
     expect = {"4e7-Q1": "scan_domain_count", "4e7-Q2": "scan_domain_count",
               "4e7-Q5": "dense_bitmap", "bench-4e7": "dense_bitmap",
               "1e8-Q5": "dense_bitmap"}
     want = {name: int(oracle(name, cells[name])[0].sum()) for name in expect}
-    core = {}
+    core, counts = {}, {}
     zero_launches()
     for name in expect:
         c = cells[name]
@@ -962,14 +987,15 @@ def phase_main(cells: dict) -> tuple[dict, dict]:
                 f"{name}: routed {info}")
         require(info["launches"][expect[name]] > 0,
                 f"{name}: {expect[name]} not launched: {info}")
-        core[name] = best
+        core[name], counts[name] = best, count
         emit("main", cell=name, nb=len(c.build_keys), npr=len(c.probe_keys),
              count=count, oracle=want[name], strategy=info["strategy"],
              d_rows=info["d_rows"], launches=info["launches"],
              core_seconds=best, probe_rows_per_s=len(c.probe_keys) / best,
              wall_seconds=wall, core_seconds_runs=runs,
              peak_device_bytes=torch.cuda.max_memory_allocated())
-    return require_launched("main", ("dense_bitmap", "scan_domain_count")), core
+    return (require_launched("main", ("dense_bitmap", "scan_domain_count")),
+            core, counts)
 
 
 def check_rows(name: str, c, keys, vals, probe_order: bool) -> None:
@@ -1520,6 +1546,310 @@ def phase_stream_compact(cells: dict) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def planned_chunks(nb: int, npr: int, mode: str, chunks: int):
+    """Patch the planner's budget (api.hbm_budget_bytes) to the least one
+    under which models/cost.py plans `chunks` probe chunks for this shape
+    (chunks 1: the card's own budget, unpatched)."""
+    from flash_hash_join_tpu_torch import api
+    from flash_hash_join_tpu_torch.models import cost
+
+    def plan(budget: int) -> int:
+        try:
+            return cost.plan_probe_chunks(nb, npr, mode, budget)
+        except MemoryError:
+            return npr + 1
+    real = api.hbm_budget_bytes
+    if chunks == 1:
+        require(plan(real("cuda")) == 1, f"{mode} {nb} x {npr} does not "
+                "plan one chunk at the card's budget")
+        yield real("cuda")
+        return
+    lo, hi = 1, 1 << 50
+    while lo < hi:                     # the least budget planning <= chunks
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if plan(mid) <= chunks else (mid + 1, hi)
+    require(plan(lo) == chunks, f"no budget plans {chunks} chunks")
+    api.hbm_budget_bytes = lambda dev: lo
+    try:
+        yield lo
+    finally:
+        api.hbm_budget_bytes = real
+
+
+@contextlib.contextmanager
+def chunk_overlap(on: bool):
+    """FHJ_CHUNK_OVERLAP unset (the depth-2 pipeline) or "0" (serial)."""
+    if on:
+        yield
+        return
+    os.environ["FHJ_CHUNK_OVERLAP"] = "0"
+    try:
+        yield
+    finally:
+        del os.environ["FHJ_CHUNK_OVERLAP"]
+
+
+def config3_case():
+    """BASELINE.json config #3 and its oracle: uniform_case puts the
+    misses in [2^62, 2^63) and draws the hits from the build keys, so the
+    count is the number of probe keys below 2^62 and the rows are those
+    keys in probe order, each with the value of the minimum build row of
+    its key (np.searchsorted of the hits alone; the sorted oracle() over
+    1e9 keys would take minutes)."""
+    from flash_hash_join_tpu_torch.models.workload import uniform_case
+    t0 = time.perf_counter()
+    c = uniform_case(10_000_000, 1_000_000_000, 0.05)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    keys = c.probe_keys[c.probe_keys < 2**62]
+    uniq, first = np.unique(c.build_keys, return_index=True)
+    order = np.argsort(keys)              # sorted searches, as in oracle()
+    pos = np.empty_like(order)
+    pos[order] = np.searchsorted(uniq, keys[order])
+    require(np.array_equal(uniq[pos], keys), "config #3: a hit key is not "
+            "a build key")
+    vals = c.build_values[first[pos]]
+    return c, keys, vals, gen_s, time.perf_counter() - t0
+
+
+def phase_config3() -> dict:
+    """BASELINE.json config #3, 1e7 x 1e9 at 5 % match (64-bit keys, so
+    partitioned): adaptive_join_count and join_materialize(return_arrays=
+    True), each at the card's own budget (one chunk) and with the budget
+    patched to plan 4 chunks, streamed both ways (the depth-2 pipeline and
+    FHJ_CHUNK_OVERLAP=0); a warm-up and 2 calls a run, then one serial
+    call.  Count and rows equal the oracle, probe_chunks as planned, no
+    merge retry, K3 or K4 and K5 launched.  The data is made here and
+    freed after."""
+    import torch
+    import flash_hash_join_tpu_torch as ft
+    c, want_keys, want_vals, gen_s, oracle_s = config3_case()
+    want = len(want_keys)
+    nb, npr = len(c.build_keys), len(c.probe_keys)
+    emit("config3_data", nb=nb, npr=npr, oracle=want, generate_seconds=gen_s,
+         oracle_seconds=oracle_s)
+    torch.cuda.empty_cache()
+    zero_launches()
+    out = {}
+    for mode, fn, kernels in (
+            ("count", ft.adaptive_join_count, ("range_probe_count",)),
+            ("materialize", functools.partial(ft.join_materialize,
+                                              return_arrays=True),
+             ("range_probe_materialize", "compact"))):
+        for chunks in (1, 4):
+            with planned_chunks(nb, npr, mode, chunks) as budget:
+                for overlap in ((True,) if chunks == 1 else (True, False)):
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    with chunk_overlap(overlap):
+                        best, wall, runs, res = _timed_runs(
+                            fn, c, reps=2 if overlap else 0)
+                    count, info = res[0], res[-1]
+                    require(count == want, f"config3 {mode} {chunks}: count "
+                            f"{count} != oracle {want}")
+                    require(info["probe_chunks"] == chunks
+                            and info["strategy"] == "partitioned"
+                            and not info["retried"],
+                            f"config3 {mode} {chunks}: routed {info}")
+                    require(all(info["launches"][k] > 0 for k in kernels),
+                            f"config3 {mode}: kernels not launched: {info}")
+                    if mode == "materialize":
+                        require(np.array_equal(res[2], want_keys)
+                                and np.array_equal(res[3], want_vals),
+                                f"config3 {chunks} chunks: rows differ from "
+                                "the oracle")
+                    out[mode, chunks, overlap] = best
+                    emit("config3", mode=mode, probe_chunks=chunks,
+                         overlap=overlap, budget_bytes=budget, count=count,
+                         oracle=want, core_seconds=best,
+                         core_seconds_runs=runs, wall_seconds=wall,
+                         probe_rows_per_s=npr / best,
+                         launches=info["launches"],
+                         peak_allocated_per_probe_row=(
+                             torch.cuda.max_memory_allocated() / npr),
+                         peak_reserved_per_probe_row=(
+                             torch.cuda.max_memory_reserved() / npr))
+        emit("config3_summary", mode=mode,
+             single_shot_core_seconds=out[mode, 1, True],
+             streamed_core_seconds=out[mode, 4, True],
+             streamed_serial_core_seconds=out[mode, 4, False],
+             note="streamed core with the overlap is the loop's wall time, "
+                  "host->device copies included; serial is the sum of the "
+                  "chunks' CUDA-event times")
+    del c, want_keys, want_vals
+    torch.cuda.empty_cache()
+    return require_launched("config3", ("range_directory",
+                                        "range_probe_count",
+                                        "range_probe_materialize", "compact"))
+
+
+def phase_stream_direct(cells: dict, main_counts: dict,
+                        direct_core: dict) -> dict:
+    """J1 1e8 Q5 adaptive_join_count with the budget patched to plan 4
+    chunks: each chunk runs direct (K1 once a chunk), and the count equals
+    the main phase's single shot."""
+    import flash_hash_join_tpu_torch as ft
+    name = "1e8-Q5"
+    c = cells[name]
+    nb, npr = len(c.build_keys), len(c.probe_keys)
+    zero_launches()
+    core = {}
+    with planned_chunks(nb, npr, "count", 4):
+        for overlap in (True, False):
+            with chunk_overlap(overlap):
+                best, wall, runs, (count, _, info) = _timed_runs(
+                    ft.adaptive_join_count, c, reps=2)
+            require(count == main_counts[name],
+                    f"stream_direct: {count} != main's {main_counts[name]}")
+            require(info["strategy"] == "direct" and not info["retried"]
+                    and info["probe_chunks"] == 4
+                    and info["launches"]["dense_bitmap"] == 4,
+                    f"stream_direct: routed {info}")
+            core[overlap] = best
+            emit("stream_direct", cell=name, overlap=overlap, count=count,
+                 probe_chunks=4, d_rows=info["d_rows"],
+                 launches=info["launches"], core_seconds=best,
+                 core_seconds_runs=runs, wall_seconds=wall)
+    emit("stream_direct_summary", cell=name,
+         single_shot_core_seconds=direct_core[name],
+         streamed_core_seconds=core[True],
+         streamed_serial_core_seconds=core[False])
+    return require_launched("stream_direct", ("dense_bitmap",))
+
+
+def phase_measure(cells: dict, direct_core: dict) -> dict:
+    """measure_device_seconds on bench.py's 4e7 cell and J1 1e8 Q5: the
+    oracle's count, chained False, 0 < device_seconds <= the single call's,
+    beside the main phase's best core."""
+    import flash_hash_join_tpu_torch as ft
+    zero_launches()
+    for name in ("bench-4e7", "1e8-Q5"):
+        c = cells[name]
+        want = int(oracle(name, c)[0].sum())
+        count, dev_s, single, chained = ft.measure_device_seconds(
+            c.build_keys, c.build_values, c.probe_keys)
+        require(count == want and chained is False
+                and 0 < dev_s <= single,
+                f"measure {name}: {count, dev_s, single, chained}, oracle "
+                f"{want}")
+        emit("measure", cell=name, count=count, device_seconds=dev_s,
+             single_call_seconds=single, chained=chained,
+             main_core_seconds=direct_core[name])
+    return require_launched("measure", ("dense_bitmap",))
+
+
+def hash_u64_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    """ops/hashing.hash_u64 in numpy uint32 arithmetic (wraps mod 2^32)."""
+    def fmix32(h):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
+    return fmix32(fmix32(lo) ^ (hi * np.uint32(0x9E3779B9)))
+
+
+def phase_primitives() -> dict:
+    """The query primitives at db-benchmark groupby G1 scale (h2oai/
+    db-benchmark _data/groupby-datagen.R, G1_1e8_1e2_0_0: 1e8 rows, id6
+    uniform over [1, 1e6], v1 over [1, 5]): hash_aggregate of v1 by id6,
+    filter_columns on between_u64, sort_u64 of id6 with the row number,
+    radix_partition_by_hash(pbits=8); each exact against numpy (integer
+    bincounts, a stable argsort) and timed with CUDA events (cuda_ms)."""
+    import torch
+    from flash_hash_join_tpu_torch import ops
+    from flash_hash_join_tpu_torch.ops.filter import between_u64
+    from flash_hash_join_tpu_torch.utils.u64 import (device_planes, split_u64,
+                                                     to_numpy_u64)
+    n = 100_000_000
+    rng = np.random.default_rng(1)
+    id6 = rng.integers(1, 1_000_001, n, dtype=np.uint64)
+    v1 = rng.integers(1, 6, n, dtype=np.uint64)
+    dev = torch.device("cuda")
+    kh, kl = device_planes(id6, dev)
+    vh, vl = device_planes(v1, dev)
+    zero_launches()
+    ms = {}
+
+    def u64(hi, lo, count=n):
+        return to_numpy_u64(hi, lo, count)
+
+    # hash_aggregate: count, sum, min, max of v1 by id6
+    ms["hash_aggregate"] = cuda_ms(
+        lambda: ops.hash_aggregate(kh, kl, vh, vl, n), reps=3)
+    g = ops.hash_aggregate(kh, kl, vh, vl, n)
+    ng = int(g.n_groups)
+    ids = id6.view(np.int64)                           # all below 2^63
+    by_v = np.stack([np.bincount(ids[v1 == v], minlength=1_000_001)
+                     for v in range(1, 6)])
+    counts = by_v.sum(0)
+    keys = u64(g.key_hi, g.key_lo, ng).astype(np.int64)
+    present = np.flatnonzero(counts)
+    require(ng == present.size and np.array_equal(np.sort(keys), present),
+            "hash_aggregate: groups differ from numpy")
+    want_sum = (np.arange(1, 6)[:, None] * by_v).sum(0)
+    want_min = np.argmax(by_v > 0, 0) + 1
+    want_max = 5 - np.argmax(by_v[::-1] > 0, 0)
+    require(np.array_equal(g.count[:ng].cpu().numpy(), counts[keys])
+            and np.array_equal(u64(g.sum_hi, g.sum_lo, ng), want_sum[keys])
+            and np.array_equal(u64(g.min_hi, g.min_lo, ng), want_min[keys])
+            and np.array_equal(u64(g.max_hi, g.max_lo, ng), want_max[keys]),
+            "hash_aggregate: count, sum, min or max differ from numpy")
+    del g, by_v
+
+    # filter_columns on between_u64
+    lo_c, hi_c = (0, 250_000), (0, 750_000)
+    ms["filter_columns"] = cuda_ms(lambda: ops.filter_columns(
+        between_u64(kh, kl, lo_c, hi_c), kh, kl, vh, vl), reps=3)
+    count, fkh, fkl, fvh, fvl = ops.filter_columns(
+        between_u64(kh, kl, lo_c, hi_c), kh, kl, vh, vl)
+    count = int(count)
+    sel = (id6 >= 250_000) & (id6 <= 750_000)
+    require(count == int(sel.sum())
+            and np.array_equal(u64(fkh, fkl, count), id6[sel])
+            and np.array_equal(u64(fvh, fvl, count), v1[sel])
+            and not any(bool(p[count:].any()) for p in (fkh, fkl, fvh, fvl)),
+            "filter_columns: rows differ from numpy")
+    del fkh, fkl, fvh, fvl, sel
+
+    # sort_u64: stable, so the row numbers of equal keys stay ascending
+    rows = torch.arange(n, device=dev)
+    ms["sort_u64"] = cuda_ms(lambda: ops.sort_u64(kh, kl, rows), reps=3)
+    skh, skl, srow = ops.sort_u64(kh, kl, rows)
+    want_sorted = np.repeat(np.arange(1_000_001, dtype=np.uint64), counts)
+    srow = srow.cpu().numpy()
+    require(np.array_equal(u64(skh, skl), want_sorted)
+            and np.array_equal(id6[srow], want_sorted)
+            and bool(np.all((want_sorted[1:] != want_sorted[:-1])
+                            | (srow[1:] > srow[:-1]))),
+            "sort_u64: differs from numpy's sort, or is not stable")
+    del skh, skl, srow, rows, want_sorted
+
+    # radix_partition_by_hash: offsets and rows against numpy
+    ms["radix_partition_by_hash"] = cuda_ms(
+        lambda: ops.radix_partition_by_hash((kh, kl, vh, vl), kh, kl,
+                                            pbits=8), reps=3)
+    part = ops.radix_partition_by_hash((kh, kl, vh, vl), kh, kl, pbits=8)
+    pid = (hash_u64_np(*split_u64(id6)) >> np.uint32(24)).astype(np.uint8)
+    order = np.argsort(pid, kind="stable")
+    want_offsets = np.concatenate([[0], np.cumsum(np.bincount(
+        pid, minlength=256))])
+    require(np.array_equal(part.offsets.cpu().numpy(), want_offsets)
+            and np.array_equal(part.pid.cpu().numpy(), pid[order])
+            and np.array_equal(u64(*part.cols[:2]), id6[order])
+            and np.array_equal(u64(*part.cols[2:]), v1[order]),
+            "radix_partition_by_hash: differs from numpy")
+    del part, order, pid
+    for name, t in ms.items():
+        emit("primitives", primitive=name, rows=n, ms=t,
+             rows_per_s=n / t * 1e3)
+    launches = require_launched("primitives", ("compact",))
+    del kh, kl, vh, vl
+    torch.cuda.empty_cache()
+    return launches
+
+
 def make_cells() -> dict:
     from flash_hash_join_tpu_torch.models.workload import (
         JoinCase, j1_suite, uniform_case)
@@ -1572,7 +1902,7 @@ def main() -> int:
                          cells))
     summary.update(phase("dense_kernels", phase_dense_kernels, cells))
     summary.update(phase("bucket_kernels", phase_bucket_kernels, cells))
-    launches, direct_core = phase("main", phase_main, cells)
+    launches, direct_core, main_counts = phase("main", phase_main, cells)
     radix = phase("radix", phase_radix, cells)
     for k in ("range_directory", "range_probe_count",
               "range_probe_materialize", "compact"):
@@ -1591,6 +1921,11 @@ def main() -> int:
     phase("global", phase_global, cells)
     stream = phase("stream_compact", phase_stream_compact, cells)
     launches["concat_ragged_blocks"] = stream["concat_ragged_blocks"]
+    phase("config3", phase_config3)
+    phase("stream_direct", phase_stream_direct, cells, main_counts,
+          direct_core)
+    phase("measure", phase_measure, cells, direct_core)
+    phase("primitives", phase_primitives)
     emit("seconds", total=time.perf_counter() - t0, **seconds)
     src = "flash_hash_join_tpu_torch/csrc/"
     print(json.dumps({"kernels": [

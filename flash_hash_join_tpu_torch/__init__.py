@@ -7,7 +7,12 @@ kernels (csrc/):
     hash_join_count_radix[_bloom] and initialize;
   * `join_count` and `join_materialize` with strategy "adaptive",
     "direct", "partitioned", "merge", "global" or "vmem";
-  * `plan_strategy`, `bloom_is_distinct` and `launch_counts`.
+  * `plan_strategy`, `bloom_is_distinct`, `launch_counts` and
+    `measure_device_seconds`;
+  * a probe side past the device's memory streams from the host in
+    chunks (api._run_chunked);
+  * the query primitives in `ops`: hash_aggregate, filter_columns and the
+    u64 predicates, sort_u64, radix_partition_by_hash, compact_by_mask.
 It imports neither jax nor the JAX package, which stays in the repository
 as the reference the tests hold this package against.
 
@@ -33,7 +38,8 @@ from flash_hash_join_tpu_torch.api import (  # noqa: F401
     join_count,
     join_materialize,
     launch_counts,
+    measure_device_seconds,
     plan_strategy,
 )
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -5,11 +5,20 @@ STRATEGY: the adaptive plan is the constant "partitioned" (the range-table
 tier, ops/range_table.py), as in the JAX package; api.py upgrades a count
 over a dense key domain to "direct" from the keys.
 
-FEASIBILITY: the device must hold the build side plus one probe chunk and
-its transients.  The budget is the card's own memory times the JAX
-package's headroom ratio (12 GiB of a 16 GiB v5e = 12/16).  Host-side chunk
-streaming is not ported yet: api.py raises NotImplementedError when the
-plan asks for more than one chunk.
+FEASIBILITY: the device holds the build side with its range table, one
+probe chunk's input planes (8 B a row) and the chunk's transients; a
+materialize also holds the chunk's four compacted output planes (16 B a
+row).  A plan that needs more than one chunk streams them from the host
+(api._run_chunked) through a depth-2 pipeline, which also holds the next
+chunk's input planes and, for a materialize, the previous chunk's output
+planes until they are read back.  The budget is the card's own memory
+times HBM_HEADROOM.  The constants are the partitioned tier's peak
+RESERVED device memory (torch.cuda.max_memory_reserved: the caching
+allocator runs out on what it reserves, not on what is allocated) on an
+H100, read by scripts/calibrate_planner.py at the same build side and two
+probe sides (BASELINE.json configs #2 and #3): the slope gives the bytes a
+probe row, the intercept the bytes a build row; each with a margin
+(PERF.md section 2).
 """
 
 from __future__ import annotations
@@ -21,15 +30,26 @@ import torch
 
 from flash_hash_join_tpu_torch.utils.config import JoinConfig
 
-# Share of device memory the planner may fill (the JAX package's 12 GiB
-# budget on a 16 GiB chip).
+# Share of device memory the planner may fill: the JAX package's 12 GiB of a
+# 16 GiB chip.  Kept on the H100: the calibrated constants carry their own
+# margin, and a quarter of the card stays free for the caching allocator's
+# other pools and the CUDA context.
 HBM_HEADROOM = 12 / 16
 
-# Device bytes per probe row while a chunk is in flight, beyond its 8
-# input-plane bytes.  These are the JAX package's TPU v5e calibrations
-# (round-3 runs); they still have to be re-measured on the H100.
-TRANSIENT_BYTES_COUNT = 40
-TRANSIENT_BYTES_MATERIALIZE = 56
+# NVIDIA H100 80GB HBM3 at 700 W, peak reserved bytes of the partitioned
+# tier (scripts/calibrate_planner.py; 1e7 build rows at 1e8 and 1e9 probe
+# rows): count 8.00 B a probe row and 70.3 a build row, materialize 33.1
+# and 59.5; the constants below are those times 1.10, rounded up.
+# Device bytes a build row: input planes, the sort, the range table and
+# its directory.
+BUILD_BYTES_COUNT = 78
+BUILD_BYTES_MATERIALIZE = 66
+
+# Device bytes a probe row while a chunk is in flight, beyond its 8
+# input-plane bytes (and, for a materialize, its 16 output-plane bytes):
+# K3 keeps nothing a row; K4's mask and value planes are 9.
+TRANSIENT_BYTES_COUNT = 1
+TRANSIENT_BYTES_MATERIALIZE = 13
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,23 +73,22 @@ def hbm_budget_bytes(device) -> int:
 def plan_probe_chunks(n_build: int, n_probe: int, mode: str,
                       budget_bytes: int) -> int:
     """Number of probe chunks that fit the budget; 1 means single-shot."""
-    fixed = 16 * n_build + 16 * n_build  # input planes + range table
     if mode == "materialize":
-        fixed += 8 * n_build  # value planes in the table
+        fixed = BUILD_BYTES_MATERIALIZE * n_build
         per_row = 8 + 16 + TRANSIENT_BYTES_MATERIALIZE
+        pipelined = 8 + 16   # the next chunk's input, the last one's output
     else:
+        fixed = BUILD_BYTES_COUNT * n_build
         per_row = 8 + TRANSIENT_BYTES_COUNT
+        pipelined = 8        # the next chunk's input planes
     avail = budget_bytes - fixed
     if avail <= 0:
         raise MemoryError(
             f"build side of {n_build} rows alone exceeds the single-device "
             "memory budget")
-    chunk_rows = avail // per_row
-    if chunk_rows >= n_probe:
+    if avail // per_row >= n_probe:
         return 1
-    # A depth-2 chunk pipeline holds the NEXT chunk's input planes
-    # (8 B/row) while the current one runs, so chunked plans budget both.
-    chunk_rows = avail // (per_row + 8)
+    chunk_rows = avail // (per_row + pipelined)
     return -(-n_probe // max(chunk_rows, 1))
 
 

@@ -120,18 +120,30 @@ def test_split_u64_planes_match_jax():
         tu64.join_u64(tu64.to_numpy_u32(hi), tu64.to_numpy_u32(lo)), keys)
 
 
-def test_config_and_cost_model_match_jax():
+def test_config_and_cost_model_match_jax(monkeypatch):
     assert tcfg.JoinConfig() == tcfg.DEFAULT_CONFIG
     for f in ("group_size", "growth", "overflow_groups", "probe_chunk",
               "max_probe_iters", "bloom_k", "min_groups"):
         assert getattr(tcfg.DEFAULT_CONFIG, f) == getattr(
             jcfg.DEFAULT_CONFIG, f), f
+    # the port's planner has the H100's constants; with the JAX package's
+    # (v5e) ones it plans what the JAX package plans, but for the
+    # materialize stream, which also holds the previous chunk's output
+    for name, value in (("BUILD_BYTES_COUNT", 32),
+                        ("BUILD_BYTES_MATERIALIZE", 40),
+                        ("TRANSIENT_BYTES_COUNT",
+                         jcost.TRANSIENT_BYTES_COUNT),
+                        ("TRANSIENT_BYTES_MATERIALIZE",
+                         jcost.TRANSIENT_BYTES_MATERIALIZE)):
+        monkeypatch.setattr(tcost, name, value)
     budget = 12 * 1024**3
     for nb, npr in ((1_000, 10_000), (40_000_000, 40_000_000),
                     (10_000_000, 1_000_000_000)):
-        for mode in ("count", "materialize"):
-            assert tcost.plan_probe_chunks(nb, npr, mode, budget) == \
-                jcost.plan_probe_chunks(nb, npr, mode, budget)
+        assert tcost.plan_probe_chunks(nb, npr, "count", budget) == \
+            jcost.plan_probe_chunks(nb, npr, "count", budget)
+        t, j = (cost.plan_probe_chunks(nb, npr, "materialize", budget)
+                for cost in (tcost, jcost))
+        assert (t == 1) == (j == 1) and t >= j
         assert tcfg.DEFAULT_CONFIG.group_bits(nb) == \
             jcfg.DEFAULT_CONFIG.group_bits(nb)
     with pytest.raises(MemoryError):
@@ -140,11 +152,15 @@ def test_config_and_cost_model_match_jax():
 
 
 def test_chunked_plan_is_not_ported(monkeypatch):
-    monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 2_000_000)
+    # a plan of more than one chunk streams (it raised before the stream
+    # was ported); a dense count streams on the direct strategy
+    monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 300_000)
     bk = np.arange(1_000, dtype=np.uint64)
     pk = np.arange(100_000, dtype=np.uint64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.adaptive_join_count(bk, bk, pk, device="cpu")
+    count, _, info = ft.adaptive_join_count(bk, bk, pk, device="cpu",
+                                            return_info=True)
+    assert count == 1_000 and info["probe_chunks"] > 1
+    assert info["strategy"] == "direct" and not info["retried"]
 
 
 def test_special_channel_reruns_on_merge(monkeypatch):
@@ -485,11 +501,52 @@ def test_materialize_edge_cases():
 
 
 def test_partitioned_plan_chunks_are_not_ported(monkeypatch):
-    monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 2_000_000)
+    # partitioned plans of more than one chunk stream, count and rows
+    monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 300_000)
     bk = np.arange(1_000, dtype=np.uint64) << np.uint64(40)
     pk = np.arange(100_000, dtype=np.uint64)
-    for fn in (ft.hash_join_count_radix, ft.adaptive_join):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(bk, bk, pk, device="cpu")
+    pk[::7] = np.resize(bk, pk[::7].size)
+    want = oracle_count(bk, pk)
+    count, _, info = ft.hash_join_count_radix(bk, bk, pk, device="cpu",
+                                              return_info=True)
+    assert count == want and info["probe_chunks"] > 1
+    count, _, info = ft.adaptive_join(bk, bk, pk, device="cpu",
+                                      return_info=True)
+    assert count == want and info["probe_chunks"] > 1
+    assert info["strategy"] == "partitioned"
     # an explicit merge does not plan chunks
-    assert ft.join_count(bk, bk, pk, strategy="merge", device="cpu")[0] == 1
+    count, _, info = ft.join_count(bk, bk, pk, strategy="merge",
+                                   device="cpu", return_info=True)
+    assert count == want and info["probe_chunks"] == 1
+
+
+@pytest.mark.parametrize("name", ["4e7-Q5-shaped", "sparse", "chunked"])
+def test_measure_device_seconds_matches_jax_count(monkeypatch, name):
+    # held against the JAX package's join_count: its measure_device_seconds
+    # compiles a chained scan and is a slow test
+    rng = np.random.default_rng(12)
+    if name == "sparse":
+        case = twl.uniform_case(3_000, 20_000, 0.3, seed=12)
+        bk, bv, pk = case.build_keys, case.build_values, case.probe_keys
+    else:
+        bk = rng.integers(0, 44_000, 40_000, dtype=np.uint64)
+        bv = rng.integers(0, 2**63, 40_000, dtype=np.uint64)
+        pk = rng.integers(0, 44_000, 40_000, dtype=np.uint64)
+    if name == "chunked":
+        monkeypatch.setattr(tapi, "choose_plan", lambda nb, npr, cfg, mode,
+                            budget: tcost.JoinPlan("partitioned", 10, 2))
+    count, dev_s, single, chained = ft.measure_device_seconds(
+        bk, bv, pk, device="cpu", number=2, reps=7)
+    assert count == fj.join_count(bk, bv, pk)[0] == oracle_count(bk, pk)
+    assert chained is False and 0 < dev_s <= single
+    if name == "chunked":                    # a stream is timed once
+        assert dev_s == single
+    mcount, *_ = ft.measure_device_seconds(bk, bv, pk, mode="materialize",
+                                           strategy="partitioned",
+                                           device="cpu", number=1)
+    assert mcount == count
+    empty = np.zeros(0, np.uint64)
+    assert ft.measure_device_seconds(empty, empty, pk, device="cpu") == (
+        0, 0.0, 0.0, False)
+    with pytest.raises(ValueError):
+        ft.measure_device_seconds(bk, bv, pk, strategy="nope", device="cpu")

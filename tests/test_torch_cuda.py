@@ -682,3 +682,92 @@ def test_stream_compaction_on_card(dev, monkeypatch):
     assert int(stream[0]) == count == int(mask.sum())
     for s, p in zip(stream[1], pack[1]):
         assert torch.equal(s[:count], p[:count])
+
+
+@pytest.fixture
+def planned(monkeypatch):
+    """force(k): the planner plans k probe chunks for every shape."""
+    from flash_hash_join_tpu_torch import api
+    from flash_hash_join_tpu_torch.models.cost import JoinPlan
+
+    def force(k):
+        monkeypatch.setattr(api, "choose_plan", lambda nb, npr, cfg, mode,
+                            budget: JoinPlan("partitioned",
+                                             cfg.group_bits(nb), k))
+    return force
+
+
+@pytest.mark.parametrize("chunks", [2, 7])
+@pytest.mark.parametrize("overlap", ["1", "0"])
+def test_chunk_stream_on_card_equals_single_shot(dev, planned, monkeypatch,
+                                                 chunks, overlap):
+    # the pinned staging buffers, the copy stream and the depth-2 pipeline
+    # (overlap "1"), or one chunk after another ("0")
+    from flash_hash_join_tpu_torch.models.workload import uniform_case
+    c = uniform_case(200_003, 3_000_007, 0.3, seed=chunks)
+    args = (c.build_keys, c.build_values, c.probe_keys)
+    want = ft.join_count(*args)[0]
+    _, _, want_keys, want_vals = ft.join_materialize(*args,
+                                                     return_arrays=True)
+    assert want == int((c.probe_keys < 2**62).sum())
+    monkeypatch.setenv("FHJ_CHUNK_OVERLAP", overlap)
+    planned(chunks)
+    count, core, info = ft.join_count(*args, return_info=True)
+    assert count == want and core > 0
+    assert info["probe_chunks"] == chunks and not info["retried"]
+    assert info["launches"]["range_probe_count"] == chunks
+    count, _, keys, vals, info = ft.join_materialize(
+        *args, return_arrays=True, return_info=True)
+    assert count == want and info["probe_chunks"] == chunks
+    assert info["strategy"] == "partitioned" and not info["retried"]
+    np.testing.assert_array_equal(keys, want_keys)    # chunk order = probe
+    np.testing.assert_array_equal(vals, want_vals)
+
+
+@pytest.mark.parametrize("planned_chunks", [1, 2])
+def test_chunk_stream_doubles_on_a_real_out_of_memory(dev, planned,
+                                                      monkeypatch,
+                                                      planned_chunks):
+    # a chunk past 500_000 rows asks the allocator for 4 TB, which raises
+    # a real torch.cuda.OutOfMemoryError: the single shot falls back to 2
+    # chunks, the stream doubles to 4
+    from flash_hash_join_tpu_torch import api
+    from flash_hash_join_tpu_torch.models.workload import uniform_case
+    real = api._graph
+
+    def greedy(*a, **kw):
+        fn = real(*a, **kw)
+
+        def run(*args):
+            if args[4].numel() > 500_000:
+                torch.empty(1 << 42, dtype=torch.uint8, device=args[4].device)
+            return fn(*args)
+        return run
+
+    monkeypatch.setattr(api, "_graph", greedy)
+    planned(planned_chunks)
+    c = uniform_case(100_003, 1_500_001, 0.3, seed=5)
+    args = (c.build_keys, c.build_values, c.probe_keys)
+    want = int((c.probe_keys < 2**62).sum())
+    count, _, info = ft.join_count(*args, return_info=True)
+    assert count == want and info["probe_chunks"] == 4
+    count, _, keys, _, info = ft.join_materialize(*args, return_arrays=True,
+                                                  return_info=True)
+    assert count == want and info["probe_chunks"] == 4
+    np.testing.assert_array_equal(keys, c.probe_keys[c.probe_keys < 2**62])
+
+
+def test_chunk_stream_reuses_its_device_blocks_across_calls(dev, planned):
+    # one copy stream a card: the caching allocator keeps a pool a stream,
+    # so a stream a call would strand each call's chunk planes
+    from flash_hash_join_tpu_torch.models.workload import uniform_case
+    c = uniform_case(100_003, 4_000_001, 0.3, seed=9)
+    args = (c.build_keys, c.build_values, c.probe_keys)
+    planned(4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    want = ft.join_count(*args)[0]
+    reserved = torch.cuda.memory_reserved()
+    for _ in range(3):
+        assert ft.join_count(*args)[0] == want
+    assert torch.cuda.memory_reserved() <= reserved
