@@ -1548,31 +1548,23 @@ def phase_stream_compact(cells: dict) -> dict:
 
 @contextlib.contextmanager
 def planned_chunks(nb: int, npr: int, mode: str, chunks: int):
-    """Patch the planner's budget (api.hbm_budget_bytes) to the least one
-    under which models/cost.py plans `chunks` probe chunks for this shape
-    (chunks 1: the card's own budget, unpatched)."""
+    """Patch the planner's budget (api.hbm_budget_bytes) to one under
+    which models/cost.py plans `chunks` probe chunks for this shape: the
+    build side and a chunk of ceil(npr / chunks) rows in the depth-2
+    pipeline (chunks 1: the card's own budget)."""
     from flash_hash_join_tpu_torch import api
     from flash_hash_join_tpu_torch.models import cost
-
-    def plan(budget: int) -> int:
-        try:
-            return cost.plan_probe_chunks(nb, npr, mode, budget)
-        except MemoryError:
-            return npr + 1
     real = api.hbm_budget_bytes
-    if chunks == 1:
-        require(plan(real("cuda")) == 1, f"{mode} {nb} x {npr} does not "
-                "plan one chunk at the card's budget")
-        yield real("cuda")
-        return
-    lo, hi = 1, 1 << 50
-    while lo < hi:                     # the least budget planning <= chunks
-        mid = (lo + hi) // 2
-        lo, hi = (lo, mid) if plan(mid) <= chunks else (mid + 1, hi)
-    require(plan(lo) == chunks, f"no budget plans {chunks} chunks")
-    api.hbm_budget_bytes = lambda dev: lo
+    budget = real("cuda")
+    if chunks > 1:
+        fixed, per_row, pipelined = cost.footprint(nb, mode)
+        budget = fixed + -(-npr // chunks) * (per_row + pipelined)
+    require(cost.plan_probe_chunks(nb, npr, mode, budget) == chunks,
+            f"{mode} {nb} x {npr}: a budget of {budget} B does not plan "
+            f"{chunks} chunks")
+    api.hbm_budget_bytes = lambda dev: budget
     try:
-        yield lo
+        yield budget
     finally:
         api.hbm_budget_bytes = real
 

@@ -11,8 +11,9 @@ materialize also holds the chunk's four compacted output planes (16 B a
 row).  A plan that needs more than one chunk streams them from the host
 (api._run_chunked) through a depth-2 pipeline, which also holds the next
 chunk's input planes and, for a materialize, the previous chunk's output
-planes until they are read back.  The budget is the card's own memory
-times HBM_HEADROOM.  The constants are the partitioned tier's peak
+planes until they are read back.  No probe side longer than
+MAX_CHUNK_ROWS, the longest run on the card, goes in one piece.  The
+budget is the card's own memory times HBM_HEADROOM.  The constants are the partitioned tier's peak
 RESERVED device memory (torch.cuda.max_memory_reserved: the caching
 allocator runs out on what it reserves, not on what is allocated) on an
 H100, read by scripts/calibrate_planner.py at the same build side and two
@@ -51,6 +52,13 @@ BUILD_BYTES_MATERIALIZE = 66
 TRANSIENT_BYTES_COUNT = 1
 TRANSIENT_BYTES_MATERIALIZE = 13
 
+# The longest probe side a join has run in one piece on the card: config
+# #3's 1e9 rows (chip_smoke.py's config3 phase).  A longer probe side
+# streams in chunks of at most this many rows, whatever the budget, until
+# a run on the card covers more (a chunk past 2^31 rows would also need
+# 64-bit row indices throughout).
+MAX_CHUNK_ROWS = 1_000_000_000
+
 
 @dataclasses.dataclass(frozen=True)
 class JoinPlan:
@@ -70,25 +78,30 @@ def hbm_budget_bytes(device) -> int:
     return int(total * HBM_HEADROOM)
 
 
+def footprint(n_build: int, mode: str) -> tuple[int, int, int]:
+    """(fixed, per_row, pipelined): device bytes of the build side, bytes
+    a probe row of a chunk in flight, and bytes a row the depth-2 pipeline
+    adds to a stream (the next chunk's input planes and, for a
+    materialize, the last one's output planes)."""
+    if mode == "materialize":
+        return (BUILD_BYTES_MATERIALIZE * n_build,
+                8 + 16 + TRANSIENT_BYTES_MATERIALIZE, 8 + 16)
+    return BUILD_BYTES_COUNT * n_build, 8 + TRANSIENT_BYTES_COUNT, 8
+
+
 def plan_probe_chunks(n_build: int, n_probe: int, mode: str,
                       budget_bytes: int) -> int:
-    """Number of probe chunks that fit the budget; 1 means single-shot."""
-    if mode == "materialize":
-        fixed = BUILD_BYTES_MATERIALIZE * n_build
-        per_row = 8 + 16 + TRANSIENT_BYTES_MATERIALIZE
-        pipelined = 8 + 16   # the next chunk's input, the last one's output
-    else:
-        fixed = BUILD_BYTES_COUNT * n_build
-        per_row = 8 + TRANSIENT_BYTES_COUNT
-        pipelined = 8        # the next chunk's input planes
+    """Number of probe chunks that fit the budget; 1 means single-shot.
+    No chunk is longer than MAX_CHUNK_ROWS."""
+    fixed, per_row, pipelined = footprint(n_build, mode)
     avail = budget_bytes - fixed
     if avail <= 0:
         raise MemoryError(
             f"build side of {n_build} rows alone exceeds the single-device "
             "memory budget")
-    if avail // per_row >= n_probe:
+    if n_probe <= min(avail // per_row, MAX_CHUNK_ROWS):
         return 1
-    chunk_rows = avail // (per_row + pipelined)
+    chunk_rows = min(avail // (per_row + pipelined), MAX_CHUNK_ROWS)
     return -(-n_probe // max(chunk_rows, 1))
 
 

@@ -61,11 +61,11 @@ def filter_columns(mask: torch.Tensor, *cols: torch.Tensor):
     MAX_PLANES at a time by compact_by_mask."""
     if any(c.dtype != torch.int32 for c in cols):
         raise ValueError("filter_columns takes int32 planes (utils/u64.py)")
-    mask = mask.contiguous()
-    count = mask.sum()
-    tail = torch.arange(mask.shape[0], device=mask.device) >= count
+    if not cols:
+        return (mask.sum(),)
     outs = []
     for at in range(0, len(cols), MAX_PLANES):
-        _, packed = compact_by_mask(mask, cols[at:at + MAX_PLANES])
-        outs += [p.masked_fill_(tail, 0) for p in packed]
-    return (count, *outs)
+        count, packed = compact_by_mask(mask, cols[at:at + MAX_PLANES])
+        outs += packed
+    tail = torch.arange(mask.shape[0], device=mask.device) >= count
+    return (count, *(p.masked_fill_(tail, 0) for p in outs))

@@ -128,7 +128,8 @@ def test_config_and_cost_model_match_jax(monkeypatch):
             jcfg.DEFAULT_CONFIG, f), f
     # the port's planner has the H100's constants; with the JAX package's
     # (v5e) ones it plans what the JAX package plans, but for the
-    # materialize stream, which also holds the previous chunk's output
+    # materialize stream, whose depth-2 pipeline also holds the previous
+    # chunk's output planes: 8 + 16 B a row where the JAX package budgets 8
     for name, value in (("BUILD_BYTES_COUNT", 32),
                         ("BUILD_BYTES_MATERIALIZE", 40),
                         ("TRANSIENT_BYTES_COUNT",
@@ -141,9 +142,16 @@ def test_config_and_cost_model_match_jax(monkeypatch):
                     (10_000_000, 1_000_000_000)):
         assert tcost.plan_probe_chunks(nb, npr, "count", budget) == \
             jcost.plan_probe_chunks(nb, npr, "count", budget)
-        t, j = (cost.plan_probe_chunks(nb, npr, "materialize", budget)
-                for cost in (tcost, jcost))
-        assert (t == 1) == (j == 1) and t >= j
+        per_row = 8 + 16 + jcost.TRANSIENT_BYTES_MATERIALIZE
+        avail = budget - 40 * nb          # JAX cost.py: 16 + 16 + 8 B a row
+
+        def plan(pipelined):
+            return (1 if avail // per_row >= npr
+                    else -(-npr // max(avail // (per_row + pipelined), 1)))
+        assert jcost.plan_probe_chunks(nb, npr, "materialize",
+                                       budget) == plan(8)
+        assert tcost.plan_probe_chunks(nb, npr, "materialize",
+                                       budget) == plan(8 + 16)
         assert tcfg.DEFAULT_CONFIG.group_bits(nb) == \
             jcfg.DEFAULT_CONFIG.group_bits(nb)
     with pytest.raises(MemoryError):
@@ -151,9 +159,9 @@ def test_config_and_cost_model_match_jax(monkeypatch):
     assert tcost.hbm_budget_bytes("cpu") > 0
 
 
-def test_chunked_plan_is_not_ported(monkeypatch):
-    # a plan of more than one chunk streams (it raised before the stream
-    # was ported); a dense count streams on the direct strategy
+def test_chunked_plan_streams(monkeypatch):
+    # a plan of more than one chunk streams; a dense count streams on the
+    # direct strategy
     monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 300_000)
     bk = np.arange(1_000, dtype=np.uint64)
     pk = np.arange(100_000, dtype=np.uint64)
@@ -500,7 +508,7 @@ def test_materialize_edge_cases():
         ft.hash_join_radix(bkm, bvm[:2], pkm, device="cpu")
 
 
-def test_partitioned_plan_chunks_are_not_ported(monkeypatch):
+def test_partitioned_plan_chunks_stream(monkeypatch):
     # partitioned plans of more than one chunk stream, count and rows
     monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 300_000)
     bk = np.arange(1_000, dtype=np.uint64) << np.uint64(40)

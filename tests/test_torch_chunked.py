@@ -292,19 +292,37 @@ H100_BUDGET = int(80 * 1024**3 * tcost.HBM_HEADROOM)
 
 
 def test_plan_budgets_the_depth2_pipeline():
-    nb, npr = 10_000_000, 10_000_000_000
+    # an 8 GiB budget, under which no chunk reaches MAX_CHUNK_ROWS
+    nb, npr, budget = 10_000_000, 10_000_000_000, 8 * 1024**3
     for mode, per_row, pipelined, fixed in (
             ("count", 8 + tcost.TRANSIENT_BYTES_COUNT, 8,
              tcost.BUILD_BYTES_COUNT),
             ("materialize", 24 + tcost.TRANSIENT_BYTES_MATERIALIZE, 24,
              tcost.BUILD_BYTES_MATERIALIZE)):
-        n = tcost.plan_probe_chunks(nb, npr, mode, H100_BUDGET)
-        chunk_rows = (H100_BUDGET - fixed * nb) // (per_row + pipelined)
+        assert tcost.footprint(nb, mode) == (fixed * nb, per_row, pipelined)
+        n = tcost.plan_probe_chunks(nb, npr, mode, budget)
+        chunk_rows = (budget - fixed * nb) // (per_row + pipelined)
+        assert chunk_rows < tcost.MAX_CHUNK_ROWS
         assert n > 1 and n == -(-npr // chunk_rows)
         # a probe side that fits one shot is not charged the pipeline
-        fits = (H100_BUDGET - fixed * nb) // per_row
-        assert tcost.plan_probe_chunks(nb, fits, mode, H100_BUDGET) == 1
-        assert tcost.plan_probe_chunks(nb, fits + 1, mode, H100_BUDGET) > 1
+        fits = (budget - fixed * nb) // per_row
+        assert tcost.plan_probe_chunks(nb, fits, mode, budget) == 1
+        assert tcost.plan_probe_chunks(nb, fits + 1, mode, budget) > 1
+
+
+@pytest.mark.parametrize("mode", ["count", "materialize"])
+def test_plan_caps_chunks_at_the_longest_measured_probe_side(mode):
+    # the H100 budget would take several billion probe rows in one shot;
+    # no chunk is longer than the longest probe side run on the card
+    cap = tcost.MAX_CHUNK_ROWS
+    assert tcost.plan_probe_chunks(10_000_000, cap, mode, H100_BUDGET) == 1
+    assert tcost.plan_probe_chunks(10_000_000, cap + 1, mode,
+                                   H100_BUDGET) == 2
+    fixed, per_row, _ = tcost.footprint(10_000_000, mode)
+    if mode == "count":
+        assert (H100_BUDGET - fixed) // per_row > 4 * cap
+        assert tcost.plan_probe_chunks(10_000_000, 4 * cap, mode,
+                                       H100_BUDGET) == 4
 
 
 def test_plan_raises_on_an_oversized_build():
