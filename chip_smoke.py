@@ -128,13 +128,30 @@ Phases, one JSON line each on stdout:
               over [1, 5]): hash_aggregate, filter_columns on between_u64,
               sort_u64, radix_partition_by_hash(pbits=8), each exact
               against numpy and timed.
+ 16. distributed  the distributed tier through the in-process mesh, one
+              card a rank when the machine has them, else every rank on
+              cuda:0 (each line says which): dist-zipf-c5, BASELINE.json
+              config #5's share of a chip (6.25e7 build and probe rows a
+              rank, 4 ranks: 16 chips cut to 4), Zipf-1.2 probes over
+              unique build keys, distributed_join_count (a warm-up call,
+              then one) and distributed_join_materialize(return_arrays=
+              True) against an oracle on the card (the count, the sorted
+              output keys, each value its key's build row's), then the
+              count with its probe exchange not overlapped; dist-scale-1e8,
+              uniform 1e8 x 1e8 at 50 %, count at 1, 2 and 4 ranks;
+              dist-pg, dryrun_multichip's size over NCCL, one worker
+              process a card (world the largest power of two <= min(4,
+              cards)).  Each line: core, wall, stage seconds, rows each
+              rank received, the hot set, drops and reruns, each card's
+              peak allocated and reserved bytes.
 Kernel times, two readings: "ms", each call alone between two CUDA events
 (cuda_ms, whose window holds the wrapper's host work); "ms_b2b", runs of
 calls back to back (cuda_ms_b2b, where that work overlaps the card's).
 Phases 3-5 and 8-11 time a warm-up and then the best of the following
 runs: core_seconds (device time), wall seconds, probe rows/s, peak device
 bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5,
-8, 9 and 11-15 and read just after.  Then the seconds of each phase, the
+8, 9 and 11-16 and read just after (K5's launches in the kernels line:
+phases 4 and 16).  Then the seconds of each phase, the
 kernels summary (the 11 TPU kernels' counterparts and the range table's
 directory build: each one's launches on its path, error against its plain
 version, times, bound and library time), the card's name and power
@@ -1842,6 +1859,155 @@ def phase_primitives() -> dict:
     return launches
 
 
+C5_RANKS = 4
+C5_ROWS = 62_500_000        # BASELINE.json config #5's share of a chip: 1e9 / 16
+
+
+def dist_devices(ranks: int):
+    """The ranks' devices, one card a rank when the machine has them, else
+    every rank on cuda:0; and a note that says which."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= ranks:
+        return [f"cuda:{i}" for i in range(ranks)], (
+            f"{ranks} distinct card{'s' * (ranks > 1)}")
+    return ["cuda:0"] * ranks, (f"{ranks} ranks on cuda:0 (the machine has "
+                                f"{n} card{'s' * (n > 1)})")
+
+
+def dist_call(cell: str, fn, c, ranks: int, **kw):
+    """One call of a distributed_join_* function on the cell through the
+    in-process mesh: its line (count, core, wall, stage seconds, rows each
+    rank received, hot set, drops and reruns, launches, each card's peak
+    allocated and reserved bytes); returns the call's result."""
+    import torch
+    devices, placement = dist_devices(ranks)
+    cards = sorted(set(devices))
+    for d in cards:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(d)
+    t0 = time.perf_counter()
+    res = fn(c.build_keys, c.build_values, c.probe_keys, devices=devices,
+             return_info=True, **kw)
+    wall = time.perf_counter() - t0
+    info = res[-1]
+    emit("distributed", cell=cell, fn=fn.__name__, ranks=ranks,
+         placement=placement, nb=len(c.build_keys), npr=len(c.probe_keys),
+         count=res[0], core_seconds=res[1], wall_seconds=wall,
+         probe_rows_per_s=len(c.probe_keys) / res[1],
+         stages=info["stages"], build_rows=info["build_rows"],
+         probe_rows=info["probe_rows"], rank_counts=info["rank_counts"],
+         hot_keys=info["hot_keys"], drops=info["drops"],
+         reruns=info["reruns"], probe_chunks=info["probe_chunks"],
+         launches=info["launches"],
+         peak_bytes={d: dict(allocated=torch.cuda.max_memory_allocated(d),
+                             reserved=torch.cuda.max_memory_reserved(d))
+                     for d in cards})
+    return res
+
+
+def check_zipf_rows(c, count: int, keys, vals) -> None:
+    """The dist-zipf-c5 oracle, on the card: every Zipf probe is a build
+    key by construction, so numpy's count is the probe count; a sorted
+    search of the probes among the (unique, ascending) build keys confirms
+    it.  The sorted output keys equal the sorted matching probes, and each
+    output value is its key's (minimum, here only) build row's value."""
+    import torch
+    dev = torch.device("cuda:0")
+    flip = torch.iinfo(torch.int64).min      # u64 order as signed order
+
+    def card(u):
+        return torch.from_numpy(u.view(np.int64)).to(dev) ^ flip
+    bk, pk = card(c.build_keys), card(c.probe_keys)
+    pos = torch.searchsorted(bk, pk).clamp_(max=bk.numel() - 1)
+    hit = bk[pos] == pk
+    want = int(hit.sum())
+    require(want == len(c.probe_keys) == count == len(keys),
+            f"dist-zipf-c5: count {count}, rows {len(keys)}, oracle {want} "
+            f"of {len(c.probe_keys)} probes")
+    del pos
+    out = card(keys)
+    require(torch.equal(torch.sort(out).values, torch.sort(pk[hit]).values),
+            "dist-zipf-c5: the output keys differ from the matching probes")
+    del pk, hit
+    at = torch.searchsorted(bk, out)
+    bv = torch.from_numpy(c.build_values.view(np.int64)).to(dev)
+    require(torch.equal(bv[at], torch.from_numpy(vals.view(np.int64)).to(
+        dev)), "dist-zipf-c5: an output value is not its key's build row's")
+    del bk, out, at, bv
+    torch.cuda.empty_cache()
+
+
+def phase_distributed() -> dict:
+    """The distributed tier (distributed_join_count / _materialize through
+    the in-process mesh; the process group through its worker processes).
+    dist-zipf-c5: BASELINE.json config #5's share of one chip, 6.25e7
+    build and probe rows a rank at 4 ranks (2.5e8 x 2.5e8; 16 chips cut to
+    4 ranks), Zipf-1.2 probes over unique build keys, all matching: count
+    (a warm-up call, then one) and materialize against the oracle
+    (check_zipf_rows), and the count with the probe side's exchange not
+    overlapped (one chunk).  dist-scale-1e8: uniform 1e8 x 1e8, 50 %
+    match, count at 1, 2 and 4 ranks.  dist-pg: dryrun_multichip's size
+    over NCCL, one process a card, world = the largest power of two <=
+    min(4, cards).  K5 launched."""
+    import torch
+    import flash_hash_join_tpu_torch as ft
+    from flash_hash_join_tpu_torch.models.workload import (uniform_case,
+                                                           zipf_probe_case)
+    from flash_hash_join_tpu_torch.parallel.distributed_join import (
+        distributed_join_exact)
+    from flash_hash_join_tpu_torch.parallel.dryrun import dryrun_multichip
+    from flash_hash_join_tpu_torch.parallel.mesh import data_mesh
+    zero_launches()
+    t0 = time.perf_counter()
+    n = C5_RANKS * C5_ROWS
+    # 8 streams on any host, so every machine draws the same data
+    c = zipf_probe_case(n, n, a=1.2, seed=0, threads=8)
+    emit("distributed_data", cell="dist-zipf-c5", nb=len(c.build_keys),
+         npr=len(c.probe_keys), generate_seconds=time.perf_counter() - t0)
+    for _ in range(2):                                  # a warm-up, then one
+        count = dist_call("dist-zipf-c5", ft.distributed_join_count, c,
+                          C5_RANKS)[0]
+        require(count == len(c.probe_keys),
+                f"dist-zipf-c5: count {count} != oracle {len(c.probe_keys)}")
+    count, _, keys, vals, _ = dist_call(
+        "dist-zipf-c5", ft.distributed_join_materialize, c, C5_RANKS,
+        return_arrays=True)
+    check_zipf_rows(c, count, keys, vals)
+    del keys, vals
+    devices, placement = dist_devices(C5_RANKS)
+    res = distributed_join_exact(data_mesh(devices=devices), c.build_keys,
+                                 c.build_values, c.probe_keys,
+                                 overlap_chunks=1)
+    require(res.count == count, f"dist-zipf-c5 not overlapped: {res.count}")
+    emit("distributed", cell="dist-zipf-c5", fn="distributed_join_exact",
+         overlap_chunks=1, ranks=C5_RANKS, placement=placement,
+         count=res.count, stages=res.info["stages"])
+    del c, res
+    torch.cuda.empty_cache()
+
+    c = uniform_case(100_000_000, 100_000_000, 0.5)
+    want = int((c.probe_keys < 2**62).sum())   # uniform_case's misses: >= 2^62
+    for ranks in (1, 2, 4):
+        count = dist_call("dist-scale-1e8", ft.distributed_join_count, c,
+                          ranks)[0]
+        require(count == want, f"dist-scale-1e8 at {ranks} ranks: count "
+                f"{count} != oracle {want}")
+    del c
+    torch.cuda.empty_cache()
+
+    cards = min(C5_RANKS, torch.cuda.device_count())
+    world = 1 << (cards.bit_length() - 1)
+    t0 = time.perf_counter()
+    count = dryrun_multichip(world, n_processes=world, device="cuda")
+    require(count == world * 1024, f"dist-pg: count {count} != "
+            f"{world * 1024}")
+    emit("distributed", cell="dist-pg", backend="nccl", world=world,
+         count=count, oracle=world * 1024,
+         seconds=time.perf_counter() - t0)
+    return require_launched("distributed", ("compact",))
+
+
 def make_cells() -> dict:
     from flash_hash_join_tpu_torch.models.workload import (
         JoinCase, j1_suite, uniform_case)
@@ -1918,6 +2084,8 @@ def main() -> int:
           direct_core)
     phase("measure", phase_measure, cells, direct_core)
     phase("primitives", phase_primitives)
+    # K5's launches: the radix phase's and the distributed tier's
+    launches["compact"] += phase("distributed", phase_distributed)["compact"]
     emit("seconds", total=time.perf_counter() - t0, **seconds)
     src = "flash_hash_join_tpu_torch/csrc/"
     print(json.dumps({"kernels": [

@@ -9,6 +9,11 @@ kernels (csrc/):
     "direct", "partitioned", "merge", "global" or "vmem";
   * `plan_strategy`, `bloom_is_distinct`, `launch_counts` and
     `measure_device_seconds`;
+  * the distributed tier, `distributed_join_count` and
+    `distributed_join_materialize` (parallel/): a ragged hash shuffle and
+    hot-key replication over a mesh of ranks, in one process
+    (parallel.mesh.data_mesh, ranks on several cards or several ranks on
+    one) or one rank a process (parallel.multihost);
   * a probe side past the device's memory streams from the host in
     chunks (api._run_chunked);
   * the query primitives in `ops`: hash_aggregate, filter_columns and the
@@ -26,6 +31,8 @@ from flash_hash_join_tpu_torch.api import (  # noqa: F401
     adaptive_join_count,
     adaptive_join_count_bloom,
     bloom_is_distinct,
+    distributed_join_count,
+    distributed_join_materialize,
     hash_join,
     hash_join_bloom,
     hash_join_count,

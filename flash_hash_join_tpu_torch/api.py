@@ -10,7 +10,9 @@ read-back of the count are timed with CUDA events on the card
 the matched (probe_key, value) rows as uint64 numpy arrays, read back
 outside core_seconds; return_info appends a dict (strategy, d_rows —
 the direct rung: bitmap rows of a count, value-plane rows of a
-materialize —, retried, kernel launches).
+materialize —, retried, kernel launches).  The distributed tier
+(distributed_join_count / _materialize, parallel/) times its whole run on
+the host clock instead, the host split and copies included.
 
 Routing of the adaptive plan, decided on the host from the numpy keys:
 a dense domain -> `direct`.  Count: build keys below 2^32 spanning at
@@ -663,6 +665,79 @@ def measure_device_seconds(build_keys, build_values, probe_keys, *,
                                f"{count}")
         best = min(best, secs)
     return count, best, single, False
+
+
+def _run_distributed(build_keys, build_values, probe_keys, *,
+                     materialize: bool, n_devices, use_bloom: bool, device,
+                     devices, return_arrays: bool, return_info: bool):
+    from flash_hash_join_tpu_torch.parallel.distributed_join import (
+        distributed_join_exact)
+    from flash_hash_join_tpu_torch.parallel.mesh import data_mesh
+    if devices is None:
+        _device(device)
+    build_keys = _as_u64(build_keys)
+    build_values = _as_u64(build_values)
+    probe_keys = _as_u64(probe_keys)
+    if build_keys.shape != build_values.shape:
+        raise ValueError("build_keys and build_values must have equal length")
+    arrays = return_arrays and materialize
+    if len(build_keys) == 0 or len(probe_keys) == 0:
+        empty = np.zeros(0, np.uint64)
+        result = (0, 0.0) + ((empty, empty) if arrays else ())
+        return result + (None,) if return_info else result
+    mesh = data_mesh(n_devices, devices=devices, device=device)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    res = distributed_join_exact(mesh, build_keys, build_values, probe_keys,
+                                 use_bloom=use_bloom, materialize=materialize)
+    core_seconds = time.perf_counter() - t0
+    after = launch_counts()
+    info = dict(res.info, use_bloom=use_bloom,
+                launches={k: after[k] - before[k] for k in after})
+    result = (res.count, core_seconds) + ((res.keys, res.values) if arrays
+                                          else ())
+    return result + (info,) if return_info else result
+
+
+def distributed_join_count(build_keys, build_values, probe_keys, *,
+                           n_devices: int | None = None,
+                           use_bloom: bool = False, device="cuda",
+                           devices=None, return_info: bool = False):
+    """Exact count over a mesh of ranks (port of flash_hash_join_tpu/
+    api.py:distributed_join_count): a ragged hash shuffle, sampled hot-key
+    replication, the global tier's table on each rank, a merge rerun on a
+    rank whose table dropped build rows (parallel/).  The mesh is
+    parallel.mesh.data_mesh(n_devices, devices=devices, device=device):
+    by default every card (the largest power of two), one rank a card;
+    devices=[...] may put several ranks on one device.  Returns (count,
+    core_seconds); core_seconds is the wall time of
+    distributed_join_exact, the shards' host split and host->device copies
+    included, as in the JAX package.  return_info appends the ranks, rows
+    received, hot keys, drops, reruns, stage seconds and kernel launches."""
+    return _run_distributed(build_keys, build_values, probe_keys,
+                            materialize=False, n_devices=n_devices,
+                            use_bloom=use_bloom, device=device,
+                            devices=devices, return_arrays=False,
+                            return_info=return_info)
+
+
+def distributed_join_materialize(build_keys, build_values, probe_keys, *,
+                                 n_devices: int | None = None,
+                                 use_bloom: bool = False, device="cuda",
+                                 devices=None, return_arrays: bool = False,
+                                 return_info: bool = False):
+    """Exact materialize over a mesh of ranks: as distributed_join_count;
+    each rank's matched (probe_key, build_value) rows are compacted on the
+    rank (K5 on a card) and read back in rank order, the minimum build row
+    the winner among duplicate keys.  Returns (count, core_seconds) or,
+    with return_arrays, (count, core_seconds, out_keys, out_values) as
+    uint64 numpy arrays (the read-back is inside core_seconds, as in the
+    JAX package)."""
+    return _run_distributed(build_keys, build_values, probe_keys,
+                            materialize=True, n_devices=n_devices,
+                            use_bloom=use_bloom, device=device,
+                            devices=devices, return_arrays=return_arrays,
+                            return_info=return_info)
 
 
 def join_count(build_keys, build_values, probe_keys, *, strategy="adaptive",

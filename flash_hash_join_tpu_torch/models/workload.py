@@ -8,6 +8,7 @@ the skew models (Zipf) the distributed tier must survive.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 
 import numpy as np
@@ -63,13 +64,32 @@ def uniform_case(n_build: int, n_probe: int, match_rate: float = 1.0,
 
 
 def zipf_probe_case(n_build: int, n_probe: int, a: float = 1.2,
-                    seed: int = 0) -> JoinCase:
+                    seed: int = 0, threads: int = 1) -> JoinCase:
     """Zipf-skewed probe side over the build keys (hot-key stressor for the
-    distributed shuffle)."""
+    distributed shuffle).  threads > 1 draws the probe side's Zipf ranks
+    in that many contiguous blocks at once, each from its own generator
+    spawned from the seed (numpy's draws release the interpreter lock):
+    the same distribution, other draws than threads=1."""
     rng = np.random.default_rng(seed)
-    bk = np.unique(rng.integers(0, 2**62, n_build, dtype=np.uint64))
+    # np.unique's result by a sort: numpy >= 2.3 finds unique integers
+    # through a hash table, minutes at 2.5e8 distinct keys
+    bk = np.sort(rng.integers(0, 2**62, n_build, dtype=np.uint64))
+    first = np.ones(bk.size, bool)
+    first[1:] = bk[1:] != bk[:-1]
+    bk = bk[first]
     bv = rng.integers(0, 2**63, len(bk), dtype=np.uint64)
-    ranks = rng.zipf(a, size=n_probe)
+    if threads == 1:
+        ranks = rng.zipf(a, size=n_probe)
+    else:
+        ranks = np.empty(n_probe, np.int64)
+        bounds = np.linspace(0, n_probe, threads + 1).astype(np.int64)
+        streams = np.random.SeedSequence(seed).spawn(threads)
+
+        def draw(i):
+            ranks[bounds[i]:bounds[i + 1]] = np.random.default_rng(
+                streams[i]).zipf(a, size=bounds[i + 1] - bounds[i])
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            list(pool.map(draw, range(threads)))
     pk = bk[np.minimum(ranks - 1, len(bk) - 1)]
     return JoinCase(f"zipf_{a}", bk, bv, pk)
 

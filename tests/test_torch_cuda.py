@@ -12,6 +12,7 @@ Tolerance: exact equality — every output is an integer count or a u32 bit
 pattern.
 """
 
+import functools
 import itertools
 
 import numpy as np
@@ -771,3 +772,87 @@ def test_chunk_stream_reuses_its_device_blocks_across_calls(dev, planned):
     for _ in range(3):
         assert ft.join_count(*args)[0] == want
     assert torch.cuda.memory_reserved() <= reserved
+
+
+# ---- the distributed tier ----------------------------------------------------
+
+def _ranks_on(kind: str):
+    """The ranks' devices: 2 or 4 ranks on cuda:0, or one rank on each of
+    two cards (skipped on a one-card machine)."""
+    if kind == "two-cards":
+        if torch.cuda.device_count() < 2:
+            pytest.skip("needs two cards")
+        return ["cuda:0", "cuda:1"]
+    return ["cuda:0"] * int(kind[0])
+
+
+@pytest.mark.parametrize("ranks", ["2-on-one", "4-on-one", "two-cards"])
+@pytest.mark.parametrize("materialize", [False, True])
+def test_distributed_join_on_cards_equals_cpu(dev, ranks, materialize):
+    # Zipf probes over duplicate build keys, with misses: the hot-key tier,
+    # both exchanges, the local tables and K5 on the card; the same ranks
+    # on the CPU give the same count and the same rows in the same order
+    from flash_hash_join_tpu_torch.models.workload import zipf_probe_case
+    devices = _ranks_on(ranks)
+    c = zipf_probe_case(200_000, 1_500_000, a=1.2, seed=3)
+    bk = np.concatenate([c.build_keys, c.build_keys[::5]])
+    bv = np.random.default_rng(4).integers(0, 2**64, bk.size,
+                                           dtype=np.uint64)
+    pk = c.probe_keys.copy()
+    pk[::3] ^= np.uint64(2**63)                         # misses
+    fn = (functools.partial(ft.distributed_join_materialize,
+                            return_arrays=True) if materialize
+          else ft.distributed_join_count)
+    want = fn(bk, bv, pk, devices=["cpu"] * len(devices), return_info=True)
+    got = fn(bk, bv, pk, devices=devices, return_info=True)
+    assert got[0] == want[0] == int(np.isin(pk, bk).sum())
+    info = got[-1]
+    assert info["devices"] == [str(torch.device(d)) for d in devices]
+    assert info["hot_keys"] > 0 and info["drops"] == info["reruns"] == 0
+    assert info["rank_counts"] == want[-1]["rank_counts"]
+    if materialize:
+        np.testing.assert_array_equal(got[2], want[2])
+        np.testing.assert_array_equal(got[3], want[3])
+        assert info["launches"]["compact"] > 0
+
+
+def test_distributed_build_drop_reruns_on_card(dev):
+    from flash_hash_join_tpu_torch.parallel.distributed_join import (
+        distributed_join_exact)
+    from flash_hash_join_tpu_torch.parallel.mesh import data_mesh
+    from flash_hash_join_tpu_torch.utils.config import JoinConfig
+    rng = np.random.default_rng(30)
+    bk = rng.integers(0, 2**64, 200_000, dtype=np.uint64)
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 300_000),
+                         rng.integers(0, 2**64, 100_000, dtype=np.uint64)])
+    cfg = JoinConfig(max_probe_iters=1, group_size=2)
+    for devices in (["cpu"] * 4, ["cuda:0"] * 4):
+        res = distributed_join_exact(data_mesh(devices=devices), bk, bv, pk,
+                                     cfg=cfg, materialize=True)
+        assert res.count == int(np.isin(pk, bk).sum())
+        assert res.info["reruns"] > 0
+        if devices[0] == "cpu":
+            want = res
+    np.testing.assert_array_equal(res.keys, want.keys)
+    np.testing.assert_array_equal(res.values, want.values)
+
+
+def test_distributed_mesh_of_cards(dev):
+    from flash_hash_join_tpu_torch.parallel.mesh import data_mesh
+    n = torch.cuda.device_count()
+    mesh = data_mesh()
+    assert mesh.size == 1 << (n.bit_length() - 1)
+    assert mesh.devices == tuple(torch.device("cuda", i)
+                                 for i in range(mesh.size))
+    with pytest.raises(ValueError, match="distinct cards"):
+        data_mesh(2 * mesh.size)
+
+
+def test_distributed_process_group_over_nccl(dev):
+    # one rank a card: world = the largest power of two <= min(4, cards)
+    from flash_hash_join_tpu_torch.parallel.dryrun import dryrun_multichip
+    n = min(4, torch.cuda.device_count())
+    world = 1 << (n.bit_length() - 1)
+    assert dryrun_multichip(world, n_processes=world,
+                            device="cuda") == world * 1024
