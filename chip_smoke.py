@@ -139,11 +139,13 @@ Phases, one JSON line each on stdout:
               output keys, each value its key's build row's), then the
               count with its probe exchange not overlapped; dist-scale-1e8,
               uniform 1e8 x 1e8 at 50 %, count at 1, 2 and 4 ranks;
-              dist-pg, dryrun_multichip's size over NCCL, one worker
-              process a card (world the largest power of two <= min(4,
-              cards)).  Each line: core, wall, stage seconds, rows each
-              rank received, the hot set, drops and reruns, each card's
-              peak allocated and reserved bytes.
+              dist-pg, dist-scale-1e8's data (and, on 4 cards,
+              dist-zipf-c5's) over NCCL through the worker processes of
+              parallel/worker.py, one a card (world the largest power of
+              two <= min(4, cards)), each holding its count and rows to
+              an oracle on its card.  Each line: core, wall, stage
+              seconds, rows each rank received, the hot set, drops and
+              reruns, each card's peak allocated and reserved bytes.
 Kernel times, two readings: "ms", each call alone between two CUDA events
 (cuda_ms, whose window holds the wrapper's host work); "ms_b2b", runs of
 calls back to back (cuda_ms_b2b, where that work overlaps the card's).
@@ -1947,16 +1949,18 @@ def phase_distributed() -> dict:
     (a warm-up call, then one) and materialize against the oracle
     (check_zipf_rows), and the count with the probe side's exchange not
     overlapped (one chunk).  dist-scale-1e8: uniform 1e8 x 1e8, 50 %
-    match, count at 1, 2 and 4 ranks.  dist-pg: dryrun_multichip's size
-    over NCCL, one process a card, world = the largest power of two <=
-    min(4, cards).  K5 launched."""
+    match, count at 1, 2 and 4 ranks.  dist-pg: dist-scale-1e8's data (and
+    dist-zipf-c5's where 4 cards hold its ranks) over NCCL through the
+    worker processes, one a card, world = the largest power of two <=
+    min(4, cards); each worker checks the count, the ranks' rows and their
+    values on its card, and the count is numpy's.  K5 launched."""
     import torch
     import flash_hash_join_tpu_torch as ft
     from flash_hash_join_tpu_torch.models.workload import (uniform_case,
                                                            zipf_probe_case)
     from flash_hash_join_tpu_torch.parallel.distributed_join import (
         distributed_join_exact)
-    from flash_hash_join_tpu_torch.parallel.dryrun import dryrun_multichip
+    from flash_hash_join_tpu_torch.parallel.dryrun import run_workers
     from flash_hash_join_tpu_torch.parallel.mesh import data_mesh
     zero_launches()
     t0 = time.perf_counter()
@@ -1998,13 +2002,24 @@ def phase_distributed() -> dict:
 
     cards = min(C5_RANKS, torch.cuda.device_count())
     world = 1 << (cards.bit_length() - 1)
-    t0 = time.perf_counter()
-    count = dryrun_multichip(world, n_processes=world, device="cuda")
-    require(count == world * 1024, f"dist-pg: count {count} != "
-            f"{world * 1024}")
-    emit("distributed", cell="dist-pg", backend="nccl", world=world,
-         count=count, oracle=world * 1024,
-         seconds=time.perf_counter() - t0)
+    # dist-scale-1e8's data; dist-zipf-c5's too where 4 cards hold its ranks
+    cells = [("uniform", 100_000_000, want)]
+    if world == C5_RANKS:
+        cells.append(("zipf", n, n))          # every Zipf probe matches
+    for case, rows, oracle_count in cells:
+        t0 = time.perf_counter()
+        outs = run_workers(world, "--case", case, "--build-rows", rows,
+                           "--probe-rows", rows, "--timeout", 300,
+                           device="cuda", timeout=900)
+        counts = {line.split("count=")[1] for out in outs
+                  for line in out.splitlines() if "MHOK" in line}
+        require(counts == {str(oracle_count)}, f"dist-pg {case}: counts "
+                f"{counts}, oracle {oracle_count}")
+        report = [json.loads(line.split(" ", 1)[1]) for line in
+                  outs[0].splitlines() if line.startswith("MHSTAGES ")][0]
+        emit("distributed", cell="dist-pg", case=case, backend="nccl",
+             world=world, count=oracle_count,
+             seconds=time.perf_counter() - t0, rank0=report)
     return require_launched("distributed", ("compact",))
 
 

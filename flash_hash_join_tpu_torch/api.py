@@ -53,7 +53,6 @@ raises.  device="cpu" runs the kernels' plain PyTorch versions.
 from __future__ import annotations
 
 import contextlib
-import functools
 import os
 import time
 from typing import NamedTuple
@@ -73,6 +72,7 @@ from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
 from flash_hash_join_tpu_torch.utils import u64
 from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG
+from flash_hash_join_tpu_torch.utils.streams import copy_stream
 
 STRATEGIES = ("adaptive", "direct", "partitioned", "merge", "global", "vmem")
 EXPLICIT_TIERS = ("global", "vmem")
@@ -307,14 +307,6 @@ def _run_chunked(route: _Route, build_keys, build_values, probe_keys, *,
         probe_chunks *= 2
 
 
-@functools.lru_cache(maxsize=None)
-def _copy_stream(index: int) -> torch.cuda.Stream:
-    """One copy stream a card for the process: the caching allocator keeps
-    a pool of blocks a stream, so a new stream a call would strand the
-    blocks of the calls before it."""
-    return torch.cuda.Stream(index)
-
-
 class _Chunks:
     """The probe side's chunks on their way to the device.
 
@@ -335,7 +327,7 @@ class _Chunks:
         self.cuda = dev.type == "cuda"
         if self.cuda:
             self.compute = torch.cuda.current_stream(dev)
-            self.copy = _copy_stream(dev.index or 0)
+            self.copy = copy_stream(dev.index or 0)
             self.staging = [torch.empty((2, chunk), dtype=torch.int32,
                                         pin_memory=True) for _ in range(2)]
             self.copied = [None, None]     # each buffer's copy event

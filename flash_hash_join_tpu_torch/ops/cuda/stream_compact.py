@@ -22,12 +22,16 @@ offset, in whole 16-byte stores.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
 
 MAX_PLANES = 4
 TILE_ROWS = 8192        # mask rows a K5 tile: fhj_compact_tile_rows()
+# the distributed tier launches K5 from a thread a card (parallel/mesh.py)
+_count_lock = threading.Lock()
 
 
 def _check(mask: torch.Tensor, cols, n_out: int) -> torch.device:
@@ -84,7 +88,8 @@ def compact_by_mask(mask: torch.Tensor, cols, n_out: int):
         mask.data_ptr(), n, len(cols), *ptrs, *out_ptrs, n_out,
         scratch.data_ptr(), scratch.numel(),
         torch.cuda.current_stream(dev).cuda_stream)
-    compact_by_mask.launches += 1
+    with _count_lock:
+        compact_by_mask.launches += 1
     _build.check(err, "compact_by_mask")
     return scratch[0], outs
 

@@ -20,6 +20,7 @@ real u64-max key is never stored and is answered through `special`:
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -35,6 +36,7 @@ _NEG_LARGE = -(2 ** 30)
 # Walk statistics of the probes run so far in this process: chunks walked
 # and walk iterations summed over them (read by chip_smoke.py).
 walk_stats = {"chunks": 0, "iterations": 0}
+_stats_lock = threading.Lock()   # the distributed tier walks a card a thread
 
 
 class HashTable(NamedTuple):
@@ -177,8 +179,9 @@ def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
         done |= found | has_empty | (g_next == g)  # off the end: absent
         g = torch.where(done, g, g_next)
         it += 1
-    walk_stats["chunks"] += 1
-    walk_stats["iterations"] += it
+    with _stats_lock:
+        walk_stats["chunks"] += 1
+        walk_stats["iterations"] += it
     return matched, g_found, j_found, sp_match
 
 

@@ -17,6 +17,9 @@ flash_hash_join_tpu/parallel/distributed_join.py).
   5. count = the ranks' counts added up; materialize compacts each rank's
      parts with compact_by_mask (K5 on a card), and the host concatenates
      the ranks' rows in rank order.
+Between the collectives, a rank's own work runs through mesh.map; on an
+in-process mesh of several cards the shards' split and copy and the
+read-back run in a thread a card (mesh.map(..., threaded=True)).
 
 Exact by construction: a key's rows meet on one rank, and the ragged
 exchange drops nothing.  The winner among duplicate build keys is the
@@ -64,14 +67,13 @@ def shard_columns(mesh, arrays) -> list:
     """Each local rank's share of the numpy u64 columns: the rank's
     contiguous near-equal piece of each (np.array_split, rank order), as
     (hi, lo) int32 planes on the rank's device; a flat list a rank."""
-    out = []
-    for r in mesh.local:
-        planes = []
-        for a in arrays:
-            planes += u64.device_planes(np.array_split(a, mesh.size)[r],
-                                        mesh.devices[r])
-        out.append(planes)
-    return out
+    def shard(i):
+        r, planes = mesh.local[i], []
+        for col in arrays:
+            a, b = _bounds(len(col), mesh.size)[r:r + 2]
+            planes += u64.device_planes(col[a:b], mesh.device(i))
+        return planes
+    return mesh.map(shard, threaded=True)
 
 
 class _Clock:
@@ -91,7 +93,8 @@ class _Clock:
 class _LocalJoin:
     """One rank's join: the global tier's table over its build rows, the
     parts it has probed, and the probe rows it keeps when the table dropped
-    build rows and the rank reruns on merge."""
+    build rows and the rank reruns on merge.  The build is launched, not
+    waited for: read_drops() reads its drop count."""
 
     def __init__(self, cols, cfg: JoinConfig, use_bloom: bool,
                  pre_shift: int, materialize: bool):
@@ -113,7 +116,10 @@ class _LocalJoin:
             total_groups=(1 << gbits) + cfg.overflow_groups,
             use_bloom=use_bloom, bloom_k=cfg.bloom_k,
             max_iters=cfg.max_probe_iters, pre_shift=pre_shift)
-        self.drops = int(self.table.special[3])
+
+    def read_drops(self) -> None:
+        if self.table is not None:
+            self.drops = int(self.table.special[3])
         if self.drops:
             self.table = None          # the rank reruns on merge
 
@@ -172,12 +178,11 @@ def distributed_join_exact(mesh, build_keys, build_values, probe_keys, *,
     clock = _Clock(mesh)
     shards = shard_columns(mesh, (build_keys, build_values, probe_keys))
     clock.mark("split_h2d")
-    ranks = range(len(mesh.local))
     dbits = mesh.size.bit_length() - 1
     build = [tuple(s[:4]) for s in shards]
     probe = [tuple(s[4:]) for s in shards]
     send_b = send_p = None
-    hot_rows = [None] * len(ranks)
+    hot_rows = [None] * len(mesh.local)
     local_p = [(p[0][:0], p[1][:0]) for p in probe]
     hot_keys = 0
     if hot_cap > 0:
@@ -185,24 +190,27 @@ def distributed_join_exact(mesh, build_keys, build_values, probe_keys, *,
                                  [p[1] for p in probe], cap=hot_cap)
         hot_keys = hot[0].keys.numel()
         hot_rows = hk.gather_hot_build_rows(mesh, build, hot)
-        send_b = [~hk.is_member(b[0], b[1], h) for b, h in zip(build, hot)]
-        p_hot = [hk.is_member(p[0], p[1], h) for p, h in zip(probe, hot)]
-        send_p = [~m for m in p_hot]
-        local_p = [(p[0][m], p[1][m]) for p, m in zip(probe, p_hot)]
+
+        def split_hot(i):
+            b, p, h = build[i], probe[i], hot[i]
+            m = hk.is_member(p[0], p[1], h)
+            return ~hk.is_member(b[0], b[1], h), ~m, (p[0][m], p[1][m])
+        send_b, send_p, local_p = zip(*mesh.map(split_hot))
     clock.mark("hot_keys")
 
     recv_b, overflow = hash_shuffle(
         mesh, build, [dest_device(b[0], b[1], dbits) for b in build], send_b)
     clock.mark("build_exchange")
-    joins = []
-    for i in ranks:
+
+    def build_rank(i):
         cols = recv_b[i]
         if hot_rows[i] is not None:
             cols = tuple(torch.cat([c, h]) for c, h in zip(cols,
                                                              hot_rows[i].t()))
-        with mesh.guard(i):
-            joins.append(_LocalJoin(cols, cfg, use_bloom, dbits,
-                                    materialize))
+        return _LocalJoin(cols, cfg, use_bloom, dbits, materialize)
+    joins = mesh.map(build_rank)
+    for j in joins:        # every rank's build launched: then the waits
+        j.read_drops()
     del recv_b, build, shards
     clock.mark("build")
 
@@ -219,27 +227,32 @@ def distributed_join_exact(mesh, build_keys, build_values, probe_keys, *,
         rows = pending.wait()
         if k + 1 < overlap_chunks:
             pending = mesh.all_to_all(*plans[k + 1])
-        for i in ranks:
-            with mesh.guard(i):
-                joins[i].probe(*columns(rows[i]))
-    for i in ranks:
-        with mesh.guard(i):
-            joins[i].probe(*local_p[i])
+        last = k + 1 == overlap_chunks
+
+        def probe_rank(i):
+            joins[i].probe(*columns(rows[i]))
+            if last:
+                joins[i].probe(*local_p[i])
+        mesh.map(probe_rank)
     del plans, rows, probe, local_p
     clock.mark("probe")
 
-    outs = []
-    for i in ranks:
-        with mesh.guard(i):
-            outs.append(joins[i].finish())
+    def finish_rank(i):
+        """(count tensor, count, keys, values): the rank's rows read back
+        as numpy u64 for a materialize."""
+        count, planes = joins[i].finish()
+        n = int(count)
+        if planes is None:
+            return count, n, None, None
+        return (count, n, u64.to_numpy_u64(planes[0], planes[1], n),
+                u64.to_numpy_u64(planes[2], planes[3], n))
+    outs = mesh.map(finish_rank, threaded=True)
     count = mesh.sum([o[0] for o in outs])
-    rank_counts = [int(o[0]) for o in outs]
+    rank_counts = [o[1] for o in outs]
     keys = values = None
     if materialize:
-        keys = np.concatenate([u64.to_numpy_u64(o[1][0], o[1][1], c)
-                               for o, c in zip(outs, rank_counts)])
-        values = np.concatenate([u64.to_numpy_u64(o[1][2], o[1][3], c)
-                                 for o, c in zip(outs, rank_counts)])
+        keys = np.concatenate([o[2] for o in outs])
+        values = np.concatenate([o[3] for o in outs])
     clock.mark("finish")
     drops = [torch.tensor(j.drops, device=mesh.device(i))
              for i, j in enumerate(joins)]

@@ -20,7 +20,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_workers(n_processes: int, *args, device: str = "cpu",
+def run_workers(n_processes: int, *args, device: str = "cuda",
                 timeout: float = 180.0) -> list[str]:
     """Start parallel/worker.py as ranks 0 .. n_processes - 1 on
     localhost, each with `args` after its own; returns their outputs.
@@ -53,7 +53,7 @@ def run_workers(n_processes: int, *args, device: str = "cpu",
 
 
 def dryrun_multichip(n_devices: int, n_processes: int | None = None, *,
-                     device: str = "cpu") -> int:
+                     device: str = "cuda") -> int:
     """The full distributed join (hot keys, both exchanges, the local
     tables, bloom, materialize) at 512 build and 2048 probe rows a rank,
     checked against numpy; returns the count.  In process: n_devices ranks

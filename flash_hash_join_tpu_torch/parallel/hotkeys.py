@@ -109,7 +109,8 @@ def gather_hot_build_rows(mesh, cols, hot) -> list:
         found = first < n
         out = torch.zeros((cap, 5), dtype=torch.int32, device=slot.device)
         if n:
-            out[:, :4] = torch.stack(c, 1)[first.clamp(max=n - 1)]
+            at = first.clamp(max=n - 1)
+            out[:, :4] = torch.stack([col[at] for col in c], 1)
         out[:, 4] = found.to(torch.int32)
         sends.append(out)
     return [g[g[:, 4] == 1][:, :4] for g in mesh.all_gather(sends)]

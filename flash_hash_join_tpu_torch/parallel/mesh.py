@@ -9,12 +9,17 @@ drives (`mesh.local`), and three collectives:
   all_gather  every rank's equal-shaped tensor, concatenated in rank order;
   sum         the ranks' scalars added up, as a host int.
 
+A rank's own work between collectives goes through `mesh.map(fn)`.
+
 Two implementations:
   * `Mesh`: one process drives every rank, as JAX's single controller
     does.  A transfer is `tensor.to(dst, non_blocking=True)`: NVLink P2P
     between cards, a device-local copy where ranks share a card.  The ranks
     may repeat a device (`["cuda:0"] * 4`, `["cpu"] * 8`), the counterpart
-    of the JAX package's virtual devices.
+    of the JAX package's virtual devices.  `map(fn, threaded=True)`
+    drives the ranks of distinct cards from a thread a card, for the work
+    that runs outside the interpreter lock: the host split and copy of the
+    shards, and the read-back.
   * `GroupMesh`: one rank a process over `torch.distributed` (NCCL on
     cards, gloo on the CPU; parallel/multihost.py builds it):
     `all_to_all_single` with split sizes, `all_gather_into_tensor`,
@@ -27,10 +32,13 @@ of its key's hash (parallel/shuffle.py).
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from flash_hash_join_tpu_torch.utils.streams import copy_stream
 
 
 def _power_of_two(n: int) -> None:
@@ -80,6 +88,50 @@ class Mesh:
         return (torch.cuda.device(dev) if dev.type == "cuda"
                 else contextlib.nullcontext())
 
+    def map(self, fn, *, threaded: bool = False) -> list:
+        """[fn(i) for each local rank i], each call under the rank's guard
+        and on the caller's current stream of its card, in rank order.
+        threaded: the ranks of distinct devices run in threads, one a
+        device, a device's ranks in turn.  Only for work that leaves the
+        interpreter lock for long: the global walk's thousands of small
+        launches, a host sync each iteration, ran 2-3x slower so on four
+        cards than in one thread (PERF.md, PR 12)."""
+        groups = {}
+        for i in range(len(self.local)):
+            groups.setdefault(self.device(i), []).append(i)
+        streams = {d: torch.cuda.current_stream(d) for d in groups
+                   if d.type == "cuda"}
+
+        def run(dev, ranks):
+            on_stream = (torch.cuda.stream(streams[dev]) if dev in streams
+                         else contextlib.nullcontext())
+            out = []
+            with on_stream:
+                for i in ranks:
+                    with self.guard(i):
+                        out.append(fn(i))
+            return out
+        if not threaded or len(groups) == 1:
+            return [r for i in range(len(self.local))
+                    for r in run(self.device(i), [i])]
+        out, errors = [None] * len(self.local), []
+
+        def run_into(dev):
+            try:
+                for i, r in zip(groups[dev], run(dev, groups[dev])):
+                    out[i] = r
+            except BaseException as e:      # raised again in the caller
+                errors.append(e)
+        threads = [threading.Thread(target=run_into, args=(d,))
+                   for d in groups]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
     def synchronize(self) -> None:
         for dev in set(self.devices[r] for r in self.local):
             if dev.type == "cuda":
@@ -90,11 +142,10 @@ class Mesh:
         sends[s] to rank d, offsets in rank order; rank d receives them
         from every rank in rank order (recv_splits[d][s] rows from rank s).
         On cards the copies run on each card's copy stream
-        (api._copy_stream), behind the compute streams, so the caller may
+        (utils/streams.py), behind the compute streams, so the caller may
         compute while they run; wait() makes the compute streams wait."""
-        from flash_hash_join_tpu_torch.api import _copy_stream
         cards = sorted({d.index for d in self.devices if d.type == "cuda"})
-        copies = {i: _copy_stream(i) for i in cards}
+        copies = {i: copy_stream(i) for i in cards}
         for i in cards:
             copies[i].wait_stream(torch.cuda.current_stream(i))
         for t in sends:

@@ -16,6 +16,8 @@ whose table drops build rows reruns on merge (JAX regrows its quota).
 """
 
 import collections
+import inspect
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -436,8 +438,39 @@ def test_api_empty_and_errors():
 
 def test_dryrun_multichip_in_process():
     # half of the 2048 probe rows a rank are drawn from the build keys
-    assert dryrun_multichip(8) == 8 * 1024
-    assert dryrun_multichip(2) == 2 * 1024
+    assert dryrun_multichip(8, device="cpu") == 8 * 1024
+    assert dryrun_multichip(2, device="cpu") == 2 * 1024
+
+
+def test_mesh_map_runs_a_thread_a_device_in_rank_order():
+    """map gives fn(i) in rank order, in this thread; threaded, the ranks
+    of one device run in turn in one thread, distinct devices in threads
+    of their own (here the CPU and the meta device stand in for two
+    cards)."""
+    here = threading.current_thread()
+    one = data_mesh(devices=["cpu"] * 4)
+    two = data_mesh(devices=["cpu", "meta", "cpu", "meta"])
+    for mesh, threaded in ((one, False), (one, True), (two, False)):
+        assert mesh.map(lambda i: (i, threading.current_thread()),
+                        threaded=threaded) == [(i, here) for i in range(4)]
+    got = two.map(lambda i: (i, threading.current_thread()), threaded=True)
+    assert [i for i, _ in got] == [0, 1, 2, 3]
+    assert got[0][1] is got[2][1] and got[1][1] is got[3][1]
+    assert len({id(here), id(got[0][1]), id(got[1][1])}) == 3
+    with pytest.raises(ZeroDivisionError):
+        two.map(lambda i: 1 // (i - 3), threaded=True)
+
+
+def test_parallel_entry_points_default_to_the_card():
+    """dryrun_multichip, run_workers and the worker module run on the card
+    unless the caller asks for the CPU."""
+    from flash_hash_join_tpu_torch.parallel import worker
+    for fn in (dryrun_multichip, run_workers):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert worker.arg_parser().parse_args(["1", "0", "1"]).device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dryrun_multichip(2)
 
 
 def test_two_process_gloo_distributed_join():
