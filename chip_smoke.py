@@ -128,7 +128,19 @@ Phases, one JSON line each on stdout:
               over [1, 5]): hash_aggregate, filter_columns on between_u64,
               sort_u64, radix_partition_by_hash(pbits=8), each exact
               against numpy and timed.
- 16. distributed  the distributed tier through the in-process mesh, one
+ 16. harness  the harness twins (flash_hash_join_tpu_torch/harness/), their
+              RESULT and fuzz lines on stderr: run_suites on the generated
+              1e6 suite (J1 Q1, Q2, Q5 and QB5 at 5 % match; BASELINE.json
+              config #1's size) with all six impl labels, count and
+              materialize, the (key, value) rows of merge, global and
+              partitioned checked; run_suites on J1 1e8 Q1, Q2, Q5 (config
+              #4) with adaptive_join and flash_join_radix; the fuzzer twin,
+              40 fixed-shape iterations (seed 0) and 12 streamed in 2-4
+              probe chunks (seed 40).  0 parity failures, the C++ host
+              oracle on every case, 0 fuzz failures; K1-K5, K7, K8, K10 and
+              K11 launched.  One line: runs, failures, oracles, fuzz
+              summaries, the best core of each case, impl and task, seconds.
+ 17. distributed  the distributed tier through the in-process mesh, one
               card a rank when the machine has them, else every rank on
               cuda:0 (each line says which): dist-zipf-c5, BASELINE.json
               config #5's share of a chip (6.25e7 build and probe rows a
@@ -152,8 +164,8 @@ calls back to back (cuda_ms_b2b, where that work overlaps the card's).
 Phases 3-5 and 8-11 time a warm-up and then the best of the following
 runs: core_seconds (device time), wall seconds, probe rows/s, peak device
 bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5,
-8, 9 and 11-16 and read just after (K5's launches in the kernels line:
-phases 4 and 16).  Then the seconds of each phase, the
+8, 9 and 11-17 and read just after (the kernels line's launches: phases 3,
+4, 8, 9, 11, 16 and, for K5, 17).  Then the seconds of each phase, the
 kernels summary (the 11 TPU kernels' counterparts and the range table's
 directory build: each one's launches on its path, error against its plain
 version, times, bound and library time), the card's name and power
@@ -2023,6 +2035,64 @@ def phase_distributed() -> dict:
     return require_launched("distributed", ("compact",))
 
 
+HARNESS_KERNELS = ("dense_bitmap", "scan_domain_count", "range_probe_count",
+                   "range_probe_materialize", "compact", "probe_gather_bitmap",
+                   "probe_gather_staged", "probe_count_vmem",
+                   "probe_materialize_vmem")
+
+
+def phase_harness(cells: dict) -> dict:
+    """The harness twins (flash_hash_join_tpu_torch/harness/), their log on
+    stderr.  (a) run_suites on the generated 1e6 suite (J1 Q1, Q2, Q5 and
+    QB5), all six impls, count and materialize, the values of merge, global
+    and partitioned checked; (b) run_suites on J1 1e8 Q1, Q2, Q5 (config
+    #4) with adaptive_join and flash_join_radix; (c) the fuzzer twin, 40
+    fixed-shape iterations and 12 streamed in 2-4 chunks.  Every run agrees
+    with the oracle, the native oracle serves every case and the fuzzer
+    fails no iteration; K1-K5, K7, K8, K10 and K11 launched."""
+    from flash_hash_join_tpu_torch.harness import benchmark as hb
+    from flash_hash_join_tpu_torch.harness import fuzz_join as hf
+    config4 = [(name, c.build_keys, c.build_values, c.probe_keys)
+               for name, c in cells.items()
+               if name in ("1e8-Q1", "1e8-Q2", "1e8-Q5")]
+    zero_launches()
+    seconds, results, fuzz = {}, [], {}
+    with contextlib.redirect_stdout(sys.stderr):
+        for part, suites, impls, values_max in (
+                ("gen-1e6", hb.gen_suites(1_000_000, 0), None, 1_000_000),
+                ("config4-1e8", [("1e8", config4)],
+                 ("adaptive_join", "flash_join_radix"), 0)):
+            t0 = time.perf_counter()
+            rows, ok = hb.run_suites(suites, impls, device="cuda",
+                                     check_values_max=values_max,
+                                     device_time=False, repeats=2)
+            seconds[part] = time.perf_counter() - t0
+            bad = [r for r in rows if not r["ok"]]
+            require(ok and not bad, f"harness {part}: parity failures {bad}")
+            results += rows
+        for mode, seed, iters in (("fixed", 0, 40), ("chunked", 40, 12)):
+            fuzz[mode] = hf.run_fuzz(
+                iters, seed, fixed_shapes=True, chunked=mode == "chunked",
+                device="cuda", log=print)
+            seconds[f"fuzz-{mode}"] = fuzz[mode]["seconds"]
+    oracles = sorted({r["oracle"] for r in results})
+    require(oracles == ["native"], f"harness: cases served by {oracles}")
+    require(all(f["fails"] == 0 for f in fuzz.values()),
+            f"harness: fuzz failures {fuzz}")
+    require(fuzz["chunked"]["streamed"] > 0, "harness: no fuzz iteration "
+            "streamed its probe side")
+    best = {}
+    for r in results:
+        if r["task"] != "check_values":
+            best.setdefault(r["case"], {}).setdefault(r["label"], {})[
+                r["task"]] = r["core"]
+    emit("harness", runs=len(results),
+         failures=sum(not r["ok"] for r in results), oracle=oracles,
+         value_checks=sum(r["task"] == "check_values" for r in results),
+         fuzz=fuzz, best_core_seconds=best, seconds=seconds)
+    return require_launched("harness", HARNESS_KERNELS)
+
+
 def make_cells() -> dict:
     from flash_hash_join_tpu_torch.models.workload import (
         JoinCase, j1_suite, uniform_case)
@@ -2099,6 +2169,9 @@ def main() -> int:
           direct_core)
     phase("measure", phase_measure, cells, direct_core)
     phase("primitives", phase_primitives)
+    harness = phase("harness", phase_harness, cells)
+    for k in HARNESS_KERNELS:
+        launches[k] += harness[k]
     # K5's launches: the radix phase's and the distributed tier's
     launches["compact"] += phase("distributed", phase_distributed)["compact"]
     emit("seconds", total=time.perf_counter() - t0, **seconds)

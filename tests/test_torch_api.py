@@ -270,16 +270,29 @@ def test_cuda_device_raises_without_a_card():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, flash_hash_join_tpu_torch as ft; "
-            "import flash_hash_join_tpu_torch.ops.cuda._build; "
-            "assert 'jax' not in sys.modules, 'jax imported'; "
-            "assert not any(m == 'flash_hash_join_tpu' or "
-            "m.startswith('flash_hash_join_tpu.') for m in sys.modules); "
-            "print('ok')")
+    """Every module of the port (walked with pkgutil: parallel/, harness/,
+    utils/native included) and chip_smoke.py import neither jax nor the
+    JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import flash_hash_join_tpu_torch as ft\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    ft.__path__, 'flash_hash_join_tpu_torch.')]\n"
+            "for name in names + ['chip_smoke']:\n"
+            "    importlib.import_module(name)\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "assert not any(m == 'flash_hash_join_tpu' or\n"
+            "               m.startswith('flash_hash_join_tpu.')\n"
+            "               for m in sys.modules), 'JAX package imported'\n"
+            "print(' '.join(sorted(names)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    names = set(out.stdout.split())
+    assert {"flash_hash_join_tpu_torch.parallel.worker",
+            "flash_hash_join_tpu_torch.harness.benchmark",
+            "flash_hash_join_tpu_torch.harness.fuzz_join",
+            "flash_hash_join_tpu_torch.utils.native",
+            "flash_hash_join_tpu_torch.ops.cuda._build"} <= names
 
 
 # ---- partitioned tier and materialize ---------------------------------------

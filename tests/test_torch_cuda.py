@@ -856,3 +856,26 @@ def test_distributed_process_group_over_nccl(dev):
     world = 1 << (n.bit_length() - 1)
     assert dryrun_multichip(world, n_processes=world,
                             device="cuda") == world * 1024
+
+
+# ---- the harness twins on the card -----------------------------------------
+
+def test_benchmark_twin_on_card(dev, capsys):
+    from flash_hash_join_tpu_torch.harness import benchmark as hb
+    with pytest.raises(SystemExit) as exit_:
+        hb.main(["--gen", "1e5", "--device", "cuda", "--no-charts",
+                 "--device-time"])
+    out = capsys.readouterr().out
+    assert exit_.value.code == 0, out
+    assert "PARITY FAILURE" not in out and "MISMATCH" not in out
+    assert out.count("oracle=native") == 4 and "oracle=numpy" not in out
+    assert out.count("RESULT,Library=") == 4 * 6 * 2
+    assert out.count(",Device=") == 4 * 6 * 2
+
+
+def test_fuzzer_twin_on_card(dev):
+    from flash_hash_join_tpu_torch.harness import fuzz_join as hf
+    res = hf.run_fuzz(20, 0, fixed_shapes=True, device="cuda")
+    assert res["fails"] == 0, res
+    res = hf.run_fuzz(6, 20, fixed_shapes=True, chunked=True, device="cuda")
+    assert res["fails"] == 0 and res["streamed"] > 0, res
