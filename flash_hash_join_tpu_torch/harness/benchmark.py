@@ -216,18 +216,17 @@ def load_csv_suites(data_dir: str):
     return suites
 
 
-def gen_suites(n: int, seed: int, with_lowmatch: bool = True):
-    """The J1-shaped suite of n probe rows (Q1, Q2, Q5) and, with_lowmatch,
-    QB5: BASELINE.json config #3's shape scaled, n / 4 build rows at 5 %
-    match, where the global tier's bloom filter prunes probe gathers."""
+def gen_suites(n: int, seed: int):
+    """The J1-shaped suite of n probe rows (Q1, Q2, Q5) and QB5:
+    BASELINE.json config #3's shape scaled, n / 4 build rows at 5 % match,
+    where the global tier's bloom filter prunes probe gathers."""
     from flash_hash_join_tpu_torch.models.workload import (j1_suite,
                                                            uniform_case)
     cases = [(c.name, c.build_keys, c.build_values, c.probe_keys)
              for c in j1_suite(n, seed)]
-    if with_lowmatch:
-        c = uniform_case(max(n // 4, 1), n, match_rate=0.05, seed=seed)
-        cases.append((f"{n:.0e}-QB5".replace("+", ""),
-                      c.build_keys, c.build_values, c.probe_keys))
+    c = uniform_case(max(n // 4, 1), n, match_rate=0.05, seed=seed)
+    cases.append((f"{n:.0e}-QB5".replace("+", ""),
+                  c.build_keys, c.build_values, c.probe_keys))
     return [(f"{n:.0e}".replace("+", ""), cases)]
 
 
@@ -259,14 +258,6 @@ def pair_multiset(keys, vals) -> np.ndarray:
     pairs = np.stack([np.asarray(keys, np.uint64),
                       np.asarray(vals, np.uint64)], axis=1)
     return pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
-
-
-def pairs_in(keys, vals, bk, bv) -> bool:
-    """Whether every (key, value) row is some build row."""
-    as_rows = [np.ascontiguousarray(pair_multiset(k, v)).view(
-        [("k", np.uint64), ("v", np.uint64)]).ravel()
-        for k, v in ((keys, vals), (bk, bv))]
-    return bool(np.isin(*as_rows).all())
 
 
 def check_values(bk, bv, pk, strategies=("merge", "global", "partitioned"),

@@ -55,8 +55,8 @@ def _build(so: str) -> None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
     os.close(fd)
     try:
-        cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-               "-fPIC", "-pthread", _SRC, "-o", tmp]
+        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+               _SRC, "-o", tmp]
         out = subprocess.run(cmd, capture_output=True, text=True)
         if out.returncode:
             raise RuntimeError(f"g++ failed ({out.returncode}): "

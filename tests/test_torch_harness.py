@@ -271,14 +271,42 @@ def test_direct_eligibility_is_the_ports_rule():
 
 
 def test_pair_membership_and_multiset():
-    bk = np.array([1, 2, 2, M64], np.uint64)
-    bv = np.array([8, 9, 7, 0], np.uint64)
-    assert hb.pairs_in([2, 1, 2, M64], [7, 8, 9, 0], bk, bv)
-    assert hb.pairs_in([], [], bk, bv)
-    assert not hb.pairs_in([2], [8], bk, bv)        # a value of another key
-    assert not hb.pairs_in([3], [9], bk, bv)        # a key of no build row
     np.testing.assert_array_equal(hb.pair_multiset([2, 1, 2], [9, 8, 7]),
                                   [[1, 8], [2, 7], [2, 9]])
+    assert hb.pair_multiset([], []).shape == (0, 2)
+    # both rows' pairs are build rows (1, 8), (2, 9) and (2, 7); only the
+    # minimum build row of key 2 is the winner, and the multisets differ
+    want = hb.pair_multiset([2, 1, M64], [9, 8, 0])
+    assert not np.array_equal(hb.pair_multiset([2, 1, M64], [7, 8, 0]), want)
+    np.testing.assert_array_equal(hb.pair_multiset([M64, 2, 1], [0, 9, 8]),
+                                  want)
+
+
+def test_planted_wrong_winner_fails(monkeypatch, capsys):
+    """The last build row of a duplicate key in place of the first: the
+    count and the key multiset stay right, the pairs do not.  Seeds
+    266-271 run every strategy of the rotation (vmem and direct included)
+    on builds whose duplicate keys are probed."""
+    real = api.join_materialize
+
+    def last_row_wins(bk, bv, pk, **kw):
+        out = list(real(bk, bv, pk, **kw))
+        rk = np.asarray(bk, np.uint64)[::-1]
+        uniq, last = np.unique(rk, return_index=True)
+        out[3] = np.asarray(bv, np.uint64)[::-1][
+            last[np.searchsorted(uniq, out[2])]]
+        return tuple(out)
+
+    monkeypatch.setattr(api, "join_materialize", last_row_wins)
+    with pytest.raises(SystemExit) as exit_:
+        hf.main(["--iters", "6", "--seed", "266", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert exit_.value.code == 1
+    fails = [line for line in out.splitlines() if line.startswith("FAIL")]
+    assert len(fails) == 6, out
+    assert all("(key, value) multiset" in line for line in fails), out
+    assert {f"strat={s}" for s in hf.STRATEGIES} <= {
+        w for line in fails for w in line.split()}, out
 
 
 # seeds of the random mode (not dense_wide, whose interpreted JAX kernel
