@@ -71,8 +71,10 @@ Phases, one JSON line each on stdout:
   3. main     adaptive_join_count(device="cuda") on the db-benchmark J1
               cells: 4e7 Q1, Q2, Q5 (j1_suite seed 0), bench.py's 4e7 case
               (default_rng(2026)) and 1e8 Q5.  Each count must equal the
-              numpy oracle, route "direct" with no retry, and launch K1
-              (Q5) or K2 (Q1, Q2).
+              numpy oracle and take the route the adaptive gates decide
+              (ops/direct_bitmap.py; "direct" on these cells) with no
+              retry; K1 (Q5) or K2 (Q1, Q2) must launch (through
+              strategy="direct" where the gate routes elsewhere).
   4. radix    BASELINE.json config #4: J1 1e8 Q1, Q2, Q5 through
               hash_join_radix, and Q5 through hash_join_count_radix.
   5. adaptive BASELINE.json config #2: uniform 1e7 x 1e8, 50 % match,
@@ -89,13 +91,13 @@ Phases, one JSON line each on stdout:
               materialize, beside the partitioned tier on the same input.
   8. dense_mat  dense-domain materialize: J1 1e7 Q2 (K7 at v_rows 128),
               4e7 Q1 and Q2, 1e8 Q1 and Q2 (4e7 Q2 and 1e8 Q2: K8 at
-              v_rows 512 and 1024) through adaptive_join and
-              join_materialize(return_arrays=True): count and probe-order
-              rows equal the oracle, route "direct" with no retry, K7 or
-              K8, and K5 launched, and K9 and the plain int64 probe mapping
-              not (both bands map the key planes in-kernel); the same
-              cell through
-              strategy="partitioned"
+              v_rows 512 and 1024) through adaptive_join, which must take
+              the route its gate decides (direct on 1e8 Q2 only), then
+              through join_materialize(strategy="direct"), timed, and with
+              return_arrays=True: count and probe-order rows equal the
+              oracle, no retry, K7 or K8, and K5 launched, and K9 and the
+              plain int64 probe mapping not (both bands map the key planes
+              in-kernel); the same cell through strategy="partitioned"
               beside it.  Then a wide-value cell (u64 values, 2 value
               planes) at the 4e7 Q2 shape, where direct, partitioned and
               merge must agree with the oracle.
@@ -107,7 +109,8 @@ Phases, one JSON line each on stdout:
               tier) on J1 1e8 Q5 and config #2: exact, no retry, bloom and
               no bloom agreeing, with the walk iterations per probe chunk.
  11. stream_compact  with FHJ_COMPACT=stream: hash_join_radix on J1 1e8 Q2
-              and adaptive_join on J1 1e8 Q1 (direct), rows equal to the
+              and join_materialize(strategy="direct") on J1 1e8 Q1, rows
+              equal to the
               oracle's in probe order (as in phases 4 and 8), K6 launched
               and K5 not.
  12. config3  BASELINE.json config #3, uniform 1e7 x 1e9 at 5 % match
@@ -120,7 +123,8 @@ Phases, one JSON line each on stdout:
               order), probe_chunks 1 or 4, no merge retry; core, wall and
               peak allocated and reserved bytes a probe row.
  13. stream_direct  J1 1e8 Q5 adaptive_join_count planned in 4 chunks: the
-              main phase's count, direct, K1 launched once a chunk.
+              main phase's count, the gates' route for a chunk's rows
+              (direct), K1 launched once a chunk.
  14. measure  measure_device_seconds on bench.py's 4e7 cell and J1 1e8 Q5:
               the oracle's count, chained False, 0 < device_seconds <=
               single_call_seconds, beside the main phase's best core.
@@ -140,7 +144,13 @@ Phases, one JSON line each on stdout:
               oracle on every case, 0 fuzz failures; K1-K5, K7, K8, K10 and
               K11 launched.  One line: runs, failures, oracles, fuzz
               summaries, the best core of each case, impl and task, seconds.
- 17. distributed  the distributed tier through the in-process mesh, one
+ 17. gates    harness/gate_drift.py's sentinels, one on each side of every
+              adaptive gate (the J1 cells above where the shape matches),
+              each timed direct against partitioned: every count equal to
+              the C++ host oracle's, every adaptive call on the route its
+              gate decides, every gate PASS (the faster route is the
+              gate's, or within 15 %); K1-K5, K7 and K8 launched.
+ 18. distributed  the distributed tier through the in-process mesh, one
               card a rank when the machine has them, else every rank on
               cuda:0 (each line says which): dist-zipf-c5, BASELINE.json
               config #5's share of a chip (6.25e7 build and probe rows a
@@ -164,8 +174,8 @@ calls back to back (cuda_ms_b2b, where that work overlaps the card's).
 Phases 3-5 and 8-11 time a warm-up and then the best of the following
 runs: core_seconds (device time), wall seconds, probe rows/s, peak device
 bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5,
-8, 9 and 11-17 and read just after (the kernels line's launches: phases 3,
-4, 8, 9, 11, 16 and, for K5, 17).  Then the seconds of each phase, the
+8, 9 and 11-18 and read just after (the kernels line's launches: phases 3,
+4, 8, 9, 11, 16, 17 and, for K5, 18).  Then the seconds of each phase, the
 kernels summary (the 11 TPU kernels' counterparts and the range table's
 directory build: each one's launches on its path, error against its plain
 version, times, bound and library time), the card's name and power
@@ -1009,24 +1019,38 @@ def phase_main(cells: dict) -> tuple[dict, dict, dict]:
     zero_launches()
     for name in expect:
         c = cells[name]
+        gate = gate_route(c, "count")
         torch.cuda.reset_peak_memory_stats()
         best, wall, runs, (count, _, info) = _timed_runs(
             ft.adaptive_join_count, c, reps=2)
         require(count == want[name],
                 f"{name}: count {count} != oracle {want[name]}")
-        require(info["strategy"] == "direct" and not info["retried"],
-                f"{name}: routed {info}")
+        require(info["strategy"] == gate and not info["retried"],
+                f"{name}: routed {info}, the gate says {gate}")
+        if gate != "direct":           # the cell's kernel, by name
+            count, _, info = ft.join_count(
+                c.build_keys, c.build_values, c.probe_keys,
+                strategy="direct", device="cuda", return_info=True)
+            require(count == want[name], f"{name} direct: count {count}")
         require(info["launches"][expect[name]] > 0,
                 f"{name}: {expect[name]} not launched: {info}")
         core[name], counts[name] = best, count
         emit("main", cell=name, nb=len(c.build_keys), npr=len(c.probe_keys),
-             count=count, oracle=want[name], strategy=info["strategy"],
+             count=count, oracle=want[name], strategy=gate,
              d_rows=info["d_rows"], launches=info["launches"],
              core_seconds=best, probe_rows_per_s=len(c.probe_keys) / best,
              wall_seconds=wall, core_seconds_runs=runs,
              peak_device_bytes=torch.cuda.max_memory_allocated())
     return (require_launched("main", ("dense_bitmap", "scan_domain_count")),
             core, counts)
+
+
+def gate_route(c, mode: str) -> str:
+    """The route the adaptive gates (ops/direct_bitmap.py) decide for a
+    cell, which its adaptive call must take."""
+    import flash_hash_join_tpu_torch as ft
+    return ft.adaptive_strategy(c.build_keys, c.build_values,
+                                len(c.probe_keys), mode=mode)
 
 
 def check_rows(name: str, c, keys, vals, probe_order: bool) -> None:
@@ -1177,24 +1201,42 @@ def probe_mapping_calls():
 
 
 def dense_mat_cell(name: str, c) -> None:
-    """Drive one dense cell through adaptive_join (timed) and
-    join_materialize(return_arrays=True), checked against the oracle, then
-    the same cell through strategy="partitioned" beside it."""
+    """Drive one dense cell through adaptive_join (timed), which must take
+    the route its gate decides; then through join_materialize(strategy=
+    "direct") (timed, unless adaptive went direct) and with
+    return_arrays=True, checked against the oracle, K7 or K8 launched and
+    no int64 probe mapping on the card; then through strategy=
+    "partitioned" beside it."""
     import torch
     import flash_hash_join_tpu_torch as ft
     from flash_hash_join_tpu_torch.ops import direct_bitmap as db
     want = int(oracle(name, c)[0].sum())
+    gate = gate_route(c, "materialize")
     torch.cuda.reset_peak_memory_stats()
     with probe_mapping_calls() as calls:
         best, wall, runs, (count, _, info) = _timed_runs(ft.adaptive_join, c,
                                                          reps=2)
-    peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        require(count == want, f"dense_mat {name}: count {count} != {want}")
+        require(info["strategy"] == gate and not info["retried"],
+                f"dense_mat {name}: routed {info}, the gate says {gate}")
+        adaptive = dict(core_seconds=best, wall_seconds=wall,
+                        core_seconds_runs=runs, strategy=gate)
+        if gate != "direct":
+            torch.cuda.reset_peak_memory_stats()
+            best, wall, runs, (count, _, info) = _timed_runs(
+                functools.partial(ft.join_materialize, strategy="direct"),
+                c, reps=2)
+            peak = torch.cuda.max_memory_allocated()
+            require(count == want and info["strategy"] == "direct"
+                    and not info["retried"],
+                    f"dense_mat {name} direct: {count} != {want}, {info}")
+        count, _, keys, vals, minfo = ft.join_materialize(
+            c.build_keys, c.build_values, c.probe_keys, strategy="direct",
+            device="cuda", return_arrays=True, return_info=True)
     # K7 and K8 map the probe key planes inside the kernel
     require(not calls, f"dense_mat {name}: the int64 probe mapping ran on "
             f"the card ({len(calls)} calls)")
-    require(count == want, f"dense_mat {name}: count {count} != {want}")
-    require(info["strategy"] == "direct" and not info["retried"],
-            f"dense_mat {name}: routed {info}")
     staged = info["d_rows"] > db.MAT_SCAN_MAX_V_ROWS
     kernels = (("probe_gather_staged",) if staged
                else ("probe_gather_bitmap",)) + ("compact",)
@@ -1203,22 +1245,20 @@ def dense_mat_cell(name: str, c) -> None:
     # K8 reads the key planes: no copy of probe indices on the path (K9)
     require(info["launches"]["materialize_copy"] == 0,
             f"dense_mat {name}: materialize_copy launched: {info}")
-    count, _, keys, vals, minfo = ft.join_materialize(
-        c.build_keys, c.build_values, c.probe_keys, device="cuda",
-        return_arrays=True, return_info=True)
     require(count == want and minfo["strategy"] == "direct"
             and not minfo["retried"], f"dense_mat {name}: rows {minfo}")
     check_rows(name, c, keys, vals, probe_order=True)
     npr = len(c.probe_keys)
-    emit("dense_mat", cell=name, fn="adaptive_join", nb=len(c.build_keys),
-         npr=npr, count=count, oracle=want, strategy=info["strategy"],
+    emit("dense_mat", cell=name, fn="join_materialize", strategy="direct",
+         nb=len(c.build_keys), npr=npr, count=count, oracle=want,
          v_rows=info["d_rows"], launches=info["launches"], core_seconds=best,
          probe_rows_per_s=npr / best, wall_seconds=wall,
          core_seconds_runs=runs, peak_device_bytes=peak,
-         peak_bytes_per_probe_row=peak / npr)
+         peak_bytes_per_probe_row=peak / npr, adaptive=adaptive)
     part = partitioned_cell("dense_mat", name, c, "join_materialize",
                             materialize=True, strategy="partitioned")
     emit("dense_mat_summary", cell=name, v_rows=info["d_rows"],
+         adaptive_route=gate, adaptive_core_seconds=adaptive["core_seconds"],
          direct_core_seconds=best,
          partitioned_core_seconds=part["core_seconds"],
          partitioned_over_direct=part["core_seconds"] / best,
@@ -1555,8 +1595,9 @@ def phase_global(cells: dict) -> None:
 
 
 def phase_stream_compact(cells: dict) -> dict:
-    """FHJ_COMPACT=stream: hash_join_radix on J1 1e8 Q2 and adaptive_join
-    on J1 1e8 Q1 (routed direct) compact through the blockwise sort and K6;
+    """FHJ_COMPACT=stream: hash_join_radix on J1 1e8 Q2 and join_materialize
+    (strategy="direct") on J1 1e8 Q1 compact through the blockwise sort and
+    K6;
     their rows equal the oracle's in probe order, as phases radix and
     dense_mat found for the K5 route."""
     import os
@@ -1566,10 +1607,10 @@ def phase_stream_compact(cells: dict) -> dict:
              expect="partitioned",
              kernels=("range_probe_materialize", "concat_ragged_blocks"),
              rows_kw=dict(strategy="partitioned"), reps=1)
-    api_cell("stream_compact", "1e8-Q1", cells["1e8-Q1"], "adaptive_join",
+    api_cell("stream_compact", "1e8-Q1", cells["1e8-Q1"], "join_materialize",
              expect="direct",
              kernels=("probe_gather_bitmap", "concat_ragged_blocks"),
-             rows_kw=dict(strategy="adaptive"), reps=1)
+             rows_kw=dict(strategy="direct"), reps=1, strategy="direct")
     del os.environ["FHJ_COMPACT"]
     launches = require_launched("stream_compact", ("concat_ragged_blocks",))
     require(launches["compact"] == 0,
@@ -1710,8 +1751,8 @@ def phase_config3() -> dict:
 def phase_stream_direct(cells: dict, main_counts: dict,
                         direct_core: dict) -> dict:
     """J1 1e8 Q5 adaptive_join_count with the budget patched to plan 4
-    chunks: each chunk runs direct (K1 once a chunk), and the count equals
-    the main phase's single shot."""
+    chunks: each chunk runs the route the gates decide for its rows (direct:
+    K1 once a chunk), and the count equals the main phase's single shot."""
     import flash_hash_join_tpu_torch as ft
     name = "1e8-Q5"
     c = cells[name]
@@ -1719,16 +1760,18 @@ def phase_stream_direct(cells: dict, main_counts: dict,
     zero_launches()
     core = {}
     with planned_chunks(nb, npr, "count", 4):
+        gate = gate_route(c, "count")
+        kernel = "dense_bitmap" if gate == "direct" else "range_probe_count"
         for overlap in (True, False):
             with chunk_overlap(overlap):
                 best, wall, runs, (count, _, info) = _timed_runs(
                     ft.adaptive_join_count, c, reps=2)
             require(count == main_counts[name],
                     f"stream_direct: {count} != main's {main_counts[name]}")
-            require(info["strategy"] == "direct" and not info["retried"]
+            require(info["strategy"] == gate and not info["retried"]
                     and info["probe_chunks"] == 4
-                    and info["launches"]["dense_bitmap"] == 4,
-                    f"stream_direct: routed {info}")
+                    and info["launches"][kernel] == 4,
+                    f"stream_direct: routed {info}, the gate says {gate}")
             core[overlap] = best
             emit("stream_direct", cell=name, overlap=overlap, count=count,
                  probe_chunks=4, d_rows=info["d_rows"],
@@ -1738,17 +1781,21 @@ def phase_stream_direct(cells: dict, main_counts: dict,
          single_shot_core_seconds=direct_core[name],
          streamed_core_seconds=core[True],
          streamed_serial_core_seconds=core[False])
-    return require_launched("stream_direct", ("dense_bitmap",))
+    return require_launched("stream_direct", (kernel,))
 
 
 def phase_measure(cells: dict, direct_core: dict) -> dict:
     """measure_device_seconds on bench.py's 4e7 cell and J1 1e8 Q5: the
     oracle's count, chained False, 0 < device_seconds <= the single call's,
-    beside the main phase's best core."""
+    beside the main phase's best core; the kernel of the route the gates
+    decide (direct: K1) launched."""
     import flash_hash_join_tpu_torch as ft
     zero_launches()
+    kernels = set()
     for name in ("bench-4e7", "1e8-Q5"):
         c = cells[name]
+        kernels.add("dense_bitmap" if gate_route(c, "count") == "direct"
+                    else "range_probe_count")
         want = int(oracle(name, c)[0].sum())
         count, dev_s, single, chained = ft.measure_device_seconds(
             c.build_keys, c.build_values, c.probe_keys)
@@ -1759,7 +1806,7 @@ def phase_measure(cells: dict, direct_core: dict) -> dict:
         emit("measure", cell=name, count=count, device_seconds=dev_s,
              single_call_seconds=single, chained=chained,
              main_core_seconds=direct_core[name])
-    return require_launched("measure", ("dense_bitmap",))
+    return require_launched("measure", tuple(kernels))
 
 
 def hash_u64_np(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
@@ -2093,6 +2140,32 @@ def phase_harness(cells: dict) -> dict:
     return require_launched("harness", HARNESS_KERNELS)
 
 
+GATES_KERNELS = ("dense_bitmap", "scan_domain_count", "range_probe_count",
+                 "range_probe_materialize", "compact", "probe_gather_bitmap",
+                 "probe_gather_staged")
+
+
+def phase_gates(cells: dict) -> dict:
+    """The gate-drift check (flash_hash_join_tpu_torch/harness/
+    gate_drift.py) on the card, its lines on stderr: a sentinel on each side
+    of every adaptive gate (the J1 cells made here where the shape is one
+    of them), each timed direct against partitioned by
+    measure_device_seconds.  Every count equals the C++ host oracle's,
+    every adaptive call takes the route its gate decides and every gate
+    PASSes (the faster strategy is the gate's, or within 15 %); K1-K5, K7
+    and K8 launched."""
+    from flash_hash_join_tpu_torch.harness import gate_drift
+    zero_launches()
+    with contextlib.redirect_stdout(sys.stderr):
+        rows, _ = gate_drift.run_checks(device="cuda", cells=cells)
+    emit("gates", sentinels=rows)
+    # a row fails on a count off the oracle's, an adaptive call off its
+    # gate's route, or a gate on the slower strategy by more than 15 %
+    require(all(r["ok"] for r in rows), "gates: sentinels FAIL: "
+            f"{[r['label'] for r in rows if not r['ok']]}")
+    return require_launched("gates", GATES_KERNELS)
+
+
 def make_cells() -> dict:
     from flash_hash_join_tpu_torch.models.workload import (
         JoinCase, j1_suite, uniform_case)
@@ -2172,7 +2245,10 @@ def main() -> int:
     harness = phase("harness", phase_harness, cells)
     for k in HARNESS_KERNELS:
         launches[k] += harness[k]
-    # K5's launches: the radix phase's and the distributed tier's
+    gates = phase("gates", phase_gates, cells)
+    for k in GATES_KERNELS:
+        launches[k] += gates[k]
+    # K5's launches: the distributed tier's too
     launches["compact"] += phase("distributed", phase_distributed)["compact"]
     emit("seconds", total=time.perf_counter() - t0, **seconds)
     src = "flash_hash_join_tpu_torch/csrc/"

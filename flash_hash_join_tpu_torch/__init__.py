@@ -7,7 +7,7 @@ kernels (csrc/):
     hash_join_count_radix[_bloom] and initialize;
   * `join_count` and `join_materialize` with strategy "adaptive",
     "direct", "partitioned", "merge", "global" or "vmem";
-  * `plan_strategy`, `bloom_is_distinct`, `launch_counts` and
+  * `plan_strategy`, `adaptive_strategy`, `bloom_is_distinct`, `launch_counts` and
     `measure_device_seconds`;
   * the distributed tier, `distributed_join_count` and
     `distributed_join_materialize` (parallel/): a ragged hash shuffle and
@@ -30,6 +30,7 @@ from flash_hash_join_tpu_torch.api import (  # noqa: F401
     adaptive_join_bloom,
     adaptive_join_count,
     adaptive_join_count_bloom,
+    adaptive_strategy,
     bloom_is_distinct,
     distributed_join_count,
     distributed_join_materialize,

@@ -14,33 +14,44 @@ materialize —, retried, kernel launches).  The distributed tier
 (distributed_join_count / _materialize, parallel/) times its whole run on
 the host clock instead, the host split and copies included.
 
-Routing of the adaptive plan, decided on the host from the numpy keys:
-a dense domain -> `direct`.  Count: build keys below 2^32 spanning at
+Routing of the adaptive plan, decided on the host from the numpy keys
+(port of flash_hash_join_tpu/api.py:99-171).  A dense domain is what
+`direct` takes (_dense_rung).  Count: build keys below 2^32 spanning at
 most MAX_XL_DOMAIN_BITS slots (bitmap kernels K1/K2).  Materialize: build
 keys below 2^32, at most MAX_BUILD_ROWS (2^20) build rows and
 v_rows_for(span) <= MAT_MAX_V_ROWS (span <= 2^20 slots; value-plane
-kernels K7 or K8, then K5), with one value plane when every build
-value is below 2^32.  Everything else -> `partitioned` (sorted range
-table, K3/K4, and K5 for materialize).  An explicit strategy="direct"
-outside those bounds raises ValueError.  The JAX package's extra gates
-between direct and partitioned (probe-count floors, the 2^19 scan cap,
-large_span_ok / large_span_wins, mat_wins, mat_span_ok) were measured on
-a TPU v5e or size its kernels' windows; the perf gates return once
-measured on the H100.  The adaptive plan never picks the explicit tiers,
-as in the JAX package: `global` (hash_join, hash_join_count and their
-_bloom twins, which add the per-group bloom filter; plain torch) and
-`vmem` (bucket table, K10/K11); like `merge` they bypass the feasibility
-plan.  A nonzero special[3] (build rows the strategy could not place:
-bad rows of a direct domain, a full vmem bucket, a chain past the global
-walk's bound) reruns the join on `merge`, so every result is exact.
-Output order: direct, partitioned, global and vmem emit probe order,
-merge (hash, key) order; the row multiset is the same.
+kernels K7 or K8, then K5), with one value plane when every build value is
+below 2^32.  An explicit strategy="direct" outside those bounds raises
+ValueError.  Adaptive sends a dense domain direct only where the gates of
+ops/direct_bitmap.py (adaptive_wins: ADAPTIVE_MIN_PROBE_ROWS,
+ADAPTIVE_SCAN_DOMAIN_BITS, LARGE_MIN_PROBE_ROWS / large_span_wins,
+MAT_*_MIN_PROBE_ROWS / mat_wins, the JAX package's gate structure) say
+direct is faster, a chunked count gating on the rows of one chunk;
+their constants come from the crossover sweep on an NVIDIA H100 80GB
+HBM3 at 700.00 W (harness/crossover.py; harness/gate_drift.py re-checks
+them).  On that card every dense count goes direct, and a dense
+materialize only from 8e7 probe rows (2e8 for value planes under 128
+rows; never with u64 values).  The JAX package's window gates
+(large_span_ok, mat_span_ok, sort_block_for) size its TPU kernels'
+windows, which the port's kernels do not have.  Everything else ->
+`partitioned` (sorted range table, K3/K4, and K5 for materialize);
+adaptive_strategy() says the route of given columns.  The adaptive plan
+never picks the explicit tiers, as in the JAX package: `global`
+(hash_join, hash_join_count and their _bloom twins, which add the
+per-group bloom filter; plain torch) and `vmem` (bucket table, K10/K11);
+like `merge` they bypass the feasibility plan.  A nonzero special[3]
+(build rows the strategy could not place: bad rows of a direct domain, a
+full vmem bucket, a chain past the global walk's bound) reruns the join
+on `merge`, so every result is exact.  Output order: direct,
+partitioned, global and vmem emit probe order, merge (hash, key) order;
+the row multiset is the same.  With FHJ_PROFILE_DIR set, a single-shot
+join writes a torch.profiler trace of its timed call there.
 
 Feasibility: adaptive and partitioned ask the planner (models/cost.py)
 how many probe chunks fit the card's memory.  Past one, the probe side
 streams from the host (_run_chunked): counts add up over the chunks,
 materialized rows concatenate in chunk order, a chunked count of a dense
-domain still runs direct (the bitmap build repeats a chunk) and a chunked
+domain may run direct (the bitmap build repeats a chunk) and a chunked
 materialize stays partitioned.  Out of device memory, a stream doubles
 its chunks (up to 65536) and a single-shot partitioned run streams in 2;
 return_info's probe_chunks says how many ran.  measure_device_seconds
@@ -145,13 +156,17 @@ def _graph(mode: str, strategy: str, rung: int = 0,
     return engine.materialize_graph(strategy, **tier)
 
 
+def _span(build_keys: np.ndarray) -> int:
+    return int(build_keys.max()) - int(build_keys.min()) + 1
+
+
 def _dense_rung(mode: str, build_keys: np.ndarray,
                 build_values: np.ndarray) -> tuple[int, bool]:
     """(rung, narrow_values) of the direct strategy for these build
     columns, rung 0 when the keys are not a dense domain the direct
     kernels take."""
     bk_max = int(build_keys.max())
-    span = bk_max - int(build_keys.min()) + 1
+    span = _span(build_keys)
     if bk_max >= 2**32:
         return 0, False
     if mode == "count":
@@ -191,9 +206,10 @@ def _route(mode: str, requested: str, build_keys: np.ndarray,
     """The plan of flash_hash_join_tpu/api.py:85-171: adaptive and
     partitioned consult the feasibility plan (models/cost.py) for their
     probe chunks; an explicit direct, merge, global or vmem bypasses it.
-    A dense domain upgrades adaptive to direct, a chunked count included
-    (each chunk rebuilds the bitmap), but not a chunked materialize, which
-    stays partitioned (JAX api.py:108-110)."""
+    A dense domain upgrades adaptive to direct where the measured gates
+    (db.adaptive_wins) say so, a chunked count included (each chunk
+    rebuilds the bitmap; the gates see a chunk's rows), but not a chunked
+    materialize, which stays partitioned (JAX api.py:108-110)."""
     nb = build_keys.shape[0]
     strategy, probe_chunks = requested, 1
     if requested in ("adaptive", "partitioned"):
@@ -207,6 +223,12 @@ def _route(mode: str, requested: str, build_keys: np.ndarray,
     if requested == "direct" or (requested == "adaptive"
                                  and not chunked_materialize):
         rung, narrow_values = _dense_rung(mode, build_keys, build_values)
+        # the measured gates (ops/direct_bitmap.py) hold adaptive alone; a
+        # chunked count gates on the rows of one chunk (JAX api.py:117)
+        if rung and requested == "adaptive" and not db.adaptive_wins(
+                mode, nb, -(-npr // probe_chunks), _span(build_keys),
+                narrow_values):
+            rung, narrow_values = 0, False
         if rung:
             strategy = "direct"
         elif requested == "direct":
@@ -228,6 +250,23 @@ def _info(route: _Route, strategy: str, retried: bool, npr: int,
                 retried=retried, use_bloom=route.use_bloom, nb=route.nb,
                 npr=npr, probe_chunks=probe_chunks,
                 launches={k: after[k] - before[k] for k in after})
+
+
+def _maybe_profile(dev: torch.device):
+    """A torch.profiler trace around the timed call when FHJ_PROFILE_DIR
+    is set (port of flash_hash_join_tpu/api.py:_maybe_profile): CPU
+    activity, and CUDA kernels on a card, written into that directory as
+    a Chrome trace (<host>_<pid>.<time>.pt.trace.json) when the call
+    returns."""
+    trace_dir = os.environ.get("FHJ_PROFILE_DIR")
+    if not trace_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, \
+        tensorboard_trace_handler
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    return profile(activities=activities,
+                   on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def _release(dev: torch.device) -> None:
@@ -257,7 +296,8 @@ def _execute(route: _Route, build_keys, build_values, probe_keys, *,
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         fn = route.fn()
-        out, count, bad, core_seconds = _timed(fn, args, dev)
+        with _maybe_profile(dev):
+            out, count, bad, core_seconds = _timed(fn, args, dev)
     except torch.cuda.OutOfMemoryError:
         # The feasibility constants are calibrated, not guaranteed: a
         # single-shot partitioned run that still runs out of memory streams
@@ -607,6 +647,19 @@ def plan_strategy(n_build: int, n_probe: int, mode: str = "count",
                            hbm_budget_bytes(_device(device))).strategy
     except MemoryError:
         return "partitioned"
+
+
+def adaptive_strategy(build_keys, build_values, n_probe: int,
+                      mode: str = "count", device="cuda") -> str:
+    """The strategy adaptive_join[_count] runs for these (nonempty) build
+    columns and n_probe probe rows, decided on the host as the join
+    decides it: the feasibility plan, the dense-domain rule and the
+    measured gates (ops/direct_bitmap.adaptive_wins)."""
+    build_keys, build_values = _as_u64(build_keys), _as_u64(build_values)
+    if build_keys.size == 0 or n_probe <= 0:
+        raise ValueError("adaptive_strategy needs nonempty sides")
+    return _route(mode, "adaptive", build_keys, build_values, n_probe,
+                  False, _device(device)).strategy
 
 
 def bloom_is_distinct(n_build: int, n_probe: int, mode: str = "count",

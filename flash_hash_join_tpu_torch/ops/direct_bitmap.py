@@ -11,7 +11,23 @@ Split of work:
   host (api.py): detects the dense domain from the numpy inputs (max <
     2^32; count: span <= MAX_XL_DOMAIN_BITS, materialize: at most
     MAX_BUILD_ROWS build rows and v_rows_for(span) <= MAT_MAX_V_ROWS) and
-    picks the d_rows (count) or v_rows (materialize) rung.
+    picks the d_rows (count) or v_rows (materialize) rung; the adaptive
+    plan then asks this module's gates (adaptive_wins) whether direct is
+    the faster route for the shape.
+  the gates (port of the JAX package's api.py:117-166 and
+    direct_bitmap.py:50, 145-170, 428-434, its structure and names): a
+    probe floor (ADAPTIVE_MIN_PROBE_ROWS), the scan band's cap
+    (ADAPTIVE_SCAN_DOMAIN_BITS), the large band's large_span_wins
+    (LARGE_MIN_PROBE_ROWS), and the materialize's mat_wins by value-plane
+    rung and value width (MAT_MIN_PROBE_ROWS, MAT_STAGED_MIN_PROBE_ROWS,
+    MAT_WIDE_MIN_PROBE_ROWS).  Their constants come from the crossover
+    sweep (harness/crossover.py) on an NVIDIA H100 80GB HBM3 at 700.00 W,
+    not from the v5e; beside each, the points that fix it.  On that card
+    no count gate binds (direct won every count measured) and the
+    materialize goes direct only at large probe sides.  The JAX package's
+    window gates (large_span_ok, mat_span_ok, sort_block_for) are not
+    ported: they size the TPU kernels' windows, and these kernels have
+    none.
   this module (torch, on the device).  Count, both bands straight from the
     UNSORTED key planes, so no int64 pass runs on the card:
       scan band  (d_rows <= 256): K2 (ops/cuda/bitmap_probe.py
@@ -102,6 +118,100 @@ def v_rows_for(span: int) -> int:
     while r < need:
         r *= 2
     return r
+
+
+# --- the adaptive gates (port of flash_hash_join_tpu/api.py:117-166) ----
+# Measured on an NVIDIA H100 80GB HBM3, 700.00 W (nvidia-smi
+# --query-gpu=name,power.limit), by the crossover sweep:
+#     python3 -m flash_hash_join_tpu_torch.harness.crossover --mode count
+#     python3 -m flash_hash_join_tpu_torch.harness.crossover --mode materialize
+# plus the follow-up points named below.  Times are core ms, direct /
+# partitioned, the best of 5 API calls after a warm-up.  Only adaptive
+# consults the gates (api._route); an explicit strategy="direct" takes any
+# domain _dense_rung accepts.  harness/gate_drift.py re-measures one
+# sentinel on each side of every gate: run it after any change to a kernel
+# or to the host work around one.
+
+# Probe floor (JAX: 1 << 16 probe rows, inline).  Never binds on the H100:
+# direct won every count of the sweep, 1 to 1e8 probe rows, by 34 % or
+# more (J1 4e6 Q2: 0.377 / 0.507); at the small end (`--nb 1e3 2.5e6 1e8
+# --npr 1 100 1000`) by 71-783 % (npr 1: nb 1000 0.183 / 0.454, nb 2.5e6
+# 0.370 / 0.703, nb 1e8 1.720 / 15.015), and at npr 1e4-2.5e5 (nb 1e3,
+# 1e5, 2.5e6) by 67-151 %.  A materialize's floor is mat_wins'.  A chunked
+# count gates on the rows of one chunk.
+ADAPTIVE_MIN_PROBE_ROWS = 0
+
+# Scan cap (JAX: 2^19 slots, 128 bitmap rows, from a v5e row scan whose
+# cost grew with d_rows).  Never binds: K2 finds a key's bit in shared
+# memory whatever the rung, and direct won every span of the scan band,
+# spans 2^19 +- 4096 and 2^20 - 4096 at 1e6 and 4e7 probe rows by 100-153 %
+# (span 2^19 + 4096, npr 4e7: 0.512 / 1.258; span 2^20 - 4096, npr 1e6:
+# 0.297 / 0.594).  So the cap is the scan band's own 2^20 slots.
+ADAPTIVE_SCAN_DOMAIN_BITS = MAX_DOMAIN_BITS
+
+# Large band (JAX: npr >= 3.2e7 and nb <= 1.25 npr, where the v5e's
+# blockwise sort lost to the partitioned tier's below).  Never binds: K1
+# won every large-band point, nb 4e4 (span 2^20 + 4096) to 1e8 by npr 1 to
+# 1e8 (nb / npr up to 1e8), by 71-783 % (nb 2.5e6, npr 1000: 0.395 /
+# 0.676; J1 1e8 Q5: 2.641 / 21.810; nb 4e7, npr 1e6: 0.880 / 6.207).
+LARGE_MIN_PROBE_ROWS = 0
+
+
+def large_span_wins(nb: int, npr: int) -> bool:
+    """Should adaptive route an eligible span past the scan band (K1)
+    direct?  True over the whole measured region (nb 4e4-1e8, npr
+    1-1e8); nb has never decided it on the H100."""
+    return npr >= LARGE_MIN_PROBE_ROWS
+
+
+# Dense materialize.  Direct pays for its build side's small host-dispatched
+# launches (its core is 0.9-1.5 ms at 6.5e4-2.5e5 probe rows, against
+# partitioned's 0.4-0.9), and reads the probe side faster, so it wins only
+# past a probe count that grows as its value planes shrink.  Narrow values (one plane), v_rows <= 64 (K7):
+# partitioned wins to 1.5e8 probe rows (v8 at 1e8: 2.979 / 2.859, at 1.5e8
+# 4.234 / 3.926; J1 1e8 Q1 2.718 / 2.458), direct from 2e8 (v8 4.926 /
+# 5.142, v64 4.889 / 5.332) -- a near tie on both sides.
+MAT_MIN_PROBE_ROWS = 200_000_000
+# Narrow values, v_rows >= 128 (K7's top rung, then K8): partitioned wins
+# to 4e7 probe rows (v128 1.914 / 1.820, v1024 2.282 / 2.092, J1 4e7 Q2
+# 1.954 / 1.883) and at 6e7-8e7 on v128 (3.101 / 2.786); direct from 8e7
+# (v256 3.090 / 3.202, v1024 2.986 / 3.675, v8192 3.375 / 3.711) and at
+# 1e8 on every rung by 11-36 % (J1 1e8 Q2 3.133 / 4.032).  8e7 keeps every
+# measured point within 13.6 % of the faster route (v1024 at 6e7: 2.664 /
+# 3.028).
+MAT_STAGED_MIN_PROBE_ROWS = 80_000_000
+# u64 values (two planes): partitioned wins by up to 157 % over v_rows
+# 8-8192 by npr 6.5e4-1e8 and v128-8192 at 1.5e8 and 2e8 (v8 at 1e8:
+# 3.725 / 2.660; v256 at 1.5e8: 6.223 / 5.064), but for v1024 at 1e8-2e8,
+# where direct leads by 0-5 % (2e8: 7.501 / 7.888).  So this floor lies
+# past every probe count; unmeasured beyond 2e8 probe rows.
+MAT_WIDE_MIN_PROBE_ROWS = 1 << 62
+
+
+def mat_wins(v_rows: int, npr: int, narrow_values: bool = True) -> bool:
+    """Should adaptive route an eligible dense materialize of value-plane
+    rung v_rows and npr probe rows direct?  narrow_values: every build
+    value below 2^32 (one value plane)."""
+    if not narrow_values:
+        return npr >= MAT_WIDE_MIN_PROBE_ROWS
+    if v_rows <= 64:
+        return npr >= MAT_MIN_PROBE_ROWS
+    return npr >= MAT_STAGED_MIN_PROBE_ROWS
+
+
+def adaptive_wins(mode: str, nb: int, npr: int, span: int,
+                  narrow_values: bool = True) -> bool:
+    """The gates together: should adaptive route an eligible dense build
+    (api._dense_rung) of nb rows spanning `span` slots direct, for npr
+    probe rows (a chunk's rows when the probe side streams)?  The
+    constants are read at call time."""
+    if npr < ADAPTIVE_MIN_PROBE_ROWS:
+        return False
+    if mode == "count":
+        if span <= MAX_DOMAIN_BITS:
+            return span <= ADAPTIVE_SCAN_DOMAIN_BITS
+        return large_span_wins(nb, npr)
+    return mat_wins(v_rows_for(span), npr, narrow_values)
 
 
 def _special(n_bad: torch.Tensor) -> torch.Tensor:

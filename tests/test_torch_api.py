@@ -33,6 +33,7 @@ from flash_hash_join_tpu_torch.ops import direct_bitmap as tdb
 from flash_hash_join_tpu_torch.utils import config as tcfg
 from flash_hash_join_tpu_torch.utils import u64 as tu64
 from tests.oracle import oracle_count
+from tests.torch_gates import open_gates
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -43,7 +44,8 @@ def _port(bk, bv, pk, **kw):
 
 
 @pytest.mark.parametrize("q", ["Q1", "Q2", "Q5"])
-def test_j1_suite_matches_jax_and_oracle(q):
+def test_j1_suite_matches_jax_and_oracle(q, monkeypatch):
+    open_gates(monkeypatch)
     case = {c.name[-2:]: c for c in twl.j1_suite(100_000, seed=3)}[q]
     want = oracle_count(case.build_keys, case.probe_keys)
     count, secs, info = _port(case.build_keys, case.build_values,
@@ -71,7 +73,8 @@ def test_sparse_64bit_routes_merge_in_port_partitioned_in_jax():
     assert not info["retried"]
 
 
-def test_dense_span_above_2_20_runs_the_large_band():
+def test_dense_span_above_2_20_runs_the_large_band(monkeypatch):
+    open_gates(monkeypatch)
     rng = np.random.default_rng(8)
     bk = rng.integers(1_000, 1_000 + 3_000_000, 40_000, dtype=np.uint64)
     pk = rng.integers(0, 3_500_000, 60_000, dtype=np.uint64)
@@ -162,6 +165,7 @@ def test_config_and_cost_model_match_jax(monkeypatch):
 def test_chunked_plan_streams(monkeypatch):
     # a plan of more than one chunk streams; a dense count streams on the
     # direct strategy
+    open_gates(monkeypatch)
     monkeypatch.setattr(tapi, "hbm_budget_bytes", lambda dev: 300_000)
     bk = np.arange(1_000, dtype=np.uint64)
     pk = np.arange(100_000, dtype=np.uint64)
@@ -291,6 +295,8 @@ def test_import_leaves_jax_out():
     assert {"flash_hash_join_tpu_torch.parallel.worker",
             "flash_hash_join_tpu_torch.harness.benchmark",
             "flash_hash_join_tpu_torch.harness.fuzz_join",
+            "flash_hash_join_tpu_torch.harness.crossover",
+            "flash_hash_join_tpu_torch.harness.gate_drift",
             "flash_hash_join_tpu_torch.utils.native",
             "flash_hash_join_tpu_torch.ops.cuda._build"} <= names
 
@@ -441,9 +447,11 @@ def test_join_materialize_duplicate_keys():
     assert all(v in runs[k] for k, v in zip(jkeys.tolist(), jvals.tolist()))
 
 
-def test_adaptive_materialize_of_dense_keys_routes_direct():
-    # dense-domain materialize (K7/K8): the count and the materialize both
-    # go direct, and the rows equal the oracle's in probe order
+def test_adaptive_materialize_of_dense_keys_routes_direct(monkeypatch):
+    # dense-domain materialize (K7/K8): with the gates open the count and
+    # the materialize both go direct, and the rows equal the oracle's in
+    # probe order, as an explicit strategy="direct" gives them
+    open_gates(monkeypatch)
     case = twl.j1_suite(100_000, seed=3)[1]
     bk, bv, pk = case.build_keys, case.build_values, case.probe_keys
     count, _, cinfo = ft.adaptive_join_count(bk, bv, pk, device="cpu",
@@ -455,12 +463,20 @@ def test_adaptive_materialize_of_dense_keys_routes_direct():
     assert minfo["strategy"] == "direct" and not minfo["retried"]
     for g, w in zip((keys, vals), _min_row_rows(bk, bv, pk)):
         np.testing.assert_array_equal(g, w)
+    dcount, _, dkeys, dvals = ft.join_materialize(
+        bk, bv, pk, strategy="direct", device="cpu", return_arrays=True)
+    assert dcount == mcount
+    np.testing.assert_array_equal(dkeys, keys)
+    np.testing.assert_array_equal(dvals, vals)
 
 
-def test_adaptive_materialize_of_dense_keys_routes_partitioned():
-    # dense keys spanning more than the value planes' 2^20 slots: the count
-    # still goes direct (bitmap up to MAX_XL_DOMAIN_BITS), the materialize
-    # partitioned, with the oracle's rows in probe order
+def test_adaptive_materialize_of_dense_keys_routes_partitioned(
+        monkeypatch):
+    # dense keys spanning more than the value planes' 2^20 slots: even with
+    # the gates open the count still goes direct (bitmap up to
+    # MAX_XL_DOMAIN_BITS), the materialize partitioned, with the oracle's
+    # rows in probe order
+    open_gates(monkeypatch)
     rng = np.random.default_rng(3)
     bk = rng.integers(0, 3_000_000, 50_000, dtype=np.uint64)
     bv = rng.integers(1, 101, bk.size, dtype=np.uint64)

@@ -21,6 +21,7 @@ from flash_hash_join_tpu_torch.models import cost as tcost
 from flash_hash_join_tpu_torch.models.cost import JoinPlan
 from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG
 from tests.oracle import oracle_count
+from tests.torch_gates import open_gates
 
 M64 = 2**64 - 1
 
@@ -253,7 +254,9 @@ def test_explicit_strategies_bypass_the_plan(monkeypatch, strategy):
     assert info["strategy"] == strategy and info["probe_chunks"] == 1
 
 
-def test_chunked_dense_count_routes_direct(planned, chunk_sizes):
+def test_chunked_dense_count_routes_direct(planned, chunk_sizes,
+                                           monkeypatch):
+    open_gates(monkeypatch)
     rng = np.random.default_rng(55)
     nb, npr = 30_000, 240_000
     bk = rng.integers(0, int(nb * 1.1), nb, dtype=np.uint64)
@@ -268,7 +271,9 @@ def test_chunked_dense_count_routes_direct(planned, chunk_sizes):
     assert info["d_rows"] > 0 and chunk_sizes == [80_000] * 3
 
 
-def test_chunked_materialize_stays_partitioned(planned):
+def test_chunked_materialize_stays_partitioned(planned, monkeypatch):
+    # the gates open: one shot goes direct, chunks stay partitioned
+    open_gates(monkeypatch)
     rng = np.random.default_rng(56)
     nb, npr = 30_000, 240_000
     bk = rng.permutation(np.arange(nb, dtype=np.uint64))

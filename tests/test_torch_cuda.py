@@ -157,10 +157,33 @@ def test_adaptive_join_count_on_card(dev, span, expect):
     bk = rng.integers(10, 10 + span, 1_000_000, dtype=np.uint64)
     bv = rng.integers(0, 2**63, bk.size, dtype=np.uint64)
     pk = rng.integers(0, span + 20, 2_000_000, dtype=np.uint64)
+    want = int(np.isin(pk, np.unique(bk)).sum())
+    # adaptive runs what the measured gates decide for this cell ...
     count, secs, info = ft.adaptive_join_count(bk, bv, pk, return_info=True)
-    assert count == int(np.isin(pk, np.unique(bk)).sum())
-    assert info["strategy"] == "direct" and not info["retried"]
+    assert count == want and not info["retried"] and secs > 0.0
+    assert info["strategy"] == ft.adaptive_strategy(bk, bv, pk.size)
+    # ... and the direct count launches its band's kernel once
+    count, secs, info = ft.join_count(bk, bv, pk, strategy="direct",
+                                      return_info=True)
+    assert count == want and info["strategy"] == "direct"
+    assert not info["retried"]
     assert info["launches"][expect] == 1 and secs > 0.0
+
+
+def test_gate_sentinels_route_as_the_gate_says_on_card(dev):
+    # each sentinel of harness/gate_drift.py, one on each side of each
+    # measured gate: adaptive runs the route the gate decides, exactly
+    from flash_hash_join_tpu_torch.harness import gate_drift
+    from flash_hash_join_tpu_torch.harness.crossover import make_data
+    from flash_hash_join_tpu_torch.utils.native import host_join_count
+    for s in gate_drift.sentinels():
+        bk, bv, pk = make_data(s.point, 0, {})
+        fn = (ft.adaptive_join_count if s.point.mode == "count"
+              else ft.adaptive_join)
+        count, _, info = fn(bk, bv, pk, return_info=True)
+        gate = ft.adaptive_strategy(bk, bv, pk.size, mode=s.point.mode)
+        assert info["strategy"] == gate, (s.label, info)
+        assert count == host_join_count(bk, pk), s.label
 
 
 def test_merge_fallback_on_card(dev):
@@ -501,8 +524,11 @@ def test_direct_materialize_on_card_matches_oracle(dev, span, wide, kernels,
     uniq, first = np.unique(bk, return_index=True)     # min build row wins
     pos = np.searchsorted(uniq, pk).clip(max=uniq.size - 1)
     hit = uniq[pos] == pk
+    _, _, ainfo = ft.adaptive_join(bk, bv, pk, return_info=True)
+    assert ainfo["strategy"] == ft.adaptive_strategy(bk, bv, pk.size,
+                                                     mode="materialize")
     count, secs, keys, vals, info = ft.join_materialize(
-        bk, bv, pk, return_arrays=True, return_info=True)
+        bk, bv, pk, strategy="direct", return_arrays=True, return_info=True)
     assert info["strategy"] == "direct" and not info["retried"]
     for k in kernels + ("compact",):
         assert info["launches"][k] == 1, info

@@ -33,6 +33,7 @@ from flash_hash_join_tpu_torch.ops import direct_bitmap as tdb
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as tbp
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as tdv
 from flash_hash_join_tpu_torch.utils import u64 as tu64
+from tests.torch_gates import open_gates
 
 SENTINEL = 0xFFFFFFFF
 
@@ -598,7 +599,8 @@ def _j1_like(nb, npr, seed):
 
 @pytest.mark.parametrize("band,nb,npr", [("scan", 200, 50_000),
                                          ("staged", 15_000, 16_000)])
-def test_api_routes_direct_and_matches_jax(band, nb, npr):
+def test_api_routes_direct_and_matches_jax(band, nb, npr, monkeypatch):
+    open_gates(monkeypatch)          # adaptive as direct takes the keys
     bk, bv, pk = _j1_like(nb, npr, seed=nb)
     want = _oracle_rows(bk, bv, pk)
     jcount, _, jkeys, jvals = fj.join_materialize(
