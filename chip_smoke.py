@@ -121,7 +121,14 @@ Phases, one JSON line each on stdout:
               pipeline and serially (FHJ_CHUNK_OVERLAP=0): count and rows
               equal to the oracle (the probe keys below 2^62, in probe
               order), probe_chunks 1 or 4, no merge retry; core, wall and
-              peak allocated and reserved bytes a probe row.
+              peak allocated and reserved bytes a probe row.  Then the
+              planes put on the card once, and
+              ops.range_table.range_join_count_chunked (the table built
+              once) at 1, 4 and 16 chunks of the resident probe planes:
+              count equal to the oracle, K3 launched once a chunk and the
+              directory once a call; core (best of 3 CUDA-event timings
+              after a warm-up), probe rows/s, peak bytes a probe row, and
+              the table build alone (config3_resident lines).
  13. stream_direct  J1 1e8 Q5 adaptive_join_count planned in 4 chunks: the
               main phase's count, the gates' route for a chunk's rows
               (direct), K1 launched once a chunk.
@@ -1677,6 +1684,77 @@ def config3_case():
     return c, keys, vals, gen_s, time.perf_counter() - t0
 
 
+def event_seconds(fn, reps: int = 3):
+    """A warm-up call of fn(), then `reps` calls each between two CUDA
+    events, the window closed after fn's result is read on the host (as
+    api._timed closes it); returns (best seconds, all seconds, result)."""
+    import torch
+    fn()
+    runs = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / 1e3)
+    return min(runs), runs, res
+
+
+def config3_resident(c, want: int) -> dict:
+    """Config #3's count with the table built once: its planes put on the
+    card once, then ops.range_table.range_join_count_chunked at 1, 4 and
+    16 chunks over the resident probe planes, a warm-up and the best of 3
+    CUDA-event timings each; and the table build alone, timed the same
+    way.  Each call: count == oracle, K3 launched once a chunk, the
+    directory once.  Returns {n_chunks: best seconds, "build": seconds}."""
+    import torch
+    from flash_hash_join_tpu_torch.ops import range_table as rt
+    from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes
+    nb, npr = len(c.build_keys), len(c.probe_keys)
+    t0 = time.perf_counter()
+    planes = (*device_planes(c.build_keys, "cuda"),
+              *device_planes(c.build_values, "cuda"),
+              *device_planes(c.probe_keys, "cuda"))
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    out = {}
+    for n_chunks in (1, 4, 16):
+        torch.cuda.reset_peak_memory_stats()
+        k3, dirs = rp.range_probe_count.launches, rp.range_directory.launches
+        best, runs, count = event_seconds(lambda: int(
+            rt.range_join_count_chunked(*planes, nb, npr,
+                                        n_chunks=n_chunks)[0]))
+        calls = len(runs) + 1                           # and the warm-up
+        k3 = rp.range_probe_count.launches - k3
+        dirs = rp.range_directory.launches - dirs
+        require(count == want, f"config3 resident {n_chunks} chunks: count "
+                f"{count} != oracle {want}")
+        require(k3 == n_chunks * calls and dirs == calls,
+                f"config3 resident {n_chunks} chunks: {k3} K3 launches and "
+                f"{dirs} directory builds in {calls} calls")
+        out[n_chunks] = best
+        emit("config3_resident", n_chunks=n_chunks, nb=nb, npr=npr,
+             count=count, oracle=want, core_seconds=best,
+             core_seconds_runs=runs, probe_rows_per_s=npr / best,
+             k3_launches_per_call=k3 // calls,
+             directory_builds_per_call=dirs // calls,
+             planes_h2d_seconds=h2d_s,
+             peak_allocated_per_probe_row=(
+                 torch.cuda.max_memory_allocated() / npr),
+             peak_reserved_per_probe_row=(
+                 torch.cuda.max_memory_reserved() / npr))
+    out["build"], runs, _ = event_seconds(lambda: int(rt.build_range_table(
+        *planes[:4], nb, with_values=False).keys[-1]))
+    emit("config3_resident", table_build_core_seconds=out["build"],
+         core_seconds_runs=runs, nb=nb)
+    del planes
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_config3() -> dict:
     """BASELINE.json config #3, 1e7 x 1e9 at 5 % match (64-bit keys, so
     partitioned): adaptive_join_count and join_materialize(return_arrays=
@@ -1684,8 +1762,8 @@ def phase_config3() -> dict:
     patched to plan 4 chunks, streamed both ways (the depth-2 pipeline and
     FHJ_CHUNK_OVERLAP=0); a warm-up and 2 calls a run, then one serial
     call.  Count and rows equal the oracle, probe_chunks as planned, no
-    merge retry, K3 or K4 and K5 launched.  The data is made here and
-    freed after."""
+    merge retry, K3 or K4 and K5 launched.  Then config3_resident.  The
+    data is made here and freed after."""
     import torch
     import flash_hash_join_tpu_torch as ft
     c, want_keys, want_vals, gen_s, oracle_s = config3_case()
@@ -1734,13 +1812,19 @@ def phase_config3() -> dict:
                              torch.cuda.max_memory_allocated() / npr),
                          peak_reserved_per_probe_row=(
                              torch.cuda.max_memory_reserved() / npr))
+    resident = config3_resident(c, want)
+    for mode in ("count", "materialize"):
+        extra = ({"resident_chunked_core_seconds": resident[4],
+                  "resident_table_build_core_seconds": resident["build"]}
+                 if mode == "count" else {})
         emit("config3_summary", mode=mode,
              single_shot_core_seconds=out[mode, 1, True],
              streamed_core_seconds=out[mode, 4, True],
-             streamed_serial_core_seconds=out[mode, 4, False],
+             streamed_serial_core_seconds=out[mode, 4, False], **extra,
              note="streamed core with the overlap is the loop's wall time, "
                   "host->device copies included; serial is the sum of the "
-                  "chunks' CUDA-event times")
+                  "chunks' CUDA-event times; resident: the table built once "
+                  "over probe planes already on the card")
     del c, want_keys, want_vals
     torch.cuda.empty_cache()
     return require_launched("config3", ("range_directory",

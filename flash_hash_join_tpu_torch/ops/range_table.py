@@ -1,6 +1,6 @@
 """Range table: the partitioned ("radix") tier, count and materialize (port
 of flash_hash_join_tpu/ops/range_table.py:build_range_table,
-range_join_count and range_join_materialize).
+range_join_count, range_join_count_chunked and range_join_materialize).
 
 The JAX package bounds each probe's random-access working set to fast
 memory: one lax.sort per side, the sorted build reshaped into a
@@ -89,6 +89,39 @@ def range_join_count(kh, kl, vh, vl, ph, pl, nb_valid: int, np_valid: int):
     int64 tensors; special is all zeros (never unresolved)."""
     table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=False)
     count = rp.range_probe_count(table, ph, pl, np_valid)
+    return count, _no_special(count.device)
+
+
+def range_join_count_chunked(kh, kl, vh, vl, ph, pl, nb_valid: int,
+                             np_valid: int, *, n_chunks: int):
+    """Count with the table built ONCE and the resident probe planes read
+    in n_chunks chunks of ceil(len(ph) / n_chunks) rows, as the JAX
+    package chunks them.  K3 launches once for each chunk that holds a
+    valid row, on views of the planes (no copy, no padding) with the
+    chunk's valid rows clipped from np_valid; the counts add up on the
+    device, with no host sync between chunks.  Returns (count, special4)
+    like range_join_count.
+
+    The JAX function chunks so that its transients (the probe sort and
+    tile padding) scale with the chunk and not the probe side; the port's
+    count has no such transients (8.0 B a probe row, PERF.md §2).  On the
+    card it builds the table once for many probe chunks, where the host
+    chunk stream (api.py) builds one a chunk.  It takes none of the JAX
+    layout arguments (C, tile_m, W, narrow, order, w_mult, interpret):
+    they size the window and sort order this module does not port, and
+    with no window no probe is unresolved, so special[3] is always 0."""
+    if n_chunks < 1:
+        raise ValueError(f"n_chunks must be at least 1, got {n_chunks}")
+    n = ph.numel()
+    if not 0 <= np_valid <= n:
+        raise ValueError(f"np_valid must be in [0, {n}], got {np_valid}")
+    table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=False)
+    count = torch.zeros((), dtype=torch.int64, device=table.keys.device)
+    per_chunk = max(-(-n // n_chunks), 1)
+    for base in range(0, np_valid, per_chunk):
+        end = base + per_chunk
+        count += rp.range_probe_count(table, ph[base:end], pl[base:end],
+                                      min(per_chunk, np_valid - base))
     return count, _no_special(count.device)
 
 

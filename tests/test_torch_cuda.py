@@ -299,6 +299,34 @@ def test_range_probe_kernels_match_plain(dev, nb, layout):
                 assert torch.equal(g, w), (nb, npr, args[-1])
 
 
+@pytest.mark.parametrize("n_chunks", [1, 3, 7])
+def test_range_join_count_chunked_on_card(dev, n_chunks):
+    """The resident chunked count: equal to its plain version on CPU
+    copies and to the single shot; the directory built once, K3 launched
+    once for each chunk that holds a valid row (np_valid cuts the last)."""
+    rng = np.random.default_rng(n_chunks)
+    nb, npr = 1_000_000, 3_000_000
+    bk = _keys(rng, nb, 3 * nb)
+    pk = _keys(rng, npr, 3 * nb)
+    pk[::4] = rng.choice(bk, len(pk[::4]))
+    per = -(-npr // n_chunks)
+    np_valid = npr - per // 2 if n_chunks > 1 else npr - 11
+    planes = [*device_planes(bk, dev), *device_planes(bk, dev),
+              *device_planes(pk, dev)]
+    k3, dirs = rp.range_probe_count.launches, rp.range_directory.launches
+    count, special = rt.range_join_count_chunked(*planes, nb, np_valid,
+                                                 n_chunks=n_chunks)
+    torch.cuda.synchronize()
+    assert rp.range_probe_count.launches - k3 == -(-np_valid // per)
+    assert rp.range_directory.launches - dirs == 1
+    assert special.tolist() == [0, 0, 0, 0] and count.dtype == torch.int64
+    plain, _ = rt.range_join_count_chunked(*(p.cpu() for p in planes), nb,
+                                           np_valid, n_chunks=n_chunks)
+    single, _ = rt.range_join_count(*planes, nb, np_valid)
+    assert int(count) == int(plain) == int(single) == int(
+        np.isin(pk[:np_valid], bk).sum())
+
+
 @pytest.mark.parametrize("n", [0, 1, 4_095, 4_096, 1_000_003])
 @pytest.mark.parametrize("density", [0.0, 0.37, 1.0])
 def test_compact_kernel_matches_plain(dev, n, density):
