@@ -52,13 +52,22 @@ Phases, one JSON line each on stdout:
               another 16-byte offset), planes viewed at word offsets 0-3,
               counts all empty, all full, random, of every residue mod 4,
               empty and full alternating and out of range, int32 and
-              int64, its total checked too.  Then each kernel and its plain version timed (CUDA
+              int64, its total checked too; the global tier's walk (count
+              and materialize, csrc/hash_walk.cu) on every case of
+              models/workload.global_walk_cases (crowded chains to the
+              last group, max_probe_iters 2, u64-max probes, duplicates,
+              n_valid cut, pre_shift 2, an empty probe side, group sizes 1
+              and 32; bloom off and on; probe planes aligned and
+              misaligned) and on J1 1e8 Q5 and config #2, bloom off and on:
+              counts, hit masks, value planes and walk statistics equal to
+              the plain walk's.  Then each kernel and its plain version timed (CUDA
               events: a lone call, median of 5 after a warm-up; the kernel
               also over runs of 5 calls back to back) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
               the same function, that call's time (K1, K2: torch.isin of
               the domain indices; K9: clone, timed in turns with it, on 1e8
-              words); K3/K4 at J1 1e8 Q5 with
+              words; the walk's count: torch.isin of the sortable keys, at
+              J1 1e8 Q5 and config #2); K3/K4 at J1 1e8 Q5 with
               the directory's offsets as int32 (as built) and as int64; and
               K3/K4 on both table layouts (searched whole, or through a
               directory) at build sizes 100 to 1e5.  K7 is timed on each of
@@ -107,7 +116,9 @@ Phases, one JSON line each on stdout:
               the tier's 64K slots, which must rerun on merge, exact.
  10. global   hash_join_count[_bloom] and hash_join[_bloom] (the global
               tier) on J1 1e8 Q5 and config #2: exact, no retry, bloom and
-              no bloom agreeing, with the walk iterations per probe chunk.
+              no bloom agreeing, the walk kernel launched once a call; each
+              function's walk statistics (groups a probe, the longest
+              walk), and the count's build and walk device times.
  11. stream_compact  with FHJ_COMPACT=stream: hash_join_radix on J1 1e8 Q2
               and join_materialize(strategy="direct") on J1 1e8 Q1, rows
               equal to the
@@ -174,17 +185,19 @@ Phases, one JSON line each on stdout:
               two <= min(4, cards)), each holding its count and rows to
               an oracle on its card.  Each line: core, wall, stage
               seconds, rows each rank received, the hot set, drops and
-              reruns, each card's peak allocated and reserved bytes.
+              reruns, each card's peak allocated and reserved bytes.  K5
+              and both walk kernels launched.
 Kernel times, two readings: "ms", each call alone between two CUDA events
 (cuda_ms, whose window holds the wrapper's host work); "ms_b2b", runs of
 calls back to back (cuda_ms_b2b, where that work overlaps the card's).
 Phases 3-5 and 8-11 time a warm-up and then the best of the following
 runs: core_seconds (device time), wall seconds, probe rows/s, peak device
-bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5,
-8, 9 and 11-18 and read just after (the kernels line's launches: phases 3,
-4, 8, 9, 11, 16, 17 and, for K5, 18).  Then the seconds of each phase, the
-kernels summary (the 11 TPU kernels' counterparts and the range table's
-directory build: each one's launches on its path, error against its plain
+bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5
+and 8-18 and read just after (the kernels line's launches: phases 3, 4, 8,
+9, 10, 11, 16, 17 and, for K5 and the walk, 18).  Then the seconds of each
+phase, the kernels summary (the 11 TPU kernels' counterparts, the range
+table's directory build and the global walk's two kernels: each one's
+launches on its path, error against its plain
 version, times, bound and library time), the card's name and power
 limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
 
@@ -225,7 +238,11 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             "materialize_copy": PALLAS + "dense_values.py:48",
             "concat_ragged_blocks": PALLAS + "stream_compact.py:123",
             "probe_count_vmem": PALLAS + "bucket_probe.py:116",
-            "probe_materialize_vmem": PALLAS + "bucket_probe.py:138"}
+            "probe_materialize_vmem": PALLAS + "bucket_probe.py:138",
+            # the global tier's walk and the scans around it (plain XLA)
+            "global_walk_count": "flash_hash_join_tpu/ops/hash_table.py:212",
+            "global_walk_materialize":
+                "flash_hash_join_tpu/ops/hash_table.py:212"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "dense_bitmap": ("fused_domain_bitmap_join", "dense_bitmap.cu"),
     "scan_domain_count": ("scan_domain_count", "bitmap_probe.cu"),
@@ -238,7 +255,9 @@ KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "materialize_copy": ("materialize_copy", "dense_values.cu"),
     "concat_ragged_blocks": ("concat_ragged_blocks", "stream_compact.cu"),
     "probe_count_vmem": ("probe_count_vmem", "bucket_probe.cu"),
-    "probe_materialize_vmem": ("probe_materialize_vmem", "bucket_probe.cu")}
+    "probe_materialize_vmem": ("probe_materialize_vmem", "bucket_probe.cu"),
+    "global_walk_count": ("global_walk_count", "hash_walk.cu"),
+    "global_walk_materialize": ("global_walk_materialize", "hash_walk.cu")}
 # The card's peaks for a kernel's bound (H100 SXM at 700 W): device
 # memory, and the float32 rate outside the tensor cores, taken for
 # integer operations.
@@ -335,6 +354,7 @@ def zero_launches() -> None:
     from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
     from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
     from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+    from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
     for fn in (dbm.fused_domain_bitmap_join, bp.scan_domain_count,
@@ -342,7 +362,8 @@ def zero_launches() -> None:
                rp.range_directory, sc.compact_by_mask, bp.probe_gather_bitmap,
                dv.probe_gather_staged, dv.materialize_copy,
                sc.concat_ragged_blocks, bkp.probe_count_vmem,
-               bkp.probe_materialize_vmem):
+               bkp.probe_materialize_vmem, hw.global_walk_count,
+               hw.global_walk_materialize):
         fn.launches = 0
 
 
@@ -1507,6 +1528,163 @@ def phase_bucket_kernels(cells: dict) -> dict:
             for k, (cell, where) in at.items()}
 
 
+WALKS = ("global_walk_count", "global_walk_materialize")
+
+
+def walk_table(planes, nb: int, cfg, gbits: int, use_bloom: bool,
+               pre_shift: int = 0):
+    """The global tier's table over card planes (kh, kl, vh, vl), and the
+    walk's static arguments."""
+    from flash_hash_join_tpu_torch.ops import hash_table as ht
+    table = ht.build_table(
+        *planes, nb, gbits=gbits, group_size=cfg.group_size,
+        overflow_groups=cfg.overflow_groups, with_bloom=use_bloom,
+        bloom_k=cfg.bloom_k, pre_shift=pre_shift,
+        max_probe_iters=cfg.max_probe_iters)
+    return table, dict(gbits=gbits, group_size=cfg.group_size,
+                       total_groups=(1 << gbits) + cfg.overflow_groups,
+                       use_bloom=use_bloom, bloom_k=cfg.bloom_k,
+                       max_iters=cfg.max_probe_iters, pre_shift=pre_shift)
+
+
+def walk_bound(table, static: dict, npr: int, groups: int, hits: int,
+               materialize: bool) -> dict:
+    """The walk's bound on this run's data: the probe planes (8 B a row),
+    the group rows its probes visited (8G B each, at most the key plane),
+    the bloom words (8 B a probe, at most the plane), and for materialize
+    the matched slots' values (8 B a hit, at most the value plane) and its
+    outputs (9 B a row); about 12 integer operations a probe (hash, home,
+    tag) and 4G + 4 a group visited.  design_floor_ms: every visited
+    group's row read from device memory (the table is far larger than L2
+    at the main path's shapes), not once a group."""
+    row = 8 * static["group_size"]
+    nbytes = 8 * npr + min(groups * row, table.keys.numel() * 4)
+    floor = 8 * npr + groups * row
+    if static["use_bloom"]:
+        nbytes += min(8 * npr, table.bloom.numel() * 8)
+        floor += 8 * npr
+    if materialize:
+        nbytes += min(8 * hits, table.vals.numel() * 4) + 9 * npr
+        floor += 8 * hits + 9 * npr
+    ops = 12 * npr + (4 * static["group_size"] + 4) * groups
+    return dict(**bound(nbytes, ops),
+                design_floor_ms=bound(floor, 0)["bound_ms"])
+
+
+def phase_walk_kernels(cells: dict) -> dict:
+    """The global tier's walk kernels (count, materialize) against the
+    plain walk on the card, exactly: every case of
+    models/workload.global_walk_cases (bloom off and on; crowded chains to
+    the last group, max_probe_iters 2, u64-max probes with and without a
+    u64-max build key, duplicates, n_valid cut, pre_shift 2, an empty probe
+    side, group sizes 1 and 32), the probe planes aligned and misaligned;
+    then J1 1e8 Q5 and config #2, bloom off and on: counts, hit masks,
+    value planes and walk statistics, each count the oracle's.  Each timed
+    beside its bound (without bloom also beside the plain walk), the count
+    also beside one torch.isin of the sortable keys."""
+    import torch
+    from flash_hash_join_tpu_torch.models.workload import (
+        global_walk_cases, offset_plane_views)
+    from flash_hash_join_tpu_torch.ops import hash_table as ht
+    from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
+    from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes, sortable
+    dev = torch.device("cuda")
+    err = dict.fromkeys(WALKS, 0)
+
+    def compare(table, static, ph, pl, n_valid, chunk):
+        """Kernel against plain on one table and probe side; returns
+        (count, groups, longest)."""
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        count = int(hw.global_walk_count(table, ph, pl, n_valid, stats=stats,
+                                         **static))
+        got = hw.global_walk_materialize(table, ph, pl, n_valid, **static)
+        ht.walk_stats.reset()
+        want = int(ht.probe_count_plain(table, ph, pl, n_valid,
+                                        probe_chunk=chunk, **static))
+        plain = ht.walk_stats.read()
+        rows = ht.probe_rows_plain(table, ph, pl, n_valid, probe_chunk=chunk,
+                                   **static)
+        err["global_walk_count"] = max(err["global_walk_count"],
+                                       abs(count - want))
+        err["global_walk_materialize"] = max(
+            err["global_walk_materialize"],
+            *(_max_abs(g, w) for g, w in zip(got, rows)))
+        groups, longest = stats.tolist()
+        require(count == int(got[0].sum()) and (groups, longest) == (
+            plain["groups"], plain["longest"]), f"walk stats or counts: "
+            f"kernel {count, groups, longest}, plain {want, plain}")
+        return count, groups, longest
+
+    checked = []
+    for case in global_walk_cases():
+        planes = [*device_planes(case.build_keys, dev),
+                  *device_planes(case.build_values, dev)]
+        table, static = walk_table(planes, len(case.build_keys), case.cfg,
+                                   case.gbits, case.use_bloom,
+                                   case.pre_shift)
+        for offsets in ((0, 0), (1, 3)):
+            ph, pl = offset_plane_views(case.probe_keys, dev, *offsets)
+            n_valid = ph.numel() if case.n_valid is None else case.n_valid
+            checked.append([case.name, offsets, *compare(
+                table, static, ph, pl, n_valid, 256)])
+    torch.cuda.synchronize()
+    require(all(e == 0 for e in err.values()), f"walk != plain: {err}")
+    emit("walk_vs_plain", kernels=list(WALKS), max_abs_err=err,
+         tolerance="exact (counts, hit masks, u32 value planes, walk "
+         "statistics)", cases=checked)
+
+    cfg, timing = DEFAULT_CONFIG, {}
+    for name in ("1e8-Q5", "uniform-1e7x1e8"):
+        c = cells[name]
+        nb, npr = len(c.build_keys), len(c.probe_keys)
+        planes = [*device_planes(c.build_keys, dev),
+                  *device_planes(c.build_values, dev)]
+        ph, pl = device_planes(c.probe_keys, dev)
+        want = int(oracle(name, c)[0].sum())
+        keys64, probes64 = sortable(planes[0], planes[1]), sortable(ph, pl)
+        library_ms = cuda_ms(lambda: torch.isin(probes64, keys64).sum())
+        del keys64, probes64
+        for use_bloom in (False, True):
+            table, static = walk_table(planes, nb, cfg, cfg.group_bits(nb),
+                                       use_bloom)
+            count, groups, longest = compare(table, static, ph, pl, npr,
+                                             cfg.probe_chunk)
+            require(count == want, f"walk {name}: {count} != oracle {want}")
+            chunk = cfg.probe_chunk
+            for kernel, fn, plain in (
+                    ("global_walk_count", hw.global_walk_count,
+                     ht.probe_count_plain),
+                    ("global_walk_materialize", hw.global_walk_materialize,
+                     ht.probe_rows_plain)):
+                run = functools.partial(fn, table, ph, pl, npr, **static)
+                # the plain walk (~0.4 s a call) is timed without bloom only
+                t = ({"ms": [cuda_ms(run)], "ms_b2b": [cuda_ms_b2b(run)]}
+                     if use_bloom else paired_ms(run, functools.partial(
+                         plain, table, ph, pl, npr, probe_chunk=chunk,
+                         **static)))
+                cell = f"{name}{' bloom' if use_bloom else ''}"
+                timing[kernel, cell] = dict(
+                    **best(t), **walk_bound(table, static, npr, groups, count,
+                                            kernel.endswith("materialize")),
+                    library_ms=library_ms if kernel.endswith("count")
+                    else None, groups_per_probe=groups / npr,
+                    longest=longest)
+                emit("kernel_time", cell=cell, kernel=kernel, nb=nb, npr=npr,
+                     total_groups=static["total_groups"],
+                     runs={k + "_runs": v for k, v in t.items()},
+                     **timing[kernel, cell])
+            del table
+            torch.cuda.empty_cache()
+        del planes, ph, pl
+        torch.cuda.empty_cache()
+    return {k: dict(max_abs_err=err[k], **timing[k, "1e8-Q5"],
+                    at="J1 1e8 Q5, 2^25 + 64 groups of 8, no bloom",
+                    other_cells={c: timing[k, c] for kk, c in timing
+                                 if kk == k and c != "1e8-Q5"})
+            for k in WALKS}
+
+
 def phase_vmem(cells: dict) -> dict:
     """The explicit vmem tier: J1 1e8 Q1 (R 16) and 4e7 Q2 (R 512) count
     and materialize, exact, no retry, K10 or K11 + K5; then a build of 1e6
@@ -1576,29 +1754,34 @@ def global_split(name: str, c) -> None:
     torch.cuda.empty_cache()
 
 
-def phase_global(cells: dict) -> None:
+def phase_global(cells: dict) -> dict:
     """The global tier (hash_join_count[_bloom], hash_join[_bloom]) on J1
-    1e8 Q5 and config #2: exact, no retry, bloom and no bloom agreeing;
-    with each function's walk iterations over its probe chunks, and the
-    count's build and probe device times."""
+    1e8 Q5 and config #2: exact, no retry, bloom and no bloom agreeing,
+    the walk kernel launched once on every call (count or materialize),
+    with each function's walk statistics (groups a probe, the longest
+    walk), and the count's build and probe device times."""
     from flash_hash_join_tpu_torch.ops import hash_table as ht
+    zero_launches()
     for name in ("1e8-Q5", "uniform-1e7x1e8"):
         global_split(name, cells[name])
         counts = {}
         for fn in ("hash_join_count", "hash_join_count_bloom", "hash_join",
                    "hash_join_bloom"):
-            ht.walk_stats.update(chunks=0, iterations=0)
-            rows_kw = (None if fn.startswith("hash_join_count") else
+            count_fn = fn.startswith("hash_join_count")
+            walk = WALKS[0] if count_fn else WALKS[1]
+            rows_kw = (None if count_fn else
                        dict(strategy="global", use_bloom=fn.endswith("bloom")))
+            ht.walk_stats.reset()
             f = api_cell("global", name, cells[name], fn, expect="global",
-                         kernels=("compact",) if rows_kw else (),
+                         kernels=(walk,) if count_fn else (walk, "compact"),
                          rows_kw=rows_kw, reps=1)
+            require(f["launches"][walk] == 1, f"global {name} {fn}: the walk "
+                    f"launched {f['launches'][walk]} times in one call")
             counts[fn] = f["count"]
-            emit("global_walk", cell=name, fn=fn, **ht.walk_stats,
-                 iterations_per_chunk=ht.walk_stats["iterations"]
-                 / ht.walk_stats["chunks"])
+            emit("global_walk", cell=name, fn=fn, **ht.walk_stats.read())
         require(len(set(counts.values())) == 1,
                 f"global {name}: bloom and no bloom disagree: {counts}")
+    return require_launched("global", (*WALKS, "compact"))
 
 
 def phase_stream_compact(cells: dict) -> dict:
@@ -2096,7 +2279,8 @@ def phase_distributed() -> dict:
     dist-zipf-c5's where 4 cards hold its ranks) over NCCL through the
     worker processes, one a card, world = the largest power of two <=
     min(4, cards); each worker checks the count, the ranks' rows and their
-    values on its card, and the count is numpy's.  K5 launched."""
+    values on its card, and the count is numpy's.  K5 and both walk
+    kernels launched."""
     import torch
     import flash_hash_join_tpu_torch as ft
     from flash_hash_join_tpu_torch.models.workload import (uniform_case,
@@ -2163,13 +2347,13 @@ def phase_distributed() -> dict:
         emit("distributed", cell="dist-pg", case=case, backend="nccl",
              world=world, count=oracle_count,
              seconds=time.perf_counter() - t0, rank0=report)
-    return require_launched("distributed", ("compact",))
+    return require_launched("distributed", ("compact", *WALKS))
 
 
 HARNESS_KERNELS = ("dense_bitmap", "scan_domain_count", "range_probe_count",
                    "range_probe_materialize", "compact", "probe_gather_bitmap",
                    "probe_gather_staged", "probe_count_vmem",
-                   "probe_materialize_vmem")
+                   "probe_materialize_vmem", *WALKS)
 
 
 def phase_harness(cells: dict) -> dict:
@@ -2302,6 +2486,7 @@ def main() -> int:
                          cells))
     summary.update(phase("dense_kernels", phase_dense_kernels, cells))
     summary.update(phase("bucket_kernels", phase_bucket_kernels, cells))
+    summary.update(phase("walk_kernels", phase_walk_kernels, cells))
     launches, direct_core, main_counts = phase("main", phase_main, cells)
     radix = phase("radix", phase_radix, cells)
     for k in ("range_directory", "range_probe_count",
@@ -2318,7 +2503,9 @@ def main() -> int:
     vmem = phase("vmem", phase_vmem, cells)
     for k in ("probe_count_vmem", "probe_materialize_vmem"):
         launches[k] = vmem[k]
-    phase("global", phase_global, cells)
+    walk = phase("global", phase_global, cells)
+    for k in WALKS:
+        launches[k] = walk[k]
     stream = phase("stream_compact", phase_stream_compact, cells)
     launches["concat_ragged_blocks"] = stream["concat_ragged_blocks"]
     phase("config3", phase_config3)
@@ -2332,8 +2519,10 @@ def main() -> int:
     gates = phase("gates", phase_gates, cells)
     for k in GATES_KERNELS:
         launches[k] += gates[k]
-    # K5's launches: the distributed tier's too
-    launches["compact"] += phase("distributed", phase_distributed)["compact"]
+    # K5's and the walk's launches: the distributed tier's too
+    dist = phase("distributed", phase_distributed)
+    for k in ("compact", *WALKS):
+        launches[k] += dist[k]
     emit("seconds", total=time.perf_counter() - t0, **seconds)
     src = "flash_hash_join_tpu_torch/csrc/"
     print(json.dumps({"kernels": [

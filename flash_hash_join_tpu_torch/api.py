@@ -79,6 +79,7 @@ from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
 from flash_hash_join_tpu_torch.utils import u64
@@ -121,7 +122,9 @@ def launch_counts() -> dict:
             "materialize_copy": dv.materialize_copy.launches,
             "probe_count_vmem": bkp.probe_count_vmem.launches,
             "probe_materialize_vmem": bkp.probe_materialize_vmem.launches,
-            "concat_ragged_blocks": sc.concat_ragged_blocks.launches}
+            "concat_ragged_blocks": sc.concat_ragged_blocks.launches,
+            "global_walk_count": hw.global_walk_count.launches,
+            "global_walk_materialize": hw.global_walk_materialize.launches}
 
 
 def _timed(fn, args, dev: torch.device):

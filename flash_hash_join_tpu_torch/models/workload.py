@@ -180,3 +180,111 @@ def ragged_counts(rng: np.random.Generator, kind: str, nblocks: int,
     if kind != "random":
         raise ValueError(f"unknown kind {kind!r}; one of {RAGGED_KINDS}")
     return counts
+
+
+def _hash_u64_np(keys: np.ndarray) -> np.ndarray:
+    """ops/hashing.hash_u64 of u64 keys in numpy u32 arithmetic."""
+    def fmix32(h):
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        return h ^ (h >> np.uint32(16))
+    hi = (keys >> np.uint64(32)).astype(np.uint32)
+    lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return fmix32(fmix32(lo) ^ (hi * np.uint32(0x9E3779B9)))
+
+
+def homed_keys(rng: np.random.Generator, n: int, gbits: int, pre_shift: int,
+               homes) -> np.ndarray:
+    """n distinct random u64 keys whose `global`-tier home group (the top
+    gbits of the hash after discarding its top pre_shift bits) is in
+    `homes`, in ascending order."""
+    homes = np.asarray(sorted(homes), np.uint64)
+    out = np.zeros(0, np.uint64)
+    while out.size < n:
+        k = rng.integers(0, 2**64, 8 * n + 64, dtype=np.uint64)
+        h = _hash_u64_np(k).astype(np.uint64)
+        home = ((h << np.uint64(pre_shift)) & np.uint64(0xFFFFFFFF)) >> \
+            np.uint64(32 - gbits)
+        out = np.unique(np.concatenate([out, k[np.isin(home, homes)]]))
+    return np.sort(rng.permutation(out)[:n])
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkCase:
+    """An edge case of the `global` tier's walk: the columns, the table's
+    configuration (a utils/config.JoinConfig), its group bits, bloom, the
+    hash bits a rank discards (pre_shift) and the valid probe rows."""
+    name: str
+    build_keys: np.ndarray
+    build_values: np.ndarray
+    probe_keys: np.ndarray
+    cfg: object
+    gbits: int
+    use_bloom: bool
+    pre_shift: int = 0
+    n_valid: int | None = None
+
+
+def global_walk_cases(seed: int = 0) -> list[WalkCase]:
+    """The walk's edge cases, bloom off and on: a crowded table (16 home
+    groups of 2 slots, 3 overflow groups) whose chains cross groups and
+    spill past its last group; max_probe_iters=2 binding for absent
+    probes; a u64-max probe with and without a u64-max build key;
+    duplicate build keys (values = build rows, so the minimum row shows);
+    n_valid cut mid-array; a rank's table (pre_shift 2); an empty probe
+    side; group sizes 1 and 32."""
+    from flash_hash_join_tpu_torch.utils.config import JoinConfig
+    rng = np.random.default_rng(seed)
+    m64 = np.uint64(2**64 - 1)
+
+    def u64(n):
+        return rng.integers(0, 2**64, n, dtype=np.uint64)
+
+    def mix(*parts):
+        pk = np.concatenate(parts).astype(np.uint64)
+        return rng.permutation(pk)
+
+    crowded = JoinConfig(group_size=2, overflow_groups=3)
+    bk = np.concatenate([homed_keys(rng, 18, 4, 0, {13, 14, 15}),
+                         homed_keys(rng, 6, 4, 0, range(8))])
+    cases = [("crowded", bk, u64(bk.size),
+              mix(bk, homed_keys(rng, 40, 4, 0, {13, 14, 15}), u64(200)),
+              crowded, 4, 0, None)]
+    iters2 = JoinConfig(group_size=2, overflow_groups=8, max_probe_iters=2)
+    bk = homed_keys(rng, 16, 4, 0, {3, 4, 5})
+    cases.append(("max_probe_iters_2", bk, u64(bk.size),
+                  mix(bk, homed_keys(rng, 60, 4, 0, {3, 4})), iters2, 4, 0,
+                  None))
+    cfg = JoinConfig()
+    for with_max in (True, False):
+        bk = u64(300)
+        if with_max:
+            bk[[7, 100]] = m64
+        pk = np.concatenate([[m64], bk[:50], [m64], u64(50)]).astype(np.uint64)
+        cases.append((f"u64_max_{'in' if with_max else 'not_in'}_build", bk,
+                      u64(300), pk, cfg, cfg.group_bits(300), 0, None))
+    bk = rng.integers(0, 500, 2_000, dtype=np.uint64)
+    cases.append(("duplicates", bk, np.arange(2_000, dtype=np.uint64),
+                  rng.integers(0, 600, 3_000, dtype=np.uint64), cfg,
+                  cfg.group_bits(2_000), 0, None))
+    bk = np.concatenate([u64(1_000), [m64]]).astype(np.uint64)
+    cases.append(("n_valid_cut", bk, u64(1_001), mix(bk[:900], [m64]), cfg,
+                  cfg.group_bits(1_001), 0, 777))
+    bk = homed_keys(rng, 800, 2, 0, {1})          # the top 2 bits: rank 1
+    cases.append(("pre_shift_2", bk, u64(800),
+                  mix(rng.choice(bk, 500), homed_keys(rng, 500, 2, 0, {1})),
+                  cfg, cfg.group_bits(800), 2, None))
+    cases.append(("empty_probe_side", bk, u64(800), np.zeros(0, np.uint64),
+                  cfg, cfg.group_bits(800), 0, None))
+    for g in (1, 32):
+        gcfg = JoinConfig(group_size=g)
+        bk = u64(5_000)
+        cases.append((f"group_size_{g}", bk, u64(5_000),
+                      mix(rng.choice(bk, 2_500), u64(2_500)), gcfg,
+                      gcfg.group_bits(5_000), 0, None))
+    return [WalkCase(name + ("_bloom" if bloom else ""), bk, bv, pk, c, gb,
+                     bloom, shift, nv)
+            for name, bk, bv, pk, c, gb, shift, nv in cases
+            for bloom in (False, True)]

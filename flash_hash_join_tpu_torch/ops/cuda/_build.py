@@ -67,6 +67,15 @@ _SIGNATURES = {
                                      _I64, _I, _P, _P, _P, _P],
     # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, vals, stream
     "fhj_bucket_major": [_P, _P, _P, _P, _I, _P, _P, _P],
+    # keys, bloom, special, total_groups, group_size, gbits, pre_shift,
+    # bloom_k, max_iters, ph, pl, np_valid, count, stats, stream
+    "fhj_global_walk_count": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
+                              _I64, _P, _P, _P],
+    # keys, vals, bloom, special, total_groups, group_size, gbits,
+    # pre_shift, bloom_k, max_iters, ph, pl, n, np_valid, hit, vh, vl, stats,
+    # stream
+    "fhj_global_walk_materialize": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
+                                    _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

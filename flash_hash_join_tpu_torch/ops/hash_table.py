@@ -1,7 +1,10 @@
 """The `global` tier: an open-addressing hash table in device memory, built
 by sorting and probed by a bounded group walk (port of
-flash_hash_join_tpu/ops/hash_table.py; plain torch, as the JAX package
-leaves it to XLA: there is no kernel here).
+flash_hash_join_tpu/ops/hash_table.py).  The build is plain torch, as the
+JAX package leaves it to XLA.  The probe dispatches on the device: CUDA
+tensors launch the walk kernel (ops/cuda/hash_walk.py, one launch over the
+whole probe side); CPU tensors take the plain walk here, in chunks of
+probe_chunk rows with a host sync a walk step.
 
 Semantics (SURVEY.md §3, hash_join.cpp:75-204): linear probing over
 groups of G slots at a load of at most ~0.5; one winner per duplicate
@@ -26,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
+from flash_hash_join_tpu_torch.ops.cuda import hash_walk
 from flash_hash_join_tpu_torch.ops.hashing import bloom_word, hash_u64
 from flash_hash_join_tpu_torch.ops.segmented import (cummax, seg_ends,
                                                     segmented_scan)
@@ -33,10 +37,60 @@ from flash_hash_join_tpu_torch.utils.u64 import MASK32, narrow, widen
 
 _NEG_LARGE = -(2 ** 30)
 
-# Walk statistics of the probes run so far in this process: chunks walked
-# and walk iterations summed over them (read by chip_smoke.py).
-walk_stats = {"chunks": 0, "iterations": 0}
-_stats_lock = threading.Lock()   # the distributed tier walks a card a thread
+
+class WalkStats:
+    """Statistics of the walks run in this process since reset(), read by
+    chip_smoke.py: `chunks` (walks run: a plain chunk, or one kernel launch
+    over a whole probe side), `probes` (valid probe rows handed to the
+    walk), `groups` (groups visited, summed over them), `longest` (the
+    most groups one probe visited) and `groups_per_probe`, from read().
+    The kernel and the plain walk add into a (2,) int64 tensor a device
+    ([groups, longest]) with no host sync; read() syncs, so call it after
+    the timed calls."""
+
+    def __init__(self):
+        self._lock = threading.Lock()   # the distributed tier walks a rank a thread
+        self._host, self._dev = {"chunks": 0, "probes": 0}, {}
+
+    def reset(self) -> None:
+        with self._lock:
+            for t in self._dev.values():        # no walk still writes one
+                if t.device.type == "cuda":
+                    torch.cuda.synchronize(t.device)
+            self._host, self._dev = {"chunks": 0, "probes": 0}, {}
+
+    def add(self, dev: torch.device, chunks: int, probes: int) -> torch.Tensor:
+        """Count a walk's chunks and probes; returns the device's tensor."""
+        with self._lock:
+            self._host["chunks"] += chunks
+            self._host["probes"] += probes
+            t = self._dev.get(dev)
+            if t is None:
+                t = self._dev[dev] = torch.zeros(2, dtype=torch.int64,
+                                                 device=dev)
+                if dev.type == "cuda":   # zeroed before another stream adds
+                    torch.cuda.current_stream(dev).synchronize()
+            return t
+
+    def add_plain(self, t: torch.Tensor, visits: torch.Tensor) -> None:
+        """The plain walk's visits (a probe's groups) into its tensor."""
+        with self._lock:
+            t[0] += visits.sum()
+            t[1] = torch.maximum(t[1], visits.max())
+
+    def read(self) -> dict:
+        groups = longest = 0
+        with self._lock:
+            out = dict(self._host)
+            for t in self._dev.values():
+                g, m = t.tolist()
+                groups, longest = groups + g, max(longest, m)
+        return {**out, "groups": groups, "longest": longest,
+                "groups_per_probe": groups / out["probes"] if out["probes"]
+                else 0.0}
+
+
+walk_stats = WalkStats()
 
 
 class HashTable(NamedTuple):
@@ -147,8 +201,9 @@ def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
                        group_size: int, total_groups: int, use_bloom: bool,
                        bloom_k: int, max_iters: int, pre_shift: int = 0):
     """Resolve one chunk of probe rows (int32 planes): returns (matched,
-    g_found, j_found, sp_match).  The walk visits one group per iteration
-    for every row not yet done, at most max_iters times."""
+    g_found, j_found, sp_match, visits).  The walk visits one group per
+    iteration for every row not yet done, at most max_iters times; visits
+    counts the groups each row visited."""
     G = group_size
     wph, wpl = widen(ph), widen(pl)
     h = hash_u64(wph, wpl)
@@ -163,6 +218,7 @@ def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
     matched = torch.zeros_like(done)
     g_found = torch.zeros_like(g)
     j_found = torch.zeros_like(g)
+    visits = torch.zeros_like(g)
     it = 0
     while it < max_iters and not bool(done.all()):
         window = table.keys[g]                     # (n, 2G): one row a probe
@@ -170,6 +226,7 @@ def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
         eq = (wh == ph[:, None]) & (wl == pl[:, None])
         found = eq.any(1)
         has_empty = ((wh == -1) & (wl == -1)).any(1)
+        visits += ~done
         new_found = ~done & found
         matched |= new_found
         g_found = torch.where(new_found, g, g_found)
@@ -179,10 +236,7 @@ def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
         done |= found | has_empty | (g_next == g)  # off the end: absent
         g = torch.where(done, g, g_next)
         it += 1
-    with _stats_lock:
-        walk_stats["chunks"] += 1
-        walk_stats["iterations"] += it
-    return matched, g_found, j_found, sp_match
+    return matched, g_found, j_found, sp_match, visits
 
 
 def _chunks(n: int, n_valid: int, probe_chunk: int, dev):
@@ -192,18 +246,86 @@ def _chunks(n: int, n_valid: int, probe_chunk: int, dev):
         yield start, stop, torch.arange(start, stop, device=dev) < n_valid
 
 
+def _walk_plain(table: HashTable, ph, pl, n_valid: int, probe_chunk: int,
+                static: dict):
+    """The plain walk over the probe side, chunk by chunk: yields each
+    chunk's (matched, g_found, j_found, sp_match), and adds its visits to
+    walk_stats."""
+    dev = ph.device
+    stats = walk_stats.add(dev, -(-ph.shape[0] // probe_chunk), n_valid)
+    for start, stop, valid in _chunks(ph.shape[0], n_valid, probe_chunk,
+                                      dev):
+        *state, visits = _probe_chunk_state(
+            table, ph[start:stop], pl[start:stop], valid, **static)
+        walk_stats.add_plain(stats, visits)
+        yield state
+
+
+def _kernel_args(ph, pl, n_valid: int, static: dict):
+    """The walk kernel's probe arguments: contiguous planes, the probe
+    count and the walk statistics' tensor."""
+    stats = walk_stats.add(ph.device, 1, n_valid)
+    return (ph.contiguous(), pl.contiguous(), n_valid), dict(static,
+                                                             stats=stats)
+
+
+def probe_count_plain(table: HashTable, ph, pl, n_valid: int, *,
+                      probe_chunk: int, **static) -> torch.Tensor:
+    """Plain version of the walk kernel's count, on any device: the walk
+    in chunks of probe_chunk rows, a host sync a walk step."""
+    total = torch.zeros((), dtype=torch.int64, device=ph.device)
+    for matched, _, _, sp_match in _walk_plain(table, ph, pl, n_valid,
+                                               probe_chunk, static):
+        total += (matched | sp_match).sum()
+    return total
+
+
+def probe_rows_plain(table: HashTable, ph, pl, n_valid: int, *,
+                     probe_chunk: int, **static):
+    """Plain version of the walk kernel's materialize, on any device:
+    (hit, vh, vl) as probe_rows gives them."""
+    G = static["group_size"]
+    flat_vals = table.vals.view(-1)
+    max_vh, max_vl = narrow(table.special[1:3])
+    hits, vhs, vls = [], [], []
+    for matched, g_found, j_found, sp_match in _walk_plain(
+            table, ph, pl, n_valid, probe_chunk, static):
+        at = g_found * (2 * G) + j_found
+        hits.append(matched | sp_match)
+        vhs.append(torch.where(sp_match, max_vh,
+                               torch.where(matched, flat_vals[at], 0)))
+        vls.append(torch.where(sp_match, max_vl,
+                               torch.where(matched, flat_vals[at + G], 0)))
+    if not hits:
+        return ph[:0].bool(), ph[:0], pl[:0]
+    return torch.cat(hits), torch.cat(vhs), torch.cat(vls)
+
+
 def probe_count(table: HashTable, ph, pl, n_valid: int, *, probe_chunk: int,
                 **static) -> torch.Tensor:
     """Count the probe rows [0, n_valid) whose key is in the table (probe
-    multiplicity counts, build multiplicity does not); a 0-d int64.  The
-    probe stream goes through in chunks of probe_chunk rows."""
-    total = torch.zeros((), dtype=torch.int64, device=ph.device)
-    for start, stop, valid in _chunks(ph.shape[0], n_valid, probe_chunk,
-                                      ph.device):
-        matched, _, _, sp_match = _probe_chunk_state(
-            table, ph[start:stop], pl[start:stop], valid, **static)
-        total += (matched | sp_match).sum()
-    return total
+    multiplicity counts, build multiplicity does not); a 0-d int64.  CUDA
+    tensors: one launch of the walk kernel over the whole probe side;
+    CPU tensors: the plain walk (probe_count_plain)."""
+    if ph.device.type == "cuda":
+        args, kw = _kernel_args(ph, pl, n_valid, static)
+        return hash_walk.global_walk_count(table, *args, **kw)
+    return probe_count_plain(table, ph, pl, n_valid, probe_chunk=probe_chunk,
+                             **static)
+
+
+def probe_rows(table: HashTable, ph, pl, n_valid: int, *, probe_chunk: int,
+               **static):
+    """Per probe row: (hit, vh, vl), a bool mask and the int32 value planes
+    of the row's match (the first-match slot's value, special[1:3] for a
+    u64-max probe; 0 on a miss and at or past n_valid).  CUDA tensors: one
+    launch of the walk kernel; CPU tensors: the plain walk
+    (probe_rows_plain)."""
+    if ph.device.type == "cuda":
+        args, kw = _kernel_args(ph, pl, n_valid, static)
+        return hash_walk.global_walk_materialize(table, *args, **kw)
+    return probe_rows_plain(table, ph, pl, n_valid, probe_chunk=probe_chunk,
+                            **static)
 
 
 def probe_materialize(table: HashTable, ph, pl, n_valid: int, *,
@@ -211,22 +333,11 @@ def probe_materialize(table: HashTable, ph, pl, n_valid: int, *,
     """(count, out_kh, out_kl, out_vh, out_vl): the matching probe rows
     with their build value, in probe order, compacted to the front of int32
     planes of the probe side's length (K5 on the card)."""
-    G = static["group_size"]
-    flat_vals = table.vals.view(-1)
-    max_vh, max_vl = narrow(table.special[1:3])
-    hits, vhs, vls = [], [], []
-    for start, stop, valid in _chunks(ph.shape[0], n_valid, probe_chunk,
-                                      ph.device):
-        matched, g_found, j_found, sp_match = _probe_chunk_state(
-            table, ph[start:stop], pl[start:stop], valid, **static)
-        at = g_found * (2 * G) + j_found
-        hits.append(matched | sp_match)
-        vhs.append(torch.where(sp_match, max_vh, flat_vals[at]))
-        vls.append(torch.where(sp_match, max_vl, flat_vals[at + G]))
-    if not hits:
+    if ph.shape[0] == 0:
         empty = ph[:0]
         return torch.zeros((), dtype=torch.int64, device=ph.device), \
             empty, empty, empty, empty
-    count, outs = compact_by_mask(torch.cat(hits), (ph, pl, torch.cat(vhs),
-                                                    torch.cat(vls)))
+    hit, vh, vl = probe_rows(table, ph, pl, n_valid, probe_chunk=probe_chunk,
+                             **static)
+    count, outs = compact_by_mask(hit, (ph, pl, vh, vl))
     return (count, *outs)

@@ -29,7 +29,9 @@ class JoinConfig:
       group_size: slots per hash-table bucket group.
       growth: slots-per-build-row factor (load factor 1/growth).
       overflow_groups: extra groups past the power-of-two home range.
-      probe_chunk: probe keys processed per pipeline step.
+      probe_chunk: probe keys processed per pipeline step: in the port, the
+        chunks of the global tier's plain walk on the CPU only; on a card
+        the walk kernel takes the whole probe side in one launch.
       max_probe_iters: hard bound on the chain walk.
       bloom_k: bits set per key in the per-group bloom word.
       min_groups: floor on the home-group count.

@@ -88,7 +88,8 @@ def test_dense_span_above_2_20_runs_the_large_band(monkeypatch):
         "range_probe_materialize", "range_directory", "compact",
         "probe_gather_bitmap",
         "probe_gather_staged", "materialize_copy", "probe_count_vmem",
-        "probe_materialize_vmem", "concat_ragged_blocks"}
+        "probe_materialize_vmem", "concat_ragged_blocks", "global_walk_count",
+        "global_walk_materialize"}
     assert set(info["launches"].values()) == {0}
 
 
@@ -587,3 +588,28 @@ def test_measure_device_seconds_matches_jax_count(monkeypatch, name):
         0, 0.0, 0.0, False)
     with pytest.raises(ValueError):
         ft.measure_device_seconds(bk, bv, pk, strategy="nope", device="cpu")
+
+
+@pytest.mark.parametrize("strategy,empty", [("global", False),
+                                            ("merge", False),
+                                            ("global", True)])
+def test_return_info_keeps_the_rows_by_design(strategy, empty):
+    # A designed difference: with return_arrays=True and return_info=True
+    # the JAX package's _run_join (its public join_materialize takes no
+    # return_info) returns (count, core_seconds, info) and drops the rows;
+    # the port's join_materialize returns (count, core_seconds, keys,
+    # values, info).  The counts agree.
+    rng = np.random.default_rng(31)
+    bk = rng.integers(0, 5_000, 0 if empty else 2_000, dtype=np.uint64)
+    bv = rng.integers(0, 2**64, len(bk), dtype=np.uint64)
+    pk = rng.integers(0, 6_000, 3_000, dtype=np.uint64)
+    jout = japi._run_join(bk, bv, pk, mode="materialize", strategy=strategy,
+                          use_bloom=False, return_arrays=True,
+                          return_info=True)
+    tout = ft.join_materialize(bk, bv, pk, strategy=strategy, device="cpu",
+                               return_arrays=True, return_info=True)
+    assert len(jout) == 3 and len(tout) == 5
+    assert jout[0] == tout[0] == oracle_count(bk, pk)
+    assert (jout[2] is None) == (tout[4] is None) == empty
+    np.testing.assert_array_equal(np.sort(tout[2]), np.sort(pk[np.isin(pk,
+                                                                      bk)]))

@@ -21,16 +21,18 @@ import torch
 
 import flash_hash_join_tpu_torch as ft
 from flash_hash_join_tpu_torch.models.workload import (
-    RAGGED_KINDS, dense_domain_keys, domain_sides, offset_plane_views,
-    ragged_counts)
+    RAGGED_KINDS, dense_domain_keys, domain_sides, global_walk_cases,
+    offset_plane_views, ragged_counts)
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
+from flash_hash_join_tpu_torch.ops import hash_table as ht
 from flash_hash_join_tpu_torch.ops import range_table as rt
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
 from flash_hash_join_tpu_torch.utils.u64 import (device_planes, sortable,
@@ -714,9 +716,80 @@ def test_explicit_tiers_on_card_match_oracle(dev, strategy, use_bloom):
     assert count == int(hit.sum()) and not info["retried"]
     if strategy == "vmem":
         assert info["launches"]["probe_materialize_vmem"] == 1
+    else:
+        assert info["launches"]["global_walk_materialize"] == 1
     assert info["launches"]["compact"] == 1
     np.testing.assert_array_equal(keys, pk[hit])       # probe order
     np.testing.assert_array_equal(vals, bv[first[pos[hit]]])
+
+
+def _walk_table(case, dev):
+    """The global tier's table of a global_walk_cases case on dev, and
+    the walk's static arguments."""
+    cfg = case.cfg
+    planes = [*device_planes(case.build_keys, dev),
+              *device_planes(case.build_values, dev)]
+    table = ht.build_table(
+        *planes, len(case.build_keys), gbits=case.gbits,
+        group_size=cfg.group_size, overflow_groups=cfg.overflow_groups,
+        with_bloom=case.use_bloom, bloom_k=cfg.bloom_k,
+        pre_shift=case.pre_shift, max_probe_iters=cfg.max_probe_iters)
+    static = dict(gbits=case.gbits, group_size=cfg.group_size,
+                  total_groups=(1 << case.gbits) + cfg.overflow_groups,
+                  use_bloom=case.use_bloom, bloom_k=cfg.bloom_k,
+                  max_iters=cfg.max_probe_iters, pre_shift=case.pre_shift)
+    return table, static
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (1, 3)])
+@pytest.mark.parametrize("case", global_walk_cases(), ids=lambda c: c.name)
+def test_global_walk_kernels_match_plain(dev, case, offsets):
+    # the walk kernel, count and materialize, against the plain walk on the
+    # same card tensors: counts, hit masks, value planes and walk statistics
+    table, static = _walk_table(case, dev)
+    ph, pl = offset_plane_views(case.probe_keys, dev, *offsets)
+    n = ph.numel()
+    n_valid = n if case.n_valid is None else case.n_valid
+    stats = torch.zeros(2, dtype=torch.int64, device=dev)
+    before = (hw.global_walk_count.launches,
+              hw.global_walk_materialize.launches)
+    count = hw.global_walk_count(table, ph, pl, n_valid, stats=stats,
+                                 **static)
+    hit, vh, vl = hw.global_walk_materialize(table, ph, pl, n_valid, **static)
+    torch.cuda.synchronize()
+    assert (hw.global_walk_count.launches - before[0],
+            hw.global_walk_materialize.launches - before[1]) == (
+                int(n_valid > 0), int(n > 0))
+    ht.walk_stats.reset()
+    want = ht.probe_count_plain(table, ph, pl, n_valid, probe_chunk=256,
+                                **static)
+    plain = ht.walk_stats.read()
+    whit, wvh, wvl = ht.probe_rows_plain(table, ph, pl, n_valid,
+                                         probe_chunk=256, **static)
+    assert int(count) == int(want) == int(whit.sum())
+    assert torch.equal(hit, whit)
+    assert torch.equal(vh, wvh) and torch.equal(vl, wvl)
+    assert stats.tolist() == [plain["groups"], plain["longest"]]
+
+
+@pytest.mark.parametrize("fn", ["hash_join_count", "hash_join_count_bloom",
+                                "hash_join", "hash_join_bloom"])
+def test_hash_join_launches_the_walk_on_card(dev, fn):
+    rng = np.random.default_rng(6)
+    bk = rng.integers(0, 2**64, 300_000, dtype=np.uint64)
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 600_000),
+                         rng.integers(0, 2**64, 600_000, dtype=np.uint64)])
+    ht.walk_stats.reset()
+    count, _, info = getattr(ft, fn)(bk, bv, pk, return_info=True)
+    assert count == int(np.isin(pk, bk).sum())
+    assert info["strategy"] == "global" and not info["retried"]
+    kernel = "global_walk_count" if "count" in fn \
+        else "global_walk_materialize"
+    assert info["launches"][kernel] == 1
+    stats = ht.walk_stats.read()
+    assert stats["chunks"] == 1 and stats["probes"] == pk.size
+    assert 1 <= stats["longest"] <= 256 and stats["groups"] > 0
 
 
 def test_stream_compaction_on_card(dev, monkeypatch):
@@ -868,6 +941,9 @@ def test_distributed_join_on_cards_equals_cpu(dev, ranks, materialize):
         np.testing.assert_array_equal(got[2], want[2])
         np.testing.assert_array_equal(got[3], want[3])
         assert info["launches"]["compact"] > 0
+    walk = "global_walk_materialize" if materialize else "global_walk_count"
+    assert info["launches"][walk] >= len(devices)     # a rank a walk, or more
+    assert want[-1]["launches"][walk] == 0            # the CPU: the plain walk
 
 
 def test_distributed_build_drop_reruns_on_card(dev):

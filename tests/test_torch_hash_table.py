@@ -174,12 +174,15 @@ def test_several_probe_chunks(probe_chunk):
     bv = _rand(rng, len(bk))
     pk = np.concatenate([rng.choice(bk, 700), _rand(rng, 333)])
     jt, tt, static = _build_both(bk, bv, with_bloom=True)
-    tht.walk_stats.update(chunks=0, iterations=0)
+    tht.walk_stats.reset()
     count, (keys, vals) = _probe_both(jt, tt, static, pk, n_valid=1000,
                                       probe_chunk=probe_chunk)
     assert count == oracle_count(bk, pk[:1000])
-    assert tht.walk_stats["chunks"] == 2 * -(-len(pk) // probe_chunk)
-    assert tht.walk_stats["iterations"] >= tht.walk_stats["chunks"]
+    stats = tht.walk_stats.read()
+    assert stats["chunks"] == 2 * -(-len(pk) // probe_chunk)
+    assert stats["probes"] == 2 * 1000
+    assert 1 <= stats["longest"] <= static["max_iters"]
+    assert stats["longest"] <= stats["groups"] <= 2 * 1000 * stats["longest"]
 
 
 def test_chain_drop_counts_and_falls_back_to_merge(monkeypatch):
