@@ -60,7 +60,18 @@ Phases, one JSON line each on stdout:
               and 32; bloom off and on; probe planes aligned and
               misaligned) and on J1 1e8 Q5 and config #2, bloom off and on:
               counts, hit masks, value planes and walk statistics equal to
-              the plain walk's.  Then each kernel and its plain version timed (CUDA
+              the plain walk's; the global tier's build (csrc/hash_build.cu,
+              phase build_kernels) against the plain build, planes equal by
+              torch.equal, on every case of
+              models/workload.global_build_cases (random keys, duplicates,
+              all keys equal, one large group, u64-max keys repeated and
+              alone, n_valid cut and 0, an empty side, the crowded table,
+              max_probe_iters 2, pre_shift 1-3, group sizes 1, 2, 8, 32;
+              bloom off and on), three on misaligned planes, 1e6 equal keys
+              and 1e5 keys homed to one group, then J1 1e8 Q5 and config
+              #2, bloom off and on, timed beside its bound, the plain build
+              and one stable torch.sort of the sortable build keys, with
+              its peak device bytes.  Then each kernel and its plain version timed (CUDA
               events: a lone call, median of 5 after a warm-up; the kernel
               also over runs of 5 calls back to back) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
@@ -116,7 +127,8 @@ Phases, one JSON line each on stdout:
               the tier's 64K slots, which must rerun on merge, exact.
  10. global   hash_join_count[_bloom] and hash_join[_bloom] (the global
               tier) on J1 1e8 Q5 and config #2: exact, no retry, bloom and
-              no bloom agreeing, the walk kernel launched once a call; each
+              no bloom agreeing, the build kernel and the walk kernel
+              launched once a call; each
               function's walk statistics (groups a probe, the longest
               walk), and the count's build and walk device times.
  11. stream_compact  with FHJ_COMPACT=stream: hash_join_radix on J1 1e8 Q2
@@ -185,8 +197,8 @@ Phases, one JSON line each on stdout:
               two <= min(4, cards)), each holding its count and rows to
               an oracle on its card.  Each line: core, wall, stage
               seconds, rows each rank received, the hot set, drops and
-              reruns, each card's peak allocated and reserved bytes.  K5
-              and both walk kernels launched.
+              reruns, each card's peak allocated and reserved bytes.  K5,
+              both walk kernels and the build kernel launched.
 Kernel times, two readings: "ms", each call alone between two CUDA events
 (cuda_ms, whose window holds the wrapper's host work); "ms_b2b", runs of
 calls back to back (cuda_ms_b2b, where that work overlaps the card's).
@@ -194,9 +206,10 @@ Phases 3-5 and 8-11 time a warm-up and then the best of the following
 runs: core_seconds (device time), wall seconds, probe rows/s, peak device
 bytes.  The kernel counts are set to 0 just before each of phases 3, 4, 5
 and 8-18 and read just after (the kernels line's launches: phases 3, 4, 8,
-9, 10, 11, 16, 17 and, for K5 and the walk, 18).  Then the seconds of each
-phase, the kernels summary (the 11 TPU kernels' counterparts, the range
-table's directory build and the global walk's two kernels: each one's
+9, 10, 11, 16, 17 and, for K5, the walk and the build, 18).  Then the
+seconds of each phase, the kernels summary (the 11 TPU kernels'
+counterparts, the range table's directory build, the global walk's two
+kernels and the global build: each one's
 launches on its path, error against its plain
 version, times, bound and library time), the card's name and power
 limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -242,7 +255,9 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             # the global tier's walk and the scans around it (plain XLA)
             "global_walk_count": "flash_hash_join_tpu/ops/hash_table.py:212",
             "global_walk_materialize":
-                "flash_hash_join_tpu/ops/hash_table.py:212"}
+                "flash_hash_join_tpu/ops/hash_table.py:212",
+            # the global tier's table build (plain XLA)
+            "global_build": "flash_hash_join_tpu/ops/hash_table.py:74"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "dense_bitmap": ("fused_domain_bitmap_join", "dense_bitmap.cu"),
     "scan_domain_count": ("scan_domain_count", "bitmap_probe.cu"),
@@ -257,7 +272,8 @@ KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "probe_count_vmem": ("probe_count_vmem", "bucket_probe.cu"),
     "probe_materialize_vmem": ("probe_materialize_vmem", "bucket_probe.cu"),
     "global_walk_count": ("global_walk_count", "hash_walk.cu"),
-    "global_walk_materialize": ("global_walk_materialize", "hash_walk.cu")}
+    "global_walk_materialize": ("global_walk_materialize", "hash_walk.cu"),
+    "global_build": ("global_build_table", "hash_build.cu")}
 # The card's peaks for a kernel's bound (H100 SXM at 700 W): device
 # memory, and the float32 rate outside the tensor cores, taken for
 # integer operations.
@@ -354,6 +370,7 @@ def zero_launches() -> None:
     from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
     from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
     from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+    from flash_hash_join_tpu_torch.ops.cuda import hash_build as hb
     from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
     from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
     from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
@@ -363,7 +380,7 @@ def zero_launches() -> None:
                dv.probe_gather_staged, dv.materialize_copy,
                sc.concat_ragged_blocks, bkp.probe_count_vmem,
                bkp.probe_materialize_vmem, hw.global_walk_count,
-               hw.global_walk_materialize):
+               hw.global_walk_materialize, hb.global_build_table):
         fn.launches = 0
 
 
@@ -1529,6 +1546,7 @@ def phase_bucket_kernels(cells: dict) -> dict:
 
 
 WALKS = ("global_walk_count", "global_walk_materialize")
+BUILD = "global_build"
 
 
 def walk_table(planes, nb: int, cfg, gbits: int, use_bloom: bool,
@@ -1685,6 +1703,135 @@ def phase_walk_kernels(cells: dict) -> dict:
             for k in WALKS}
 
 
+TABLE_FIELDS = ("keys", "vals", "bloom", "special")
+
+
+def table_err(got, want) -> int:
+    """0 when two tables are equal plane for plane (torch.equal), else the
+    largest |difference| of a u32 word between them."""
+    import torch
+    return max(0 if torch.equal(getattr(got, f), getattr(want, f))
+               else max(1, _max_abs(getattr(got, f), getattr(want, f)))
+               for f in TABLE_FIELDS)
+
+
+def build_bound(nb: int, table, use_bloom: bool) -> dict:
+    """The build's bound: the four build planes read once (16 B a row), the
+    key and value planes (and the bloom words) written once; about 30
+    integer operations a row (hash, home, tag)."""
+    nbytes = 16 * nb + 4 * (table.keys.numel() + table.vals.numel())
+    if use_bloom:
+        nbytes += 8 * table.bloom.numel()
+    return bound(nbytes, 30 * nb)
+
+
+def phase_build_kernels(cells: dict) -> dict:
+    """The global tier's build kernel (csrc/hash_build.cu) against the plain
+    build (ops/hash_table.build_table_plain) on the card, planes compared
+    with torch.equal: every case of models/workload.global_build_cases
+    (random keys, duplicates, all keys equal, one large group with
+    duplicates, u64-max keys repeated and alone, n_valid cut and 0, an
+    empty side, the crowded table, max_probe_iters 2, pre_shift 1-3, group
+    sizes 1, 2, 8, 32; bloom off and on), three of them on misaligned
+    planes, 1e6 equal keys and 1e5 distinct keys homed to one group (its
+    chain counted as dropped past max_probe_iters); then J1 1e8 Q5 and
+    config #2, bloom off and on, each timed beside its bound, the plain
+    build and one stable torch.sort of the sortable build keys (the sort it
+    replaces), with the peak device bytes of a build over its planes."""
+    import torch
+    from flash_hash_join_tpu_torch.models.workload import (
+        global_build_cases, homed_keys, offset_plane_views)
+    from flash_hash_join_tpu_torch.ops import hash_table as ht
+    from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes, sortable
+    dev = torch.device("cuda")
+    err, checked = 0, []
+
+    def compare(name, bk, bv, n_valid, kw, offsets=(0, 0)):
+        nonlocal err
+        planes = [*offset_plane_views(bk, dev, *offsets),
+                  *offset_plane_views(bv, dev, *offsets)]
+        got = ht.build_table(*planes, n_valid, **kw)
+        e = table_err(got, ht.build_table_plain(*planes, n_valid, **kw))
+        err = max(err, e)
+        checked.append([name, list(offsets), e, int(got.special[3])])
+
+    cases = global_build_cases()
+    for case in cases:
+        compare(case.name, case.build_keys, case.build_values,
+                case.valid_rows(), case.build_kwargs())
+    for case in cases:
+        if case.name in ("random", "one_large_group_bloom",
+                         "n_valid_cut_bloom"):
+            compare(case.name, case.build_keys, case.build_values,
+                    case.valid_rows(), case.build_kwargs(), (1, 3))
+    rng = np.random.default_rng(17)
+    bk = np.full(1_000_000, 987654321, np.uint64)
+    compare("all_equal_1e6", bk, np.arange(bk.size, dtype=np.uint64),
+            bk.size, dict(gbits=17, group_size=8, overflow_groups=64,
+                          with_bloom=True, max_probe_iters=256))
+    bk = rng.permutation(homed_keys(rng, 100_000, 4, 0, {9}))
+    compare("homed_1e5", bk, np.arange(bk.size, dtype=np.uint64), bk.size,
+            dict(gbits=4, group_size=32, overflow_groups=4_000,
+                 with_bloom=True, max_probe_iters=256))
+    require(checked[-1][3] == 100_000 - 256 * 32,
+            f"homed_1e5: {checked[-1][3]} rows counted as dropped")
+    torch.cuda.synchronize()
+    require(err == 0, f"build kernel != plain build: {checked}")
+    emit("build_vs_plain", kernel="global_build_table", max_abs_err=err,
+         tolerance="exact (torch.equal of keys, vals, bloom, special)",
+         cases=checked)
+
+    cfg, timing = DEFAULT_CONFIG, {}
+    for name in ("1e8-Q5", "uniform-1e7x1e8"):
+        c = cells[name]
+        nb = len(c.build_keys)
+        planes = [*device_planes(c.build_keys, dev),
+                  *device_planes(c.build_values, dev)]
+        keys64 = sortable(planes[0], planes[1])
+        sort_ms = cuda_ms(lambda: torch.sort(keys64, stable=True))
+        del keys64
+        for use_bloom in (False, True):
+            kw = dict(gbits=cfg.group_bits(nb), group_size=cfg.group_size,
+                      overflow_groups=cfg.overflow_groups,
+                      with_bloom=use_bloom, bloom_k=cfg.bloom_k,
+                      max_probe_iters=cfg.max_probe_iters)
+            kernel = functools.partial(ht.build_table, *planes, nb, **kw)
+            plain = functools.partial(ht.build_table_plain, *planes, nb, **kw)
+            peak = {}
+            for which, fn in (("kernel", kernel), ("plain", plain)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn()
+                torch.cuda.synchronize()
+                peak[which] = torch.cuda.max_memory_allocated() - base
+            got, want = kernel(), plain()
+            e = table_err(got, want)
+            err = max(err, e)
+            require(e == 0, f"build {name} bloom={use_bloom}: != plain")
+            drops = int(got.special[3])
+            table_bound = build_bound(nb, got, use_bloom)
+            del got, want
+            torch.cuda.empty_cache()
+            t = paired_ms(kernel, plain)
+            cell = f"{name}{' bloom' if use_bloom else ''}"
+            timing[cell] = dict(**best(t), **table_bound, sort_ms=sort_ms,
+                                library_ms=None, drops=drops,
+                                peak_device_bytes=peak["kernel"],
+                                plain_peak_device_bytes=peak["plain"])
+            emit("kernel_time", cell=cell, kernel="global_build_table",
+                 nb=nb, total_groups=(1 << kw["gbits"]) + cfg.overflow_groups,
+                 runs={k + "_runs": v for k, v in t.items()}, **timing[cell])
+            torch.cuda.empty_cache()
+        del planes
+        torch.cuda.empty_cache()
+    return {"global_build": dict(
+        max_abs_err=err, **timing["1e8-Q5"],
+        at="J1 1e8 Q5, 2^25 + 64 groups of 8, no bloom",
+        other_cells={c: t for c, t in timing.items() if c != "1e8-Q5"})}
+
+
 def phase_vmem(cells: dict) -> dict:
     """The explicit vmem tier: J1 1e8 Q1 (R 16) and 4e7 Q2 (R 512) count
     and materialize, exact, no retry, K10 or K11 + K5; then a build of 1e6
@@ -1773,15 +1920,17 @@ def phase_global(cells: dict) -> dict:
                        dict(strategy="global", use_bloom=fn.endswith("bloom")))
             ht.walk_stats.reset()
             f = api_cell("global", name, cells[name], fn, expect="global",
-                         kernels=(walk,) if count_fn else (walk, "compact"),
+                         kernels=(BUILD, walk) if count_fn
+                         else (BUILD, walk, "compact"),
                          rows_kw=rows_kw, reps=1)
-            require(f["launches"][walk] == 1, f"global {name} {fn}: the walk "
-                    f"launched {f['launches'][walk]} times in one call")
+            for k in (BUILD, walk):
+                require(f["launches"][k] == 1, f"global {name} {fn}: {k} "
+                        f"launched {f['launches'][k]} times in one call")
             counts[fn] = f["count"]
             emit("global_walk", cell=name, fn=fn, **ht.walk_stats.read())
         require(len(set(counts.values())) == 1,
                 f"global {name}: bloom and no bloom disagree: {counts}")
-    return require_launched("global", (*WALKS, "compact"))
+    return require_launched("global", (BUILD, *WALKS, "compact"))
 
 
 def phase_stream_compact(cells: dict) -> dict:
@@ -2347,13 +2496,13 @@ def phase_distributed() -> dict:
         emit("distributed", cell="dist-pg", case=case, backend="nccl",
              world=world, count=oracle_count,
              seconds=time.perf_counter() - t0, rank0=report)
-    return require_launched("distributed", ("compact", *WALKS))
+    return require_launched("distributed", ("compact", *WALKS, BUILD))
 
 
 HARNESS_KERNELS = ("dense_bitmap", "scan_domain_count", "range_probe_count",
                    "range_probe_materialize", "compact", "probe_gather_bitmap",
                    "probe_gather_staged", "probe_count_vmem",
-                   "probe_materialize_vmem", *WALKS)
+                   "probe_materialize_vmem", *WALKS, BUILD)
 
 
 def phase_harness(cells: dict) -> dict:
@@ -2487,6 +2636,7 @@ def main() -> int:
     summary.update(phase("dense_kernels", phase_dense_kernels, cells))
     summary.update(phase("bucket_kernels", phase_bucket_kernels, cells))
     summary.update(phase("walk_kernels", phase_walk_kernels, cells))
+    summary.update(phase("build_kernels", phase_build_kernels, cells))
     launches, direct_core, main_counts = phase("main", phase_main, cells)
     radix = phase("radix", phase_radix, cells)
     for k in ("range_directory", "range_probe_count",
@@ -2504,7 +2654,7 @@ def main() -> int:
     for k in ("probe_count_vmem", "probe_materialize_vmem"):
         launches[k] = vmem[k]
     walk = phase("global", phase_global, cells)
-    for k in WALKS:
+    for k in (*WALKS, BUILD):
         launches[k] = walk[k]
     stream = phase("stream_compact", phase_stream_compact, cells)
     launches["concat_ragged_blocks"] = stream["concat_ragged_blocks"]
@@ -2519,9 +2669,9 @@ def main() -> int:
     gates = phase("gates", phase_gates, cells)
     for k in GATES_KERNELS:
         launches[k] += gates[k]
-    # K5's and the walk's launches: the distributed tier's too
+    # K5's, the walk's and the build's launches: the distributed tier's too
     dist = phase("distributed", phase_distributed)
-    for k in ("compact", *WALKS):
+    for k in ("compact", *WALKS, BUILD):
         launches[k] += dist[k]
     emit("seconds", total=time.perf_counter() - t0, **seconds)
     src = "flash_hash_join_tpu_torch/csrc/"

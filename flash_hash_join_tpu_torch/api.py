@@ -79,6 +79,7 @@ from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+from flash_hash_join_tpu_torch.ops.cuda import hash_build as hb
 from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
@@ -124,7 +125,8 @@ def launch_counts() -> dict:
             "probe_materialize_vmem": bkp.probe_materialize_vmem.launches,
             "concat_ragged_blocks": sc.concat_ragged_blocks.launches,
             "global_walk_count": hw.global_walk_count.launches,
-            "global_walk_materialize": hw.global_walk_materialize.launches}
+            "global_walk_materialize": hw.global_walk_materialize.launches,
+            "global_build": hb.global_build_table.launches}
 
 
 def _timed(fn, args, dev: torch.device):

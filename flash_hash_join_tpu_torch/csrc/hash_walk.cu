@@ -48,37 +48,11 @@
 // compacts in probe order.  The walk also adds up the groups it visited
 // and keeps the longest walk (stats[0], stats[1]), read after the call.
 #include "common.cuh"
+#include "hash.cuh"
 
 namespace {
 
 constexpr uint32_t kEmpty = 0xFFFFFFFFu;
-
-// murmur3's 32-bit finalizer and the two-word hash of ops/hashing.py.
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ uint32_t hash_u64(uint32_t hi, uint32_t lo) {
-  return fmix32(fmix32(lo) ^ (hi * 0x9E3779B9u));
-}
-
-// ops/hashing.py:bloom_word: bit (g >> 5i) & 31 for i < k, g a secondary
-// mix of h.  The plain version shifts an int64 below 2^32, so a shift of 32
-// or more gives 0: bit 0.
-__device__ __forceinline__ uint32_t bloom_word(uint32_t h, int k) {
-  const uint32_t g = h * 0x9E3779B9u + 1u;
-  uint32_t word = 0;
-  for (int i = 0; i < k; ++i) {
-    const int s = 5 * i;
-    word |= 1u << (s < 32 ? (g >> s) & 31u : 0u);
-  }
-  return word;
-}
 
 // Group row of 2G words: G / 2 16-byte loads (one 8-byte load for G = 1).
 template <int G>
@@ -138,12 +112,11 @@ __global__ void __launch_bounds__(fhj::kThreads) walk_kernel(const Walk a) {
         out_h = has_max ? max_vh : 0u;
         out_l = has_max ? max_vl : 0u;
       } else {
-        const uint32_t h = hash_u64(kh, kl);
-        int64_t g = (int64_t)((((unsigned long long)h << a.pre_shift) & 0xFFFFFFFFull) >>
-                              (32 - a.gbits));
+        const uint32_t h = fhj::hash_u64(kh, kl);
+        int64_t g = fhj::home_group(h, a.gbits, a.pre_shift);
         bool walks = true;
         if (a.bloom != nullptr) {
-          const uint32_t tag = bloom_word(h, a.bloom_k);
+          const uint32_t tag = fhj::bloom_word(h, a.bloom_k);
           walks = ((uint32_t)__ldg(a.bloom + g) & tag) == tag;
         }
         for (int it = 0; walks && it < a.max_iters; ++it) {

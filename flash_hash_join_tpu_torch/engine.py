@@ -10,8 +10,8 @@ Strategies: direct (dense domains, ops/direct_bitmap.py), partitioned
 fallback, ops/merge_join.py), and two explicit tiers that the adaptive plan
 never picks, as in the JAX package: vmem (bucket table, K10/K11,
 ops/bucket_table.py) and global (group-walk hash table, ops/hash_table.py:
-a plain-torch build, and on a card the walk kernel of
-ops/cuda/hash_walk.py).  The explicit tiers are sized from n_build: vmem's
+on a card the build kernel of ops/cuda/hash_build.py and the walk kernel
+of ops/cuda/hash_walk.py, plain torch on the CPU).  The explicit tiers are sized from n_build: vmem's
 slots per bucket by r_slots_for, global's home groups by
 DEFAULT_CONFIG.group_bits.
 

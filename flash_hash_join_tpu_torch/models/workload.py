@@ -288,3 +288,106 @@ def global_walk_cases(seed: int = 0) -> list[WalkCase]:
                      bloom, shift, nv)
             for name, bk, bv, pk, c, gb, shift, nv in cases
             for bloom in (False, True)]
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildCase:
+    """An edge case of the `global` tier's table build: the build columns,
+    the table's configuration (a utils/config.JoinConfig: group size,
+    overflow groups, bloom_k), its group bits, bloom, the hash bits a rank
+    discards (pre_shift), the valid rows (None: all) and the probe bound
+    (build_table's max_probe_iters; None: none)."""
+    name: str
+    build_keys: np.ndarray
+    build_values: np.ndarray
+    cfg: object
+    gbits: int
+    use_bloom: bool
+    pre_shift: int = 0
+    n_valid: int | None = None
+    max_probe_iters: int | None = None
+
+    def build_kwargs(self) -> dict:
+        """ops/hash_table.build_table's keywords for this case."""
+        return dict(gbits=self.gbits, group_size=self.cfg.group_size,
+                    overflow_groups=self.cfg.overflow_groups,
+                    with_bloom=self.use_bloom, bloom_k=self.cfg.bloom_k,
+                    pre_shift=self.pre_shift,
+                    max_probe_iters=self.max_probe_iters)
+
+    def valid_rows(self) -> int:
+        n = self.build_keys.size
+        return n if self.n_valid is None else self.n_valid
+
+
+def global_build_cases(seed: int = 0) -> list[BuildCase]:
+    """The build's edge cases, bloom off and on: random keys; duplicates
+    whose values are their build rows (so the minimum row shows); all keys
+    equal (one group of 3000 rows, past one 2048-row sorting chunk of the
+    build kernel); 3000 distinct keys homed to one group, a third of them
+    repeated (a large group with duplicates); u64-max keys, repeated and
+    alone; n_valid cut mid-array and 0; an empty side; global_walk_cases'
+    crowded table, which drops rows past its last group; max_probe_iters=2,
+    whose long chains count as dropped but are written; pre_shift 1-3 (a
+    rank's keys); group sizes 1, 2, 8 and 32."""
+    from flash_hash_join_tpu_torch.utils.config import JoinConfig
+    rng = np.random.default_rng(seed)
+    m64 = np.uint64(2**64 - 1)
+
+    def u64(n):
+        return rng.integers(0, 2**64, n, dtype=np.uint64)
+
+    def rows(n):
+        return np.arange(n, dtype=np.uint64)
+
+    cfg = JoinConfig()
+    cases = [("random", u64(3_000), u64(3_000), cfg, cfg.group_bits(3_000),
+              0, None, None)]
+    bk = rng.integers(0, 500, 2_000, dtype=np.uint64)
+    cases.append(("duplicates", bk, rows(bk.size), cfg, cfg.group_bits(2_000),
+                  0, None, cfg.max_probe_iters))
+    cases.append(("all_equal", np.full(3_000, 12345, np.uint64), rows(3_000),
+                  cfg, cfg.group_bits(3_000), 0, None, cfg.max_probe_iters))
+    one = homed_keys(rng, 3_000, 4, 0, {5})
+    bk = rng.permutation(np.concatenate([one, one[::3]]))
+    cases.append(("one_large_group", bk, rows(bk.size),
+                  JoinConfig(group_size=32, overflow_groups=200), 4, 0, None,
+                  50))
+    bk = u64(300)
+    bk[[7, 100, 201]] = m64
+    cases.append(("u64_max_repeated", bk, u64(300), cfg, cfg.group_bits(300),
+                  0, None, None))
+    bk = u64(300)
+    bk[150] = m64
+    cases.append(("u64_max_alone", bk, u64(300), cfg, cfg.group_bits(300), 0,
+                  None, None))
+    bk = np.concatenate([u64(1_000), [m64]]).astype(np.uint64)
+    bk[800:900] = bk[700:800]                  # duplicates across the cut
+    cases.append(("n_valid_cut", bk, rows(bk.size), cfg,
+                  cfg.group_bits(bk.size), 0, 777, None))
+    cases.append(("n_valid_0", u64(100), u64(100), cfg, cfg.group_bits(100),
+                  0, 0, None))
+    cases.append(("empty", np.zeros(0, np.uint64), np.zeros(0, np.uint64),
+                  cfg, cfg.group_bits(0), 0, None, None))
+    crowded = JoinConfig(group_size=2, overflow_groups=3)
+    bk = np.concatenate([homed_keys(rng, 18, 4, 0, {13, 14, 15}),
+                         homed_keys(rng, 6, 4, 0, range(8))])
+    cases.append(("crowded", rng.permutation(bk), u64(bk.size), crowded, 4,
+                  0, None, None))
+    iters2 = JoinConfig(group_size=2, overflow_groups=8, max_probe_iters=2)
+    bk = homed_keys(rng, 16, 4, 0, {3, 4, 5})
+    cases.append(("max_probe_iters_2", rng.permutation(bk), u64(bk.size),
+                  iters2, 4, 0, None, 2))
+    for shift in (1, 2, 3):
+        bk = homed_keys(rng, 800, shift, 0, {1})  # the top bits of rank 1
+        cases.append((f"pre_shift_{shift}", rng.permutation(bk), u64(800),
+                      cfg, cfg.group_bits(800), shift, None,
+                      cfg.max_probe_iters))
+    for g in (1, 2, 8, 32):
+        gcfg = JoinConfig(group_size=g)
+        cases.append((f"group_size_{g}", u64(3_000), u64(3_000), gcfg,
+                      gcfg.group_bits(3_000), 0, None, gcfg.max_probe_iters))
+    return [BuildCase(name + ("_bloom" if bloom else ""), bk, bv, c, gb,
+                      bloom, shift, nv, it)
+            for name, bk, bv, c, gb, shift, nv, it in cases
+            for bloom in (False, True)]

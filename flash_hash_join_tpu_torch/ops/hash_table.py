@@ -1,10 +1,12 @@
 """The `global` tier: an open-addressing hash table in device memory, built
 by sorting and probed by a bounded group walk (port of
-flash_hash_join_tpu/ops/hash_table.py).  The build is plain torch, as the
-JAX package leaves it to XLA.  The probe dispatches on the device: CUDA
-tensors launch the walk kernel (ops/cuda/hash_walk.py, one launch over the
-whole probe side); CPU tensors take the plain walk here, in chunks of
-probe_chunk rows with a host sync a walk step.
+flash_hash_join_tpu/ops/hash_table.py).  Build and probe dispatch on the
+device.  CUDA tensors launch the build kernel (ops/cuda/hash_build.py: a
+counting sort by home group, a thread or a block a group, no host sync)
+and the walk kernel (ops/cuda/hash_walk.py, one launch over the whole probe
+side).  CPU tensors take the plain versions here: the build by two stable
+sorts, a cummax and a segmented scan (build_table_plain), the walk in
+chunks of probe_chunk rows with a host sync a walk step.
 
 Semantics (SURVEY.md §3, hash_join.cpp:75-204): linear probing over
 groups of G slots at a load of at most ~0.5; one winner per duplicate
@@ -29,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
-from flash_hash_join_tpu_torch.ops.cuda import hash_walk
+from flash_hash_join_tpu_torch.ops.cuda import hash_build, hash_walk
 from flash_hash_join_tpu_torch.ops.hashing import bloom_word, hash_u64
 from flash_hash_join_tpu_torch.ops.segmented import (cummax, seg_ends,
                                                     segmented_scan)
@@ -138,10 +140,37 @@ def build_table(kh, kl, vh, vl, n_valid: int, *, gbits: int, group_size: int,
                 pre_shift: int = 0,
                 max_probe_iters: int | None = None) -> HashTable:
     """Build the table from the first n_valid rows of the key and value
-    planes (int32 bit patterns or widened)."""
+    planes (int32 bit patterns, or widened on the CPU).  CUDA tensors: the
+    build kernel, on the planes' current stream with no host sync (a
+    failed build or launch raises); CPU tensors: build_table_plain."""
+    kw = dict(gbits=gbits, group_size=group_size,
+              overflow_groups=overflow_groups, with_bloom=with_bloom,
+              bloom_k=bloom_k, pre_shift=pre_shift,
+              max_probe_iters=max_probe_iters)
+    if kh.device.type == "cuda":
+        return HashTable(*hash_build.global_build_table(kh, kl, vh, vl,
+                                                        n_valid, **kw))
+    return build_table_plain(kh, kl, vh, vl, n_valid, **kw)
+
+
+def build_table_plain(kh, kl, vh, vl, n_valid: int, *, gbits: int,
+                      group_size: int, overflow_groups: int,
+                      with_bloom: bool, bloom_k: int = 3, pre_shift: int = 0,
+                      max_probe_iters: int | None = None) -> HashTable:
+    """Plain version of the build kernel, on any device: the JAX package's
+    sort-built table (planes int32 bit patterns or widened; an empty side
+    gives the empty table, where the JAX build refuses an argmax of no
+    rows)."""
     n, dev = kh.shape[0], kh.device
     G = group_size
     ntot = (1 << gbits) + overflow_groups
+    if n == 0:
+        return HashTable(
+            torch.full((ntot, 2 * G), -1, dtype=torch.int32, device=dev),
+            torch.zeros((ntot, 2 * G), dtype=torch.int32, device=dev),
+            torch.zeros(ntot if with_bloom else 1, dtype=torch.int64,
+                        device=dev),
+            torch.zeros(4, dtype=torch.int64, device=dev))
     row_valid = torch.arange(n, device=dev) < n_valid
     kh = torch.where(row_valid, widen(kh), MASK32)
     kl = torch.where(row_valid, widen(kl), MASK32)

@@ -8,7 +8,8 @@ flash_hash_join_tpu/parallel/distributed_join.py).
      hot PROBE rows stay where they are.
   3. Each rank hash-shuffles its other build rows (parallel/shuffle.py),
      then builds the `global` tier's table (ops/hash_table.py, bucketed on
-     the hash bits below the rank bits: pre_shift) over the rows it
+     the hash bits below the rank bits: pre_shift; the build kernel on a
+     card, launched on the rank's stream with no sync) over the rows it
      received, the replicated hot rows after them.
   4. The probe side is shuffled in `overlap_chunks` chunks: chunk k + 1's
      exchange is in flight while chunk k is probed (in-process: on each

@@ -21,8 +21,8 @@ import torch
 
 import flash_hash_join_tpu_torch as ft
 from flash_hash_join_tpu_torch.models.workload import (
-    RAGGED_KINDS, dense_domain_keys, domain_sides, global_walk_cases,
-    offset_plane_views, ragged_counts)
+    RAGGED_KINDS, dense_domain_keys, domain_sides, global_build_cases,
+    global_walk_cases, homed_keys, offset_plane_views, ragged_counts)
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import hash_table as ht
@@ -32,6 +32,7 @@ from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+from flash_hash_join_tpu_torch.ops.cuda import hash_build as hb
 from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
@@ -790,6 +791,142 @@ def test_hash_join_launches_the_walk_on_card(dev, fn):
     stats = ht.walk_stats.read()
     assert stats["chunks"] == 1 and stats["probes"] == pk.size
     assert 1 <= stats["longest"] <= 256 and stats["groups"] > 0
+
+
+# ---- the global tier's build kernel -------------------------------------------
+
+def _build_on_card(bk, bv, n_valid, kw, dev, offsets=(0, 0)):
+    """The build kernel's table and the plain build's on the same card
+    planes (the key and value planes at word offsets `offsets`), checked
+    equal plane by plane; returns the kernel's table."""
+    planes = [*offset_plane_views(bk, dev, *offsets),
+              *offset_plane_views(bv, dev, *offsets)]
+    before = hb.global_build_table.launches
+    got = ht.build_table(*planes, n_valid, **kw)
+    assert hb.global_build_table.launches - before == int(
+        min(n_valid, bk.size) > 0)
+    want = ht.build_table_plain(*planes, n_valid, **kw)
+    torch.cuda.synchronize()
+    for f in ("keys", "vals", "bloom", "special"):
+        g, w = getattr(got, f), getattr(want, f)
+        assert g.device == w.device == planes[0].device, f
+        assert g.dtype == w.dtype and torch.equal(g, w), f
+    return got
+
+
+@pytest.mark.parametrize("case", global_build_cases(), ids=lambda c: c.name)
+def test_global_build_kernel_matches_plain(dev, case):
+    # keys, vals, bloom and special equal the plain build's (the JAX
+    # package's table) on every edge case of the build
+    _build_on_card(case.build_keys, case.build_values, case.valid_rows(),
+                   case.build_kwargs(), dev)
+
+
+@pytest.mark.parametrize("name", ["random", "one_large_group_bloom",
+                                  "n_valid_cut_bloom"])
+def test_global_build_kernel_on_misaligned_planes(dev, name):
+    case = next(c for c in global_build_cases() if c.name == name)
+    _build_on_card(case.build_keys, case.build_values, case.valid_rows(),
+                   case.build_kwargs(), dev, offsets=(1, 3))
+
+
+@pytest.mark.parametrize("kind", ["all_equal_1e6", "homed_1e5"])
+def test_global_build_kernel_on_one_huge_group(dev, kind):
+    # a group far past the kernel's shared-memory chunk: 1e6 equal keys
+    # (one kept row, the minimum), or 1e5 distinct keys homed to one of 16
+    # groups of 32 slots with ~4000 overflow groups, whose chain runs past
+    # max_probe_iters (256 groups) and is counted as dropped
+    rng = np.random.default_rng(17)
+    if kind == "all_equal_1e6":
+        bk = np.full(1_000_000, 987654321, np.uint64)
+        kw = dict(gbits=17, group_size=8, overflow_groups=64,
+                  with_bloom=True, max_probe_iters=256)
+    else:
+        bk = rng.permutation(homed_keys(rng, 100_000, 4, 0, {9}))
+        kw = dict(gbits=4, group_size=32, overflow_groups=4_000,
+                  with_bloom=True, max_probe_iters=256)
+    bv = np.arange(bk.size, dtype=np.uint64)
+    table = _build_on_card(bk, bv, bk.size, kw, dev)
+    drops = int(table.special[3])
+    if kind == "homed_1e5":
+        # slots 9 * 32 + j: rows j >= 256 * 32 lie 256 groups past home
+        assert drops == 100_000 - 256 * 32
+    else:
+        assert drops == 0
+        assert int((table.keys != -1).any(1).sum()) == 1
+
+
+def test_global_build_kernel_does_not_sync(dev):
+    case = next(c for c in global_build_cases() if c.name == "duplicates_bloom")
+    planes = [*device_planes(case.build_keys, dev),
+              *device_planes(case.build_values, dev)]
+    kw = case.build_kwargs()
+    ht.build_table(*planes, case.valid_rows(), **kw)     # builds the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        table = ht.build_table(*planes, case.valid_rows(), **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = ht.build_table_plain(*planes, case.valid_rows(), **kw)
+    assert all(torch.equal(getattr(table, f), getattr(want, f))
+               for f in ("keys", "vals", "bloom", "special"))
+
+
+def test_global_build_kernel_refuses_bad_inputs(dev):
+    kh, kl, vh, vl = (torch.zeros(64, dtype=torch.int32, device=dev)
+                      for _ in range(4))
+    kw = dict(gbits=4, group_size=8, overflow_groups=64, with_bloom=False)
+    with pytest.raises(ValueError, match="group_size"):
+        hb.global_build_table(kh, kl, vh, vl, 64, **dict(kw, group_size=3))
+    with pytest.raises(ValueError, match="int32"):
+        hb.global_build_table(kh.long(), kl, vh, vl, 64, **kw)
+    with pytest.raises(ValueError, match="gbits"):
+        hb.global_build_table(kh, kl, vh, vl, 64, **dict(kw, gbits=31))
+    with pytest.raises(ValueError, match="contiguous"):
+        hb.global_build_table(kh[::2], kl[::2], vh[::2], vl[::2], 32, **kw)
+
+
+@pytest.mark.parametrize("fn", ["hash_join_count", "hash_join_count_bloom",
+                                "hash_join", "hash_join_bloom"])
+def test_hash_join_launches_the_build_on_every_call(dev, fn):
+    rng = np.random.default_rng(8)
+    bk = rng.integers(0, 2**64, 200_000, dtype=np.uint64)
+    bk[50:80] = bk[3]
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 300_000),
+                         rng.integers(0, 2**64, 300_000, dtype=np.uint64)])
+    for _ in range(2):
+        count, _, info = getattr(ft, fn)(bk, bv, pk, return_info=True)
+        assert count == int(np.isin(pk, bk).sum())
+        assert info["strategy"] == "global" and not info["retried"]
+        assert info["launches"]["global_build"] == 1
+
+
+@pytest.mark.parametrize("use_bloom", [False, True])
+def test_local_join_builds_equal_the_plain_build(dev, use_bloom):
+    # a distributed rank's table (pre_shift 2: rank 1's keys share the top
+    # two hash bits) through _LocalJoin, against the plain build
+    from flash_hash_join_tpu_torch.parallel.distributed_join import _LocalJoin
+    from flash_hash_join_tpu_torch.utils.config import JoinConfig
+    rng = np.random.default_rng(9)
+    bk = homed_keys(rng, 50_000, 2, 0, {1})
+    bk = rng.permutation(np.concatenate([bk, bk[:5_000]]))
+    bv = np.arange(bk.size, dtype=np.uint64)
+    cols = (*device_planes(bk, dev), *device_planes(bv, dev))
+    cfg = JoinConfig()
+    before = hb.global_build_table.launches
+    rank = _LocalJoin(cols, cfg, use_bloom, 2, False)
+    assert hb.global_build_table.launches - before == 1
+    want = ht.build_table_plain(
+        *cols, bk.size, gbits=cfg.group_bits(bk.size),
+        group_size=cfg.group_size, overflow_groups=cfg.overflow_groups,
+        with_bloom=use_bloom, bloom_k=cfg.bloom_k, pre_shift=2,
+        max_probe_iters=cfg.max_probe_iters)
+    assert all(torch.equal(getattr(rank.table, f), getattr(want, f))
+               for f in ("keys", "vals", "bloom", "special"))
+    rank.read_drops()
+    assert rank.drops == 0
 
 
 def test_stream_compaction_on_card(dev, monkeypatch):
