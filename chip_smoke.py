@@ -66,9 +66,10 @@ Phases, one JSON line each on stdout:
               models/workload.global_build_cases (random keys, duplicates,
               all keys equal, one large group, u64-max keys repeated and
               alone, n_valid cut and 0, an empty side, the crowded table,
-              max_probe_iters 2, pre_shift 1-3, group sizes 1, 2, 8, 32;
-              bloom off and on), three on misaligned planes, 1e6 equal keys
-              and 1e5 keys homed to one group, then J1 1e8 Q5 and config
+              max_probe_iters 2, pre_shift 1-3, group sizes 1, 2, 8, 32,
+              and the kernel's tile edges; bloom off and on), three on
+              misaligned planes, 1e6 equal keys and 1e5 keys homed to one
+              group (oversize tiles, timed), then J1 1e8 Q5 and config
               #2, bloom off and on, timed beside its bound, the plain build
               and one stable torch.sort of the sortable build keys, with
               its peak device bytes.  Then each kernel and its plain version timed (CUDA
@@ -1732,12 +1733,17 @@ def phase_build_kernels(cells: dict) -> dict:
     (random keys, duplicates, all keys equal, one large group with
     duplicates, u64-max keys repeated and alone, n_valid cut and 0, an
     empty side, the crowded table, max_probe_iters 2, pre_shift 1-3, group
-    sizes 1, 2, 8, 32; bloom off and on), three of them on misaligned
-    planes, 1e6 equal keys and 1e5 distinct keys homed to one group (its
-    chain counted as dropped past max_probe_iters); then J1 1e8 Q5 and
-    config #2, bloom off and on, each timed beside its bound, the plain
-    build and one stable torch.sort of the sortable build keys (the sort it
-    replaces), with the peak device bytes of a build over its planes."""
+    sizes 1, 2, 8, 32; the kernel's tile edges: a chain across a tile
+    boundary, the last tile through the overflow groups, fewer group bits
+    than partition bits, pre_shift 1-3 over two levels, a tile of u64-max
+    rows; bloom off and on), three of them on misaligned planes, 1e6 equal
+    keys and 1e5 distinct keys homed to one group (oversize tiles, finished
+    from device memory; the latter's chain counted as dropped past
+    max_probe_iters), those two timed against the plain build; then J1
+    1e8 Q5 and config #2, bloom off and on, each timed beside its bound,
+    the plain build and one stable torch.sort of the sortable build keys
+    (the sort it replaces), with the peak device bytes of a build over its
+    planes."""
     import torch
     from flash_hash_join_tpu_torch.models.workload import (
         global_build_cases, homed_keys, offset_plane_views)
@@ -1748,6 +1754,8 @@ def phase_build_kernels(cells: dict) -> dict:
     err, checked = 0, []
 
     def compare(name, bk, bv, n_valid, kw, offsets=(0, 0)):
+        """Checks the kernel's table against the plain build's; returns
+        the two builds on the card planes."""
         nonlocal err
         planes = [*offset_plane_views(bk, dev, *offsets),
                   *offset_plane_views(bv, dev, *offsets)]
@@ -1755,6 +1763,9 @@ def phase_build_kernels(cells: dict) -> dict:
         e = table_err(got, ht.build_table_plain(*planes, n_valid, **kw))
         err = max(err, e)
         checked.append([name, list(offsets), e, int(got.special[3])])
+        return (functools.partial(ht.build_table, *planes, n_valid, **kw),
+                functools.partial(ht.build_table_plain, *planes, n_valid,
+                                  **kw))
 
     cases = global_build_cases()
     for case in cases:
@@ -1766,23 +1777,29 @@ def phase_build_kernels(cells: dict) -> dict:
             compare(case.name, case.build_keys, case.build_values,
                     case.valid_rows(), case.build_kwargs(), (1, 3))
     rng = np.random.default_rng(17)
+    timing = {}
     bk = np.full(1_000_000, 987654321, np.uint64)
-    compare("all_equal_1e6", bk, np.arange(bk.size, dtype=np.uint64),
-            bk.size, dict(gbits=17, group_size=8, overflow_groups=64,
-                          with_bloom=True, max_probe_iters=256))
+    oversize = {"all_equal_1e6": compare(
+        "all_equal_1e6", bk, np.arange(bk.size, dtype=np.uint64), bk.size,
+        dict(gbits=17, group_size=8, overflow_groups=64, with_bloom=True,
+             max_probe_iters=256))}
     bk = rng.permutation(homed_keys(rng, 100_000, 4, 0, {9}))
-    compare("homed_1e5", bk, np.arange(bk.size, dtype=np.uint64), bk.size,
-            dict(gbits=4, group_size=32, overflow_groups=4_000,
-                 with_bloom=True, max_probe_iters=256))
+    oversize["homed_1e5"] = compare(
+        "homed_1e5", bk, np.arange(bk.size, dtype=np.uint64), bk.size,
+        dict(gbits=4, group_size=32, overflow_groups=4_000, with_bloom=True,
+             max_probe_iters=256))
     require(checked[-1][3] == 100_000 - 256 * 32,
             f"homed_1e5: {checked[-1][3]} rows counted as dropped")
+    for name, (kernel, plain) in oversize.items():
+        timing[name] = best(paired_ms(kernel, plain))
+    del oversize
     torch.cuda.synchronize()
     require(err == 0, f"build kernel != plain build: {checked}")
     emit("build_vs_plain", kernel="global_build_table", max_abs_err=err,
          tolerance="exact (torch.equal of keys, vals, bloom, special)",
          cases=checked)
 
-    cfg, timing = DEFAULT_CONFIG, {}
+    cfg = DEFAULT_CONFIG
     for name in ("1e8-Q5", "uniform-1e7x1e8"):
         c = cells[name]
         nb = len(c.build_keys)

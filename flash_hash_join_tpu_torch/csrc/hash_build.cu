@@ -1,5 +1,8 @@
-// The `global` tier's table build: a counting sort by home group in place
-// of the sorts, the row-wise cummax and the segmented bloom scan.
+// The `global` tier's table build: the rows, carried with their key and
+// value words, partitioned by home group into tiles that fit in shared
+// memory, and each tile finished there, its carry from the tiles before it
+// by a decoupled look-back.  In place of the sorts, the row-wise cummax and
+// the segmented bloom scan.
 //
 // Replaces flash_hash_join_tpu/ops/hash_table.py:74 build_table: plain XLA
 // (jax.lax.sort of (home, key) rows, a cumsum and a cummax for the slots,
@@ -24,56 +27,90 @@
 //  * bloom[b] is the OR of bloom_word(h, k) over the valid, non-max rows of
 //    home b, duplicates included; 0 elsewhere.
 //
-// The work, on the current stream, with no host sync:
-//   count_kernel   a pass over the rows: hash, home, atomicAdd of the
-//                  group's count, atomicOr of the bloom tag (OR commutes:
-//                  exact), atomicMin of the first u64-max row;
-//   sum_tiles_kernel, scan_tiles_kernel, offsets_kernel
-//                  the exclusive sum of the 2^gbits counts (tiles of
-//                  kTileGroups groups, one block a tile, then one block over
-//                  the tiles' sums, then the tiles again);
-//   scatter_kernel a second pass: each row's id at its group's cursor
-//                  (atomicAdd), so a group's rows are contiguous in `perm`,
-//                  in no fixed order;
-//   order_kernel   each group's rows ordered by (key, row) and cut to their
-//                  first occurrences, written back to the front of the
-//                  group's range; k_b kept.  A group of at most kSmall rows
-//                  (nearly all: ~3 a group at the tier's load) is one
-//                  thread's insertion sort; a larger one is sorted by its
-//                  tile's whole block, in chunks of kChunk rows (a bitonic
-//                  sort in shared memory) merged pairwise in device memory,
-//                  so no group is O(k^2) and nothing depends on the order
-//                  the atomics left.  The block also sums its tile's
-//                  max-plus step;
-//   scan_tiles_kernel  the max-plus scan over the tiles;
-//   place_kernel   each group's start from its tile's and the block's scan,
-//                  its kept rows' key and value words written to their
-//                  slots (the large groups by the whole block), the drops
-//                  counted, special[0:3] set from the first u64-max row.
-// Scans are tile-wise and deterministic; every group is independent, so
-// the table is the same whatever order the atomics took.
+// The work, on the current stream, with no host sync; the plan (how many
+// levels, their bits, blocks a parent partition) comes from the wrapper
+// (ops/cuda/hash_build.plan), which sizes a tile to at most 3/4 of kCap
+// rows on average:
+//   one or two partition levels, each three launches:
+//     hist_kernel    a block a slice of a parent partition: the rows'
+//                    digits (the next bits of their home group) counted in
+//                    shared memory, one count a digit written out; level 0
+//                    reads the build planes, skips u64-max rows and takes
+//                    their first row by a block minimum and one atomic;
+//     scan_kernel    the exclusive sums of the counts (parent, digit,
+//                    block), a single pass with a decoupled look-back:
+//                    each block's offset a digit, and each child
+//                    partition's start;
+//     scatter_kernel the slice again, kChunkRows rows at a time: ranked a
+//                    digit by a shared atomic, staged in shared memory by
+//                    digit as 20-byte records (kh, kl, vh, vl, row), then
+//                    written out a word a thread, each digit's run of
+//                    records at its cursor, so no later pass gathers a word
+//                    by row id.  A level of 0 bits is a compaction of the
+//                    placeable rows;
+//   finish_kernel   a block a tile, taken from a ticket counter: the tile's
+//                    records loaded into shared memory by one bulk copy
+//                    (cp.async.bulk on an mbarrier); its rows counted a
+//                    group (the bloom word ORed in on the way, a duplicate
+//                    having its key's word), listed by group, and each
+//                    group ordered by (key, row) and cut to its first
+//                    occurrences: a group of at most kSmall rows ranked a
+//                    thread a row (a row is its key's first when no row of
+//                    its group has its key and a smaller row id; its place
+//                    is the number of first rows with a smaller key), a
+//                    larger one by a bitonic sort of the block; the tile's
+//                    max-plus step composed over its groups, its carry-in
+//                    found by a decoupled look-back over the tiles before
+//                    it (max-plus composition is associative, not
+//                    commutative: it composes in tile order; each state a
+//                    64-bit word that carries its own flag, so one round of
+//                    loads reads 32 tiles), and every slot of [R_{t-1}, R_t)
+//                    written once, in order, a kept row or the empty
+//                    sentinel, R_t = max(end_t, (last group of t + 1) * G);
+//                    the last tile runs on to total_groups * G.  Drops and
+//                    out-of-reach rows: one atomic a block.  A tile of more
+//                    than kCap rows (an oversize tile: many equal keys, many
+//                    keys homed to few groups) is finished the same way from
+//                    device memory, its order and merge buffers scratch of
+//                    their own: a small group ordered by one thread, a
+//                    larger one sorted in chunks of kChunk rows (a bitonic
+//                    sort in shared memory) merged pairwise, so no case is
+//                    O(k^2).
+// 3 x levels + 1 launches and three memsets (special, the scratch's
+// counters and look-back words, the bloom word when bloom is off); no
+// memset of the key or value planes and no per-row atomic to device memory.
 //
 // What bounds it on an H100: device memory.  Each input byte read once
 // and each plane word written once: at J1 1e8 Q5 1.6 GB of build planes
 // and 4.3 GB of key and value planes (2^25 + 64 groups of 8), 1.76 ms at
-// 3.35 TB/s.  This design reads the key planes twice (count, scatter),
-// gathers each row's key again by its id to order its group (8 B, two
-// 32-byte sectors) and its key and value to place it (16 B, four
-// sectors), scatters the row ids (4 B each to a random address) and makes
-// two passes of random atomics into the 2^gbits counts; right and simple
-// first, so it sits several times above that bound (PERF.md).
+// 3.35 TB/s.  Two levels move about 14 GB in order (the build planes'
+// keys twice and all four once, 20 B a row written and read back twice,
+// the planes written once): about 4.2 ms at that rate.  It runs at 11.9 ms
+// there (PERF.md): the finish 5.5 ms, latency-bound a tile (three blocks an
+// SM; more tiles at once did not help, fewer hurt, larger tiles helped),
+// each scatter 2.5-2.6 ms (1.4-1.5 TB/s), the counts 1.0 ms.
 #include "common.cuh"
 #include "hash.cuh"
 
 namespace {
 
-constexpr int kPer = 8;                         // groups a thread in a tile
-constexpr int kTileGroups = fhj::kThreads * kPer;  // groups a tile: 2048
-constexpr int kScanThreads = 1024;              // scan_tiles_kernel's block
+constexpr int kBlock = fhj::kThreads;       // threads a block, every kernel
+constexpr int kHistPer = 4;                  // rows a thread a step, hist_kernel
+constexpr int kChunkPer = 8;                 // rows a thread a step, scatter_kernel
+constexpr int kChunkRows = kBlock * kChunkPer;  // rows scatter_kernel stages: 2048
+constexpr int kScanPer = 16;                 // counts a thread, scan_kernel
+constexpr int kScanTile = kBlock * kScanPer;
+constexpr int kMaxLevelBits = 11;            // digits a level: at most 2048
+constexpr int kCap = 2048;                   // rows a tile finished in shared memory
+constexpr int kMaxTileBits = 9;              // groups a tile: at most 512
+constexpr int kMaxGroups = 1 << kMaxTileBits;
+constexpr int kGroupsPer = kMaxGroups / kBlock;  // groups a thread composes
 constexpr int kSmall = 32;    // rows a group that one thread orders alone
-constexpr int kChunk = 2048;  // rows a large group's block sorts in shared memory
+constexpr int kChunk = 2048;  // rows an oversize group's block sorts in shared memory
 constexpr int kItems = 8;     // merged rows a thread a step
+constexpr int kWords = 5;     // a carried row: kh, kl, vh, vl, row
 constexpr uint32_t kNone = 0xFFFFFFFFu;
+constexpr unsigned kFull = 0xffffffffu;
 
 // x -> max(x + a, c): one group's step of the max-plus scan is
 // {k_b, b * G + k_b}; a plain sum is {v, kNeg}.
@@ -96,12 +133,15 @@ __device__ __forceinline__ long long apply(MaxPlus f, long long x) {
 }
 
 __device__ __forceinline__ MaxPlus shfl_up(MaxPlus f, int o) {
-  return {__shfl_up_sync(0xffffffffu, f.a, o), __shfl_up_sync(0xffffffffu, f.c, o)};
+  return {__shfl_up_sync(kFull, f.a, o), __shfl_up_sync(kFull, f.c, o)};
+}
+
+__device__ __forceinline__ MaxPlus shfl_down(MaxPlus f, int o) {
+  return {__shfl_down_sync(kFull, f.a, o), __shfl_down_sync(kFull, f.c, o)};
 }
 
 // Exclusive scan of f over the block (kBlock threads, in thread order);
 // *total gets the whole block's composition.  Every thread calls it.
-template <int kBlock>
 __device__ MaxPlus block_exclusive(MaxPlus f, MaxPlus* total) {
   constexpr int kWarps = kBlock / 32;
   __shared__ long long wa[kWarps], wc[kWarps];
@@ -132,199 +172,431 @@ __device__ MaxPlus block_exclusive(MaxPlus f, MaxPlus* total) {
   return ex;
 }
 
-struct Build {
-  const uint32_t* kh;   // build planes, rows [0, n_valid)
-  const uint32_t* kl;
-  const uint32_t* vh;
-  const uint32_t* vl;
-  int64_t n_valid;
-  int64_t groups;       // 2^gbits home groups
-  int64_t total_groups; // groups + overflow groups
-  int G, gbits, pre_shift, bloom_k, max_iters;  // max_iters < 0: no bound
-  uint32_t* keys;       // (total_groups, 2G) planes
-  uint32_t* vals;
-  unsigned long long* bloom;    // (total_groups,) words, or null (no bloom)
-  unsigned long long* special;  // (4,)
-  uint32_t* count;      // (groups,): counts, then offsets, then range ends
-  uint32_t* kept;       // (groups,): k_b
-  uint32_t* perm;       // (n_valid,): row ids by group
-  uint32_t* spare;      // (n_valid,): the large groups' merge buffer
-  MaxPlus* tile_step;   // (tiles,)
-  long long* tile_in;   // (tiles,): the scan's value before each tile
-  uint32_t* max_row;    // the first u64-max row, or kNone
-};
+// The exclusive sums of c[0, n) into out[0, n) (out may be c), n at most
+// kBlock * 8, by the block; returns the total.  Every thread calls it.
+__device__ long long block_scan_counts(const uint32_t* c, uint32_t* out, int n) {
+  const int per = (n + kBlock - 1) / kBlock;
+  const int b0 = threadIdx.x * per;
+  long long s = 0;
+  for (int q = 0; q < per && b0 + q < n; ++q) s += c[b0 + q];
+  MaxPlus total;
+  long long x = block_exclusive({s, kNeg}, &total).a;
+  for (int q = 0; q < per && b0 + q < n; ++q) {
+    const uint32_t v = c[b0 + q];
+    out[b0 + q] = (uint32_t)x;
+    x += v;
+  }
+  return total.a;
+}
 
 __device__ __forceinline__ bool is_max(uint32_t h, uint32_t l) {
   return (h & l) == 0xFFFFFFFFu;
 }
 
-__device__ __forceinline__ unsigned long long key_of(const Build& a, uint32_t r) {
-  return ((unsigned long long)__ldg(a.kh + r) << 32) | __ldg(a.kl + r);
+// ---- the decoupled look-back -------------------------------------------------
+
+// One chain of tiles: three 64-bit words a tile, zero at launch, each
+// written once and whole, so a reader needs no fence between a flag and its
+// data: the tile's step (a, then c + 1, or 0 for c = kNeg) with kStep in the
+// top bits, then the value after the tile with kValue.
+struct Chain {
+  unsigned long long* a;
+  unsigned long long* c;
+  unsigned long long* value;
+  unsigned* ticket;   // the tile counter
+};
+constexpr unsigned long long kStep = 1ull << 62, kValue = 2ull << 62, kLow = kStep - 1;
+
+__device__ __forceinline__ void store_word(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
 }
 
-// (key, row) order, as the JAX package's stable sort by (home, key) leaves it
-__device__ __forceinline__ bool before(unsigned long long ka, uint32_t ra,
-                                      unsigned long long kb, uint32_t rb) {
-  return ka < kb || (ka == kb && ra < rb);
+__device__ __forceinline__ unsigned long long load_word(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-// The rows of group b: [lo, hi) of perm, once scatter_kernel has run.
-__device__ __forceinline__ void range_of(const uint32_t* count, int64_t b, int64_t* lo,
-                                         int64_t* hi) {
-  *lo = b ? count[b - 1] : 0;
-  *hi = count[b];
-}
-
-__global__ void __launch_bounds__(fhj::kThreads) count_kernel(const Build a) {
-  uint32_t first_max = kNone;
-  fhj::for_each_pair_at(a.kh, a.kl, a.n_valid, [&](int64_t i, uint32_t h, uint32_t l) {
-    if (is_max(h, l)) {
-      first_max = min(first_max, (uint32_t)i);
-      return;
+// Called by warp 0 of the block once tile t's step `own` is known:
+// publishes it and returns the value before the tile (the steps of tiles
+// 0 .. t-1 applied to 0, in order), then publishes the value after it.
+// Lane k reads tile end - 1 - k, all three words at once; it waits only
+// for the tiles up to the nearest published value, whose later tiles'
+// steps are composed earliest first (the higher lane first).
+__device__ long long look_back(const Chain& ch, long long t, MaxPlus own) {
+  const int lane = threadIdx.x & 31;
+  if (t == 0) {
+    if (lane == 0) store_word(ch.value, kValue | (unsigned long long)apply(own, 0));
+    return 0;
+  }
+  if (lane == 0) {
+    store_word(ch.a + t, kStep | (unsigned long long)own.a);
+    store_word(ch.c + t, kStep | (own.c < 0 ? 0ull : (unsigned long long)own.c + 1));
+  }
+  MaxPlus acc = identity();  // the tiles between the value found and t
+  long long x = 0;
+  for (long long end = t;; end -= 32) {
+    const long long j = end - 1 - lane;
+    unsigned long long wa, wc, wv;
+    unsigned value;
+    int stop;
+    for (;;) {
+      wv = kValue, wa = wc = 0;  // before tile 0: a value of 0
+      if (j >= 0) {
+        wv = load_word(ch.value + j);
+        wa = load_word(ch.a + j);
+        wc = load_word(ch.c + j);
+      }
+      const bool has_value = (wv >> 62) == 2, has_step = (wa >> 62) == 1 && (wc >> 62) == 1;
+      value = __ballot_sync(kFull, has_value);
+      stop = value ? __ffs(value) - 1 : 31;
+      if (!(__ballot_sync(kFull, !has_value && !has_step) & ((2u << stop) - 1u))) break;
     }
-    const uint32_t x = fhj::hash_u64(h, l);
-    const int64_t b = fhj::home_group(x, a.gbits, a.pre_shift);
-    atomicAdd(a.count + b, 1u);
-    if (a.bloom != nullptr) atomicOr(a.bloom + b, (unsigned long long)fhj::bloom_word(x, a.bloom_k));
-  });
-  first_max = __reduce_min_sync(0xffffffffu, first_max);
-  if ((threadIdx.x & 31) == 0 && first_max != kNone) atomicMin(a.max_row, first_max);
-}
-
-// Each thread's kPer groups of the block's tile, composed in order.
-template <typename Step>
-__device__ __forceinline__ MaxPlus thread_steps(const Build& a, Step step) {
-  MaxPlus f = identity();
-  const int64_t b0 = (int64_t)blockIdx.x * kTileGroups + (int64_t)threadIdx.x * kPer;
-  for (int q = 0; q < kPer && b0 + q < a.groups; ++q) f = then(f, step(b0 + q));
-  return f;
-}
-
-__device__ __forceinline__ MaxPlus count_step(const Build& a, int64_t b) {
-  return {(long long)a.count[b], kNeg};
-}
-
-__device__ __forceinline__ MaxPlus kept_step(const Build& a, int64_t b) {
-  const long long k = a.kept[b];
-  return {k, b * a.G + k};
-}
-
-__global__ void __launch_bounds__(fhj::kThreads) sum_tiles_kernel(const Build a) {
-  MaxPlus total;
-  block_exclusive<fhj::kThreads>(thread_steps(a, [&](int64_t b) { return count_step(a, b); }),
-                                 &total);
-  if (threadIdx.x == 0) a.tile_step[blockIdx.x] = total;
-}
-
-// One block: tile_in[t] = the scan's value before tile t, from 0.
-__global__ void __launch_bounds__(kScanThreads) scan_tiles_kernel(const Build a, int64_t tiles) {
-  const int64_t per = (tiles + kScanThreads - 1) / kScanThreads;
-  const int64_t t0 = threadIdx.x * per;
-  const int64_t t1 = t0 + per < tiles ? t0 + per : tiles;
-  MaxPlus f = identity();
-  for (int64_t t = t0; t < t1; ++t) f = then(f, a.tile_step[t]);
-  MaxPlus total;
-  long long x = apply(block_exclusive<kScanThreads>(f, &total), 0);
-  for (int64_t t = t0; t < t1; ++t) {
-    a.tile_in[t] = x;
-    x = apply(a.tile_step[t], x);
-  }
-}
-
-// The counts become exclusive offsets, in place.
-__global__ void __launch_bounds__(fhj::kThreads) offsets_kernel(const Build a) {
-  MaxPlus total;
-  const MaxPlus ex = block_exclusive<fhj::kThreads>(
-      thread_steps(a, [&](int64_t b) { return count_step(a, b); }), &total);
-  long long x = apply(ex, a.tile_in[blockIdx.x]);
-  const int64_t b0 = (int64_t)blockIdx.x * kTileGroups + (int64_t)threadIdx.x * kPer;
-  for (int q = 0; q < kPer && b0 + q < a.groups; ++q) {
-    const uint32_t c = a.count[b0 + q];
-    a.count[b0 + q] = (uint32_t)x;
-    x += c;
-  }
-}
-
-__global__ void __launch_bounds__(fhj::kThreads) scatter_kernel(const Build a) {
-  fhj::for_each_pair_at(a.kh, a.kl, a.n_valid, [&](int64_t i, uint32_t h, uint32_t l) {
-    if (is_max(h, l)) return;
-    const int64_t b = fhj::home_group(fhj::hash_u64(h, l), a.gbits, a.pre_shift);
-    a.perm[atomicAdd(a.count + b, 1u)] = (uint32_t)i;
-  });
-}
-
-// A group of s <= kSmall rows, ordered by one thread: its first
-// occurrences go to the front of rows[]; returns their number.
-__device__ int order_small(const Build& a, uint32_t* rows, int s) {
-  unsigned long long key[kSmall];
-  uint32_t row[kSmall];
-  for (int i = 0; i < s; ++i) row[i] = rows[i];
-  for (int i = 0; i < s; ++i) key[i] = key_of(a, row[i]);
-  for (int i = 1; i < s; ++i) {     // insertion sort
-    const unsigned long long k = key[i];
-    const uint32_t r = row[i];
-    int j = i;
-    for (; j > 0 && before(k, r, key[j - 1], row[j - 1]); --j) {
-      key[j] = key[j - 1];
-      row[j] = row[j - 1];
+    if (!value) stop = 32;
+    MaxPlus v = identity();
+    if (lane < stop) v = MaxPlus{(long long)(wa & kLow), (wc & kLow) ? (long long)(wc & kLow) - 1 : kNeg};
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const MaxPlus y = shfl_down(v, o);
+      if (lane + o < 32) v = then(y, v);
     }
-    key[j] = k;
-    row[j] = r;
+    acc = then(MaxPlus{__shfl_sync(kFull, v.a, 0), __shfl_sync(kFull, v.c, 0)}, acc);
+    if (value) {
+      x = __shfl_sync(kFull, (long long)(wv & kLow), stop);
+      break;
+    }
   }
-  int n = 0;
-  for (int i = 0; i < s; ++i)
-    if (i == 0 || key[i] != key[i - 1]) rows[n++] = row[i];
-  return n;
+  const long long before = apply(acc, x);
+  if (lane == 0) store_word(ch.value + t, kValue | (unsigned long long)apply(own, before));
+  return before;
 }
 
-struct SortSmem {
-  unsigned long long key[kChunk];
-  uint32_t row[kChunk];
+// ---- the partition levels ------------------------------------------------------
+
+struct Level {
+  const uint32_t* kh;   // level 0: the build planes (the row is the index)
+  const uint32_t* kl;
+  const uint32_t* vh;
+  const uint32_t* vl;
+  const uint32_t* rec;  // a later level: the level before's rows, kWords each
+  const uint32_t* parent_start;  // (parents + 1,); level 0: null, [0, n_valid)
+  int64_t n_valid;
+  int parents, blocks;  // blocks a parent
+  int bits, shift;      // digit = (home >> shift) & (2^bits - 1)
+  int gbits, pre_shift;
+  uint32_t* hist;       // (parents * 2^bits * blocks,): counts, then offsets
+  uint32_t* out;        // the rows by partition, kWords each
+  unsigned* max_row;    // ~(the first u64-max row), 0 for none (level 0)
 };
 
-// rows[0, s), s <= kChunk, sorted by (key, row) in place by the block: a
-// bitonic sort in shared memory over the next power of two, padded with
-// (u64-max, kNone), which no placed row has.
-__device__ void sort_chunk(const Build& a, uint32_t* rows, int s, SortSmem& sm) {
-  int n2 = 1;
-  while (n2 < s) n2 <<= 1;
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-    const uint32_t r = i < s ? rows[i] : kNone;
-    sm.row[i] = r;
-    sm.key[i] = i < s ? key_of(a, r) : ~0ull;
+// Block (p, s)'s rows: the s-th of `blocks` even slices of parent p.
+__device__ __forceinline__ void block_rows(const Level& L, int* p, int* s, int64_t* lo,
+                                           int64_t* hi) {
+  *p = blockIdx.x / L.blocks;
+  *s = blockIdx.x % L.blocks;
+  const int64_t a = L.parent_start ? L.parent_start[*p] : 0;
+  const int64_t b = L.parent_start ? L.parent_start[*p + 1] : L.n_valid;
+  *lo = a + (b - a) * *s / L.blocks;
+  *hi = a + (b - a) * (*s + 1) / L.blocks;
+}
+
+__device__ __forceinline__ uint32_t digit_of(const Level& L, uint32_t h, uint32_t l) {
+  const int64_t home = fhj::home_group(fhj::hash_u64(h, l), L.gbits, L.pre_shift);
+  return (uint32_t)(home >> L.shift) & ((1u << L.bits) - 1u);
+}
+
+// Level 0 reads the build planes (a u64-max row is not placed), a later
+// level the buffer of the level before.
+template <bool kFirst>
+__global__ void __launch_bounds__(kBlock) hist_kernel(const Level L) {
+  extern __shared__ uint32_t cnt[];  // a count a digit
+  const int D = 1 << L.bits;
+  for (int d = threadIdx.x; d < D; d += kBlock) cnt[d] = 0;
+  __syncthreads();
+  int p, s;
+  int64_t lo, hi;
+  block_rows(L, &p, &s, &lo, &hi);
+  uint32_t first_max = kNone;
+  for (int64_t base = lo; base < hi; base += kBlock * kHistPer) {
+    uint32_t h[kHistPer], l[kHistPer];
+#pragma unroll
+    for (int k = 0; k < kHistPer; ++k) {
+      const int64_t i = base + k * kBlock + threadIdx.x;
+      h[k] = i >= hi ? 0u : kFirst ? __ldg(L.kh + i) : __ldg(L.rec + kWords * i);
+      l[k] = i >= hi ? 0u : kFirst ? __ldg(L.kl + i) : __ldg(L.rec + kWords * i + 1);
+    }
+#pragma unroll
+    for (int k = 0; k < kHistPer; ++k) {
+      const int64_t i = base + k * kBlock + threadIdx.x;
+      bool on = i < hi;
+      if (kFirst && on && is_max(h[k], l[k])) {
+        first_max = min(first_max, (uint32_t)i);
+        on = false;
+      }
+      if (on) atomicAdd(cnt + digit_of(L, h[k], l[k]), 1u);
+    }
   }
   __syncthreads();
+  for (int d = threadIdx.x; d < D; d += kBlock)
+    L.hist[((int64_t)p * D + d) * L.blocks + s] = cnt[d];
+  if (kFirst) {
+    const uint32_t m = fhj::block_min(first_max);
+    if (threadIdx.x == 0 && m != kNone) atomicMax(L.max_row, ~m);
+  }
+}
+
+struct Scan {
+  uint32_t* v;           // (n,): counts, replaced by their exclusive sums
+  int64_t n;
+  int every;             // the sum at each multiple of `every` starts a partition
+  uint32_t* part_start;  // (n / every + 1,)
+  Chain chain;
+};
+
+// A block a tile of kScanTile counts, in ticket order.
+__global__ void __launch_bounds__(kBlock) scan_kernel(const Scan a) {
+  __shared__ long long t_sh, before_sh;
+  if (threadIdx.x == 0) t_sh = atomicAdd(a.chain.ticket, 1u);
+  __syncthreads();
+  const long long t = t_sh;
+  const int64_t i0 = t * kScanTile + (int64_t)threadIdx.x * kScanPer;
+  uint32_t x[kScanPer];
+  long long sum = 0;
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) {
+    x[k] = i0 + k < a.n ? a.v[i0 + k] : 0u;
+    sum += x[k];
+  }
+  MaxPlus total;
+  const long long ex = block_exclusive({sum, kNeg}, &total).a;
+  if (threadIdx.x < 32) {
+    const long long before = look_back(a.chain, t, total);
+    if (threadIdx.x == 0) before_sh = before;
+  }
+  __syncthreads();
+  long long run = before_sh + ex;
+#pragma unroll
+  for (int k = 0; k < kScanPer; ++k) {
+    const int64_t i = i0 + k;
+    if (i < a.n) {
+      a.v[i] = (uint32_t)run;
+      if (i % a.every == 0) a.part_start[i / a.every] = (uint32_t)run;
+      run += x[k];
+      if (i == a.n - 1) a.part_start[a.n / a.every] = (uint32_t)run;
+    }
+  }
+}
+
+// Block (p, s) writes its rows to their partitions, kChunkRows at a time:
+// each row ranked within its digit by a shared atomic, staged in shared
+// memory in digit order as kWords-word records, then written out a word a
+// thread: each digit's run of records lands at its cursor, so the stores
+// are whole runs, not 4-byte scatters.  The order inside a partition is the
+// atomics' and does not matter: the finish orders each tile by (home, key,
+// row).
+template <bool kFirst>
+__global__ void __launch_bounds__(kBlock) scatter_kernel(const Level L) {
+  extern __shared__ uint32_t sm[];
+  const int D = 1 << L.bits;
+  uint32_t* cnt = sm;
+  uint32_t* lstart = cnt + D;
+  uint32_t* cursor = lstart + D;
+  uint32_t* stage = cursor + D;  // kChunkRows records
+  uint16_t* sdig = reinterpret_cast<uint16_t*>(stage + kWords * kChunkRows);
+  int p, s;
+  int64_t lo, hi;
+  block_rows(L, &p, &s, &lo, &hi);
+  for (int d = threadIdx.x; d < D; d += kBlock) {
+    cnt[d] = 0;
+    cursor[d] = L.hist[((int64_t)p * D + d) * L.blocks + s];
+  }
+  __syncthreads();
+  for (int64_t base = lo; base < hi; base += kChunkRows) {
+    uint32_t w[kChunkPer][kWords], dig[kChunkPer], rank[kChunkPer];
+    bool on[kChunkPer];
+#pragma unroll
+    for (int k = 0; k < kChunkPer; ++k) {
+      const int64_t i = base + k * kBlock + threadIdx.x;
+      on[k] = i < hi;
+      if (kFirst) {
+        w[k][0] = on[k] ? __ldg(L.kh + i) : 0u;
+        w[k][1] = on[k] ? __ldg(L.kl + i) : 0u;
+        w[k][2] = on[k] ? __ldg(L.vh + i) : 0u;
+        w[k][3] = on[k] ? __ldg(L.vl + i) : 0u;
+        w[k][4] = (uint32_t)i;
+      } else {
+#pragma unroll
+        for (int q = 0; q < kWords; ++q) w[k][q] = on[k] ? __ldg(L.rec + kWords * i + q) : 0u;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kChunkPer; ++k) {
+      if (kFirst && on[k] && is_max(w[k][0], w[k][1])) on[k] = false;
+      dig[k] = on[k] ? digit_of(L, w[k][0], w[k][1]) : 0u;
+      rank[k] = on[k] ? atomicAdd(cnt + dig[k], 1u) : 0u;
+    }
+    __syncthreads();
+    const int n_here = (int)block_scan_counts(cnt, lstart, D);
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kChunkPer; ++k)
+      if (on[k]) {
+        const uint32_t at = lstart[dig[k]] + rank[k];
+#pragma unroll
+        for (int q = 0; q < kWords; ++q) stage[kWords * at + q] = w[k][q];
+        sdig[at] = (uint16_t)dig[k];
+      }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kWords * n_here; i += kBlock) {
+      const uint32_t d = sdig[i / kWords];
+      L.out[kWords * ((int64_t)cursor[d] - lstart[d]) + i] = stage[i];
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < D; d += kBlock) {
+      cursor[d] += cnt[d];
+      cnt[d] = 0;
+    }
+    __syncthreads();
+  }
+}
+
+size_t scatter_smem(int bits) {
+  return (size_t)3 * 4 * (1 << bits) + (size_t)kWords * 4 * kChunkRows + 2 * kChunkRows;
+}
+
+// ---- the finish ------------------------------------------------------------------
+
+struct Finish {
+  const uint32_t* data; // the tiles' rows: the last level's records
+  uint32_t* order;      // an oversize tile's row order (at its rows' positions)
+  uint32_t* merge;      // and its merge buffer
+  const uint32_t* tile_start;  // (tiles + 1,)
+  int64_t tiles;
+  int tile_bits, gbits, pre_shift, G, gshift, bloom_k, max_iters;
+  int64_t total_groups;
+  uint32_t* keys;       // (total_groups, 2G) planes
+  uint32_t* vals;
+  unsigned long long* bloom;    // (total_groups,) words, or null (no bloom)
+  unsigned long long* special;  // (4,)
+  const uint32_t* vh0;  // the build planes' values, for special[1:3]
+  const uint32_t* vl0;
+  const unsigned* max_row;
+  Chain chain;
+};
+
+// A tile's rows, kWords-word records in shared memory or (oversize) device
+// memory; index i is the row's position in the tile.
+struct View {
+  const uint32_t* rec;
+  __device__ __forceinline__ uint32_t word(uint32_t i, int q) const {
+    return rec[(size_t)kWords * i + q];
+  }
+  __device__ __forceinline__ unsigned long long key(uint32_t i) const {
+    return ((unsigned long long)word(i, 0) << 32) | word(i, 1);
+  }
+  __device__ __forceinline__ uint32_t row(uint32_t i) const { return word(i, 4); }
+  // (key, row) order, as the JAX package's stable sort by (home, key)
+  // leaves it inside a group
+  __device__ __forceinline__ bool less(uint32_t i, uint32_t j) const {
+    const unsigned long long a = key(i), b = key(j);
+    return a < b || (a == b && row(i) < row(j));
+  }
+};
+
+struct SortSmem {  // an oversize group's chunk: (key, row, position)
+  unsigned long long key[kChunk];
+  uint32_t row[kChunk];
+  uint32_t pos[kChunk];
+};
+
+struct FinishSmem {
+  union {
+    uint32_t rec[kWords * kCap + 8];  // the tile's rows, from a 16-byte boundary
+    SortSmem sort;
+  } u;
+  uint32_t bloom[kMaxGroups];    // the groups' bloom words
+  uint32_t off[kMaxGroups + 1];  // the groups' rows in `perm`
+  uint32_t kept[kMaxGroups];     // counts, cursors, then k_b
+  uint32_t start[kMaxGroups];    // a group's first slot, from the tile's first
+  uint32_t perm[kCap];           // the rows by group, kept rows first
+  uint32_t tmp[kCap];            // a large group's bitonic order; the slot map
+  uint8_t first[kCap];           // a row of a small group is its key's first
+  unsigned long long bar;        // the load's mbarrier
+};
+
+// A bitonic sort of n2 (a power of two) entries by the block: swap(i, p)
+// where less(p, i) disagrees with the direction.
+template <typename Less, typename Swap>
+__device__ void bitonic(int n2, Less less, Swap swap) {
   for (int k = 2; k <= n2; k <<= 1) {
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n2; i += blockDim.x) {
+      for (int i = threadIdx.x; i < n2; i += kBlock) {
         const int p = i ^ j;
-        if (p > i) {
-          const bool up = (i & k) == 0;
-          const bool later = before(sm.key[p], sm.row[p], sm.key[i], sm.row[i]);
-          if (later == up) {
-            const unsigned long long tk = sm.key[i];
-            const uint32_t tr = sm.row[i];
-            sm.key[i] = sm.key[p], sm.row[i] = sm.row[p];
-            sm.key[p] = tk, sm.row[p] = tr;
-          }
-        }
+        if (p > i && less(p, i) == ((i & k) == 0)) swap(i, p);
       }
       __syncthreads();
     }
   }
-  for (int i = threadIdx.x; i < s; i += blockDim.x) rows[i] = sm.row[i];
+}
+
+// rows[0, s), s <= kCap, positions in a tile in shared memory, sorted by
+// the block through tmp, padded with kNone (last).
+__device__ void sort_in_place(const View& v, uint32_t* rows, int s, uint32_t* tmp) {
+  int n2 = 1;
+  while (n2 < s) n2 <<= 1;
+  for (int i = threadIdx.x; i < n2; i += kBlock) tmp[i] = i < s ? rows[i] : kNone;
+  __syncthreads();
+  bitonic(
+      n2,
+      [&](int x, int y) {
+        const uint32_t a = tmp[x], b = tmp[y];
+        return b == kNone ? a != kNone : a != kNone && v.less(a, b);
+      },
+      [&](int x, int y) {
+        const uint32_t t = tmp[x];
+        tmp[x] = tmp[y];
+        tmp[y] = t;
+      });
+  for (int i = threadIdx.x; i < s; i += kBlock) rows[i] = tmp[i];
   __syncthreads();
 }
 
-// How many of the first `diag` rows of the merge of x[0, nx) and
-// y[0, ny) come from x (merge path).
-__device__ int merge_split(const Build& a, const uint32_t* x, int nx, const uint32_t* y, int ny,
-                           int diag) {
-  int lo = diag > ny ? diag - ny : 0, hi = diag < nx ? diag : nx;
+// rows[0, s), s <= kChunk, positions in an oversize tile in device memory,
+// sorted by the block with their keys and rows copied into shared memory,
+// padded with (u64-max, kNone), which no placed row has.
+__device__ void sort_chunk(const View& v, uint32_t* rows, int s, SortSmem& sm) {
+  int n2 = 1;
+  while (n2 < s) n2 <<= 1;
+  for (int i = threadIdx.x; i < n2; i += kBlock) {
+    const uint32_t r = i < s ? rows[i] : kNone;
+    sm.pos[i] = r;
+    sm.key[i] = i < s ? v.key(r) : ~0ull;
+    sm.row[i] = i < s ? v.row(r) : kNone;
+  }
+  __syncthreads();
+  bitonic(
+      n2,
+      [&](int x, int y) {
+        return sm.key[x] < sm.key[y] || (sm.key[x] == sm.key[y] && sm.row[x] < sm.row[y]);
+      },
+      [&](int x, int y) {
+        const unsigned long long tk = sm.key[x];
+        const uint32_t tr = sm.row[x], tp = sm.pos[x];
+        sm.key[x] = sm.key[y], sm.row[x] = sm.row[y], sm.pos[x] = sm.pos[y];
+        sm.key[y] = tk, sm.row[y] = tr, sm.pos[y] = tp;
+      });
+  for (int i = threadIdx.x; i < s; i += kBlock) rows[i] = sm.pos[i];
+  __syncthreads();
+}
+
+// How many of the first `diag` rows of the merge of x[0, nx) and y[0, ny)
+// come from x (merge path).
+__device__ uint32_t merge_split(const View& v, const uint32_t* x, uint32_t nx, const uint32_t* y,
+                                uint32_t ny, uint32_t diag) {
+  uint32_t lo = diag > ny ? diag - ny : 0, hi = diag < nx ? diag : nx;
   while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const uint32_t rx = x[mid], ry = y[diag - 1 - mid];
-    if (before(key_of(a, rx), rx, key_of(a, ry), ry))
+    const uint32_t mid = (lo + hi) >> 1;
+    if (v.less(x[mid], y[diag - 1 - mid]))
       lo = mid + 1;
     else
       hi = mid;
@@ -333,22 +605,18 @@ __device__ int merge_split(const Build& a, const uint32_t* x, int nx, const uint
 }
 
 // src[0, s), sorted in runs of w rows, merged pairwise into dst: runs of 2w.
-__device__ void merge_pass(const Build& a, const uint32_t* src, uint32_t* dst, int s,
-                           long long w) {
-  for (long long p = 0; p < s; p += 2 * w) {
+__device__ void merge_pass(const View& v, const uint32_t* src, uint32_t* dst, uint32_t s,
+                           uint32_t w) {
+  for (uint32_t p = 0; p < s; p += 2 * w) {
     const uint32_t* x = src + p;
-    const int nx = (int)(w < s - p ? w : s - p);
+    const uint32_t nx = w < s - p ? w : s - p;
     const uint32_t* y = x + nx;
-    const int ny = (int)(w < s - p - nx ? w : s - p - nx);
-    for (int d = threadIdx.x * kItems; d < nx + ny; d += blockDim.x * kItems) {
-      int i = merge_split(a, x, nx, y, ny, d), j = d - i;
-      const int end = d + kItems < nx + ny ? d + kItems : nx + ny;
-      for (int o = d; o < end; ++o) {
-        bool take_x = j >= ny;
-        if (!take_x && i < nx) {
-          const uint32_t rx = x[i], ry = y[j];
-          take_x = before(key_of(a, rx), rx, key_of(a, ry), ry);
-        }
+    const uint32_t ny = w < s - p - nx ? w : s - p - nx;
+    for (uint32_t d = threadIdx.x * kItems; d < nx + ny; d += kBlock * kItems) {
+      uint32_t i = merge_split(v, x, nx, y, ny, d), j = d - i;
+      const uint32_t end = d + kItems < nx + ny ? d + kItems : nx + ny;
+      for (uint32_t o = d; o < end; ++o) {
+        const bool take_x = j >= ny || (i < nx && v.less(x[i], y[j]));
         dst[p + o] = take_x ? x[i++] : y[j++];
       }
     }
@@ -356,220 +624,529 @@ __device__ void merge_pass(const Build& a, const uint32_t* src, uint32_t* dst, i
   __syncthreads();
 }
 
-// The first occurrences of the sorted rows src[0, s), in order, to
-// dst[0, k) (dst may be src: a row moves to a place at or before its
-// own, after its block's reads); returns k.
-__device__ int first_occurrences(const Build& a, const uint32_t* src, uint32_t* dst, int s,
-                                 SortSmem& sm) {
+// The first occurrences of the sorted rows src[0, s), in order, to dst[0,
+// k) (dst may be src: a row moves to a place at or before its own, after
+// the block's reads); returns k.
+__device__ uint32_t first_occurrences(const View& v, const uint32_t* src, uint32_t* dst,
+                                      uint32_t s) {
+  __shared__ unsigned long long keys[kBlock];
   __shared__ unsigned long long last;  // the key before the block's rows
-  int k = 0;
-  for (int base = 0; base < s; base += blockDim.x) {
-    const int i = base + threadIdx.x;
+  uint32_t k = 0;
+  for (uint32_t base = 0; base < s; base += kBlock) {
+    const uint32_t i = base + threadIdx.x;
     const uint32_t r = i < s ? src[i] : kNone;
-    const unsigned long long key = i < s ? key_of(a, r) : ~0ull;
-    sm.key[threadIdx.x] = key;
+    const unsigned long long key = i < s ? v.key(r) : ~0ull;
+    keys[threadIdx.x] = key;
     __syncthreads();
-    const unsigned long long prev = threadIdx.x ? sm.key[threadIdx.x - 1] : last;
+    const unsigned long long prev = threadIdx.x ? keys[threadIdx.x - 1] : last;
     const int first = i < s && (i == 0 || key != prev);
     MaxPlus total;  // a plain sum: {first, kNeg}
-    const long long at = block_exclusive<fhj::kThreads>({first, kNeg}, &total).a;
+    const long long at = block_exclusive({first, kNeg}, &total).a;
     if (first) dst[k + at] = r;
-    if (threadIdx.x == blockDim.x - 1) last = key;
-    k += (int)total.a;
+    if (threadIdx.x == kBlock - 1) last = key;
+    k += (uint32_t)total.a;
     __syncthreads();
   }
   return k;
 }
 
-// A group of s > kSmall rows at rows[0, s), ordered and cut to its first
-// occurrences by the whole block (spare[0, s) the merge buffer); returns k.
-__device__ int order_large(const Build& a, uint32_t* rows, uint32_t* spare, int s,
-                           SortSmem& sm) {
-  for (int c = 0; c < s; c += kChunk) sort_chunk(a, rows + c, kChunk < s - c ? kChunk : s - c, sm);
-  uint32_t *src = rows, *dst = spare;
-  for (long long w = kChunk; w < s; w <<= 1) {
-    merge_pass(a, src, dst, s, w);
-    uint32_t* t = src;
-    src = dst;
-    dst = t;
+// A group of s <= kSmall rows of an oversize tile, ordered by one thread
+// (insertion sort) and cut to its first occurrences at the front of
+// rows[]; returns their number.
+__device__ uint32_t order_small(const View& v, uint32_t* rows, uint32_t s) {
+  for (uint32_t i = 1; i < s; ++i) {
+    const uint32_t r = rows[i];
+    uint32_t j = i;
+    for (; j > 0 && v.less(r, rows[j - 1]); --j) rows[j] = rows[j - 1];
+    rows[j] = r;
   }
-  return first_occurrences(a, src, rows, s, sm);
+  uint32_t n = 0;
+  unsigned long long prev = 0;
+  for (uint32_t i = 0; i < s; ++i) {
+    const uint32_t r = rows[i];
+    const unsigned long long k = v.key(r);
+    if (i == 0 || k != prev) rows[n++] = r;
+    prev = k;
+  }
+  return n;
 }
 
-// One block a tile of kTileGroups groups: each group's rows ordered and cut
-// to their first occurrences (k_b into kept), then the tile's max-plus step.
-__global__ void __launch_bounds__(fhj::kThreads) order_kernel(const Build a) {
-  __shared__ SortSmem sm;
-  __shared__ uint32_t large[kTileGroups];
-  __shared__ int n_large;
-  if (threadIdx.x == 0) n_large = 0;
-  __syncthreads();
-  const int64_t b0 = (int64_t)blockIdx.x * kTileGroups + (int64_t)threadIdx.x * kPer;
-  for (int q = 0; q < kPer && b0 + q < a.groups; ++q) {
-    int64_t lo, hi;
-    range_of(a.count, b0 + q, &lo, &hi);
-    if (hi - lo <= kSmall)
-      a.kept[b0 + q] = order_small(a, a.perm + lo, (int)(hi - lo));
-    else
-      large[atomicAdd(&n_large, 1)] = (uint32_t)(b0 + q - (int64_t)blockIdx.x * kTileGroups);
-  }
-  __syncthreads();
-  for (int e = 0; e < n_large; ++e) {
-    const int64_t b = (int64_t)blockIdx.x * kTileGroups + large[e];
-    int64_t lo, hi;
-    range_of(a.count, b, &lo, &hi);
-    const int k = order_large(a, a.perm + lo, a.spare + lo, (int)(hi - lo), sm);
-    if (threadIdx.x == 0) a.kept[b] = k;
-  }
-  __syncthreads();
-  MaxPlus total;
-  block_exclusive<fhj::kThreads>(thread_steps(a, [&](int64_t b) { return kept_step(a, b); }),
-                                 &total);
-  if (threadIdx.x == 0) a.tile_step[blockIdx.x] = total;
+// Row i's home group in its tile, counted; its bloom word ORed into its
+// group's (a duplicate has its key's word).  Returns the group.
+__device__ __forceinline__ uint32_t count_row(const View& v, uint32_t i, const Finish& a,
+                                              long long g0, FinishSmem& sm) {
+  const uint32_t h = fhj::hash_u64(v.word(i, 0), v.word(i, 1));
+  const uint32_t b = (uint32_t)(fhj::home_group(h, a.gbits, a.pre_shift) - g0);
+  atomicAdd(sm.kept + b, 1u);
+  if (a.bloom != nullptr) atomicOr(sm.bloom + b, fhj::bloom_word(h, a.bloom_k));
+  return b;
 }
 
-// Row r of home group b at `slot`: its key and value words, or a drop.
-__device__ __forceinline__ void place(const Build& a, uint32_t r, int64_t b, long long slot,
-                                      unsigned long long* drops) {
-  if (slot >= a.total_groups * a.G) {
-    ++*drops;
-    return;
-  }
-  const int64_t g = slot / a.G;
-  const int64_t at = g * 2 * a.G + (slot - g * a.G);
-  a.keys[at] = __ldg(a.kh + r);
-  a.keys[at + a.G] = __ldg(a.kl + r);
-  a.vals[at] = __ldg(a.vh + r);
-  a.vals[at + a.G] = __ldg(a.vl + r);
-  if (a.max_iters >= 0 && g - b >= a.max_iters) ++*drops;  // out of the walk's reach
+// The groups' offsets in perm from their counts (sm.kept), which become
+// the groups' cursors.
+__device__ __forceinline__ void group_offsets(FinishSmem& sm, int ng, uint32_t m) {
+  block_scan_counts(sm.kept, sm.off, ng);
+  if (threadIdx.x == 0) sm.off[ng] = m;
+  __syncthreads();
+  for (int b = threadIdx.x; b < ng; b += kBlock) sm.kept[b] = sm.off[b];
+  __syncthreads();
 }
 
-// One block a tile: each group's start from the scan, its kept rows
-// placed (a large group's by the whole block), the drops added into
-// special[3]; block 0 also sets special[0:3].
-__global__ void __launch_bounds__(fhj::kThreads) place_kernel(const Build a) {
-  __shared__ uint32_t large[kTileGroups];
-  __shared__ long long large_start[kTileGroups];
-  __shared__ int n_large;
-  if (threadIdx.x == 0) n_large = 0;
-  MaxPlus total;
-  const MaxPlus ex = block_exclusive<fhj::kThreads>(
-      thread_steps(a, [&](int64_t b) { return kept_step(a, b); }), &total);
-  long long x = apply(ex, a.tile_in[blockIdx.x]);
-  unsigned long long drops = 0;
-  const int64_t t0 = (int64_t)blockIdx.x * kTileGroups;
-  const int64_t b0 = t0 + (int64_t)threadIdx.x * kPer;
-  for (int q = 0; q < kPer && b0 + q < a.groups; ++q) {
-    const int64_t b = b0 + q;
-    const long long start = x > b * a.G ? x : b * a.G;
-    const uint32_t k = a.kept[b];
-    int64_t lo, hi;
-    range_of(a.count, b, &lo, &hi);
-    if (hi - lo <= kSmall) {
-      for (uint32_t j = 0; j < k; ++j) place(a, a.perm[lo + j], b, start + j, &drops);
-    } else {
-      const int e = atomicAdd(&n_large, 1);
-      large[e] = (uint32_t)(b - t0);
-      large_start[e] = start;
+// A tile in shared memory: its rows by group into sm.perm, then each row of
+// a small group ranked a thread a row (the tile holds at most kCap rows,
+// kPer a thread): it is its key's first when no row of its group has its
+// key and a smaller row id, and a first row's place among its group's kept
+// rows is the number of first rows with a smaller key.  The kept rows go to
+// the front of their group's range, k_b to sm.kept.
+__device__ void order_tile(const View& v, uint32_t m, const Finish& a, long long g0, int ng,
+                           FinishSmem& sm) {
+  constexpr int kPer = kCap / kBlock;
+  uint32_t grp[kPer], at[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const uint32_t i = k * kBlock + threadIdx.x;
+    grp[k] = i < m ? count_row(v, i, a, g0, sm) : 0u;
+  }
+  __syncthreads();
+  group_offsets(sm, ng, m);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const uint32_t i = k * kBlock + threadIdx.x;
+    if (i < m) sm.perm[atomicAdd(sm.kept + grp[k], 1u)] = i;
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < ng; b += kBlock)
+    if (sm.off[b + 1] - sm.off[b] <= kSmall) sm.kept[b] = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const uint32_t i = k * kBlock + threadIdx.x;
+    if (i >= m) continue;
+    const uint32_t lo = sm.off[grp[k]], s = sm.off[grp[k] + 1] - lo;
+    if (s > kSmall) continue;
+    const unsigned long long key = v.key(i);
+    const uint32_t row = v.row(i);
+    bool first = true;
+    for (uint32_t q = 0; q < s; ++q) {
+      const uint32_t j = sm.perm[lo + q];
+      first &= !(v.key(j) == key && v.row(j) < row);
     }
-    x = start + k;
+    sm.first[i] = first;
   }
   __syncthreads();
-  for (int e = 0; e < n_large; ++e) {
-    const int64_t b = t0 + large[e];
-    const uint32_t k = a.kept[b];
-    int64_t lo, hi;
-    range_of(a.count, b, &lo, &hi);
-    for (uint32_t j = threadIdx.x; j < k; j += blockDim.x)
-      place(a, a.perm[lo + j], b, large_start[e] + j, &drops);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const uint32_t i = k * kBlock + threadIdx.x;
+    at[k] = kNone;
+    if (i >= m || !sm.first[i]) continue;
+    const uint32_t lo = sm.off[grp[k]], s = sm.off[grp[k] + 1] - lo;
+    if (s > kSmall) continue;
+    const unsigned long long key = v.key(i);
+    uint32_t below = 0;
+    for (uint32_t q = 0; q < s; ++q) {
+      const uint32_t j = sm.perm[lo + q];
+      below += sm.first[j] && v.key(j) < key;
+    }
+    at[k] = lo + below;
+    atomicAdd(sm.kept + grp[k], 1u);
   }
-  const unsigned long long s = fhj::block_sum(drops);
-  if (threadIdx.x == 0 && s) atomicAdd(a.special + 3, s);
-  if (blockIdx.x == 0 && threadIdx.x == 0 && *a.max_row != kNone) {
-    a.special[0] = 1;
-    a.special[1] = __ldg(a.vh + *a.max_row);
-    a.special[2] = __ldg(a.vl + *a.max_row);
+  __syncthreads();  // every group's rows are read before the kept rows move
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (at[k] != kNone) sm.perm[at[k]] = k * kBlock + threadIdx.x;
+}
+
+// A tile's records [r0, r1) (r1 - r0 <= kCap) into shared memory, from the
+// 16-byte boundary at or below the first: one bulk copy on an mbarrier,
+// which every thread waits on; returns the first record's word in sm.u.rec.
+__device__ int load_tile(const uint32_t* d, uint32_t r0, uint32_t r1, FinishSmem& sm) {
+  const uint64_t a0 = ((uint64_t)kWords * r0) & ~3ull, a1 = ((uint64_t)kWords * r1 + 3) & ~3ull;
+  const uint32_t bytes = (uint32_t)(a1 - a0) * 4u;
+  const uint32_t bar = (uint32_t)__cvta_generic_to_shared(&sm.bar);
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                 "r"(bytes)
+                 : "memory");
+    const uint32_t dst = (uint32_t)__cvta_generic_to_shared(sm.u.rec);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+            dst),
+        "l"(d + a0), "r"(bytes), "r"(bar)
+        : "memory");
+  }
+  __syncthreads();  // the barrier is set up before anyone waits on it
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n selp.u32 %0, 1, "
+        "0, p;\n}"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  }
+  return (int)(kWords * (uint64_t)r0 - a0);
+}
+
+__global__ void __launch_bounds__(kBlock, 3) finish_kernel(const Finish a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FinishSmem& sm = *reinterpret_cast<FinishSmem*>(smem_raw);
+  __shared__ long long t_sh, before_sh;
+  __shared__ uint16_t large[kMaxGroups];  // groups of more than kSmall rows
+  __shared__ int n_large;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    t_sh = atomicAdd(a.chain.ticket, 1u);
+    n_large = 0;
+  }
+  __syncthreads();
+  const long long t = t_sh;
+  const int ng = 1 << a.tile_bits;
+  const long long g0 = t << a.tile_bits;
+  const uint32_t r0 = a.tile_start[t], r1 = a.tile_start[t + 1];
+  const uint32_t m = r1 - r0;
+  const bool inside = m <= kCap;
+  View v;
+  uint32_t *perm, *merge = nullptr;
+  int sh = 0;  // the tile's first word in sm.u.rec
+  if (inside) {
+    if (m) sh = load_tile(a.data, r0, r1, sm);
+    v = View{sm.u.rec + sh};
+    perm = sm.perm;
+  } else {
+    v = View{a.data + (size_t)kWords * r0};
+    perm = a.order + r0;
+    merge = a.merge + r0;
+  }
+  for (int b = tid; b < ng; b += kBlock) sm.kept[b] = sm.bloom[b] = 0;
+  __syncthreads();
+
+  // each group's rows ordered by (key, row) and cut to their first
+  // occurrences, k_b of them: the rows by group (counts, offsets, then each
+  // row's place, a group's rows in the atomics' order), then a small group
+  // ranked a thread a row (in shared memory) or ordered by a thread
+  // (oversize), a large one sorted by the block
+  if (inside) {
+    order_tile(View{sm.u.rec + sh}, m, a, g0, ng, sm);
+  } else {
+    for (uint32_t base = 0; base < m; base += kBlock)
+      if (base + tid < m) count_row(v, base + tid, a, g0, sm);
+    __syncthreads();
+    group_offsets(sm, ng, m);
+    for (uint32_t base = 0; base < m; base += kBlock) {
+      const uint32_t i = base + tid;
+      if (i < m) {
+        const uint32_t h = fhj::hash_u64(v.word(i, 0), v.word(i, 1));
+        perm[atomicAdd(sm.kept + (fhj::home_group(h, a.gbits, a.pre_shift) - g0), 1u)] = i;
+      }
+    }
+    __syncthreads();
+    for (int b = tid; b < ng; b += kBlock) {
+      const uint32_t lo = sm.off[b], s = sm.off[b + 1] - lo;
+      if (s <= kSmall) sm.kept[b] = order_small(v, perm + lo, s);
+    }
+  }
+  for (int b = tid; b < ng; b += kBlock)
+    if (sm.off[b + 1] - sm.off[b] > kSmall) large[atomicAdd(&n_large, 1)] = (uint16_t)b;
+  __syncthreads();
+  for (int e = 0; e < n_large; ++e) {
+    const int b = large[e];
+    const uint32_t lo = sm.off[b], s = sm.off[b + 1] - lo;
+    const uint32_t* sorted = perm + lo;
+    if (inside) {
+      sort_in_place(v, perm + lo, (int)s, sm.tmp);
+    } else {
+      for (uint32_t c = 0; c < s; c += kChunk)
+        sort_chunk(v, perm + lo + c, (int)(kChunk < s - c ? kChunk : s - c), sm.u.sort);
+      uint32_t *src = perm + lo, *dst = merge + lo;
+      for (uint32_t w = kChunk; w < s; w <<= 1) {
+        merge_pass(v, src, dst, s, w);
+        uint32_t* x = src;
+        src = dst;
+        dst = x;
+      }
+      sorted = src;
+    }
+    const uint32_t k = first_occurrences(v, sorted, perm + lo, s);
+    if (tid == 0) sm.kept[b] = k;
+  }
+  __syncthreads();
+
+  // the tile's max-plus step, its carry-in from the look-back, and each
+  // group's first slot; drops and out-of-reach rows counted
+  const int b0 = tid * kGroupsPer;
+  MaxPlus f = identity();
+  for (int q = 0; q < kGroupsPer && b0 + q < ng; ++q) {
+    const long long k = sm.kept[b0 + q];
+    if (k) f = then(f, MaxPlus{k, ((g0 + b0 + q) << a.gshift) + k});
+  }
+  MaxPlus total;
+  const MaxPlus ex = block_exclusive(f, &total);
+  if (tid < 32) {
+    const long long before = look_back(a.chain, t, total);
+    if (tid == 0) before_sh = before;
+  }
+  __syncthreads();
+  const long long before = before_sh;
+  const long long first_slot = max(before, g0 << a.gshift);  // R_{t-1}
+  const long long n_slots = a.total_groups << a.gshift;
+  unsigned long long drops = 0;
+  long long x = apply(ex, before);
+  for (int q = 0; q < kGroupsPer && b0 + q < ng; ++q) {
+    const long long home = g0 + b0 + q, k = sm.kept[b0 + q];
+    const long long st = max(x, home << a.gshift), end = st + k;
+    sm.start[b0 + q] = (uint32_t)(st - first_slot);
+    if (!k) continue;
+    x = end;
+    if (end > n_slots) drops += end - max(st, n_slots);
+    if (a.max_iters >= 0) {
+      const long long far = max(st, (home + a.max_iters) << a.gshift);
+      const long long written = min(end, n_slots);
+      if (written > far) drops += written - far;
+    }
+  }
+  const long long after = apply(total, before);
+  const long long last =
+      t == a.tiles - 1 ? n_slots : min(max(after, (g0 + ng) << a.gshift), n_slots);  // R_t
+
+  // every slot of [R_{t-1}, R_t) once, in order, kCap slots at a time
+  const uint32_t G = a.G;
+  for (long long w0 = first_slot; w0 < last; w0 += kCap) {
+    const long long W = min((long long)kCap, last - w0);
+    for (int s = tid; s < W; s += kBlock) sm.tmp[s] = kNone;
+    __syncthreads();
+    for (int q = 0; q < kGroupsPer && b0 + q < ng; ++q) {
+      const int b = b0 + q;
+      if (sm.off[b + 1] - sm.off[b] > kSmall) continue;
+      const long long st = first_slot + sm.start[b];
+      const long long j0 = max(0ll, w0 - st), j1 = min((long long)sm.kept[b], w0 + W - st);
+      for (long long j = j0; j < j1; ++j) sm.tmp[st + j - w0] = perm[sm.off[b] + j];
+    }
+    for (int e = 0; e < n_large; ++e) {
+      const int b = large[e];
+      const long long st = first_slot + sm.start[b];
+      const long long j0 = max(0ll, w0 - st), j1 = min((long long)sm.kept[b], w0 + W - st);
+      for (long long j = j0 + tid; j < j1; j += kBlock) sm.tmp[st + j - w0] = perm[sm.off[b] + j];
+    }
+    __syncthreads();
+    for (int s = tid; s < W; s += kBlock) {
+      const long long slot = w0 + s;
+      const long long at = ((slot >> a.gshift) << (a.gshift + 1)) + (slot & (G - 1));
+      const uint32_t r = sm.tmp[s];
+      if (r == kNone) {
+        a.keys[at] = kNone;
+        a.keys[at + G] = kNone;
+        a.vals[at] = 0u;
+        a.vals[at + G] = 0u;
+      } else {
+        a.keys[at] = v.word(r, 0);
+        a.keys[at + G] = v.word(r, 1);
+        a.vals[at] = v.word(r, 2);
+        a.vals[at + G] = v.word(r, 3);
+      }
+    }
+    __syncthreads();
+  }
+
+  if (a.bloom != nullptr) {
+    for (int b = tid; b < ng; b += kBlock) a.bloom[g0 + b] = sm.bloom[b];
+    if (t == a.tiles - 1)
+      for (long long g = g0 + ng + tid; g < a.total_groups; g += kBlock) a.bloom[g] = 0ull;
+  }
+  const unsigned long long dropped = fhj::block_sum(drops);
+  if (tid == 0) {
+    if (dropped) atomicAdd(a.special + 3, dropped);
+    if (t == 0 && *a.max_row != 0u) {
+      const uint32_t r = ~*a.max_row;
+      a.special[0] = 1;
+      a.special[1] = __ldg(a.vh0 + r);
+      a.special[2] = __ldg(a.vl0 + r);
+    }
   }
 }
 
-int64_t tiles_of(int gbits) { return ((1ll << gbits) + kTileGroups - 1) / kTileGroups; }
+// ---- the plan and the scratch ----------------------------------------------------
+
+struct Plan {
+  int levels, bits[2], blocks[2];
+  int64_t entries[2];  // counts a level: parents x digits x blocks
+  int64_t parts[2];    // partitions after a level
+  int64_t scan_tiles[2];
+  int64_t tiles;       // the finish's
+  int64_t rec_words;   // words of a level's records, with the bulk copy's slack
+  int64_t n;
+};
+
+Plan make_plan(int64_t n_valid, int levels, int bits0, int bits1, int blocks0, int blocks1) {
+  Plan p{levels, {bits0, bits1}, {blocks0, blocks1}, {0, 0}, {0, 0}, {0, 0}, 0, 0};
+  int64_t parents = 1;
+  for (int l = 0; l < levels; ++l) {
+    p.entries[l] = parents * (1ll << p.bits[l]) * p.blocks[l];
+    p.parts[l] = parents << p.bits[l];
+    p.scan_tiles[l] = (p.entries[l] + kScanTile - 1) / kScanTile;
+    parents = p.parts[l];
+  }
+  p.tiles = parents;
+  p.rec_words = kWords * n_valid + 8;  // a bulk copy reads up to 3 words past a tile
+  p.n = n_valid;
+  return p;
+}
 
 size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
 
-// The scratch layout: count, kept, perm, tile_step, tile_in, max_row.
-size_t scratch_bytes(int gbits, int64_t n_valid) {
-  const size_t groups = (size_t)1 << gbits;
-  return 2 * align16(groups * 4) + align16((size_t)n_valid * 4) +
-         (size_t)tiles_of(gbits) * (sizeof(MaxPlus) + 8) + 16;
+// The scratch, in order: the counters and the chains' words (zeroed at each
+// call), the counts and partition starts of each level,
+// then the two buffers of records (the second, with one level, only an
+// oversize tile's order and merge buffer: 2 words a row).
+struct Scratch {
+  unsigned* tickets;  // [scan 0, scan 1, finish, max_row]
+  Chain chain[3];     // scan 0, scan 1, finish
+  size_t zeroed;
+  uint32_t* hist[2];
+  uint32_t* part_start[2];
+  uint32_t* buf[2];
+  size_t bytes;
+};
+
+Scratch layout(const Plan& p, char* base) {
+  Scratch s{};
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    char* x = base ? base + at : nullptr;
+    at += align16(n);
+    return x;
+  };
+  const int64_t tiles[3] = {p.scan_tiles[0], p.scan_tiles[1], p.tiles};
+  s.tickets = reinterpret_cast<unsigned*>(take(16));
+  for (int c = 0; c < 3; ++c) {
+    s.chain[c].ticket = s.tickets ? s.tickets + c : nullptr;
+    s.chain[c].a = reinterpret_cast<unsigned long long*>(take(tiles[c] * 8));
+    s.chain[c].c = reinterpret_cast<unsigned long long*>(take(tiles[c] * 8));
+    s.chain[c].value = reinterpret_cast<unsigned long long*>(take(tiles[c] * 8));
+  }
+  s.zeroed = at;
+  for (int l = 0; l < p.levels; ++l) {
+    s.hist[l] = reinterpret_cast<uint32_t*>(take(p.entries[l] * 4));
+    s.part_start[l] = reinterpret_cast<uint32_t*>(take((p.parts[l] + 1) * 4));
+  }
+  s.buf[0] = reinterpret_cast<uint32_t*>(take((size_t)p.rec_words * 4));
+  s.buf[1] = reinterpret_cast<uint32_t*>(
+      take((size_t)(p.levels == 2 ? p.rec_words : 2 * p.n) * 4));
+  s.bytes = at;
+  return s;
+}
+
+bool plan_ok(int64_t n_valid, int gbits, int levels, int bits0, int bits1, int blocks0,
+             int blocks1) {
+  const int b1 = levels == 2 ? bits1 : 0;
+  return (levels == 1 || levels == 2) && bits0 >= 0 && bits0 <= kMaxLevelBits && b1 >= 0 &&
+         b1 <= kMaxLevelBits && bits0 + b1 <= gbits && gbits - bits0 - b1 <= kMaxTileBits &&
+         blocks0 >= 1 && (levels == 1 || blocks1 >= 1) && n_valid >= 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of device scratch fhj_global_build needs.
-int64_t fhj_global_build_scratch_bytes(int gbits, int64_t n_valid) {
-  return (int64_t)scratch_bytes(gbits, n_valid);
+// Bytes of device scratch fhj_global_build needs for this plan (0 when the
+// plan is not one it takes).
+int64_t fhj_global_build_scratch_bytes(int64_t n_valid, int gbits, int levels, int bits0,
+                                       int bits1, int blocks0, int blocks1) {
+  if (!plan_ok(n_valid, gbits, levels, bits0, bits1, blocks0, blocks1)) return 0;
+  return (int64_t)layout(make_plan(n_valid, levels, bits0, bits1, blocks0, blocks1), nullptr)
+      .bytes;
 }
 
 // The global tier's table from the build planes (kh, kl, vh, vl)[0,
 // n_valid): keys and vals (total_groups, 2G) u32 planes, bloom
 // (bloom_words,) u64 words (total_groups with bloom, 1 without), special
 // (4,) int64: [has_max, max_vh, max_vl, n_dropped].  max_iters < 0: no
-// probe bound.  scratch: fhj_global_build_scratch_bytes(gbits, n_valid)
-// bytes; spare: n_valid u32 words, read and written before vals is
-// cleared, so it may be vals itself when that is large enough.  On
-// `stream`, no sync; returns cudaGetLastError().
+// probe bound.  The plan: `levels` (1 or 2) partition levels of bits0 and
+// bits1 digit bits with blocks0 and blocks1 blocks a parent partition;
+// tiles of 2^(gbits - bits) groups, at most 2^kMaxTileBits.  scratch:
+// fhj_global_build_scratch_bytes bytes.  On `stream`, no sync; returns
+// cudaGetLastError().
 int fhj_global_build(const uint32_t* kh, const uint32_t* kl, const uint32_t* vh,
                      const uint32_t* vl, int64_t n_valid, int gbits, int group_size,
                      int64_t total_groups, int pre_shift, int bloom_k, int max_iters,
                      uint32_t* keys, uint32_t* vals, unsigned long long* bloom,
                      int64_t bloom_words, int with_bloom, unsigned long long* special,
-                     void* scratch, int64_t scratch_size, uint32_t* spare, cudaStream_t stream) {
+                     void* scratch, int64_t scratch_size, int levels, int bits0, int bits1,
+                     int blocks0, int blocks1, cudaStream_t stream) {
   const int64_t groups = 1ll << (gbits < 0 ? 0 : gbits);
   if (gbits < 0 || gbits > 30 || pre_shift < 0 || pre_shift > 32 || group_size < 1 ||
-      group_size > 32 || total_groups < groups || n_valid < 0 || n_valid > 0x7fffffff ||
-      bloom_words < 1 || (with_bloom && bloom_words != total_groups) ||
-      scratch_size < (int64_t)scratch_bytes(gbits, n_valid))
+      group_size > 32 || (group_size & (group_size - 1)) || total_groups < groups ||
+      n_valid < 0 || n_valid > 0x7fffffff || bloom_words < 1 ||
+      (with_bloom && bloom_words != total_groups) ||
+      !plan_ok(n_valid, gbits, levels, bits0, bits1, blocks0, blocks1))
     return (int)cudaErrorInvalidValue;
+  if (levels == 1) bits1 = 0, blocks1 = 1;
+  const Plan p = make_plan(n_valid, levels, bits0, bits1, blocks0, blocks1);
+  const Scratch s = layout(p, static_cast<char*>(scratch));
+  if (scratch_size < (int64_t)s.bytes) return (int)cudaErrorInvalidValue;
+  int gshift = 0;
+  while ((1 << gshift) < group_size) ++gshift;
   const size_t words = (size_t)total_groups * 2 * group_size;
-  char* p = static_cast<char*>(scratch);
-  Build a{kh, kl, vh, vl, n_valid, groups, total_groups, group_size, gbits, pre_shift,
-          bloom_k, max_iters, keys, vals, with_bloom ? bloom : nullptr, special};
-  a.count = reinterpret_cast<uint32_t*>(p);
-  p += align16(groups * 4);
-  a.kept = reinterpret_cast<uint32_t*>(p);
-  p += align16(groups * 4);
-  a.perm = reinterpret_cast<uint32_t*>(p);
-  p += align16((size_t)n_valid * 4);
-  const int64_t tiles = tiles_of(gbits);
-  a.tile_step = reinterpret_cast<MaxPlus*>(p);
-  p += tiles * sizeof(MaxPlus);
-  a.tile_in = reinterpret_cast<long long*>(p);
-  p += tiles * 8;
-  a.max_row = reinterpret_cast<uint32_t*>(p);
-  a.spare = spare;
 
   cudaError_t e = cudaMemsetAsync(special, 0, 4 * sizeof(*special), stream);
-  if (e == cudaSuccess) e = cudaMemsetAsync(bloom, 0, bloom_words * sizeof(*bloom), stream);
-  if (e == cudaSuccess) e = cudaMemsetAsync(keys, 0xFF, words * 4, stream);
-  if (e != cudaSuccess || n_valid == 0)
-    return (int)(e == cudaSuccess ? cudaMemsetAsync(vals, 0, words * 4, stream) : e);
-  if (e == cudaSuccess) e = cudaMemsetAsync(a.count, 0, groups * 4, stream);
-  if (e == cudaSuccess) e = cudaMemsetAsync(a.max_row, 0xFF, 4, stream);
+  if (e == cudaSuccess && !with_bloom) e = cudaMemsetAsync(bloom, 0, sizeof(*bloom), stream);
   if (e != cudaSuccess) return (int)e;
-  const int grid = (int)tiles;
-  if ((e = fhj::launch(count_kernel, n_valid, stream, a)) != cudaSuccess) return (int)e;
-  sum_tiles_kernel<<<grid, fhj::kThreads, 0, stream>>>(a);
-  scan_tiles_kernel<<<1, kScanThreads, 0, stream>>>(a, tiles);
-  offsets_kernel<<<grid, fhj::kThreads, 0, stream>>>(a);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = fhj::launch(scatter_kernel, n_valid, stream, a)) != cudaSuccess) return (int)e;
-  order_kernel<<<grid, fhj::kThreads, 0, stream>>>(a);
-  scan_tiles_kernel<<<1, kScanThreads, 0, stream>>>(a, tiles);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  if ((e = cudaMemsetAsync(vals, 0, words * 4, stream)) != cudaSuccess) return (int)e;
-  place_kernel<<<grid, fhj::kThreads, 0, stream>>>(a);
+  if (n_valid == 0) {  // the empty table: memsets, no kernel
+    if ((e = cudaMemsetAsync(keys, 0xFF, words * 4, stream)) != cudaSuccess) return (int)e;
+    if (with_bloom && (e = cudaMemsetAsync(bloom, 0, bloom_words * 8, stream)) != cudaSuccess)
+      return (int)e;
+    return (int)cudaMemsetAsync(vals, 0, words * 4, stream);
+  }
+  if ((e = cudaMemsetAsync(scratch, 0, s.zeroed, stream)) != cudaSuccess) return (int)e;
+
+  Level L{};
+  L.kh = kh, L.kl = kl, L.vh = vh, L.vl = vl, L.rec = nullptr, L.parent_start = nullptr;
+  L.n_valid = n_valid, L.gbits = gbits, L.pre_shift = pre_shift, L.max_row = s.tickets + 3;
+  int consumed = 0;
+  for (int l = 0; l < p.levels; ++l) {
+    uint32_t* const out = s.buf[l];
+    L.parents = l ? (int)p.parts[0] : 1;
+    L.blocks = p.blocks[l];
+    L.bits = p.bits[l];
+    consumed += p.bits[l];
+    L.shift = gbits - consumed;
+    L.hist = s.hist[l];
+    L.out = out;
+    const int grid = L.parents * L.blocks;
+    const size_t hist_smem = (size_t)4 << L.bits, scatter_bytes = scatter_smem(L.bits);
+    const Scan sc{s.hist[l], p.entries[l], p.blocks[l], s.part_start[l],
+                  s.chain[l]};
+    void (*const hist)(Level) = l ? hist_kernel<false> : hist_kernel<true>;
+    void (*const scatter)(Level) = l ? scatter_kernel<false> : scatter_kernel<true>;
+    hist<<<grid, kBlock, hist_smem, stream>>>(L);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    scan_kernel<<<(int)p.scan_tiles[l], kBlock, 0, stream>>>(sc);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    cudaFuncSetAttribute(scatter, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)scatter_bytes);
+    scatter<<<grid, kBlock, scatter_bytes, stream>>>(L);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    // the next level reads this one's buffer, partitions and rows
+    L.rec = out;
+    L.parent_start = s.part_start[l];
+  }
+
+  Finish f{};
+  const int last = p.levels - 1;
+  f.data = s.buf[last];
+  f.order = s.buf[1 - last];
+  f.merge = s.buf[1 - last] + p.n;
+  f.tile_start = s.part_start[last];
+  f.tiles = p.tiles;
+  f.tile_bits = gbits - consumed;
+  f.gbits = gbits, f.pre_shift = pre_shift, f.G = group_size, f.gshift = gshift;
+  f.bloom_k = bloom_k, f.max_iters = max_iters, f.total_groups = total_groups;
+  f.keys = keys, f.vals = vals, f.bloom = with_bloom ? bloom : nullptr, f.special = special;
+  f.vh0 = vh, f.vl0 = vl, f.max_row = s.tickets + 3;
+  f.chain = s.chain[2];
+  cudaFuncSetAttribute(finish_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)sizeof(FinishSmem));
+  finish_kernel<<<(unsigned)p.tiles, kBlock, sizeof(FinishSmem), stream>>>(f);
   return (int)cudaGetLastError();
 }
 

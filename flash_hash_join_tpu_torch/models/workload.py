@@ -329,7 +329,14 @@ def global_build_cases(seed: int = 0) -> list[BuildCase]:
     alone; n_valid cut mid-array and 0; an empty side; global_walk_cases'
     crowded table, which drops rows past its last group; max_probe_iters=2,
     whose long chains count as dropped but are written; pre_shift 1-3 (a
-    rank's keys); group sizes 1, 2, 8 and 32."""
+    rank's keys); group sizes 1, 2, 8 and 32.  Then the edges of the build
+    kernel's tiles (ops/cuda/hash_build.plan: 2^12 groups of few rows make
+    8 tiles of 2^9 groups): a chain from the last group of tile 0 into the
+    groups of tile 1, which hold rows of their own; the last tile's chain
+    through the overflow groups and past them; 1 group bit for 5000 rows,
+    fewer than the rows would partition by (tiles of one group, past the
+    2048 rows a tile holds in shared memory); pre_shift 1-3 over 2^18
+    groups (two partition levels); a tile whose rows are all u64-max."""
     from flash_hash_join_tpu_torch.utils.config import JoinConfig
     rng = np.random.default_rng(seed)
     m64 = np.uint64(2**64 - 1)
@@ -387,6 +394,33 @@ def global_build_cases(seed: int = 0) -> list[BuildCase]:
         gcfg = JoinConfig(group_size=g)
         cases.append((f"group_size_{g}", u64(3_000), u64(3_000), gcfg,
                       gcfg.group_bits(3_000), 0, None, gcfg.max_probe_iters))
+    tiles = JoinConfig(group_size=2, overflow_groups=8)
+    pool = np.unique(u64(1 << 20))
+    home12 = _hash_u64_np(pool) >> np.uint32(20)
+
+    def homed12(n, homes):   # n keys of the pool homed to `homes` of 2^12
+        return rng.permutation(pool[np.isin(home12, list(homes))])[:n]
+
+    bk = np.concatenate([homed12(40, {511}), homed12(12, {512, 513, 520}),
+                         u64(300)])
+    cases.append(("tile_boundary_chain", rng.permutation(bk), u64(bk.size),
+                  tiles, 12, 0, None, None))
+    bk = np.concatenate([homed12(30, {4095}), homed12(6, {4094}), u64(300)])
+    cases.append(("tile_into_overflow", rng.permutation(bk), u64(bk.size),
+                  tiles, 12, 0, None, None))
+    cases.append(("gbits_below_partition", u64(5_000), u64(5_000),
+                  JoinConfig(group_size=32, overflow_groups=200), 1, 0, None,
+                  None))
+    for shift in (1, 2, 3):
+        bk = homed_keys(rng, 2_000, shift, 0, {1})
+        cases.append((f"pre_shift_{shift}_two_levels", rng.permutation(bk),
+                      u64(2_000), cfg, 18, shift, None, cfg.max_probe_iters))
+    max_tile = int(_hash_u64_np(np.array([m64]))[0]) >> 29  # top 3 of 12
+    bk = np.concatenate([np.full(700, m64),
+                         homed_keys(rng, 300, 3, 0,
+                                    set(range(8)) - {max_tile})])
+    cases.append(("u64_max_tile", rng.permutation(bk), u64(bk.size), tiles,
+                  12, 0, None, None))
     return [BuildCase(name + ("_bloom" if bloom else ""), bk, bv, c, gb,
                       bloom, shift, nv, it)
             for name, bk, bv, c, gb, shift, nv, it in cases

@@ -78,9 +78,11 @@ _SIGNATURES = {
                                     _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
     # kh, kl, vh, vl, n_valid, gbits, group_size, total_groups, pre_shift,
     # bloom_k, max_iters, keys, vals, bloom, bloom_words, with_bloom,
-    # special, scratch, scratch_bytes, spare, stream
+    # special, scratch, scratch_bytes, levels, bits0, bits1, blocks0,
+    # blocks1, stream
     "fhj_global_build": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _I, _P,
-                         _P, _P, _I64, _I, _P, _P, _I64, _P, _P],
+                         _P, _P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I,
+                         _P],
 }
 
 _lock = threading.Lock()
@@ -154,7 +156,8 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(loaded, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            loaded.fhj_global_build_scratch_bytes.argtypes = [_I, _I64]
+            loaded.fhj_global_build_scratch_bytes.argtypes = [_I64, _I, _I,
+                                                              _I, _I, _I, _I]
             loaded.fhj_global_build_scratch_bytes.restype = ctypes.c_int64
             loaded.fhj_error_string.argtypes = [ctypes.c_int]
             loaded.fhj_error_string.restype = ctypes.c_char_p

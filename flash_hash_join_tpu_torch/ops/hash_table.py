@@ -1,8 +1,9 @@
 """The `global` tier: an open-addressing hash table in device memory, built
 by sorting and probed by a bounded group walk (port of
 flash_hash_join_tpu/ops/hash_table.py).  Build and probe dispatch on the
-device.  CUDA tensors launch the build kernel (ops/cuda/hash_build.py: a
-counting sort by home group, a thread or a block a group, no host sync)
+device.  CUDA tensors launch the build kernel (ops/cuda/hash_build.py: the
+rows partitioned by home group into tiles, each finished in shared memory
+with a look-back for its carry, no host sync)
 and the walk kernel (ops/cuda/hash_walk.py, one launch over the whole probe
 side).  CPU tensors take the plain versions here: the build by two stable
 sorts, a cummax and a segmented scan (build_table_plain), the walk in

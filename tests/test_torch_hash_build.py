@@ -1,20 +1,33 @@
 """The `global` tier's table build, written out as the CUDA kernel builds it
-(csrc/hash_build.cu): a numpy model of the bucket algorithm.  It must equal
+(csrc/hash_build.cu): a numpy model of the tiled algorithm.  It must equal
 the JAX package's build_table (a stable sort by (home, key), a cumsum and a
 cummax, a segmented bloom scan) and the port's build_table_plain, which the
 CPU takes, bit for bit: keys, vals, bloom and special, on every case of
-models/workload.global_build_cases.
+models/workload.global_build_cases, for 0, 1 and 2 partition levels, the
+kernel's own plan, and a tile capacity so small that every tile with rows
+takes the oversize path.
 
-The model: count the rows of each home group; visit each group's rows in
-an arbitrary order (a seeded shuffle, as the kernel's atomics leave them),
-order them by (key, row) and keep each key's first row; each group's k_b
-kept rows take consecutive slots from start_b = max(end_{b-1}, b * G),
-end_b = start_b + k_b; a slot past the table, or max_probe_iters groups
-past home, counts as dropped (the latter still written); the bloom word of
-a group is the OR of its rows' tags, duplicates included.
+The model: drop the u64-max rows (the first one's value goes to special);
+partition the rest by the top bits of their home group, level by level,
+each partition in an arbitrary order (a seeded shuffle, as the kernel's
+shared-memory atomics leave it); for each tile, in order, count and order
+its rows by group, order each group by (key, row) (a group of more than 32
+rows of an oversize tile in sorted chunks merged pairwise) and keep each
+key's first row; compose the tile's max-plus step over its groups
+({k_b, b * G + k_b}); take the value before the tile by a look-back over a
+seeded number of the tiles before it (their steps, then one published
+value); place each group's k_b kept rows at consecutive slots from
+start_b = max(end_{b-1}, b * G); write every slot of [R_{t-1}, R_t) once
+(R_t = max(end_t, (last group of t + 1) * G), the last tile to the end of
+the table); a slot past the table, or max_probe_iters groups past home,
+counts as dropped (the latter still written); a group's bloom word is the
+OR of its kept rows' words.
 
 Inputs come from numpy seeds, handed to both packages.  Tolerance: exact.
 """
+
+import functools
+import heapq
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,18 +68,44 @@ def _bloom_word(h: np.ndarray, k: int) -> np.ndarray:
     return word
 
 
-def bucket_model(case, seed: int = 0) -> dict:
+NEG = -(1 << 62)
+IDENTITY = (0, NEG)
+
+
+def then(f, g):
+    """Max-plus steps x -> max(x + a, c): f, then g."""
+    return f[0] + g[0], max(f[1] + g[0], g[1])
+
+
+def apply(f, x):
+    return max(x + f[0], f[1])
+
+
+def _chunk_merge_sort(items: list, chunk: int) -> list:
+    """An oversize group's order: sorted chunks merged pairwise."""
+    runs = [sorted(items[i:i + chunk]) for i in range(0, len(items), chunk)]
+    while len(runs) > 1:
+        runs = [list(heapq.merge(*runs[i:i + 2]))
+                for i in range(0, len(runs), 2)]
+    return runs[0] if runs else []
+
+
+def tiled_model(case, level_bits=None, tile_rows: int = hash_build.TILE_ROWS,
+                chunk: int = 2048, seed: int = 0) -> dict:
     """The build kernel's algorithm in numpy: keys, vals (total_groups, 2G),
-    bloom and special as int64 arrays of u32 values."""
+    bloom and special as int64 arrays of u32 values.  level_bits: the
+    partition levels' digit bits (() for none; None: the kernel's plan)."""
     cfg, gbits = case.cfg, case.gbits
-    G, ngroups = cfg.group_size, 1 << gbits
-    ntot = ngroups + cfg.overflow_groups
+    G, ntot = cfg.group_size, (1 << gbits) + cfg.overflow_groups
+    n_slots = ntot * G
     n = max(0, min(case.valid_rows(), case.build_keys.size))
     bk, bv = case.build_keys[:n], case.build_values[:n]
-    keys = np.full((ntot, 2 * G), M32, np.int64)
-    vals = np.zeros((ntot, 2 * G), np.int64)
+    if level_bits is None:
+        level_bits = hash_build.plan(n, gbits).level_bits
+    rng = np.random.default_rng(seed)
     bloom = np.zeros(ntot if case.use_bloom else 1, np.int64)
     special = np.zeros(4, np.int64)
+    slot_row = np.full(n_slots, -1, np.int64)
 
     is_max = bk == M64
     if is_max.any():                     # the first u64-max row's value
@@ -76,41 +115,82 @@ def bucket_model(case, seed: int = 0) -> dict:
     home = ((h.astype(np.uint64) << np.uint64(case.pre_shift))
             & np.uint64(M32)) >> np.uint64(32 - gbits)
     home = home.astype(np.int64)
-    real = np.flatnonzero(~is_max)
-    if case.use_bloom:                   # an OR a row at its home group
-        np.bitwise_or.at(bloom, home[real],
-                         _bloom_word(h[real], cfg.bloom_k).astype(np.int64))
 
-    # counts, their exclusive scan, and each row's id at its group's cursor
-    # in an arbitrary order
-    counts = np.bincount(home[real], minlength=ngroups)
-    offsets = np.concatenate([[0], np.cumsum(counts)])
-    perm = np.empty(real.size, np.int64)
-    cursor = offsets[:-1].copy()
-    for r in np.random.default_rng(seed).permutation(real):
-        perm[cursor[home[r]]] = r
-        cursor[home[r]] += 1
+    # the partition levels: each row moves to the partition of its home's
+    # top bits so far, in no particular order inside it
+    rows = rng.permutation(np.flatnonzero(~is_max))
+    pbits = 0
+    for bits in level_bits:
+        pbits += bits
+        part = home[rows] >> (gbits - pbits)
+        rows = rows[np.lexsort((rng.random(rows.size), part))]
+    tile_bits = gbits - pbits
+    tiles = 1 << pbits
+    bounds = np.searchsorted(home[rows] >> tile_bits, np.arange(tiles + 1))
 
-    end = 0
-    for b in range(ngroups):
-        group = perm[offsets[b]:offsets[b + 1]]
-        ordered = sorted((int(bk[r]), int(r)) for r in group)
-        kept = [r for i, (k, r) in enumerate(ordered)
-                if i == 0 or k != ordered[i - 1][0]]
-        start = max(end, b * G)
-        for j, r in enumerate(kept):
-            slot = start + j
-            if slot >= ntot * G:
-                special[3] += 1
-                continue
-            g, q = divmod(slot, G)
-            k, v = int(bk[r]), int(bv[r])
-            keys[g, q], keys[g, G + q] = k >> 32, k & M32
-            vals[g, q], vals[g, G + q] = v >> 32, v & M32
-            if case.max_probe_iters is not None and \
-                    g - b >= case.max_probe_iters:
-                special[3] += 1          # written, but out of the walk's reach
-        end = start + len(kept)
+    steps, values, written = [], [], np.zeros(n_slots, bool)
+    for t in range(tiles):
+        tile = rows[bounds[t]:bounds[t + 1]]
+        g0 = t << tile_bits
+        oversize = tile.size > tile_rows
+        # a counting sort by group (a group's rows in arrival order), then
+        # each group by (key, row), cut to first occurrences
+        tile = tile[np.argsort(home[tile], kind="stable")]
+        groups = np.split(tile, np.flatnonzero(np.diff(home[tile])) + 1) \
+            if tile.size else []
+        kept = {}
+        for g in groups:
+            items = [(int(bk[r]), int(r)) for r in g]
+            order = _chunk_merge_sort(items, chunk) \
+                if oversize and len(items) > 32 else sorted(items)
+            kept[int(home[g[0]])] = [r for i, (k, r) in enumerate(order)
+                                     if i == 0 or k != order[i - 1][0]]
+        step = IDENTITY
+        for b in sorted(kept):
+            k = len(kept[b])
+            step = then(step, (k, b * G + k))
+        steps.append(step)
+        # the look-back: the steps of a seeded number of tiles before this
+        # one, then the value after the tile before them (0 before tile 0)
+        j = t - int(rng.integers(1, t + 2)) if t else -1
+        f = IDENTITY
+        for q in range(j + 1, t):
+            f = then(f, steps[q])
+        before = apply(f, values[j] if j >= 0 else 0)
+        values.append(apply(step, before))
+
+        first = min(max(before, g0 * G), n_slots)            # R_{t-1}
+        last = n_slots if t == tiles - 1 else \
+            min(max(values[t], (g0 + (1 << tile_bits)) * G), n_slots)
+        assert not written[first:last].any(), (t, first, last)
+        written[first:last] = True
+        x = before
+        for b in sorted(kept):
+            start = max(x, b * G)
+            for j, r in enumerate(kept[b]):
+                slot = start + j
+                if slot >= n_slots:
+                    special[3] += 1
+                    continue
+                assert first <= slot < last, (t, slot, first, last)
+                slot_row[slot] = r
+                if case.max_probe_iters is not None and \
+                        slot // G - b >= case.max_probe_iters:
+                    special[3] += 1      # written, but out of the walk's reach
+            x = start + len(kept[b])
+            if case.use_bloom:
+                bloom[b] = int(np.bitwise_or.reduce(
+                    _bloom_word(h[kept[b]], cfg.bloom_k)))
+    assert written.all()                 # every slot of the table, once
+
+    keys = np.full((ntot, 2 * G), M32, np.int64)
+    vals = np.zeros((ntot, 2 * G), np.int64)
+    slots = np.flatnonzero(slot_row >= 0)
+    r = slot_row[slots]
+    g, q = slots // G, slots % G
+    k, v = bk[r], bv[r]
+    keys[g, q], keys[g, G + q] = k >> np.uint64(32), k & np.uint64(M32)
+    vals[g, q], vals[g, G + q] = v >> np.uint64(32), v & np.uint64(M32)
     return dict(keys=keys, vals=vals, bloom=bloom, special=special)
 
 
@@ -120,7 +200,9 @@ def _planes(case):
     return kh, kl, vh, vl
 
 
-def _jax_table(case) -> dict:
+@functools.lru_cache(maxsize=None)
+def _jax_table(name: str) -> dict:
+    case = BY_NAME[name]
     kw = case.build_kwargs()
     jt = jht.build_table(*(jnp.asarray(a) for a in _planes(case)),
                          case.valid_rows(), **kw)
@@ -135,36 +217,90 @@ def _port_table(case, fn) -> dict:
             for f in ("keys", "vals", "bloom", "special")}
 
 
+@functools.lru_cache(maxsize=None)
+def _plain_table(name: str) -> dict:
+    return _port_table(BY_NAME[name], tht.build_table_plain)
+
+
 def _assert_same(got: dict, want: dict, what: str):
     for f in ("keys", "vals", "bloom", "special"):
         assert got[f].shape == want[f].shape, (what, f)
         np.testing.assert_array_equal(got[f], want[f], err_msg=f"{what} {f}")
 
 
+BY_NAME = {c.name: c for c in CASES}
+# the model's partitions: none, one level, two levels (as many bits as the
+# case's groups allow), the kernel's plan, and the kernel's plan with a
+# tile capacity of 16 rows and sorting chunks of 4 (oversize tiles, merged
+# chunks)
+VARIANTS = {
+    "levels0": lambda c: dict(level_bits=()),
+    "levels1": lambda c: dict(level_bits=(min(c.gbits, 2),)),
+    "levels2": lambda c: dict(level_bits=(min(c.gbits, 2),
+                                          min(max(c.gbits - 2, 0), 3))),
+    "plan": lambda c: dict(),
+    "oversize": lambda c: dict(tile_rows=16, chunk=4),
+}
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.name)
-def test_bucket_model_equals_jax_and_plain_build(case):
-    model = bucket_model(case)
+def test_tiled_model_equals_jax_and_plain_build(case, variant):
+    model = tiled_model(case, **VARIANTS[variant](case))
     if case.build_keys.size:     # the JAX build refuses an empty side
-        _assert_same(model, _jax_table(case), "model vs JAX")
-    _assert_same(_port_table(case, tht.build_table_plain), model,
-                 "build_table_plain vs model")
+        _assert_same(model, _jax_table(case.name), "model vs JAX")
+    _assert_same(_plain_table(case.name), model, "build_table_plain vs model")
 
 
-def test_bucket_model_ignores_the_order_inside_a_group():
-    # the kernel's atomics leave a group's rows in any order
-    case = next(c for c in CASES if c.name == "one_large_group_bloom")
-    _assert_same(bucket_model(case, seed=1), bucket_model(case, seed=2),
-                 "two visiting orders")
+def test_tiled_model_ignores_the_order_inside_a_partition():
+    # the kernel's shared-memory atomics leave a partition's and a group's
+    # rows in any order, and its look-back stops at any published value
+    for name in ("one_large_group_bloom", "pre_shift_2_two_levels",
+                 "tile_boundary_chain"):
+        case = BY_NAME[name]
+        for kw in (dict(), dict(tile_rows=16, chunk=4)):
+            _assert_same(tiled_model(case, seed=1, **kw),
+                         tiled_model(case, seed=2, **kw), name)
+
+
+def test_plan_sizes_the_tiles():
+    # at most TILE_TARGET rows a tile on average, never more than 2^9 groups
+    # or more partition bits than groups; J1 1e8 Q5 and config #2 in two
+    # levels, small sides in one
+    for n, gbits in ((10**8, 25), (10**7, 22), (6.25e7, 25), (3_000, 10),
+                     (0, 4), (5_000, 1), (2_000, 18), (2**31 - 1, 30),
+                     (100, 30), (1, 0)):
+        n = int(n)
+        p = hash_build.plan(n, gbits)
+        pbits = sum(p.level_bits)
+        assert p.tile_bits == gbits - pbits and 0 <= p.tile_bits <= 9
+        assert len(p.level_bits) in (1, 2) and max(p.level_bits) <= 11
+        assert len(p.blocks) == len(p.level_bits) and min(p.blocks) >= 1
+        assert pbits == gbits or n <= hash_build.TILE_TARGET << pbits
+        assert pbits == 0 or pbits == gbits - 9 or \
+            n > hash_build.TILE_TARGET << (pbits - 1)
+    assert hash_build.plan(10**8, 25) == ((8, 8), (528, 3), 9)
+    assert hash_build.plan(10**7, 22) == ((7, 6), (528, 5), 9)
+    assert hash_build.plan(3_000, 10).level_bits == (1,)
 
 
 def test_cases_cover_the_build_edges():
     # what each case is there for, read off the model's table
-    by = {c.name: (c, bucket_model(c)) for c in CASES}
+    by = {c.name: (c, tiled_model(c)) for c in CASES}
 
     def written(t):
         G = t["keys"].shape[1] // 2
         return int(((t["keys"][:, :G] != M32) | (t["keys"][:, G:] != M32))
                    .sum())
+
+    def slots_of(c, t, homes):
+        # the slots of the keys homed to `homes`
+        G = c.cfg.group_size
+        keys = (t["keys"][:, :G] << 32) | t["keys"][:, G:]
+        h = _hash(keys.reshape(-1).astype(np.uint64))
+        home = h >> np.uint32(32 - c.gbits)
+        return np.flatnonzero(np.isin(home, list(homes)) &
+                              (keys.reshape(-1) != -1))
 
     c, t = by["crowded"]                                   # past the table
     unique = np.unique(c.build_keys).size
@@ -181,6 +317,33 @@ def test_cases_cover_the_build_edges():
     assert {c.pre_shift for c in CASES} >= {1, 2, 3}
     assert (by["duplicates_bloom"][1]["bloom"] != 0).any()
 
+    # the kernel's tiles: 2^9 groups each at 2^12 groups
+    c, t = by["tile_boundary_chain"]
+    assert hash_build.plan(c.build_keys.size, c.gbits).tile_bits == 9
+    G = c.cfg.group_size
+    chain = slots_of(c, t, {511}) // G
+    assert chain.max() >= 512 + 8 and t["special"][3] == 0   # into tile 1
+    assert (slots_of(c, t, {512, 513, 520}) // G > 520).any()
+    c, t = by["tile_into_overflow"]
+    assert (slots_of(c, t, {4095}) // c.cfg.group_size >= 4096).any()
+    assert t["special"][3] > 0                           # and past the table
+    c, t = by["gbits_below_partition"]
+    p = hash_build.plan(c.build_keys.size, c.gbits)
+    assert p.level_bits == (1,) and p.tile_bits == 0
+    h = _hash(c.build_keys)
+    assert max(np.bincount(h >> np.uint32(31))) > hash_build.TILE_ROWS
+    for s in (1, 2, 3):
+        c, t = by[f"pre_shift_{s}_two_levels"]
+        assert len(hash_build.plan(c.build_keys.size, c.gbits).level_bits) \
+            == 2 and c.pre_shift == s
+        assert written(t) == c.build_keys.size
+    c, t = by["u64_max_tile"]
+    is_max = c.build_keys == M64
+    h = _hash(c.build_keys)
+    assert is_max.sum() > 500 and t["special"][0] == 1
+    assert not np.isin(h[~is_max] >> np.uint32(29),
+                       h[is_max][:1] >> np.uint32(29)).any()
+
 
 def test_build_table_on_cpu_takes_the_plain_build(monkeypatch):
     case = CASES[0]
@@ -196,7 +359,7 @@ def test_build_table_on_cpu_takes_the_plain_build(monkeypatch):
     plain_build = tht.build_table_plain
     monkeypatch.setattr(hash_build, "global_build_table", kernel)
     monkeypatch.setattr(tht, "build_table_plain", plain)
-    _assert_same(_port_table(case, tht.build_table), bucket_model(case),
+    _assert_same(_port_table(case, tht.build_table), tiled_model(case),
                  "build_table on the CPU")
     assert calls == [1]
 
