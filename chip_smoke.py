@@ -57,10 +57,15 @@ Phases, one JSON line each on stdout:
               models/workload.global_walk_cases (crowded chains to the
               last group, max_probe_iters 2, u64-max probes, duplicates,
               n_valid cut, pre_shift 2, an empty probe side, group sizes 1
-              and 32; bloom off and on; probe planes aligned and
-              misaligned) and on J1 1e8 Q5 and config #2, bloom off and on:
-              counts, hit masks, value planes and walk statistics equal to
-              the plain walk's; the global tier's build (csrc/hash_build.cu,
+              and 32, and the slice edges: chains across a slice, every
+              probe in one slice, Zipf-1.2 probes, u64-max probes among
+              partitioned rows, n_valid cut inside a pass; bloom off and
+              on), by the plan's route on aligned probe planes and with
+              each route forced (0 levels; 1 level in passes of 1000
+              rows) on misaligned ones, and on J1 1e8 Q5 and config #2,
+              bloom off and on: counts, hit masks, value planes and walk
+              statistics equal to the plain walk's, both routes timed; the
+              global tier's build (csrc/hash_build.cu,
               phase build_kernels) against the plain build, planes equal by
               torch.equal, on every case of
               models/workload.global_build_cases (random keys, duplicates,
@@ -1567,27 +1572,51 @@ def walk_table(planes, nb: int, cfg, gbits: int, use_bloom: bool,
 
 
 def walk_bound(table, static: dict, npr: int, groups: int, hits: int,
-               materialize: bool) -> dict:
+               materialize: bool, pbits: int) -> dict:
     """The walk's bound on this run's data: the probe planes (8 B a row),
     the group rows its probes visited (8G B each, at most the key plane),
     the bloom words (8 B a probe, at most the plane), and for materialize
     the matched slots' values (8 B a hit, at most the value plane) and its
     outputs (9 B a row); about 12 integer operations a probe (hash, home,
-    tag) and 4G + 4 a group visited.  design_floor_ms: every visited
-    group's row read from device memory (the table is far larger than L2
-    at the main path's shapes), not once a group."""
+    tag) and 4G + 4 a group visited.  design_floor_ms, the route's own
+    traffic: 0 levels (pbits 0) reads every visited group's row from device
+    memory (the table is far larger than L2 at the main path's shapes); 1
+    level reads the probe planes twice (count, scatter) and writes 8-byte
+    records, 24 B a row, and the walk reads the records, 8 B, and each
+    visited row once, at most the plane (materialize: the stage maps, 6 B
+    a row, written and read, and the records' answers, 9 B, written and
+    read)."""
     row = 8 * static["group_size"]
-    nbytes = 8 * npr + min(groups * row, table.keys.numel() * 4)
-    floor = 8 * npr + groups * row
+    rows_once = min(groups * row, table.keys.numel() * 4)
+    bloom_once = min(8 * npr, table.bloom.numel() * 8)
+    nbytes = 8 * npr + rows_once
+    floor = 8 * npr + groups * row if pbits == 0 else 32 * npr + rows_once
     if static["use_bloom"]:
-        nbytes += min(8 * npr, table.bloom.numel() * 8)
-        floor += 8 * npr
+        nbytes += bloom_once
+        floor += 8 * npr if pbits == 0 else bloom_once
     if materialize:
-        nbytes += min(8 * hits, table.vals.numel() * 4) + 9 * npr
-        floor += 8 * hits + 9 * npr
+        values = min(8 * hits, table.vals.numel() * 4)
+        nbytes += values + 9 * npr
+        floor += (8 * hits if pbits == 0 else values + 30 * npr) + 9 * npr
     ops = 12 * npr + (4 * static["group_size"] + 4) * groups
     return dict(**bound(nbytes, ops),
                 design_floor_ms=bound(floor, 0)["bound_ms"])
+
+
+def walk_routes(static: dict, npr: int, materialize: bool) -> dict:
+    """The walk's two routes at a cell (ops/cuda/hash_walk.plan's
+    overrides: 0 levels, 1 level of slices), and the plan's own."""
+    import torch
+    from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
+    props = torch.cuda.get_device_properties(0)
+    plan = hw.plan(npr, static["gbits"], static["total_groups"],
+                   static["group_size"], static["use_bloom"], materialize,
+                   l2_bytes=props.L2_cache_size,
+                   sms=props.multi_processor_count)
+    one = hw.slice_bits(static["total_groups"], static["group_size"],
+                        static["use_bloom"], materialize)
+    return {"plan": plan._asdict(), "levels0": dict(pbits=0),
+            f"levels1_pbits{one}": dict(pbits=one)}
 
 
 def phase_walk_kernels(cells: dict) -> dict:
@@ -1596,11 +1625,18 @@ def phase_walk_kernels(cells: dict) -> dict:
     models/workload.global_walk_cases (bloom off and on; crowded chains to
     the last group, max_probe_iters 2, u64-max probes with and without a
     u64-max build key, duplicates, n_valid cut, pre_shift 2, an empty probe
-    side, group sizes 1 and 32), the probe planes aligned and misaligned;
-    then J1 1e8 Q5 and config #2, bloom off and on: counts, hit masks,
-    value planes and walk statistics, each count the oracle's.  Each timed
-    beside its bound (without bloom also beside the plain walk), the count
-    also beside one torch.isin of the sortable keys."""
+    side, group sizes 1 and 32; the walk's slice edges: chains across a
+    slice and to the last group, every probe in one slice, Zipf-1.2
+    probes, u64-max probes among partitioned rows, n_valid cut inside a
+    pass), on aligned probe planes by the plan's route, and on misaligned
+    ones with each route forced (ops/cuda/hash_walk.forced): 0 levels, and
+    1 level of 3 digit bits in passes of 1000 rows; then J1 1e8 Q5 and
+    config #2, bloom off and on, by the plan's route: counts, hit masks,
+    value planes and walk statistics, each count the oracle's, and each
+    route forced there giving the oracle's count and the plan's rows.  The
+    plan's route timed beside its bound (without bloom also beside the
+    plain walk), the count also beside one torch.isin of the sortable keys;
+    each route forced timed beside it."""
     import torch
     from flash_hash_join_tpu_torch.models.workload import (
         global_walk_cases, offset_plane_views)
@@ -1636,17 +1672,21 @@ def phase_walk_kernels(cells: dict) -> dict:
         return count, groups, longest
 
     checked = []
+    small = {"plan": {}, "levels0": dict(pbits=0),
+             "levels1_passes_of_1000": dict(pbits=3, pass_rows=1000)}
     for case in global_walk_cases():
         planes = [*device_planes(case.build_keys, dev),
                   *device_planes(case.build_values, dev)]
         table, static = walk_table(planes, len(case.build_keys), case.cfg,
                                    case.gbits, case.use_bloom,
                                    case.pre_shift)
-        for offsets in ((0, 0), (1, 3)):
+        for route, offsets in (("plan", (0, 0)), ("levels0", (1, 3)),
+                               ("levels1_passes_of_1000", (1, 3))):
             ph, pl = offset_plane_views(case.probe_keys, dev, *offsets)
             n_valid = ph.numel() if case.n_valid is None else case.n_valid
-            checked.append([case.name, offsets, *compare(
-                table, static, ph, pl, n_valid, 256)])
+            with hw.forced(**small[route]):
+                checked.append([case.name, route, offsets, *compare(
+                    table, static, ph, pl, n_valid, 256)])
     torch.cuda.synchronize()
     require(all(e == 0 for e in err.values()), f"walk != plain: {err}")
     emit("walk_vs_plain", kernels=list(WALKS), max_abs_err=err,
@@ -1676,7 +1716,26 @@ def phase_walk_kernels(cells: dict) -> dict:
                      ht.probe_count_plain),
                     ("global_walk_materialize", hw.global_walk_materialize,
                      ht.probe_rows_plain)):
+                mat = kernel.endswith("materialize")
                 run = functools.partial(fn, table, ph, pl, npr, **static)
+                routes = walk_routes(static, npr, mat)
+                plan = routes.pop("plan")
+                want_rows = run() if mat else None
+                forced = {}
+                for label, over in routes.items():
+                    with hw.forced(**over):
+                        got = run()
+                        require(int(got[0].sum() if mat else got) == want
+                                and (not mat or all(torch.equal(g, w) for
+                                                    g, w in zip(got,
+                                                                want_rows))),
+                                f"walk {name} {kernel} {label}: != the plan")
+                        del got
+                        forced[label] = dict(
+                            ms=cuda_ms(run), ms_b2b=cuda_ms_b2b(run),
+                            **walk_bound(table, static, npr, groups, count,
+                                         mat, over["pbits"]))
+                del want_rows
                 # the plain walk (~0.4 s a call) is timed without bloom only
                 t = ({"ms": [cuda_ms(run)], "ms_b2b": [cuda_ms_b2b(run)]}
                      if use_bloom else paired_ms(run, functools.partial(
@@ -1685,10 +1744,10 @@ def phase_walk_kernels(cells: dict) -> dict:
                 cell = f"{name}{' bloom' if use_bloom else ''}"
                 timing[kernel, cell] = dict(
                     **best(t), **walk_bound(table, static, npr, groups, count,
-                                            kernel.endswith("materialize")),
-                    library_ms=library_ms if kernel.endswith("count")
-                    else None, groups_per_probe=groups / npr,
-                    longest=longest)
+                                            mat, plan["pbits"]),
+                    library_ms=library_ms if not mat else None,
+                    groups_per_probe=groups / npr, longest=longest,
+                    plan=plan, routes=forced)
                 emit("kernel_time", cell=cell, kernel=kernel, nb=nb, npr=npr,
                      total_groups=static["total_groups"],
                      runs={k + "_runs": v for k, v in t.items()},

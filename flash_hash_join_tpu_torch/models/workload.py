@@ -195,6 +195,13 @@ def _hash_u64_np(keys: np.ndarray) -> np.ndarray:
     return fmix32(fmix32(lo) ^ (hi * np.uint32(0x9E3779B9)))
 
 
+def _home_np(keys: np.ndarray, gbits: int, pre_shift: int = 0) -> np.ndarray:
+    """The `global`-tier home group of u64 keys (ops/hash_table.home_group)."""
+    h = _hash_u64_np(keys).astype(np.uint64)
+    return ((h << np.uint64(pre_shift)) & np.uint64(0xFFFFFFFF)) >> \
+        np.uint64(32 - gbits)
+
+
 def homed_keys(rng: np.random.Generator, n: int, gbits: int, pre_shift: int,
                homes) -> np.ndarray:
     """n distinct random u64 keys whose `global`-tier home group (the top
@@ -204,9 +211,7 @@ def homed_keys(rng: np.random.Generator, n: int, gbits: int, pre_shift: int,
     out = np.zeros(0, np.uint64)
     while out.size < n:
         k = rng.integers(0, 2**64, 8 * n + 64, dtype=np.uint64)
-        h = _hash_u64_np(k).astype(np.uint64)
-        home = ((h << np.uint64(pre_shift)) & np.uint64(0xFFFFFFFF)) >> \
-            np.uint64(32 - gbits)
+        home = _home_np(k, gbits, pre_shift)
         out = np.unique(np.concatenate([out, k[np.isin(home, homes)]]))
     return np.sort(rng.permutation(out)[:n])
 
@@ -234,7 +239,12 @@ def global_walk_cases(seed: int = 0) -> list[WalkCase]:
     probes; a u64-max probe with and without a u64-max build key;
     duplicate build keys (values = build rows, so the minimum row shows);
     n_valid cut mid-array; a rank's table (pre_shift 2); an empty probe
-    side; group sizes 1 and 32."""
+    side; group sizes 1 and 32.  Then the edges of the walk's partition
+    into table slices (ops/cuda/hash_walk.plan, forced to 1-3 digit bits on
+    these small tables): chains from the last group of a slice into the
+    next and from the last home group to the table's last group; every
+    probe homed to one slice; Zipf-1.2 probes; u64-max probes among
+    partitioned rows; n_valid cut inside a pass of 1000 rows."""
     from flash_hash_join_tpu_torch.utils.config import JoinConfig
     rng = np.random.default_rng(seed)
     m64 = np.uint64(2**64 - 1)
@@ -284,6 +294,33 @@ def global_walk_cases(seed: int = 0) -> list[WalkCase]:
         cases.append((f"group_size_{g}", bk, u64(5_000),
                       mix(rng.choice(bk, 2_500), u64(2_500)), gcfg,
                       gcfg.group_bits(5_000), 0, None))
+    bk = np.concatenate([*(homed_keys(rng, 6, 4, 0, {g})
+                           for g in (1, 3, 7, 11)),
+                         homed_keys(rng, 9, 4, 0, {15}),
+                         homed_keys(rng, 6, 4, 0, {0, 2, 5, 9})])
+    cases.append(("slice_chains", bk, u64(bk.size),
+                  mix(bk, homed_keys(rng, 60, 4, 0, {1, 3, 7, 11, 15}),
+                      u64(100)), crowded, 4, 0, None))
+    bk = u64(5_000)
+    gb = cfg.group_bits(5_000)
+    near = bk[np.isin(_home_np(bk, gb), np.arange(4))]
+    cases.append(("one_slice", bk, u64(5_000),
+                  mix(rng.choice(near, 2_000),
+                      homed_keys(rng, 1_000, gb, 0, range(4))), cfg, gb, 0,
+                  None))
+    bk = u64(5_000)
+    ranks = np.minimum(rng.zipf(1.2, 16_000), 5_000) - 1
+    cases.append(("zipf_1_2", bk, u64(5_000), mix(bk[ranks], u64(4_000)),
+                  cfg, cfg.group_bits(5_000), 0, None))
+    bk = u64(3_000)
+    bk[5] = m64
+    cases.append(("u64_max_partitioned", bk, u64(3_000),
+                  mix(rng.choice(bk, 3_000), u64(1_000), [m64] * 400), cfg,
+                  cfg.group_bits(3_000), 0, None))
+    bk = u64(4_000)
+    cases.append(("n_valid_pass_cut", bk, u64(4_000),
+                  mix(rng.choice(bk, 3_000), u64(2_000)), cfg,
+                  cfg.group_bits(4_000), 0, 3_333))
     return [WalkCase(name + ("_bloom" if bloom else ""), bk, bv, pk, c, gb,
                      bloom, shift, nv)
             for name, bk, bv, pk, c, gb, shift, nv in cases

@@ -68,14 +68,16 @@ _SIGNATURES = {
     # tk_hi, tk_lo, tv_hi, tv_lo, r_slots, keys, vals, stream
     "fhj_bucket_major": [_P, _P, _P, _P, _I, _P, _P, _P],
     # keys, bloom, special, total_groups, group_size, gbits, pre_shift,
-    # bloom_k, max_iters, ph, pl, np_valid, count, stats, stream
+    # bloom_k, max_iters, ph, pl, np_valid, count, stats, pbits, pass_rows,
+    # blocks, scratch, scratch_bytes, stream
     "fhj_global_walk_count": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
-                              _I64, _P, _P, _P],
+                              _I64, _P, _P, _I, _I64, _I, _P, _I64, _P],
     # keys, vals, bloom, special, total_groups, group_size, gbits,
     # pre_shift, bloom_k, max_iters, ph, pl, n, np_valid, hit, vh, vl, stats,
-    # stream
+    # pbits, pass_rows, blocks, scratch, scratch_bytes, stream
     "fhj_global_walk_materialize": [_P, _P, _P, _P, _I64, _I, _I, _I, _I, _I,
-                                    _P, _P, _I64, _I64, _P, _P, _P, _P, _P],
+                                    _P, _P, _I64, _I64, _P, _P, _P, _P, _I,
+                                    _I64, _I, _P, _I64, _P],
     # kh, kl, vh, vl, n_valid, gbits, group_size, total_groups, pre_shift,
     # bloom_k, max_iters, keys, vals, bloom, bloom_words, with_bloom,
     # special, scratch, scratch_bytes, levels, bits0, bits1, blocks0,
@@ -159,6 +161,10 @@ def lib() -> ctypes.CDLL:
             loaded.fhj_global_build_scratch_bytes.argtypes = [_I64, _I, _I,
                                                               _I, _I, _I, _I]
             loaded.fhj_global_build_scratch_bytes.restype = ctypes.c_int64
+            # gbits, pbits, pass_rows, blocks, materialize
+            loaded.fhj_global_walk_scratch_bytes.argtypes = [_I, _I, _I64,
+                                                             _I, _I]
+            loaded.fhj_global_walk_scratch_bytes.restype = ctypes.c_int64
             loaded.fhj_error_string.argtypes = [ctypes.c_int]
             loaded.fhj_error_string.restype = ctypes.c_char_p
             _lib = loaded

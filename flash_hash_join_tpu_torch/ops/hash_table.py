@@ -4,10 +4,12 @@ flash_hash_join_tpu/ops/hash_table.py).  Build and probe dispatch on the
 device.  CUDA tensors launch the build kernel (ops/cuda/hash_build.py: the
 rows partitioned by home group into tiles, each finished in shared memory
 with a look-back for its carry, no host sync)
-and the walk kernel (ops/cuda/hash_walk.py, one launch over the whole probe
-side).  CPU tensors take the plain versions here: the build by two stable
-sorts, a cummax and a segmented scan (build_table_plain), the walk in
-chunks of probe_chunk rows with a host sync a walk step.
+and the walk kernels (ops/cuda/hash_walk.py: by its plan, a walk in
+probe order, or passes whose probes are partitioned by table slice and
+walked slice by slice, no host sync).  CPU tensors take the plain versions
+here: the build by two stable sorts, a cummax and a segmented scan
+(build_table_plain), the walk in chunks of probe_chunk rows with a host
+sync a walk step.
 
 Semantics (SURVEY.md §3, hash_join.cpp:75-204): linear probing over
 groups of G slots at a load of at most ~0.5; one winner per duplicate
@@ -43,10 +45,11 @@ _NEG_LARGE = -(2 ** 30)
 
 class WalkStats:
     """Statistics of the walks run in this process since reset(), read by
-    chip_smoke.py: `chunks` (walks run: a plain chunk, or one kernel launch
-    over a whole probe side), `probes` (valid probe rows handed to the
-    walk), `groups` (groups visited, summed over them), `longest` (the
-    most groups one probe visited) and `groups_per_probe`, from read().
+    chip_smoke.py: `chunks` (walks run: a plain chunk, or one call of a
+    walk kernel's wrapper over a whole probe side), `probes` (valid probe
+    rows handed to the walk), `groups` (groups visited, summed over them),
+    `longest` (the most groups one probe visited) and `groups_per_probe`,
+    from read().
     The kernel and the plain walk add into a (2,) int64 tensor a device
     ([groups, longest]) with no host sync; read() syncs, so call it after
     the timed calls."""
@@ -335,8 +338,10 @@ def probe_count(table: HashTable, ph, pl, n_valid: int, *, probe_chunk: int,
                 **static) -> torch.Tensor:
     """Count the probe rows [0, n_valid) whose key is in the table (probe
     multiplicity counts, build multiplicity does not); a 0-d int64.  CUDA
-    tensors: one launch of the walk kernel over the whole probe side;
-    CPU tensors: the plain walk (probe_count_plain)."""
+    tensors: the walk kernels on ops/cuda/hash_walk.plan's route (the
+    probes in probe order, or partitioned by table slice and walked slice
+    by slice), no host sync; CPU tensors: the plain walk
+    (probe_count_plain)."""
     if ph.device.type == "cuda":
         args, kw = _kernel_args(ph, pl, n_valid, static)
         return hash_walk.global_walk_count(table, *args, **kw)
@@ -348,9 +353,10 @@ def probe_rows(table: HashTable, ph, pl, n_valid: int, *, probe_chunk: int,
                **static):
     """Per probe row: (hit, vh, vl), a bool mask and the int32 value planes
     of the row's match (the first-match slot's value, special[1:3] for a
-    u64-max probe; 0 on a miss and at or past n_valid).  CUDA tensors: one
-    launch of the walk kernel; CPU tensors: the plain walk
-    (probe_rows_plain)."""
+    u64-max probe; 0 on a miss and at or past n_valid), in probe order.
+    CUDA tensors: the walk kernels on ops/cuda/hash_walk.plan's route (a
+    partitioned walk's answers put back in probe order on the card); CPU
+    tensors: the plain walk (probe_rows_plain)."""
     if ph.device.type == "cuda":
         args, kw = _kernel_args(ph, pl, n_valid, static)
         return hash_walk.global_walk_materialize(table, *args, **kw)

@@ -21,8 +21,9 @@ import torch
 
 import flash_hash_join_tpu_torch as ft
 from flash_hash_join_tpu_torch.models.workload import (
-    RAGGED_KINDS, dense_domain_keys, domain_sides, global_build_cases,
-    global_walk_cases, homed_keys, offset_plane_views, ragged_counts)
+    RAGGED_KINDS, WalkCase, dense_domain_keys, domain_sides,
+    global_build_cases, global_walk_cases, homed_keys, offset_plane_views,
+    ragged_counts)
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import hash_table as ht
@@ -36,8 +37,9 @@ from flash_hash_join_tpu_torch.ops.cuda import hash_build as hb
 from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
+from flash_hash_join_tpu_torch.utils.config import JoinConfig
 from flash_hash_join_tpu_torch.utils.u64 import (device_planes, sortable,
-                                                 to_device)
+                                                 to_device, to_numpy_u64)
 
 SENTINEL = 0xFFFFFFFF
 M64 = 2**64 - 1
@@ -747,6 +749,23 @@ def _walk_table(case, dev):
 def test_global_walk_kernels_match_plain(dev, case, offsets):
     # the walk kernel, count and materialize, against the plain walk on the
     # same card tensors: counts, hit masks, value planes and walk statistics
+    _check_walk_kernels(dev, case, offsets)
+
+
+# both routes of ops/cuda/hash_walk.plan on the small cases: 0 levels, 1
+# level of 3 digit bits, and 2 digit bits in passes of 1000 rows
+WALK_ROUTES = {"levels0": dict(pbits=0), "levels1": dict(pbits=3),
+               "passes_of_1000": dict(pbits=2, pass_rows=1000)}
+
+
+@pytest.mark.parametrize("route", WALK_ROUTES)
+@pytest.mark.parametrize("case", global_walk_cases(), ids=lambda c: c.name)
+def test_global_walk_routes_match_plain(dev, case, route):
+    with hw.forced(**WALK_ROUTES[route]):
+        _check_walk_kernels(dev, case, (1, 3))
+
+
+def _check_walk_kernels(dev, case, offsets):
     table, static = _walk_table(case, dev)
     ph, pl = offset_plane_views(case.probe_keys, dev, *offsets)
     n = ph.numel()
@@ -771,6 +790,43 @@ def test_global_walk_kernels_match_plain(dev, case, offsets):
     assert torch.equal(hit, whit)
     assert torch.equal(vh, wvh) and torch.equal(vl, wvl)
     assert stats.tolist() == [plain["groups"], plain["longest"]]
+
+
+@pytest.mark.parametrize("use_bloom", [False, True])
+def test_global_walk_plan_partitions_a_large_side(dev, use_bloom):
+    # 4e6 build keys (2^20 + 64 groups, 64 MB of key rows, past half of L2)
+    # and 1.6e7 probes: the plan's own route is 1 level for both kernels,
+    # held to a numpy oracle, u64-max keys on both sides
+    rng = np.random.default_rng(8)
+    bk = rng.integers(0, 2**64, 4_000_000, dtype=np.uint64)
+    bk[3] = M64
+    bv = rng.integers(0, 2**64, bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 8_000_000),
+                         rng.integers(0, 2**64, 8_000_000, dtype=np.uint64)])
+    pk[::1000] = M64
+    cfg = JoinConfig()
+    case = WalkCase("large", bk, bv, pk, cfg, cfg.group_bits(bk.size),
+                    use_bloom)
+    table, static = _walk_table(case, dev)
+    ph, pl = device_planes(pk, dev)
+    props = torch.cuda.get_device_properties(dev)
+    for mat in (False, True):
+        p = hw.plan(pk.size, static["gbits"], static["total_groups"],
+                    static["group_size"], use_bloom, mat,
+                    l2_bytes=props.L2_cache_size,
+                    sms=props.multi_processor_count)
+        assert p.pbits > 0, p
+    uniq, first = np.unique(bk, return_index=True)
+    pos = np.searchsorted(uniq, pk).clip(max=uniq.size - 1)
+    want = uniq[pos] == pk
+    count = hw.global_walk_count(table, ph, pl, pk.size, **static)
+    hit, vh, vl = hw.global_walk_materialize(table, ph, pl, pk.size,
+                                             **static)
+    assert int(count) == int(want.sum())
+    assert np.array_equal(hit.cpu().numpy(), want)
+    vals = bv[first[pos[want]]]
+    got = to_numpy_u64(vh[hit], vl[hit], int(want.sum()))
+    np.testing.assert_array_equal(got, vals)
 
 
 @pytest.mark.parametrize("fn", ["hash_join_count", "hash_join_count_bloom",
