@@ -372,22 +372,8 @@ def best(t: dict) -> dict:
 
 
 def zero_launches() -> None:
-    from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
-    from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
-    from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
-    from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
-    from flash_hash_join_tpu_torch.ops.cuda import hash_build as hb
-    from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
-    from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
-    from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
-    for fn in (dbm.fused_domain_bitmap_join, bp.scan_domain_count,
-               rp.range_probe_count, rp.range_probe_materialize,
-               rp.range_directory, sc.compact_by_mask, bp.probe_gather_bitmap,
-               dv.probe_gather_staged, dv.materialize_copy,
-               sc.concat_ragged_blocks, bkp.probe_count_vmem,
-               bkp.probe_materialize_vmem, hw.global_walk_count,
-               hw.global_walk_materialize, hb.global_build_table):
-        fn.launches = 0
+    from flash_hash_join_tpu_torch.utils import spans
+    spans.reset()
 
 
 def require_launched(phase: str, kernels) -> dict:
@@ -2118,8 +2104,8 @@ def config3_resident(c, want: int) -> dict:
     way.  Each call: count == oracle, K3 launched once a chunk, the
     directory once.  Returns {n_chunks: best seconds, "build": seconds}."""
     import torch
+    import flash_hash_join_tpu_torch as ft
     from flash_hash_join_tpu_torch.ops import range_table as rt
-    from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
     from flash_hash_join_tpu_torch.utils.u64 import device_planes
     nb, npr = len(c.build_keys), len(c.probe_keys)
     t0 = time.perf_counter()
@@ -2131,13 +2117,14 @@ def config3_resident(c, want: int) -> dict:
     out = {}
     for n_chunks in (1, 4, 16):
         torch.cuda.reset_peak_memory_stats()
-        k3, dirs = rp.range_probe_count.launches, rp.range_directory.launches
+        before = ft.launch_counts()
         best, runs, count = event_seconds(lambda: int(
             rt.range_join_count_chunked(*planes, nb, npr,
                                         n_chunks=n_chunks)[0]))
         calls = len(runs) + 1                           # and the warm-up
-        k3 = rp.range_probe_count.launches - k3
-        dirs = rp.range_directory.launches - dirs
+        after = ft.launch_counts()
+        k3 = after["range_probe_count"] - before["range_probe_count"]
+        dirs = after["range_directory"] - before["range_directory"]
         require(count == want, f"config3 resident {n_chunks} chunks: count "
                 f"{count} != oracle {want}")
         require(k3 == n_chunks * calls and dirs == calls,

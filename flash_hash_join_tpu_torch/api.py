@@ -44,8 +44,10 @@ like `merge` they bypass the feasibility plan.  A nonzero special[3]
 full vmem bucket, a chain past the global walk's bound) reruns the join
 on `merge`, so every result is exact.  Output order: direct,
 partitioned, global and vmem emit probe order, merge (hash, key) order;
-the row multiset is the same.  With FHJ_PROFILE_DIR set, a single-shot
-join writes a torch.profiler trace of its timed call there.
+the row multiset is the same.  With FHJ_PROFILE_DIR set, each join call
+(and measure_device_seconds) writes a torch.profiler trace of the whole
+call there, with the spans of utils/spans.py: routing, the copies, the
+join and its tiers, the read-back.
 
 Feasibility: adaptive and partitioned ask the planner (models/cost.py)
 how many probe chunks fit the card's memory.  Past one, the probe side
@@ -75,15 +77,7 @@ from flash_hash_join_tpu_torch import engine
 from flash_hash_join_tpu_torch.models.cost import choose_plan, hbm_budget_bytes
 from flash_hash_join_tpu_torch.ops import direct_bitmap as db
 from flash_hash_join_tpu_torch.ops.cuda import _build
-from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
-from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bkp
-from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
-from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
-from flash_hash_join_tpu_torch.ops.cuda import hash_build as hb
-from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
-from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
-from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
-from flash_hash_join_tpu_torch.utils import u64
+from flash_hash_join_tpu_torch.utils import spans, u64
 from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG
 from flash_hash_join_tpu_torch.utils.streams import copy_stream
 
@@ -111,22 +105,11 @@ def _as_u64(arr) -> np.ndarray:
 
 
 def launch_counts() -> dict:
-    """Kernel launches so far in this process, by kernel."""
-    return {"dense_bitmap": dbm.fused_domain_bitmap_join.launches,
-            "scan_domain_count": bp.scan_domain_count.launches,
-            "range_probe_count": rp.range_probe_count.launches,
-            "range_probe_materialize": rp.range_probe_materialize.launches,
-            "range_directory": rp.range_directory.launches,
-            "compact": sc.compact_by_mask.launches,
-            "probe_gather_bitmap": bp.probe_gather_bitmap.launches,
-            "probe_gather_staged": dv.probe_gather_staged.launches,
-            "materialize_copy": dv.materialize_copy.launches,
-            "probe_count_vmem": bkp.probe_count_vmem.launches,
-            "probe_materialize_vmem": bkp.probe_materialize_vmem.launches,
-            "concat_ragged_blocks": sc.concat_ragged_blocks.launches,
-            "global_walk_count": hw.global_walk_count.launches,
-            "global_walk_materialize": hw.global_walk_materialize.launches,
-            "global_build": hb.global_build_table.launches}
+    """Kernel launches so far in this process, by wrapper: the card-only
+    launch spans of utils/spans.py (a wrapper call that launches counts
+    once, whatever its kernels and memsets)."""
+    c = spans.counts()
+    return {name[len(spans.KERNEL_PREFIX):]: c[name] for name in spans.KERNELS}
 
 
 def _timed(fn, args, dev: torch.device):
@@ -215,36 +198,40 @@ def _route(mode: str, requested: str, build_keys: np.ndarray,
     (db.adaptive_wins) say so, a chunked count included (each chunk
     rebuilds the bitmap; the gates see a chunk's rows), but not a chunked
     materialize, which stays partitioned (JAX api.py:108-110)."""
-    nb = build_keys.shape[0]
-    strategy, probe_chunks = requested, 1
-    if requested in ("adaptive", "partitioned"):
-        plan = choose_plan(nb, npr, DEFAULT_CONFIG, mode,
-                           hbm_budget_bytes(dev))
-        probe_chunks = plan.probe_chunks
-        if requested == "adaptive":
-            strategy = plan.strategy
-    rung, narrow_values = 0, False
-    chunked_materialize = mode == "materialize" and probe_chunks > 1
-    if requested == "direct" or (requested == "adaptive"
-                                 and not chunked_materialize):
-        rung, narrow_values = _dense_rung(mode, build_keys, build_values)
-        # the measured gates (ops/direct_bitmap.py) hold adaptive alone; a
-        # chunked count gates on the rows of one chunk (JAX api.py:117)
-        if rung and requested == "adaptive" and not db.adaptive_wins(
-                mode, nb, -(-npr // probe_chunks), _span(build_keys),
-                narrow_values):
-            rung, narrow_values = 0, False
-        if rung:
-            strategy = "direct"
-        elif requested == "direct":
-            raise ValueError(
-                "direct strategy requires build keys < 2^32 with a dense "
-                f"domain (count: span <= {db.MAX_XL_DOMAIN_BITS} slots; "
-                f"materialize: at most {db.MAX_BUILD_ROWS} build rows, span "
-                f"<= {db.MAT_MAX_V_ROWS * db.LANES} slots) (got nb={nb}, max "
-                f"{int(build_keys.max())}, min {int(build_keys.min())})")
-    return _Route(mode, strategy, rung, narrow_values, probe_chunks,
-                  use_bloom, nb)
+    with spans.span(spans.API_ROUTE):
+        nb = build_keys.shape[0]
+        strategy, probe_chunks = requested, 1
+        if requested in ("adaptive", "partitioned"):
+            plan = choose_plan(nb, npr, DEFAULT_CONFIG, mode,
+                               hbm_budget_bytes(dev))
+            probe_chunks = plan.probe_chunks
+            if requested == "adaptive":
+                strategy = plan.strategy
+        rung, narrow_values = 0, False
+        chunked_materialize = mode == "materialize" and probe_chunks > 1
+        if requested == "direct" or (requested == "adaptive"
+                                     and not chunked_materialize):
+            rung, narrow_values = _dense_rung(mode, build_keys, build_values)
+            # the measured gates (ops/direct_bitmap.py) hold adaptive
+            # alone; a chunked count gates on the rows of one chunk (JAX
+            # api.py:117)
+            if rung and requested == "adaptive" and not db.adaptive_wins(
+                    mode, nb, -(-npr // probe_chunks), _span(build_keys),
+                    narrow_values):
+                rung, narrow_values = 0, False
+            if rung:
+                strategy = "direct"
+            elif requested == "direct":
+                raise ValueError(
+                    "direct strategy requires build keys < 2^32 with a "
+                    "dense domain (count: span <= "
+                    f"{db.MAX_XL_DOMAIN_BITS} slots; materialize: at most "
+                    f"{db.MAX_BUILD_ROWS} build rows, span <= "
+                    f"{db.MAT_MAX_V_ROWS * db.LANES} slots) (got nb={nb}, "
+                    f"max {int(build_keys.max())}, min "
+                    f"{int(build_keys.min())})")
+        return _Route(mode, strategy, rung, narrow_values, probe_chunks,
+                      use_bloom, nb)
 
 
 def _info(route: _Route, strategy: str, retried: bool, npr: int,
@@ -258,11 +245,12 @@ def _info(route: _Route, strategy: str, retried: bool, npr: int,
 
 
 def _maybe_profile(dev: torch.device):
-    """A torch.profiler trace around the timed call when FHJ_PROFILE_DIR
-    is set (port of flash_hash_join_tpu/api.py:_maybe_profile): CPU
-    activity, and CUDA kernels on a card, written into that directory as
-    a Chrome trace (<host>_<pid>.<time>.pt.trace.json) when the call
-    returns."""
+    """A torch.profiler trace around the whole public call when
+    FHJ_PROFILE_DIR is set (port of flash_hash_join_tpu/api.py:
+    _maybe_profile): CPU activity, and CUDA kernels on a card, written into
+    that directory as a Chrome trace (<host>_<pid>.<time>.pt.trace.json)
+    when the call returns.  The trace shows the spans of utils/spans.py:
+    routing, the copies, each join and tier, the read-back."""
     trace_dir = os.environ.get("FHJ_PROFILE_DIR")
     if not trace_dir:
         return contextlib.nullcontext()
@@ -295,14 +283,14 @@ def _execute(route: _Route, build_keys, build_values, probe_keys, *,
                             arrays=arrays, dev=dev, before=before)
     fits = True
     try:
-        args = [*u64.device_planes(build_keys, dev),
-                *u64.device_planes(build_values, dev),
-                *u64.device_planes(probe_keys, dev), route.nb, npr]
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        with spans.span(spans.API_H2D):
+            args = [*u64.device_planes(build_keys, dev),
+                    *u64.device_planes(build_values, dev),
+                    *u64.device_planes(probe_keys, dev), route.nb, npr]
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         fn = route.fn()
-        with _maybe_profile(dev):
-            out, count, bad, core_seconds = _timed(fn, args, dev)
+        out, count, bad, core_seconds = _timed(fn, args, dev)
     except torch.cuda.OutOfMemoryError:
         # The feasibility constants are calibrated, not guaranteed: a
         # single-shot partitioned run that still runs out of memory streams
@@ -322,8 +310,11 @@ def _execute(route: _Route, build_keys, build_values, probe_keys, *,
         strategy = "merge"
         fn = route.fn("merge")
         out, count, _, core_seconds = _timed(fn, args, dev)
-    rows = ((u64.to_numpy_u64(out[1], out[2], count),
-             u64.to_numpy_u64(out[3], out[4], count)) if arrays else None)
+    rows = None
+    if arrays:
+        with spans.span(spans.API_READBACK):
+            rows = (u64.to_numpy_u64(out[1], out[2], count),
+                    u64.to_numpy_u64(out[3], out[4], count))
     return (count, core_seconds, rows,
             _info(route, strategy, retried, npr, before, 1), (fn, args))
 
@@ -428,7 +419,7 @@ class _Chunks:
             for o in out[1:5]:
                 o.record_stream(self.copy)
             on_copy = torch.cuda.stream(self.copy)
-        with on_copy:
+        with on_copy, spans.span(spans.API_READBACK):
             return (u64.to_numpy_u64(out[1], out[2], count),
                     u64.to_numpy_u64(out[3], out[4], count))
 
@@ -451,8 +442,9 @@ def _stream_chunks(route: _Route, build_keys, build_values, probe_keys, *,
     nb, npr = route.nb, probe_keys.shape[0]
     chunk = -(-npr // route.probe_chunks)
     fn = route.fn()
-    build = [*u64.device_planes(build_keys, dev),
-             *u64.device_planes(build_values, dev)]
+    with spans.span(spans.API_H2D):
+        build = [*u64.device_planes(build_keys, dev),
+                 *u64.device_planes(build_values, dev)]
     chunks = _Chunks(probe_keys, chunk, dev)
     total, core, retried = 0, 0.0, False
     keys, vals = [], []
@@ -480,16 +472,19 @@ def _stream_chunks(route: _Route, build_keys, build_values, probe_keys, *,
     t0 = time.perf_counter()
     pending = []
     for k, i in enumerate(range(0, npr, chunk)):
-        ph, pl = chunks.put(k, i)
-        if not overlap:
-            out, count, bad, secs = _timed(fn, [*build, ph, pl, nb,
-                                                ph.numel()], dev)
-            add(ph, pl, out, count, bad, None, secs)
-            continue
-        out = fn(*build, ph, pl, nb, ph.numel())
-        pending.append((ph, pl, out, chunks.scalars(out[0], out[-1][3])))
-        if len(pending) == 2:
-            drain(*pending.pop(0))
+        with spans.span(spans.API_CHUNK):
+            with spans.span(spans.API_H2D):
+                ph, pl = chunks.put(k, i)
+            if not overlap:
+                out, count, bad, secs = _timed(fn, [*build, ph, pl, nb,
+                                                    ph.numel()], dev)
+                add(ph, pl, out, count, bad, None, secs)
+                continue
+            out = fn(*build, ph, pl, nb, ph.numel())
+            pending.append((ph, pl, out, chunks.scalars(out[0],
+                                                        out[-1][3])))
+            if len(pending) == 2:
+                drain(*pending.pop(0))
     for p in pending:
         drain(*p)
     if overlap:
@@ -526,10 +521,12 @@ def _run_join(build_keys, build_values, probe_keys, *, mode: str,
         empty = np.zeros(0, np.uint64)
         result = (0, 0.0) + ((empty, empty) if arrays else ())
         return result + (None,) if return_info else result
-    route = _route(mode, strategy, build_keys, build_values, npr, use_bloom,
-                   dev)
-    count, core_seconds, rows, info, _ = _execute(
-        route, build_keys, build_values, probe_keys, arrays=arrays, dev=dev)
+    with _maybe_profile(dev):
+        route = _route(mode, strategy, build_keys, build_values, npr,
+                       use_bloom, dev)
+        count, core_seconds, rows, info, _ = _execute(
+            route, build_keys, build_values, probe_keys, arrays=arrays,
+            dev=dev)
     result = (count, core_seconds) + (rows if arrays else ())
     return result + (info,) if return_info else result
 
@@ -700,20 +697,22 @@ def measure_device_seconds(build_keys, build_values, probe_keys, *,
     npr = probe_keys.shape[0]
     if build_keys.shape[0] == 0 or npr == 0:
         return 0, 0.0, 0.0, False
-    route = _route(mode, strategy, build_keys, build_values, npr, use_bloom,
-                   dev)
-    count, single, _, _, resident = _execute(
-        route, build_keys, build_values, probe_keys, arrays=False, dev=dev)
-    if resident is None:
-        return count, single, single, False
-    fn, args = resident
-    best = single
-    for _ in range(number):
-        _, again, _, secs = _timed(fn, args, dev)
-        if again != count:
-            raise RuntimeError(f"a timed call counted {again}, the first "
-                               f"{count}")
-        best = min(best, secs)
+    with _maybe_profile(dev):
+        route = _route(mode, strategy, build_keys, build_values, npr,
+                       use_bloom, dev)
+        count, single, _, _, resident = _execute(
+            route, build_keys, build_values, probe_keys, arrays=False,
+            dev=dev)
+        if resident is None:
+            return count, single, single, False
+        fn, args = resident
+        best = single
+        for _ in range(number):
+            _, again, _, secs = _timed(fn, args, dev)
+            if again != count:
+                raise RuntimeError(f"a timed call counted {again}, the "
+                                   f"first {count}")
+            best = min(best, secs)
     return count, best, single, False
 
 

@@ -19,7 +19,9 @@ Every function takes (kh, kl, vh, vl, ph, pl, nb_valid, np_valid).  A
 count function returns (count, special4); a materialize function returns
 (count, out_kh, out_kl, out_vh, out_vl, special4), the matched rows first.
 special[3] != 0 means the strategy dropped build rows; the caller MUST
-rerun on "merge", which is always exact.
+rerun on "merge", which is always exact.  Each call of a returned function
+is one fhj.join span (utils/spans.py), whoever calls it: the public API,
+its chunk stream, the benchmark.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from flash_hash_join_tpu_torch.ops import direct_bitmap as db
 from flash_hash_join_tpu_torch.ops import hash_table as ht
 from flash_hash_join_tpu_torch.ops import merge_join as mj
 from flash_hash_join_tpu_torch.ops import range_table as rt
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG, JoinConfig
 
 
@@ -85,6 +88,14 @@ def global_materialize_graph(kh, kl, vh, vl, ph, pl, nb_valid, np_valid, *,
             table.special)
 
 
+def _join(fn):
+    """fn, each call one fhj.join span."""
+    def join(*args, **kwargs):
+        with spans.span(spans.JOIN):
+            return fn(*args, **kwargs)
+    return join
+
+
 def _explicit_tier(mode: str, strategy: str, n_build: int, use_bloom: bool):
     cfg = DEFAULT_CONFIG
     if strategy == "vmem":
@@ -104,12 +115,12 @@ def count_graph(strategy: str, d_rows: int = 0, *, n_build: int = 0,
     """The count function of a strategy; d_rows is the direct rung,
     n_build and use_bloom size the explicit tiers."""
     if strategy == "direct":
-        return functools.partial(direct_count_graph, d_rows=d_rows)
+        return _join(functools.partial(direct_count_graph, d_rows=d_rows))
     if strategy == "partitioned":
-        return rt.range_join_count
+        return _join(rt.range_join_count)
     if strategy == "merge":
-        return merge_count_graph
-    return _explicit_tier("count", strategy, n_build, use_bloom)
+        return _join(merge_count_graph)
+    return _join(_explicit_tier("count", strategy, n_build, use_bloom))
 
 
 def materialize_graph(strategy: str, v_rows: int = 0,
@@ -119,10 +130,12 @@ def materialize_graph(strategy: str, v_rows: int = 0,
     narrow_values drops the direct value planes' hi word, n_build and
     use_bloom size the explicit tiers."""
     if strategy == "direct":
-        return functools.partial(db.direct_join_materialize, v_rows=v_rows,
-                                 narrow_values=narrow_values)
+        return _join(functools.partial(db.direct_join_materialize,
+                                       v_rows=v_rows,
+                                       narrow_values=narrow_values))
     if strategy == "partitioned":
-        return rt.range_join_materialize
+        return _join(rt.range_join_materialize)
     if strategy == "merge":
-        return merge_materialize_graph
-    return _explicit_tier("materialize", strategy, n_build, use_bloom)
+        return _join(merge_materialize_graph)
+    return _join(_explicit_tier("materialize", strategy, n_build,
+                                use_bloom))

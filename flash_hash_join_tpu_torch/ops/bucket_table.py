@@ -25,6 +25,7 @@ from flash_hash_join_tpu_torch.ops import hash_table as ht
 from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
 from flash_hash_join_tpu_torch.ops.cuda import bucket_probe as bp
 from flash_hash_join_tpu_torch.ops.segmented import cummax
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.config import next_pow2
 from flash_hash_join_tpu_torch.utils.u64 import MASK32, narrow, widen
 
@@ -108,12 +109,13 @@ def _probe_is_max(ph, pl, np_valid: int) -> torch.Tensor:
 def bucket_join_count(kh, kl, vh, vl, ph, pl, nb_valid: int, np_valid: int,
                       *, r_slots: int, pre_shift: int = 0):
     """Fused build + probe count (K10).  Returns (count, special4)."""
-    table = build_bucket_table(kh, kl, vh, vl, nb_valid, r_slots=r_slots,
-                               with_values=False, pre_shift=pre_shift)
-    count = bp.probe_count_vmem(table.tk_hi, table.tk_lo, ph, pl, np_valid,
-                                pre_shift)
-    sp = _probe_is_max(ph, pl, np_valid).sum() * table.special[0]
-    return count + sp, table.special
+    with spans.span(spans.VMEM):
+        table = build_bucket_table(kh, kl, vh, vl, nb_valid, r_slots=r_slots,
+                                   with_values=False, pre_shift=pre_shift)
+        count = bp.probe_count_vmem(table.tk_hi, table.tk_lo, ph, pl,
+                                    np_valid, pre_shift)
+        sp = _probe_is_max(ph, pl, np_valid).sum() * table.special[0]
+        return count + sp, table.special
 
 
 def bucket_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
@@ -122,15 +124,16 @@ def bucket_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     """Fused build + probe materialize (K11, then K5): (count, out_kh,
     out_kl, out_vh, out_vl, special4), the matched rows first in probe
     order."""
-    table = build_bucket_table(kh, kl, vh, vl, nb_valid, r_slots=r_slots,
-                               with_values=True, pre_shift=pre_shift)
-    hit, mvh, mvl = bp.probe_materialize_vmem(
-        table.tk_hi, table.tk_lo, table.tv_hi, table.tv_lo, ph, pl, np_valid,
-        pre_shift)
-    is_max = _probe_is_max(ph, pl, np_valid)
-    max_vh, max_vl = narrow(table.special[1:3])
-    hit |= is_max & (table.special[0] > 0)
-    count, outs = compact_by_mask(hit, (ph, pl,
-                                        torch.where(is_max, max_vh, mvh),
-                                        torch.where(is_max, max_vl, mvl)))
-    return (count, *outs, table.special)
+    with spans.span(spans.VMEM):
+        table = build_bucket_table(kh, kl, vh, vl, nb_valid, r_slots=r_slots,
+                                   with_values=True, pre_shift=pre_shift)
+        hit, mvh, mvl = bp.probe_materialize_vmem(
+            table.tk_hi, table.tk_lo, table.tv_hi, table.tv_lo, ph, pl,
+            np_valid, pre_shift)
+        is_max = _probe_is_max(ph, pl, np_valid)
+        max_vh, max_vl = narrow(table.special[1:3])
+        hit |= is_max & (table.special[0] > 0)
+        count, outs = compact_by_mask(hit, (ph, pl,
+                                            torch.where(is_max, max_vh, mvh),
+                                            torch.where(is_max, max_vl, mvl)))
+        return (count, *outs, table.special)

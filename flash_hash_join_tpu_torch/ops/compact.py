@@ -18,6 +18,7 @@ import os
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import narrow
 
 LANES = 128
@@ -52,7 +53,7 @@ def compact_by_mask_stream(mask: torch.Tensor, cols, n_out: int | None = None,
     stream_compact.py:compact_by_mask_stream): stream_blocks moves each
     block's hits to its front, then K6 concatenates the blocks' prefixes;
     the count is K6's total.  mask: bool; cols: int32 planes of the mask's
-    length.  Same result as compact_by_mask."""
+    length.  Same result as compact_by_mask, which spans it."""
     n_out = mask.numel() if n_out is None else n_out
     planes, counts = stream_blocks(mask, cols, n_out, block_rows=block_rows)
     total, outs = sc.concat_ragged_blocks(planes, counts, with_total=True)
@@ -63,11 +64,12 @@ def compact_by_mask(mask: torch.Tensor, cols, n_out: int | None = None):
     """Return (count, cols') with the rows where mask is True moved to the
     front of each column, in input order; cols' are int32 planes of n_out
     rows (default: the mask's length), unspecified past count.  count is a
-    0-d int64 tensor."""
-    planes = tuple((narrow(c) if c.dtype == torch.int64 else c).contiguous()
-                   for c in cols)
-    mask = mask.contiguous()
-    n_out = mask.numel() if n_out is None else n_out
-    if os.environ.get("FHJ_COMPACT", "pack") == "pack":
-        return sc.compact_by_mask(mask, planes, n_out)
-    return compact_by_mask_stream(mask, planes, n_out)
+    0-d int64 tensor.  One fhj.compact span (utils/spans.py)."""
+    with spans.span(spans.COMPACT):
+        planes = tuple((narrow(c) if c.dtype == torch.int64 else c)
+                       .contiguous() for c in cols)
+        mask = mask.contiguous()
+        n_out = mask.numel() if n_out is None else n_out
+        if os.environ.get("FHJ_COMPACT", "pack") == "pack":
+            return sc.compact_by_mask(mask, planes, n_out)
+        return compact_by_mask_stream(mask, planes, n_out)

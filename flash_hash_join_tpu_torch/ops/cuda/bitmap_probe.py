@@ -33,6 +33,7 @@ from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.domain_map import (
     BITS_PER_ROW, LANES, build_domain_idx, masked_min, pack_bitmap,
     probe_domain_idx)
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 MAX_D_ROWS = 256                   # 2^20-slot domain cap (128 KB of shared memory)
@@ -153,16 +154,15 @@ def scan_domain_count(kh, kl, ph, pl, nb_valid: int, np_valid: int,
     bitmap = torch.empty((d_rows, LANES), dtype=torch.int32, device=dev)
     scratch = torch.empty(3, dtype=torch.int64, device=dev)  # count, n_bad, lo
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_scan_domain_count(
-        kh.data_ptr(), kl.data_ptr(), nb_valid, ph.data_ptr(), pl.data_ptr(),
-        np_valid, bitmap.data_ptr(), d_rows, scratch.data_ptr(), stream)
-    if nb_valid > 0:
-        scan_domain_count.launches += 1
+    # no kernel runs on an empty build side: memsets only
+    with spans.span(spans.K_SCAN_DOMAIN_COUNT) if nb_valid > 0 \
+            else spans.NONE:
+        err = _build.lib().fhj_scan_domain_count(
+            kh.data_ptr(), kl.data_ptr(), nb_valid, ph.data_ptr(),
+            pl.data_ptr(), np_valid, bitmap.data_ptr(), d_rows,
+            scratch.data_ptr(), stream)
     _build.check(err, "scan_domain_count")
     return scratch[0], scratch[1]
-
-
-scan_domain_count.launches = 0
 
 
 def probe_gather_bitmap_plain(bitmap: torch.Tensor, vplanes, idx: torch.Tensor,
@@ -223,14 +223,11 @@ def probe_gather_bitmap(bitmap, vplanes, ph, pl, np_valid: int, lo,
         return (hit, *outs)
     out_ptrs = [o.data_ptr() for o in outs] + [None]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_scan_domain_gather(
-        bitmap.data_ptr(), vplanes[0].data_ptr(),
-        vplanes[1].data_ptr() if len(vplanes) > 1 else None, v_rows,
-        ph.data_ptr(), pl.data_ptr(), n, np_valid, lo.data_ptr(),
-        hit.data_ptr(), out_ptrs[0], out_ptrs[1], stream)
-    probe_gather_bitmap.launches += 1
+    with spans.span(spans.K_PROBE_GATHER_BITMAP):
+        err = _build.lib().fhj_scan_domain_gather(
+            bitmap.data_ptr(), vplanes[0].data_ptr(),
+            vplanes[1].data_ptr() if len(vplanes) > 1 else None, v_rows,
+            ph.data_ptr(), pl.data_ptr(), n, np_valid, lo.data_ptr(),
+            hit.data_ptr(), out_ptrs[0], out_ptrs[1], stream)
     _build.check(err, "probe_gather_bitmap")
     return (hit, *outs)
-
-
-probe_gather_bitmap.launches = 0

@@ -33,6 +33,7 @@ import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.hashing import hash_u64
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 LANES = 128
@@ -120,16 +121,13 @@ def probe_count_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
         return count[0]
     keys = _keys_scratch(tk_hi)     # read above COUNT_STAGED_MAX_R_SLOTS only
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_bucket_probe_count(
-        tk_hi.data_ptr(), tk_lo.data_ptr(), tk_hi.shape[0], keys.data_ptr(),
-        ph.data_ptr(), pl.data_ptr(), np_valid, pre_shift, count.data_ptr(),
-        stream)
-    probe_count_vmem.launches += 1
+    with spans.span(spans.K_PROBE_COUNT_VMEM):
+        err = _build.lib().fhj_bucket_probe_count(
+            tk_hi.data_ptr(), tk_lo.data_ptr(), tk_hi.shape[0],
+            keys.data_ptr(), ph.data_ptr(), pl.data_ptr(), np_valid,
+            pre_shift, count.data_ptr(), stream)
     _build.check(err, "probe_count_vmem")
     return count[0]
-
-
-probe_count_vmem.launches = 0
 
 
 def _u64_words(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -254,14 +252,11 @@ def probe_materialize_vmem(tk_hi: torch.Tensor, tk_lo: torch.Tensor,
         return hit, vh, vl
     keys, values = _bucket_major_scratch(tk_hi)    # read above R 32 only
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_bucket_probe_materialize(
-        tk_hi.data_ptr(), tk_lo.data_ptr(), tv_hi.data_ptr(),
-        tv_lo.data_ptr(), tk_hi.shape[0], keys.data_ptr(), values.data_ptr(),
-        ph.data_ptr(), pl.data_ptr(), n, np_valid, pre_shift, hit.data_ptr(),
-        vh.data_ptr(), vl.data_ptr(), stream)
-    probe_materialize_vmem.launches += 1
+    with spans.span(spans.K_PROBE_MATERIALIZE_VMEM):
+        err = _build.lib().fhj_bucket_probe_materialize(
+            tk_hi.data_ptr(), tk_lo.data_ptr(), tv_hi.data_ptr(),
+            tv_lo.data_ptr(), tk_hi.shape[0], keys.data_ptr(),
+            values.data_ptr(), ph.data_ptr(), pl.data_ptr(), n, np_valid,
+            pre_shift, hit.data_ptr(), vh.data_ptr(), vl.data_ptr(), stream)
     _build.check(err, "probe_materialize_vmem")
     return hit, vh, vl
-
-
-probe_materialize_vmem.launches = 0

@@ -28,6 +28,7 @@ from flash_hash_join_tpu_torch.ops.cuda.bitmap_probe import (
 from flash_hash_join_tpu_torch.ops.domain_map import (
     BITS_PER_ROW, LANES, build_domain_idx, masked_min, pack_bitmap,
     probe_domain_idx)
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 MAX_D_ROWS = 28672          # the XL rung of ops/direct_bitmap.py (14.7 MB)
@@ -83,13 +84,11 @@ def fused_domain_bitmap_join(kh, kl, ph, pl, nb_valid: int, np_valid: int,
     bitmap = torch.empty((d_rows, LANES), dtype=torch.int32, device=dev)
     scratch = torch.empty(3, dtype=torch.int64, device=dev)  # count, n_bad, lo
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_fused_domain_bitmap_join(
-        kh.data_ptr(), kl.data_ptr(), nb_valid, ph.data_ptr(), pl.data_ptr(),
-        np_valid, bitmap.data_ptr(), d_rows, scratch.data_ptr(), stream)
-    if nb_valid > 0:
-        fused_domain_bitmap_join.launches += 1
+    # no kernel runs on an empty build side: memsets only
+    with spans.span(spans.K_DENSE_BITMAP) if nb_valid > 0 else spans.NONE:
+        err = _build.lib().fhj_fused_domain_bitmap_join(
+            kh.data_ptr(), kl.data_ptr(), nb_valid, ph.data_ptr(),
+            pl.data_ptr(), np_valid, bitmap.data_ptr(), d_rows,
+            scratch.data_ptr(), stream)
     _build.check(err, "fused_domain_bitmap_join")
     return scratch[0], scratch[1]
-
-
-fused_domain_bitmap_join.launches = 0

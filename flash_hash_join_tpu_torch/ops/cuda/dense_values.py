@@ -36,6 +36,7 @@ from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda.bitmap_probe import (
     check_key_planes, check_lo, check_plane, gather_slots)
 from flash_hash_join_tpu_torch.ops.domain_map import LANES, probe_domain_idx
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 MAX_V_ROWS = 8192                  # 2^20 slots, 4 MB per plane
@@ -111,17 +112,14 @@ def probe_gather_staged(bitmap, vplanes, ph, pl, np_valid: int, lo,
         return (hit, *outs)
     out_ptrs = [o.data_ptr() for o in outs] + [None]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_staged_domain_gather(
-        bitmap.data_ptr(), vplanes[0].data_ptr(),
-        vplanes[1].data_ptr() if len(vplanes) > 1 else None, v_rows,
-        ph.data_ptr(), pl.data_ptr(), n, np_valid, lo.data_ptr(),
-        hit.data_ptr(), out_ptrs[0], out_ptrs[1], stream)
-    probe_gather_staged.launches += 1
+    with spans.span(spans.K_PROBE_GATHER_STAGED):
+        err = _build.lib().fhj_staged_domain_gather(
+            bitmap.data_ptr(), vplanes[0].data_ptr(),
+            vplanes[1].data_ptr() if len(vplanes) > 1 else None, v_rows,
+            ph.data_ptr(), pl.data_ptr(), n, np_valid, lo.data_ptr(),
+            hit.data_ptr(), out_ptrs[0], out_ptrs[1], stream)
     _build.check(err, "probe_gather_staged")
     return (hit, *outs)
-
-
-probe_gather_staged.launches = 0
 
 
 def materialize_copy_plain(x: torch.Tensor) -> torch.Tensor:
@@ -144,11 +142,8 @@ def materialize_copy(x: torch.Tensor) -> torch.Tensor:
     if x.numel() == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_materialize_copy(x.data_ptr(), out.data_ptr(),
-                                            x.numel(), stream)
-    materialize_copy.launches += 1
+    with spans.span(spans.K_MATERIALIZE_COPY):
+        err = _build.lib().fhj_materialize_copy(x.data_ptr(), out.data_ptr(),
+                                                x.numel(), stream)
     _build.check(err, "materialize_copy")
     return out
-
-
-materialize_copy.launches = 0

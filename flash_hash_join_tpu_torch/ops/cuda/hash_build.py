@@ -26,13 +26,13 @@ stream of the planes' device, with no host sync.
 
 from __future__ import annotations
 
-import threading
 from typing import NamedTuple
 
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
 from flash_hash_join_tpu_torch.ops.cuda.hash_walk import GROUP_SIZES
+from flash_hash_join_tpu_torch.utils import spans
 
 MAX_GBITS = 30          # 2^30 home groups
 TILE_ROWS = 2048        # rows a tile finished in shared memory (kCap)
@@ -40,7 +40,6 @@ TILE_TARGET = TILE_ROWS * 3 // 4  # rows a tile on average, at most
 MAX_TILE_BITS = 9       # groups a tile: at most 2^9 (kMaxTileBits)
 ONE_LEVEL_BITS = 8      # partition bits one level takes; more go in two
 CHUNK_ROWS = 2048       # rows a partition block stages at a time
-_count_lock = threading.Lock()   # the distributed ranks build a thread a card
 
 
 class Plan(NamedTuple):
@@ -132,19 +131,15 @@ def global_build_table(kh: torch.Tensor, kl: torch.Tensor, vh: torch.Tensor,
         lib = _build.lib()
         scratch = torch.empty(lib.fhj_global_build_scratch_bytes(
             n_valid, gbits, *shape), dtype=torch.uint8, device=dev)
-        err = lib.fhj_global_build(
-            *(q.data_ptr() for q in planes), n_valid, gbits, group_size,
-            ntot, pre_shift, bloom_k,
-            -1 if max_probe_iters is None else max_probe_iters,
-            keys.data_ptr(), vals.data_ptr(), bloom.data_ptr(), bloom.numel(),
-            int(with_bloom), special.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), *shape,
-            torch.cuda.current_stream(dev).cuda_stream)
-        if n_valid:             # no kernel runs on an empty side: memsets only
-            with _count_lock:
-                global_build_table.launches += 1
+        # no kernel runs on an empty side: memsets only
+        with spans.span(spans.K_GLOBAL_BUILD) if n_valid else spans.NONE:
+            err = lib.fhj_global_build(
+                *(q.data_ptr() for q in planes), n_valid, gbits, group_size,
+                ntot, pre_shift, bloom_k,
+                -1 if max_probe_iters is None else max_probe_iters,
+                keys.data_ptr(), vals.data_ptr(), bloom.data_ptr(),
+                bloom.numel(), int(with_bloom), special.data_ptr(),
+                scratch.data_ptr(), scratch.numel(), *shape,
+                torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "global_build_table")
     return keys, vals, bloom, special
-
-
-global_build_table.launches = 0

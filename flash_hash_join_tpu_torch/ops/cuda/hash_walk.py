@@ -39,6 +39,7 @@ from typing import NamedTuple
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
+from flash_hash_join_tpu_torch.utils import spans
 
 GROUP_SIZES = (1, 2, 4, 8, 16, 32)
 L2_BYTES = 50 * 2**20       # the H100's L2, where the card does not say
@@ -202,16 +203,14 @@ def global_walk_count(table, ph: torch.Tensor, pl: torch.Tensor,
         lib = _build.lib()
         plan_args, scratch = _plan_args(lib, dev, n_valid, static, False)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fhj_global_walk_count(
-            table.keys.data_ptr(), *_table_args(table, **static),
-            ph.data_ptr(), pl.data_ptr(), n_valid, count.data_ptr(),
-            None if stats is None else stats.data_ptr(), *plan_args, stream)
-        global_walk_count.launches += 1
+        with spans.span(spans.K_GLOBAL_WALK_COUNT):
+            err = lib.fhj_global_walk_count(
+                table.keys.data_ptr(), *_table_args(table, **static),
+                ph.data_ptr(), pl.data_ptr(), n_valid, count.data_ptr(),
+                None if stats is None else stats.data_ptr(), *plan_args,
+                stream)
         _build.check(err, "global_walk_count")
     return count
-
-
-global_walk_count.launches = 0
 
 
 def global_walk_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
@@ -237,14 +236,12 @@ def global_walk_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
         lib = _build.lib()
         plan_args, scratch = _plan_args(lib, dev, n_valid, static, True)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fhj_global_walk_materialize(
-            table.keys.data_ptr(), table.vals.data_ptr(),
-            *_table_args(table, **static), ph.data_ptr(), pl.data_ptr(), n,
-            n_valid, hit.data_ptr(), vh.data_ptr(), vl.data_ptr(),
-            None if stats is None else stats.data_ptr(), *plan_args, stream)
-        global_walk_materialize.launches += 1
+        with spans.span(spans.K_GLOBAL_WALK_MATERIALIZE):
+            err = lib.fhj_global_walk_materialize(
+                table.keys.data_ptr(), table.vals.data_ptr(),
+                *_table_args(table, **static), ph.data_ptr(), pl.data_ptr(),
+                n, n_valid, hit.data_ptr(), vh.data_ptr(), vl.data_ptr(),
+                None if stats is None else stats.data_ptr(), *plan_args,
+                stream)
         _build.check(err, "global_walk_materialize")
     return hit, vh, vl
-
-
-global_walk_materialize.launches = 0

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import sortable
 
 # Tables of at most this many keys (2 KB, in L1) have no directory: a
@@ -110,15 +111,12 @@ def range_directory(keys: torch.Tensor, p: int, dtype=None):
     dir_ = torch.empty(2**p + 1, dtype=dtype, device=keys.device)
     shift = torch.empty((), dtype=torch.int64, device=keys.device)
     stream = torch.cuda.current_stream(keys.device).cuda_stream
-    err = _build.lib().fhj_range_directory(
-        keys.data_ptr(), nb, p, dir_.data_ptr(), dir_.element_size(),
-        shift.data_ptr(), stream)
-    range_directory.launches += 1
+    with spans.span(spans.K_RANGE_DIRECTORY):
+        err = _build.lib().fhj_range_directory(
+            keys.data_ptr(), nb, p, dir_.data_ptr(), dir_.element_size(),
+            shift.data_ptr(), stream)
     _build.check(err, "range_directory")
     return dir_, shift
-
-
-range_directory.launches = 0
 
 
 def _check(table, planes: dict, np_valid: int) -> torch.device:
@@ -216,15 +214,12 @@ def range_probe_count(table, ph: torch.Tensor, pl: torch.Tensor,
     if table.keys.numel() == 0 or np_valid == 0:
         return count[0]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_range_probe_count(
-        *_table_ptrs(table), ph.data_ptr(), pl.data_ptr(), np_valid,
-        count.data_ptr(), stream)
-    range_probe_count.launches += 1
+    with spans.span(spans.K_RANGE_PROBE_COUNT):
+        err = _build.lib().fhj_range_probe_count(
+            *_table_ptrs(table), ph.data_ptr(), pl.data_ptr(), np_valid,
+            count.data_ptr(), stream)
     _build.check(err, "range_probe_count")
     return count[0]
-
-
-range_probe_count.launches = 0
 
 
 def range_probe_materialize_plain(table, ph, pl, np_valid: int):
@@ -261,12 +256,10 @@ def range_probe_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
     if n == 0:
         return hit, vh, vl
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.lib().fhj_range_probe_materialize(
-        *_table_ptrs(table), values.data_ptr(), ph.data_ptr(), pl.data_ptr(),
-        n, np_valid, hit.data_ptr(), vh.data_ptr(), vl.data_ptr(), stream)
-    range_probe_materialize.launches += 1
+    with spans.span(spans.K_RANGE_PROBE_MATERIALIZE):
+        err = _build.lib().fhj_range_probe_materialize(
+            *_table_ptrs(table), values.data_ptr(), ph.data_ptr(),
+            pl.data_ptr(), n, np_valid, hit.data_ptr(), vh.data_ptr(),
+            vl.data_ptr(), stream)
     _build.check(err, "range_probe_materialize")
     return hit, vh, vl
-
-
-range_probe_materialize.launches = 0

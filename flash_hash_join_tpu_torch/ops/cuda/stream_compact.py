@@ -22,16 +22,13 @@ offset, in whole 16-byte stores.
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
+from flash_hash_join_tpu_torch.utils import spans
 
 MAX_PLANES = 4
 TILE_ROWS = 8192        # mask rows a K5 tile: fhj_compact_tile_rows()
-# the distributed tier launches K5 from a thread a card (parallel/mesh.py)
-_count_lock = threading.Lock()
 
 
 def _check(mask: torch.Tensor, cols, n_out: int) -> torch.device:
@@ -84,17 +81,13 @@ def compact_by_mask(mask: torch.Tensor, cols, n_out: int):
     scratch = torch.empty(n // TILE_ROWS + 4, dtype=torch.int64, device=dev)
     ptrs = [c.data_ptr() for c in cols] + [None] * (MAX_PLANES - len(cols))
     out_ptrs = [o.data_ptr() for o in outs] + [None] * (MAX_PLANES - len(cols))
-    err = _build.lib().fhj_compact_by_mask(
-        mask.data_ptr(), n, len(cols), *ptrs, *out_ptrs, n_out,
-        scratch.data_ptr(), scratch.numel(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    with _count_lock:
-        compact_by_mask.launches += 1
+    with spans.span(spans.K_COMPACT):
+        err = _build.lib().fhj_compact_by_mask(
+            mask.data_ptr(), n, len(cols), *ptrs, *out_ptrs, n_out,
+            scratch.data_ptr(), scratch.numel(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "compact_by_mask")
     return scratch[0], outs
-
-
-compact_by_mask.launches = 0
 
 
 def _check_blocks(planes, counts) -> torch.device:
@@ -163,13 +156,10 @@ def concat_ragged_blocks(planes, counts: torch.Tensor, *,
     scratch = torch.empty(nblocks + 2, dtype=torch.int64, device=dev)
     ptrs = [p.data_ptr() for p in planes] + [None] * (MAX_PLANES - len(planes))
     out_ptrs = [o.data_ptr() for o in outs] + [None] * (MAX_PLANES - len(outs))
-    err = _build.lib().fhj_concat_ragged_blocks(
-        counts.data_ptr(), counts.element_size(), nblocks, block_elems,
-        len(planes), *ptrs, *out_ptrs, scratch.data_ptr(), scratch.numel(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    concat_ragged_blocks.launches += 1
+    with spans.span(spans.K_CONCAT_RAGGED_BLOCKS):
+        err = _build.lib().fhj_concat_ragged_blocks(
+            counts.data_ptr(), counts.element_size(), nblocks, block_elems,
+            len(planes), *ptrs, *out_ptrs, scratch.data_ptr(),
+            scratch.numel(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "concat_ragged_blocks")
     return (scratch[0], outs) if with_total else outs
-
-
-concat_ragged_blocks.launches = 0

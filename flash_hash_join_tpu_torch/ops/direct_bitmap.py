@@ -71,6 +71,7 @@ from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
 from flash_hash_join_tpu_torch.ops.cuda import bitmap_probe as bp
 from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import widen
 
 LANES = bp.LANES
@@ -231,9 +232,10 @@ def direct_join_count(kh, kl, ph, pl, nb_valid: int, np_valid: int, *,
     if d_rows > bp.MAX_D_ROWS:
         return direct_join_count_large(kh, kl, ph, pl, nb_valid, np_valid,
                                        d_rows=d_rows)
-    count, n_bad = bp.scan_domain_count(kh, kl, ph, pl, nb_valid, np_valid,
-                                        d_rows)
-    return count, _special(n_bad)
+    with spans.span(spans.DIRECT):
+        count, n_bad = bp.scan_domain_count(kh, kl, ph, pl, nb_valid,
+                                            np_valid, d_rows)
+        return count, _special(n_bad)
 
 
 def direct_join_count_large(kh, kl, ph, pl, nb_valid: int, np_valid: int, *,
@@ -242,9 +244,10 @@ def direct_join_count_large(kh, kl, ph, pl, nb_valid: int, np_valid: int, *,
     which maps the key planes to domain indices inside the kernel.  Same
     (count, special4) contract as direct_join_count; lo is the min over
     valid rows with a zero hi-word."""
-    count, n_bad = dbm.fused_domain_bitmap_join(kh, kl, ph, pl, nb_valid,
-                                                np_valid, d_rows)
-    return count, _special(n_bad)
+    with spans.span(spans.DIRECT):
+        count, n_bad = dbm.fused_domain_bitmap_join(kh, kl, ph, pl, nb_valid,
+                                                    np_valid, d_rows)
+        return count, _special(n_bad)
 
 
 def _dense_value_planes(kh, kl, vh, vl, nb_valid: int, *, v_rows: int,
@@ -293,17 +296,19 @@ def direct_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     if not 8 <= v_rows <= MAT_MAX_V_ROWS or v_rows & (v_rows - 1):
         raise ValueError(f"v_rows must be a power of two in [8, "
                          f"{MAT_MAX_V_ROWS}], got {v_rows}")
-    lo, n_bad, bidx, planes = _dense_value_planes(
-        kh, kl, vh, vl, nb_valid, v_rows=v_rows, narrow_values=narrow_values)
-    # the occupied slots as a bitmap: K7's 8 rows, or K8's v_rows // 32
-    d_rows = max(bp.GATHER_D_ROWS, v_rows // 32)
-    bitmap = dm.pack_bitmap(bidx, d_rows)
-    if v_rows <= MAT_SCAN_MAX_V_ROWS:
-        hit, *vals = bp.probe_gather_bitmap(bitmap, planes, ph, pl, np_valid,
-                                            lo, v_rows)
-    else:
-        hit, *vals = dv.probe_gather_staged(bitmap, planes, ph, pl, np_valid,
-                                            lo, v_rows)
+    with spans.span(spans.DIRECT):
+        lo, n_bad, bidx, planes = _dense_value_planes(
+            kh, kl, vh, vl, nb_valid, v_rows=v_rows,
+            narrow_values=narrow_values)
+        # the occupied slots as a bitmap: K7's 8 rows, or K8's v_rows // 32
+        d_rows = max(bp.GATHER_D_ROWS, v_rows // 32)
+        bitmap = dm.pack_bitmap(bidx, d_rows)
+        if v_rows <= MAT_SCAN_MAX_V_ROWS:
+            hit, *vals = bp.probe_gather_bitmap(bitmap, planes, ph, pl,
+                                                np_valid, lo, v_rows)
+        else:
+            hit, *vals = dv.probe_gather_staged(bitmap, planes, ph, pl,
+                                                np_valid, lo, v_rows)
     if narrow_values:
         count, (okh, okl, ovl) = compact_by_mask(hit, (ph, pl, *vals))
         ovh = torch.zeros_like(ovl)

@@ -38,6 +38,7 @@ from flash_hash_join_tpu_torch.ops.cuda import hash_build, hash_walk
 from flash_hash_join_tpu_torch.ops.hashing import bloom_word, hash_u64
 from flash_hash_join_tpu_torch.ops.segmented import (cummax, seg_ends,
                                                     segmented_scan)
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import MASK32, narrow, widen
 
 _NEG_LARGE = -(2 ** 30)
@@ -151,10 +152,11 @@ def build_table(kh, kl, vh, vl, n_valid: int, *, gbits: int, group_size: int,
               overflow_groups=overflow_groups, with_bloom=with_bloom,
               bloom_k=bloom_k, pre_shift=pre_shift,
               max_probe_iters=max_probe_iters)
-    if kh.device.type == "cuda":
-        return HashTable(*hash_build.global_build_table(kh, kl, vh, vl,
-                                                        n_valid, **kw))
-    return build_table_plain(kh, kl, vh, vl, n_valid, **kw)
+    with spans.span(spans.GLOBAL_BUILD):
+        if kh.device.type == "cuda":
+            return HashTable(*hash_build.global_build_table(kh, kl, vh, vl,
+                                                            n_valid, **kw))
+        return build_table_plain(kh, kl, vh, vl, n_valid, **kw)
 
 
 def build_table_plain(kh, kl, vh, vl, n_valid: int, *, gbits: int,
@@ -342,11 +344,12 @@ def probe_count(table: HashTable, ph, pl, n_valid: int, *, probe_chunk: int,
     probes in probe order, or partitioned by table slice and walked slice
     by slice), no host sync; CPU tensors: the plain walk
     (probe_count_plain)."""
-    if ph.device.type == "cuda":
-        args, kw = _kernel_args(ph, pl, n_valid, static)
-        return hash_walk.global_walk_count(table, *args, **kw)
-    return probe_count_plain(table, ph, pl, n_valid, probe_chunk=probe_chunk,
-                             **static)
+    with spans.span(spans.GLOBAL_WALK):
+        if ph.device.type == "cuda":
+            args, kw = _kernel_args(ph, pl, n_valid, static)
+            return hash_walk.global_walk_count(table, *args, **kw)
+        return probe_count_plain(table, ph, pl, n_valid,
+                                 probe_chunk=probe_chunk, **static)
 
 
 def probe_rows(table: HashTable, ph, pl, n_valid: int, *, probe_chunk: int,
@@ -357,11 +360,12 @@ def probe_rows(table: HashTable, ph, pl, n_valid: int, *, probe_chunk: int,
     CUDA tensors: the walk kernels on ops/cuda/hash_walk.plan's route (a
     partitioned walk's answers put back in probe order on the card); CPU
     tensors: the plain walk (probe_rows_plain)."""
-    if ph.device.type == "cuda":
-        args, kw = _kernel_args(ph, pl, n_valid, static)
-        return hash_walk.global_walk_materialize(table, *args, **kw)
-    return probe_rows_plain(table, ph, pl, n_valid, probe_chunk=probe_chunk,
-                            **static)
+    with spans.span(spans.GLOBAL_WALK):
+        if ph.device.type == "cuda":
+            args, kw = _kernel_args(ph, pl, n_valid, static)
+            return hash_walk.global_walk_materialize(table, *args, **kw)
+        return probe_rows_plain(table, ph, pl, n_valid,
+                                probe_chunk=probe_chunk, **static)
 
 
 def probe_materialize(table: HashTable, ph, pl, n_valid: int, *,

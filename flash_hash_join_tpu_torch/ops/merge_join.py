@@ -23,6 +23,7 @@ import torch
 from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
 from flash_hash_join_tpu_torch.ops.hashing import hash_u64
 from flash_hash_join_tpu_torch.ops.segmented import segmented_scan
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import MASK32, widen
 
 
@@ -90,9 +91,10 @@ def _sorted_runs(kh, kl, vh, vl, ph, pl, nb_valid: int, np_valid: int):
 def merge_join_count(kh, kl, vh, vl, ph, pl, nb_valid: int,
                      np_valid: int) -> torch.Tensor:
     """Exact first-match count; a 0-d int64 tensor on the inputs' device."""
-    probe_match, *_ = _sorted_runs(kh, kl, vh, vl, ph, pl, nb_valid,
-                                   np_valid)
-    return probe_match.sum()
+    with spans.span(spans.MERGE):
+        probe_match, *_ = _sorted_runs(kh, kl, vh, vl, ph, pl, nb_valid,
+                                       np_valid)
+        return probe_match.sum()
 
 
 def merge_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
@@ -101,8 +103,9 @@ def merge_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     compacted to the front (K5 on the card), in (hash, key) order, each
     with the value of its key's minimum build row; int32 bit-pattern planes
     of the probe side's length."""
-    probe_match, chs, cls, bvh, bvl, _ = _sorted_runs(
-        kh, kl, vh, vl, ph, pl, nb_valid, np_valid)
-    count, outs = compact_by_mask(probe_match, (chs, cls, bvh, bvl),
-                                  n_out=ph.shape[0])
-    return (count, *outs)
+    with spans.span(spans.MERGE):
+        probe_match, chs, cls, bvh, bvl, _ = _sorted_runs(
+            kh, kl, vh, vl, ph, pl, nb_valid, np_valid)
+        count, outs = compact_by_mask(probe_match, (chs, cls, bvh, bvl),
+                                      n_out=ph.shape[0])
+        return (count, *outs)

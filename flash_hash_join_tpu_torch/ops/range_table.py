@@ -45,6 +45,7 @@ import torch
 
 from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import sortable
 
 
@@ -75,20 +76,22 @@ def build_range_table(kh, kl, vh, vl, nb_valid: int, *,
     """Sort the first nb_valid build rows by their u64 key (stable), then
     build the bucket directory over the sorted keys if the table needs
     one."""
-    keys, order = torch.sort(sortable(kh[:nb_valid], kl[:nb_valid]),
-                             stable=True)
-    p = rp.directory_bits(nb_valid)
-    dir_, shift = rp.range_directory(keys, p) if p else (None, None)
-    values = (torch.stack((vh[:nb_valid], vl[:nb_valid]), 1)[order]
-              if with_values else None)
-    return RangeTable(keys, values, dir_, shift)
+    with spans.span(spans.PARTITIONED_BUILD):
+        keys, order = torch.sort(sortable(kh[:nb_valid], kl[:nb_valid]),
+                                 stable=True)
+        p = rp.directory_bits(nb_valid)
+        dir_, shift = rp.range_directory(keys, p) if p else (None, None)
+        values = (torch.stack((vh[:nb_valid], vl[:nb_valid]), 1)[order]
+                  if with_values else None)
+        return RangeTable(keys, values, dir_, shift)
 
 
 def range_join_count(kh, kl, vh, vl, ph, pl, nb_valid: int, np_valid: int):
     """Fused build + probe count.  Returns (count, special4), 0-d and (4,)
     int64 tensors; special is all zeros (never unresolved)."""
     table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=False)
-    count = rp.range_probe_count(table, ph, pl, np_valid)
+    with spans.span(spans.PARTITIONED_PROBE):
+        count = rp.range_probe_count(table, ph, pl, np_valid)
     return count, _no_special(count.device)
 
 
@@ -116,12 +119,13 @@ def range_join_count_chunked(kh, kl, vh, vl, ph, pl, nb_valid: int,
     if not 0 <= np_valid <= n:
         raise ValueError(f"np_valid must be in [0, {n}], got {np_valid}")
     table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=False)
-    count = torch.zeros((), dtype=torch.int64, device=table.keys.device)
-    per_chunk = max(-(-n // n_chunks), 1)
-    for base in range(0, np_valid, per_chunk):
-        end = base + per_chunk
-        count += rp.range_probe_count(table, ph[base:end], pl[base:end],
-                                      min(per_chunk, np_valid - base))
+    with spans.span(spans.PARTITIONED_PROBE):
+        count = torch.zeros((), dtype=torch.int64, device=table.keys.device)
+        per_chunk = max(-(-n // n_chunks), 1)
+        for base in range(0, np_valid, per_chunk):
+            end = base + per_chunk
+            count += rp.range_probe_count(table, ph[base:end], pl[base:end],
+                                          min(per_chunk, np_valid - base))
     return count, _no_special(count.device)
 
 
@@ -131,6 +135,7 @@ def range_join_materialize(kh, kl, vh, vl, ph, pl, nb_valid: int,
     out_vl, special4).  The matched rows come first in probe order; the
     planes are int32 bit patterns of the probe side's length."""
     table = build_range_table(kh, kl, vh, vl, nb_valid, with_values=True)
-    hit, mvh, mvl = rp.range_probe_materialize(table, ph, pl, np_valid)
+    with spans.span(spans.PARTITIONED_PROBE):
+        hit, mvh, mvl = rp.range_probe_materialize(table, ph, pl, np_valid)
     count, outs = compact_by_mask(hit, (ph, pl, mvh, mvl))
     return (count, *outs, _no_special(count.device))

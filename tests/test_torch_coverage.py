@@ -12,7 +12,9 @@ does not resolve, or a "never_called" name that gains a caller fails here.
 
 import ast
 import importlib
+import inspect
 import pathlib
+import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 JAX_PKG = ROOT / "flash_hash_join_tpu"
@@ -192,19 +194,34 @@ def test_every_public_jax_name_has_an_entry():
         "ops.range_table:range_join_count_chunked")
 
 
+def _launch_spans(fn) -> set:
+    """The launch spans (utils/spans.py's K_* names) a wrapper opens."""
+    from flash_hash_join_tpu_torch.utils import spans
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    return {getattr(spans, n.attr) for n in ast.walk(tree)
+            if isinstance(n, ast.Attribute) and isinstance(n.value, ast.Name)
+            and n.value.id == "spans" and n.attr.startswith("K_")}
+
+
 def test_every_counterpart_resolves_and_kernels_map_to_wrappers():
     for key, entry in COVERAGE.items():
         target = _target(entry)
         if target:
             assert callable(_resolve(target)), key
-    # each TPU kernel maps to a CUDA wrapper that counts its launches
+    # each TPU kernel maps to a CUDA wrapper that counts its launches: one
+    # launch span of its own, a key of launch_counts()
+    from flash_hash_join_tpu_torch.utils import spans
     pallas = _pallas_functions()
     assert len(pallas) == 11
+    launch_spans = set()
     for key in pallas:
         target = _target(COVERAGE[key])
         assert target.startswith("ops.cuda."), key
-        assert isinstance(_resolve(target).launches, int), key
+        opened = _launch_spans(_resolve(target))
+        assert len(opened) == 1 and opened <= set(spans.KERNELS), key
+        launch_spans |= opened
     assert len({_target(COVERAGE[k]) for k in pallas}) == 11
+    assert len(launch_spans) == 11
     # a name designed away has no namesake in the port's module of its path
     for key, entry in COVERAGE.items():
         if entry in ("tpu_layout", "window_gate", "xla_compile_cache"):

@@ -87,13 +87,13 @@ def test_scan_domain_count_matches_plain(dev, d_rows):
             for nbv, npv in {(bk.size, npr),
                              (max(bk.size - 5, 0), max(npr - 3, 0))}:
                 args = (kh, kl, ph, pl, nbv, npv, d_rows)
-                before = bp.scan_domain_count.launches
+                before = ft.launch_counts()["scan_domain_count"]
                 got = bp.scan_domain_count(*args)
                 want = bp.scan_domain_count_plain(*args)
                 torch.cuda.synchronize()
                 assert [int(x) for x in got] == [int(x) for x in want], (
                     d_rows, bk.size, npr, offs, nbv, npv)
-                assert bp.scan_domain_count.launches == before + (nbv > 0)
+                assert ft.launch_counts()["scan_domain_count"] == before + (nbv > 0)
                 if hi_under:                    # lo over EVERY valid row
                     assert [int(x) for x in got] != [
                         int(x) for x in dbm.fused_domain_bitmap_join_plain(
@@ -118,13 +118,13 @@ def test_fused_domain_bitmap_join_matches_plain(dev, d_rows):
             for nbv, npv in {(bk.size, npr),
                              (max(bk.size - 5, 0), max(npr - 3, 0))}:
                 args = (kh, kl, ph, pl, nbv, npv, d_rows)
-                before = dbm.fused_domain_bitmap_join.launches
+                before = ft.launch_counts()["dense_bitmap"]
                 got = dbm.fused_domain_bitmap_join(*args)
                 want = dbm.fused_domain_bitmap_join_plain(*args)
                 torch.cuda.synchronize()
                 assert [int(x) for x in got] == [int(x) for x in want], (
                     d_rows, bk.size, npr, offs, nbv, npv)
-                assert dbm.fused_domain_bitmap_join.launches == before + (
+                assert ft.launch_counts()["dense_bitmap"] == before + (
                     nbv > 0)
                 if hi_under:           # lo over the zero-high-word rows
                     assert [int(x) for x in got] != [
@@ -267,11 +267,11 @@ def test_range_directory_kernel_matches_plain(dev, build):
         _build_keys(np.random.default_rng(7), build), dev)))[0]
     for p, dtype in itertools.product((1, 12, rp.MAX_DIR_BITS),
                                       (torch.int32, torch.int64)):
-        before = rp.range_directory.launches
+        before = ft.launch_counts()["range_directory"]
         got = rp.range_directory(keys, p, dtype)
         want = rp.range_directory_plain(keys, p, dtype)
         torch.cuda.synchronize()
-        assert rp.range_directory.launches == before + 1
+        assert ft.launch_counts()["range_directory"] == before + 1
         assert got[0].dtype == dtype
         for g, w in zip(got, want):
             assert torch.equal(g, w), (build, p, dtype)
@@ -292,10 +292,10 @@ def test_range_probe_kernels_match_plain(dev, nb, layout):
         for view, np_valid in (((ph, pl), npr), ((ph[1:], pl[1:]),
                                                  max(npr - 5, 0))):
             args = (*view, min(np_valid, view[0].numel()))
-            before = rp.range_probe_count.launches
+            before = ft.launch_counts()["range_probe_count"]
             got = int(rp.range_probe_count(table, *args))
             assert got == int(rp.range_probe_count_plain(table, *args))
-            assert rp.range_probe_count.launches == before + (
+            assert ft.launch_counts()["range_probe_count"] == before + (
                 nb > 0 and args[-1] > 0)
             got = rp.range_probe_materialize(table, *args)
             want = rp.range_probe_materialize_plain(table, *args)
@@ -318,12 +318,12 @@ def test_range_join_count_chunked_on_card(dev, n_chunks):
     np_valid = npr - per // 2 if n_chunks > 1 else npr - 11
     planes = [*device_planes(bk, dev), *device_planes(bk, dev),
               *device_planes(pk, dev)]
-    k3, dirs = rp.range_probe_count.launches, rp.range_directory.launches
+    k3, dirs = ft.launch_counts()["range_probe_count"], ft.launch_counts()["range_directory"]
     count, special = rt.range_join_count_chunked(*planes, nb, np_valid,
                                                  n_chunks=n_chunks)
     torch.cuda.synchronize()
-    assert rp.range_probe_count.launches - k3 == -(-np_valid // per)
-    assert rp.range_directory.launches - dirs == 1
+    assert ft.launch_counts()["range_probe_count"] - k3 == -(-np_valid // per)
+    assert ft.launch_counts()["range_directory"] - dirs == 1
     assert special.tolist() == [0, 0, 0, 0] and count.dtype == torch.int64
     plain, _ = rt.range_join_count_chunked(*(p.cpu() for p in planes), nb,
                                            np_valid, n_chunks=n_chunks)
@@ -373,10 +373,10 @@ def test_compact_kernel_at_tile_boundaries(dev, n, offset):
     hits = int(bits[offset:].sum())
     for n_out in (n, hits // 2):
         wcount, want = sc.compact_by_mask_plain(mask, cols, n_out)
-        before = sc.compact_by_mask.launches
+        before = ft.launch_counts()["compact"]
         runs = [sc.compact_by_mask(mask, cols, n_out) for _ in range(2)]
         torch.cuda.synchronize()
-        assert sc.compact_by_mask.launches == before + 2
+        assert ft.launch_counts()["compact"] == before + 2
         keep = min(hits, n_out)
         for count, outs in runs:
             assert count.dim() == 0 and count.dtype == torch.int64
@@ -473,9 +473,9 @@ def test_probe_gather_bitmap_matches_plain(dev, v_rows, n_planes,
             ph, pl = offset_plane_views(pk, dev, *offs)
             for npv in {npr, max(npr - 5, 0)}:
                 args = (bitmap, vplanes, ph, pl, npv, lo_t, v_rows)
-                before = bp.probe_gather_bitmap.launches
+                before = ft.launch_counts()["probe_gather_bitmap"]
                 got = bp.probe_gather_bitmap(*args)
-                assert bp.probe_gather_bitmap.launches == before + (npr > 0)
+                assert ft.launch_counts()["probe_gather_bitmap"] == before + (npr > 0)
                 assert not calls, "the kernel's entry mapped on the card"
                 want = bp.probe_gather_bitmap_domain_plain(*args)
                 calls.clear()
@@ -508,11 +508,11 @@ def test_probe_gather_staged_matches_plain(dev, v_rows, n_planes):
                 ph, pl = offset_plane_views(pk, dev, *offs)
                 for npv in {npr, max(npr - 5, 0)}:
                     args = (presence, vplanes, ph, pl, npv, lo_t, v_rows)
-                    before = dv.probe_gather_staged.launches
+                    before = ft.launch_counts()["probe_gather_staged"]
                     got = dv.probe_gather_staged(*args)
                     want = dv.probe_gather_staged_domain_plain(*args)
                     _assert_same(got, want)
-                    assert dv.probe_gather_staged.launches == before + (
+                    assert ft.launch_counts()["probe_gather_staged"] == before + (
                         npr > 0)
 
 
@@ -620,19 +620,19 @@ def test_bucket_probe_kernels_match_plain(dev, r_slots, fill):
         for view in (slice(0, npr), slice(1, None)):    # aligned, misaligned
             p = (ph[view], pl[view])
             for np_valid in {npr, max(npr - 5, 0)}:
-                before = bkp.probe_count_vmem.launches
+                before = ft.launch_counts()["probe_count_vmem"]
                 got = bkp.probe_count_vmem(table.tk_hi, table.tk_lo, *p,
                                            np_valid)
                 want = bkp.probe_count_vmem_plain(table.tk_hi, table.tk_lo,
                                                   *p, np_valid)
                 torch.cuda.synchronize()
                 assert int(got) == int(want), (r_slots, npr, np_valid)
-                assert bkp.probe_count_vmem.launches == before + (
+                assert ft.launch_counts()["probe_count_vmem"] == before + (
                     np_valid > 0)
                 args = (*planes, *p, np_valid)
-                before = bkp.probe_materialize_vmem.launches
+                before = ft.launch_counts()["probe_materialize_vmem"]
                 got = bkp.probe_materialize_vmem(*args)
-                assert bkp.probe_materialize_vmem.launches == before + (
+                assert ft.launch_counts()["probe_materialize_vmem"] == before + (
                     npr > 0)
                 _assert_same(got, bkp.probe_materialize_vmem_plain(*args))
 
@@ -661,12 +661,12 @@ def test_concat_ragged_blocks_matches_plain(dev, n_planes, kind):
                 c = (counts64 if dtype == torch.int64
                      else counts64.clip(-2**31, 2**31 - 1))
                 counts = torch.from_numpy(c).to(dtype).to(dev)
-                before = sc.concat_ragged_blocks.launches
+                before = ft.launch_counts()["concat_ragged_blocks"]
                 got_total, got = sc.concat_ragged_blocks(planes, counts,
                                                          with_total=True)
                 want = sc.concat_ragged_blocks_plain(planes, counts)
                 torch.cuda.synchronize()
-                assert sc.concat_ragged_blocks.launches == before + 1
+                assert ft.launch_counts()["concat_ragged_blocks"] == before + 1
                 assert int(got_total) == total, (nblocks, off, dtype)
                 for g, w in zip(got, want):
                     assert g.numel() == nblocks * block
@@ -771,14 +771,14 @@ def _check_walk_kernels(dev, case, offsets):
     n = ph.numel()
     n_valid = n if case.n_valid is None else case.n_valid
     stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    before = (hw.global_walk_count.launches,
-              hw.global_walk_materialize.launches)
+    before = (ft.launch_counts()["global_walk_count"],
+              ft.launch_counts()["global_walk_materialize"])
     count = hw.global_walk_count(table, ph, pl, n_valid, stats=stats,
                                  **static)
     hit, vh, vl = hw.global_walk_materialize(table, ph, pl, n_valid, **static)
     torch.cuda.synchronize()
-    assert (hw.global_walk_count.launches - before[0],
-            hw.global_walk_materialize.launches - before[1]) == (
+    assert (ft.launch_counts()["global_walk_count"] - before[0],
+            ft.launch_counts()["global_walk_materialize"] - before[1]) == (
                 int(n_valid > 0), int(n > 0))
     ht.walk_stats.reset()
     want = ht.probe_count_plain(table, ph, pl, n_valid, probe_chunk=256,
@@ -857,9 +857,9 @@ def _build_on_card(bk, bv, n_valid, kw, dev, offsets=(0, 0)):
     equal plane by plane; returns the kernel's table."""
     planes = [*offset_plane_views(bk, dev, *offsets),
               *offset_plane_views(bv, dev, *offsets)]
-    before = hb.global_build_table.launches
+    before = ft.launch_counts()["global_build"]
     got = ht.build_table(*planes, n_valid, **kw)
-    assert hb.global_build_table.launches - before == int(
+    assert ft.launch_counts()["global_build"] - before == int(
         min(n_valid, bk.size) > 0)
     want = ht.build_table_plain(*planes, n_valid, **kw)
     torch.cuda.synchronize()
@@ -971,9 +971,9 @@ def test_local_join_builds_equal_the_plain_build(dev, use_bloom):
     bv = np.arange(bk.size, dtype=np.uint64)
     cols = (*device_planes(bk, dev), *device_planes(bv, dev))
     cfg = JoinConfig()
-    before = hb.global_build_table.launches
+    before = ft.launch_counts()["global_build"]
     rank = _LocalJoin(cols, cfg, use_bloom, 2, False)
-    assert hb.global_build_table.launches - before == 1
+    assert ft.launch_counts()["global_build"] - before == 1
     want = ht.build_table_plain(
         *cols, bk.size, gbits=cfg.group_bits(bk.size),
         group_size=cfg.group_size, overflow_groups=cfg.overflow_groups,
@@ -993,10 +993,10 @@ def test_stream_compaction_on_card(dev, monkeypatch):
             for _ in range(4)]
     pack = cp.compact_by_mask(mask, cols)
     monkeypatch.setenv("FHJ_COMPACT", "stream")
-    before = sc.concat_ragged_blocks.launches
+    before = ft.launch_counts()["concat_ragged_blocks"]
     stream = cp.compact_by_mask(mask, cols)
     torch.cuda.synchronize()
-    assert sc.concat_ragged_blocks.launches == before + 1
+    assert ft.launch_counts()["concat_ragged_blocks"] == before + 1
     count = int(pack[0])
     # the count is K6's total, left on the card
     assert stream[0].device.type == "cuda"

@@ -36,6 +36,7 @@ import torch
 
 from flash_hash_join_tpu.ops import hash_table as jht
 from flash_hash_join_tpu.utils import u64 as ju64
+from flash_hash_join_tpu_torch.api import launch_counts
 from flash_hash_join_tpu_torch.models.workload import global_build_cases
 from flash_hash_join_tpu_torch.ops import hash_table as tht
 from flash_hash_join_tpu_torch.ops.cuda import hash_build
@@ -369,6 +370,6 @@ def test_build_kernel_wrapper_refuses_what_it_does_not_take():
     kw = dict(gbits=4, group_size=8, overflow_groups=64, with_bloom=False)
     with pytest.raises(ValueError, match="CUDA tensors"):
         hash_build.global_build_table(*planes, 8, **kw)
-    before = hash_build.global_build_table.launches
+    before = launch_counts()["global_build"]
     tht.build_table(*planes, 8, **kw)                      # the plain build
-    assert hash_build.global_build_table.launches == before
+    assert launch_counts()["global_build"] == before

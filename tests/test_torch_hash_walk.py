@@ -17,6 +17,7 @@ import torch
 
 from flash_hash_join_tpu.ops import hash_table as jht
 from flash_hash_join_tpu.utils import u64 as ju64
+from flash_hash_join_tpu_torch.api import launch_counts
 from flash_hash_join_tpu_torch.models.workload import global_walk_cases
 from flash_hash_join_tpu_torch.ops import hash_table as tht
 from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
@@ -137,8 +138,8 @@ def _check_walks(bk, bv, pk, *, cfg: JoinConfig, gbits: int, use_bloom: bool,
 
     ph, pl = ju64.split_u64(pk)
     tph, tpl = tu64.to_device(ph, "cpu"), tu64.to_device(pl, "cpu")
-    launches = (hw.global_walk_count.launches,
-                hw.global_walk_materialize.launches)
+    launches = (launch_counts()["global_walk_count"],
+                launch_counts()["global_walk_materialize"])
     thit, tvh, tvl = tht.probe_rows(tt, tph, tpl, n_valid,
                                     probe_chunk=probe_chunk, **static)
     np.testing.assert_array_equal(thit.numpy(), hit)
@@ -155,8 +156,8 @@ def _check_walks(bk, bv, pk, *, cfg: JoinConfig, gbits: int, use_bloom: bool,
     np.testing.assert_array_equal(tu64.to_numpy_u64(out[3], out[4], c),
                                   want_vals)
     # CPU tensors take the plain walk: the kernel is never launched
-    assert (hw.global_walk_count.launches,
-            hw.global_walk_materialize.launches) == launches
+    assert (launch_counts()["global_walk_count"],
+            launch_counts()["global_walk_materialize"]) == launches
 
     jargs = (jnp.asarray(ph), jnp.asarray(pl), n_valid)
     assert int(jht.probe_count(jt, *jargs, probe_chunk=probe_chunk,
