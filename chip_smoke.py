@@ -77,7 +77,12 @@ Phases, one JSON line each on stdout:
               group (oversize tiles, timed), then J1 1e8 Q5 and config
               #2, bloom off and on, timed beside its bound, the plain build
               and one stable torch.sort of the sortable build keys, with
-              its peak device bytes.  Then each kernel and its plain version timed (CUDA
+              its peak device bytes; the partitioned tier's table build
+              (csrc/range_build.cu, phase range_build) against the plain
+              build (the torch.sort build), bit for bit, with values and
+              without, on models/workload.range_build_cases and J1 4e7 and
+              1e8 Q5's build sides, printing the passes each build ran,
+              then timed at J1 1e8 Q5.  Then each kernel and its plain version timed (CUDA
               events: a lone call, median of 5 after a warm-up; the kernel
               also over runs of 5 calls back to back) on its path's own
               inputs, beside its bound and, where one PyTorch call computes
@@ -215,7 +220,7 @@ and 8-18 and read just after (the kernels line's launches: phases 3, 4, 8,
 9, 10, 11, 16, 17 and, for K5, the walk and the build, 18).  Then the
 seconds of each phase, the kernels summary (the 11 TPU kernels'
 counterparts, the range table's directory build, the global walk's two
-kernels and the global build: each one's
+kernels, the global build and the range table's build: each one's
 launches on its path, error against its plain
 version, times, bound and library time), the card's name and power
 limit as nvidia-smi prints them, and last {"ok": true, "device": {...}}.
@@ -263,7 +268,9 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             "global_walk_materialize":
                 "flash_hash_join_tpu/ops/hash_table.py:212",
             # the global tier's table build (plain XLA)
-            "global_build": "flash_hash_join_tpu/ops/hash_table.py:74"}
+            "global_build": "flash_hash_join_tpu/ops/hash_table.py:74",
+            # the partitioned tier's table sort (a plain lax.sort)
+            "range_build": "flash_hash_join_tpu/ops/range_table.py"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "dense_bitmap": ("fused_domain_bitmap_join", "dense_bitmap.cu"),
     "scan_domain_count": ("scan_domain_count", "bitmap_probe.cu"),
@@ -279,7 +286,8 @@ KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "probe_materialize_vmem": ("probe_materialize_vmem", "bucket_probe.cu"),
     "global_walk_count": ("global_walk_count", "hash_walk.cu"),
     "global_walk_materialize": ("global_walk_materialize", "hash_walk.cu"),
-    "global_build": ("global_build_table", "hash_build.cu")}
+    "global_build": ("global_build_table", "hash_build.cu"),
+    "range_build": ("range_build", "range_build.cu")}
 # The card's peaks for a kernel's bound (H100 SXM at 700 W): device
 # memory, and the float32 rate outside the tensor cores, taken for
 # integer operations.
@@ -1147,10 +1155,11 @@ def partitioned_cell(phase: str, name: str, c, fn_name: str,
     rows with the same strategy, for a materialize."""
     if not materialize:
         return api_cell(phase, name, c, fn_name, expect="partitioned",
-                        kernels=("range_probe_count",), **kw)
+                        kernels=("range_build", "range_probe_count"), **kw)
     strategy = "adaptive" if fn_name == "adaptive_join" else "partitioned"
     return api_cell(phase, name, c, fn_name, expect="partitioned",
-                    kernels=("range_probe_materialize", "compact"),
+                    kernels=("range_build", "range_probe_materialize",
+                             "compact"),
                     rows_kw=dict(strategy=strategy), **kw)
 
 
@@ -1161,7 +1170,8 @@ def phase_radix(cells: dict) -> dict:
                          "hash_join_radix", materialize=True)
     partitioned_cell("radix", "1e8-Q5", cells["1e8-Q5"],
                      "hash_join_count_radix", materialize=False)
-    return require_launched("radix", ("range_directory", "range_probe_count",
+    return require_launched("radix", ("range_build", "range_directory",
+                                      "range_probe_count",
                                       "range_probe_materialize", "compact"))
 
 
@@ -1894,6 +1904,73 @@ def phase_build_kernels(cells: dict) -> dict:
         other_cells={c: t for c, t in timing.items() if c != "1e8-Q5"})}
 
 
+def phase_range_build(cells: dict) -> dict:
+    """The partitioned table build's kernels == their plain version (the
+    torch.sort build), bit for bit, with values and without, on
+    models/workload.range_build_cases and the build sides of J1 4e7 and
+    1e8 Q5, each with the passes the card took (ops/cuda/range_build.
+    device_plan), which must be the plan of the keys' varying bits; then
+    timed against the plain build and one stable torch.sort of the
+    sortable keys (library_ms) on J1 1e8 Q5's build side."""
+    import torch
+    from flash_hash_join_tpu_torch.models.workload import range_build_cases
+    from flash_hash_join_tpu_torch.ops.cuda import range_build as rb
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes, sortable
+    cases = [(c.name, c.build_keys, c.build_values, c.nb_valid)
+             for c in range_build_cases()]
+    cases += [(q, cells[q].build_keys, cells[q].build_values,
+               len(cells[q].build_keys)) for q in ("4e7-Q5", "1e8-Q5")]
+    err = 0
+    for name, bk, bv, nb in cases:
+        planes = [*device_planes(bk, "cuda"), *device_planes(bv, "cuda")]
+        for with_values in (True, False):
+            got = rb.range_build(*planes, nb, with_values=with_values)
+            want = rb.range_build_plain(*planes, nb, with_values=with_values)
+            same = torch.equal(got[0], want[0]) and (
+                not with_values or torch.equal(got[1], want[1]))
+            err += not same
+            if nb:
+                keys = bk[:nb]
+                want_plan = rb.plan(int(np.bitwise_or.reduce(keys)
+                                        ^ np.bitwise_and.reduce(keys)),
+                                    with_values)
+                plan = rb.device_plan(*planes, nb, with_values=with_values)
+                err += plan != want_plan
+                emit("range_build", case=name, rows=nb,
+                     with_values=with_values, passes=plan.passes,
+                     digits=list(plan.digits),
+                     record_bytes=plan.record_bytes, equal=same)
+            del got, want
+        del planes
+        torch.cuda.empty_cache()
+    require(err == 0, f"range_build: {err} builds differ from the plain "
+            "build or from their plan")
+    c = cells["1e8-Q5"]
+    n = len(c.build_keys)
+    planes = [*device_planes(c.build_keys, "cuda"),
+              *device_planes(c.build_values, "cuda")]
+    timing = {}
+    for with_values in (True, False):
+        t = paired_ms(functools.partial(rb.range_build, *planes, n,
+                                        with_values=with_values),
+                      functools.partial(rb.range_build_plain, *planes, n,
+                                        with_values=with_values))
+        cell = "materialize" if with_values else "count"
+        timing[cell] = dict(
+            **best(t), **bound((32 if with_values else 16) * n, 0),
+            library_ms=cuda_ms(lambda: torch.sort(sortable(*planes[:2]),
+                                                  stable=True)))
+        emit("kernel_time", cell=f"1e8-Q5 {cell}", kernel="range_build",
+             nb=n, runs={k + "_runs": v for k, v in t.items()},
+             **timing[cell])
+    del planes
+    torch.cuda.empty_cache()
+    return {"range_build": dict(
+        max_abs_err=err, **timing["materialize"],
+        at="J1 1e8 Q5's build side, with values",
+        other_cells={"count": timing["count"]})}
+
+
 def phase_vmem(cells: dict) -> dict:
     """The explicit vmem tier: J1 1e8 Q1 (R 16) and 4e7 Q2 (R 512) count
     and materialize, exact, no retry, K10 or K11 + K5; then a build of 1e6
@@ -2562,7 +2639,8 @@ def phase_distributed() -> dict:
     return require_launched("distributed", ("compact", *WALKS, BUILD))
 
 
-HARNESS_KERNELS = ("dense_bitmap", "scan_domain_count", "range_probe_count",
+HARNESS_KERNELS = ("dense_bitmap", "scan_domain_count", "range_build",
+                   "range_probe_count",
                    "range_probe_materialize", "compact", "probe_gather_bitmap",
                    "probe_gather_staged", "probe_count_vmem",
                    "probe_materialize_vmem", *WALKS, BUILD)
@@ -2620,7 +2698,8 @@ def phase_harness(cells: dict) -> dict:
     return require_launched("harness", HARNESS_KERNELS)
 
 
-GATES_KERNELS = ("dense_bitmap", "scan_domain_count", "range_probe_count",
+GATES_KERNELS = ("dense_bitmap", "scan_domain_count", "range_build",
+                 "range_probe_count",
                  "range_probe_materialize", "compact", "probe_gather_bitmap",
                  "probe_gather_staged")
 
@@ -2700,9 +2779,10 @@ def main() -> int:
     summary.update(phase("bucket_kernels", phase_bucket_kernels, cells))
     summary.update(phase("walk_kernels", phase_walk_kernels, cells))
     summary.update(phase("build_kernels", phase_build_kernels, cells))
+    summary.update(phase("range_build", phase_range_build, cells))
     launches, direct_core, main_counts = phase("main", phase_main, cells)
     radix = phase("radix", phase_radix, cells)
-    for k in ("range_directory", "range_probe_count",
+    for k in ("range_build", "range_directory", "range_probe_count",
               "range_probe_materialize", "compact"):
         launches[k] = radix[k]
     phase("adaptive", phase_adaptive, cells)

@@ -11,9 +11,9 @@
 //
 // The table (ops/range_table.py) is the valid build keys as sortable int64
 // (u64 key with its top bit flipped, utils/u64.py:sortable), sorted
-// ascending by torch.sort outside the kernels, as lax.sort is in the JAX
-// package; the values permuted the same way as one interleaved (vh, vl)
-// plane; and, above ops/cuda/range_probe.py:SMALL_TABLE keys, a bucket
+// ascending by the build kernels (range_build.cu), where the JAX package
+// runs a plain lax.sort; the values permuted the same way as one
+// interleaved (vh, vl) plane; and, above ops/cuda/range_probe.py:SMALL_TABLE keys, a bucket
 // directory: bucket b holds the keys whose (u64)(key - keys[0]) >> shift
 // equals b, and dir[b] is the first index at or past bucket b, for b in
 // [0, 2^p] (p >= 1, so 0 <= shift < 64).  Probes stay UNSORTED in input

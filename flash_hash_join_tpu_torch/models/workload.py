@@ -462,3 +462,66 @@ def global_build_cases(seed: int = 0) -> list[BuildCase]:
                       bloom, shift, nv, it)
             for name, bk, bv, c, gb, shift, nv, it in cases
             for bloom in (False, True)]
+
+
+@dataclasses.dataclass(frozen=True)
+class RangeBuildCase:
+    """An edge case of the partitioned tier's table build: the build
+    columns and the valid rows (a prefix of them)."""
+    name: str
+    build_keys: np.ndarray
+    build_values: np.ndarray
+    nb_valid: int
+
+
+def range_build_cases(seed: int = 0) -> list[RangeBuildCase]:
+    """The table build's edge cases (ops/cuda/range_build.py), a few
+    thousand rows each: a J1 draw at this size (join-datagen.R's
+    permutation of 1..1.1n) and 20,000 keys drawn over J1 1e8's 1..1.1e8
+    (27 bits), each with one u64-max key among them too; duplicates whose
+    values are their rows (so the minimum row shows); 2,000 equal keys
+    among 20,000; keys over all 64 bits; high words all at or above 2^31
+    (negative int32 patterns); keys 2^32 - 8 .. 2^32 + 8 across the high
+    word's boundary; keys whose low two digits never vary, and keys that
+    vary in the high word alone (digits skipped below and above a sorted
+    one); all keys equal; valid rows cut short of the planes, the tail
+    holding keys that would sort first; 0, 1, 256 and 257 valid rows; and
+    the edges of the card's tiles (4096 rows, 6144 for a narrow key
+    alone)."""
+    rng = np.random.default_rng(seed)
+    m64 = np.uint64(2**64 - 1)
+
+    def u64(n, lo=0, hi=2**64):
+        return rng.integers(lo, hi, n, dtype=np.uint64)
+
+    def with_max(bk):
+        bk = bk.copy()
+        bk[bk.size // 2] = m64
+        return bk
+
+    j1 = rng.permutation(np.arange(1, 22_001, dtype=np.uint64))[:20_000]
+    j1e8 = u64(20_000, 1, 110_000_001)
+    dup = u64(5_000, 0, 500)
+    equal = u64(20_000, 1, 110_000_001)
+    equal[rng.choice(equal.size, 2_000, replace=False)] = 77_777_777
+    cut = u64(6_000, 1_000, 2**40)
+    cut[5_000:] = 0
+    keys = {
+        "j1": j1, "j1_u64_max": with_max(j1),
+        "j1_1e8_range": j1e8, "j1_1e8_range_u64_max": with_max(j1e8),
+        "duplicates": dup, "equal_2e3_in_2e4": equal,
+        "full_range": u64(20_000), "high_words_negative": u64(20_000, 2**63),
+        "word_boundary": u64(20_000, 2**32 - 8, 2**32 + 9),
+        "low_digits_fixed": u64(20_000, 0, 2**24) << np.uint64(16),
+        "high_word_only": u64(20_000, 0, 2**20) << np.uint64(40),
+        "all_equal": np.full(5_000, 123_456_789_012, np.uint64),
+        "valid_cut": cut,
+    }
+    cases = [RangeBuildCase(name, bk, np.arange(bk.size, dtype=np.uint64)
+                            if name == "duplicates" else u64(bk.size),
+                            5_000 if name == "valid_cut" else bk.size)
+             for name, bk in keys.items()]
+    for nb in (0, 1, 256, 257, 4_095, 4_096, 4_097, 6_144, 12_289):
+        bk = u64(nb + 3, 0, 2**36)
+        cases.append(RangeBuildCase(f"rows_{nb}", bk, u64(bk.size), nb))
+    return cases

@@ -85,6 +85,9 @@ _SIGNATURES = {
     "fhj_global_build": [_P, _P, _P, _P, _I64, _I, _I, _I64, _I, _I, _I, _P,
                          _P, _P, _I64, _I, _P, _P, _I64, _I, _I, _I, _I, _I,
                          _P],
+    # kh, kl, vh, vl, n, with_values, out, buf, scratch, scratch_bytes,
+    # stream
+    "fhj_range_build": [_P, _P, _P, _P, _I64, _I, _P, _P, _P, _I64, _P],
 }
 
 _lock = threading.Lock()
@@ -165,6 +168,8 @@ def lib() -> ctypes.CDLL:
             loaded.fhj_global_walk_scratch_bytes.argtypes = [_I, _I, _I64,
                                                              _I, _I]
             loaded.fhj_global_walk_scratch_bytes.restype = ctypes.c_int64
+            loaded.fhj_range_build_scratch_bytes.argtypes = [_I64]
+            loaded.fhj_range_build_scratch_bytes.restype = ctypes.c_int64
             loaded.fhj_error_string.argtypes = [ctypes.c_int]
             loaded.fhj_error_string.restype = ctypes.c_char_p
             _lib = loaded

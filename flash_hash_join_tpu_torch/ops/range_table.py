@@ -11,12 +11,13 @@ every probe addresses the sorted keys directly (K3/K4,
 ops/cuda/range_probe.py), so the table is just
 
   build: the valid build rows' keys as sortable int64 (utils/u64.py),
-         sorted STABLY by torch.sort (a plain sort outside any kernel, as
-         lax.sort is in the JAX package), the value planes permuted the
-         same way and interleaved as one (vh, vl) plane, and above
-         rp.SMALL_TABLE keys a bucket directory over the sorted keys
-         (range_directory, one thread a bucket): the Hopper form of the
-         TPU table's column boundaries `bnds`;
+         sorted STABLY with their value planes interleaved as one (vh, vl)
+         plane (ops/cuda/range_build.py: on the card a radix sort of the
+         key digits that vary, each record carrying its values; where the
+         JAX package runs a plain lax.sort), and above rp.SMALL_TABLE keys
+         a bucket directory over the sorted keys (range_directory, one
+         thread a bucket): the Hopper form of the TPU table's column
+         boundaries `bnds`;
   probe: unsorted, in input order; per row one directory read, then the
          bucket's few keys (an interpolation guess of the key's sector,
          then a lower bound over what is left); a smaller table, in L1,
@@ -44,9 +45,9 @@ from typing import NamedTuple
 import torch
 
 from flash_hash_join_tpu_torch.ops.compact import compact_by_mask
+from flash_hash_join_tpu_torch.ops.cuda import range_build as rb
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.utils import spans
-from flash_hash_join_tpu_torch.utils.u64 import sortable
 
 
 class RangeTable(NamedTuple):
@@ -73,16 +74,14 @@ def _no_special(dev) -> torch.Tensor:
 
 def build_range_table(kh, kl, vh, vl, nb_valid: int, *,
                       with_values: bool) -> RangeTable:
-    """Sort the first nb_valid build rows by their u64 key (stable), then
-    build the bucket directory over the sorted keys if the table needs
-    one."""
+    """Sort the first nb_valid build rows by their u64 key (stable), with
+    their values where with_values, then build the bucket directory over
+    the sorted keys if the table needs one."""
     with spans.span(spans.PARTITIONED_BUILD):
-        keys, order = torch.sort(sortable(kh[:nb_valid], kl[:nb_valid]),
-                                 stable=True)
+        keys, values = rb.range_build(kh, kl, vh, vl, nb_valid,
+                                      with_values=with_values)
         p = rp.directory_bits(nb_valid)
         dir_, shift = rp.range_directory(keys, p) if p else (None, None)
-        values = (torch.stack((vh[:nb_valid], vl[:nb_valid]), 1)[order]
-                  if with_values else None)
         return RangeTable(keys, values, dir_, shift)
 
 

@@ -24,8 +24,9 @@ The spans, with their parent and what each covers:
                          a function engine.count_graph / materialize_graph
                          returns
   fhj.direct             fhj.join: K1 / K2; the value planes with K7 / K8
-  fhj.partitioned.build  fhj.join: the sortable keys, the stable sort, the
-                         value gather and interleave, the directory
+  fhj.partitioned.build  fhj.join: the table's sorted keys and values
+                         (the build kernel, or the plain sort, stack and
+                         gather) and the directory
   fhj.partitioned.probe  fhj.join: K3 / K4 (a chunked count's loop too)
   fhj.global.build       fhj.join: the global build, kernel or plain
   fhj.global.walk        fhj.join: the global walk, the restore included
@@ -80,6 +81,7 @@ K_CONCAT_RAGGED_BLOCKS = "fhj.k.concat_ragged_blocks"
 K_GLOBAL_WALK_COUNT = "fhj.k.global_walk_count"
 K_GLOBAL_WALK_MATERIALIZE = "fhj.k.global_walk_materialize"
 K_GLOBAL_BUILD = "fhj.k.global_build"
+K_RANGE_BUILD = "fhj.k.range_build"
 
 # the wrappers' launch spans, in launch_counts()'s order
 KERNELS = (K_DENSE_BITMAP, K_SCAN_DOMAIN_COUNT, K_RANGE_PROBE_COUNT,
@@ -87,7 +89,7 @@ KERNELS = (K_DENSE_BITMAP, K_SCAN_DOMAIN_COUNT, K_RANGE_PROBE_COUNT,
            K_PROBE_GATHER_BITMAP, K_PROBE_GATHER_STAGED, K_MATERIALIZE_COPY,
            K_PROBE_COUNT_VMEM, K_PROBE_MATERIALIZE_VMEM,
            K_CONCAT_RAGGED_BLOCKS, K_GLOBAL_WALK_COUNT,
-           K_GLOBAL_WALK_MATERIALIZE, K_GLOBAL_BUILD)
+           K_GLOBAL_WALK_MATERIALIZE, K_GLOBAL_BUILD, K_RANGE_BUILD)
 NAMES = (API_ROUTE, API_H2D, API_CHUNK, API_READBACK, JOIN, DIRECT,
          PARTITIONED_BUILD, PARTITIONED_PROBE, GLOBAL_BUILD, GLOBAL_WALK,
          VMEM, MERGE, COMPACT, *KERNELS)

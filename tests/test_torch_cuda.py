@@ -18,12 +18,13 @@ import itertools
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import flash_hash_join_tpu_torch as ft
 from flash_hash_join_tpu_torch.models.workload import (
-    RAGGED_KINDS, WalkCase, dense_domain_keys, domain_sides,
+    RAGGED_KINDS, RangeBuildCase, WalkCase, dense_domain_keys, domain_sides,
     global_build_cases, global_walk_cases, homed_keys, offset_plane_views,
-    ragged_counts)
+    ragged_counts, range_build_cases)
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import hash_table as ht
@@ -35,6 +36,7 @@ from flash_hash_join_tpu_torch.ops.cuda import dense_bitmap as dbm
 from flash_hash_join_tpu_torch.ops.cuda import dense_values as dv
 from flash_hash_join_tpu_torch.ops.cuda import hash_build as hb
 from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
+from flash_hash_join_tpu_torch.ops.cuda import range_build as rb
 from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
 from flash_hash_join_tpu_torch.ops.cuda import stream_compact as sc
 from flash_hash_join_tpu_torch.utils.config import JoinConfig
@@ -330,6 +332,149 @@ def test_range_join_count_chunked_on_card(dev, n_chunks):
     single, _ = rt.range_join_count(*planes, nb, np_valid)
     assert int(count) == int(plain) == int(single) == int(
         np.isin(pk[:np_valid], bk).sum())
+
+
+# ---- the partitioned tier's table build kernel ---------------------------------
+
+def _varying(keys: np.ndarray) -> int:
+    return int(np.bitwise_or.reduce(keys) ^ np.bitwise_and.reduce(keys))
+
+
+def _range_build_on_card(case, dev, offsets=(0, 0)):
+    """The build kernels' keys and values of a case, with values and
+    without, and the whole table around them, equal bit for bit to the
+    plain build's on the same card planes (key and value planes at word
+    offsets `offsets`); the plan the card took is rb.plan of the keys'
+    varying bits."""
+    planes = [*offset_plane_views(case.build_keys, dev, *offsets),
+              *offset_plane_views(case.build_values, dev, *offsets)]
+    nb = case.nb_valid
+    for with_values in (True, False):
+        before = ft.launch_counts()["range_build"]
+        keys, values = rb.range_build(*planes, nb, with_values=with_values)
+        assert ft.launch_counts()["range_build"] - before == int(nb > 0)
+        want_keys, want_values = rb.range_build_plain(
+            *planes, nb, with_values=with_values)
+        torch.cuda.synchronize()
+        assert keys.dtype == torch.int64 and torch.equal(keys, want_keys)
+        if with_values:
+            assert values.dtype == torch.int32 and values.is_contiguous()
+            assert torch.equal(values, want_values)
+        else:
+            assert values is None
+        table = rt.build_range_table(*planes, nb, with_values=with_values)
+        p = rp.directory_bits(nb)
+        want_dir = rp.range_directory_plain(want_keys, p) if p else (None,
+                                                                     None)
+        for got, want in zip(table, (want_keys, want_values, *want_dir)):
+            assert (got is None and want is None) or torch.equal(got, want)
+        if nb:
+            varying = _varying(case.build_keys[:nb])
+            assert rb.device_plan(*planes, nb, with_values=with_values) == (
+                rb.plan(varying, with_values)), case.name
+
+
+@pytest.mark.parametrize("case", range_build_cases(), ids=lambda c: c.name)
+def test_range_build_kernel_matches_plain(dev, case):
+    _range_build_on_card(case, dev)
+
+
+@pytest.mark.parametrize("name", ["j1_1e8_range_u64_max", "duplicates",
+                                  "valid_cut", "rows_4097"])
+def test_range_build_kernel_on_misaligned_planes(dev, name):
+    case = next(c for c in range_build_cases() if c.name == name)
+    _range_build_on_card(case, dev, offsets=(1, 3))
+
+
+@pytest.mark.parametrize("kind", ["j1_1e7", "j1_1e8_range_1e7",
+                                  "j1_1e8_range_u64_max_1e7",
+                                  "equal_1e6_in_1e7", "full_range_1e7"])
+def test_range_build_kernel_at_scale(dev, kind):
+    # many tiles a pass: J1's own draw at 1e7 (24 bits), 1e7 keys over J1
+    # 1e8's 27 bits, with one u64-max key (all eight passes, wide records),
+    # 1e6 equal keys among 1e7, keys over all 64 bits
+    rng = np.random.default_rng(23)
+    n = 10_000_000
+    if kind == "j1_1e7":
+        bk = rng.permutation(np.arange(1, 11_000_001, dtype=np.uint64))[:n]
+    elif kind == "full_range_1e7":
+        bk = rng.integers(0, 2**64, n, dtype=np.uint64)
+    else:
+        bk = rng.integers(1, 110_000_001, n, dtype=np.uint64)
+        if kind == "equal_1e6_in_1e7":
+            bk[rng.choice(n, 1_000_000, replace=False)] = 55_555_555
+        elif kind.startswith("j1_1e8_range_u64_max"):
+            bk[n // 3] = M64
+    bv = rng.integers(0, 2**64, n, dtype=np.uint64)
+    _range_build_on_card(RangeBuildCase(kind, bk, bv, n), dev)
+
+
+class _AtenOps(TorchDispatchMode):
+    """The names of the aten ops run inside it (no profiler needed)."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.add(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def test_range_build_kernel_does_not_sync_or_sort(dev, monkeypatch):
+    # on CUDA planes the table build runs no torch.sort, sortable key,
+    # stack or gather, and never syncs
+    case = next(c for c in range_build_cases() if c.name == "j1_1e8_range")
+    planes = [*device_planes(case.build_keys, dev),
+              *device_planes(case.build_values, dev)]
+    nb = case.nb_valid
+    want = rb.range_build_plain(*planes, nb, with_values=True)
+    rb.range_build(*planes, nb, with_values=True)      # builds the library
+    torch.cuda.synchronize()
+
+    def plain_ran(*args, **kw):
+        raise AssertionError("the plain build ran on CUDA planes")
+
+    for owner, name in ((rb, "range_build_plain"), (rb, "sortable"),
+                        (torch, "sort"), (torch, "stack")):
+        monkeypatch.setattr(owner, name, plain_ran)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with _AtenOps() as ops:
+            table = rt.build_range_table(*planes, nb, with_values=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not ops.names & {"sort", "stack", "index", "gather", "bitwise_xor",
+                            "mul", "add", "_to_copy"}, ops.names
+    assert torch.equal(table.keys, want[0])
+    assert torch.equal(table.values, want[1])
+
+
+def test_range_build_kernel_refuses_bad_inputs(dev):
+    kh, kl, vh, vl = (torch.zeros(64, dtype=torch.int32, device=dev)
+                      for _ in range(4))
+    with pytest.raises(ValueError, match="int32"):
+        rb.range_build(kh.long(), kl, vh, vl, 64, with_values=True)
+    with pytest.raises(ValueError, match="one device"):
+        rb.range_build(kh, kl, vh.cpu(), vl, 64, with_values=True)
+    with pytest.raises(ValueError, match="nb_valid"):
+        rb.range_build(kh, kl, vh, vl, 65, with_values=False)
+
+
+@pytest.mark.parametrize("fn", ["hash_join_radix", "adaptive_join",
+                                "hash_join_count_radix"])
+def test_partitioned_joins_launch_the_build_once(dev, fn):
+    rng = np.random.default_rng(9)
+    bk = rng.integers(0, 2**40, 300_000, dtype=np.uint64)
+    bk[10:40] = bk[5]
+    bv = np.arange(bk.size, dtype=np.uint64)
+    pk = np.concatenate([rng.choice(bk, 200_000),
+                         rng.integers(0, 2**40, 200_000, dtype=np.uint64)])
+    count, _, info = getattr(ft, fn)(bk, bv, pk, return_info=True)
+    assert count == int(np.isin(pk, bk).sum())
+    assert info["strategy"] == "partitioned" or fn == "adaptive_join"
+    assert info["launches"]["range_build"] == int(
+        info["strategy"] == "partitioned")
 
 
 @pytest.mark.parametrize("n", [0, 1, 4_095, 4_096, 1_000_003])
