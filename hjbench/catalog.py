@@ -2,13 +2,15 @@
 
 A cell names a configuration (configs/<config>.json, the `file` of its
 entry; its generator is datagen/<generator>.py) and a traffic mix
-(traffic/<traffic>.json); each per-layer metric is a reader in
-metrics/<metric>.py.  A later benchmark adds a configuration, a mix or a
-metric by adding such files and entries, without editing this one.
+(traffic/<traffic>.json, whose driver is drivers/<driver>.py); each
+per-layer metric is a reader in metrics/<metric>.py.  A later benchmark
+adds a configuration, a mix, a driver or a metric by adding such files
+and entries, without editing this one.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 import re
@@ -57,6 +59,15 @@ def _load(kind: str, name: str):
 def datagen(name: str):
     """The generator module: make(cfg, table, seed) -> (bk, bv, pk)."""
     return _load("datagen", name)
+
+
+def driver(name: str):
+    """A driver module (drivers/<name>.py, a Python identifier), imported
+    as hjbench.drivers.<name>: its Driver runs a cell's set-up and window."""
+    if not name.isidentifier() or not (HERE / "drivers" /
+                                       f"{name}.py").is_file():
+        raise KeyError(f"no drivers/{name}.py")
+    return importlib.import_module(f"hjbench.drivers.{name}")
 
 
 def reader(metric: str):

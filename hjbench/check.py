@@ -2,13 +2,15 @@
 plain reference (reference/join.py) worked out from the same columns.
 
 count_gap: the largest |count - the reference's count| over every join
-of the window.  rows_wrong (materialize): of the joins kept from the
-window, the rows of the first `count` output rows whose (key, value)
-differs from the reference's row at that position, in probe order, plus
-the rows one side has and the other lacks.  failed_joins: the joins of
-the window whose special[3] said build rows were dropped (the engine's
-contract: such a join must be rerun on merge, so its answer is not
-delivered).  All are exact comparisons, so every limit is 0.
+of the window that returned one.  rows_wrong (materialize): of the joins
+kept from the window, the rows of the first `count` output rows whose
+(key, value) differs from the reference's row at that position, in probe
+order, plus the rows one side has and the other lacks.  failed_joins:
+the joins of the window that the driver counted as failed: on resident
+columns those whose special[3] said build rows were dropped (the
+engine's contract: such a join must be rerun on merge, so its answer is
+not delivered); on the public call those that raised or returned no
+count.  All are exact comparisons, so every limit is 0.
 """
 
 from __future__ import annotations
@@ -53,7 +55,8 @@ def compare(bk: np.ndarray, bv: np.ndarray, pk: np.ndarray, mode: str,
                              != block.values[:m])).sum()) + n - m
         offset += n
         total += n
-    checks = {"count_gap": max(abs(c - total) for c in counts)}
+    # a window whose every call failed has no count: failed_joins judges it
+    checks = {"count_gap": max((abs(c - total) for c in counts), default=0)}
     if mode == "materialize":
         # rows past the reference's that a join returned
         checks["rows_wrong"] = wrong + sum(max(k[0] - total, 0) for k in kept)

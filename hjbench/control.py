@@ -5,8 +5,9 @@
 For each seed: the cell's columns, then the reference with keys matched by
 a 32-bit fingerprint in place of the 64-bit key (check.control), judged as
 the program's window is.  Each seed prints one JSON line with its numbers,
-their limits and whether they pass: the control has to fail.  The
-benchmark's own runs never run it.
+their limits and whether they pass: the control has to fail, and the
+command exits 1 where it passed on any seed.  The benchmark's own runs
+never run it.
 """
 
 from __future__ import annotations
@@ -33,15 +34,18 @@ def main(argv=None) -> int:
     cfg = catalog.config(man, cell["config"])
     traffic = catalog.traffic(cell["traffic"])
     gen = catalog.datagen(cfg["generator"])
+    passed = 0
     for seed in a.seeds:
         bk, bv, pk = gen.make(cfg, traffic["table"], seed % (1 << 64))
         checks = check.control(bk, bv, pk, traffic["mode"], "cuda")
+        passes = check.verdict(checks)
+        passed += passes
         print(json.dumps({"workload": a.workload, "seed": seed,
                           "checks": checks, "limits": check.LIMITS,
-                          "passes": check.verdict(checks)}), flush=True)
+                          "passes": passes}), flush=True)
         del bk, bv, pk
         torch.cuda.empty_cache()
-    return 0
+    return 1 if passed else 0
 
 
 if __name__ == "__main__":

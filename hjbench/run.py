@@ -6,6 +6,9 @@ The last line of standard output is one JSON object: correct, attempted,
 failed, metrics (the cell's end-to-end metrics, or with --trace 1 its
 per-layer ones), device, with --trace 1 breakdown, and last the numbers
 compared, each beside its limit (also the last lines of standard error).
+Between them, facts and not metrics: the route and the driver's other
+facts, the peak memory of each of the cell's cards (memory_peak_bytes is
+the largest), the set-up's marks, the reference's seconds, the card.
 Exits 2 without a result where the cell's cards are missing, 3 where a
 module of JAX or of the JAX package was loaded.
 """
@@ -69,7 +72,7 @@ def main(argv=None) -> int:
         seed=a.seed, seconds=a.seconds, trace=bool(a.trace), device="cuda",
         per_layer={m["name"]: catalog.reader(m["name"])
                    for m in metrics} if a.trace else {},
-        t_start=T_START)
+        t_start=T_START, cards=cell["chips"])
 
     found = forbidden_modules()
     if found:
@@ -91,7 +94,8 @@ def main(argv=None) -> int:
         line["device"].update(busy_s=res["trace"]["busy_s"],
                               window_s=res["trace"]["window_s"])
         line["breakdown"] = res["trace"]["breakdown"]
-    line["route"] = res["info"]["strategy"]
+    line.update(res["facts"])
+    line["memory_peak_bytes_per_card"] = res["peaks"]
     line["setup_marks"] = res["setup_marks"]
     line["reference_s"] = res["reference_s"]
     line["card"] = power_limit()

@@ -63,7 +63,51 @@ def test_mmhj_a_one_match_a_probe():
     assert bv.max() > 2**63     # full 64-bit payloads
 
 
+def test_zipf_build_keys_unique_misses_and_seeded():
+    """dist-zipf-c5's columns: unique ascending build keys below 2^62 with
+    63-bit values; exactly a tenth of the probe rows miss, spread over the
+    probe side; the same seed gives the same columns."""
+    cfg, traffic, gen = small_cell("dist-zipf-c5.count")
+    cfg = dict(cfg, build_rows=1 << 16, probe_rows=1 << 20)
+    bk, bv, pk = gen.make(cfg, traffic["table"], 2**63 + 17)
+    assert bk.dtype == bv.dtype == pk.dtype == np.uint64
+    assert bk.size == bv.size and pk.size == cfg["probe_rows"]
+    assert np.all(bk[1:] > bk[:-1]) and bk.size > 0.999 * cfg["build_rows"]
+    assert bk.max() < 2**62 and pk.max() < 2**62
+    assert bv.max() >= 2**62 and bv.max() < 2**63
+    miss = ~np.isin(pk, bk)
+    assert miss.sum() == round(0.1 * pk.size)
+    # uniform over the probe side: each eighth holds about an eighth
+    per_eighth = miss.reshape(8, -1).sum(1) / miss.sum()
+    assert np.all(np.abs(per_eighth - 0.125) < 0.01)
+    again = gen.make(cfg, traffic["table"], 2**63 + 17)
+    assert all(np.array_equal(x, y) for x, y in zip((bk, bv, pk), again))
+    assert not np.array_equal(gen.make(cfg, None, 2**63 + 18)[2], pk)
+    with pytest.raises(ValueError):
+        gen.make(cfg, "big", 1)
+
+
+def test_zipf_ranks_follow_numpy_zipf():
+    """The probe hits' ranks among the ascending build keys against numpy's
+    own zipf draw of a = 1.2: the share of each of the first ranks, and
+    the ranks past the last key clipped to it."""
+    cfg, traffic, gen = small_cell("dist-zipf-c5.count")
+    n, m = 1 << 12, 1 << 21
+    cfg = dict(cfg, build_rows=n, probe_rows=m)
+    bk, _, pk = gen.make(cfg, None, 5)
+    hit = pk[np.isin(pk, bk)]
+    rank = np.searchsorted(bk, hit) + 1
+    want = np.minimum(np.random.default_rng(5).zipf(1.2, m), bk.size)
+    for k in (1, 2, 3, 10, bk.size):
+        got_share = (rank == k).mean()
+        want_share = (want == k).mean()
+        assert abs(got_share - want_share) < 4e-3 + 0.05 * want_share, k
+    # one key, the smallest, draws about 1 / zeta(1.2) = 17.9 % of the hits
+    assert abs((rank == 1).mean() - 0.179) < 0.005
+
+
 @pytest.mark.parametrize("name,mode,build,probe,match", [
+    ("dist.count", "count", 16, 8, 0),
     ("q5.count", "count", 8, 8, 0),
     ("q5.join", "materialize", 16, 8, 16),
     ("hash-join", "materialize", 16, 8, 16),

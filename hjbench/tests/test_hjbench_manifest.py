@@ -126,3 +126,22 @@ def test_added_files_are_found(tmp_path, monkeypatch):
     assert catalog.datagen(cfg["generator"]).make(cfg, None, 1) == "made"
     assert catalog.traffic(w["traffic"])["entry"] == "hash_join_count"
     assert catalog.reader("new.layer_ms")(None) == 1.5
+
+
+def test_unlisted_cell_files_are_whole():
+    """dist-zipf-c5.count is out of BENCHMARK.json (PERF.md says why); its
+    files stay whole, so that a later benchmark adds it by entries alone:
+    the configuration and its cut, the traffic and its driver, the three
+    dist.* readers."""
+    from hjbench.tests.conftest import UNLISTED, config
+    for name, w in UNLISTED.items():
+        cfg = config(w["config"])
+        assert cfg["name"] == w["config"] and line(cfg["source"])
+        assert callable(catalog.datagen(cfg["generator"]).make)
+        assert set(cfg["reduced"]) == set(cfg["published"])
+        assert all(cfg[k] != cfg["published"][k] for k in cfg["reduced"])
+        assert cfg["chips"] == w["chips"]
+        t = catalog.traffic(w["traffic"])
+        assert callable(catalog.driver(t["driver"]).Driver)
+    for m in ("dist.h2d_ms", "dist.exchange_ms", "dist.kernels_ms"):
+        assert callable(catalog.reader(m))

@@ -81,7 +81,7 @@ def test_planes_round_trip():
 
 
 @pytest.mark.parametrize("name", ["j1-1e8.q5.count", "mmhj-a.hash-join",
-                                  "j1-1e8.q5.join"])
+                                  "j1-1e8.q5.join", "dist-zipf-c5.count"])
 def test_control_fails(name):
     """The control (keys matched by a 32-bit fingerprint) at a size a test
     holds: the cell's own columns with its rows cut, so fingerprints

@@ -13,12 +13,15 @@ import sys
 import pytest
 import torch
 
-from hjbench import cell, run
+from hjbench import catalog, run
+from hjbench.drivers import resident
 from hjbench.tests.conftest import run_small
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-CELLS = ["j1-1e8.q5.count", "mmhj-a.hash-join", "j1-1e8.q5.join"]
+RESIDENT = ["j1-1e8.q5.count", "mmhj-a.hash-join", "j1-1e8.q5.join"]
+DIST = "dist-zipf-c5.count"
+CELLS = RESIDENT + [DIST]
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -82,7 +85,7 @@ def _rows_dropped(fn):
     return broken
 
 
-FAULTS = [(name, fault) for name in CELLS
+FAULTS = [(name, fault) for name in RESIDENT
           for fault in (_half_batch, _answer_altered, _nothing_done,
                         _value_altered_only, _rows_dropped)
           if not (fault is _value_altered_only and name.endswith("count"))]
@@ -92,23 +95,130 @@ FAULTS = [(name, fault) for name in CELLS
                          ids=[f"{n}-{f.__name__.strip('_')}"
                               for n, f in FAULTS])
 def test_broken_path_is_not_correct(name, fault, monkeypatch):
-    real = cell.join_fn
-    monkeypatch.setattr(cell, "join_fn",
+    real = resident.join_fn
+    monkeypatch.setattr(resident, "join_fn",
                         lambda mode, info: fault(real(mode, info)))
     res = run_small(name)
     assert not res["correct"], res["checks"]
+
+
+def test_distributed_run_on_a_four_rank_cpu_mesh():
+    """The four-card cell on four CPU ranks of one in-process mesh: the
+    public call's count, judged against the reference, with its facts."""
+    res = run_small(DIST)
+    assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1
+    f = res["facts"]
+    assert f["route"] == "distributed" and f["ranks"] == 4
+    assert f["hot_keys"] >= 1 and f["reruns"] == 0 and f["overflow"] == 0
+    assert set(f["stages_median_s"]) == {"split_h2d", "hot_keys",
+                                         "build_exchange", "build", "probe",
+                                         "finish"}
+
+
+def _dj():
+    from flash_hash_join_tpu_torch.parallel import distributed_join
+    return distributed_join
+
+
+def _dist_half_batch(monkeypatch):
+    """Half of each rank's probe rows left out."""
+    real = _dj().shard_columns
+
+    def shard(mesh, arrays):
+        return [s[:4] + [p[:p.numel() // 2] for p in s[4:]]
+                for s in real(mesh, arrays)]
+    monkeypatch.setattr(_dj(), "shard_columns", shard)
+
+
+def _dist_no_exchange(monkeypatch):
+    """The exchange between the ranks left out: a rank keeps the rows it
+    would send to itself and receives no other rank's."""
+    from flash_hash_join_tpu_torch.parallel.mesh import Mesh
+    real = Mesh.all_to_all
+
+    def local(self, sends, send_splits, recv_splits):
+        keep, splits = [], []
+        for s, (t, sp) in enumerate(zip(sends, send_splits)):
+            a = sum(sp[:s])
+            keep.append(t[a:a + sp[s]])
+            splits.append([sp[s] if d == s else 0 for d in range(len(sp))])
+        return real(self, keep, splits, recv_splits)
+    monkeypatch.setattr(Mesh, "all_to_all", local)
+
+
+def _dist_count_altered(monkeypatch):
+    """A rank's count altered where it is produced."""
+    real = _dj()._LocalJoin.finish
+
+    def finish(self):
+        count, planes = real(self)
+        return count + 1, planes
+    monkeypatch.setattr(_dj()._LocalJoin, "finish", finish)
+
+
+def _dist_nothing_done(monkeypatch):
+    """Every rank returns its state untouched: a count of 0."""
+    monkeypatch.setattr(_dj()._LocalJoin, "finish",
+                        lambda self: (torch.zeros((), dtype=torch.int64),
+                                      None))
+
+
+def _dist_call_raises(monkeypatch):
+    """The public call raises: no count comes back."""
+    def boom(*a, **k):
+        raise RuntimeError("a rank was lost")
+    monkeypatch.setattr(_dj(), "distributed_join_exact", boom)
+
+
+DIST_FAULTS = [_dist_half_batch, _dist_no_exchange, _dist_count_altered,
+               _dist_nothing_done, _dist_call_raises]
+
+
+@pytest.mark.parametrize("fault", DIST_FAULTS,
+                         ids=[f.__name__.strip("_") for f in DIST_FAULTS])
+def test_broken_distributed_path_is_not_correct(fault, monkeypatch):
+    """Each fault set up after the warm-up, so that it breaks the window's
+    calls alone, under the public call."""
+    from hjbench.drivers import api
+    real_init = api.Driver.__init__
+
+    def init(self, *a, **k):
+        real_init(self, *a, **k)
+        fault(monkeypatch)
+    monkeypatch.setattr(api.Driver, "__init__", init)
+    res = run_small(DIST)
+    assert not res["correct"], res["checks"]
+
+
+def test_a_traffic_file_without_driver_runs_resident(monkeypatch):
+    """q5.count names no driver: the resident driver runs it."""
+    assert "driver" not in catalog.traffic("q5.count")
+    used = []
+    real = resident.Driver.__init__
+
+    def init(self, *a, **k):
+        used.append(a[3]["entry"])
+        real(self, *a, **k)
+    monkeypatch.setattr(resident.Driver, "__init__", init)
+    res = run_small("j1-1e8.q5.count")
+    assert used == ["adaptive_join_count"] and res["correct"]
+    assert res["facts"] == {"route": "direct"}
+    with pytest.raises(KeyError):
+        catalog.driver("no_such_driver")
+    with pytest.raises(KeyError):
+        catalog.driver("../cell")
 
 
 def test_unrebuildable_routes_fail_loudly():
     info = dict(strategy="partitioned", d_rows=0, nb=10, use_bloom=False,
                 probe_chunks=2, retried=False)
     with pytest.raises(RuntimeError):
-        cell.join_fn("count", info)
+        resident.join_fn("count", info)
     with pytest.raises(RuntimeError):
-        cell.join_fn("count", dict(info, probe_chunks=1, retried=True))
+        resident.join_fn("count", dict(info, probe_chunks=1, retried=True))
     with pytest.raises(RuntimeError):
-        cell.join_fn("materialize", dict(info, probe_chunks=1,
-                                         strategy="direct"))
+        resident.join_fn("materialize", dict(info, probe_chunks=1,
+                                             strategy="direct"))
 
 
 @pytest.mark.parametrize("name", CELLS)

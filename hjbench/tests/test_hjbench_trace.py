@@ -30,9 +30,17 @@ COMPACT = ["Memset (Device)",
            "(anonymous namespace)::Planes, int, long, unsigned long long*)",
            "void at::native::CatArrayBatchedCopy_contig<...>",
            "Memcpy DtoH (Device -> Pageable)"]
-SORT = ["void at_cuda_detail::cub::DeviceRadixSortHistogramKernel<...>",
-        "void at_cuda_detail::cub::DeviceRadixSortExclusiveSumKernel<...>",
-        "void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<...>",
+# the partitioned build's sort (csrc/range_build.cu) after its memset, then
+# the range probes, whose count kernel the sort reader must not take
+SORT = ["Memset (Device)",
+        "(anonymous namespace)::count_kernel(unsigned int const*, unsigned "
+        "int const*, long, unsigned int*, unsigned int*)",
+        "void (anonymous namespace)::pass_kernel<3>((anonymous namespace)::"
+        "Pass)",
+        "void (anonymous namespace)::pass_kernel<4>((anonymous namespace)::"
+        "Pass)",
+        "void (anonymous namespace)::range_probe_count_kernel<0>(long long "
+        "const*, long, int const*, int const*, long, unsigned long long*)",
         "void (anonymous namespace)::range_probe_materialize_kernel<int>(...)"]
 
 
@@ -92,16 +100,125 @@ def test_global_build_and_walk_tell_shared_kernels_apart():
 
 
 def test_partitioned_sort():
+    """The memset, count_kernel and both pass kernels: 4 ops of 0.5 ms;
+    neither range probe kernel."""
     ops = [Op(n, i * 1e-3, i * 1e-3 + 5e-4) for i, n in
            enumerate(SORT + COMPACT)]
     t = Trace(ops=ops, host=[], window=(0.0, 1.0), joins=1,
               bytes_per_join=1.0)
-    assert reader("partitioned.sort_ms")(t) == pytest.approx(1.5)
+    assert reader("partitioned.sort_ms")(t) == pytest.approx(2.0)
     assert reader("global.build_ms")(t) is None
     assert reader("global.walk_ms")(t) is None
+    probes = [Op(n, i * 1e-3, i * 1e-3 + 5e-4)
+              for i, n in enumerate(SORT[4:])]
+    assert reader("partitioned.sort_ms")(
+        Trace(ops=probes, host=[], window=(0.0, 1.0), joins=1,
+              bytes_per_join=1.0)) is None
 
 
 def test_readers_find_nothing_without_ops():
     t = Trace(ops=[], host=[], window=(0.0, 1.0), joins=3, bytes_per_join=1)
     for m in catalog.manifest()["per_layer"]:
         assert reader(m["name"])(t) is None, m["name"]
+
+
+def _union_busy(ops, window):
+    """The busy time as the reduction read it before Trace had cards: the
+    union of every op's interval inside the window."""
+    w0, w1 = window
+    merged = []
+    for o in sorted(ops, key=lambda o: o.start):
+        a, b = max(o.start, w0), min(o.end, w1)
+        if b <= a:
+            continue
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return sum(b - a for a, b in merged)
+
+
+def one_card_traces():
+    yield global_join_trace(joins=3)
+    rng = __import__("random").Random(5)
+    names = BUILD + WALK + COMPACT + SORT
+    ops = []
+    for _ in range(400):
+        s0 = rng.uniform(-0.01, 1.0)
+        ops.append(Op(rng.choice(names), s0, s0 + rng.expovariate(300)))
+    ops.sort(key=lambda o: o.start)
+    yield Trace(ops=ops, host=[Op("hjbench.dispatch", 0.0, 0.7)],
+                window=(0.0, 0.99), joins=7, bytes_per_join=3.3e9)
+
+
+@pytest.mark.parametrize("t", list(one_card_traces()), ids=["joins", "random"])
+def test_one_card_readers_are_as_before(t):
+    """On one card the per-card readings are the whole trace's, bit for
+    bit: the idle share, the busy seconds, the ops a join, the roofline,
+    the idle gaps."""
+    busy = _union_busy(t.ops, t.window)
+    assert t.cards == 1 and t.busy_s() == busy and t.busy_s(0) == busy
+    assert t.mean_busy_s() == busy and t.card_busy_s() == [busy]
+    assert reader("device.idle_share")(t) == \
+        100.0 * (1.0 - busy / t.window_s)
+    assert reader("dispatch.kernels_per_join")(t) == len(t.ops) / t.joins
+    per_join = sum(o.end - o.start for o in t.ops) / t.joins
+    assert reader("kernels.roofline")(t) == \
+        100.0 * (t.bytes_per_join / HBM_BYTES_PER_S) / per_join
+    ms = t.ms_per_join((r"^(?!Memcpy)",))
+    assert t.card_ms_per_join((r"^(?!Memcpy)",)) == ms
+
+
+H2D = "Memcpy HtoD (Pageable -> Device)"
+P2P = "Memcpy PtoP (Device -> Device)"
+D2D = "Memcpy DtoD (Device -> Device)"
+D2H = "Memcpy DtoH (Device -> Pageable)"
+
+
+def four_card_trace():
+    """Two calls on four cards over a 10 s window.  Card c copies in for
+    (4 + c) 100 ms, exchanges 50 ms by peer copies and 10 ms on the card,
+    runs kernels and memsets for 200 ms and copies 1 ms out, a call; card 3
+    runs nothing in the second call."""
+    ops = []
+    for call in range(2):
+        t0 = call * 5.0
+        for c in range(4 if call == 0 else 3):
+            t = t0
+            for name, ms in ((H2D, 100 * (4 + c)), (P2P, 50), (D2D, 10),
+                             ("Memset (Device)", 20),
+                             ("void (anonymous namespace)::slice_walk_kernel"
+                              "<8, true, 2>((anonymous namespace)::Walk)",
+                              180), (D2H, 1)):
+                ops.append(Op(name, t, t + ms / 1e3, c))
+                t += ms / 1e3
+    ops.sort(key=lambda o: o.start)
+    return Trace(ops=ops, host=[], window=(0.0, 10.0), joins=2,
+                 bytes_per_join=1.0, cards=4)
+
+
+def test_four_cards_read_apart():
+    t = four_card_trace()
+    busy = [2 * (0.1 * (4 + c) + 0.261) for c in range(3)] + [0.7 + 0.261]
+    assert t.card_busy_s() == pytest.approx(busy)
+    assert t.mean_busy_s() == pytest.approx(sum(busy) / 4)
+    # the mean of the cards' idle shares, not the union's
+    assert reader("device.idle_share")(t) == pytest.approx(
+        sum(100 * (1 - b / 10) for b in busy) / 4)
+    # the union: card 3 the longest in the first call, card 2 in the second
+    assert t.busy_s() == pytest.approx(0.7 + 0.261 + 0.6 + 0.261)
+    # ms a call, summed over the cards and divided by the four of them
+    h2d = (2 * (400 + 500 + 600) + 700) / 2 / 4
+    assert reader("dist.h2d_ms")(t) == pytest.approx(h2d)
+    assert reader("dist.exchange_ms")(t) == pytest.approx(7 * 60 / 2 / 4)
+    assert reader("dist.kernels_ms")(t) == pytest.approx(7 * 200 / 2 / 4)
+    # the idle gaps are the stretches in which no card is busy
+    gaps = t.gaps()
+    assert gaps[0] == pytest.approx((0.961, 5.0))
+    assert sum(b - a for a, b in gaps) == pytest.approx(10 - t.busy_s())
+
+
+def test_dist_readers_find_no_copies_on_a_resident_join():
+    t = global_join_trace()
+    assert reader("dist.h2d_ms")(t) is None
+    assert reader("dist.exchange_ms")(t) is None

@@ -2,10 +2,12 @@
 
 A traced run profiles the window alone (CPU and CUDA activity).  The
 window is the harness's `hjbench.window` span; device operations are the
-profiler's kernels, memsets and copies on the card.  Busy time is the union
-of their intervals inside the window; an idle gap is a stretch of the
-window in which none runs, named by the innermost host event of the
-window's thread at the gap's middle.  The per-layer readers in metrics/
+profiler's kernels, memsets and copies on the cell's cards, each with the
+index of its card.  A card's busy time is the union of its ops' intervals
+inside the window.  An idle gap is a stretch of the window in which no
+card runs an op (the union over the cards), named by the innermost host
+event of the window's thread at the gap's middle.  On one card every
+per-card reading is the whole trace's.  The per-layer readers in metrics/
 take their numbers from a `Trace`.
 """
 
@@ -26,28 +28,36 @@ class Op:
     name: str
     start: float              # seconds from the window's start
     end: float
+    card: int = 0             # the card a device op ran on
 
 
 @dataclass
 class Trace:
-    """What the readers see: the device ops of the window in start order,
-    its host events, its bounds, the joins it completed, the bytes the
-    traffic's byte model gives one join."""
+    """What the readers see: the device ops of the window in start order
+    (on every card), its host events, its bounds, the joins (calls) it
+    completed, the bytes the traffic's byte model gives one join, the
+    cell's cards."""
 
     ops: list[Op]
     host: list[Op]
     window: tuple[float, float]
     joins: int
     bytes_per_join: float
+    cards: int = 1
 
     @property
     def window_s(self) -> float:
         return self.window[1] - self.window[0]
 
-    def busy_intervals(self) -> list[tuple[float, float]]:
+    def busy_intervals(self, card: int | None = None
+                       ) -> list[tuple[float, float]]:
+        """The merged intervals in which an op ran: on `card`, or on any
+        card where card is None."""
         w0, w1 = self.window
+        ops = self.ops if card is None else [o for o in self.ops
+                                             if o.card == card]
         merged: list[list[float]] = []
-        for op in sorted(self.ops, key=lambda o: o.start):
+        for op in sorted(ops, key=lambda o: o.start):
             s, e = max(op.start, w0), min(op.end, w1)
             if e <= s:
                 continue
@@ -57,14 +67,23 @@ class Trace:
                 merged.append([s, e])
         return [(s, e) for s, e in merged]
 
-    def busy_s(self) -> float:
-        return sum(e - s for s, e in self.busy_intervals())
+    def busy_s(self, card: int | None = None) -> float:
+        return sum(e - s for s, e in self.busy_intervals(card))
+
+    def card_busy_s(self) -> list[float]:
+        """Each of the cell's cards' busy seconds, in card order."""
+        return [self.busy_s(c) for c in range(self.cards)]
+
+    def mean_busy_s(self) -> float:
+        """Busy seconds averaged over the cell's cards."""
+        return sum(self.card_busy_s()) / self.cards
 
     def op_seconds(self) -> float:
         """Summed duration of the device ops (a stream's ops do not overlap)."""
         return sum(o.end - o.start for o in self.ops)
 
     def gaps(self) -> list[tuple[float, float]]:
+        """The stretches of the window in which no card runs an op."""
         w0, w1 = self.window
         out, t = [], w0
         for s, e in self.busy_intervals():
@@ -98,9 +117,16 @@ class Trace:
         s = self.seconds_matching(patterns, absorb)
         return s / self.joins * 1e3 if s > 0 and self.joins else None
 
+    def card_ms_per_join(self, patterns):
+        """Milliseconds a join of the matching ops, summed over the cards
+        and divided by the cell's cards; None when none ran."""
+        ms = self.ms_per_join(patterns)
+        return ms / self.cards if ms is not None else None
+
     def breakdown(self, top: int = 10) -> dict:
-        """The device ops that took most time, and the idle gaps by what
-        the host was doing, each summed by name."""
+        """The device ops that took most time (summed over the cards), and
+        the idle gaps (stretches in which no card is busy) by what the host
+        was doing, each summed by name."""
         by_op: dict[str, float] = defaultdict(float)
         for o in self.ops:
             by_op[o.name[:NAME_CHARS]] += o.end - o.start
@@ -134,10 +160,11 @@ class Trace:
         return names
 
 
-def from_profiler(prof, joins: int, bytes_per_join: float) -> Trace:
+def from_profiler(prof, joins: int, bytes_per_join: float,
+                  cards: int = 1) -> Trace:
     """A Trace of a finished torch.profiler run over the window.  Device
-    ops are the events on the card but the harness's own spans, which the
-    profiler mirrors there."""
+    ops are the events on the cards but the harness's own spans, which the
+    profiler mirrors there, each with its card's index."""
     from torch.autograd import DeviceType
     events = list(prof.profiler.kineto_results.events())
     on_card = [e.device_type() == DeviceType.CUDA for e in events]
@@ -148,10 +175,12 @@ def from_profiler(prof, joins: int, bytes_per_join: float) -> Trace:
     window = spans[0]
     base, thread = window.start_ns(), window.start_thread_id()
 
-    def op(e):      # integer ns from the window's start, then seconds
+    def op(e, card=0):  # integer ns from the window's start, then seconds
         start = e.start_ns() - base
-        return Op(e.name(), start / 1e9, (start + e.duration_ns()) / 1e9)
-    device = sorted((op(e) for e, card in zip(events, on_card)
+        return Op(e.name(), start / 1e9, (start + e.duration_ns()) / 1e9,
+                  card)
+    device = sorted((op(e, e.device_index())
+                     for e, card in zip(events, on_card)
                      if card and not e.name().startswith(SPAN_PREFIX)),
                     key=lambda o: o.start)
     host = [op(e) for e, card in zip(events, on_card)
@@ -159,4 +188,4 @@ def from_profiler(prof, joins: int, bytes_per_join: float) -> Trace:
             and e.start_thread_id() == thread]
     return Trace(ops=device, host=host,
                  window=(0.0, window.duration_ns() / 1e9), joins=joins,
-                 bytes_per_join=bytes_per_join)
+                 bytes_per_join=bytes_per_join, cards=cards)
