@@ -162,7 +162,12 @@ Phases, one JSON line each on stdout:
               count equal to the oracle, K3 launched once a chunk and the
               directory once a call; core (best of 3 CUDA-event timings
               after a warm-up), probe rows/s, peak bytes a probe row, and
-              the table build alone (config3_resident lines).
+              the table build alone (config3_resident lines).  Then
+              hash_join_count_bloom (the global tier, its count pruned by
+              the bloom a pass at 1 level): count equal to the oracle,
+              routed global with bloom, the prune launched; core, wall,
+              peak and the walk statistics (groups visited, the longest
+              walk, the rows the bloom passed; config3_bloom line).
  13. stream_direct  J1 1e8 Q5 adaptive_join_count planned in 4 chunks: the
               main phase's count, the gates' route for a chunk's rows
               (direct), K1 launched once a chunk.
@@ -270,7 +275,9 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             # the global tier's table build (plain XLA)
             "global_build": "flash_hash_join_tpu/ops/hash_table.py:74",
             # the partitioned tier's table sort (a plain lax.sort)
-            "range_build": "flash_hash_join_tpu/ops/range_table.py"}
+            "range_build": "flash_hash_join_tpu/ops/range_table.py",
+            # the bloom test inside the JAX walk (plain XLA)
+            "global_prune": "flash_hash_join_tpu/ops/hash_table.py:241"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "dense_bitmap": ("fused_domain_bitmap_join", "dense_bitmap.cu"),
     "scan_domain_count": ("scan_domain_count", "bitmap_probe.cu"),
@@ -287,7 +294,8 @@ KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "global_walk_count": ("global_walk_count", "hash_walk.cu"),
     "global_walk_materialize": ("global_walk_materialize", "hash_walk.cu"),
     "global_build": ("global_build_table", "hash_build.cu"),
-    "range_build": ("range_build", "range_build.cu")}
+    "range_build": ("range_build", "range_build.cu"),
+    "global_prune": ("global_prune", "hash_walk.cu")}
 # The card's peaks for a kernel's bound (H100 SXM at 700 W): device
 # memory, and the float32 rate outside the tensor cores, taken for
 # integer operations.
@@ -1568,7 +1576,7 @@ def walk_table(planes, nb: int, cfg, gbits: int, use_bloom: bool,
 
 
 def walk_bound(table, static: dict, npr: int, groups: int, hits: int,
-               materialize: bool, pbits: int) -> dict:
+               passed: int, materialize: bool, plan) -> dict:
     """The walk's bound on this run's data: the probe planes (8 B a row),
     the group rows its probes visited (8G B each, at most the key plane),
     the bloom words (8 B a probe, at most the plane), and for materialize
@@ -1581,8 +1589,11 @@ def walk_bound(table, static: dict, npr: int, groups: int, hits: int,
     records, 24 B a row, and the walk reads the records, 8 B, and each
     visited row once, at most the plane (materialize: the stage maps, 6 B
     a row, written and read, and the records' answers, 9 B, written and
-    read)."""
-    row = 8 * static["group_size"]
+    read); where the plan prunes (a count with bloom at 1 level): the planes
+    read once, 8 B a row, the bloom words narrowed to u32 gathered, at most 4 B
+    a row or a group, and the `passed` rows written, 8 B each, then only
+    those partitioned and walked, 32 B each, and their visited rows."""
+    row, pbits = 8 * static["group_size"], plan.pbits
     rows_once = min(groups * row, table.keys.numel() * 4)
     bloom_once = min(8 * npr, table.bloom.numel() * 8)
     nbytes = 8 * npr + rows_once
@@ -1590,6 +1601,9 @@ def walk_bound(table, static: dict, npr: int, groups: int, hits: int,
     if static["use_bloom"]:
         nbytes += bloom_once
         floor += 8 * npr if pbits == 0 else bloom_once
+        if plan.prune:
+            floor = (8 * npr + min(4 * npr, 4 * static["total_groups"])
+                     + 40 * passed + rows_once)
     if materialize:
         values = min(8 * hits, table.vals.numel() * 4)
         nbytes += values + 9 * npr
@@ -1600,19 +1614,28 @@ def walk_bound(table, static: dict, npr: int, groups: int, hits: int,
 
 
 def walk_routes(static: dict, npr: int, materialize: bool) -> dict:
-    """The walk's two routes at a cell (ops/cuda/hash_walk.plan's
-    overrides: 0 levels, 1 level of slices), and the plan's own."""
+    """The walk's routes at a cell, each label -> (ops/cuda/hash_walk.plan's
+    overrides, the plan they give): the plan's own, 0 levels, 1 level of
+    slices, and for a count with bloom 1 level with the prune forced on
+    and off."""
     import torch
     from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
     props = torch.cuda.get_device_properties(0)
-    plan = hw.plan(npr, static["gbits"], static["total_groups"],
-                   static["group_size"], static["use_bloom"], materialize,
-                   l2_bytes=props.L2_cache_size,
-                   sms=props.multi_processor_count)
-    one = hw.slice_bits(static["total_groups"], static["group_size"],
-                        static["use_bloom"], materialize)
-    return {"plan": plan._asdict(), "levels0": dict(pbits=0),
-            f"levels1_pbits{one}": dict(pbits=one)}
+    one = dict(pbits=hw.slice_bits(static["total_groups"],
+                                   static["group_size"], static["use_bloom"],
+                                   materialize))
+    routes = {"plan": {}, "levels0": dict(pbits=0)}
+    if static["use_bloom"] and not materialize:
+        routes[f"levels1_pbits{one['pbits']}_pruned"] = dict(one, prune=True)
+        routes[f"levels1_pbits{one['pbits']}_unpruned"] = dict(one,
+                                                               prune=False)
+    else:
+        routes[f"levels1_pbits{one['pbits']}"] = one
+    return {label: (over, hw.plan(
+        npr, static["gbits"], static["total_groups"], static["group_size"],
+        static["use_bloom"], materialize, l2_bytes=props.L2_cache_size,
+        sms=props.multi_processor_count, **over))
+        for label, over in routes.items()}
 
 
 def phase_walk_kernels(cells: dict) -> dict:
@@ -1626,10 +1649,12 @@ def phase_walk_kernels(cells: dict) -> dict:
     probes, u64-max probes among partitioned rows, n_valid cut inside a
     pass), on aligned probe planes by the plan's route, and on misaligned
     ones with each route forced (ops/cuda/hash_walk.forced): 0 levels, and
-    1 level of 3 digit bits in passes of 1000 rows; then J1 1e8 Q5 and
-    config #2, bloom off and on, by the plan's route: counts, hit masks,
-    value planes and walk statistics, each count the oracle's, and each
-    route forced there giving the oracle's count and the plan's rows.  The
+    1 level of 3 digit bits in passes of 1000 rows, with the prune by the
+    plan and off; then J1 1e8 Q5 and config #2, bloom off and on, by the
+    plan's route: counts, hit masks, value planes and walk statistics, each
+    count the oracle's, and each route forced there (walk_routes: a count
+    with bloom at 1 level pruned and not) giving the oracle's count and
+    the plan's rows.  The
     plan's route timed beside its bound (without bloom also beside the
     plain walk), the count also beside one torch.isin of the sortable keys;
     each route forced timed beside it."""
@@ -1645,8 +1670,8 @@ def phase_walk_kernels(cells: dict) -> dict:
 
     def compare(table, static, ph, pl, n_valid, chunk):
         """Kernel against plain on one table and probe side; returns
-        (count, groups, longest)."""
-        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        (count, groups, longest, bloom passes)."""
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
         count = int(hw.global_walk_count(table, ph, pl, n_valid, stats=stats,
                                          **static))
         got = hw.global_walk_materialize(table, ph, pl, n_valid, **static)
@@ -1661,15 +1686,18 @@ def phase_walk_kernels(cells: dict) -> dict:
         err["global_walk_materialize"] = max(
             err["global_walk_materialize"],
             *(_max_abs(g, w) for g, w in zip(got, rows)))
-        groups, longest = stats.tolist()
-        require(count == int(got[0].sum()) and (groups, longest) == (
-            plain["groups"], plain["longest"]), f"walk stats or counts: "
-            f"kernel {count, groups, longest}, plain {want, plain}")
-        return count, groups, longest
+        groups, longest, passed = stats.tolist()
+        require(count == int(got[0].sum()) and (groups, longest, passed) == (
+            plain["groups"], plain["longest"], plain["bloom_passed"]),
+            f"walk stats or counts: kernel {count, groups, longest, passed}, "
+            f"plain {want, plain}")
+        return count, groups, longest, passed
 
     checked = []
     small = {"plan": {}, "levels0": dict(pbits=0),
-             "levels1_passes_of_1000": dict(pbits=3, pass_rows=1000)}
+             "levels1_passes_of_1000": dict(pbits=3, pass_rows=1000),
+             "levels1_passes_of_1000_unpruned": dict(pbits=3, pass_rows=1000,
+                                                     prune=False)}
     for case in global_walk_cases():
         planes = [*device_planes(case.build_keys, dev),
                   *device_planes(case.build_values, dev)]
@@ -1677,7 +1705,8 @@ def phase_walk_kernels(cells: dict) -> dict:
                                    case.gbits, case.use_bloom,
                                    case.pre_shift)
         for route, offsets in (("plan", (0, 0)), ("levels0", (1, 3)),
-                               ("levels1_passes_of_1000", (1, 3))):
+                               ("levels1_passes_of_1000", (1, 3)),
+                               ("levels1_passes_of_1000_unpruned", (1, 3))):
             ph, pl = offset_plane_views(case.probe_keys, dev, *offsets)
             n_valid = ph.numel() if case.n_valid is None else case.n_valid
             with hw.forced(**small[route]):
@@ -1703,8 +1732,8 @@ def phase_walk_kernels(cells: dict) -> dict:
         for use_bloom in (False, True):
             table, static = walk_table(planes, nb, cfg, cfg.group_bits(nb),
                                        use_bloom)
-            count, groups, longest = compare(table, static, ph, pl, npr,
-                                             cfg.probe_chunk)
+            count, groups, longest, passed = compare(
+                table, static, ph, pl, npr, cfg.probe_chunk)
             require(count == want, f"walk {name}: {count} != oracle {want}")
             chunk = cfg.probe_chunk
             for kernel, fn, plain in (
@@ -1715,10 +1744,10 @@ def phase_walk_kernels(cells: dict) -> dict:
                 mat = kernel.endswith("materialize")
                 run = functools.partial(fn, table, ph, pl, npr, **static)
                 routes = walk_routes(static, npr, mat)
-                plan = routes.pop("plan")
+                _, plan = routes.pop("plan")
                 want_rows = run() if mat else None
                 forced = {}
-                for label, over in routes.items():
+                for label, (over, route) in routes.items():
                     with hw.forced(**over):
                         got = run()
                         require(int(got[0].sum() if mat else got) == want
@@ -1729,8 +1758,8 @@ def phase_walk_kernels(cells: dict) -> dict:
                         del got
                         forced[label] = dict(
                             ms=cuda_ms(run), ms_b2b=cuda_ms_b2b(run),
-                            **walk_bound(table, static, npr, groups, count,
-                                         mat, over["pbits"]))
+                            prune=route.prune, **walk_bound(table, static, npr, groups, count,
+                                         passed, mat, route))
                 del want_rows
                 # the plain walk (~0.4 s a call) is timed without bloom only
                 t = ({"ms": [cuda_ms(run)], "ms_b2b": [cuda_ms_b2b(run)]}
@@ -1740,10 +1769,11 @@ def phase_walk_kernels(cells: dict) -> dict:
                 cell = f"{name}{' bloom' if use_bloom else ''}"
                 timing[kernel, cell] = dict(
                     **best(t), **walk_bound(table, static, npr, groups, count,
-                                            mat, plan["pbits"]),
+                                            passed, mat, plan),
                     library_ms=library_ms if not mat else None,
                     groups_per_probe=groups / npr, longest=longest,
-                    plan=plan, routes=forced)
+                    bloom_passed=passed,
+                    plan=plan._asdict(), routes=forced)
                 emit("kernel_time", cell=cell, kernel=kernel, nb=nb, npr=npr,
                      total_groups=static["total_groups"],
                      runs={k + "_runs": v for k, v in t.items()},
@@ -2227,6 +2257,92 @@ def config3_resident(c, want: int) -> dict:
     return out
 
 
+def config3_prune(c) -> dict:
+    """The prune kernel (hw.global_prune) against its plain version
+    (ops/hash_table.prune_plain) on one pass of config #3 on the card: the
+    table of the 1e7 build rows with bloom (2^22 + 64 groups of 8), the
+    first PASS_ROWS probe rows.  Exactly: the survivors as a sorted
+    multiset, the u64-max rows' count and stats[2] the survivors' number;
+    one launch a call.  Timed beside the plain prune (paired_ms) and beside
+    its bound on this run's bytes: the planes read once, 8 B a row, and
+    the survivors written, 8 B each; about 12 integer operations a row
+    (hash, home group, tag)."""
+    import torch
+    import flash_hash_join_tpu_torch as ft
+    from flash_hash_join_tpu_torch.ops import hash_table as ht
+    from flash_hash_join_tpu_torch.ops.cuda import hash_walk as hw
+    from flash_hash_join_tpu_torch.utils.config import DEFAULT_CONFIG as cfg
+    from flash_hash_join_tpu_torch.utils.u64 import device_planes, sortable
+    dev = torch.device("cuda")
+    nb, n = len(c.build_keys), hw.PASS_ROWS
+    planes = [*device_planes(c.build_keys, dev),
+              *device_planes(c.build_values, dev)]
+    table, static = walk_table(planes, nb, cfg, cfg.group_bits(nb), True)
+    del planes
+    ph, pl = device_planes(c.probe_keys[:n], dev)
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    before = ft.launch_counts()["global_prune"]
+    sh, sl, rows, count = hw.global_prune(table, ph, pl, n, stats=stats,
+                                          **static)
+    require(ft.launch_counts()["global_prune"] - before == 1,
+            "prune: not one launch a call")
+    kept = int(rows[1])
+    got = torch.sort(sortable(sh[:kept], sl[:kept])).values
+    del sh, sl
+    psh, psl, max_hits = ht.prune_plain(table, ph, pl, n, **static)
+    want = torch.sort(sortable(psh, psl)).values
+    del psh, psl
+    require(int(rows[0]) == 0 and torch.equal(got, want)
+            and int(count) == int(max_hits) and int(stats[2]) == kept,
+            f"prune != plain: {kept} survivors against {want.numel()}, "
+            f"u64-max {int(count)} against {int(max_hits)}, stats[2] "
+            f"{int(stats[2])}")
+    del got, want
+    t = paired_ms(
+        lambda: hw.global_prune(table, ph, pl, n, **static),
+        lambda: ht.prune_plain(table, ph, pl, n, **static))
+    out = dict(max_abs_err=0, **best(t), **bound(8 * n + 8 * kept, 12 * n),
+               survivors=kept, survivor_share=kept / n,
+               at=f"config #3, the first pass of {n} probe rows, "
+                  f"2^{static['gbits']} + {cfg.overflow_groups} groups of "
+                  f"{cfg.group_size}, bloom_k {cfg.bloom_k}")
+    emit("kernel_time", cell="config3 pass", kernel="global_prune", nb=nb,
+         npr=n, total_groups=static["total_groups"],
+         runs={k + "_runs": v for k, v in t.items()}, **out)
+    del table, ph, pl
+    torch.cuda.empty_cache()
+    return out
+
+
+def config3_bloom(c, want: int) -> None:
+    """hash_join_count_bloom on config #3: a warm-up and 2 timed calls,
+    the count held to the oracle, the route global with bloom and the
+    prune launched; the walk statistics of the three calls."""
+    import torch
+    import flash_hash_join_tpu_torch as ft
+    from flash_hash_join_tpu_torch.ops import hash_table as ht
+    npr = len(c.probe_keys)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ht.walk_stats.reset()
+    best, wall, runs, (count, _, info) = _timed_runs(ft.hash_join_count_bloom,
+                                                     c, reps=2)
+    stats = ht.walk_stats.read()
+    require(count == want, f"config3 bloom: count {count} != oracle {want}")
+    require(info["strategy"] == "global" and info["use_bloom"]
+            and not info["retried"] and info["launches"]["global_prune"] > 0,
+            f"config3 bloom: routed {info}")
+    emit("config3_bloom", count=count, oracle=want, core_seconds=best,
+         core_seconds_runs=runs, wall_seconds=wall,
+         probe_rows_per_s=npr / best, launches=info["launches"],
+         walk_groups=stats["groups"], walk_longest=stats["longest"],
+         bloom_passed=stats["bloom_passed"], probes=stats["probes"],
+         bloom_passed_share=stats["bloom_passed"] / stats["probes"],
+         peak_allocated_per_probe_row=(
+             torch.cuda.max_memory_allocated() / npr))
+    torch.cuda.empty_cache()
+
+
 def phase_config3() -> dict:
     """BASELINE.json config #3, 1e7 x 1e9 at 5 % match (64-bit keys, so
     partitioned): adaptive_join_count and join_materialize(return_arrays=
@@ -2234,8 +2350,10 @@ def phase_config3() -> dict:
     patched to plan 4 chunks, streamed both ways (the depth-2 pipeline and
     FHJ_CHUNK_OVERLAP=0); a warm-up and 2 calls a run, then one serial
     call.  Count and rows equal the oracle, probe_chunks as planned, no
-    merge retry, K3 or K4 and K5 launched.  Then config3_resident.  The
-    data is made here and freed after."""
+    merge retry, K3 or K4 and K5 launched.  First config3_prune (its
+    summary is returned beside the phase's launches), then
+    config3_resident and config3_bloom.  The data is made here and freed
+    after."""
     import torch
     import flash_hash_join_tpu_torch as ft
     c, want_keys, want_vals, gen_s, oracle_s = config3_case()
@@ -2245,6 +2363,7 @@ def phase_config3() -> dict:
          oracle_seconds=oracle_s)
     torch.cuda.empty_cache()
     zero_launches()
+    prune = config3_prune(c)
     out = {}
     for mode, fn, kernels in (
             ("count", ft.adaptive_join_count, ("range_probe_count",)),
@@ -2285,6 +2404,7 @@ def phase_config3() -> dict:
                          peak_reserved_per_probe_row=(
                              torch.cuda.max_memory_reserved() / npr))
     resident = config3_resident(c, want)
+    config3_bloom(c, want)
     for mode in ("count", "materialize"):
         extra = ({"resident_chunked_core_seconds": resident[4],
                   "resident_table_build_core_seconds": resident["build"]}
@@ -2299,9 +2419,9 @@ def phase_config3() -> dict:
                   "over probe planes already on the card")
     del c, want_keys, want_vals
     torch.cuda.empty_cache()
-    return require_launched("config3", ("range_directory",
-                                        "range_probe_count",
-                                        "range_probe_materialize", "compact"))
+    return prune, require_launched("config3", (
+        "range_directory", "range_probe_count", "range_probe_materialize",
+        "compact", "global_prune"))
 
 
 def phase_stream_direct(cells: dict, main_counts: dict,
@@ -2801,7 +2921,8 @@ def main() -> int:
         launches[k] = walk[k]
     stream = phase("stream_compact", phase_stream_compact, cells)
     launches["concat_ragged_blocks"] = stream["concat_ragged_blocks"]
-    phase("config3", phase_config3)
+    summary["global_prune"], config3 = phase("config3", phase_config3)
+    launches["global_prune"] = config3["global_prune"]
     phase("stream_direct", phase_stream_direct, cells, main_counts,
           direct_core)
     phase("measure", phase_measure, cells, direct_core)

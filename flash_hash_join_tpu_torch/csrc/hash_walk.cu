@@ -80,9 +80,35 @@
 // to 1.9 ms, where the bytes it moves from HBM take ~0.4).  A second level
 // into tiles of 2^10 groups walked from shared memory ran slower at
 // config #2 (3.6-3.9 ms against 2.9-3.1, PERF.md).  The walk adds the
-// groups it visited into stats[0] and keeps the longest walk in stats[1].
+// groups it visited into stats[0], keeps the longest walk in stats[1] and
+// adds the probe rows whose bloom test passed into stats[2].
 // Scratch: 8 B a row of a pass for the count, 15 B for the materialize,
 // and the partition's counts; no host sync.
+//
+// The bloom prune (count with bloom, 1 level, where the u32 words take at
+// most three quarters of L2: ops/cuda/hash_walk.plan).  It takes the place of the JAX
+// walk's bloom test inside the walk (ops/hash_table.py:241), which the walk
+// kernels still run at 0 levels, for materialize and where the words do
+// not fit: gathered from device memory, one word a row costs more than
+// the partition it saves (2^24 and 2^25 groups, PERF.md).  Where a selective join's bloom
+// rejects most probe rows, partitioning every row before its bloom test
+// moves each rejected row's 8 bytes four times (the planes read twice, a
+// record written and read) to drop it at the walk.  prune_kernel reads a
+// pass's planes once, streaming (evict-first, so that the bloom words
+// stay in L2), tests each row's bloom word (narrowed to u32 once a join,
+// 16.8 MB at 2^22 groups) and writes the rows that pass, in no order, to a
+// survivors' pair of planes, staged a block at a time in shared memory;
+// the u64-max rows add has_max into the count there.  The pass's
+// partition and slice walk (fhj_global_walk_count with `survivors`) then
+// take their rows from the survivors' count on the card (the level's
+// parent range), with no bloom test and no u64-max rows: no host sync.
+// Bound: not HBM (8 B a probe row, 2.4 ms at 1e9 rows; the planes alone
+// stream in 2.6) but the bloom words' gather, one random L2 sector a row:
+// at config #3 8.7 ms, ~1.15e11 sectors/s, the rate the slice walk's row
+// reads show too; 5.5 with the words held in L1, and no faster with
+// another load path or with the rows fetched ahead by cp.async (PERF.md).
+// Scratch: 8 B a row of a pass more, and the u32 words.
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -121,7 +147,7 @@ struct Walk {
   int64_t total_groups;
   int gbits, pre_shift, bloom_k, max_iters;
   unsigned long long* count;  // count: the 0-d result, zeroed by the caller
-  unsigned long long* stats;  // [groups visited, longest walk], or null
+  unsigned long long* stats;  // [groups visited, longest walk, bloom passes], or null
   // 0 levels: the probe planes and the outputs in probe order
   const uint32_t* ph;
   const uint32_t* pl;
@@ -135,6 +161,10 @@ struct Walk {
   const uint32_t* nrec;       // the pass's records: the partition's end
   int64_t pass_rows;          // the pass's valid rows, u64-max rows included
   unsigned* ticket;
+  // a pruned pass: its rows are [survivors[0], survivors[1]) of (ph, pl),
+  // on the card; no bloom test and no u64-max rows (the prune counted
+  // them); null otherwise
+  const uint32_t* survivors;
 };
 
 // The walks of P probes (kh, kl): hit, the matching slot's value (kMat)
@@ -144,7 +174,8 @@ template <int G, bool kMat, int P>
 __device__ __forceinline__ void walk_probes(const Walk& a, const uint32_t (&kh)[P],
                                             const uint32_t (&kl)[P], const bool (&on)[P],
                                             bool (&hit)[P], uint32_t (&out_h)[P],
-                                            uint32_t (&out_l)[P], unsigned (&visited)[P]) {
+                                            uint32_t (&out_l)[P], unsigned (&visited)[P],
+                                            unsigned long long& passed) {
   int64_t g[P];
   bool walks[P];
   uint32_t tag[P];
@@ -155,7 +186,7 @@ __device__ __forceinline__ void walk_probes(const Walk& a, const uint32_t (&kh)[
     visited[k] = 0;
     const uint32_t h = fhj::hash_u64(kh[k], kl[k]);
     g[k] = fhj::home_group(h, a.gbits, a.pre_shift);
-    walks[k] = on[k] && a.max_iters > 0;
+    walks[k] = on[k];
     tag[k] = a.bloom != nullptr ? fhj::bloom_word(h, a.bloom_k) : 0u;
   }
   if (a.bloom != nullptr) {
@@ -163,8 +194,13 @@ __device__ __forceinline__ void walk_probes(const Walk& a, const uint32_t (&kh)[
 #pragma unroll
     for (int k = 0; k < P; ++k) word[k] = walks[k] ? (uint32_t)__ldg(a.bloom + g[k]) : 0u;
 #pragma unroll
-    for (int k = 0; k < P; ++k) walks[k] = walks[k] && (word[k] & tag[k]) == tag[k];
+    for (int k = 0; k < P; ++k) {
+      walks[k] = walks[k] && (word[k] & tag[k]) == tag[k];
+      passed += walks[k];
+    }
   }
+#pragma unroll
+  for (int k = 0; k < P; ++k) walks[k] = walks[k] && a.max_iters > 0;
   uint32_t w[P][2 * G];
 #pragma unroll
   for (int k = 0; k < P; ++k)
@@ -206,7 +242,7 @@ __device__ __forceinline__ void walk_probes(const Walk& a, const uint32_t (&kh)[
 template <int G, bool kMat>
 __device__ __forceinline__ void walk_coop(const Walk& a, uint32_t kh, uint32_t kl, bool on,
                                           bool& hit, uint32_t& out_h, uint32_t& out_l,
-                                          unsigned& visited) {
+                                          unsigned& visited, unsigned long long& passed) {
   constexpr int T = G / 2, H = T / 2;
   constexpr int kE = G <= 16 ? 16 : 32;   // the slots' match bits, then their empty bits
   using Bits = std::conditional_t<(G <= 16), unsigned, unsigned long long>;
@@ -214,12 +250,13 @@ __device__ __forceinline__ void walk_coop(const Walk& a, uint32_t kh, uint32_t k
   const unsigned gmask = T == 32 ? 0xffffffffu : ((1u << T) - 1u) << first;
   const uint32_t h = fhj::hash_u64(kh, kl);
   int64_t g = fhj::home_group(h, a.gbits, a.pre_shift);
-  bool walks = on && a.max_iters > 0;
+  bool walks = on;
   if (walks && a.bloom != nullptr) {
     const uint32_t tag = fhj::bloom_word(h, a.bloom_k);
     walks = ((uint32_t)__ldg(a.bloom + g) & tag) == tag;
+    passed += walks;
   }
-  if (!walks) g = -1;
+  if (!walks || a.max_iters <= 0) g = -1;
   uint32_t rk[T];
   int64_t rg[T];
   uint4 w0[T];
@@ -276,7 +313,8 @@ __device__ __forceinline__ void walk_coop(const Walk& a, uint32_t kh, uint32_t k
 
 // Adds a block's count and walk statistics (every thread calls it).
 __device__ __forceinline__ void finish_block(const Walk& a, bool count, unsigned long long hits,
-                                             unsigned long long groups, unsigned int longest) {
+                                             unsigned long long groups, unsigned int longest,
+                                             unsigned long long passed) {
   if (count) {
     const unsigned long long s = fhj::block_sum(hits);
     if (threadIdx.x == 0 && s) atomicAdd(a.count, s);
@@ -287,6 +325,11 @@ __device__ __forceinline__ void finish_block(const Walk& a, bool count, unsigned
     if (threadIdx.x == 0 && s) atomicAdd(a.stats, s);
     const unsigned int m = __reduce_max_sync(0xffffffffu, longest);
     if ((threadIdx.x & 31) == 0 && m) atomicMax(a.stats + 1, (unsigned long long)m);
+    if (a.bloom != nullptr) {
+      __syncthreads();
+      const unsigned long long b = fhj::block_sum(passed);
+      if (threadIdx.x == 0 && b) atomicAdd(a.stats + 2, b);
+    }
   }
 }
 
@@ -300,7 +343,7 @@ __global__ void __launch_bounds__(fhj::kThreads) walk_kernel(const Walk a) {
   const uint32_t max_vl = (uint32_t)__ldg(a.special + 2);
   const int64_t rows = kMat ? a.n : a.np_valid;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  unsigned long long hits = 0, groups = 0;
+  unsigned long long hits = 0, groups = 0, passed = 0;
   unsigned int longest = 0;
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < rows; base += stride) {
     const int64_t i = base + threadIdx.x;
@@ -311,9 +354,9 @@ __global__ void __launch_bounds__(fhj::kThreads) walk_kernel(const Walk a) {
     uint32_t out_h[1], out_l[1];
     unsigned visited[1];
     if constexpr (kCoop)
-      walk_coop<G, kMat>(a, kh[0], kl[0], on[0], hit[0], out_h[0], out_l[0], visited[0]);
+      walk_coop<G, kMat>(a, kh[0], kl[0], on[0], hit[0], out_h[0], out_l[0], visited[0], passed);
     else
-      walk_probes<G, kMat, 1>(a, kh, kl, on, hit, out_h, out_l, visited);
+      walk_probes<G, kMat, 1>(a, kh, kl, on, hit, out_h, out_l, visited, passed);
     if (max_key) {
       hit[0] = has_max;
       out_h[0] = has_max ? max_vh : 0u;
@@ -328,7 +371,7 @@ __global__ void __launch_bounds__(fhj::kThreads) walk_kernel(const Walk a) {
       a.vl[i] = out_l[0];
     }
   }
-  finish_block(a, !kMat, hits, groups, longest);
+  finish_block(a, !kMat, hits, groups, longest, passed);
 }
 
 // 1 level: chunks of P * blockDim records (P probes a thread, their first
@@ -339,7 +382,7 @@ __global__ void __launch_bounds__(fhj::kThreads) slice_walk_kernel(const Walk a)
   __shared__ unsigned t_sh;
   const int64_t nrec = *a.nrec;
   const int64_t chunk = (int64_t)blockDim.x * P;
-  unsigned long long hits = 0, groups = 0;
+  unsigned long long hits = 0, groups = 0, passed = 0;
   unsigned int longest = 0;
   for (;;) {
     if (threadIdx.x == 0) t_sh = atomicAdd(a.ticket, 1u);
@@ -358,7 +401,7 @@ __global__ void __launch_bounds__(fhj::kThreads) slice_walk_kernel(const Walk a)
       kh[k] = r.x;
       kl[k] = r.y;
     }
-    walk_probes<G, kMat, P>(a, kh, kl, on, hit, out_h, out_l, visited);
+    walk_probes<G, kMat, P>(a, kh, kl, on, hit, out_h, out_l, visited, passed);
 #pragma unroll
     for (int k = 0; k < P; ++k) {
       const int64_t i = base + k * blockDim.x + threadIdx.x;
@@ -371,9 +414,115 @@ __global__ void __launch_bounds__(fhj::kThreads) slice_walk_kernel(const Walk a)
       }
     }
   }
-  if (!kMat && blockIdx.x == 0 && threadIdx.x == 0 && __ldg(a.special) > 0)
+  if (!kMat && a.survivors == nullptr && blockIdx.x == 0 && threadIdx.x == 0 &&
+      __ldg(a.special) > 0)
     hits += a.pass_rows - nrec;       // the pass's u64-max rows
-  finish_block(a, !kMat, hits, groups, longest);
+  finish_block(a, !kMat, hits, groups, longest, passed);
+}
+
+// The bloom prune of a pass's rows [0, n) of (ph, pl), chunks of
+// kPruneChunk rows a block, kPrunePer a thread, every row's two words
+// loaded (streaming) before any bloom word.  The rows that pass are staged
+// in shared memory (a warp's run from one shared atomic) and flushed to
+// (sh, sl) at rows[1], one global atomic a flush, when the stage could not
+// take another chunk: at a 5 % match every ~16 chunks, not every chunk
+// (8.7 ms against 9.2 at config #3, PERF.md).  The u64-max rows add
+// has_max into the count, the rows that pass into stats[2].
+struct Prune {
+  const uint32_t* ph;
+  const uint32_t* pl;
+  int64_t n;
+  const uint32_t* words;       // the bloom words, narrowed to u32
+  const int64_t* special;
+  int gbits, pre_shift, bloom_k;
+  uint32_t* sh;                // the survivors' planes, n rows at most
+  uint32_t* sl;
+  uint32_t* rows;              // [0, survivors), zeroed by the launch
+  unsigned long long* count;
+  unsigned long long* stats;   // or null
+};
+
+constexpr int kPrunePer = 8;
+constexpr int kPruneChunk = fhj::kThreads * kPrunePer;
+constexpr int kStageRows = 2 * kPruneChunk;
+constexpr size_t kPruneSmem = (size_t)2 * 4 * kStageRows;   // the stage's hi, then lo words
+
+__global__ void __launch_bounds__(fhj::kThreads) prune_kernel(const Prune a) {
+  extern __shared__ uint32_t stage[];
+  __shared__ unsigned fill, out_at;
+  const unsigned lane = threadIdx.x & 31, below = (1u << lane) - 1u;
+  if (threadIdx.x == 0) fill = 0;
+  __syncthreads();
+  auto flush = [&]() {               // every thread calls it
+    const unsigned n = fill;
+    if (threadIdx.x == 0 && n) out_at = atomicAdd(a.rows + 1, n);
+    __syncthreads();
+    for (unsigned j = threadIdx.x; j < n; j += fhj::kThreads) {
+      a.sh[out_at + j] = stage[j];
+      a.sl[out_at + j] = stage[kStageRows + j];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) fill = 0;
+    __syncthreads();
+  };
+  unsigned long long maxes = 0, kept = 0;
+  for (int64_t base = (int64_t)blockIdx.x * kPruneChunk; base < a.n;
+       base += (int64_t)gridDim.x * kPruneChunk) {
+    uint32_t h[kPrunePer], l[kPrunePer];
+#pragma unroll
+    for (int k = 0; k < kPrunePer; ++k) {
+      const int64_t i = base + k * fhj::kThreads + threadIdx.x;
+      h[k] = i < a.n ? __ldcs(a.ph + i) : 0u;
+      l[k] = i < a.n ? __ldcs(a.pl + i) : 0u;
+    }
+    bool keep[kPrunePer];
+    uint32_t tag[kPrunePer], word[kPrunePer];
+#pragma unroll
+    for (int k = 0; k < kPrunePer; ++k) {
+      const bool valid = base + k * fhj::kThreads + threadIdx.x < a.n;
+      const bool max_key = is_max(h[k], l[k]);
+      maxes += valid && max_key;
+      keep[k] = valid && !max_key;
+      const uint32_t hk = fhj::hash_u64(h[k], l[k]);
+      tag[k] = fhj::bloom_word(hk, a.bloom_k);
+      word[k] = keep[k] ? __ldg(a.words + fhj::home_group(hk, a.gbits, a.pre_shift)) : 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < kPrunePer; ++k) {
+      keep[k] = keep[k] && (word[k] & tag[k]) == tag[k];
+      const unsigned m = __ballot_sync(0xffffffffu, keep[k]);
+      unsigned at = 0;
+      if (lane == 0 && m) at = atomicAdd(&fill, __popc(m));
+      at = __shfl_sync(0xffffffffu, at, 0);
+      if (keep[k]) {
+        const unsigned pos = at + __popc(m & below);
+        stage[pos] = h[k];
+        stage[kStageRows + pos] = l[k];
+      }
+      kept += keep[k];
+    }
+    __syncthreads();
+    const bool full = fill > (unsigned)(kStageRows - kPruneChunk);
+    __syncthreads();                  // read by all before the next chunk adds to it
+    if (full) flush();
+  }
+  flush();
+  const bool has_max = __ldg(a.special) > 0;
+  const unsigned long long m = fhj::block_sum(has_max ? maxes : 0ull);
+  if (threadIdx.x == 0 && m) atomicAdd(a.count, m);
+  if (a.stats != nullptr) {
+    __syncthreads();                  // block_sum's shared words are reused
+    const unsigned long long s = fhj::block_sum(kept);
+    if (threadIdx.x == 0 && s) atomicAdd(a.stats + 2, s);
+  }
+}
+
+// The table's int64 bloom words narrowed to their u32 values.
+__global__ void __launch_bounds__(fhj::kThreads) bloom_words_kernel(const int64_t* in,
+                                                                   uint32_t* out, int64_t n) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x)
+    out[i] = (uint32_t)in[i];
 }
 
 // Materialize, 1 level: the pass's rows put back in row order, chunk by
@@ -511,6 +660,7 @@ cudaError_t walk_slices(const Walk& base, const Scratch& s, int pbits, int64_t p
     L.kh = base.ph + p0, L.kl = base.pl + p0;
     L.n_valid = len, L.parents = 1, L.blocks = nb, L.bits = pbits, L.shift = base.gbits - pbits;
     L.gbits = base.gbits, L.pre_shift = base.pre_shift;
+    L.parent_start = base.survivors;   // a pruned pass: its rows, counted on the card
     L.hist = s.hist, L.out = reinterpret_cast<uint32_t*>(s.rec);
     L.spos = kMat ? s.spos : nullptr;
     L.srow = kMat ? s.srow : nullptr;
@@ -590,28 +740,68 @@ int64_t fhj_global_walk_scratch_bytes(int gbits, int pbits, int64_t pass_rows, i
 
 // Count the probes (ph, pl)[0, np_valid) whose key is in the table: adds
 // into *count (a zeroed int64 on the card), and, when stats is not null,
-// the groups visited into stats[0] and the longest walk into stats[1].
-// group_size a power of two up to 32; bloom null when off.  The plan:
-// pbits digit bits (0: the walk over the planes), passes of at most
-// pass_rows rows, at most `blocks` partition blocks; scratch
-// fhj_global_walk_scratch_bytes bytes.  On `stream`; returns
-// cudaGetLastError().
+// the groups visited into stats[0], the longest walk into stats[1] and the
+// rows whose bloom test passed into stats[2].  group_size a power of two
+// up to 32; bloom null when off.  The plan: pbits digit bits (0: the walk
+// over the planes), passes of at most pass_rows rows, at most `blocks`
+// partition blocks; scratch fhj_global_walk_scratch_bytes bytes.
+// survivors, when not null, makes this one pruned pass (pbits > 0,
+// np_valid <= pass_rows): (ph, pl) are fhj_global_prune's survivors,
+// [survivors[0], survivors[1]) on the card, np_valid their bound; bloom is
+// not read.  On `stream`; returns cudaGetLastError().
 int fhj_global_walk_count(const uint32_t* keys, const int64_t* bloom, const int64_t* special,
                           int64_t total_groups, int group_size, int gbits, int pre_shift,
                           int bloom_k, int max_iters, const uint32_t* ph, const uint32_t* pl,
                           int64_t np_valid, unsigned long long* count,
                           unsigned long long* stats, int pbits, int64_t pass_rows, int blocks,
-                          void* scratch, int64_t scratch_bytes, cudaStream_t stream) {
+                          void* scratch, int64_t scratch_bytes, const uint32_t* survivors,
+                          cudaStream_t stream) {
   if (bad_shape(total_groups, gbits, pre_shift, max_iters) ||
-      !plan_ok(gbits, pbits, pass_rows, blocks))
+      !plan_ok(gbits, pbits, pass_rows, blocks) ||
+      (survivors != nullptr && (pbits == 0 || np_valid > pass_rows)))
     return (int)cudaErrorInvalidValue;
   const Scratch s = layout(static_cast<char*>(scratch), pass_rows, pbits, blocks, false);
   if (pbits && scratch_bytes < (int64_t)s.bytes) return (int)cudaErrorInvalidValue;
   Walk a{};
-  a.keys = keys, a.bloom = bloom, a.special = special, a.total_groups = total_groups;
-  a.gbits = gbits, a.pre_shift = pre_shift, a.bloom_k = bloom_k, a.max_iters = max_iters;
-  a.count = count, a.stats = stats, a.ph = ph, a.pl = pl, a.n = np_valid, a.np_valid = np_valid;
+  a.keys = keys, a.bloom = survivors ? nullptr : bloom, a.special = special;
+  a.total_groups = total_groups, a.gbits = gbits, a.pre_shift = pre_shift;
+  a.bloom_k = bloom_k, a.max_iters = max_iters, a.count = count, a.stats = stats;
+  a.ph = ph, a.pl = pl, a.n = np_valid, a.np_valid = np_valid, a.survivors = survivors;
   return (int)walk<false>(a, group_size, s, pbits, pass_rows, blocks, stream);
+}
+
+// The bloom prune of probe rows (ph, pl)[0, n): each row that is not the
+// u64-max key and whose tag bloom_word(h, bloom_k) is inside its home
+// group's word (pre_shift as the walk's) is copied to (sh, sl)[0,
+// survivors), in no order, rows = [0, survivors) (two u32 words the launch
+// zeroes first); the u64-max rows add into *count when special[0] > 0, and
+// the survivors into stats[2] when stats is not null.  n < 2^31.  The
+// words: the prune reads the bloom words narrowed to u32 (n_words of
+// them), half the bytes of the table's int64 words, so that more of them
+// stay in L2 (9.2 ms against 12.1 at config #3, PERF.md); with bloom not
+// null, the table's words are narrowed into words first.  A memset and
+// one or two launches on `stream`; returns cudaGetLastError().
+int fhj_global_prune(const int64_t* bloom, uint32_t* words, int64_t n_words,
+                     const int64_t* special, int gbits, int pre_shift, int bloom_k,
+                     const uint32_t* ph, const uint32_t* pl, int64_t n, uint32_t* sh,
+                     uint32_t* sl, uint32_t* rows, unsigned long long* count,
+                     unsigned long long* stats, cudaStream_t stream) {
+  if (gbits < 0 || gbits > 32 || pre_shift < 0 || pre_shift > 32 || bloom_k < 0 ||
+      bloom_k > 32 || n < 0 || n >= (1ll << 31) || words == nullptr || n_words < (1ll << gbits))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(rows, 0, 2 * sizeof(uint32_t), stream);
+  if (e != cudaSuccess) return (int)e;
+  if (bloom != nullptr &&
+      (e = fhj::launch(bloom_words_kernel, n_words, stream, bloom, words, n_words)) != cudaSuccess)
+    return (int)e;
+  if (n == 0) return (int)cudaSuccess;
+  int grid = 0;
+  cudaFuncSetAttribute(prune_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPruneSmem);
+  if ((e = fhj::grid_for(prune_kernel, n, kPruneSmem, &grid, kPrunePer)) != cudaSuccess)
+    return (int)e;
+  const Prune a{ph, pl, n, words, special, gbits, pre_shift, bloom_k, sh, sl, rows, count, stats};
+  prune_kernel<<<grid, fhj::kThreads, kPruneSmem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // Per probe row i < n: hit[i], and (vh[i], vl[i]) the matching slot's

@@ -69,9 +69,13 @@ _SIGNATURES = {
     "fhj_bucket_major": [_P, _P, _P, _P, _I, _P, _P, _P],
     # keys, bloom, special, total_groups, group_size, gbits, pre_shift,
     # bloom_k, max_iters, ph, pl, np_valid, count, stats, pbits, pass_rows,
-    # blocks, scratch, scratch_bytes, stream
+    # blocks, scratch, scratch_bytes, survivors, stream
     "fhj_global_walk_count": [_P, _P, _P, _I64, _I, _I, _I, _I, _I, _P, _P,
-                              _I64, _P, _P, _I, _I64, _I, _P, _I64, _P],
+                              _I64, _P, _P, _I, _I64, _I, _P, _I64, _P, _P],
+    # bloom, words, n_words, special, gbits, pre_shift, bloom_k, ph, pl, n,
+    # sh, sl, rows, count, stats, stream
+    "fhj_global_prune": [_P, _P, _I64, _P, _I, _I, _I, _P, _P, _I64, _P, _P,
+                         _P, _P, _P, _P],
     # keys, vals, bloom, special, total_groups, group_size, gbits,
     # pre_shift, bloom_k, max_iters, ph, pl, n, np_valid, hit, vh, vl, stats,
     # pbits, pass_rows, blocks, scratch, scratch_bytes, stream

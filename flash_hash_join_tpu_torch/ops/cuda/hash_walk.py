@@ -24,10 +24,15 @@ csrc/partition.cuh) into slices of at most SLICE_BYTES of those planes,
 walked slice by slice so that each slice's rows come from device memory
 once (for materialize put back into probe order chunk by chunk of the
 scatter).  The constants are an H100's (scripts/bench_global_build.py
---sweep, PERF.md).  The kernels add the groups they visited into stats[0]
-and keep the longest walk in stats[1] (a (2,) int64 tensor on the probes'
-device, or None), with no host sync.  Each wrapper call counts one
-launch.
+--sweep, PERF.md).  A count with bloom on the 1-level route prunes each
+pass first where its bloom words, narrowed to u32, fit in three
+quarters of L2 (global_prune, in the span fhj.global.prune): only the rows whose bloom
+test passes are partitioned and walked, the pass's walk taking their
+number from the card.  The kernels add the groups they visited into
+stats[0], keep the longest walk in stats[1] and add the rows whose bloom
+test passed into stats[2] (a (3,) int64 tensor on the probes' device, or
+None), with no host sync.  Each call of a kernel's entry counts one
+launch: a pruned count one global_prune and one global_walk_count a pass.
 """
 
 from __future__ import annotations
@@ -48,16 +53,19 @@ MAX_PBITS = 7               # digits a pass: at most 2^7
 PASS_ROWS = 2**27           # valid probe rows a pass partitions, at most
 MIN_PROBES_PER_GROUP = 2.0  # fewer valid probes a group: 0 levels
 CHUNK_ROWS = 4096           # rows a partition block stages at a time
+PRUNE_L2_SHARE = 0.75       # of L2, the most a prune's u32 bloom words take
 _forced: dict = {}
 
 
 class Plan(NamedTuple):
     """The walk's order: the digit bits of the one partition level (0: the
-    per-probe walk over the probe planes), the valid rows a pass and the
-    partition's blocks."""
+    per-probe walk over the probe planes), the valid rows a pass, the
+    partition's blocks, and whether a count with bloom prunes each pass
+    before it is partitioned."""
     pbits: int
     pass_rows: int
     blocks: int
+    prune: bool = False
 
 
 def walked_bytes(total_groups: int, group_size: int, use_bloom: bool,
@@ -80,14 +88,20 @@ def slice_bits(total_groups: int, group_size: int, use_bloom: bool,
 def plan(n_valid: int, gbits: int, total_groups: int, group_size: int,
          use_bloom: bool, materialize: bool, *, l2_bytes: int = L2_BYTES,
          sms: int = 132, pbits: int | None = None,
-         pass_rows: int | None = None) -> Plan:
+         pass_rows: int | None = None, prune: bool | None = None) -> Plan:
     """The walk's plan for n_valid probe rows on a card with `l2_bytes` of
     L2 and `sms` multiprocessors: 0 levels where the planes the walk reads
     fit in half of L2, or where fewer than MIN_PROBES_PER_GROUP valid
     probes a group would share each row a slice brings in; else one level
-    of slice_bits, at most gbits.  pbits and pass_rows, when given, replace
-    the plan's own (pbits still at most gbits); an empty probe side takes
-    0 levels."""
+    of slice_bits, at most gbits.  A count with bloom at 1 level prunes
+    where the bloom words narrowed to u32, 4 B a group, take at most
+    PRUNE_L2_SHARE of L2: the prune gathers one word a row, and from device
+    memory that gather costs more than partitioning every row and testing
+    the bloom slice by slice (on an H100, PERF.md: 16 MB of words prune
+    faster at 5 % and 60 % match, 32 MB at 5 % and not at 60 %, 64 and
+    128 MB slower).  pbits, pass_rows and prune, when given, replace the
+    plan's own (pbits still at most gbits, prune only for a count with
+    bloom at 1 level); an empty probe side takes 0 levels."""
     if pbits is None:
         walked = walked_bytes(total_groups, group_size, use_bloom,
                               materialize)
@@ -98,13 +112,16 @@ def plan(n_valid: int, gbits: int, total_groups: int, group_size: int,
     rows = max(1, min(PASS_ROWS if pass_rows is None else pass_rows,
                       n_valid))
     blocks = max(1, min(-(-rows // CHUNK_ROWS), 4 * sms))
-    return Plan(pbits, rows, blocks)
+    if prune is None:
+        prune = 4 * total_groups <= PRUNE_L2_SHARE * l2_bytes
+    return Plan(pbits, rows, blocks,
+                bool(prune) and use_bloom and not materialize and pbits > 0)
 
 
 @contextlib.contextmanager
 def forced(**overrides):
     """Within the block, the wrappers plan with these overrides of `plan`
-    (pbits, pass_rows): how the tests and chip_smoke.py hold both routes
+    (pbits, pass_rows, prune): how the tests and chip_smoke.py hold both routes
     and the pass loop to the plain walk at small sizes."""
     global _forced
     before = _forced
@@ -139,7 +156,7 @@ def _check(table, ph, pl, n_valid: int, *, gbits: int, group_size: int,
     nbloom = total_groups if use_bloom else 1
     for name, t, n in (("table.bloom", table.bloom, nbloom),
                        ("table.special", table.special, 4),
-                       ("stats", stats, 2)):
+                       ("stats", stats, 3)):
         if t is None:
             continue
         if (t.dtype != torch.int64 or t.shape != (n,) or not t.is_contiguous()
@@ -169,19 +186,20 @@ def _table_args(table, *, gbits, group_size, total_groups, use_bloom,
 
 def _plan_args(lib, dev, n_valid: int, static: dict,
                materialize: bool) -> tuple:
-    """pbits, pass_rows, blocks, scratch, scratch bytes: the kernels' plan
-    arguments, with the scratch they need on dev."""
+    """The plan, the kernels' plan arguments (pbits, pass_rows, blocks,
+    scratch, scratch bytes), and the scratch they need on dev."""
     props = torch.cuda.get_device_properties(dev)
     p = plan(n_valid, static["gbits"], static["total_groups"],
              static["group_size"], static["use_bloom"], materialize,
              l2_bytes=getattr(props, "L2_cache_size", L2_BYTES),
              sms=props.multi_processor_count, **_forced)
-    nbytes = lib.fhj_global_walk_scratch_bytes(static["gbits"], *p,
+    nbytes = lib.fhj_global_walk_scratch_bytes(static["gbits"], *p[:3],
                                                int(materialize))
     if nbytes < 0:
         raise ValueError(f"the walk kernel does not take the plan {p}")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
-    return (*p, scratch.data_ptr() if nbytes else None, nbytes), scratch
+    return p, (*p[:3], scratch.data_ptr() if nbytes else None,
+               nbytes), scratch
 
 
 def global_walk_count(table, ph: torch.Tensor, pl: torch.Tensor,
@@ -191,7 +209,8 @@ def global_walk_count(table, ph: torch.Tensor, pl: torch.Tensor,
                       stats: torch.Tensor | None = None) -> torch.Tensor:
     """Count the probe rows [0, n_valid) whose key is in the table; a 0-d
     int64 tensor on the card.  The plan's launches, on the current stream
-    of the probes' device."""
+    of the probes' device; where the plan prunes, a prune and a pruned
+    walk a pass (_count_pruned)."""
     static = dict(gbits=gbits, group_size=group_size,
                   total_groups=total_groups, use_bloom=use_bloom,
                   bloom_k=bloom_k, max_iters=max_iters, pre_shift=pre_shift)
@@ -201,16 +220,97 @@ def global_walk_count(table, ph: torch.Tensor, pl: torch.Tensor,
         return count
     with torch.cuda.device(dev):
         lib = _build.lib()
-        plan_args, scratch = _plan_args(lib, dev, n_valid, static, False)
+        p, plan_args, scratch = _plan_args(lib, dev, n_valid, static,
+                                           False)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if p.prune:
+            _count_pruned(lib, table, ph, pl, n_valid, plan_args, static,
+                          count, stats, stream)
+            return count
         with spans.span(spans.K_GLOBAL_WALK_COUNT):
             err = lib.fhj_global_walk_count(
                 table.keys.data_ptr(), *_table_args(table, **static),
                 ph.data_ptr(), pl.data_ptr(), n_valid, count.data_ptr(),
                 None if stats is None else stats.data_ptr(), *plan_args,
-                stream)
+                None, stream)
         _build.check(err, "global_walk_count")
     return count
+
+
+def _count_pruned(lib, table, ph, pl, n_valid: int, plan_args: tuple,
+                  static: dict, count, stats, stream) -> None:
+    """The count's passes where the plan prunes, added into count: each
+    pass's rows pruned (in the span fhj.global.prune), then the survivors
+    partitioned and walked with no bloom test, on the card's count of them.
+    Scratch beside the walk's: the survivors' two planes, 8 B a row of a
+    pass, and the bloom words narrowed to u32 by the first pass's prune."""
+    pass_rows = plan_args[1]
+    dev = ph.device
+    sh, sl = torch.empty((2, pass_rows), dtype=torch.int32, device=dev)
+    rows = torch.empty(2, dtype=torch.int32, device=dev)
+    words = torch.empty(static["total_groups"], dtype=torch.int32, device=dev)
+    walk_args = (table.keys.data_ptr(),
+                 *_table_args(table, **dict(static, use_bloom=False)))
+    stats_ptr = None if stats is None else stats.data_ptr()
+    for p0 in range(0, n_valid, pass_rows):
+        n = min(pass_rows, n_valid - p0)
+        with spans.span(spans.GLOBAL_PRUNE):
+            _prune(lib, table, ph.data_ptr() + 4 * p0, pl.data_ptr() + 4 * p0,
+                   n, sh, sl, rows, count, stats_ptr, static, stream,
+                   words, narrow=p0 == 0)
+        with spans.span(spans.K_GLOBAL_WALK_COUNT):
+            err = lib.fhj_global_walk_count(
+                *walk_args, sh.data_ptr(), sl.data_ptr(), n,
+                count.data_ptr(), stats_ptr, *plan_args, rows.data_ptr(),
+                stream)
+        _build.check(err, "global_walk_count")
+
+
+def _prune(lib, table, ph_ptr: int, pl_ptr: int, n: int, sh, sl, rows,
+           count, stats_ptr, static: dict, stream, words,
+           narrow: bool) -> None:
+    """One launch of the prune kernel: its memset, the bloom words
+    narrowed into `words` first where `narrow`, and prune_kernel on them."""
+    with spans.span(spans.K_GLOBAL_PRUNE):
+        err = lib.fhj_global_prune(
+            table.bloom.data_ptr() if narrow else None, words.data_ptr(),
+            words.numel(), table.special.data_ptr(), static["gbits"],
+            static["pre_shift"], static["bloom_k"], ph_ptr, pl_ptr, n,
+            sh.data_ptr(), sl.data_ptr(), rows.data_ptr(), count.data_ptr(),
+            stats_ptr, stream)
+    _build.check(err, "global_prune")
+
+
+def global_prune(table, ph: torch.Tensor, pl: torch.Tensor, n_valid: int, *,
+                 gbits: int, group_size: int, total_groups: int,
+                 bloom_k: int, max_iters: int, pre_shift: int = 0,
+                 use_bloom: bool = True, stats: torch.Tensor | None = None):
+    """The bloom prune of probe rows [0, n_valid) (n_valid < 2^31): (sh,
+    sl, rows, count).  sh, sl: int32 planes of n_valid rows whose first
+    rows[1] hold the rows that are not the u64-max key and whose bloom tag
+    is inside their home group's word, in no order; rows: a (2,) int32
+    tensor [0, survivors] on the card; count: a 0-d int64 tensor, the
+    u64-max rows when special[0] > 0.  The survivors add into stats[2].
+    Plain version: ops/hash_table.prune_plain."""
+    static = dict(gbits=gbits, group_size=group_size,
+                  total_groups=total_groups, use_bloom=True, bloom_k=bloom_k,
+                  max_iters=max_iters, pre_shift=pre_shift)
+    if not use_bloom:
+        raise ValueError("the prune tests the table's bloom words")
+    dev = _check(table, ph, pl, n_valid, stats=stats, **static)
+    if n_valid >= 2**31:
+        raise ValueError(f"the prune takes fewer than 2^31 rows, got "
+                         f"{n_valid}")
+    sh, sl = torch.empty((2, n_valid), dtype=torch.int32, device=dev)
+    rows = torch.empty(2, dtype=torch.int32, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    words = torch.empty(total_groups, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _prune(_build.lib(), table, ph.data_ptr(), pl.data_ptr(), n_valid,
+               sh, sl, rows, count,
+               None if stats is None else stats.data_ptr(), static,
+               torch.cuda.current_stream(dev).cuda_stream, words, narrow=True)
+    return sh, sl, rows, count
 
 
 def global_walk_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
@@ -234,7 +334,7 @@ def global_walk_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
         return hit, vh, vl
     with torch.cuda.device(dev):
         lib = _build.lib()
-        plan_args, scratch = _plan_args(lib, dev, n_valid, static, True)
+        _, plan_args, scratch = _plan_args(lib, dev, n_valid, static, True)
         stream = torch.cuda.current_stream(dev).cuda_stream
         with spans.span(spans.K_GLOBAL_WALK_MATERIALIZE):
             err = lib.fhj_global_walk_materialize(

@@ -6,10 +6,11 @@ rows partitioned by home group into tiles, each finished in shared memory
 with a look-back for its carry, no host sync)
 and the walk kernels (ops/cuda/hash_walk.py: by its plan, a walk in
 probe order, or passes whose probes are partitioned by table slice and
-walked slice by slice, no host sync).  CPU tensors take the plain versions
-here: the build by two stable sorts, a cummax and a segmented scan
-(build_table_plain), the walk in chunks of probe_chunk rows with a host
-sync a walk step.
+walked slice by slice, a count with bloom pruning each pass first, no
+host sync).  CPU tensors take the plain versions here: the build by two
+stable sorts, a cummax and a segmented scan (build_table_plain), the walk
+in chunks of probe_chunk rows with a host sync a walk step, a count with
+bloom pruning each chunk first (prune_plain).
 
 Semantics (SURVEY.md §3, hash_join.cpp:75-204): linear probing over
 groups of G slots at a load of at most ~0.5; one winner per duplicate
@@ -49,11 +50,12 @@ class WalkStats:
     chip_smoke.py: `chunks` (walks run: a plain chunk, or one call of a
     walk kernel's wrapper over a whole probe side), `probes` (valid probe
     rows handed to the walk), `groups` (groups visited, summed over them),
-    `longest` (the most groups one probe visited) and `groups_per_probe`,
-    from read().
-    The kernel and the plain walk add into a (2,) int64 tensor a device
-    ([groups, longest]) with no host sync; read() syncs, so call it after
-    the timed calls."""
+    `longest` (the most groups one probe visited), `bloom_passed` (valid
+    rows, u64-max keys aside, whose bloom test passed: 0 without bloom)
+    and `groups_per_probe`, from read().
+    The kernels and the plain walk add into a (3,) int64 tensor a device
+    ([groups, longest, bloom_passed]) with no host sync; read() syncs, so
+    call it after the timed calls."""
 
     def __init__(self):
         self._lock = threading.Lock()   # the distributed tier walks a rank a thread
@@ -73,26 +75,32 @@ class WalkStats:
             self._host["probes"] += probes
             t = self._dev.get(dev)
             if t is None:
-                t = self._dev[dev] = torch.zeros(2, dtype=torch.int64,
+                t = self._dev[dev] = torch.zeros(3, dtype=torch.int64,
                                                  device=dev)
                 if dev.type == "cuda":   # zeroed before another stream adds
                     torch.cuda.current_stream(dev).synchronize()
             return t
 
-    def add_plain(self, t: torch.Tensor, visits: torch.Tensor) -> None:
-        """The plain walk's visits (a probe's groups) into its tensor."""
+    def add_plain(self, t: torch.Tensor, visits: torch.Tensor,
+                  passed) -> None:
+        """The plain walk's visits (a probe's groups) and bloom passes (a
+        count) into its tensor."""
         with self._lock:
-            t[0] += visits.sum()
-            t[1] = torch.maximum(t[1], visits.max())
+            if visits.numel():
+                t[0] += visits.sum()
+                t[1] = torch.maximum(t[1], visits.max())
+            t[2] += passed
 
     def read(self) -> dict:
-        groups = longest = 0
+        groups = longest = passed = 0
         with self._lock:
             out = dict(self._host)
             for t in self._dev.values():
-                g, m = t.tolist()
-                groups, longest = groups + g, max(longest, m)
+                g, m, b = t.tolist()
+                groups, longest, passed = groups + g, max(longest, m), \
+                    passed + b
         return {**out, "groups": groups, "longest": longest,
+                "bloom_passed": passed,
                 "groups_per_probe": groups / out["probes"] if out["probes"]
                 else 0.0}
 
@@ -236,9 +244,10 @@ def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
                        group_size: int, total_groups: int, use_bloom: bool,
                        bloom_k: int, max_iters: int, pre_shift: int = 0):
     """Resolve one chunk of probe rows (int32 planes): returns (matched,
-    g_found, j_found, sp_match, visits).  The walk visits one group per
-    iteration for every row not yet done, at most max_iters times; visits
-    counts the groups each row visited."""
+    g_found, j_found, sp_match, visits, passed).  The walk visits one group
+    per iteration for every row not yet done, at most max_iters times;
+    visits counts the groups each row visited, passed marks the valid rows
+    (u64-max keys aside) whose bloom test passed."""
     G = group_size
     wph, wpl = widen(ph), widen(pl)
     h = hash_u64(wph, wpl)
@@ -247,9 +256,12 @@ def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
     is_max = _is_max(wph, wpl)
     sp_match = is_max & (table.special[0] > 0) & valid
     done = ~valid | is_max
+    passed = torch.zeros_like(done)
     if use_bloom:
         tag = bloom_word(h, bloom_k)
-        done |= (table.bloom[g] & tag) != tag
+        ok = (table.bloom[g] & tag) == tag
+        passed = ~done & ok
+        done |= ~ok
     matched = torch.zeros_like(done)
     g_found = torch.zeros_like(g)
     j_found = torch.zeros_like(g)
@@ -271,7 +283,7 @@ def _probe_chunk_state(table: HashTable, ph, pl, valid, *, gbits: int,
         done |= found | has_empty | (g_next == g)  # off the end: absent
         g = torch.where(done, g, g_next)
         it += 1
-    return matched, g_found, j_found, sp_match, visits
+    return matched, g_found, j_found, sp_match, visits, passed
 
 
 def _chunks(n: int, n_valid: int, probe_chunk: int, dev):
@@ -290,9 +302,9 @@ def _walk_plain(table: HashTable, ph, pl, n_valid: int, probe_chunk: int,
     stats = walk_stats.add(dev, -(-ph.shape[0] // probe_chunk), n_valid)
     for start, stop, valid in _chunks(ph.shape[0], n_valid, probe_chunk,
                                       dev):
-        *state, visits = _probe_chunk_state(
+        *state, visits, passed = _probe_chunk_state(
             table, ph[start:stop], pl[start:stop], valid, **static)
-        walk_stats.add_plain(stats, visits)
+        walk_stats.add_plain(stats, visits, passed.sum())
         yield state
 
 
@@ -304,10 +316,53 @@ def _kernel_args(ph, pl, n_valid: int, static: dict):
                                                              stats=stats)
 
 
+def prune_plain(table: HashTable, ph, pl, n_valid: int, *, gbits: int,
+                bloom_k: int, pre_shift: int = 0, **_):
+    """Plain version of the prune kernel (ops/cuda/hash_walk.global_prune),
+    on any device: (sh, sl, max_hits), the probe rows [0, n_valid) (int32
+    planes) that are not the u64-max key and whose bloom tag is inside
+    their home group's word, in row order, and the valid u64-max rows as
+    hits where special[0] > 0 (a 0-d int64)."""
+    ph, pl = ph[:n_valid], pl[:n_valid]
+    wph, wpl = widen(ph), widen(pl)
+    h = hash_u64(wph, wpl)
+    tag = bloom_word(h, bloom_k)
+    is_max = _is_max(wph, wpl)
+    keep = ~is_max & ((table.bloom[home_group(h, gbits, pre_shift)] & tag)
+                      == tag)
+    return ph[keep], pl[keep], is_max.sum() * (table.special[0] > 0)
+
+
+def _count_pruned_plain(table: HashTable, ph, pl, n_valid: int,
+                        probe_chunk: int, static: dict) -> torch.Tensor:
+    """The plain count with bloom: each chunk pruned (prune_plain, in the
+    span fhj.global.prune), its survivors walked with no bloom test; the
+    visits and the bloom passes go to walk_stats."""
+    dev = ph.device
+    stats = walk_stats.add(dev, -(-ph.shape[0] // probe_chunk), n_valid)
+    walk = dict(static, use_bloom=False)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for start in range(0, ph.shape[0], probe_chunk):
+        with spans.span(spans.GLOBAL_PRUNE):
+            sh, sl, max_hits = prune_plain(
+                table, ph[start:start + probe_chunk],
+                pl[start:start + probe_chunk],
+                max(0, min(start + probe_chunk, n_valid) - start), **static)
+        matched, *_, visits, _ = _probe_chunk_state(
+            table, sh, sl, torch.ones_like(sh, dtype=torch.bool), **walk)
+        walk_stats.add_plain(stats, visits, sh.numel())
+        total += matched.sum() + max_hits
+    return total
+
+
 def probe_count_plain(table: HashTable, ph, pl, n_valid: int, *,
                       probe_chunk: int, **static) -> torch.Tensor:
-    """Plain version of the walk kernel's count, on any device: the walk
-    in chunks of probe_chunk rows, a host sync a walk step."""
+    """Plain version of the walk kernels' count, on any device: the walk
+    in chunks of probe_chunk rows, a host sync a walk step; with bloom,
+    each chunk pruned first (prune_plain)."""
+    if static["use_bloom"]:
+        return _count_pruned_plain(table, ph, pl, n_valid, probe_chunk,
+                                   static)
     total = torch.zeros((), dtype=torch.int64, device=ph.device)
     for matched, _, _, sp_match in _walk_plain(table, ph, pl, n_valid,
                                                probe_chunk, static):

@@ -30,6 +30,9 @@ The spans, with their parent and what each covers:
   fhj.partitioned.probe  fhj.join: K3 / K4 (a chunked count's loop too)
   fhj.global.build       fhj.join: the global build, kernel or plain
   fhj.global.walk        fhj.join: the global walk, the restore included
+  fhj.global.prune       fhj.global.walk: a count's bloom prune, a pass
+                         at a time (the card's 1-level route; on the CPU
+                         each chunk of the plain walk)
   fhj.vmem               fhj.join: the whole vmem tier, its compaction too
   fhj.merge              fhj.join: the whole merge tier, its compaction too
   fhj.compact            fhj.join, fhj.vmem or fhj.merge: compact_by_mask
@@ -61,6 +64,7 @@ PARTITIONED_BUILD = "fhj.partitioned.build"
 PARTITIONED_PROBE = "fhj.partitioned.probe"
 GLOBAL_BUILD = "fhj.global.build"
 GLOBAL_WALK = "fhj.global.walk"
+GLOBAL_PRUNE = "fhj.global.prune"
 VMEM = "fhj.vmem"
 MERGE = "fhj.merge"
 COMPACT = "fhj.compact"
@@ -82,6 +86,7 @@ K_GLOBAL_WALK_COUNT = "fhj.k.global_walk_count"
 K_GLOBAL_WALK_MATERIALIZE = "fhj.k.global_walk_materialize"
 K_GLOBAL_BUILD = "fhj.k.global_build"
 K_RANGE_BUILD = "fhj.k.range_build"
+K_GLOBAL_PRUNE = "fhj.k.global_prune"
 
 # the wrappers' launch spans, in launch_counts()'s order
 KERNELS = (K_DENSE_BITMAP, K_SCAN_DOMAIN_COUNT, K_RANGE_PROBE_COUNT,
@@ -89,10 +94,11 @@ KERNELS = (K_DENSE_BITMAP, K_SCAN_DOMAIN_COUNT, K_RANGE_PROBE_COUNT,
            K_PROBE_GATHER_BITMAP, K_PROBE_GATHER_STAGED, K_MATERIALIZE_COPY,
            K_PROBE_COUNT_VMEM, K_PROBE_MATERIALIZE_VMEM,
            K_CONCAT_RAGGED_BLOCKS, K_GLOBAL_WALK_COUNT,
-           K_GLOBAL_WALK_MATERIALIZE, K_GLOBAL_BUILD, K_RANGE_BUILD)
+           K_GLOBAL_WALK_MATERIALIZE, K_GLOBAL_BUILD, K_RANGE_BUILD,
+           K_GLOBAL_PRUNE)
 NAMES = (API_ROUTE, API_H2D, API_CHUNK, API_READBACK, JOIN, DIRECT,
          PARTITIONED_BUILD, PARTITIONED_PROBE, GLOBAL_BUILD, GLOBAL_WALK,
-         VMEM, MERGE, COMPACT, *KERNELS)
+         GLOBAL_PRUNE, VMEM, MERGE, COMPACT, *KERNELS)
 
 NONE = contextlib.nullcontext()     # no span: what span() gives, unrecorded
 _counts = dict.fromkeys(NAMES, 0)

@@ -89,7 +89,8 @@ def test_dense_span_above_2_20_runs_the_large_band(monkeypatch):
         "probe_gather_bitmap",
         "probe_gather_staged", "materialize_copy", "probe_count_vmem",
         "probe_materialize_vmem", "concat_ragged_blocks", "global_walk_count",
-        "global_walk_materialize", "global_build", "range_build"}
+        "global_walk_materialize", "global_build", "range_build",
+        "global_prune"}
     assert set(info["launches"].values()) == {0}
 
 

@@ -12,6 +12,7 @@ Tolerance: exact equality — every output is an integer count or a u32 bit
 pattern.
 """
 
+import dataclasses
 import functools
 import itertools
 
@@ -910,21 +911,40 @@ def test_global_walk_routes_match_plain(dev, case, route):
         _check_walk_kernels(dev, case, (1, 3))
 
 
+def _count_passes(dev, n_valid: int, static: dict) -> tuple[int, int]:
+    """(walk launches, prune launches) of a count under the plan the
+    wrapper takes (hw.forced included): a pass each where the plan prunes,
+    else one walk."""
+    props = torch.cuda.get_device_properties(dev)
+    p = hw.plan(n_valid, static["gbits"], static["total_groups"],
+                static["group_size"], static["use_bloom"], False,
+                l2_bytes=props.L2_cache_size,
+                sms=props.multi_processor_count, **hw._forced)
+    if n_valid == 0:
+        return 0, 0
+    if p.prune:
+        passes = -(-n_valid // p.pass_rows)
+        return passes, passes
+    return 1, 0
+
+
+LAUNCHES = ("global_walk_count", "global_walk_materialize", "global_prune")
+
+
 def _check_walk_kernels(dev, case, offsets):
     table, static = _walk_table(case, dev)
     ph, pl = offset_plane_views(case.probe_keys, dev, *offsets)
     n = ph.numel()
     n_valid = n if case.n_valid is None else case.n_valid
-    stats = torch.zeros(2, dtype=torch.int64, device=dev)
-    before = (ft.launch_counts()["global_walk_count"],
-              ft.launch_counts()["global_walk_materialize"])
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    before = [ft.launch_counts()[k] for k in LAUNCHES]
     count = hw.global_walk_count(table, ph, pl, n_valid, stats=stats,
                                  **static)
     hit, vh, vl = hw.global_walk_materialize(table, ph, pl, n_valid, **static)
     torch.cuda.synchronize()
-    assert (ft.launch_counts()["global_walk_count"] - before[0],
-            ft.launch_counts()["global_walk_materialize"] - before[1]) == (
-                int(n_valid > 0), int(n > 0))
+    walks, prunes = _count_passes(dev, n_valid, static)
+    assert [ft.launch_counts()[k] - b for k, b in zip(LAUNCHES, before)] \
+        == [walks, int(n > 0), prunes]
     ht.walk_stats.reset()
     want = ht.probe_count_plain(table, ph, pl, n_valid, probe_chunk=256,
                                 **static)
@@ -934,7 +954,80 @@ def _check_walk_kernels(dev, case, offsets):
     assert int(count) == int(want) == int(whit.sum())
     assert torch.equal(hit, whit)
     assert torch.equal(vh, wvh) and torch.equal(vl, wvl)
-    assert stats.tolist() == [plain["groups"], plain["longest"]]
+    assert stats.tolist() == [plain["groups"], plain["longest"],
+                              plain["bloom_passed"]]
+
+
+def _check_prune(dev, case, offsets):
+    """prune_kernel against prune_plain on the same card tensors: the
+    survivors as a set of rows (the kernel's order is its atomics'), the
+    u64-max hits and stats[2]."""
+    case = dataclasses.replace(case, use_bloom=True)
+    table, static = _walk_table(case, dev)
+    ph, pl = offset_plane_views(case.probe_keys, dev, *offsets)
+    n_valid = ph.numel() if case.n_valid is None else case.n_valid
+    stats = torch.zeros(3, dtype=torch.int64, device=dev)
+    before = ft.launch_counts()["global_prune"]
+    sh, sl, rows, count = hw.global_prune(table, ph, pl, n_valid,
+                                          stats=stats, **static)
+    torch.cuda.synchronize()
+    assert ft.launch_counts()["global_prune"] - before == 1
+    wh, wl, want = ht.prune_plain(table, ph, pl, n_valid, **static)
+    m = int(rows[1])
+    assert int(rows[0]) == 0 and m == wh.numel()
+    got = sortable(sh[:m], sl[:m]).sort().values
+    assert torch.equal(got, sortable(wh, wl).sort().values)
+    assert int(count) == int(want)
+    assert stats.tolist() == [0, 0, m]
+
+
+@pytest.mark.parametrize("offsets", PLANE_OFFSETS)
+@pytest.mark.parametrize("case", global_walk_cases(), ids=lambda c: c.name)
+def test_global_prune_kernel_matches_plain(dev, case, offsets):
+    _check_prune(dev, case, offsets)
+
+
+# the count with bloom's routes: the walk's, and 1 level with the prune
+# forced off (the route of words that outgrow half of L2)
+PRUNE_ROUTES = dict(WALK_ROUTES, passes_of_1000_unpruned=dict(
+    pbits=2, pass_rows=1000, prune=False))
+
+
+@pytest.mark.parametrize("route", PRUNE_ROUTES)
+@pytest.mark.parametrize("case", [c for c in global_walk_cases()
+                                  if c.use_bloom], ids=lambda c: c.name)
+def test_pruned_count_passes_on_both_routes(dev, case, route):
+    # the count with bloom at each route, passes of 1000 rows included:
+    # pruned at 1 level (a prune and a walk a pass), walked whole at 0 and
+    # where the prune is off
+    with hw.forced(**PRUNE_ROUTES[route]):
+        _check_walk_kernels(dev, case, (0, 0))
+
+
+def test_pruned_count_does_not_sync(dev):
+    # the whole join of a count with bloom, pruned in passes of 1000 rows:
+    # the survivors' number stays on the card
+    case = next(c for c in global_walk_cases()
+                if c.name == "n_valid_pass_cut_bloom")
+    from flash_hash_join_tpu_torch import engine
+    fn = engine.count_graph("global", n_build=len(case.build_keys),
+                            use_bloom=True)
+    args = [*device_planes(case.build_keys, dev),
+            *device_planes(case.build_values, dev),
+            *device_planes(case.probe_keys, dev), len(case.build_keys),
+            case.n_valid]
+    with hw.forced(pbits=2, pass_rows=1000):
+        fn(*args)                          # builds the library, the stats
+        torch.cuda.synchronize()
+        before = ft.launch_counts()["global_prune"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            count, special = fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert ft.launch_counts()["global_prune"] - before == 4
+    want = int(np.isin(case.probe_keys[:case.n_valid], case.build_keys).sum())
+    assert int(count) == want and int(special[3]) == 0
 
 
 @pytest.mark.parametrize("use_bloom", [False, True])
@@ -989,9 +1082,17 @@ def test_hash_join_launches_the_walk_on_card(dev, fn):
     kernel = "global_walk_count" if "count" in fn \
         else "global_walk_materialize"
     assert info["launches"][kernel] == 1
+    # 3e5 build keys: the walked planes fit in half of L2, 0 levels, so the
+    # bloom is tested in the walk and nothing is pruned
+    assert info["launches"]["global_prune"] == 0
     stats = ht.walk_stats.read()
     assert stats["chunks"] == 1 and stats["probes"] == pk.size
     assert 1 <= stats["longest"] <= 256 and stats["groups"] > 0
+    misses = int((~np.isin(pk, bk)).sum())
+    if "bloom" in fn:     # every hit passes; ~1 % of the misses do
+        assert count <= stats["bloom_passed"] < count + misses // 10
+    else:
+        assert stats["bloom_passed"] == 0
 
 
 # ---- the global tier's build kernel -------------------------------------------

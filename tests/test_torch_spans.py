@@ -31,7 +31,7 @@ LAUNCH_KEYS = ["dense_bitmap", "scan_domain_count", "range_probe_count",
                "materialize_copy", "probe_count_vmem",
                "probe_materialize_vmem", "concat_ragged_blocks",
                "global_walk_count", "global_walk_materialize",
-               "global_build", "range_build"]
+               "global_build", "range_build", "global_prune"]
 
 
 def _columns(nb=3000, npr=5000, domain=4000, seed=7):
@@ -66,6 +66,11 @@ CASES = {
     "global-count": (
         lambda: engine.count_graph("global", n_build=3000),
         {J, (S.JOIN, S.GLOBAL_BUILD), (S.JOIN, S.GLOBAL_WALK)}),
+    # a count with bloom prunes each chunk of the plain walk first
+    "global-count-bloom": (
+        lambda: engine.count_graph("global", n_build=3000, use_bloom=True),
+        {J, (S.JOIN, S.GLOBAL_BUILD), (S.JOIN, S.GLOBAL_WALK),
+         (S.GLOBAL_WALK, S.GLOBAL_PRUNE)}),
     "global-materialize": (
         lambda: engine.materialize_graph("global", n_build=3000),
         {J, (S.JOIN, S.GLOBAL_BUILD), (S.JOIN, S.GLOBAL_WALK),

@@ -277,6 +277,36 @@ def test_plan_sizes_the_slices():
         hw.Plan(2, 3, 1)
 
 
+def test_plan_prunes_a_count_with_bloom_whose_words_fit_in_l2():
+    G, mb = 8, 2**20
+    # config #3 (2^22 + 64 groups: 16.8 MB of u32 words) and 2^23 + 64
+    # groups (33.6 MB) prune; 2^24 + 64 and J1 1e8 Q5's 2^25 + 64 groups
+    # (67 and 134 MB) test the bloom slice by slice
+    c3 = (10**9, 22, (1 << 22) + 64, G)
+    assert hw.plan(*c3, True, False, l2_bytes=50 * mb).prune
+    assert hw.plan(2 * 10**8, 23, (1 << 23) + 64, G, True, False,
+                   l2_bytes=50 * mb).prune
+    for gbits in (24, 25):
+        assert not hw.plan(10**9, gbits, (1 << gbits) + 64, G, True, False,
+                           l2_bytes=50 * mb).prune
+    # three quarters of L2 is the edge: 4 B a group
+    tg = int(hw.PRUNE_L2_SHARE * 50 * mb) // 4
+    assert hw.plan(10**9, 22, tg, G, True, False, l2_bytes=50 * mb).prune
+    assert not hw.plan(10**9, 22, tg + 1, G, True, False,
+                       l2_bytes=50 * mb).prune
+    # never without bloom, for materialize or at 0 levels
+    assert not hw.plan(*c3, False, False, l2_bytes=50 * mb).prune
+    assert not hw.plan(*c3, True, True, l2_bytes=50 * mb).prune
+    assert not hw.plan(*c3, True, False, l2_bytes=50 * mb, pbits=0).prune
+    # the override, held to the same three
+    assert not hw.plan(*c3, True, False, l2_bytes=50 * mb,
+                       prune=False).prune
+    assert hw.plan(10**8, 25, (1 << 25) + 64, G, True, False,
+                   l2_bytes=50 * mb, prune=True).prune
+    assert not hw.plan(*c3, True, True, prune=True).prune
+    assert not hw.plan(*c3, False, False, prune=True).prune
+
+
 def test_forced_plan_is_restored():
     with hw.forced(pbits=2, pass_rows=10):
         assert hw._forced == dict(pbits=2, pass_rows=10)
