@@ -92,7 +92,16 @@ Phases, one JSON line each on stdout:
               J1 1e8 Q5 and config #2); K3/K4 at J1 1e8 Q5 with
               the directory's offsets as int32 (as built) and as int64; and
               K3/K4 on both table layouts (searched whole, or through a
-              directory) at build sizes 100 to 1e5.  K7 is timed on each of
+              directory) at build sizes 100 to 1e5.  K4's 1-level route
+              (range_probe_sliced) is held to its plain version on every
+              table with a directory above (forced, 3 digit bits, and in
+              passes of 1000 rows on the edge builds), timed at J1 1e8 Q5
+              beside the 0-level K4 (forced), and held there, bit for bit,
+              to its plain version and to the 0-level K4 as the plan routes
+              it (k4_routes_vs_plain); both routes are timed over tables of
+              2^20 to 1e8 J1 keys and of 2^22 to 2^24 uniform u64 keys, and
+              2^18 to 1e8 probe rows, the sweep from which
+              ops/cuda/range_probe.plan's threshold was taken (k4_routes).  K7 is timed on each of
               its path's cells (J1 1e7 Q2, 4e7 Q1, 1e8 Q1), K8 on its own,
               K10 and K11 at R 16 (J1 1e8 Q1) and R 512 (J1 4e7 Q2), K6 at
               1e8 rows with 4 planes at 60 and 5 % hits and 2 planes at 60 %
@@ -113,9 +122,10 @@ Phases, one JSON line each on stdout:
               Phases 4 and 5: count == oracle; the materialized rows equal
               the oracle's in probe order (hence also as sorted pairs), with
               the minimum build row as the duplicate-key winner; route
-              "partitioned" with no retry; K3 (count), K4 and K5
-              launched, and in each phase the directory build (the J1 Q1
-              table, 100 keys, has none).
+              "partitioned" with no retry; K3 (count), K4 by either route
+              and K5 launched, and in each phase the directory build (the
+              J1 Q1 table, 100 keys, has none); in phase 4 both K4 routes
+              (the 1-level one at Q5).
   6. direct_vs_partitioned  J1 4e7 Q1, Q2, Q5 count through
               join_count(strategy="partitioned"), beside phase 3's direct.
   7. fallback a sparse 64-bit case through the exact merge join, count and
@@ -277,7 +287,9 @@ REPLACES = {"dense_bitmap": PALLAS + "dense_bitmap.py:159",
             # the partitioned tier's table sort (a plain lax.sort)
             "range_build": "flash_hash_join_tpu/ops/range_table.py",
             # the bloom test inside the JAX walk (plain XLA)
-            "global_prune": "flash_hash_join_tpu/ops/hash_table.py:241"}
+            "global_prune": "flash_hash_join_tpu/ops/hash_table.py:241",
+            # K4's 1-level route: the same TPU kernel
+            "range_probe_sliced": PALLAS + "range_probe.py:368"}
 KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "dense_bitmap": ("fused_domain_bitmap_join", "dense_bitmap.cu"),
     "scan_domain_count": ("scan_domain_count", "bitmap_probe.cu"),
@@ -295,7 +307,10 @@ KERNELS = {  # launch-count key -> (wrapper name, source under csrc/)
     "global_walk_materialize": ("global_walk_materialize", "hash_walk.cu"),
     "global_build": ("global_build_table", "hash_build.cu"),
     "range_build": ("range_build", "range_build.cu"),
-    "global_prune": ("global_prune", "hash_walk.cu")}
+    "global_prune": ("global_prune", "hash_walk.cu"),
+    "range_probe_sliced": ("range_probe_materialize", "range_probe.cu")}
+# K4 by either route (ops/cuda/range_probe.plan): a path's check takes one
+K4 = ("range_probe_materialize", "range_probe_sliced")
 # The card's peaks for a kernel's bound (H100 SXM at 700 W): device
 # memory, and the float32 rate outside the tensor cores, taken for
 # integer operations.
@@ -387,6 +402,13 @@ def best(t: dict) -> dict:
     return {k: min(v) for k, v in t.items()}
 
 
+def launched(launches: dict, kernel) -> bool:
+    """Whether `kernel` launched: a launch key, or a tuple of keys of
+    which any."""
+    keys = (kernel,) if isinstance(kernel, str) else kernel
+    return any(launches[k] > 0 for k in keys)
+
+
 def zero_launches() -> None:
     from flash_hash_join_tpu_torch.utils import spans
     spans.reset()
@@ -395,7 +417,7 @@ def zero_launches() -> None:
 def require_launched(phase: str, kernels) -> dict:
     import flash_hash_join_tpu_torch as ft
     launches = ft.launch_counts()
-    require(all(launches[k] > 0 for k in kernels),
+    require(all(launched(launches, k) for k in kernels),
             f"{phase}: a kernel of the path never launched: {launches}")
     return launches
 
@@ -640,6 +662,75 @@ def key_planes(x):
             (u & 0xFFFFFFFF).to(torch.int32).contiguous())
 
 
+def k4_flat(table, ph, pl, np_valid: int):
+    """K4's 0-level route, forced: the kernel over the probe planes."""
+    from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+    with rp.forced(pbits=0):
+        return rp.range_probe_materialize(table, ph, pl, np_valid)
+
+
+def k4_route_sweep(table, x) -> dict:
+    """K4's two routes timed (cuda_ms, lone calls): the sweep from which
+    ops/cuda/range_probe.plan's threshold was taken.  Two key shapes:
+    "j1", tables of 2^20 to 2^25 evenly spaced keys of `table` and the whole
+    of it, probed by 2^18 to 2^24 and all of the sortable probe keys x, half
+    of them drawn from the table's keys (the rest misses inside its range);
+    "u64", tables of 2^22 to 2^24 keys drawn uniformly from the whole u64
+    range (a directory bucket's keys far from evenly spread), probed by
+    2^20 to 2^24 and len(x) rows, a tenth of them the table's keys and the
+    rest uniform u64 keys.  Each row: the shape, the table's keys and bytes,
+    the probe rows, the plan's digit bits, and ms for the 0-level K4 and for
+    the 1-level route at slice_bits."""
+    import torch
+    from flash_hash_join_tpu_torch.ops import range_table as rt
+    from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+    dev, nb, npr = x.device, table.keys.numel(), x.numel()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sweep = []
+
+    def draw(n, high=None):
+        return torch.randint(-2**63, 2**63 - 1, (n,), device=dev,
+                             generator=gen) if high is None else \
+            torch.randint(0, high, (n,), device=dev, generator=gen)
+
+    def timed(shape, keys, values, q, probe_rows):
+        n_keys = keys.numel()
+        sub = rt.RangeTable(keys, values, *rp.range_directory(
+            keys, rp.directory_bits(n_keys)))
+        qh, ql = key_planes(q)
+        nbytes, p = rp.table_bytes(sub), rp.table_dir_bits(sub)
+        for rows in probe_rows:
+            row = dict(shape=shape, nb=n_keys, table_bytes=nbytes, npr=rows,
+                       plan_pbits=rp._plan(sub, rows, dev).pbits)
+            for name, bits in (("flat", 0), ("sliced",
+                                              rp.slice_bits(nbytes, p))):
+                with rp.forced(pbits=bits):
+                    row[f"{name}_ms"] = cuda_ms(
+                        lambda: rp.range_probe_materialize(
+                            sub, qh[:rows], ql[:rows], rows))
+            sweep.append(row)
+
+    for n_keys in (2**20, 2**21, 2**22, 2**23, 2**24, 2**25, nb):
+        idx = torch.arange(n_keys, device=dev) * (nb - 1) // (n_keys - 1)
+        keys = table.keys[idx]
+        q = x.clone()
+        q[::2] = keys[draw(q[::2].numel(), n_keys)]
+        timed("j1", keys, table.values[idx], q,
+              (2**18, 2**20, 2**22, 2**23, 2**24, npr))
+        del keys, q
+    for n_keys in (2**22, 2**23, 2**24):
+        keys = torch.sort(draw(n_keys)).values
+        values = draw(2 * n_keys, 2**31).to(torch.int32).view(n_keys, 2)
+        q = draw(npr)
+        q[::10] = keys[draw(q[::10].numel(), n_keys)]
+        timed("u64", keys, values, q,
+              (2**20, 2**22, 2**23, 2**24, npr))
+        del keys, values, q
+    return dict(sweep=sweep, min_table_l2=rp.MIN_TABLE_L2,
+                min_probes=rp.MIN_PROBES,
+                l2_bytes=torch.cuda.get_device_properties(dev).L2_cache_size)
+
+
 def phase_partitioned_kernels(cells: dict) -> dict:
     """K3, K4 and K5 == plain on edge and large shapes and on builds that
     stress the directory, on both table layouts; then each timed against
@@ -654,7 +745,8 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     err = {"range_directory": 0, "range_probe_count": 0,
-           "range_probe_materialize": 0, "compact": 0}
+           "range_probe_materialize": 0, "range_probe_sliced": 0,
+           "compact": 0}
     layouts_checked = 0
     cases = 0
 
@@ -723,13 +815,24 @@ def phase_partitioned_kernels(cells: dict) -> dict:
                     want = rp.range_probe_count_plain(table, *p, np_valid)
                     err["range_probe_count"] = max(
                         err["range_probe_count"], abs(int(got) - int(want)))
-                    got = rp.range_probe_materialize(table, *p, np_valid)
+                    got = k4_flat(table, *p, np_valid)
                     want = rp.range_probe_materialize_plain(table, *p,
                                                             np_valid)
                     err["range_probe_materialize"] = max(
                         err["range_probe_materialize"],
                         *(_max_abs(g, w) for g, w in zip(got, want)))
                     cases += 2
+                    if rp.table_dir_bits(table):    # K4's 1-level route
+                        for forced in (dict(pbits=3), dict(
+                                pbits=2, pass_rows=n // 3 + 1)):
+                            with rp.forced(**forced):
+                                sliced = rp.range_probe_materialize(
+                                    table, *p, np_valid)
+                            err["range_probe_sliced"] = max(
+                                err["range_probe_sliced"],
+                                *(_max_abs(g, w) for g, w in zip(sliced,
+                                                                  want)))
+                            cases += 1
                     if (table is built and view == slice(None)
                             and np_valid == n):
                         hit, mvh, mvl = got
@@ -778,7 +881,31 @@ def phase_partitioned_kernels(cells: dict) -> dict:
     nb, npr = kh.numel(), ph.numel()
     table = rt.build_range_table(kh, kl, vh, vl, nb, with_values=True)
     del kh, kl, vh, vl
+    q5_plan = rp._plan(table, npr, dev)
+    require(q5_plan.pbits > 0,
+            "K4's plan at J1 1e8 Q5 is not the 1-level route")
+    # the plan's route at this shape (its digit bits, one pass of all the
+    # rows) against its plain version and against the 0-level K4 and its
+    # plain version, bit for bit
     hit, mvh, mvl = rp.range_probe_materialize(table, ph, pl, npr)
+    routes = {"sliced_plain": rp.range_probe_sliced_plain(table, ph, pl, npr,
+                                                          q5_plan),
+              "flat": k4_flat(table, ph, pl, npr),
+              "flat_plain": rp.range_probe_materialize_plain(table, ph, pl,
+                                                             npr)}
+    q5_err = {name: max(_max_abs(g, w) for g, w in zip((hit, mvh, mvl), r))
+              for name, r in routes.items()}
+    q5_err["flat_vs_plain"] = max(_max_abs(g, w) for g, w in zip(
+        routes["flat"], routes["flat_plain"]))
+    del routes
+    err["range_probe_sliced"] = max(err["range_probe_sliced"],
+                                    q5_err["sliced_plain"], q5_err["flat"])
+    err["range_probe_materialize"] = max(err["range_probe_materialize"],
+                                         q5_err["flat_vs_plain"])
+    emit("k4_routes_vs_plain", cell="1e8-Q5", plan=q5_plan._asdict(),
+         max_abs_err=q5_err, hits=int(hit.sum()))
+    require(all(e == 0 for e in q5_err.values()),
+            f"K4's routes differ at J1 1e8 Q5: {q5_err}")
     cols = (ph, pl, mvh, mvl)
     hits = int(hit.sum())
     # library yardsticks, timed here and used nowhere in the port: one
@@ -796,6 +923,7 @@ def phase_partitioned_kernels(cells: dict) -> dict:
                    lambda: torch.searchsorted(table.keys, starts)),
                "range_probe_count": searched,
                "range_probe_materialize": searched,
+               "range_probe_sliced": searched,
                "compact": cuda_ms(lambda: stacked[:, hit])}
     del stacked, starts
     steps = 3 * (nb.bit_length() + 1) + 4     # per probe: the lower bound
@@ -807,6 +935,7 @@ def phase_partitioned_kernels(cells: dict) -> dict:
               "range_probe_count": bound(8 * nb + 8 * npr + 8, npr * steps),
               "range_probe_materialize": bound(16 * nb + 17 * npr,
                                                npr * steps),
+              "range_probe_sliced": bound(16 * nb + 17 * npr, npr * steps),
               # the mask, then the hit rows' 4 planes read and written
               "compact": bound(npr + 32 * hits + 8, 6 * npr)}
     runs = {
@@ -815,9 +944,13 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         "range_probe_count": (
             lambda: rp.range_probe_count(table, ph, pl, npr),
             lambda: rp.range_probe_count_plain(table, ph, pl, npr)),
-        "range_probe_materialize": (
-            lambda: rp.range_probe_materialize(table, ph, pl, npr),
+        "range_probe_materialize": (       # the 0-level K4, forced
+            lambda: k4_flat(table, ph, pl, npr),
             lambda: rp.range_probe_materialize_plain(table, ph, pl, npr)),
+        "range_probe_sliced": (            # the plan's route here
+            lambda: rp.range_probe_materialize(table, ph, pl, npr),
+            lambda: rp.range_probe_sliced_plain(table, ph, pl, npr,
+                                                q5_plan)),
         "compact": (lambda: sc.compact_by_mask(hit, cols, npr),
                     lambda: sc.compact_by_mask_plain(hit, cols, npr)),
     }
@@ -829,6 +962,9 @@ def phase_partitioned_kernels(cells: dict) -> dict:
                              at="J1 1e8 Q5 (1e8 build x 1e8 probe rows)")
         emit("kernel_time", cell="1e8-Q5", kernel=name, nb=nb, npr=npr, **t,
              **bounds[name], library_ms=library[name])
+    summary["range_probe_sliced"].update(
+        role="K4's 1-level route: partition, slice probe, restore",
+        plan=q5_plan._asdict())
     summary["range_directory"].update(
         role="table build of K3/K4 (not a TPU kernel)",
         dir_entries=table.dir.numel(), shift=shift,
@@ -845,8 +981,7 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         for name, t in (("int32", table), ("int64", wide)):
             widths.setdefault(name, []).append(dict(
                 K3_ms=cuda_ms(lambda: rp.range_probe_count(t, ph, pl, npr)),
-                K4_ms=cuda_ms(lambda: rp.range_probe_materialize(t, ph, pl,
-                                                                 npr))))
+                K4_ms=cuda_ms(lambda: k4_flat(t, ph, pl, npr))))
     emit("offset_widths", cell="1e8-Q5", **widths)
     del wide
 
@@ -885,6 +1020,7 @@ def phase_partitioned_kernels(cells: dict) -> dict:
         del q, qh, ql, whole, directed, first, got
     emit("table_layouts", npr=npr, small_table=rp.SMALL_TABLE,
          layouts=layouts)
+    emit("k4_routes", **k4_route_sweep(table, x))
     del table, x, ph, pl, hit, mvh, mvl, cols
     torch.cuda.empty_cache()
     return summary
@@ -1137,7 +1273,7 @@ def api_cell(phase: str, name: str, c, fn_name: str, *, expect: str,
             f"oracle {want}")
     require(info["strategy"] == expect and not info["retried"],
             f"{phase} {name} {fn_name}: routed {info}")
-    require(all(info["launches"][k] > 0 for k in kernels),
+    require(all(launched(info["launches"], k) for k in kernels),
             f"{phase} {name} {fn_name}: kernels not launched: {info}")
     if rows_kw is not None:
         count, _, keys, vals = ft.join_materialize(
@@ -1166,8 +1302,7 @@ def partitioned_cell(phase: str, name: str, c, fn_name: str,
                         kernels=("range_build", "range_probe_count"), **kw)
     strategy = "adaptive" if fn_name == "adaptive_join" else "partitioned"
     return api_cell(phase, name, c, fn_name, expect="partitioned",
-                    kernels=("range_build", "range_probe_materialize",
-                             "compact"),
+                    kernels=("range_build", K4, "compact"),
                     rows_kw=dict(strategy=strategy), **kw)
 
 
@@ -1180,7 +1315,8 @@ def phase_radix(cells: dict) -> dict:
                      "hash_join_count_radix", materialize=False)
     return require_launched("radix", ("range_build", "range_directory",
                                       "range_probe_count",
-                                      "range_probe_materialize", "compact"))
+                                      "range_probe_materialize",
+                                      "range_probe_sliced", "compact"))
 
 
 def phase_adaptive(cells: dict) -> dict:
@@ -1191,8 +1327,7 @@ def phase_adaptive(cells: dict) -> dict:
     partitioned_cell("adaptive", "uniform-1e7x1e8", c, "adaptive_join",
                      materialize=True)
     return require_launched("adaptive", ("range_directory",
-                                         "range_probe_count",
-                                         "range_probe_materialize",
+                                         "range_probe_count", K4,
                                          "compact"))
 
 
@@ -2131,14 +2266,17 @@ def planned_chunks(nb: int, npr: int, mode: str, chunks: int):
     """Patch the planner's budget (api.hbm_budget_bytes) to one under
     which models/cost.py plans `chunks` probe chunks for this shape: the
     build side and a chunk of ceil(npr / chunks) rows in the depth-2
-    pipeline (chunks 1: the card's own budget)."""
+    pipeline, with the sliced probe's scratch of a chunk where its plan
+    takes that route (chunks 1: the card's own budget)."""
     from flash_hash_join_tpu_torch import api
     from flash_hash_join_tpu_torch.models import cost
     real = api.hbm_budget_bytes
     budget = real("cuda")
     if chunks > 1:
         fixed, per_row, pipelined = cost.footprint(nb, mode)
-        budget = fixed + -(-npr // chunks) * (per_row + pipelined)
+        rows = -(-npr // chunks)
+        budget = (fixed + rows * (per_row + pipelined)
+                  + cost.probe_scratch_bytes(nb, rows, mode))
     require(cost.plan_probe_chunks(nb, npr, mode, budget) == chunks,
             f"{mode} {nb} x {npr}: a budget of {budget} B does not plan "
             f"{chunks} chunks")
@@ -2369,7 +2507,7 @@ def phase_config3() -> dict:
             ("count", ft.adaptive_join_count, ("range_probe_count",)),
             ("materialize", functools.partial(ft.join_materialize,
                                               return_arrays=True),
-             ("range_probe_materialize", "compact"))):
+             (K4, "compact"))):
         for chunks in (1, 4):
             with planned_chunks(nb, npr, mode, chunks) as budget:
                 for overlap in ((True,) if chunks == 1 else (True, False)):
@@ -2385,7 +2523,8 @@ def phase_config3() -> dict:
                             and info["strategy"] == "partitioned"
                             and not info["retried"],
                             f"config3 {mode} {chunks}: routed {info}")
-                    require(all(info["launches"][k] > 0 for k in kernels),
+                    require(all(launched(info["launches"], k)
+                                for k in kernels),
                             f"config3 {mode}: kernels not launched: {info}")
                     if mode == "materialize":
                         require(np.array_equal(res[2], want_keys)
@@ -2420,8 +2559,8 @@ def phase_config3() -> dict:
     del c, want_keys, want_vals
     torch.cuda.empty_cache()
     return prune, require_launched("config3", (
-        "range_directory", "range_probe_count", "range_probe_materialize",
-        "compact", "global_prune"))
+        "range_directory", "range_probe_count", K4, "compact",
+        "global_prune"))
 
 
 def phase_stream_direct(cells: dict, main_counts: dict,
@@ -2760,8 +2899,8 @@ def phase_distributed() -> dict:
 
 
 HARNESS_KERNELS = ("dense_bitmap", "scan_domain_count", "range_build",
-                   "range_probe_count",
-                   "range_probe_materialize", "compact", "probe_gather_bitmap",
+                   "range_probe_count", "range_probe_materialize",
+                   "range_probe_sliced", "compact", "probe_gather_bitmap",
                    "probe_gather_staged", "probe_count_vmem",
                    "probe_materialize_vmem", *WALKS, BUILD)
 
@@ -2903,7 +3042,7 @@ def main() -> int:
     launches, direct_core, main_counts = phase("main", phase_main, cells)
     radix = phase("radix", phase_radix, cells)
     for k in ("range_build", "range_directory", "range_probe_count",
-              "range_probe_materialize", "compact"):
+              "range_probe_materialize", "range_probe_sliced", "compact"):
         launches[k] = radix[k]
     phase("adaptive", phase_adaptive, cells)
     phase("direct_vs_partitioned", phase_direct_vs_partitioned, cells,

@@ -632,8 +632,6 @@ Plan make_plan(int64_t n_valid, int levels, int bits0, int bits1, int blocks0, i
   return p;
 }
 
-size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
-
 // The scratch, in order: the counters and the chains' words (zeroed at each
 // call), the counts and partition starts of each level,
 // then the two buffers of records (the second, with one level, only an

@@ -525,106 +525,15 @@ __global__ void __launch_bounds__(fhj::kThreads) bloom_words_kernel(const int64_
     out[i] = (uint32_t)in[i];
 }
 
-// Materialize, 1 level: the pass's rows put back in row order, chunk by
-// chunk as the scatter took them (a block its rows [lo, hi), chunks of
-// kChunkRows): each chunk's stage slots read in order (spos, srow), so that
-// the records' answers come in runs, placed in shared memory by row, then
-// written out in order; a row with no record (u64-max) keeps special's.
-struct Restore {
-  const uint32_t* spos;
-  const uint16_t* srow;
-  const uint2* rec;
-  const uint8_t* rhit;
-  const int64_t* special;
-  int64_t rows;
-  int blocks;
-  bool* hit;
-  uint32_t* vh;
-  uint32_t* vl;
-};
-
-constexpr int kChunkRows = kBlock * ProbeRecords::kChunkPer;
-
+// Materialize, 1 level: the pass's rows put back in row order
+// (partition.cuh's restore_rows); a row with no record (u64-max) keeps
+// special's answer.
 __global__ void __launch_bounds__(kBlock) restore_kernel(const Restore r) {
-  extern __shared__ uint2 sv[];       // kChunkRows answers, then their hit flags
-  uint8_t* sh = reinterpret_cast<uint8_t*>(sv + kChunkRows);
-  const bool has_max = __ldg(r.special) > 0;
-  const uint2 max_v = has_max ? make_uint2((uint32_t)__ldg(r.special + 1),
-                                           (uint32_t)__ldg(r.special + 2))
-                              : make_uint2(0u, 0u);
-  const int64_t lo = r.rows * blockIdx.x / r.blocks, hi = r.rows * (blockIdx.x + 1) / r.blocks;
-  for (int64_t base = lo; base < hi; base += kChunkRows) {
-    const int n = hi - base < kChunkRows ? (int)(hi - base) : kChunkRows;
-    for (int t = threadIdx.x; t < n; t += kBlock) {
-      sv[t] = max_v;
-      sh[t] = has_max;
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < n; t += kBlock) {
-      const uint32_t p = __ldg(r.spos + base + t);
-      if (p != kNone) {
-        const uint16_t row = __ldg(r.srow + base + t);
-        sv[row] = __ldg(r.rec + p);
-        sh[row] = __ldg(r.rhit + p);
-      }
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < n; t += kBlock) {
-      r.hit[base + t] = sh[t];
-      r.vh[base + t] = sv[t].x;
-      r.vl[base + t] = sv[t].y;
-    }
-    __syncthreads();
-  }
+  extern __shared__ uint2 sv[];
+  restore_rows<true>(r, sv);
 }
 
 // ---- the plan's scratch and the launches -------------------------------------------
-
-size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
-
-// A pass's scratch, in order: the tickets (scan, walk) and the scan's
-// look-back words (zeroed each pass), the counts and the partition starts,
-// the records, then (materialize) the chunks' stage maps and the hit flags.
-struct Scratch {
-  unsigned* tickets;
-  Chain chain;
-  size_t zeroed;
-  uint32_t* hist;
-  uint32_t* part_start;
-  uint2* rec;
-  uint32_t* spos;
-  uint16_t* srow;
-  uint8_t* rhit;
-  size_t bytes;
-};
-
-Scratch layout(char* base, int64_t pass_rows, int pbits, int blocks, bool mat) {
-  Scratch s{};
-  size_t at = 0;
-  auto take = [&](size_t n) {
-    char* x = base ? base + at : nullptr;
-    at += align16(n);
-    return x;
-  };
-  const int64_t entries = (1ll << pbits) * blocks;
-  const int64_t tiles = (entries + kScanTile - 1) / kScanTile;
-  s.tickets = reinterpret_cast<unsigned*>(take(16));
-  s.chain.ticket = s.tickets;
-  s.chain.a = reinterpret_cast<unsigned long long*>(take(tiles * 8));
-  s.chain.c = reinterpret_cast<unsigned long long*>(take(tiles * 8));
-  s.chain.value = reinterpret_cast<unsigned long long*>(take(tiles * 8));
-  s.zeroed = at;
-  s.hist = reinterpret_cast<uint32_t*>(take(entries * 4));
-  s.part_start = reinterpret_cast<uint32_t*>(take(((1ll << pbits) + 1) * 4));
-  s.rec = reinterpret_cast<uint2*>(take(pass_rows * 8));
-  if (mat) {
-    s.spos = reinterpret_cast<uint32_t*>(take(pass_rows * 4));
-    s.srow = reinterpret_cast<uint16_t*>(take(pass_rows * 2));
-    s.rhit = reinterpret_cast<uint8_t*>(take(pass_rows));
-  }
-  s.bytes = at;
-  return s;
-}
 
 bool plan_ok(int gbits, int pbits, int64_t pass_rows, int blocks) {
   return pbits >= 0 && pbits <= kMaxLevelBits && pbits <= gbits && pass_rows >= 1 &&
@@ -641,37 +550,23 @@ cudaError_t walk_planes(const Walk& base, cudaStream_t stream) {
 
 // 1 level: the passes, each partitioned, walked and (materialize) restored.
 template <int G, bool kMat, int P>
-cudaError_t walk_slices(const Walk& base, const Scratch& s, int pbits, int64_t pass_rows,
+cudaError_t walk_slices(const Walk& base, const PassScratch& s, int pbits, int64_t pass_rows,
                         int blocks, cudaStream_t stream) {
   cudaError_t e = cudaSuccess;
   int walk_grid = 0;
   if ((e = fhj::grid_for(slice_walk_kernel<G, kMat, P>, 1ll << 40, 0, &walk_grid)) != cudaSuccess)
     return e;
   const int D = 1 << pbits;
-  const size_t scatter_bytes = scatter_smem<ProbeRecords>(pbits);
-  cudaFuncSetAttribute(scatter_kernel<ProbeRecords, true>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)scatter_bytes);
   for (int64_t p0 = 0; p0 < base.np_valid; p0 += pass_rows) {
     const int64_t len = base.np_valid - p0 < pass_rows ? base.np_valid - p0 : pass_rows;
-    const int64_t want = (len + kChunkRows - 1) / kChunkRows;
+    const int64_t want = (len + kProbeChunkRows - 1) / kProbeChunkRows;
     const int nb = (int)(want < blocks ? want : blocks);
-    if ((e = cudaMemsetAsync(s.tickets, 0, s.zeroed, stream)) != cudaSuccess) return e;
     Level L{};
     L.kh = base.ph + p0, L.kl = base.pl + p0;
-    L.n_valid = len, L.parents = 1, L.blocks = nb, L.bits = pbits, L.shift = base.gbits - pbits;
+    L.n_valid = len, L.blocks = nb, L.bits = pbits, L.shift = base.gbits - pbits;
     L.gbits = base.gbits, L.pre_shift = base.pre_shift;
     L.parent_start = base.survivors;   // a pruned pass: its rows, counted on the card
-    L.hist = s.hist, L.out = reinterpret_cast<uint32_t*>(s.rec);
-    L.spos = kMat ? s.spos : nullptr;
-    L.srow = kMat ? s.srow : nullptr;
-    hist_kernel<ProbeRecords, true><<<nb, kBlock, (size_t)4 << pbits, stream>>>(L);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    const int64_t entries = (int64_t)D * nb;
-    const Scan sc{s.hist, entries, nb, s.part_start, s.chain};
-    scan_kernel<<<(unsigned)((entries + kScanTile - 1) / kScanTile), kBlock, 0, stream>>>(sc);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    scatter_kernel<ProbeRecords, true><<<nb, kBlock, scatter_bytes, stream>>>(L);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    if ((e = partition_pass<ProbeRecords>(L, s, stream)) != cudaSuccess) return e;
     Walk a = base;
     a.rec = s.rec, a.rhit = s.rhit, a.nrec = s.part_start + D, a.pass_rows = len;
     a.ticket = s.tickets + 1;
@@ -682,7 +577,7 @@ cudaError_t walk_slices(const Walk& base, const Scratch& s, int pbits, int64_t p
     if constexpr (kMat) {
       const Restore r{s.spos, s.srow, s.rec, s.rhit, base.special, len, nb,
                       base.hit + p0, base.vh + p0, base.vl + p0};
-      restore_kernel<<<nb, kBlock, (size_t)9 * kChunkRows, stream>>>(r);
+      restore_kernel<<<nb, kBlock, kRestoreSmem, stream>>>(r);
       if ((e = cudaGetLastError()) != cudaSuccess) return e;
     }
   }
@@ -701,14 +596,14 @@ cudaError_t walk_slices(const Walk& base, const Scratch& s, int pbits, int64_t p
 // levels G / 2 lanes a probe (walk_coop) for G >= 4; at 1 level two probes
 // a thread up to G = 8, one above.
 template <int G, bool kMat>
-cudaError_t by_route(const Walk& a, const Scratch& s, int pbits, int64_t pass_rows, int blocks,
+cudaError_t by_route(const Walk& a, const PassScratch& s, int pbits, int64_t pass_rows, int blocks,
                      cudaStream_t stream) {
   if (pbits == 0) return walk_planes<G, kMat, (G >= 4)>(a, stream);
   return walk_slices<G, kMat, (G <= 8 ? 2 : 1)>(a, s, pbits, pass_rows, blocks, stream);
 }
 
 template <bool kMat>
-cudaError_t walk(const Walk& a, int group_size, const Scratch& s, int pbits, int64_t pass_rows,
+cudaError_t walk(const Walk& a, int group_size, const PassScratch& s, int pbits, int64_t pass_rows,
                  int blocks, cudaStream_t stream) {
   switch (group_size) {
     case 1: return by_route<1, kMat>(a, s, pbits, pass_rows, blocks, stream);
@@ -735,7 +630,7 @@ extern "C" {
 int64_t fhj_global_walk_scratch_bytes(int gbits, int pbits, int64_t pass_rows, int blocks,
                                       int materialize) {
   if (!plan_ok(gbits, pbits, pass_rows, blocks)) return -1;
-  return pbits == 0 ? 0 : (int64_t)layout(nullptr, pass_rows, pbits, blocks, materialize).bytes;
+  return pbits == 0 ? 0 : (int64_t)pass_layout(nullptr, pass_rows, pbits, blocks, materialize).bytes;
 }
 
 // Count the probes (ph, pl)[0, np_valid) whose key is in the table: adds
@@ -760,7 +655,7 @@ int fhj_global_walk_count(const uint32_t* keys, const int64_t* bloom, const int6
       !plan_ok(gbits, pbits, pass_rows, blocks) ||
       (survivors != nullptr && (pbits == 0 || np_valid > pass_rows)))
     return (int)cudaErrorInvalidValue;
-  const Scratch s = layout(static_cast<char*>(scratch), pass_rows, pbits, blocks, false);
+  const PassScratch s = pass_layout(static_cast<char*>(scratch), pass_rows, pbits, blocks, false);
   if (pbits && scratch_bytes < (int64_t)s.bytes) return (int)cudaErrorInvalidValue;
   Walk a{};
   a.keys = keys, a.bloom = survivors ? nullptr : bloom, a.special = special;
@@ -818,7 +713,7 @@ int fhj_global_walk_materialize(const uint32_t* keys, const uint32_t* vals, cons
   if (bad_shape(total_groups, gbits, pre_shift, max_iters) || np_valid > n ||
       !plan_ok(gbits, pbits, pass_rows, blocks))
     return (int)cudaErrorInvalidValue;
-  const Scratch s = layout(static_cast<char*>(scratch), pass_rows, pbits, blocks, true);
+  const PassScratch s = pass_layout(static_cast<char*>(scratch), pass_rows, pbits, blocks, true);
   if (pbits && scratch_bytes < (int64_t)s.bytes) return (int)cudaErrorInvalidValue;
   Walk a{};
   a.keys = keys, a.vals = vals, a.bloom = bloom, a.special = special;

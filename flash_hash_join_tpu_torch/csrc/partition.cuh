@@ -1,10 +1,12 @@
 // The partition that the `global` tier's build (hash_build.cu) and walk
-// (hash_walk.cu) share: rows carried as fixed-size records and moved to the
-// partition of the next bits of their home group, one level at a time,
-// each level three launches:
+// (hash_walk.cu) and the partitioned tier's sliced probe (range_probe.cu)
+// share: rows carried as fixed-size records and moved to the partition of
+// the next bits of their digit, one level at a time, each level three
+// launches:
 //   hist_kernel    a block a slice of a parent partition: the rows' digits
 //                  counted in shared memory, one count a digit written out;
-//                  level 0 reads the input planes and skips u64-max rows;
+//                  level 0 reads the input planes and skips the rows its
+//                  records leave out;
 //   scan_kernel    the exclusive sums of the counts (parent, digit, block),
 //                  a single pass with a decoupled look-back: each block's
 //                  offset a digit, and each child partition's start;
@@ -13,17 +15,22 @@
 //                  digit, then written out a word a thread, each digit's
 //                  run of records at its cursor, so the stores are whole
 //                  runs, not 4-byte scatters.
-// The order inside a partition is the atomics' and does not matter to
-// either caller.  The records (Records below):
+// The order inside a partition is the atomics' and does not matter to any
+// caller.  A record type names its digit (R::Digit, made once a block):
 //   BuildRecords  20 bytes (kh, kl, vh, vl, row) from the four build
 //                 planes; level 0 also notes the first u64-max row;
 //   ProbeRecords  8 bytes (kh, kl) from the two probe planes; level 0 may
 //                 also write, chunk by chunk, where each row's record went
 //                 (spos and srow in the chunk's stage order), so that the
 //                 walk's answers can be put back in row order in runs.
-// The max-plus scan and its decoupled look-back serve the build's finish
-// too.  Everything is in an unnamed namespace: each source that includes
-// this header gets its own copy of the kernels.
+// Both take the next bits of the home group (HomeDigit) and leave u64-max
+// rows out; range_probe.cu's RangeRecords have ProbeRecords' layout
+// (ProbeLayout) by the top bits of the range table's directory bucket.  A
+// pass of probe records (PassScratch, partition_pass) is one level-0
+// partition into a bounded scratch, and restore_rows the body that puts a
+// pass's answers back in row order.  The max-plus scan and its decoupled look-back serve the build's
+// finish too.  Everything is in an unnamed namespace: each source that
+// includes this header gets its own copy of the kernels.
 #pragma once
 
 #include "common.cuh"
@@ -200,20 +207,6 @@ __device__ long long look_back(const Chain& ch, long long t, MaxPlus own) {
 
 // ---- the partition levels ------------------------------------------------------
 
-// What a level carries a row as, and what level 0 does beside.
-struct BuildRecords {
-  static constexpr int kWords = 5;         // kh, kl, vh, vl, row
-  static constexpr int kChunkPer = 8;      // rows a thread a step, scatter_kernel
-  static constexpr bool kMaxRow = true;    // level 0 notes the first u64-max row
-  static constexpr bool kStageMaps = false;
-};
-struct ProbeRecords {
-  static constexpr int kWords = 2;         // kh, kl
-  static constexpr int kChunkPer = 16;
-  static constexpr bool kMaxRow = false;
-  static constexpr bool kStageMaps = true;  // level 0 writes spos / srow when given
-};
-
 struct Level {
   const uint32_t* kh;   // level 0: the input planes (the row is the index)
   const uint32_t* kl;
@@ -223,7 +216,8 @@ struct Level {
   const uint32_t* parent_start;  // (parents + 1,); level 0: null, [0, n_valid)
   int64_t n_valid;
   int parents, blocks;  // blocks a parent
-  int bits, shift;      // digit = (home >> shift) & (2^bits - 1)
+  int bits, shift;      // the digit's bits, and the bits below it: HomeDigit's
+                        // of the home group, RangeDigit's of the bucket
   int gbits, pre_shift;
   uint32_t* hist;       // (parents * 2^bits * blocks,): counts, then offsets
   uint32_t* out;        // the rows by partition, kWords each
@@ -233,7 +227,47 @@ struct Level {
   // past the chunk's records) and the slot's row, less r0, at srow[r0 + s]
   uint32_t* spos;
   uint16_t* srow;
+  // RangeRecords: the range table's nkeys sorted keys and its directory's
+  // shift, on the card
+  const long long* keys;
+  int64_t nkeys;
+  const int64_t* key_shift;
 };
+
+// The digit of the hash table's records, made once a block: the next bits
+// of the home group; level 0 gives a u64-max row no record.
+struct HomeDigit {
+  int bits, shift, gbits, pre_shift;
+  __device__ explicit HomeDigit(const Level& L)
+      : bits(L.bits), shift(L.shift), gbits(L.gbits), pre_shift(L.pre_shift) {}
+  __device__ __forceinline__ bool takes(uint32_t h, uint32_t l) const { return !is_max(h, l); }
+  __device__ __forceinline__ uint32_t operator()(uint32_t h, uint32_t l) const {
+    const int64_t home = fhj::home_group(fhj::hash_u64(h, l), gbits, pre_shift);
+    return (uint32_t)(home >> shift) & ((1u << bits) - 1u);
+  }
+};
+
+// What a level carries a row as, what level 0 does beside, and the digit.
+struct BuildRecords {
+  static constexpr int kWords = 5;         // kh, kl, vh, vl, row
+  static constexpr int kChunkPer = 8;      // rows a thread a step, scatter_kernel
+  static constexpr bool kMaxRow = true;    // level 0 notes the first u64-max row
+  static constexpr bool kStageMaps = false;
+  using Digit = HomeDigit;
+};
+// The probe records' layout, which the walk's ProbeRecords and the range
+// probe's RangeRecords share; each names its own digit, and the kernels'
+// names carry the record type's, so each tier's launches keep their names.
+struct ProbeLayout {
+  static constexpr int kWords = 2;         // kh, kl
+  static constexpr int kChunkPer = 16;
+  static constexpr bool kMaxRow = false;
+  static constexpr bool kStageMaps = true;  // level 0 writes spos / srow when given
+};
+struct ProbeRecords : ProbeLayout {
+  using Digit = HomeDigit;
+};
+constexpr int kProbeChunkRows = kBlock * ProbeLayout::kChunkPer;  // a probe scatter chunk's rows
 
 // Block (p, s)'s rows: the s-th of `blocks` even slices of parent p.
 __device__ __forceinline__ void block_rows(const Level& L, int* p, int* s, int64_t* lo,
@@ -246,18 +280,14 @@ __device__ __forceinline__ void block_rows(const Level& L, int* p, int* s, int64
   *hi = a + (b - a) * (*s + 1) / L.blocks;
 }
 
-__device__ __forceinline__ uint32_t digit_of(const Level& L, uint32_t h, uint32_t l) {
-  const int64_t home = fhj::home_group(fhj::hash_u64(h, l), L.gbits, L.pre_shift);
-  return (uint32_t)(home >> L.shift) & ((1u << L.bits) - 1u);
-}
-
-// Level 0 reads the input planes (a u64-max row is not partitioned), a
-// later level the buffer of the level before.
+// Level 0 reads the input planes (a row the digit does not take is not
+// partitioned), a later level the buffer of the level before.
 template <class R, bool kFirst>
 __global__ void __launch_bounds__(kBlock) hist_kernel(const Level L) {
   constexpr int W = R::kWords;
   extern __shared__ uint32_t cnt[];  // a count a digit
   const int D = 1 << L.bits;
+  const typename R::Digit digit(L);
   for (int d = threadIdx.x; d < D; d += kBlock) cnt[d] = 0;
   __syncthreads();
   int p, s;
@@ -276,11 +306,11 @@ __global__ void __launch_bounds__(kBlock) hist_kernel(const Level L) {
     for (int k = 0; k < kHistPer; ++k) {
       const int64_t i = base + k * kBlock + threadIdx.x;
       bool on = i < hi;
-      if (kFirst && on && is_max(h[k], l[k])) {
+      if (kFirst && on && !digit.takes(h[k], l[k])) {
         if (R::kMaxRow) first_max = min(first_max, (uint32_t)i);
         on = false;
       }
-      if (on) atomicAdd(cnt + digit_of(L, h[k], l[k]), 1u);
+      if (on) atomicAdd(cnt + digit(h[k], l[k]), 1u);
     }
   }
   __syncthreads();
@@ -341,12 +371,13 @@ __global__ void __launch_bounds__(kBlock) scan_kernel(const Scan a) {
 // thread: each digit's run of records lands at its cursor, so the stores
 // are whole runs, not 4-byte scatters.  The order inside a partition is the
 // atomics' and does not matter: the build's finish orders each tile by
-// (home, key, row), and the walk's answers do not depend on the order.
+// (home, key, row), and the probes' answers do not depend on the order.
 template <class R, bool kFirst>
 __global__ void __launch_bounds__(kBlock) scatter_kernel(const Level L) {
   constexpr int W = R::kWords, kChunkPer = R::kChunkPer, kChunkRows = kBlock * kChunkPer;
   extern __shared__ uint32_t sm[];
   const int D = 1 << L.bits;
+  const typename R::Digit digit(L);
   uint32_t* cnt = sm;
   uint32_t* lstart = cnt + D;
   uint32_t* cursor = lstart + D;
@@ -384,8 +415,8 @@ __global__ void __launch_bounds__(kBlock) scatter_kernel(const Level L) {
     bool placed[kChunkPer];
 #pragma unroll
     for (int k = 0; k < kChunkPer; ++k) {
-      placed[k] = on[k] && !(kFirst && is_max(w[k][0], w[k][1]));
-      dig[k] = placed[k] ? digit_of(L, w[k][0], w[k][1]) : 0u;
+      placed[k] = on[k] && (!kFirst || digit.takes(w[k][0], w[k][1]));
+      dig[k] = placed[k] ? digit(w[k][0], w[k][1]) : 0u;
       rank[k] = placed[k] ? atomicAdd(cnt + dig[k], 1u) : 0u;
     }
     __syncthreads();
@@ -430,6 +461,135 @@ size_t scatter_smem(int bits) {
   constexpr size_t kChunkRows = (size_t)kBlock * R::kChunkPer;
   return (size_t)3 * 4 * (1 << bits) + R::kWords * 4 * kChunkRows +
          (R::kStageMaps ? 4 : 2) * kChunkRows;
+}
+
+// ---- a pass of probe records: its scratch and its partition ----------------------
+
+size_t align16(size_t x) { return (x + 15) & ~(size_t)15; }
+
+// A pass's scratch (the walk's, hash_walk.cu, and the range probe's), in
+// order: the tickets (the scan's, the consumer's) and the scan's look-back
+// words, zeroed each pass, the counts and the partition starts, the
+// records, then with `maps` the chunks' stage maps and a hit flag a record.
+struct PassScratch {
+  unsigned* tickets;
+  Chain chain;
+  size_t zeroed;
+  uint32_t* hist;
+  uint32_t* part_start;
+  uint2* rec;
+  uint32_t* spos;
+  uint16_t* srow;
+  uint8_t* rhit;
+  size_t bytes;
+};
+
+PassScratch pass_layout(char* base, int64_t pass_rows, int pbits, int blocks, bool maps) {
+  PassScratch s{};
+  size_t at = 0;
+  auto take = [&](size_t n) {
+    char* x = base ? base + at : nullptr;
+    at += align16(n);
+    return x;
+  };
+  const int64_t entries = (1ll << pbits) * blocks;
+  const int64_t tiles = (entries + kScanTile - 1) / kScanTile;
+  s.tickets = reinterpret_cast<unsigned*>(take(16));
+  s.chain.ticket = s.tickets;
+  s.chain.a = reinterpret_cast<unsigned long long*>(take(tiles * 8));
+  s.chain.c = reinterpret_cast<unsigned long long*>(take(tiles * 8));
+  s.chain.value = reinterpret_cast<unsigned long long*>(take(tiles * 8));
+  s.zeroed = at;
+  s.hist = reinterpret_cast<uint32_t*>(take(entries * 4));
+  s.part_start = reinterpret_cast<uint32_t*>(take(((1ll << pbits) + 1) * 4));
+  s.rec = reinterpret_cast<uint2*>(take(pass_rows * 8));
+  if (maps) {
+    s.spos = reinterpret_cast<uint32_t*>(take(pass_rows * 4));
+    s.srow = reinterpret_cast<uint16_t*>(take(pass_rows * 2));
+    s.rhit = reinterpret_cast<uint8_t*>(take(pass_rows));
+  }
+  s.bytes = at;
+  return s;
+}
+
+// A pass's answers put back in row order, chunk by chunk as the scatter took
+// them (a block its rows [lo, hi), chunks of kProbeChunkRows): each chunk's
+// stage slots read in order (spos, srow), so that the records' answers come
+// in runs, placed in shared memory by row, then written out in order.  A row
+// with no record gets the walk's u64-max answer (special: its count, vh, vl)
+// where kSpecial, else (0, 0, 0) (the range probe's probes outside the keys;
+// special unread).
+struct Restore {
+  const uint32_t* spos;
+  const uint16_t* srow;
+  const uint2* rec;
+  const uint8_t* rhit;
+  const int64_t* special;
+  int64_t rows;
+  int blocks;
+  bool* hit;
+  uint32_t* vh;
+  uint32_t* vl;
+};
+constexpr size_t kRestoreSmem = (size_t)9 * kProbeChunkRows;  // answers, then hit flags
+
+// The body of each tier's restore kernel (hash_walk.cu's restore_kernel,
+// range_probe.cu's range_unsort_kernel), given its kRestoreSmem bytes of
+// dynamic shared memory.
+template <bool kSpecial>
+__device__ __forceinline__ void restore_rows(const Restore r, uint2* sv) {
+  uint8_t* sh = reinterpret_cast<uint8_t*>(sv + kProbeChunkRows);
+  const bool has_max = kSpecial && __ldg(r.special) > 0;
+  const uint2 fill = has_max ? make_uint2((uint32_t)__ldg(r.special + 1),
+                                          (uint32_t)__ldg(r.special + 2))
+                             : make_uint2(0u, 0u);
+  const int64_t lo = r.rows * blockIdx.x / r.blocks, hi = r.rows * (blockIdx.x + 1) / r.blocks;
+  for (int64_t base = lo; base < hi; base += kProbeChunkRows) {
+    const int n = hi - base < kProbeChunkRows ? (int)(hi - base) : kProbeChunkRows;
+    for (int t = threadIdx.x; t < n; t += kBlock) {
+      sv[t] = fill;
+      sh[t] = has_max;
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < n; t += kBlock) {
+      const uint32_t p = __ldg(r.spos + base + t);
+      if (p != kNone) {
+        const uint16_t row = __ldg(r.srow + base + t);
+        sv[row] = __ldg(r.rec + p);
+        sh[row] = __ldg(r.rhit + p);
+      }
+    }
+    __syncthreads();
+    for (int t = threadIdx.x; t < n; t += kBlock) {
+      r.hit[base + t] = sh[t];
+      r.vh[base + t] = sv[t].x;
+      r.vl[base + t] = sv[t].y;
+    }
+    __syncthreads();
+  }
+}
+
+// One pass's level 0: L's rows [0, L.n_valid) (or its parent range) to
+// s.rec by L.bits digit bits over L.blocks blocks, with the stage maps where
+// s has them.  The memset of the tickets and look-back words, hist_kernel,
+// scan_kernel, scatter_kernel; the records' end is then s.part_start[2^bits].
+template <class R>
+cudaError_t partition_pass(Level L, const PassScratch& s, cudaStream_t stream) {
+  cudaError_t e = cudaMemsetAsync(s.tickets, 0, s.zeroed, stream);
+  if (e != cudaSuccess) return e;
+  L.parents = 1, L.hist = s.hist, L.out = reinterpret_cast<uint32_t*>(s.rec);
+  L.spos = s.spos, L.srow = s.srow;
+  hist_kernel<R, true><<<L.blocks, kBlock, (size_t)4 << L.bits, stream>>>(L);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int64_t entries = ((int64_t)1 << L.bits) * L.blocks;
+  const Scan sc{s.hist, entries, L.blocks, s.part_start, s.chain};
+  scan_kernel<<<(unsigned)((entries + kScanTile - 1) / kScanTile), kBlock, 0, stream>>>(sc);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const size_t smem = scatter_smem<R>(L.bits);
+  cudaFuncSetAttribute(scatter_kernel<R, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  scatter_kernel<R, true><<<L.blocks, kBlock, smem, stream>>>(L);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -8,7 +8,10 @@ over a dense key domain to "direct" from the keys.
 FEASIBILITY: the device holds the build side with its range table, one
 probe chunk's input planes (8 B a row) and the chunk's transients; a
 materialize also holds the chunk's four compacted output planes (16 B a
-row).  A plan that needs more than one chunk streams them from the host
+row) and, where K4's plan for the chunk takes its sliced route, that
+route's scratch, SLICED_SCRATCH_BYTES a row of a pass of at most PASS_ROWS
+rows (probe_scratch_bytes).  A plan that needs more than one chunk streams
+them from the host
 (api._run_chunked) through a depth-2 pipeline, which also holds the next
 chunk's input planes and, for a materialize, the previous chunk's output
 planes until they are read back.  No probe side longer than
@@ -29,6 +32,8 @@ import os
 
 import torch
 
+from flash_hash_join_tpu_torch.ops.cuda import range_probe as rp
+from flash_hash_join_tpu_torch.ops.cuda.range_probe import SLICED_SCRATCH_BYTES
 from flash_hash_join_tpu_torch.utils.config import JoinConfig
 
 # Share of device memory the planner may fill: the JAX package's 12 GiB of a
@@ -89,6 +94,32 @@ def footprint(n_build: int, mode: str) -> tuple[int, int, int]:
     return BUILD_BYTES_COUNT * n_build, 8 + TRANSIENT_BYTES_COUNT, 8
 
 
+def probe_scratch_bytes(n_build: int, rows: int, mode: str) -> int:
+    """Device bytes a probe chunk of `rows` rows takes beside its per-row
+    planes: for a materialize whose K4 plan (ops/cuda/range_probe.plan, on
+    the table of n_build keys) takes the sliced route, that route's scratch,
+    SLICED_SCRATCH_BYTES a row of one pass of at most PASS_ROWS rows; else
+    none."""
+    if mode != "materialize":
+        return 0
+    p = rp.plan(rows, rp.built_table_bytes(n_build),
+                rp.directory_bits(n_build))
+    return SLICED_SCRATCH_BYTES * p.pass_rows if p.pbits else 0
+
+
+def _most_rows(avail: int, per_row: int, n_build: int, mode: str) -> int:
+    """The most rows c with per_row * c + probe_scratch_bytes(n_build, c)
+    <= avail, by bisection: the scratch only grows with c."""
+    lo, hi = 0, avail // per_row
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if per_row * mid + probe_scratch_bytes(n_build, mid, mode) <= avail:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 def plan_probe_chunks(n_build: int, n_probe: int, mode: str,
                       budget_bytes: int) -> int:
     """Number of probe chunks that fit the budget; 1 means single-shot.
@@ -99,9 +130,11 @@ def plan_probe_chunks(n_build: int, n_probe: int, mode: str,
         raise MemoryError(
             f"build side of {n_build} rows alone exceeds the single-device "
             "memory budget")
-    if n_probe <= min(avail // per_row, MAX_CHUNK_ROWS):
+    if n_probe <= min(_most_rows(avail, per_row, n_build, mode),
+                      MAX_CHUNK_ROWS):
         return 1
-    chunk_rows = min(avail // (per_row + pipelined), MAX_CHUNK_ROWS)
+    chunk_rows = min(_most_rows(avail, per_row + pipelined, n_build, mode),
+                     MAX_CHUNK_ROWS)
     return -(-n_probe // max(chunk_rows, 1))
 
 

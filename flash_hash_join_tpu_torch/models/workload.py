@@ -525,3 +525,74 @@ def range_build_cases(seed: int = 0) -> list[RangeBuildCase]:
         bk = u64(nb + 3, 0, 2**36)
         cases.append(RangeBuildCase(f"rows_{nb}", bk, u64(bk.size), nb))
     return cases
+
+
+@dataclasses.dataclass(frozen=True)
+class RangeProbeCase:
+    """A case of K4's two routes (ops/cuda/range_probe.py): the build side,
+    the probe keys, the valid probe rows and the valid rows a pass."""
+    name: str
+    build_keys: np.ndarray
+    build_values: np.ndarray
+    probe_keys: np.ndarray
+    np_valid: int
+    pass_rows: int | None = None
+
+
+def range_probe_cases(seed: int = 0) -> list[RangeProbeCase]:
+    """K4's sliced route's edge cases, a few tens of thousands of rows each:
+    a J1 draw (join-datagen.R's permutation of 1..1.1n, 90 % of the probes
+    matching); one far outlier whose span puts nearly every key in bucket 0;
+    probes all below the least key or above the greatest; duplicate runs
+    whose values are their rows (so the minimum row shows); the u64-max key
+    on both sides; valid probe rows cut short of the planes; passes of 1,000
+    rows; and a build of SMALL_TABLE + 1 keys, the least with a directory."""
+    rng = np.random.default_rng(seed)
+    m64 = np.uint64(2**64 - 1)
+
+    def u64(n, lo=0, hi=2**64):
+        return rng.integers(lo, hi, n, dtype=np.uint64)
+
+    def mixed(bk, n):
+        """n probes: build keys, their neighbours (misses inside buckets)
+        and random keys."""
+        near = rng.choice(bk, n // 4)
+        return rng.permutation(np.concatenate([
+            rng.choice(bk, n // 2), near + np.uint64(1),
+            u64(n - n // 2 - n // 4)]))
+
+    perm = rng.permutation(np.arange(1, 33_001, dtype=np.uint64))
+    j1_build = perm[:30_000]
+    j1_probe = rng.permutation(np.concatenate([perm[:27_000],
+                                               perm[30_000:33_000]]))
+    outlier = u64(20_000, 0, 10**6)
+    outlier[7] = np.uint64(2**63)
+    lo_hi = u64(20_000, 2**40, 2**41)
+    outside = np.concatenate([u64(15_000, 0, 2**40),
+                              u64(15_000, 2**41, 2**64)])
+    dup = u64(20_000, 0, 3_000)
+    with_max = u64(20_000, 0, 2**40)
+    with_max[[3, 11]] = m64
+    max_probe = mixed(with_max, 30_000)
+    max_probe[::97] = m64
+    cut = u64(20_000)
+    small = u64(257)
+    cases = [
+        RangeProbeCase("j1", j1_build, u64(j1_build.size), j1_probe,
+                       j1_probe.size),
+        RangeProbeCase("far_outlier", outlier, u64(outlier.size),
+                       mixed(outlier, 30_000), 30_000),
+        RangeProbeCase("all_outside", lo_hi, u64(lo_hi.size), outside,
+                       outside.size),
+        RangeProbeCase("duplicates", dup, np.arange(dup.size, dtype=np.uint64),
+                       mixed(dup, 30_000), 30_000),
+        RangeProbeCase("u64_max", with_max, u64(with_max.size), max_probe,
+                       max_probe.size),
+        RangeProbeCase("np_valid_cut", cut, u64(cut.size), mixed(cut, 30_000),
+                       21_001),
+        RangeProbeCase("passes_of_1000", cut, u64(cut.size),
+                       mixed(cut, 30_000), 29_999, pass_rows=1_000),
+        RangeProbeCase("small_table_plus_one", small, u64(small.size),
+                       mixed(small, 30_000), 30_000),
+    ]
+    return cases

@@ -51,6 +51,10 @@ _SIGNATURES = {
     # vl, stream
     "fhj_range_probe_materialize": [_P, _I64, _P, _I, _P, _P, _P, _P, _I64,
                                     _I64, _P, _P, _P, _P],
+    # keys, nb, dir, dir_bytes, shift, p, values, ph, pl, n, np_valid, hit,
+    # vh, vl, pbits, pass_rows, blocks, scratch, scratch_bytes, stream
+    "fhj_range_probe_sliced": [_P, _I64, _P, _I, _P, _I, _P, _P, _P, _I64,
+                               _I64, _P, _P, _P, _I, _I64, _I, _P, _I64, _P],
     "fhj_compact_tile_rows": [],
     # mask, n, n_planes, in0..in3, out0..out3, n_out, scratch, scratch_words,
     # stream
@@ -172,6 +176,10 @@ def lib() -> ctypes.CDLL:
             loaded.fhj_global_walk_scratch_bytes.argtypes = [_I, _I, _I64,
                                                              _I, _I]
             loaded.fhj_global_walk_scratch_bytes.restype = ctypes.c_int64
+            # p, pbits, pass_rows, blocks
+            loaded.fhj_range_probe_sliced_scratch_bytes.argtypes = [_I, _I,
+                                                                    _I64, _I]
+            loaded.fhj_range_probe_sliced_scratch_bytes.restype = ctypes.c_int64
             loaded.fhj_range_build_scratch_bytes.argtypes = [_I64]
             loaded.fhj_range_build_scratch_bytes.restype = ctypes.c_int64
             loaded.fhj_error_string.argtypes = [ctypes.c_int]

@@ -18,18 +18,36 @@ The directory is the Hopper form of the TPU kernel's first search level
 (its column boundaries, range_probe.py:_search); the second level searches
 the bucket's few keys (the kernels first read the sector an interpolation
 guess points at, csrc/range_probe.cu).  Probes are the int32 bit-pattern
-key planes in input order; rows at or past np_valid never hit.
+key planes; rows at or past np_valid never hit.
 
-The TPU kernels' window, transposed table, probe sort and tile padding are
-layout for Mosaic and are not ported (ops/range_table.py), so these never
-report unresolved probes.
+K3 reads the probes in input order.  K4 takes the route `plan` picks by
+shape: 0 levels, one kernel over the probes in input order, where the
+table it reads is at most four times L2 or too few probes share it; else
+passes of at most PASS_ROWS valid rows, each partitioned by the top bits
+of the probe's directory bucket (the partition of the `global` walk,
+csrc/partition.cuh) into slices of at most SLICE_BYTES of the table,
+probed slice by slice so that each slice comes from device memory once,
+and the answers put back in probe order: both routes give the same (hit,
+vh, vl) in probe order, which compaction and the join's contract need.
+The CPU takes the plain version of the route the plan picks
+(range_probe_sliced_plain at 1 level).
+
+The TPU kernels' window, transposed table, full probe sort and tile
+padding are layout for Mosaic and are not ported (ops/range_table.py), so
+these never report unresolved probes.
 """
 
 from __future__ import annotations
 
+import contextlib
+import math
+from typing import NamedTuple
+
 import torch
 
 from flash_hash_join_tpu_torch.ops.cuda import _build
+from flash_hash_join_tpu_torch.ops.cuda.hash_walk import (
+    CHUNK_ROWS, L2_BYTES, MAX_PBITS, PASS_ROWS, SLICE_BYTES)
 from flash_hash_join_tpu_torch.utils import spans
 from flash_hash_join_tpu_torch.utils.u64 import sortable
 
@@ -38,6 +56,20 @@ from flash_hash_join_tpu_torch.utils.u64 import sortable
 # from 300 keys on (PERF.md, chip_smoke.py's layout timings).
 SMALL_TABLE = 256
 MAX_DIR_BITS = 23        # 2^23 + 1 int32 offsets: 32 MB
+# K4's plan: the 1-level route where the table K4 reads is more than
+# MIN_TABLE_L2 times L2 and at least MIN_PROBES valid probe rows share it.
+# From chip_smoke.py's sweep on an H100 (PERF.md §6), on J1's dense keys
+# (half the probes hits) and on uniform u64 keys (a tenth): the 0-level K4
+# won on every table at 2^18 to 2^22 probes (the 1-level route at best tied)
+# and on tables of 17 to 68 MiB at every probe side; on 136 MiB it won on
+# u64 keys at every side (by 22-35 %) and on J1 keys up to 2^24 probes, lost
+# by 4.5 % at 1e8; the 1-level route won on tables of 272 MiB to 1.5 GiB
+# from 2^23 probes on (by 1-39 %).  The slices, passes and partition blocks
+# are the walk's (ops/cuda/hash_walk.py).
+MIN_TABLE_L2 = 4
+MIN_PROBES = 2**23
+SLICED_SCRATCH_BYTES = 15   # a row of a pass: record, stage maps, hit flag
+_forced: dict = {}
 
 
 def directory_bits(nb: int) -> int:
@@ -53,6 +85,93 @@ def dir_dtype(nb: int) -> torch.dtype:
     """The directory's offsets, and so K3/K4's positions: 32-bit below 2^31
     keys."""
     return torch.int32 if nb < 2**31 else torch.int64
+
+
+class Plan(NamedTuple):
+    """K4's route: the digit bits of the one partition level (0: K4 over
+    the probe planes in input order), the valid rows a pass, and the
+    partition's blocks."""
+    pbits: int
+    pass_rows: int
+    blocks: int
+
+
+def table_bytes(table) -> int:
+    """Bytes of the table K4 reads: a key and its (vh, vl) pair, 16 B a
+    row, and the directory's offsets."""
+    d = table.dir
+    return 16 * table.keys.numel() + (0 if d is None
+                                      else d.numel() * d.element_size())
+
+
+def built_table_bytes(nb: int) -> int:
+    """table_bytes of the table ops/range_table.build_range_table makes of
+    nb keys: its directory has directory_bits(nb) bits, of dir_dtype(nb)."""
+    p = directory_bits(nb)
+    return 16 * nb + (((1 << p) + 1) * dir_dtype(nb).itemsize if p else 0)
+
+
+def table_dir_bits(table) -> int:
+    """p of the table's directory: 0 where it has none or fewer than 4
+    keys, which the kernels search whole."""
+    if table.dir is None or table.keys.numel() < 4:
+        return 0
+    return (table.dir.numel() - 1).bit_length() - 1
+
+
+def slice_bits(nbytes: int, p: int) -> int:
+    """The fewest digit bits, at least 1 and at most MAX_PBITS and p, that
+    cut nbytes of table into slices of at most SLICE_BYTES."""
+    return min(MAX_PBITS, p, max(1, math.ceil(math.log2(nbytes /
+                                                        SLICE_BYTES))))
+
+
+def plan(np_valid: int, nbytes: int, p: int, *, l2_bytes: int = L2_BYTES,
+         sms: int = 132, pbits: int | None = None,
+         pass_rows: int | None = None) -> Plan:
+    """K4's plan for np_valid valid probe rows on a table of nbytes (as
+    table_bytes counts them) with a directory of 2^p buckets (p = 0: none),
+    on a card with `l2_bytes` of L2 and `sms` multiprocessors: 0 levels
+    where the table is at most MIN_TABLE_L2 times L2, or where fewer than
+    MIN_PROBES probe rows would share it; else one level of slice_bits.
+    pbits and pass_rows, when given, replace the plan's own (pbits still at
+    most p); a table with no directory and an empty probe side take 0
+    levels."""
+    if pbits is None:
+        pbits = slice_bits(nbytes, p) if (
+            p and nbytes > MIN_TABLE_L2 * l2_bytes
+            and np_valid >= MIN_PROBES) else 0
+    pbits = 0 if np_valid <= 0 else min(pbits, p)
+    rows = max(1, min(PASS_ROWS if pass_rows is None else pass_rows,
+                      np_valid))
+    blocks = max(1, min(-(-rows // CHUNK_ROWS), 4 * sms))
+    return Plan(pbits, rows, blocks)
+
+
+@contextlib.contextmanager
+def forced(**overrides):
+    """Within the block, K4's wrapper plans with these overrides of `plan`
+    (pbits, pass_rows): how the tests and chip_smoke.py hold both routes and
+    the pass loop to each other at any size."""
+    global _forced
+    before = _forced
+    _forced = dict(before, **overrides)
+    try:
+        yield
+    finally:
+        _forced = before
+
+
+def _plan(table, np_valid: int, dev: torch.device) -> Plan:
+    """K4's plan for this table and probe side on dev (the defaults of
+    `plan` for the CPU), with any forced overrides."""
+    l2, sms = L2_BYTES, 132
+    if dev.type == "cuda":
+        props = torch.cuda.get_device_properties(dev)
+        l2 = getattr(props, "L2_cache_size", L2_BYTES)
+        sms = props.multi_processor_count
+    return plan(np_valid, table_bytes(table), table_dir_bits(table),
+                l2_bytes=l2, sms=sms, **_forced)
 
 
 def _offset_halves(x: torch.Tensor, lo: torch.Tensor):
@@ -234,12 +353,40 @@ def range_probe_materialize_plain(table, ph, pl, np_valid: int):
     return hit, torch.where(hit, v[:, 0], 0), torch.where(hit, v[:, 1], 0)
 
 
+def range_probe_sliced_plain(table, ph, pl, np_valid: int, p: Plan):
+    """Plain PyTorch version of K4's 1-level route under plan p: for each
+    pass, its rows inside [keys[0], keys[-1]] ordered by their digit (the
+    top p.pbits bits of the directory bucket) with a stable argsort, looked
+    up in that order, and the answers put back in probe order by the
+    inverse permutation; every other row, and the rows at or past np_valid,
+    get (False, 0, 0).  The same outputs as range_probe_materialize_plain."""
+    n = ph.numel()
+    hit = torch.zeros(n, dtype=torch.bool, device=ph.device)
+    vh, vl = torch.zeros_like(ph), torch.zeros_like(pl)
+    keys, nb = table.keys, table.keys.numel()
+    below = table_dir_bits(table) - p.pbits
+    for p0 in range(0, np_valid, p.pass_rows):
+        x = sortable(ph[p0:p0 + p.pass_rows], pl[p0:p0 + p.pass_rows])
+        x = x[:np_valid - p0]
+        rows = torch.nonzero((x >= keys[0]) & (x <= keys[-1])).squeeze(1)
+        bucket = _shift_right(*_offset_halves(x[rows], keys[0]), table.shift)
+        perm = torch.argsort(bucket >> below, stable=True)
+        found, pos = lookup(table, x[rows[perm]])
+        order = p0 + rows[perm]
+        v = table.values[pos.clamp(max=nb - 1)]
+        hit[order] = found
+        vh[order] = torch.where(found, v[:, 0], 0)
+        vl[order] = torch.where(found, v[:, 1], 0)
+    return hit, vh, vl
+
+
 def range_probe_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
                             np_valid: int):
     """Per probe row: (hit, vh, vl) — a bool mask and the int32 value planes
     of the first table row with the probe's key (0 on a miss and at or past
-    np_valid).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    np_valid), in probe order, by the route `plan` picks.  CPU tensors take
+    the plain version of that route; CUDA tensors launch K4 (0 levels) or
+    the partition, slice probe and restore of each pass (1 level)."""
     dev = _check(table, {"ph": ph, "pl": pl}, np_valid)
     values = table.values
     if (values is None or values.dtype != torch.int32
@@ -247,7 +394,10 @@ def range_probe_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
             or not values.is_contiguous() or values.device != dev):
         raise ValueError("table.values must be a contiguous (nb, 2) int32 "
                          "tensor beside keys")
+    p = _plan(table, np_valid, dev)
     if dev.type == "cpu":
+        if p.pbits:
+            return range_probe_sliced_plain(table, ph, pl, np_valid, p)
         return range_probe_materialize_plain(table, ph, pl, np_valid)
     n = ph.numel()
     hit = torch.empty(n, dtype=torch.bool, device=dev)
@@ -256,10 +406,32 @@ def range_probe_materialize(table, ph: torch.Tensor, pl: torch.Tensor,
     if n == 0:
         return hit, vh, vl
     stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = (ph.data_ptr(), pl.data_ptr(), n, np_valid, hit.data_ptr(),
+            vh.data_ptr(), vl.data_ptr(), stream)
+    if p.pbits:
+        _materialize_sliced(table, p, outs)
+        return hit, vh, vl
     with spans.span(spans.K_RANGE_PROBE_MATERIALIZE):
         err = _build.lib().fhj_range_probe_materialize(
-            *_table_ptrs(table), values.data_ptr(), ph.data_ptr(),
-            pl.data_ptr(), n, np_valid, hit.data_ptr(), vh.data_ptr(),
-            vl.data_ptr(), stream)
+            *_table_ptrs(table), values.data_ptr(), *outs)
     _build.check(err, "range_probe_materialize")
     return hit, vh, vl
+
+
+def _materialize_sliced(table, p: Plan, outs: tuple) -> None:
+    """K4's 1-level route on the card under plan p: its scratch, then one
+    launch (in the span fhj.k.range_probe_sliced) of each pass's partition,
+    slice probe and restore.  outs: the probe planes and outputs as
+    fhj_range_probe_materialize takes them, the stream last."""
+    lib = _build.lib()
+    keys, nb, dir_, dir_bytes, shift = _table_ptrs(table)
+    dbits = table_dir_bits(table)
+    nbytes = lib.fhj_range_probe_sliced_scratch_bytes(dbits, *p)
+    if nbytes < 0:
+        raise ValueError(f"the sliced probe does not take the plan {p}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=table.keys.device)
+    with spans.span(spans.K_RANGE_PROBE_SLICED):
+        err = lib.fhj_range_probe_sliced(
+            keys, nb, dir_, dir_bytes, shift, dbits, table.values.data_ptr(),
+            *outs[:-1], *p, scratch.data_ptr(), nbytes, outs[-1])
+    _build.check(err, "range_probe_sliced")

@@ -18,12 +18,18 @@ ops/cuda/range_probe.py), so the table is just
          a bucket directory over the sorted keys (range_directory, one
          thread a bucket): the Hopper form of the TPU table's column
          boundaries `bnds`;
-  probe: unsorted, in input order; per row one directory read, then the
-         bucket's few keys (an interpolation guess of the key's sector,
-         then a lower bound over what is left); a smaller table, in L1,
-         is searched whole.
+  probe: per row one directory read, then the bucket's few keys (an
+         interpolation guess of the key's sector, then a lower bound over
+         what is left); a smaller table, in L1, is searched whole.  K3
+         reads the probes in input order.  K4 takes the route its plan
+         picks by shape (rp.plan): in input order where the table is at
+         most four times L2 or too few probes share it; else each pass of probes
+         partitioned by the top bits of its directory bucket, searched
+         slice by slice of the table so that each slice is read from
+         device memory once, and the answers put back in probe order,
+         which compaction and the output order need.
 
-Not ported, because nothing here needs them: the probe sort and tile
+Not ported, because nothing here needs them: the full probe sort and tile
 padding, the window and its `wstart`, SMALL and BLOCKWISE modes, the
 hash / key / narrow sort orders and the w_mult retry ladder, the bloom-tag
 plane (FHJ_RANGE_BLOOM) and the max-key special channel: with no window

@@ -27,7 +27,8 @@ The spans, with their parent and what each covers:
   fhj.partitioned.build  fhj.join: the table's sorted keys and values
                          (the build kernel, or the plain sort, stack and
                          gather) and the directory
-  fhj.partitioned.probe  fhj.join: K3 / K4 (a chunked count's loop too)
+  fhj.partitioned.probe  fhj.join: K3 / K4 by either route (a chunked
+                         count's loop too)
   fhj.global.build       fhj.join: the global build, kernel or plain
   fhj.global.walk        fhj.join: the global walk, the restore included
   fhj.global.prune       fhj.global.walk: a count's bloom prune, a pass
@@ -87,6 +88,7 @@ K_GLOBAL_WALK_MATERIALIZE = "fhj.k.global_walk_materialize"
 K_GLOBAL_BUILD = "fhj.k.global_build"
 K_RANGE_BUILD = "fhj.k.range_build"
 K_GLOBAL_PRUNE = "fhj.k.global_prune"
+K_RANGE_PROBE_SLICED = "fhj.k.range_probe_sliced"
 
 # the wrappers' launch spans, in launch_counts()'s order
 KERNELS = (K_DENSE_BITMAP, K_SCAN_DOMAIN_COUNT, K_RANGE_PROBE_COUNT,
@@ -95,7 +97,7 @@ KERNELS = (K_DENSE_BITMAP, K_SCAN_DOMAIN_COUNT, K_RANGE_PROBE_COUNT,
            K_PROBE_COUNT_VMEM, K_PROBE_MATERIALIZE_VMEM,
            K_CONCAT_RAGGED_BLOCKS, K_GLOBAL_WALK_COUNT,
            K_GLOBAL_WALK_MATERIALIZE, K_GLOBAL_BUILD, K_RANGE_BUILD,
-           K_GLOBAL_PRUNE)
+           K_GLOBAL_PRUNE, K_RANGE_PROBE_SLICED)
 NAMES = (API_ROUTE, API_H2D, API_CHUNK, API_READBACK, JOIN, DIRECT,
          PARTITIONED_BUILD, PARTITIONED_PROBE, GLOBAL_BUILD, GLOBAL_WALK,
          GLOBAL_PRUNE, VMEM, MERGE, COMPACT, *KERNELS)

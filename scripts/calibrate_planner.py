@@ -11,9 +11,10 @@ budget patched out of the way) through join_count and join_materialize
 with strategy="partitioned", after torch.cuda.empty_cache() and
 reset_peak_memory_stats(); the materialize's rows are not read back.  One
 JSON line a run: the peak allocated and reserved bytes, core and wall
-seconds.  Then, from the two probe sides at one build side, for each mode
-and each of the two readings: the slope (bytes a probe row) and the
-intercept (bytes a build row); the constants that the reserved readings
+seconds.  Then, from the two probe sides at one build side, less the
+scratch that models/cost.probe_scratch_bytes charges apart (the sliced
+K4's, capped at a pass, where its plan takes that route), for each mode and each of the two readings: the
+slope (bytes a probe row) and the intercept (bytes a build row); the constants that the reserved readings
 give with MARGIN; and the plans of config #3 and of a 4e9-row probe side
 at the card's budget under models/cost.py's constants as they are and
 under the constants before this calibration (the JAX package's v5e ones).
@@ -97,6 +98,7 @@ def main() -> int:
     for mode in ("count", "materialize"):
         for what in ("allocated", "reserved"):
             lo, hi = (readings[mode, n][what]
+                      - cost.probe_scratch_bytes(nb, n, mode)
                       for n in (100_000_000, 1_000_000_000))
             slope = (hi - lo) / 900_000_000
             fit[mode, what] = (slope, (lo - slope * 100_000_000) / nb)

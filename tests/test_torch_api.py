@@ -30,6 +30,7 @@ from flash_hash_join_tpu_torch import engine as teng
 from flash_hash_join_tpu_torch.models import cost as tcost
 from flash_hash_join_tpu_torch.models import workload as twl
 from flash_hash_join_tpu_torch.ops import direct_bitmap as tdb
+from flash_hash_join_tpu_torch.ops.cuda import range_probe as trp
 from flash_hash_join_tpu_torch.utils import config as tcfg
 from flash_hash_join_tpu_torch.utils import u64 as tu64
 from tests.oracle import oracle_count
@@ -90,7 +91,7 @@ def test_dense_span_above_2_20_runs_the_large_band(monkeypatch):
         "probe_gather_staged", "materialize_copy", "probe_count_vmem",
         "probe_materialize_vmem", "concat_ragged_blocks", "global_walk_count",
         "global_walk_materialize", "global_build", "range_build",
-        "global_prune"}
+        "global_prune", "range_probe_sliced"}
     assert set(info["launches"].values()) == {0}
 
 
@@ -134,7 +135,11 @@ def test_config_and_cost_model_match_jax(monkeypatch):
     # the port's planner has the H100's constants; with the JAX package's
     # (v5e) ones it plans what the JAX package plans, but for the
     # materialize stream, whose depth-2 pipeline also holds the previous
-    # chunk's output planes: 8 + 16 B a row where the JAX package budgets 8
+    # chunk's output planes: 8 + 16 B a row where the JAX package budgets 8,
+    # and whose chunk also holds the sliced K4's scratch, 15 B a row of a
+    # pass of at most PASS_ROWS rows, where K4's plan takes that route: on
+    # the table of 4e7 keys (673 MB, more than four times L2), for chunks
+    # of MIN_PROBES rows or more
     for name, value in (("BUILD_BYTES_COUNT", 32),
                         ("BUILD_BYTES_MATERIALIZE", 40),
                         ("TRANSIENT_BYTES_COUNT",
@@ -150,13 +155,26 @@ def test_config_and_cost_model_match_jax(monkeypatch):
         per_row = 8 + 16 + jcost.TRANSIENT_BYTES_MATERIALIZE
         avail = budget - 40 * nb          # JAX cost.py: 16 + 16 + 8 B a row
 
-        def plan(pipelined):
-            return (1 if avail // per_row >= npr
-                    else -(-npr // max(avail // (per_row + pipelined), 1)))
+        scratch = tcost.SLICED_SCRATCH_BYTES if nb == 40_000_000 else 0
+
+        def most(per, scratch):
+            # the most rows c with per * c + scratch * min(c, PASS_ROWS)
+            # within avail
+            if (per + scratch) * trp.PASS_ROWS >= avail:
+                c = avail // (per + scratch)
+            else:
+                c = (avail - scratch * trp.PASS_ROWS) // per
+            assert not scratch or c >= trp.MIN_PROBES
+            return c
+
+        def plan(pipelined, scratch=0):
+            return (1 if most(per_row, scratch) >= npr
+                    else -(-npr // max(most(per_row + pipelined, scratch),
+                                       1)))
         assert jcost.plan_probe_chunks(nb, npr, "materialize",
                                        budget) == plan(8)
-        assert tcost.plan_probe_chunks(nb, npr, "materialize",
-                                       budget) == plan(8 + 16)
+        assert tcost.plan_probe_chunks(nb, npr, "materialize", budget) == \
+            plan(8 + 16, scratch)
         assert tcfg.DEFAULT_CONFIG.group_bits(nb) == \
             jcfg.DEFAULT_CONFIG.group_bits(nb)
     with pytest.raises(MemoryError):

@@ -25,7 +25,7 @@ import flash_hash_join_tpu_torch as ft
 from flash_hash_join_tpu_torch.models.workload import (
     RAGGED_KINDS, RangeBuildCase, WalkCase, dense_domain_keys, domain_sides,
     global_build_cases, global_walk_cases, homed_keys, offset_plane_views,
-    ragged_counts, range_build_cases)
+    ragged_counts, range_build_cases, range_probe_cases)
 from flash_hash_join_tpu_torch.ops import bucket_table as bt
 from flash_hash_join_tpu_torch.ops import compact as cp
 from flash_hash_join_tpu_torch.ops import hash_table as ht
@@ -333,6 +333,91 @@ def test_range_join_count_chunked_on_card(dev, n_chunks):
     single, _ = rt.range_join_count(*planes, nb, np_valid)
     assert int(count) == int(plain) == int(single) == int(
         np.isin(pk[:np_valid], bk).sum())
+
+
+# K4's two routes (ops/cuda/range_probe.plan): the 1-level route forced at
+# 1, 3 and 7 digit bits, and in passes of 1000 rows, against the 0-level K4
+# forced on the same card tensors and the plain version
+K4_ROUTES = {"bits1": dict(pbits=1), "bits3": dict(pbits=3),
+             "bits7": dict(pbits=7), "passes_of_1000": dict(pbits=4,
+                                                            pass_rows=1000)}
+
+
+def _k4_launches():
+    c = ft.launch_counts()
+    return c["range_probe_materialize"], c["range_probe_sliced"]
+
+
+@pytest.mark.parametrize("route", K4_ROUTES)
+@pytest.mark.parametrize("case", range_probe_cases(), ids=lambda c: c.name)
+def test_range_probe_routes_match_plain(dev, case, route):
+    planes = [*device_planes(case.build_keys, dev),
+              *device_planes(case.build_values, dev)]
+    table = rt.build_range_table(*planes, case.build_keys.size,
+                                 with_values=True)
+    ph, pl = device_planes(case.probe_keys, dev)
+    forced = dict(K4_ROUTES[route])
+    forced.setdefault("pass_rows", case.pass_rows)
+    for view in (slice(None), slice(1, None)):            # misaligned
+        args = (ph[view], pl[view], min(case.np_valid, ph[view].numel()))
+        before = _k4_launches()
+        with rp.forced(pbits=0):
+            flat = rp.range_probe_materialize(table, *args)
+        with rp.forced(**forced):
+            sliced = rp.range_probe_materialize(table, *args)
+        torch.cuda.synchronize()
+        k4, slices = _k4_launches()
+        assert (k4, slices) == (before[0] + 1, before[1] + 1)
+        want = rp.range_probe_materialize_plain(table, *args)
+        for s, f, w in zip(sliced, flat, want):
+            assert torch.equal(s, f) and torch.equal(s, w), (case.name, view)
+
+
+def _j1_on_card(dev, n: int):
+    """J1-shaped planes made on the card (join-datagen.R's permutation of
+    1..1.1n: x 0.9 of its keys from the build side, 0.1 from outside it):
+    the build's key and value planes and the probe's key planes."""
+    gen = torch.Generator(device=dev).manual_seed(26)
+    perm = torch.randperm(int(n * 1.1), device=dev, generator=gen) + 1
+    bk = perm[:n]
+    pk = torch.cat([perm[:n * 9 // 10], perm[n:n + n // 10]])
+    pk = pk[torch.randperm(pk.numel(), device=dev, generator=gen)]
+
+    def planes(x):
+        return (torch.zeros_like(x, dtype=torch.int32),
+                x.to(torch.int32).contiguous())
+    v = torch.randint(-2**31, 2**31, (2, n), device=dev, dtype=torch.int32,
+                      generator=gen)
+    return (*planes(bk), v[0], v[1]), planes(pk)
+
+
+def test_range_probe_routes_at_j1_1e8_q5(dev):
+    # the plan's own route at J1 1e8 Q5's shape is the 1-level one, bit for
+    # bit the 0-level K4; a table inside L2 keeps the 0-level K4
+    n = 100_000_000
+    build, (ph, pl) = _j1_on_card(dev, n)
+    table = rt.build_range_table(*build, n, with_values=True)
+    del build
+    props = torch.cuda.get_device_properties(dev)
+    p = rp.plan(n, rp.table_bytes(table), rp.table_dir_bits(table),
+                l2_bytes=props.L2_cache_size, sms=props.multi_processor_count)
+    assert p.pbits == 7 and p.pass_rows == n, p
+    before = _k4_launches()
+    sliced = rp.range_probe_materialize(table, ph, pl, n)
+    torch.cuda.synchronize()
+    assert _k4_launches() == (before[0], before[1] + 1)
+    assert int(sliced[0].sum()) == n * 9 // 10
+    with rp.forced(pbits=0):
+        flat = rp.range_probe_materialize(table, ph, pl, n)
+    for s, f in zip(sliced, flat):
+        assert torch.equal(s, f)
+    del sliced, flat
+    small = rt.RangeTable(table.keys[:2**20], table.values[:2**20],
+                          *rp.range_directory(table.keys[:2**20], 18))
+    before = _k4_launches()
+    rp.range_probe_materialize(small, ph, pl, n)
+    torch.cuda.synchronize()
+    assert _k4_launches() == (before[0] + 1, before[1])
 
 
 # ---- the partitioned tier's table build kernel ---------------------------------

@@ -31,7 +31,8 @@ LAUNCH_KEYS = ["dense_bitmap", "scan_domain_count", "range_probe_count",
                "materialize_copy", "probe_count_vmem",
                "probe_materialize_vmem", "concat_ragged_blocks",
                "global_walk_count", "global_walk_materialize",
-               "global_build", "range_build", "global_prune"]
+               "global_build", "range_build", "global_prune",
+               "range_probe_sliced"]
 
 
 def _columns(nb=3000, npr=5000, domain=4000, seed=7):
